@@ -9,8 +9,9 @@ JAX or anything of ``chainermn_tpu``.
 
 Public API ported so far: :func:`create_communicator`,
 :func:`scatter_dataset`, :func:`create_multi_node_optimizer`,
-:func:`create_empty_dataset`, and the ``datasets``, ``models``, ``ops``
-and ``training`` subpackages.  Entry points run on the current CUDA
+:func:`create_empty_dataset`, :mod:`precision` (``Policy``,
+``quantize_kv``), and the ``datasets``, ``models``, ``ops``, ``serving``,
+``training`` and ``utils`` subpackages.  Entry points run on the current CUDA
 device unless the caller passes ``device='cpu'``.
 """
 
@@ -20,6 +21,7 @@ from chainermn_tpu_torch.dataset import scatter_dataset  # noqa: F401
 from chainermn_tpu_torch.datasets import create_empty_dataset  # noqa
 from chainermn_tpu_torch.multi_node_optimizer import (  # noqa: F401
     create_multi_node_optimizer)
-from chainermn_tpu_torch import datasets, models, ops, training  # noqa
+from chainermn_tpu_torch import (  # noqa: F401
+    datasets, models, ops, precision, serving, training, utils)
 
 __version__ = '0.1.0'

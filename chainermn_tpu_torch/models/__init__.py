@@ -2,6 +2,8 @@ from chainermn_tpu_torch.models._norm import NormAct, norm_act  # noqa: F401
 from chainermn_tpu_torch.models.classifier import (  # noqa: F401
     StatefulClassifier)
 from chainermn_tpu_torch.models.flax_weights import (  # noqa: F401
-    load_flax_variables, to_flax_variables)
+    load_flax_variables, param_tree, to_flax_variables)
 from chainermn_tpu_torch.models.resnet50 import (  # noqa: F401
     Bottleneck, ResNet, ResNet50, ResNet101, ResNet152)
+from chainermn_tpu_torch.models.transformer import (  # noqa: F401
+    TransformerBlock, TransformerLM, decode_step, init_kv_cache, prefill)

@@ -5,11 +5,16 @@ The flax tree is ``{'params': ..., 'batch_stats': ...}`` as nested dicts
 of numpy arrays.  Module names are the same on both sides, so the map is
 mechanical:
 
-- a 4-D ``kernel`` (conv, HWIO) is the module's ``weight`` (OIHW);
-- a 2-D ``kernel`` (Dense, ``(in, out)``) is the ``weight`` of an
+- a ``kernel`` that the module keeps under that name (the transformer's
+  ``Dense`` and ``QKV``) keeps flax's layout: ``block_i/qkv/kernel`` is
+  4-D ``(d, 3, H, d_head)`` and is NOT a convolution;
+- any other 4-D ``kernel`` (conv, HWIO) is the module's ``weight``
+  (OIHW);
+- any other 2-D ``kernel`` (Dense, ``(in, out)``) is the ``weight`` of an
   ``nn.Linear`` (``(out, in)``);
-- every other leaf (``bias``, BatchNorm ``scale`` / ``bias`` and the
-  ``batch_stats`` ``mean`` / ``var``) has the same name and layout.
+- every other leaf (``bias``, BatchNorm ``scale`` / ``bias``, LayerNorm
+  ``ln*_scale``, ``embedding``, ``pos_embed`` and the ``batch_stats``
+  ``mean`` / ``var``) has the same name and layout.
 """
 
 import numpy as np
@@ -25,12 +30,24 @@ def _leaves(tree, prefix=()):
 
 
 def _to_torch_layout(name, value):
-    value = np.asarray(value)
     if name == 'kernel' and value.ndim == 4:
         return 'weight', value.transpose(3, 2, 0, 1)
     if name == 'kernel' and value.ndim == 2:
         return 'weight', value.T
     return name, value
+
+
+def param_tree(module):
+    """The module's parameters as a nested ``dict`` keyed like the flax
+    tree (the tensors themselves, not copies)."""
+    out = {}
+    for key, tensor in module.named_parameters():
+        path = key.split('.')
+        node = out
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = tensor
+    return out
 
 
 @torch.no_grad()
@@ -44,8 +61,11 @@ def load_flax_variables(module, variables):
     seen = set()
     for collection in ('params', 'batch_stats'):
         for path, value in _leaves(variables.get(collection, {})):
-            name, value = _to_torch_layout(path[-1], value)
-            key = '.'.join(path[:-1] + (name,))
+            owner, name = path[:-1], path[-1]
+            value = np.asarray(value)
+            if '.'.join(path) not in tensors:
+                name, value = _to_torch_layout(name, value)
+            key = '.'.join(owner + (name,))
             if key not in tensors:
                 raise KeyError('flax leaf %s/%s has no counterpart %r in %s'
                                % (collection, '/'.join(path), key,

@@ -14,6 +14,10 @@ import torch
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+#: the finite "minus infinity" of masked attention scores (the JAX
+#: package's convention: exp(NEG_INF - m) underflows to 0, never NaN)
+NEG_INF = -1e30
+
 
 def resolve_device(device=None):
     """The device an entry point runs on: ``device`` as given, else the
@@ -42,6 +46,17 @@ def on_cuda(*tensors):
     if kind == 'cpu':
         return False
     raise ValueError('unsupported device type %r' % kind)
+
+
+def forbid_grad(what, *tensors):
+    """Raise when autograd would record a forward-only op: its backward
+    comes with transformer training (ROADMAP.md A6, B6)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            '%s is forward-only in this port so far: its backward comes '
+            'with transformer training (ROADMAP.md A6, B6); call it under '
+            'torch.no_grad() or torch.inference_mode()' % what)
 
 
 def dtype_code(t, what):

@@ -1,0 +1,407 @@
+"""Flash attention: the prefill forward and the single-query decode read
+of a slot KV cache.
+
+Counterpart of the forward half of ``chainermn_tpu/ops/flash_attention.py``.
+Both ops keep the JAX package's online-softmax recurrence in float32
+(running max ``m``, running sum ``l``, accumulator ``acc``; masked scores
+set to the finite ``NEG_INF``; the output divided by ``max(l, 1e-30)``)
+and its layouts: ``(B, T, H, D)`` activations, ``(B, S, H, D)`` caches.
+
+- :func:`flash_attention` / :func:`flash_attention_fwd` (causal or not,
+  padded keys masked by ``kv_len``, padded query rows dropped): on CUDA
+  tensors the kernel ``cmn_flash_fwd`` of ``csrc/flash_attention.cu``
+  (:func:`flash_fwd`), on CPU tensors the plain blockwise version
+  (:func:`_fwd_blockwise`, the twin of the JAX ``_fwd_blockwise_jnp``).
+- :func:`flash_attention_decode` (one query row per sequence against its
+  cache prefix, per-row lengths, float or int8 caches with per-(position,
+  head) scales, an optional row -> slot map): on CUDA tensors the kernel
+  ``cmn_flash_decode`` (:func:`flash_decode`), which reads the cache in
+  place through its strides; on CPU tensors the plain blockwise version
+  (:func:`_decode_blockwise`), which gathers the rows first as the JAX
+  package's ``_attend_cache`` does.
+
+Forward only: the backward kernels (``_bwd_dq_kernel``,
+``_bwd_dkv_kernel``) come with transformer training (ROADMAP.md B6), and
+:func:`flash_attention` raises when asked to record a gradient.
+"""
+
+import ctypes
+
+import torch
+
+from chainermn_tpu_torch.ops import _common
+from chainermn_tpu_torch.ops._build import LIBRARIES
+from chainermn_tpu_torch.ops._common import NEG_INF
+
+#: key/query block of the plain blockwise versions (the JAX package's
+#: default ``CHAINERMN_TPU_FA_BLOCK_Q`` / ``_K``)
+BLOCK = 128
+#: head widths the kernels are built for
+HEAD_DIMS = (32, 64, 128)
+#: dtype codes of the decode kernel's cache operand
+KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def _scale(q, scale):
+    return q.shape[-1] ** -0.5 if scale is None else float(scale)
+
+
+# ---------------------------------------------------------------------
+# plain versions
+
+def mha_reference(q, k, v, causal=False, scale=None):
+    """Plain oracle: full softmax attention, ``(B, T, H, D)`` in and
+    out (the twin of the JAX ``mha_reference``)."""
+    scale = _scale(q, scale)
+    scores = torch.einsum('bqhd,bkhd->bhqk', q, k).float() * scale
+    if causal:
+        tq, tk = scores.shape[-2:]
+        mask = (torch.arange(tq, device=q.device)[:, None]
+                >= torch.arange(tk, device=q.device)[None, :])
+        scores = torch.where(mask, scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum('bhqk,bkhd->bqhd', p.to(v.dtype), v)
+
+
+def _fwd_blockwise(q, k, v, causal, scale, kv_len, block_k):
+    """Plain forward over merged ``(BH, T, D)`` operands whose key
+    length is a multiple of ``block_k``: the kernel's recurrence, one
+    key block at a time.  Returns ``(out (BH, Tq, D) q.dtype, lse (BH,
+    Tq) f32)``."""
+    bh, t_q, d = q.shape
+    t_kv = k.shape[1]
+    qf = q.float() * scale
+    m = torch.full((bh, t_q), NEG_INF, device=q.device)
+    l = torch.zeros((bh, t_q), device=q.device)
+    acc = torch.zeros((bh, t_q, d), device=q.device)
+    q_pos = torch.arange(t_q, device=q.device)[:, None]
+    for j in range(t_kv // block_k):
+        kj = k[:, j * block_k:(j + 1) * block_k].float()
+        vj = v[:, j * block_k:(j + 1) * block_k].float()
+        s = torch.einsum('bqd,bkd->bqk', qf, kj)
+        k_pos = j * block_k + torch.arange(block_k, device=q.device)[None]
+        ok = k_pos < kv_len
+        if causal:
+            ok = ok & (q_pos >= k_pos)
+        s = torch.where(ok, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum('bqk,bkd->bqd', p, vj)
+        m = m_new
+    l_safe = torch.clamp_min(l, 1e-30)
+    return (acc / l_safe[..., None]).to(q.dtype), m + torch.log(l_safe)
+
+
+def decode_attention_reference(q, k, v, lengths, scale=None, k_scale=None,
+                               v_scale=None):
+    """Plain oracle of :func:`flash_attention_decode` (the twin of the
+    JAX ``decode_attention_reference``): ``q`` ``(B, H, D)``, ``k`` /
+    ``v`` ``(B, S, H, D)`` (int8 with ``(B, S, H)`` scales), positions
+    ``>= lengths[b]`` masked; returns ``(B, H, D)`` in ``q.dtype``."""
+    scale = _scale(q, scale)
+    kf, vf = k.float(), v.float()
+    if k_scale is not None:
+        kf = kf * k_scale.float()[..., None]
+    if v_scale is not None:
+        vf = vf * v_scale.float()[..., None]
+    s = torch.einsum('bhd,bkhd->bhk', q.float(), kf) * scale
+    k_pos = torch.arange(k.shape[1], device=q.device)
+    ok = k_pos[None, None, :] < lengths.to(q.device)[:, None, None]
+    p = torch.softmax(torch.where(ok, s, NEG_INF), dim=-1)
+    return torch.einsum('bhk,bkhd->bhd', p, vf).to(q.dtype)
+
+
+def _decode_blockwise(q, k, v, lengths, scale, block_k, k_scale=None,
+                      v_scale=None):
+    """Plain decode over merged operands: ``q`` ``(BH, D)``, ``k`` / ``v``
+    ``(BH, S, D)`` with ``S`` a multiple of ``block_k``, scales ``(BH,
+    S)``, ``lengths`` ``(BH,)``; the kernel's recurrence one key block
+    at a time."""
+    bh, t_kv, d = k.shape
+    qf = q.float() * scale
+    m = torch.full((bh,), NEG_INF, device=q.device)
+    l = torch.zeros((bh,), device=q.device)
+    acc = torch.zeros((bh, d), device=q.device)
+    for j in range(t_kv // block_k):
+        blk = slice(j * block_k, (j + 1) * block_k)
+        kj, vj = k[:, blk].float(), v[:, blk].float()
+        if k_scale is not None:
+            kj = kj * k_scale[:, blk, None]
+            vj = vj * v_scale[:, blk, None]
+        s = torch.einsum('bd,bkd->bk', qf, kj)
+        k_pos = j * block_k + torch.arange(block_k, device=q.device)
+        s = torch.where(k_pos[None, :] < lengths[:, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[:, None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[:, None] + torch.einsum('bk,bkd->bd', p, vj)
+        m = m_new
+    return (acc / torch.clamp_min(l, 1e-30)[:, None]).to(q.dtype)
+
+
+def _merge(x):
+    """``(B, T, H, ...)`` -> ``(B*H, T, ...)``."""
+    x = x.transpose(1, 2)
+    return x.reshape((x.shape[0] * x.shape[1],) + x.shape[2:])
+
+
+def _pad_to(x, length):
+    """Zero-pad axis 1 of a merged operand to ``length``."""
+    if x.shape[1] == length:
+        return x
+    pad = x.new_zeros((x.shape[0], length - x.shape[1]) + x.shape[2:])
+    return torch.cat([x, pad], dim=1)
+
+
+def _fwd_plain(q, k, v, causal, scale):
+    """The CPU forward: pad to the JAX package's blocks, merge heads,
+    :func:`_fwd_blockwise`, drop the padded query rows, unmerge."""
+    b, t_q, h, d = q.shape
+    t_kv = k.shape[1]
+    block_q, block_k = min(BLOCK, t_q), min(BLOCK, t_kv)
+    qm = _pad_to(_merge(q), -(-t_q // block_q) * block_q)
+    n_k = -(-t_kv // block_k) * block_k
+    km, vm = _pad_to(_merge(k), n_k), _pad_to(_merge(v), n_k)
+    out, lse = _fwd_blockwise(qm, km, vm, causal, scale, t_kv, block_k)
+    out = out[:, :t_q].reshape(b, h, t_q, d).transpose(1, 2)
+    return out, lse[:, :t_q].reshape(b, h, t_q)
+
+
+def _decode_plain(q, k, v, lengths, scale, k_scale, v_scale, slots):
+    """The CPU decode: gather the rows' slots, merge heads, pad the
+    cache axis to a block multiple, :func:`_decode_blockwise`."""
+    if slots is not None:
+        slots = slots.long()
+        k, v = k.index_select(0, slots), v.index_select(0, slots)
+        if k_scale is not None:
+            k_scale = k_scale.index_select(0, slots)
+            v_scale = v_scale.index_select(0, slots)
+    b, h, d = q.shape
+    s = k.shape[1]
+    block_k = min(BLOCK, s)
+    n_k = -(-s // block_k) * block_k
+    km, vm = _pad_to(_merge(k), n_k), _pad_to(_merge(v), n_k)
+    ksm = vsm = None
+    if k_scale is not None:
+        ksm = _pad_to(_merge(k_scale.float()), n_k)
+        vsm = _pad_to(_merge(v_scale.float()), n_k)
+    lengths_bh = lengths.to(torch.int64).repeat_interleave(h)
+    out = _decode_blockwise(q.reshape(b * h, d), km, vm, lengths_bh, scale,
+                            block_k, ksm, vsm)
+    return out.reshape(b, h, d)
+
+
+# ---------------------------------------------------------------------
+# CUDA kernel wrappers
+
+def _lib():
+    lib = LIBRARIES.get('flash_attention')
+    if not getattr(lib, '_cmn_typed', False):
+        vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        lib.cmn_flash_fwd.argtypes = (
+            [vp, vp, vp, i32, i32] + [i64] * 9
+            + [vp, vp, i32, i32, i32, i32, ctypes.c_float, i32, vp])
+        lib.cmn_flash_fwd.restype = ctypes.c_int
+        lib.cmn_flash_decode.argtypes = (
+            [vp, i32, i64, i64, vp, vp, i32] + [i64] * 6 + [vp, vp]
+            + [i64] * 6 + [vp, vp, vp, i32, i32, i32, i32, ctypes.c_float,
+                           vp])
+        lib.cmn_flash_decode.restype = ctypes.c_int
+        lib.cmn_fa_strerror.argtypes = [ctypes.c_int]
+        lib.cmn_fa_strerror.restype = ctypes.c_char_p
+        lib._cmn_typed = True
+    return lib
+
+
+def _check_cuda(what, *tensors):
+    for t in tensors:
+        if t is not None and t.device.type != 'cuda':
+            raise ValueError('%s: the kernel takes CUDA tensors, got %s'
+                             % (what, t.device))
+
+
+def flash_fwd(q, k, v, causal, scale):
+    """Kernel wrapper: attention forward of CUDA ``(B, T, H, D)``
+    operands of one dtype (bf16 or f32), read through their strides (the
+    head axis D must be contiguous; ``qkv[:, :, 0]`` views are taken as
+    they are).  Returns ``(out (B, Tq, H, D) contiguous, q.dtype; lse
+    (B, H, Tq) f32)``.  Replaces ``_fwd_pallas``."""
+    _check_cuda('flash_fwd', q, k, v)
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError('flash_fwd: expects (B, T, H, D) operands, got %s '
+                         '%s %s' % (tuple(q.shape), tuple(k.shape),
+                                    tuple(v.shape)))
+    b, t_q, h, d = q.shape
+    t_kv = k.shape[1]
+    if (k.shape[0], k.shape[2], k.shape[3]) != (b, h, d):
+        raise ValueError('flash_fwd: q %s and k %s disagree on B, H or D'
+                         % (tuple(q.shape), tuple(k.shape)))
+    if d not in HEAD_DIMS:
+        raise ValueError('flash_fwd: head dim %d, the kernel takes %s'
+                         % (d, HEAD_DIMS))
+    if causal and t_q != t_kv:
+        raise ValueError('causal attention requires t_q == t_kv, got %d '
+                         'vs %d' % (t_q, t_kv))
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError('flash_fwd: q, k, v must share a dtype, got %s %s '
+                        '%s' % (q.dtype, k.dtype, v.dtype))
+    code = _common.dtype_code(q, 'flash_fwd')
+    for t, name in ((q, 'q'), (k, 'k'), (v, 'v')):
+        if t.stride(3) != 1:
+            raise ValueError('flash_fwd: %s needs a contiguous head dim, got '
+                             'strides %s' % (name, t.stride()))
+    if min(t_q, t_kv, b) == 0:
+        raise ValueError('flash_fwd: empty operand')
+    out = torch.empty((b, t_q, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, t_q), dtype=torch.float32, device=q.device)
+    lib = _lib()
+    err = lib.cmn_flash_fwd(
+        _common.ptr(q), _common.ptr(k), _common.ptr(v), code, d,
+        q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1),
+        k.stride(2), v.stride(0), v.stride(1), v.stride(2),
+        _common.ptr(out), _common.ptr(lse), b, h, t_q, t_kv, float(scale),
+        int(bool(causal)), _common.stream_ptr(q.device))
+    _common.check_launch(err, lib.cmn_fa_strerror, 'flash_fwd')
+    flash_fwd.launches += 1
+    return out, lse
+
+
+flash_fwd.launches = 0
+
+
+def _aligned16(t):
+    """The kernel reads cache rows as 16-byte vectors."""
+    size = t.element_size()
+    return (t.data_ptr() % 16 == 0
+            and all((s * size) % 16 == 0 for s in t.stride()[:3])
+            and (t.shape[3] * size) % 16 == 0)
+
+
+def flash_decode(q, k, v, lengths, scale, k_scale=None, v_scale=None,
+                 slots=None):
+    """Kernel wrapper: one query row per (row, head) against its cache
+    prefix.  ``q`` CUDA ``(N, H, D)`` bf16/f32 (D contiguous, other axes
+    through strides); ``k`` / ``v`` one layer's cache ``(n_slots, S, H,
+    D)`` bf16/f32, or int8 with f32 ``k_scale`` / ``v_scale`` ``(n_slots,
+    S, H)``, read in place through their strides; ``lengths`` int32
+    ``(N,)``, each in 1..S; ``slots`` int32 ``(N,)`` maps row i to its
+    cache slot (``None``: row i reads slot i).  Returns ``(N, H, D)``
+    contiguous in ``q.dtype``.  Replaces ``_decode_pallas``."""
+    _check_cuda('flash_decode', q, k, v, lengths, k_scale, v_scale, slots)
+    if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError('flash_decode: expects q (N, H, D) and k, v '
+                         '(slots, S, H, D), got %s %s %s'
+                         % (tuple(q.shape), tuple(k.shape), tuple(v.shape)))
+    n, h, d = q.shape
+    n_slots, s_max = k.shape[:2]
+    if k.shape[2:] != (h, d):
+        raise ValueError('flash_decode: q %s and cache %s disagree on H or D'
+                         % (tuple(q.shape), tuple(k.shape)))
+    if d not in HEAD_DIMS:
+        raise ValueError('flash_decode: head dim %d, the kernel takes %s'
+                         % (d, HEAD_DIMS))
+    q_code = _common.dtype_code(q, 'flash_decode q')
+    if k.dtype not in KV_CODES or v.dtype != k.dtype:
+        raise TypeError('flash_decode: cache dtypes %s %s (float32, bfloat16 '
+                        'or int8)' % (k.dtype, v.dtype))
+    quantized = k.dtype == torch.int8
+    if quantized != (k_scale is not None) or \
+            (k_scale is None) != (v_scale is None):
+        raise ValueError('flash_decode: an int8 cache needs both k_scale and '
+                         'v_scale, a float cache neither')
+    if q.stride(2) != 1:
+        raise ValueError('flash_decode: q needs a contiguous head dim, got '
+                         'strides %s' % (q.stride(),))
+    for t, name in ((k, 'k'), (v, 'v')):
+        if t.stride(3) != 1 or not _aligned16(t):
+            raise ValueError('flash_decode: %s needs a contiguous head dim '
+                             'and 16-byte aligned rows, got strides %s'
+                             % (name, t.stride()))
+    if quantized:
+        for t, name in ((k_scale, 'k_scale'), (v_scale, 'v_scale')):
+            if t.shape != k.shape[:3] or t.dtype != torch.float32:
+                raise ValueError('flash_decode: %s must be float32 %s, got '
+                                 '%s %s' % (name, tuple(k.shape[:3]),
+                                            t.dtype, tuple(t.shape)))
+    for t, name, want in ((lengths, 'lengths', n), (slots, 'slots', n)):
+        if t is not None and (t.dtype != torch.int32 or t.shape != (want,)
+                              or not t.is_contiguous()):
+            raise ValueError('flash_decode: %s must be a contiguous int32 '
+                             '(%d,) vector, got %s %s'
+                             % (name, want, t.dtype, tuple(t.shape)))
+    if slots is None and n > n_slots:
+        raise ValueError('flash_decode: %d rows but %d cache slots and no '
+                         'slots map' % (n, n_slots))
+    if n == 0:
+        raise ValueError('flash_decode: no rows')
+    out = torch.empty((n, h, d), dtype=q.dtype, device=q.device)
+    ks = k_scale.stride() if quantized else (0, 0, 0)
+    vs = v_scale.stride() if quantized else (0, 0, 0)
+    lib = _lib()
+    err = lib.cmn_flash_decode(
+        _common.ptr(q), q_code, q.stride(0), q.stride(1),
+        _common.ptr(k), _common.ptr(v), KV_CODES[k.dtype],
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        _common.ptr(k_scale), _common.ptr(v_scale),
+        ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
+        _common.ptr(lengths), _common.ptr(slots), _common.ptr(out),
+        n, h, s_max, d, float(scale), _common.stream_ptr(q.device))
+    _common.check_launch(err, lib.cmn_fa_strerror, 'flash_decode')
+    flash_decode.launches += 1
+    return out
+
+
+flash_decode.launches = 0
+
+
+# ---------------------------------------------------------------------
+# public ops
+
+def flash_attention_fwd(q, k, v, causal=False, scale=None):
+    """Attention forward with its log-sum-exp: ``q`` ``(B, Tq, H, D)``,
+    ``k`` / ``v`` ``(B, Tkv, H, D)``; returns ``(out (B, Tq, H, D),
+    lse (B, H, Tq) f32)``, ``lse`` in the scaled-score units the
+    chunked-prefill merge needs.  With ``causal=True``, Tq must equal
+    Tkv."""
+    _common.forbid_grad('flash_attention', q, k, v)
+    if causal and q.shape[1] != k.shape[1]:
+        raise ValueError('causal attention requires t_q == t_kv, got %d '
+                         'vs %d' % (q.shape[1], k.shape[1]))
+    scale = _scale(q, scale)
+    if _common.on_cuda(q, k, v):
+        return flash_fwd(q, k, v, causal, scale)
+    return _fwd_plain(q, k, v, causal, scale)
+
+
+def flash_attention(q, k, v, causal=False, scale=None):
+    """Fused attention. ``q`` ``(B, Tq, H, D)``, ``k`` / ``v`` ``(B, Tkv,
+    H, D)``; returns ``(B, Tq, H, D)`` in ``q.dtype``."""
+    return flash_attention_fwd(q, k, v, causal, scale)[0]
+
+
+def flash_attention_decode(q, k, v, lengths, scale=None, k_scale=None,
+                           v_scale=None, slots=None):
+    """Single-token decode attention against a per-sequence KV cache.
+
+    ``q`` ``(B, H, D)``: one query row per sequence.  ``k`` / ``v``
+    ``(B, S, H, D)``, or with ``slots`` (``(B,)``, row b reads cache slot
+    ``slots[b]``) one layer's whole slot cache ``(n_slots, S, H, D)``.
+    Positions ``>= lengths[b]`` receive no probability mass, so a reused
+    slot needs no zeroing.  int8 caches pass ``k_scale`` / ``v_scale``
+    ``(.., S, H)`` from :func:`chainermn_tpu_torch.precision.quantize_kv`,
+    dequantized in the kernel before the products.  Lengths are 1..S.
+    """
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError('int8 KV decode needs BOTH k_scale and v_scale '
+                         '(or neither)')
+    scale = _scale(q, scale)
+    if _common.on_cuda(q, k, v, lengths, k_scale, v_scale, slots):
+        return flash_decode(
+            q, k, v, lengths.to(torch.int32).contiguous(), scale, k_scale,
+            v_scale,
+            None if slots is None else slots.to(torch.int32).contiguous())
+    return _decode_plain(q, k, v, lengths, scale, k_scale, v_scale, slots)

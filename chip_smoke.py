@@ -10,17 +10,34 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. build: every ``chainermn_tpu_torch/csrc/*.cu`` with ``nvcc`` (all at
    once) into ``build/chainermn_tpu_torch/``;
 3. kernels against their plain PyTorch versions on the card, at shapes
-   of the ResNet-50 training path, with kernel / plain / library times
-   and the bytes bound;
+   of the ResNet-50 training path and of the full-width TransformerLM
+   serving path (LayerNorm, flash forward, decode attention in bf16,
+   f32 and int8), with kernel / plain / library times and the bound;
 4. one train-mode forward of full-width ResNet-50 (f32, TF32 off, batch
    2) on the card (kernels) against the same model on the CPU (plain
    versions);
-5. the main path: ``create_communicator('xla')`` (NCCL, a world of one)
-   -> ``ResNet50(fused_norm=True)`` (224 px, bf16 compute) +
-   ``StatefulClassifier`` -> ``create_multi_node_optimizer(
+5. the training main path: ``create_communicator('xla')`` (NCCL, a
+   world of one) -> ``ResNet50(fused_norm=True)`` (224 px, bf16
+   compute) + ``StatefulClassifier`` -> ``create_multi_node_optimizer(
    FusedMomentumSGD)`` -> ``StandardUpdater`` -> ``Trainer`` over the
    synthetic ImageNet set at batch 64, with the kernel launch counts of
-   that run checked against the model's structure.
+   that run checked against the model's structure;
+6. serving check: two f32 ``GenerationEngine``s at full width and depth
+   2 from the same numpy-seeded weights, one on the card and one on the
+   CPU, give the same greedy tokens for 8 prompts;
+7. the serving main path: ``GenerationEngine`` over the full-width
+   ``TransformerLM`` of the repo's serving benchmark (32000 vocab, d
+   512, 8 heads, 6 layers, d_ff 2048) under ``Policy.bf16()``, 32
+   slots, 64 prompts of 4..128 tokens, 32 new tokens each, with the
+   launch counts checked against the structure, tokens/s, TTFT, the
+   decode step, a profile of decode steps, a replay of the same
+   requests with every step's logits checked finite, and an int8-KV
+   engine.
+
+A kernel row's ``ms``, ``plain_ms`` and ``library_ms`` are times per
+call between CUDA events, launches included; ``device_ms``,
+``plain_device_ms`` and ``library_device_ms`` sum only the kernels'
+own device time from ``torch.profiler``.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
@@ -37,11 +54,26 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+BF16_TC_FLOPS_PER_S = 989e12   # H100 SXM bf16 dense tensor cores
 BATCH = 64
 STEPS = 10
 # per forward of ResNet-50: bn_init + 16 blocks x 3 + 4 projections
 BN_PER_STEP = 53
 PARAMS_PER_STEP = 161          # parameter tensors of ResNet-50
+# the serving benchmark's model and engine (bench.py --serve --generate)
+SERVE_CFG = dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=6,
+                 d_ff=2048, max_len=512)
+SERVE_SLOTS = 32
+SERVE_PROMPT = 128
+SERVE_NEW = 32
+SERVE_REQUESTS = 64
+SERVE_KERNELS = ('layer_norm', 'flash_fwd', 'flash_decode')
+# (rtol, atol) of a serving kernel's bf16 output against its plain
+# version: both compute in f32 and round once, so they differ by f32
+# sums in another order (about 1e-6 on outputs of size 1) and at most
+# one bf16 rounding flip, which is one unit in the last place: at most
+# 2 ** -7 of the value
+BF16_TOL = (2 ** -7, 1e-5)
 
 
 def _say(phase, msg):
@@ -49,7 +81,9 @@ def _say(phase, msg):
 
 
 def time_ms(fn, iters=20, warmup=3):
-    """Mean device time of ``fn`` over ``iters`` calls (CUDA events)."""
+    """Mean time per call of ``fn`` over ``iters`` calls back to back,
+    between two CUDA events: its kernels and the gaps in which the card
+    waits for the host to launch them."""
     import torch
     for _ in range(warmup):
         fn()
@@ -64,11 +98,60 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes, n_flops):
-    """The least time for the work: bytes over the memory rate or f32
-    operations over the f32 rate, whichever is larger."""
+def device_ms(fn, iters=20, warmup=3):
+    """Mean device time of ``fn`` per call: the time of every kernel it
+    launches, summed from ``torch.profiler`` -- the launch gaps that
+    ``time_ms`` counts are left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not getattr(e, 'is_user_annotation', False)
+             and not e.key.startswith('Optimizer.'))
+    if us == 0:
+        raise AssertionError('the profiler recorded no device time')
+    return us / iters / 1e3
+
+
+def timings(kernel, plain, library, iters=20, plain_iters=None):
+    """The times of one kernel row, each as ``time_ms`` (``ms``,
+    ``plain_ms``, ``library_ms``: per call, launches included) and as
+    ``device_ms`` (the ``*device_ms`` keys: kernels only)."""
+    plain_iters = plain_iters or iters
+    out = dict(ms=time_ms(kernel, iters), device_ms=device_ms(kernel, iters),
+               plain_ms=time_ms(plain, plain_iters),
+               plain_device_ms=device_ms(plain, plain_iters),
+               library_ms=None, library_device_ms=None)
+    if library is not None:
+        out.update(library_ms=time_ms(library, iters),
+                   library_device_ms=device_ms(library, iters))
+    return out
+
+
+def _fmt(t):
+    """A row's times for a log line."""
+    return ('per call %.5f ms (plain %.5f, library %s); device only %.5f '
+            'ms (plain %.5f, library %s)' % (
+                t['ms'], t['plain_ms'], '%.5f' % t['library_ms']
+                if t['library_ms'] is not None else '-', t['device_ms'],
+                t['plain_device_ms'], '%.5f' % t['library_device_ms']
+                if t['library_device_ms'] is not None else '-'))
+
+
+def bound_ms(n_bytes, n_flops, flops_per_s=F32_FLOPS_PER_S):
+    """The least time for the work: bytes over the memory rate or
+    operations over their peak rate (float32 outside the tensor cores
+    unless given), whichever is larger."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / F32_FLOPS_PER_S * 1e3
+    t_ops = n_flops / flops_per_s * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
@@ -172,33 +255,27 @@ def phase_kernels():
     x, res, scale, bias = timed
     m, c = x.shape
     mean, var, rstd = ops.bn_stats(x, 1e-5)
-    t_kernel = time_ms(lambda: ops.bn_stats(x, 1e-5))
-    t_plain = time_ms(lambda: bn._batch_stats(x, 1e-5))
-    t_lib = time_ms(lambda: torch.var_mean(x, 0, correction=0))
+    t = timings(lambda: ops.bn_stats(x, 1e-5),
+                lambda: bn._batch_stats(x, 1e-5),
+                lambda: torch.var_mean(x, 0, correction=0))
     b_ms, b_by = bound_ms(m * c * x.element_size() + 3 * c * 4, 3 * m * c)
     records.append(dict(
         name='bn_stats', route='cuda',
         source='chainermn_tpu_torch/csrc/batch_norm_act.cu',
         replaces='chainermn_tpu/ops/batch_norm_act.py:110',
-        max_abs_err=stats_err, ms=t_kernel, plain_ms=t_plain,
-        bound_ms=b_ms, bound_by=b_by, library_ms=t_lib))
-    t_kernel = time_ms(lambda: ops.bn_apply(x, res, mean, rstd, scale, bias,
-                                            True))
-    t_plain = time_ms(lambda: bn._apply_ref(x, mean, rstd, scale, bias, res,
-                                            True))
+        max_abs_err=stats_err, bound_ms=b_ms, bound_by=b_by, **t))
+    _say('kernels', 'bn_stats at %s bf16: %s (var_mean)' % ((m, c), _fmt(t)))
+    t = timings(lambda: ops.bn_apply(x, res, mean, rstd, scale, bias, True),
+                lambda: bn._apply_ref(x, mean, rstd, scale, bias, res, True),
+                None)
     b_ms, b_by = bound_ms(3 * m * c * x.element_size() + 4 * c * 4,
                           5 * m * c)
     records.append(dict(
         name='bn_apply', route='cuda',
         source='chainermn_tpu_torch/csrc/batch_norm_act.cu',
         replaces='chainermn_tpu/ops/batch_norm_act.py:161',
-        max_abs_err=apply_err, ms=t_kernel, plain_ms=t_plain,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
-    _say('kernels', 'bn times at %s bf16 + residual: stats %.4f ms (plain '
-         '%.4f, var_mean %.4f), apply %.4f ms (plain %.4f)' % (
-             (m, c), records[0]['ms'], records[0]['plain_ms'],
-             records[0]['library_ms'], records[1]['ms'],
-             records[1]['plain_ms']))
+        max_abs_err=apply_err, bound_ms=b_ms, bound_by=b_by, **t))
+    _say('kernels', 'bn_apply at %s bf16 + residual: %s' % ((m, c), _fmt(t)))
 
     # momentum SGD over the ResNet-50 parameter list, 3 steps
     shapes_model = models.ResNet50(device='cuda')
@@ -233,26 +310,225 @@ def phase_kernels():
     check_close('momentum_sgd bf16 grads', p1, p2, 0.0, 0.0)
     check_close('momentum_sgd bf16 grads velocity', v1, v2, 0.0, 0.0)
     n = sum(p.numel() for p in params)
-    t_kernel = time_ms(lambda: [ops.sgd_update(p, g, v, 0.1, 0.9)
-                                for p, g, v in zip(kp, grads, kv)])
-    t_plain = time_ms(lambda: [sgd._sgd_update_ref(p, g, v, 0.1, 0.9)
-                               for p, g, v in zip(pp, grads, pv)])
     lp = [torch.nn.Parameter(p.clone()) for p in params]
     for p, g in zip(lp, grads):
         p.grad = g.clone()
     lib_opt = torch.optim.SGD(lp, lr=0.1, momentum=0.9, fused=True)
-    t_lib = time_ms(lib_opt.step)
+    t = timings(lambda: [ops.sgd_update(p, g, v, 0.1, 0.9)
+                         for p, g, v in zip(kp, grads, kv)],
+                lambda: [sgd._sgd_update_ref(p, g, v, 0.1, 0.9)
+                         for p, g, v in zip(pp, grads, pv)],
+                lib_opt.step, iters=10)
     b_ms, b_by = bound_ms(20 * n, 4 * n)
     records.append(dict(
         name='momentum_sgd', route='cuda',
         source='chainermn_tpu_torch/csrc/momentum_sgd.cu',
         replaces='chainermn_tpu/ops/optimizer.py:56',
-        max_abs_err=sgd_err, ms=t_kernel, plain_ms=t_plain, bound_ms=b_ms,
-        bound_by=b_by, library_ms=t_lib))
+        max_abs_err=sgd_err, bound_ms=b_ms, bound_by=b_by, **t))
     _say('kernels', 'momentum_sgd over %d ResNet-50 tensors (%d f32 '
-         'elements), one step: %.4f ms (plain %.4f, SGD(fused=True) %.4f)'
-         % (len(params), n, t_kernel, t_plain, t_lib))
+         'elements), one step: %s (SGD(fused=True))'
+         % (len(params), n, _fmt(t)))
     return records
+
+
+def _strided_qkv(gen, lead, h, d, dtype):
+    """q, k, v as the model hands them over: strided views of one fused
+    ``(*lead, 3, H, D)`` projection."""
+    import torch
+    qkv = torch.randn(lead + (3, h, d), generator=gen, device='cuda')
+    qkv = qkv.to(dtype)
+    idx = len(lead)
+    return tuple(qkv.select(idx, i) for i in range(3))
+
+
+def _ln_cases(gen):
+    """LayerNorm kernel vs plain at the serving shapes; returns the
+    record and the max error."""
+    import torch
+    import torch.nn.functional as F
+    from chainermn_tpu_torch import ops
+    bf16, f32 = torch.bfloat16, torch.float32
+    err = {f32: 0.0, bf16: 0.0}
+    # f32 statistics in another order: 2e-5; bf16 output: BF16_TOL
+    tol = {f32: (2e-5, 2e-5), bf16: BF16_TOL}
+    timed = None
+    for n, dtype in ((128, bf16), (32, bf16), (100, f32), (1, bf16)):
+        x = (torch.randn((n, 512), generator=gen, device='cuda') * 3
+             + 1).to(dtype)
+        g = (torch.randn(512, generator=gen, device='cuda') * 0.5
+             + 1).to(dtype)
+        b = torch.randn(512, generator=gen, device='cuda').to(dtype)
+        got = ops.ln_forward(x, g, b)
+        want = ops.layer_norm_reference(x, g, b)
+        check_close('layer_norm %s' % ((n, 512),), got, want, *tol[dtype])
+        err[dtype] = max(err[dtype], max_err(got, want))
+        if n == 32:
+            timed = (x, g, b)
+    x, g, b = timed
+    n, d = x.shape
+    t = timings(lambda: ops.ln_forward(x, g, b),
+                lambda: ops.layer_norm_reference(x, g, b),
+                lambda: F.layer_norm(x, (d,), g, b, 1e-6), iters=200)
+    b_ms, b_by = bound_ms(2 * n * d * x.element_size() + 2 * d * 2, 8 * n * d)
+    _say('kernels', 'layer_norm max err f32 %.3g, bf16 %.3g (rtol, atol: '
+         '%s, %s); at (32, 512) bf16: %s (F.layer_norm); bound %.5f ms'
+         % (err[f32], err[bf16], tol[f32], tol[bf16], _fmt(t), b_ms))
+    return dict(name='layer_norm', route='cuda',
+                source='chainermn_tpu_torch/csrc/layer_norm.cu',
+                replaces='chainermn_tpu/ops/layer_norm.py:40',
+                max_abs_err=max(err.values()), bound_ms=b_ms, bound_by=b_by,
+                **t)
+
+
+def _flash_fwd_cost(b, t, h, d, itemsize):
+    """Bytes (q, k, v read once, out written once, lse) and operations
+    (two products over the causal half) of one causal forward."""
+    pairs = t * (t + 1) // 2
+    return (4 * b * t * h * d * itemsize + 4 * b * h * t,
+            4 * b * h * pairs * d)
+
+
+def _flash_cases(gen):
+    import torch
+    import torch.nn.functional as F
+    from chainermn_tpu_torch import ops
+    fa = importlib.import_module('chainermn_tpu_torch.ops.flash_attention')
+    bf16, f32 = torch.bfloat16, torch.float32
+    # out: f32 sums in another order, 1e-5; bf16: BF16_TOL.  lse (f32 in
+    # both): rtol 1e-5, atol 1e-4 (the log of a sum of up to 2048 terms)
+    tol = {f32: (1e-5, 1e-5), bf16: BF16_TOL}
+    errs = []
+    cases = [((1, 128, 8, 64), bf16), ((1, 100, 8, 64), f32),
+             ((2, 2048, 8, 64), bf16), ((1, 37, 4, 32), bf16),
+             ((1, 70, 2, 128), f32)]
+    timed = {}
+    for (b, t, h, d), dtype in cases:
+        q, k, v = _strided_qkv(gen, (b, t), h, d, dtype)
+        out, lse = ops.flash_fwd(q, k, v, True, d ** -0.5)
+        pout, plse = fa._fwd_plain(q, k, v, True, d ** -0.5)
+        check_close('flash_fwd out %s %s' % ((b, t, h, d), dtype), out, pout,
+                    *tol[dtype])
+        check_close('flash_fwd lse %s' % ((b, t, h, d),), lse, plse,
+                    1e-5, 1e-4)
+        # contiguous operands give the same numbers as the strided views
+        cout, _ = ops.flash_fwd(q.contiguous(), k.contiguous(),
+                                v.contiguous(), True, d ** -0.5)
+        check_close('flash_fwd strided vs contiguous', out, cout, 0.0, 0.0)
+        errs.append(max_err(out, pout))
+        timed[(b, t, h, d)] = (q, k, v)
+    # a non-causal call (the kv_len mask alone)
+    q, k, v = _strided_qkv(gen, (2, 77), 8, 64, f32)
+    out, lse = ops.flash_fwd(q, k, v, False, 0.125)
+    pout, plse = fa._fwd_plain(q, k, v, False, 0.125)
+    check_close('flash_fwd non-causal', out, pout, 1e-5, 1e-5)
+    errs.append(max_err(out, pout))
+    records = {}
+    for shape in ((1, 128, 8, 64), (2, 2048, 8, 64)):
+        q, k, v = timed[shape]
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        t = timings(lambda: ops.flash_fwd(q, k, v, True, 0.125),
+                    lambda: fa._fwd_plain(q, k, v, True, 0.125),
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True), iters=50, plain_iters=5)
+        n_bytes, n_ops = _flash_fwd_cost(*shape, 2)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_TC_FLOPS_PER_S)
+        records[shape] = dict(bound_ms=b_ms, bound_by=b_by, **t)
+        _say('kernels', 'flash_fwd causal %s bf16: %s (SDPA); bound %.5f ms '
+             'by %s' % (shape, _fmt(t), b_ms, b_by))
+    _say('kernels', 'flash_fwd max err %.3g over %d cases (bf16 rtol, atol: '
+         '%s)' % (max(errs), len(errs), BF16_TOL))
+    return dict(name='flash_fwd', route='cuda',
+                source='chainermn_tpu_torch/csrc/flash_attention.cu',
+                replaces='chainermn_tpu/ops/flash_attention.py:144',
+                max_abs_err=max(errs), **records[(1, 128, 8, 64)])
+
+
+def _decode_inputs(gen, rows, n_slots, s, h, d, dtype):
+    import torch
+    q, _, _ = _strided_qkv(gen, (rows,), h, d, dtype)
+    k = torch.randn((n_slots, s, h, d), generator=gen, device='cuda')
+    v = torch.randn((n_slots, s, h, d), generator=gen, device='cuda')
+    lengths = torch.randint(1, s + 1, (rows,), generator=gen, device='cuda',
+                            dtype=torch.int32)
+    lengths[0], lengths[-1] = 1, s
+    return q, k.to(dtype), v.to(dtype), lengths
+
+
+def _decode_cases(gen):
+    import torch
+    import torch.nn.functional as F
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.precision import quantize_kv
+    fa = importlib.import_module('chainermn_tpu_torch.ops.flash_attention')
+    bf16, f32 = torch.bfloat16, torch.float32
+    # f32 sums in another order, 1e-5; bf16 out: BF16_TOL; int8: the same
+    # dequantized values, the scale applied to p in the kernel and to v
+    # in the plain version (the same f32 products in another order)
+    tol = {f32: (1e-5, 1e-5), bf16: BF16_TOL}
+    errs = []
+    timed = {}
+    for rows, n_slots, s, h, d, dtype in ((32, 32, 512, 8, 64, bf16),
+                                          (32, 32, 512, 8, 64, f32),
+                                          (5, 9, 300, 4, 128, f32),
+                                          (7, 7, 33, 2, 32, bf16)):
+        q, k, v, lengths = _decode_inputs(gen, rows, n_slots, s, h, d, dtype)
+        slots = torch.randperm(n_slots, generator=gen, device='cuda')[:rows]
+        slots = slots.to(torch.int32)
+        for kind in ('float', 'int8'):
+            if kind == 'int8':
+                kq, ks = quantize_kv(k)
+                vq, vs = quantize_kv(v)
+                args = (kq, vq, dict(k_scale=ks, v_scale=vs))
+            else:
+                args = (k, v, {})
+            for sl in ((None, slots) if rows == n_slots else (slots,)):
+                got = ops.flash_decode(q, args[0], args[1], lengths,
+                                       d ** -0.5, slots=sl, **args[2])
+                want = fa._decode_plain(q, args[0], args[1], lengths,
+                                        d ** -0.5, args[2].get('k_scale'),
+                                        args[2].get('v_scale'), sl)
+                check_close('flash_decode %s %s %s slots=%s' % (
+                    (rows, n_slots, s, h, d), dtype, kind, sl is not None),
+                    got, want, *tol[dtype])
+                errs.append(max_err(got, want))
+            if (rows, s, dtype) == (32, 512, bf16):
+                timed[kind] = (q, args, lengths)
+    q, (k, v, _), lengths = timed['float']
+    rows, h, d = q.shape
+    mask = (torch.arange(k.shape[1], device='cuda')[None, :]
+            < lengths[:, None])[:, None, None, :]
+    # (rows, H, 1, D) queries against (rows, H, S, D) views of the cache
+    qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    t = timings(lambda: ops.flash_decode(q, k, v, lengths, 0.125),
+                lambda: fa._decode_plain(q, k, v, lengths, 0.125, None, None,
+                                         None),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       attn_mask=mask),
+                iters=200, plain_iters=5)
+    live = int(lengths.sum())
+    n_bytes = 2 * live * h * d * k.element_size() + 2 * rows * h * d * 2
+    b_ms, b_by = bound_ms(n_bytes, 4 * live * h * d)
+    qi, (ki, vi, sc), _ = timed['int8']
+    t_int8 = device_ms(lambda: ops.flash_decode(qi, ki, vi, lengths, 0.125,
+                                                **sc))
+    i8_ms, _ = bound_ms(2 * live * h * (d + 4) + 2 * rows * h * d * 2, 0)
+    _say('kernels', 'flash_decode max err %.3g over %d cases (bf16 rtol, '
+         'atol: %s); 32 rows, S 512, %d live positions, bf16: %s (SDPA '
+         'with a length mask); bound %.5f ms; int8 device only %.5f ms '
+         '(bound %.5f)' % (max(errs), len(errs), BF16_TOL, live, _fmt(t),
+                           b_ms, t_int8, i8_ms))
+    return dict(name='flash_decode', route='cuda',
+                source='chainermn_tpu_torch/csrc/flash_attention.cu',
+                replaces='chainermn_tpu/ops/flash_attention.py:650',
+                max_abs_err=max(errs), bound_ms=b_ms, bound_by=b_by, **t)
+
+
+def phase_serving_kernels():
+    """The serving path's kernels against their plain versions on the
+    card, at the shapes of the full-width TransformerLM."""
+    import torch
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    return [_ln_cases(gen), _flash_cases(gen), _decode_cases(gen)]
 
 
 def phase_model_check():
@@ -394,7 +670,8 @@ def phase_main_path():
     finally:
         comm.close()
     want = {'bn_stats': BN_PER_STEP * STEPS, 'bn_apply': BN_PER_STEP * STEPS,
-            'momentum_sgd': PARAMS_PER_STEP * (STEPS - 1)}
+            'momentum_sgd': PARAMS_PER_STEP * (STEPS - 1),
+            'layer_norm': 0, 'flash_fwd': 0, 'flash_decode': 0}
     if counts != want:
         raise AssertionError('launch counts %s, expected %s' % (counts,
                                                                 want))
@@ -420,6 +697,302 @@ def phase_main_path():
     return counts
 
 
+def _numpy_lm_weights(model, seed):
+    """A flax parameter tree for ``model`` made from a numpy seed:
+    kernels with variance 1 / fan_in, LayerNorm scales near 1, small
+    biases, unit-variance embeddings."""
+    import numpy as np
+    from chainermn_tpu_torch import models
+    rng = np.random.RandomState(seed)
+
+    def fill(path, tree):
+        out = {}
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                out[key] = fill(path + (key,), value)
+                continue
+            a = rng.standard_normal(value.shape).astype(np.float32)
+            if key == 'kernel':
+                a /= math.sqrt(value.shape[0])
+            elif key.endswith('_scale'):
+                a = 1.0 + 0.1 * a
+            elif key == 'pos_embed':
+                a *= 0.02
+            elif key != 'embedding':
+                a *= 0.1
+            out[key] = a
+        return out
+
+    return {'params': fill((), models.to_flax_variables(model)['params'])}
+
+
+def finite_engine(*args, **kw):
+    """A ``GenerationEngine`` that checks every step's logits finite
+    before its greedy pick (one more reduction and host read per step:
+    used outside the timed run)."""
+    import torch
+    from chainermn_tpu_torch import serving
+
+    class FiniteEngine(serving.GenerationEngine):
+        def _tokens(self, logits):
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError('non-finite logits in a %s step' % (
+                    'prefill' if logits.dim() == 1 else 'decode'))
+            return super()._tokens(logits)
+
+    return FiniteEngine(*args, **kw)
+
+
+def _drain(eng, queue, reqs, max_steps=10000):
+    for _ in range(max_steps):
+        if all(r.done() for r in reqs):
+            return
+        eng.step(queue)
+    raise AssertionError('requests not done in %d steps' % max_steps)
+
+
+def phase_serving_check():
+    """Two f32 engines at full width and depth 2, the same numpy-seeded
+    weights through the converter: one on the card (kernels, TF32 off),
+    one on the CPU (plain versions).  Same greedy tokens, close prefill
+    logits."""
+    import numpy as np
+    import torch
+    from chainermn_tpu_torch import models, serving
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        rng = np.random.RandomState(5)
+        lengths = [4, 128] + list(rng.randint(4, 129, size=6))
+        prompts = [rng.randint(0, SERVE_CFG['vocab_size'], n)
+                   for n in lengths]
+        weights = None
+        toks, logits = {}, {}
+        for dev in ('cuda', 'cpu'):
+            model = models.TransformerLM(dtype=torch.float32, device=dev,
+                                         **dict(SERVE_CFG, n_layers=2))
+            weights = weights or _numpy_lm_weights(model, 6)
+            models.load_flax_variables(model, weights)
+            with torch.inference_mode():
+                cache = models.init_kv_cache(model, 1, 128, device=dev)
+                t = torch.zeros((1, 128), dtype=torch.int64, device=dev)
+                t[0, :lengths[1]] = torch.from_numpy(prompts[1])
+                out, _ = models.prefill(model, models.param_tree(model),
+                                        cache, t, lengths[1], 0)
+                logits[dev] = out.cpu()
+            eng = finite_engine(model, n_slots=8, max_prompt_len=128,
+                                max_len=512, device=dev)
+            queue = serving.GenerationQueue(max_prompt_len=128)
+            reqs = [queue.submit(p, 8) for p in prompts]
+            _drain(eng, queue, reqs)
+            toks[dev] = [[int(x) for x in r.result()] for r in reqs]
+            del eng, model
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    # f32 with TF32 off: sums in another order on the card and the CPU
+    tol = 1e-4
+    check_close('prefill logits card vs CPU', logits['cuda'], logits['cpu'],
+                tol, tol)
+    if toks['cuda'] != toks['cpu']:
+        raise AssertionError('greedy tokens differ, card %s vs CPU %s'
+                             % (toks['cuda'], toks['cpu']))
+    _say('serve-check', 'f32 depth 2, 8 prompts x 8 tokens: card and CPU '
+         'tokens identical; prefill logits max err %.3g (tolerance %g)'
+         % (max_err(logits['cuda'], logits['cpu']), tol))
+
+
+# kernel-name fragments of each group in the serving profile
+_SERVE_GROUPS = (('ported kernels', ('ln_kernel', 'flash_fwd_kernel',
+                                     'flash_decode_kernel')),
+                 ('matmuls', ('gemm', 'cutlass', 'xmma', 'nvjet', 'sm90_',
+                              'cublas')),
+                 ('copies', ('memcpy', 'memset', 'copy')))
+
+
+def profile_decode(eng, queue, n=5):
+    """Device time by kernel group over ``n`` pure decode steps of a full
+    bucket (``torch.profiler``), and the device's idle share: that busy
+    time over the wall time of ``n`` such steps run just before without
+    the profiler (and, for comparison, over the profiled steps' own)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.RandomState(9)
+    reqs = [queue.submit(rng.randint(0, SERVE_CFG['vocab_size'], 64),
+                         2 * n + 4) for _ in range(eng.n_slots)]
+    eng.step(queue)                       # the prefills + one decode step
+    eng.step(queue)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        eng.step(queue)
+    torch.cuda.synchronize()
+    plain_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            eng.step(queue)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    _drain(eng, queue, reqs)
+    kernels, launches = {}, 0
+    for evt in prof.key_averages():
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, 'is_user_annotation', False)):
+            kernels[evt.key] = kernels.get(evt.key, 0.0) \
+                + evt.self_device_time_total
+            launches += evt.count
+    busy = sum(kernels.values())
+    if busy == 0:
+        raise AssertionError('the profiler recorded no device time')
+    groups = {}
+    for key, us in kernels.items():
+        low = key.lower()
+        group = next((g for g, frags in _SERVE_GROUPS
+                      if any(f in low for f in frags)), 'other')
+        groups[group] = groups.get(group, 0.0) + us
+    _say('serve-profile', '%d decode steps of %d rows: wall %.3f ms/step '
+         'without the profiler, %.3f ms/step under it; device busy %.3f '
+         'ms/step, idle %.1f%% of the unprofiled wall (%.1f%% of the '
+         'profiled); %d device kernels/step' % (
+             n, eng.n_slots, plain_us / n / 1e3, wall_us / n / 1e3,
+             busy / n / 1e3, 100 - 100 * busy / plain_us,
+             100 - 100 * busy / wall_us, launches // n))
+    for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        _say('serve-profile', '  %-16s %8.4f ms/step  %5.1f%% of device '
+             'time' % (group, us / n / 1e3, 100 * us / busy))
+    for key, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:10]:
+        _say('serve-profile', '  %8.4f ms/step  %s' % (us / n / 1e3,
+                                                       key[:90]))
+    # which PyTorch operators launched that device time (and how often)
+    aten = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and e.key.startswith('aten::') and e.device_time_total > 0]
+    for e in sorted(aten, key=lambda e: -e.device_time_total)[:10]:
+        _say('serve-profile', '  op %-28s %8.4f ms/step device, %4d '
+             'calls/step, %8.4f ms/step host' % (
+                 e.key, e.device_time_total / n / 1e3, e.count // n,
+                 e.cpu_time_total / n / 1e3))
+
+
+def phase_serving_main():
+    """The serving main path: ``GenerationEngine`` over the full-width
+    ``TransformerLM`` of the repo's serving benchmark under
+    ``Policy.bf16()``; 64 prompts of 4..128 tokens, 32 new tokens each,
+    drained through ``step()``, with the kernel launch counts checked
+    against the structure."""
+    import numpy as np
+    import torch
+    from chainermn_tpu_torch import models, ops, precision, serving
+    model = models.TransformerLM(**SERVE_CFG,
+                                 generator=torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    eng = serving.GenerationEngine(model, n_slots=SERVE_SLOTS,
+                                   max_prompt_len=SERVE_PROMPT,
+                                   policy=precision.Policy.bf16())
+    warm = eng.warmup()
+    _say('serve', 'TransformerLM %d parameters, bf16 weights and cache, '
+         '%d slots x %d positions; warmup of %d buckets %.2f s' % (
+             n_params, SERVE_SLOTS, SERVE_CFG['max_len'],
+             len(warm['prefill']) + len(warm['decode']),
+             sum(warm['prefill'].values()) + sum(warm['decode'].values())))
+    rng = np.random.RandomState(0)
+    lengths = [4, SERVE_PROMPT] + list(rng.randint(4, SERVE_PROMPT + 1,
+                                                   size=SERVE_REQUESTS - 2))
+    prompts = [rng.randint(0, SERVE_CFG['vocab_size'], n) for n in lengths]
+    queue = serving.GenerationQueue(max_prompt_len=SERVE_PROMPT,
+                                    max_queue=SERVE_REQUESTS)
+    first = {}
+
+    def on_token(rid, toks):
+        first.setdefault(rid, time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = [queue.submit(p, SERVE_NEW, on_token=on_token) for p in prompts]
+    steps = []          # (seconds, prefills in the step)
+    while not all(r.done() for r in reqs):
+        n0, s0 = eng.prefills, time.perf_counter()
+        eng.step(queue)
+        steps.append((time.perf_counter() - s0, eng.prefills - n0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    st = eng.stats()
+    peak = torch.cuda.max_memory_allocated()
+    outs = [r.result() for r in reqs]
+    if any(len(o) != SERVE_NEW for o in outs):
+        raise AssertionError('a request did not generate %d tokens'
+                             % SERVE_NEW)
+    layers = SERVE_CFG['n_layers']
+    want = {'layer_norm': (2 * layers + 1) * (st['prefills']
+                                              + st['decode_steps']),
+            'flash_fwd': layers * st['prefills'],
+            'flash_decode': layers * st['decode_steps'],
+            'bn_stats': 0, 'bn_apply': 0, 'momentum_sgd': 0}
+    if counts != want or st['prefills'] != SERVE_REQUESTS:
+        raise AssertionError('launch counts %s over %d prefills and %d '
+                             'decode steps, expected %s' % (
+                                 counts, st['prefills'],
+                                 st['decode_steps'], want))
+    ttft = sorted(first[r.request_id] - t0 for r in reqs)
+    decode = sorted(t for t, n in steps if n == 0)
+    _say('serve', '%d requests x %d tokens in %d prefills and %d decode '
+         'steps (%.3f s): serve_generate_tokens_per_sec_per_chip %.1f; '
+         'TTFT p50 %.2f ms (p99 %.2f ms, from submit, all %d submitted '
+         'at once); decode-step p50 %.3f ms over %d ticks that admitted '
+         'nothing (p99 %.3f ms); peak memory %.3f GiB' % (
+             SERVE_REQUESTS, SERVE_NEW, st['prefills'], st['decode_steps'],
+             wall, st['tokens_generated'] / wall,
+             1e3 * ttft[len(ttft) // 2], 1e3 * ttft[-1], SERVE_REQUESTS,
+             1e3 * decode[len(decode) // 2], len(decode),
+             1e3 * decode[min(len(decode) - 1, int(0.99 * len(decode)))],
+             peak / 2 ** 30))
+    _say('serve', 'launches %s (per prefill: %d layer_norm, %d flash_fwd; '
+         'per decode step: %d layer_norm, %d flash_decode)' % (
+             counts, 2 * layers + 1, layers, 2 * layers + 1, layers))
+    profile_decode(eng, queue)
+    del eng
+    # the same 64 requests again, outside the timed run, on an engine
+    # that checks every step's logits finite: the same schedule over the
+    # same kernels gives the same tokens
+    chk = finite_engine(model, n_slots=SERVE_SLOTS,
+                        max_prompt_len=SERVE_PROMPT,
+                        policy=precision.Policy.bf16())
+    reqs = [queue.submit(p, SERVE_NEW) for p in prompts]
+    _drain(chk, queue, reqs)
+    if [r.result().tolist() for r in reqs] != [o.tolist() for o in outs] \
+            or chk.stats()['decode_steps'] != st['decode_steps']:
+        raise AssertionError('the checked replay gave other tokens or '
+                             'another schedule')
+    _say('serve', 'replay of the %d requests with every step\'s logits '
+         'checked: all finite, the same tokens in the same %d decode steps'
+         % (SERVE_REQUESTS, st['decode_steps']))
+    del chk
+    # the int8 KV cache, once over a few requests
+    eng8 = finite_engine(model, n_slots=SERVE_SLOTS,
+                         max_prompt_len=SERVE_PROMPT,
+                         policy=precision.Policy.bf16(), int8_kv=True)
+    ops.reset_launch_counts()
+    reqs = [queue.submit(p, 8) for p in prompts[:8]]
+    _drain(eng8, queue, reqs)
+    c8, st8 = ops.launch_counts(), eng8.stats()
+    if c8['flash_decode'] != layers * st8['decode_steps'] \
+            or any(len(r.result()) != 8 for r in reqs):
+        raise AssertionError('int8 KV engine: counts %s, stats %s'
+                             % (c8, st8))
+    same = sum(a[:8].tolist() == b.tolist() for a, b in
+               zip(outs, (r.result() for r in reqs)))
+    _say('serve', 'int8 KV engine: 8 requests x 8 tokens, %d decode steps, '
+         'launches %s; %d of 8 token streams equal the bf16 cache\'s'
+         % (st8['decode_steps'], c8, same))
+    return {name: counts[name] for name in SERVE_KERNELS}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -429,9 +1002,11 @@ def main():
     import chainermn_tpu_torch  # noqa: F401  (fails alone, as it should)
     name, smi = phase_device()
     phase_build()
-    records = phase_kernels()
+    records = phase_kernels() + phase_serving_kernels()
     phase_model_check()
     counts = phase_main_path()
+    phase_serving_check()
+    counts.update(phase_serving_main())
     for rec in records:
         rec['launches'] = counts[rec['name']]
     print(json.dumps({'kernels': records}))

@@ -1,0 +1,291 @@
+"""The port's flash attention forward and decode (plain versions on the
+CPU) against the JAX package's ``ops.flash_attention``, its internal
+``_flash_fwd`` (for ``lse``) and ``ops.flash_attention_decode``, run as
+the JAX package's own tests run them: the ``fallback`` (jnp) and
+``interpret`` (the Pallas kernels in the interpreter) modes.
+
+Tolerances: f32 rtol/atol 1e-5 (the same recurrence, sums in another
+order), bf16 5e-2 (one bf16 rounding of the output may land on either
+side).  The int8 caches of the two packages are compared bit for bit.
+"""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from chainermn_tpu import ops as jops
+from chainermn_tpu import precision as jprecision
+from chainermn_tpu.ops import _common as jcommon
+from chainermn_tpu_torch import ops, precision
+
+# the modules (each package re-exports a function of the same name)
+jfa = importlib.import_module('chainermn_tpu.ops.flash_attention')
+fa = importlib.import_module('chainermn_tpu_torch.ops.flash_attention')
+
+torch.set_num_threads(2)
+
+TOL = {'float32': dict(rtol=1e-5, atol=1e-5),
+       'bfloat16': dict(rtol=5e-2, atol=5e-2)}
+TDTYPE = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
+
+
+@pytest.fixture(params=['fallback', 'interpret'])
+def mode(request, monkeypatch):
+    if request.param == 'interpret':
+        monkeypatch.setenv('CHAINERMN_TPU_PALLAS_INTERPRET', '1')
+    else:
+        monkeypatch.delenv('CHAINERMN_TPU_PALLAS_INTERPRET', raising=False)
+    assert jcommon.pallas_mode() == request.param
+    return request.param
+
+
+@pytest.fixture
+def cuda():
+    """Decided when the test runs, never at import: skip without a card."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: run on the card with '
+                    '`python -m pytest -m cuda tests/test_torch_*.py`')
+
+
+def _rounded(a, dtype):
+    return np.array(jnp.asarray(a, dtype).astype(jnp.float32))
+
+
+def _f32(a):
+    return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+
+def _qkv(shape, dtype, seed):
+    """q, k, v ``(B, T, H, D)`` as strided views of one fused
+    ``(B, T, 3, H, D)`` projection, as the model hands them over; the
+    numpy values for JAX."""
+    b, t, h, d = shape
+    rng = np.random.RandomState(seed)
+    fused = _rounded(rng.randn(b, t, 3, h, d).astype(np.float32), dtype)
+    tq = torch.tensor(fused, dtype=TDTYPE[dtype])
+    return ([tq[:, :, i] for i in range(3)],
+            [jnp.asarray(np.ascontiguousarray(fused[:, :, i]), dtype)
+             for i in range(3)])
+
+
+# T = 130 is ragged against the 128 block: keys padded and masked, query
+# rows padded and dropped (two blocks); T = 9 is one block
+CASES = [((1, 9, 2, 32), True), ((2, 130, 2, 32), True),
+         ((1, 130, 2, 32), False)]
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('shape,causal', CASES)
+def test_forward_out_and_lse_match_jax(mode, shape, causal, dtype):
+    (q, k, v), (jq, jk, jv) = _qkv(shape, dtype, 0)
+    b, t, h, d = shape
+    want = jops.flash_attention(jq, jk, jv, causal=causal)
+    out, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
+    assert out.dtype == q.dtype and out.shape == (b, t, h, d)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, t)
+    np.testing.assert_allclose(out.float().numpy(), _f32(want),
+                               **TOL[dtype])
+    # lse from the JAX package's internal forward, padded the way its
+    # public wrapper pads
+    blk = min(128, t)
+    pad = (-t) % blk
+
+    def merge(x):
+        x = jnp.swapaxes(x, 1, 2).reshape(b * h, t, d)
+        return jnp.pad(x, ((0, 0), (0, pad), (0, 0)))
+
+    _, (_, _, _, _, jlse) = jfa._flash_fwd(merge(jq), merge(jk), merge(jv),
+                                           causal, d ** -0.5, t, blk, blk)
+    np.testing.assert_allclose(lse.numpy(),
+                               np.asarray(jlse)[:, :t].reshape(b, h, t),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        ops.flash_attention(q, k, v, causal=causal).float().numpy(),
+        out.float().numpy(), rtol=0, atol=0)
+
+
+def test_mha_reference_matches_jax():
+    (q, k, v), (jq, jk, jv) = _qkv((2, 11, 2, 32), 'float32', 1)
+    for causal in (False, True):
+        want = jops.mha_reference(jq, jk, jv, causal=causal)
+        got = ops.mha_reference(q, k, v, causal=causal)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   **TOL['float32'])
+        # the blockwise forward agrees with the full softmax
+        np.testing.assert_allclose(
+            ops.flash_attention(q, k, v, causal=causal).numpy(),
+            got.numpy(), **TOL['float32'])
+
+
+def test_strided_views_equal_contiguous_operands():
+    (q, k, v), _ = _qkv((2, 20, 2, 32), 'float32', 2)
+    assert not q.is_contiguous()
+    a = ops.flash_attention_fwd(q, k, v, causal=True)
+    c = ops.flash_attention_fwd(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal=True)
+    for x, y in zip(a, c):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+def test_causal_needs_square():
+    (q, k, v), _ = _qkv((1, 4, 1, 32), 'float32', 3)
+    with pytest.raises(ValueError, match='t_q == t_kv'):
+        ops.flash_attention(q, k[:, :3], v[:, :3], causal=True)
+
+
+# ---------------------------------------------------------------------
+# decode
+
+def _cache(b, s, h, d, dtype, seed):
+    rng = np.random.RandomState(seed)
+    q = _rounded(rng.randn(b, h, d).astype(np.float32), dtype)
+    k = _rounded(rng.randn(b, s, h, d).astype(np.float32), dtype)
+    v = _rounded(rng.randn(b, s, h, d).astype(np.float32), dtype)
+    return q, k, v
+
+
+# S = 150 is ragged against the 128 key block (padded and masked);
+# lengths include 1 (the pad rows of a decode bucket) and S
+DECODE_CASES = [(4, 150, 2, 32, [1, 150, 77, 128]),
+                (3, 40, 2, 64, [40, 1, 13])]
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('b,s,h,d,lengths', DECODE_CASES)
+def test_decode_matches_jax(mode, b, s, h, d, lengths, dtype):
+    q, k, v = _cache(b, s, h, d, dtype, 4)
+    lens = np.asarray(lengths, np.int32)
+    jdt = jnp.dtype(dtype)
+    want = jops.flash_attention_decode(
+        jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+        jnp.asarray(lens))
+    tdt = TDTYPE[dtype]
+    got = ops.flash_attention_decode(
+        torch.tensor(q, dtype=tdt), torch.tensor(k, dtype=tdt),
+        torch.tensor(v, dtype=tdt), torch.from_numpy(lens))
+    assert got.dtype == tdt and got.shape == (b, h, d)
+    np.testing.assert_allclose(got.float().numpy(), _f32(want),
+                               **TOL[dtype])
+
+
+@pytest.mark.parametrize('b,s,h,d,lengths', DECODE_CASES)
+def test_int8_decode_matches_jax_with_bit_equal_caches(mode, b, s, h, d,
+                                                       lengths):
+    q, k, v = _cache(b, s, h, d, 'float32', 5)
+    lens = np.asarray(lengths, np.int32)
+    jkq, jks = jprecision.quantize_kv(jnp.asarray(k))
+    jvq, jvs = jprecision.quantize_kv(jnp.asarray(v))
+    kq, ks = precision.quantize_kv(torch.from_numpy(k))
+    vq, vs = precision.quantize_kv(torch.from_numpy(v))
+    for a, ja in ((kq, jkq), (ks, jks), (vq, jvq), (vs, jvs)):
+        assert str(a.dtype) == 'torch.%s' % ja.dtype
+        np.testing.assert_array_equal(a.numpy(), np.asarray(ja))
+    want = jops.flash_attention_decode(jnp.asarray(q), jkq, jvq,
+                                       jnp.asarray(lens), k_scale=jks,
+                                       v_scale=jvs)
+    got = ops.flash_attention_decode(torch.from_numpy(q), kq, vq,
+                                     torch.from_numpy(lens), k_scale=ks,
+                                     v_scale=vs)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **TOL['float32'])
+
+
+def test_quantize_kv_rounds_half_to_even_and_zero_rows():
+    x = np.zeros((3, 4), np.float32)
+    x[0] = [127.0, 0.5, 1.5, -2.5]       # scale 1: halves go to even
+    x[1] = [254.0, 1.0, 3.0, -5.0]       # scale 2: x / 2 has halves
+    jq, js = jprecision.quantize_kv(jnp.asarray(x))
+    q, s = precision.quantize_kv(torch.from_numpy(x))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    assert q[0].tolist() == [127, 0, 2, -2] and s[2] == 1.0
+    np.testing.assert_allclose(
+        precision.dequantize_kv(q, s).numpy(),
+        np.asarray(jprecision.dequantize_kv(jq, js)), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize('int8', [False, True])
+def test_decode_with_slot_map_reads_the_mapped_slots(int8):
+    n_slots, s, h, d = 6, 20, 2, 32
+    q, k, v = _cache(n_slots, s, h, d, 'float32', 6)
+    rows = np.asarray([4, 0, 5], np.int32)
+    lens = np.asarray([1, 20, 9], np.int32)
+    kt, vt = torch.from_numpy(k), torch.from_numpy(v)
+    scales = {}
+    if int8:
+        kt, ks = precision.quantize_kv(kt)
+        vt, vs = precision.quantize_kv(vt)
+        scales = dict(k_scale=ks, v_scale=vs)
+    got = ops.flash_attention_decode(torch.from_numpy(q[:3]), kt, vt,
+                                     torch.from_numpy(lens),
+                                     slots=torch.from_numpy(rows), **scales)
+    idx = torch.from_numpy(rows).long()
+    want = ops.decode_attention_reference(
+        torch.from_numpy(q[:3]), kt[idx], vt[idx], torch.from_numpy(lens),
+        **{key: val[idx] for key, val in scales.items()})
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL['float32'])
+
+
+def test_decode_reference_matches_jax_reference():
+    q, k, v = _cache(3, 17, 2, 32, 'float32', 7)
+    lens = np.asarray([17, 1, 5], np.int32)
+    want = jops.decode_attention_reference(jnp.asarray(q), jnp.asarray(k),
+                                           jnp.asarray(v), jnp.asarray(lens))
+    got = ops.decode_attention_reference(torch.from_numpy(q),
+                                         torch.from_numpy(k),
+                                         torch.from_numpy(v),
+                                         torch.from_numpy(lens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **TOL['float32'])
+
+
+def test_decode_needs_both_scales():
+    q, k, v = (torch.from_numpy(a) for a in _cache(1, 4, 1, 32, 'float32',
+                                                   8))
+    with pytest.raises(ValueError, match='BOTH'):
+        ops.flash_attention_decode(q, k, v, torch.ones(1, dtype=torch.int32),
+                                   k_scale=torch.ones(1, 4, 1))
+
+
+def test_kernel_wrappers_take_cuda_tensors_only():
+    (q, k, v), _ = _qkv((1, 4, 1, 32), 'float32', 9)
+    with pytest.raises(ValueError, match='CUDA'):
+        ops.flash_fwd(q, k, v, True, 0.1)
+    with pytest.raises(ValueError, match='CUDA'):
+        ops.flash_decode(q[:, 0], k, v, torch.ones(1, dtype=torch.int32),
+                         0.1)
+    before = ops.launch_counts()
+    ops.flash_attention(q, k, v, causal=True)
+    ops.flash_attention_decode(q[:, 0], k, v,
+                               torch.ones(1, dtype=torch.int32))
+    assert ops.launch_counts() == before     # CPU: the plain versions
+
+
+def test_forward_only_refuses_autograd():
+    (q, k, v), _ = _qkv((1, 4, 1, 32), 'float32', 10)
+    q = q.detach().requires_grad_()
+    with pytest.raises(NotImplementedError, match='forward-only'):
+        ops.flash_attention(q, k, v, causal=True)
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_the_card(cuda):
+    (q, k, v), _ = _qkv((2, 100, 8, 64), 'bfloat16', 11)
+    want, wlse = ops.flash_attention_fwd(q, k, v, causal=True)
+    got, lse = ops.flash_attention_fwd(q.cuda(), k.cuda(), v.cuda(),
+                                       causal=True)
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+    torch.testing.assert_close(lse.cpu(), wlse, rtol=1e-5, atol=1e-4)
+    qd, kd, vd = (torch.from_numpy(a).to(torch.bfloat16)
+                  for a in _cache(4, 64, 8, 64, 'bfloat16', 12))
+    lens = torch.tensor([1, 64, 33, 7], dtype=torch.int32)
+    want = ops.flash_attention_decode(qd, kd, vd, lens)
+    got = ops.flash_attention_decode(qd.cuda(), kd.cuda(), vd.cuda(),
+                                     lens.cuda())
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+    assert fa.flash_decode.launches > 0
