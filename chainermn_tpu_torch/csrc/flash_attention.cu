@@ -1,16 +1,20 @@
-// Flash attention for Hopper (sm_90a): the prefill forward and the
-// single-query decode read of a slot KV cache.
+// Flash attention for Hopper (sm_90a): the prefill forward, its backward
+// (dq; dk and dv) and the single-query decode read of a slot KV cache.
 //
-// Replaces two Pallas TPU kernels of chainermn_tpu/ops/flash_attention.py:
-//   _fwd_kernel    (launched by _fwd_pallas,    flash_attention.py:144)
+// Replaces four Pallas TPU kernels of chainermn_tpu/ops/flash_attention.py:
+//   _fwd_kernel     (launched by _fwd_pallas,    flash_attention.py:144)
 //                                                   -> cmn_flash_fwd
-//   _decode_kernel (launched by _decode_pallas, flash_attention.py:650)
+//   _bwd_dq_kernel  (launched by _bwd_pallas,    flash_attention.py:375)
+//                                                   -> cmn_flash_bwd_dq
+//   _bwd_dkv_kernel (launched by _bwd_pallas,    flash_attention.py:397)
+//                                                   -> cmn_flash_bwd_dkv
+//   _decode_kernel  (launched by _decode_pallas, flash_attention.py:650)
 //                                                   -> cmn_flash_decode
 //
-// Both keep the TPU kernels' online-softmax recurrence in f32 -- running
+// All keep the TPU kernels' online-softmax recurrence in f32 -- running
 // max m, running sum l, accumulator acc; scores masked with the finite
 // NEG_INF = -1e30 of chainermn_tpu/ops/_common.py; the output divided by
-// max(l, 1e-30) -- and both compute in f32 on every input dtype, as the
+// max(l, 1e-30) -- and all compute in f32 on every input dtype, as the
 // TPU kernels do (they widen q, k, v to f32 before each product).
 //
 // ---- forward (cmn_flash_fwd) ----
@@ -30,6 +34,39 @@
 // ~64 flops per byte of q, k, v; the card's bf16 tensor cores would do
 // ~295.  This first version runs scalar f32 FMAs (no tensor cores), so it
 // sits far from that bound; mma/wgmma tiles are the next step.
+//
+// ---- backward (cmn_flash_bwd_dq, cmn_flash_bwd_dkv) ----
+// With p = exp(s - lse) recomputed from the forward's lse (s formed as the
+// forward forms it: the pre-scaled query times the key, then the mask),
+// dp = g.v^T, ds = p * (dp - delta) * scale and delta = rowsum(g * out):
+//   dq = sum over keys    ds . k        dv = sum over queries p^T . g
+//                                        dk = sum over queries ds^T . q
+// Two kernels, as on the TPU, because the two sums run over different
+// axes.  The TPU kernels carry their sums in VMEM scratch along a
+// sequential innermost grid axis; here each block OWNS its output tile
+// and a loop inside the block streams the other axis, so no sum crosses
+// blocks: no float atomics, and two runs give the same bits.
+//   dq:  one block per (batch*head, tile of query rows); it streams key
+//        tiles of 32 up to the causal frontier, as the forward does.
+//   dkv: one block per (batch*head, tile of key rows); it streams query
+//        tiles of 32 FROM the causal frontier on (query tiles wholly
+//        before the key tile contribute nothing and are never loaded).
+// A tile that straddles the diagonal is masked element by element, and
+// ragged T is masked in the kernel (no padded copies).  Each warp owns
+// kRows rows of the block's tile; lane j takes row j of the streamed
+// tile for the two score products (s and dp), reading the owned rows
+// from shared memory as 16-byte broadcasts.  The scores then go through
+// a per-warp staging patch in shared memory so that the second products
+// (ds.k; p^T.g and ds^T.q) read them as 16-byte broadcasts too, each lane
+// owning D/32 output columns.  The accumulators stay in registers; a
+// block's shared memory is 33-41 KB at D = 32 and 57-74 KB at D = 64 and
+// 128, above the 48 KB default, so every launch raises the kernel's limit
+// to its own size first.
+// What bounds them on the H100: operations (at T = 1024, D = 64 causal
+// they do 5 products over 64 x 525k (query, key) pairs against 4 MB of
+// operands).  Like the forward they run scalar f32 FMAs, and the two
+// kernels recompute s and dp each (7 products for the 5 the gradient
+// needs), so they sit far from the tensor-core bound.
 //
 // ---- decode (cmn_flash_decode) ----
 // One block of 128 threads per (row, head): one query row against its
@@ -235,6 +272,364 @@ cudaError_t launch_fwd_d(const FwdArgs& a, int d, int bh,
 }
 
 // ---------------------------------------------------------------------
+// backward
+
+constexpr int kBwdWarps = 8;
+constexpr int kBT = 32;  // rows of a streamed tile: one per lane
+
+template <int D>
+struct BwdCfg {
+  static constexpr int kRows = D <= 64 ? 8 : 4;  // owned rows per warp
+  static constexpr int kBO = kBwdWarps * kRows;  // owned rows per block
+  static constexpr int kPer = D / 32;            // output columns per lane
+  // dq: q and g tiles (owned), the ds patch, k and v tiles (streamed)
+  static constexpr size_t kSmemDq =
+      sizeof(float) * (2 * (size_t)kBO * D + (size_t)kBO * kBT +
+                       2 * (size_t)kBT * (D + 1));
+  // dkv: k and v tiles (owned), the p and ds patches, q and g tiles
+  // (streamed), their lse and delta
+  static constexpr size_t kSmemDkv =
+      sizeof(float) * (2 * (size_t)kBO * D + 2 * (size_t)kBO * kBT +
+                       2 * (size_t)kBT * (D + 1) + 2 * (size_t)kBT);
+};
+
+struct BwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* g;             // d(loss)/d(out), laid out like q
+  int64_t q_sb, q_st, q_sh;  // element strides: batch, token, head
+  int64_t k_sb, k_st, k_sh;
+  int64_t v_sb, v_st, v_sh;
+  int64_t g_sb, g_st, g_sh;
+  const float* lse;    // (B, H, Tq) f32, the forward's
+  const float* delta;  // (B, H, Tq) f32, rowsum(g * out)
+  void* dq;            // (B, Tq, H, D) contiguous, q's dtype
+  void* dk;            // (B, Tkv, H, D) contiguous
+  void* dv;
+  int h, t_q, t_kv;
+  float scale;
+  int causal;
+};
+
+// Copy rows [t0, t0 + rows) of a (T, D) operand into shared memory as f32
+// times mul, zero past t_end; the shared rows are `pitch` floats apart.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(float* dst, int pitch, const T* src,
+                                          int64_t stride_t, int t0, int rows,
+                                          int t_end, float mul) {
+  for (int e = threadIdx.x; e < rows * D; e += kBwdWarps * 32) {
+    const int r = e / D, c = e % D, t = t0 + r;
+    dst[r * pitch + c] = t < t_end ? to_f32(src[t * stride_t + c]) * mul : 0.f;
+  }
+}
+
+// x[r] += own[r][:] . mine[:] and y[r] += own2[r][:] . mine2[:] for the R
+// owned rows of a warp (own, own2: R x D in shared memory, read as 16-byte
+// broadcasts) against the lane's own streamed rows (mine, mine2).
+template <int R, int D>
+__device__ __forceinline__ void score_rows(float* x, float* y,
+                                           const float* own, const float* own2,
+                                           const float* mine,
+                                           const float* mine2) {
+#pragma unroll 4
+  for (int c = 0; c < D; c += 4) {
+    const float a0 = mine[c], a1 = mine[c + 1], a2 = mine[c + 2],
+                a3 = mine[c + 3];
+    const float b0 = mine2[c], b1 = mine2[c + 1], b2 = mine2[c + 2],
+                b3 = mine2[c + 3];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float4 o = *reinterpret_cast<const float4*>(own + r * D + c);
+      const float4 o2 = *reinterpret_cast<const float4*>(own2 + r * D + c);
+      x[r] = fmaf(o.x, a0, x[r]);
+      x[r] = fmaf(o.y, a1, x[r]);
+      x[r] = fmaf(o.z, a2, x[r]);
+      x[r] = fmaf(o.w, a3, x[r]);
+      y[r] = fmaf(o2.x, b0, y[r]);
+      y[r] = fmaf(o2.y, b1, y[r]);
+      y[r] = fmaf(o2.z, b2, y[r]);
+      y[r] = fmaf(o2.w, b3, y[r]);
+    }
+  }
+}
+
+// acc[r][i] += sum_j w[r][j] * tile[j][lane + 32 i] over the kBT rows of a
+// streamed tile (pitch D + 1); w is the warp's R x kBT staging patch, read
+// as 16-byte broadcasts.
+template <int R, int D>
+__device__ __forceinline__ void accumulate_rows(float (*acc)[D / 32],
+                                                const float* w,
+                                                const float* tile, int lane) {
+  constexpr int P = D / 32;
+#pragma unroll 2
+  for (int jj = 0; jj < kBT; jj += 4) {
+    float t[4][P];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int i = 0; i < P; ++i)
+        t[u][i] = tile[(jj + u) * (D + 1) + lane + 32 * i];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float4 w4 = *reinterpret_cast<const float4*>(w + r * kBT + jj);
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        acc[r][i] = fmaf(w4.x, t[0][i], acc[r][i]);
+        acc[r][i] = fmaf(w4.y, t[1][i], acc[r][i]);
+        acc[r][i] = fmaf(w4.z, t[2][i], acc[r][i]);
+        acc[r][i] = fmaf(w4.w, t[3][i], acc[r][i]);
+      }
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdWarps * 32)
+    flash_bwd_dq_kernel(BwdArgs a) {
+  constexpr int R = BwdCfg<D>::kRows;
+  constexpr int BO = BwdCfg<D>::kBO;
+  constexpr int P = BwdCfg<D>::kPer;
+  extern __shared__ float4 bwd_smem[];  // 16-byte aligned
+  float* qs = reinterpret_cast<float*>(bwd_smem);  // BO x D, pre-scaled
+  float* gs = qs + BO * D;                         // BO x D
+  float* dss = gs + BO * D;                        // BO x kBT: ds patches
+  float* ks = dss + BO * kBT;                      // kBT x (D + 1)
+  float* vs = ks + kBT * (D + 1);                  // kBT x (D + 1)
+
+  const int bh = blockIdx.y;
+  const int b = bh / a.h, hh = bh % a.h;
+  const int q0 = blockIdx.x * BO;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + hh * a.q_sh;
+  const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + hh * a.k_sh;
+  const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + hh * a.v_sh;
+  const T* gp = static_cast<const T*>(a.g) + b * a.g_sb + hh * a.g_sh;
+
+  load_tile<T, D>(qs, D, qp, a.q_st, q0, BO, a.t_q, a.scale);
+  load_tile<T, D>(gs, D, gp, a.g_st, q0, BO, a.t_q, 1.f);
+
+  float lse[R], delta[R], acc[R][P];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int qpos = q0 + warp * R + r;
+    const bool live = qpos < a.t_q;
+    lse[r] = live ? a.lse[(int64_t)bh * a.t_q + qpos] : 0.f;
+    delta[r] = live ? a.delta[(int64_t)bh * a.t_q + qpos] : 0.f;
+#pragma unroll
+    for (int i = 0; i < P; ++i) acc[r][i] = 0.f;
+  }
+
+  int n_tiles = (a.t_kv + kBT - 1) / kBT;
+  if (a.causal) {
+    const int frontier = (q0 + BO + kBT - 1) / kBT;  // tiles with key < q0+BO
+    if (frontier < n_tiles) n_tiles = frontier;
+  }
+  float* patch = dss + warp * R * kBT;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * kBT;
+    __syncthreads();  // the previous tile is consumed (and qs, gs written)
+    load_tile<T, D>(ks, D + 1, kp, a.k_st, k0, kBT, a.t_kv, 1.f);
+    load_tile<T, D>(vs, D + 1, vp, a.v_st, k0, kBT, a.t_kv, 1.f);
+    __syncthreads();
+
+    float s[R], dp[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[r] = dp[r] = 0.f;
+    score_rows<R, D>(s, dp, qs + warp * R * D, gs + warp * R * D,
+                     ks + lane * (D + 1), vs + lane * (D + 1));
+    const int kpos = k0 + lane;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int qpos = q0 + warp * R + r;
+      const bool ok =
+          qpos < a.t_q && kpos < a.t_kv && (!a.causal || qpos >= kpos);
+      // a masked score is NEG_INF, and exp(NEG_INF - lse) is 0
+      const float p = ok ? expf(s[r] - lse[r]) : 0.f;
+      patch[r * kBT + lane] = p * (dp[r] - delta[r]) * a.scale;
+    }
+    __syncwarp();
+    accumulate_rows<R, D>(acc, patch, ks, lane);
+  }
+
+  T* op = static_cast<T*>(a.dq);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int qpos = q0 + warp * R + r;
+    if (qpos >= a.t_q) continue;
+    T* orow = op + (((int64_t)b * a.t_q + qpos) * a.h + hh) * D;
+#pragma unroll
+    for (int i = 0; i < P; ++i) store_f32(orow + lane + 32 * i, acc[r][i]);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdWarps * 32)
+    flash_bwd_dkv_kernel(BwdArgs a) {
+  constexpr int R = BwdCfg<D>::kRows;
+  constexpr int BO = BwdCfg<D>::kBO;
+  constexpr int P = BwdCfg<D>::kPer;
+  extern __shared__ float4 bwd_smem[];  // 16-byte aligned
+  float* ks = reinterpret_cast<float*>(bwd_smem);  // BO x D
+  float* vs = ks + BO * D;                         // BO x D
+  float* pss = vs + BO * D;                        // BO x kBT: p patches
+  float* dss = pss + BO * kBT;                     // BO x kBT: ds patches
+  float* qs = dss + BO * kBT;      // kBT x (D + 1), pre-scaled
+  float* gs = qs + kBT * (D + 1);  // kBT x (D + 1)
+  float* ls = gs + kBT * (D + 1);  // kBT: lse of the streamed queries
+  float* des = ls + kBT;           // kBT: their delta
+
+  const int bh = blockIdx.y;
+  const int b = bh / a.h, hh = bh % a.h;
+  const int k0 = blockIdx.x * BO;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + hh * a.q_sh;
+  const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + hh * a.k_sh;
+  const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + hh * a.v_sh;
+  const T* gp = static_cast<const T*>(a.g) + b * a.g_sb + hh * a.g_sh;
+
+  load_tile<T, D>(ks, D, kp, a.k_st, k0, BO, a.t_kv, 1.f);
+  load_tile<T, D>(vs, D, vp, a.v_st, k0, BO, a.t_kv, 1.f);
+
+  float dk[R][P], dv[R][P];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int i = 0; i < P; ++i) dk[r][i] = dv[r][i] = 0.f;
+
+  const int n_tiles = (a.t_q + kBT - 1) / kBT;
+  // causal: query tiles wholly before this key tile contribute nothing
+  const int first = a.causal ? k0 / kBT : 0;
+  float* p_patch = pss + warp * R * kBT;
+  float* ds_patch = dss + warp * R * kBT;
+  for (int j = first; j < n_tiles; ++j) {
+    const int q0 = j * kBT;
+    __syncthreads();  // the previous tile is consumed (and ks, vs written)
+    load_tile<T, D>(qs, D + 1, qp, a.q_st, q0, kBT, a.t_q, a.scale);
+    load_tile<T, D>(gs, D + 1, gp, a.g_st, q0, kBT, a.t_q, 1.f);
+    if (tid < kBT) {
+      const int t = q0 + tid;
+      ls[tid] = t < a.t_q ? a.lse[(int64_t)bh * a.t_q + t] : 0.f;
+      des[tid] = t < a.t_q ? a.delta[(int64_t)bh * a.t_q + t] : 0.f;
+    }
+    __syncthreads();
+
+    float s[R], dp[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[r] = dp[r] = 0.f;
+    score_rows<R, D>(s, dp, ks + warp * R * D, vs + warp * R * D,
+                     qs + lane * (D + 1), gs + lane * (D + 1));
+    const int qpos = q0 + lane;
+    const float lse = ls[lane], delta = des[lane];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int kpos = k0 + warp * R + r;
+      const bool ok =
+          qpos < a.t_q && kpos < a.t_kv && (!a.causal || qpos >= kpos);
+      const float p = ok ? expf(s[r] - lse) : 0.f;
+      p_patch[r * kBT + lane] = p;
+      // ds without its scale: qs carries it (ds * q = p (dp - delta) (q scale))
+      ds_patch[r * kBT + lane] = p * (dp[r] - delta);
+    }
+    __syncwarp();
+    accumulate_rows<R, D>(dv, p_patch, gs, lane);
+    accumulate_rows<R, D>(dk, ds_patch, qs, lane);
+  }
+
+  T* dkp = static_cast<T*>(a.dk);
+  T* dvp = static_cast<T*>(a.dv);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int kpos = k0 + warp * R + r;
+    if (kpos >= a.t_kv) continue;
+    const int64_t off = (((int64_t)b * a.t_kv + kpos) * a.h + hh) * D;
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      store_f32(dkp + off + lane + 32 * i, dk[r][i]);
+      store_f32(dvp + off + lane + 32 * i, dv[r][i]);
+    }
+  }
+}
+
+// Every backward block needs more than the 48 KB of shared memory a launch
+// gets by default: raise the kernel's limit first, or the launch is refused.
+template <typename K>
+cudaError_t launch_bwd(K kernel, const BwdArgs& a, int tiles, int bh,
+                       size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((unsigned)tiles, (unsigned)bh), kBwdWarps * 32, smem, stream>>>(
+      a);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_bwd_td(const BwdArgs& a, int bh, bool dkv,
+                          cudaStream_t stream) {
+  constexpr int BO = BwdCfg<D>::kBO;
+  if (dkv)
+    return launch_bwd(flash_bwd_dkv_kernel<T, D>, a, (a.t_kv + BO - 1) / BO,
+                      bh, BwdCfg<D>::kSmemDkv, stream);
+  return launch_bwd(flash_bwd_dq_kernel<T, D>, a, (a.t_q + BO - 1) / BO, bh,
+                    BwdCfg<D>::kSmemDq, stream);
+}
+
+template <typename T>
+cudaError_t launch_bwd_t(const BwdArgs& a, int d, int bh, bool dkv,
+                         cudaStream_t stream) {
+  if (d == 32) return launch_bwd_td<T, 32>(a, bh, dkv, stream);
+  if (d == 64) return launch_bwd_td<T, 64>(a, bh, dkv, stream);
+  if (d == 128) return launch_bwd_td<T, 128>(a, bh, dkv, stream);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t launch_bwd_any(const BwdArgs& a, int dtype, int d, int b, bool dkv,
+                           cudaStream_t stream) {
+  if (b <= 0 || a.h <= 0 || a.t_q <= 0 || a.t_kv <= 0)
+    return cudaErrorInvalidValue;
+  if (a.causal && a.t_q != a.t_kv) return cudaErrorInvalidValue;
+  if (dtype == 0) return launch_bwd_t<float>(a, d, b * a.h, dkv, stream);
+  if (dtype == 1)
+    return launch_bwd_t<__nv_bfloat16>(a, d, b * a.h, dkv, stream);
+  return cudaErrorInvalidValue;
+}
+
+// The 12 strides are those of q, k, v, g: batch, token, head each.
+BwdArgs bwd_args(const void* q, const void* k, const void* v, const void* g,
+                 const int64_t* strides, const float* lse, const float* delta,
+                 int h, int t_q, int t_kv, float scale, int causal) {
+  BwdArgs a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.g = g;
+  a.q_sb = strides[0];
+  a.q_st = strides[1];
+  a.q_sh = strides[2];
+  a.k_sb = strides[3];
+  a.k_st = strides[4];
+  a.k_sh = strides[5];
+  a.v_sb = strides[6];
+  a.v_st = strides[7];
+  a.v_sh = strides[8];
+  a.g_sb = strides[9];
+  a.g_st = strides[10];
+  a.g_sh = strides[11];
+  a.lse = lse;
+  a.delta = delta;
+  a.dq = nullptr;
+  a.dk = nullptr;
+  a.dv = nullptr;
+  a.h = h;
+  a.t_q = t_q;
+  a.t_kv = t_kv;
+  a.scale = scale;
+  a.causal = causal;
+  return a;
+}
+
+// ---------------------------------------------------------------------
 // decode
 
 constexpr int kDecThreads = 128;
@@ -427,6 +822,37 @@ int cmn_flash_fwd(const void* q, const void* k, const void* v, int dtype,
   if (dtype == 0) return (int)launch_fwd_d<float>(a, d, b * h, stream);
   if (dtype == 1) return (int)launch_fwd_d<__nv_bfloat16>(a, d, b * h, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// The backward's operands: q, k, v and g (the gradient of out) are
+// (B, T, H, D) of one dtype, D contiguous, other axes through the 12
+// element strides of `strides` (q, k, v, g; batch, token, head each); lse
+// and delta = rowsum(g * out) are (B, H, Tq) f32.  Causal needs Tq == Tkv.
+// D is 32, 64 or 128.  dq is (B, Tq, H, D), dk and dv (B, Tkv, H, D), all
+// contiguous in the operands' dtype.
+int cmn_flash_bwd_dq(const void* q, const void* k, const void* v,
+                     const void* g, int dtype, int d, const int64_t* strides,
+                     const float* lse, const float* delta, void* dq, int b,
+                     int h, int t_q, int t_kv, float scale, int causal,
+                     void* stream_ptr) {
+  BwdArgs a =
+      bwd_args(q, k, v, g, strides, lse, delta, h, t_q, t_kv, scale, causal);
+  a.dq = dq;
+  return (int)launch_bwd_any(a, dtype, d, b, false,
+                             static_cast<cudaStream_t>(stream_ptr));
+}
+
+int cmn_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                      const void* g, int dtype, int d, const int64_t* strides,
+                      const float* lse, const float* delta, void* dk, void* dv,
+                      int b, int h, int t_q, int t_kv, float scale, int causal,
+                      void* stream_ptr) {
+  BwdArgs a =
+      bwd_args(q, k, v, g, strides, lse, delta, h, t_q, t_kv, scale, causal);
+  a.dk = dk;
+  a.dv = dv;
+  return (int)launch_bwd_any(a, dtype, d, b, true,
+                             static_cast<cudaStream_t>(stream_ptr));
 }
 
 // q: (N, H, D) f32/bf16 through strides (row, head); k, v: one layer's

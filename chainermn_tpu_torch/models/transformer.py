@@ -1,11 +1,16 @@
-"""Decoder-only transformer LM, and its slot-KV-cache serving functions.
+"""Decoder-only transformer LM, its training loss and its
+slot-KV-cache serving functions.
 
 Counterpart of ``chainermn_tpu/models/transformer.py``: the same blocks
 (pre-LayerNorm, fused qkv projection, causal flash attention, gelu MLP),
-the same parameter tree, and module-level serving functions
-(:func:`init_kv_cache`, :func:`prefill`, :func:`decode_step`) that do the
-same arithmetic as :meth:`TransformerLM.forward` over the same
-parameters.
+the same parameter tree, the next-token loss (:func:`lm_loss`,
+:func:`lm_loss_sum`) over the fused cross-entropy, and module-level
+serving functions (:func:`init_kv_cache`, :func:`prefill`,
+:func:`decode_step`) that do the same arithmetic as
+:meth:`TransformerLM.forward` over the same parameters.
+:meth:`TransformerLM.forward` records gradients (LayerNorm, flash
+attention and the cross-entropy each carry their backward); the serving
+functions are inference: call them under ``torch.no_grad()``.
 
 Parameters keep flax's names AND layouts (``qkv/kernel`` is ``(d, 3, H,
 d_head)``, a Dense ``kernel`` is ``(in, out)``), so a flax tree carries
@@ -16,8 +21,7 @@ LM head is a float32 product over activations first rounded to
 
 Not ported yet (they raise ``NotImplementedError``): ``tp_axis``,
 ``sequence_axis`` and dropout (ROADMAP.md A6, A7), the paged cache and
-speculative verification (ROADMAP.md A8), and every backward: the
-forward is inference-only until transformer training lands.
+speculative verification (ROADMAP.md A8).
 """
 
 import torch
@@ -92,8 +96,7 @@ def _unported(sequence_axis, tp_axis, dropout):
             'sequence_axis / tp_axis are not ported yet (ROADMAP.md A7)')
     if dropout:
         raise NotImplementedError(
-            'dropout is not ported yet: the port serves, it does not train '
-            'transformers yet (ROADMAP.md A6)')
+            'dropout is not ported yet (ROADMAP.md A6)')
 
 
 class TransformerBlock(nn.Module):
@@ -131,9 +134,7 @@ class TransformerLM(nn.Module):
 
     Parameters are made on the CPU from ``generator`` (default: seed 0)
     and moved to ``device`` (default: the current CUDA device; raises
-    when there is none).  Forward-only (call it under
-    ``torch.no_grad()``): the kernels' backwards come with transformer
-    training (ROADMAP.md A6, B6)."""
+    when there is none)."""
 
     def __init__(self, vocab_size=32000, d_model=512, n_heads=8,
                  n_layers=6, d_ff=2048, max_len=32768, dtype=torch.bfloat16,
@@ -171,6 +172,44 @@ class TransformerLM(nn.Module):
             x = getattr(self, 'block_%d' % i)(x)
         x = ops.layer_norm(x, self.lnf_scale, self.lnf_bias)
         return self.lm_head(x.to(self.dtype))
+
+
+def lm_loss_sum(apply_fn, pad_id=-1):
+    """Next-token loss in sum/count form: the returned ``loss_fn(tokens,
+    targets)`` gives ``((loss_sum, token_count), {})``.  ``apply_fn`` is
+    the model, or any callable from ``tokens`` ``(B, T)`` to logits ``(B,
+    T, V)``.  Targets equal to ``pad_id`` are handed to the cross-entropy
+    as they are (a label outside the vocabulary picks nothing) and masked
+    out afterwards, so their rows get no gradient.  :func:`lm_loss` is
+    the mean form of this same computation."""
+
+    def loss_fn(tokens, targets):
+        logits = apply_fn(tokens)
+        b, t, v = logits.shape
+        flat = targets.reshape(b * t)
+        ce = ops.softmax_cross_entropy(logits.reshape(b * t, v),
+                                       flat.to(torch.int32))
+        mask = (flat != pad_id).to(torch.float32)
+        return ((ce * mask).sum(), mask.sum()), {}
+
+    return loss_fn
+
+
+def lm_loss(apply_fn, pad_id=-1):
+    """Next-token loss over ``(tokens, targets)`` through the fused
+    cross-entropy: the returned ``loss_fn(tokens, targets)`` gives
+    ``(loss, {'perp': exp(min(loss, 20))})``, the form
+    :class:`chainermn_tpu_torch.training.StandardUpdater` takes.
+    ``pad_id`` target positions are masked out (use -1 when every
+    position is real)."""
+    sum_fn = lm_loss_sum(apply_fn, pad_id)
+
+    def loss_fn(tokens, targets):
+        (total, n), _ = sum_fn(tokens, targets)
+        loss = total / n.clamp_min(1.0)
+        return loss, {'perp': torch.exp(loss.detach().clamp_max(20.0))}
+
+    return loss_fn
 
 
 # ---------------------------------------------------------------------

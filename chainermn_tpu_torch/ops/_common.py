@@ -49,13 +49,12 @@ def on_cuda(*tensors):
 
 
 def forbid_grad(what, *tensors):
-    """Raise when autograd would record a forward-only op: its backward
-    comes with transformer training (ROADMAP.md A6, B6)."""
+    """Raise when autograd would record a forward-only op (the JAX
+    package gives it no backward either)."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(
-            '%s is forward-only in this port so far: its backward comes '
-            'with transformer training (ROADMAP.md A6, B6); call it under '
+            '%s is forward-only, as in the JAX package: call it under '
             'torch.no_grad() or torch.inference_mode()' % what)
 
 

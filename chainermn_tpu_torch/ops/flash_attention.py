@@ -1,28 +1,31 @@
-"""Flash attention: the prefill forward and the single-query decode read
-of a slot KV cache.
+"""Flash attention: the prefill forward with its backward, and the
+single-query decode read of a slot KV cache.
 
-Counterpart of the forward half of ``chainermn_tpu/ops/flash_attention.py``.
-Both ops keep the JAX package's online-softmax recurrence in float32
-(running max ``m``, running sum ``l``, accumulator ``acc``; masked scores
-set to the finite ``NEG_INF``; the output divided by ``max(l, 1e-30)``)
-and its layouts: ``(B, T, H, D)`` activations, ``(B, S, H, D)`` caches.
+Counterpart of ``chainermn_tpu/ops/flash_attention.py``.  The ops keep
+the JAX package's online-softmax recurrence in float32 (running max
+``m``, running sum ``l``, accumulator ``acc``; masked scores set to the
+finite ``NEG_INF``; the output divided by ``max(l, 1e-30)``) and its
+layouts: ``(B, T, H, D)`` activations, ``(B, S, H, D)`` caches.
 
 - :func:`flash_attention` / :func:`flash_attention_fwd` (causal or not,
   padded keys masked by ``kv_len``, padded query rows dropped): on CUDA
   tensors the kernel ``cmn_flash_fwd`` of ``csrc/flash_attention.cu``
   (:func:`flash_fwd`), on CPU tensors the plain blockwise version
   (:func:`_fwd_blockwise`, the twin of the JAX ``_fwd_blockwise_jnp``).
+  Both record a gradient: the backward forms ``delta = rowsum(g * out)``
+  in PyTorch ops (as the JAX package leaves it to XLA) and then, on CUDA
+  tensors, launches the two kernels ``cmn_flash_bwd_dq``
+  (:func:`flash_bwd_dq`) and ``cmn_flash_bwd_dkv``
+  (:func:`flash_bwd_dkv`); on CPU tensors it runs the plain blockwise
+  version (:func:`_bwd_blockwise`, the twin of the JAX one).
 - :func:`flash_attention_decode` (one query row per sequence against its
   cache prefix, per-row lengths, float or int8 caches with per-(position,
   head) scales, an optional row -> slot map): on CUDA tensors the kernel
   ``cmn_flash_decode`` (:func:`flash_decode`), which reads the cache in
   place through its strides; on CPU tensors the plain blockwise version
   (:func:`_decode_blockwise`), which gathers the rows first as the JAX
-  package's ``_attend_cache`` does.
-
-Forward only: the backward kernels (``_bwd_dq_kernel``,
-``_bwd_dkv_kernel``) come with transformer training (ROADMAP.md B6), and
-:func:`flash_attention` raises when asked to record a gradient.
+  package's ``_attend_cache`` does.  Forward only, as in the JAX package
+  (decode is inference): it raises when asked to record a gradient.
 """
 
 import ctypes
@@ -170,6 +173,46 @@ def _fwd_plain(q, k, v, causal, scale):
     return out, lse[:, :t_q].reshape(b, h, t_q)
 
 
+def _bwd_blockwise(q, k, v, out, lse, g, causal, scale, block_k):
+    """Plain backward over merged ``(BH, T, D)`` operands, one key block
+    at a time (the last one may be short): ``p`` recomputed from the
+    forward's ``lse`` with the scores formed as :func:`_fwd_blockwise`
+    forms them.  Returns ``(dq, dk, dv)`` in the operands' dtypes."""
+    t_q, t_kv = q.shape[1], k.shape[1]
+    qf, gf = q.float(), g.float()
+    qs = qf * scale
+    delta = (gf * out.float()).sum(-1)                       # (BH, Tq)
+    dq = torch.zeros_like(qf)
+    dk, dv = [], []
+    q_pos = torch.arange(t_q, device=q.device)[:, None]
+    for j0 in range(0, t_kv, block_k):
+        kj = k[:, j0:j0 + block_k].float()
+        vj = v[:, j0:j0 + block_k].float()
+        s = torch.einsum('bqd,bkd->bqk', qs, kj)
+        if causal:
+            k_pos = j0 + torch.arange(kj.shape[1], device=q.device)[None]
+            s = torch.where(q_pos >= k_pos, s, NEG_INF)
+        p = torch.exp(s - lse[..., None])                    # (BH, Tq, bk)
+        dp = torch.einsum('bqd,bkd->bqk', gf, vj)
+        ds = p * (dp - delta[..., None]) * scale
+        dq += torch.einsum('bqk,bkd->bqd', ds, kj)
+        dk.append(torch.einsum('bqk,bqd->bkd', ds, qf))
+        dv.append(torch.einsum('bqk,bqd->bkd', p, gf))
+    return (dq.to(q.dtype), torch.cat(dk, dim=1).to(k.dtype),
+            torch.cat(dv, dim=1).to(v.dtype))
+
+
+def _bwd_plain(q, k, v, out, lse, g, causal, scale):
+    """The CPU backward: merge heads, :func:`_bwd_blockwise`, unmerge."""
+    b, t_q, h, d = q.shape
+    t_kv = k.shape[1]
+    grads = _bwd_blockwise(_merge(q), _merge(k), _merge(v), _merge(out),
+                           lse.reshape(b * h, t_q), _merge(g), causal, scale,
+                           min(BLOCK, t_kv))
+    return tuple(x.reshape(b, h, x.shape[1], d).transpose(1, 2)
+                 for x in grads)
+
+
 def _decode_plain(q, k, v, lengths, scale, k_scale, v_scale, slots):
     """The CPU decode: gather the rows' slots, merge heads, pad the
     cache axis to a block multiple, :func:`_decode_blockwise`."""
@@ -205,6 +248,12 @@ def _lib():
             [vp, vp, vp, i32, i32] + [i64] * 9
             + [vp, vp, i32, i32, i32, i32, ctypes.c_float, i32, vp])
         lib.cmn_flash_fwd.restype = ctypes.c_int
+        bwd = [vp, vp, vp, vp, i32, i32, ctypes.POINTER(i64), vp, vp]
+        tail = [i32, i32, i32, i32, ctypes.c_float, i32, vp]
+        lib.cmn_flash_bwd_dq.argtypes = bwd + [vp] + tail
+        lib.cmn_flash_bwd_dq.restype = ctypes.c_int
+        lib.cmn_flash_bwd_dkv.argtypes = bwd + [vp, vp] + tail
+        lib.cmn_flash_bwd_dkv.restype = ctypes.c_int
         lib.cmn_flash_decode.argtypes = (
             [vp, i32, i64, i64, vp, vp, i32] + [i64] * 6 + [vp, vp]
             + [i64] * 6 + [vp, vp, vp, i32, i32, i32, i32, ctypes.c_float,
@@ -223,38 +272,45 @@ def _check_cuda(what, *tensors):
                              % (what, t.device))
 
 
+def _check_qkv(what, q, k, v, causal):
+    """The checks every prefill kernel makes of its ``(B, T, H, D)``
+    operands; returns ``(b, t_q, t_kv, h, d, dtype code)``."""
+    _check_cuda(what, q, k, v)
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError('%s: expects (B, T, H, D) operands, got %s %s %s'
+                         % (what, tuple(q.shape), tuple(k.shape),
+                            tuple(v.shape)))
+    b, t_q, h, d = q.shape
+    t_kv = k.shape[1]
+    if (k.shape[0], k.shape[2], k.shape[3]) != (b, h, d):
+        raise ValueError('%s: q %s and k %s disagree on B, H or D'
+                         % (what, tuple(q.shape), tuple(k.shape)))
+    if d not in HEAD_DIMS:
+        raise ValueError('%s: head dim %d, the kernel takes %s'
+                         % (what, d, HEAD_DIMS))
+    if causal and t_q != t_kv:
+        raise ValueError('causal attention requires t_q == t_kv, got %d '
+                         'vs %d' % (t_q, t_kv))
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError('%s: q, k, v must share a dtype, got %s %s %s'
+                        % (what, q.dtype, k.dtype, v.dtype))
+    code = _common.dtype_code(q, what)
+    for t, name in ((q, 'q'), (k, 'k'), (v, 'v')):
+        if t.stride(3) != 1:
+            raise ValueError('%s: %s needs a contiguous head dim, got '
+                             'strides %s' % (what, name, t.stride()))
+    if min(t_q, t_kv, b) == 0:
+        raise ValueError('%s: empty operand' % what)
+    return b, t_q, t_kv, h, d, code
+
+
 def flash_fwd(q, k, v, causal, scale):
     """Kernel wrapper: attention forward of CUDA ``(B, T, H, D)``
     operands of one dtype (bf16 or f32), read through their strides (the
     head axis D must be contiguous; ``qkv[:, :, 0]`` views are taken as
     they are).  Returns ``(out (B, Tq, H, D) contiguous, q.dtype; lse
     (B, H, Tq) f32)``.  Replaces ``_fwd_pallas``."""
-    _check_cuda('flash_fwd', q, k, v)
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError('flash_fwd: expects (B, T, H, D) operands, got %s '
-                         '%s %s' % (tuple(q.shape), tuple(k.shape),
-                                    tuple(v.shape)))
-    b, t_q, h, d = q.shape
-    t_kv = k.shape[1]
-    if (k.shape[0], k.shape[2], k.shape[3]) != (b, h, d):
-        raise ValueError('flash_fwd: q %s and k %s disagree on B, H or D'
-                         % (tuple(q.shape), tuple(k.shape)))
-    if d not in HEAD_DIMS:
-        raise ValueError('flash_fwd: head dim %d, the kernel takes %s'
-                         % (d, HEAD_DIMS))
-    if causal and t_q != t_kv:
-        raise ValueError('causal attention requires t_q == t_kv, got %d '
-                         'vs %d' % (t_q, t_kv))
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError('flash_fwd: q, k, v must share a dtype, got %s %s '
-                        '%s' % (q.dtype, k.dtype, v.dtype))
-    code = _common.dtype_code(q, 'flash_fwd')
-    for t, name in ((q, 'q'), (k, 'k'), (v, 'v')):
-        if t.stride(3) != 1:
-            raise ValueError('flash_fwd: %s needs a contiguous head dim, got '
-                             'strides %s' % (name, t.stride()))
-    if min(t_q, t_kv, b) == 0:
-        raise ValueError('flash_fwd: empty operand')
+    b, t_q, t_kv, h, d, code = _check_qkv('flash_fwd', q, k, v, causal)
     out = torch.empty((b, t_q, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t_q), dtype=torch.float32, device=q.device)
     lib = _lib()
@@ -270,6 +326,78 @@ def flash_fwd(q, k, v, causal, scale):
 
 
 flash_fwd.launches = 0
+
+
+def _bwd_operands(what, q, k, v, g, lse, delta, causal):
+    """Check the backward kernels' operands; returns the kernels' leading
+    arguments (``g`` made contiguous when its head axis is not: the
+    gradient of ``out.sum()`` is an expanded scalar with every stride 0)
+    and ``(b, t_q, t_kv, h, d)``."""
+    b, t_q, t_kv, h, d, code = _check_qkv(what, q, k, v, causal)
+    _check_cuda(what, g, lse, delta)
+    if g.shape != q.shape or g.dtype != q.dtype:
+        raise ValueError('%s: g must be like q, %s %s, got %s %s'
+                         % (what, tuple(q.shape), q.dtype, tuple(g.shape),
+                            g.dtype))
+    if g.stride(3) != 1:
+        g = g.contiguous()
+    for t, name in ((lse, 'lse'), (delta, 'delta')):
+        if (t.shape != (b, h, t_q) or t.dtype != torch.float32
+                or not t.is_contiguous()):
+            raise ValueError('%s: %s must be a contiguous float32 %s, got '
+                             '%s %s' % (what, name, (b, h, t_q), t.dtype,
+                                        tuple(t.shape)))
+    strides = (ctypes.c_int64 * 12)(*(x.stride(i) for x in (q, k, v, g)
+                                      for i in range(3)))
+    lead = (_common.ptr(q), _common.ptr(k), _common.ptr(v), _common.ptr(g),
+            code, d, strides, _common.ptr(lse), _common.ptr(delta))
+    # g is returned too: the caller allocates its outputs before the
+    # launch, and a copy of g freed by then could be handed out again
+    return lead, g, (b, t_q, t_kv, h, d)
+
+
+def flash_bwd_dq(q, k, v, g, lse, delta, causal, scale):
+    """Kernel wrapper: ``dq`` of the attention forward.  ``q``, ``k``,
+    ``v`` as :func:`flash_fwd` takes them (read in place through their
+    strides), ``g`` the gradient of ``out`` (``(B, Tq, H, D)`` in
+    ``q.dtype``, any strides), ``lse`` the forward's and ``delta =
+    rowsum(g * out)``, both f32 ``(B, H, Tq)``.  Returns ``dq`` ``(B, Tq,
+    H, D)`` contiguous in ``q.dtype``.  Replaces the first
+    ``pallas_call`` of ``_bwd_pallas`` (``_bwd_dq_kernel``)."""
+    lead, g, (b, t_q, t_kv, h, d) = _bwd_operands(
+        'flash_bwd_dq', q, k, v, g, lse, delta, causal)
+    dq = torch.empty((b, t_q, h, d), dtype=q.dtype, device=q.device)
+    lib = _lib()
+    err = lib.cmn_flash_bwd_dq(
+        *lead, _common.ptr(dq), b, h, t_q, t_kv, float(scale),
+        int(bool(causal)), _common.stream_ptr(q.device))
+    _common.check_launch(err, lib.cmn_fa_strerror, 'flash_bwd_dq')
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, g, lse, delta, causal, scale):
+    """Kernel wrapper: ``dk`` and ``dv`` of the attention forward, from
+    the operands of :func:`flash_bwd_dq`.  Returns ``(dk, dv)``, each
+    ``(B, Tkv, H, D)`` contiguous in ``k.dtype``.  Replaces the second
+    ``pallas_call`` of ``_bwd_pallas`` (``_bwd_dkv_kernel``)."""
+    lead, g, (b, t_q, t_kv, h, d) = _bwd_operands(
+        'flash_bwd_dkv', q, k, v, g, lse, delta, causal)
+    dk = torch.empty((b, t_kv, h, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, t_kv, h, d), dtype=v.dtype, device=v.device)
+    lib = _lib()
+    err = lib.cmn_flash_bwd_dkv(
+        *lead, _common.ptr(dk), _common.ptr(dv), b, h, t_q, t_kv,
+        float(scale), int(bool(causal)), _common.stream_ptr(q.device))
+    _common.check_launch(err, lib.cmn_fa_strerror, 'flash_bwd_dkv')
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
 
 
 def _aligned16(t):
@@ -361,20 +489,45 @@ flash_decode.launches = 0
 # ---------------------------------------------------------------------
 # public ops
 
+class _FlashAttention(torch.autograd.Function):
+    """``(out, lse)`` of the attention forward; ``lse`` carries no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        if _common.on_cuda(q, k, v):
+            out, lse = flash_fwd(q, k, v, causal, scale)
+        else:
+            out, lse = _fwd_plain(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if not _common.on_cuda(q, k, v, g):
+            dq, dk, dv = _bwd_plain(q, k, v, out, lse, g, ctx.causal,
+                                    ctx.scale)
+            return dq, dk, dv, None, None
+        # delta = rowsum(g * out), (B, Tq, H) -> (B, H, Tq) as lse
+        delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        dq = flash_bwd_dq(q, k, v, g, lse, delta, ctx.causal, ctx.scale)
+        dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention_fwd(q, k, v, causal=False, scale=None):
     """Attention forward with its log-sum-exp: ``q`` ``(B, Tq, H, D)``,
     ``k`` / ``v`` ``(B, Tkv, H, D)``; returns ``(out (B, Tq, H, D),
     lse (B, H, Tq) f32)``, ``lse`` in the scaled-score units the
     chunked-prefill merge needs.  With ``causal=True``, Tq must equal
-    Tkv."""
-    _common.forbid_grad('flash_attention', q, k, v)
+    Tkv.  ``out`` is differentiable in ``q``, ``k`` and ``v``."""
     if causal and q.shape[1] != k.shape[1]:
         raise ValueError('causal attention requires t_q == t_kv, got %d '
                          'vs %d' % (q.shape[1], k.shape[1]))
-    scale = _scale(q, scale)
-    if _common.on_cuda(q, k, v):
-        return flash_fwd(q, k, v, causal, scale)
-    return _fwd_plain(q, k, v, causal, scale)
+    return _FlashAttention.apply(q, k, v, bool(causal), _scale(q, scale))
 
 
 def flash_attention(q, k, v, causal=False, scale=None):
@@ -395,6 +548,7 @@ def flash_attention_decode(q, k, v, lengths, scale=None, k_scale=None,
     ``(.., S, H)`` from :func:`chainermn_tpu_torch.precision.quantize_kv`,
     dequantized in the kernel before the products.  Lengths are 1..S.
     """
+    _common.forbid_grad('flash_attention_decode', q, k, v, k_scale, v_scale)
     if (k_scale is None) != (v_scale is None):
         raise ValueError('int8 KV decode needs BOTH k_scale and v_scale '
                          '(or neither)')

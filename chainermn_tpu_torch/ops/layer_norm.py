@@ -1,4 +1,4 @@
-"""LayerNorm forward over the last axis.
+"""LayerNorm over the last axis.
 
 Counterpart of ``chainermn_tpu/ops/layer_norm.py``: per row, the mean
 and the variance of the centred values in float32, ``(x - mean) *
@@ -10,9 +10,11 @@ On a CUDA tensor :func:`layer_norm` launches the hand-written kernel
 ``csrc/layer_norm.cu`` (:func:`ln_forward`); on a CPU tensor it runs the
 plain version (:func:`layer_norm_reference`).
 
-Forward only in this slice: the closed-form backward of the JAX package
-(``_ln_bwd``) comes with transformer training (ROADMAP.md A6), and
-:func:`layer_norm` raises when asked to record a gradient.
+The backward is the closed form of the JAX package's ``_ln_bwd`` in
+PyTorch ops on both devices (the JAX package has no LayerNorm backward
+kernel either): the statistics are recomputed in float32 from the saved
+``x``, ``dx`` comes back in ``x.dtype``, ``dgamma`` and ``dbeta`` in
+``gamma.dtype``.
 """
 
 import ctypes
@@ -87,13 +89,39 @@ def ln_forward(x2d, gamma, beta, eps=1e-6):
 ln_forward.launches = 0
 
 
+class _LayerNorm(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        ctx.save_for_backward(x, gamma)
+        ctx.eps = eps
+        if not _common.on_cuda(x, gamma, beta):
+            return layer_norm_reference(x, gamma, beta, eps)
+        d = x.shape[-1]
+        out = ln_forward(x.reshape(-1, d).contiguous(), gamma.contiguous(),
+                         beta.contiguous(), eps)
+        return out.view(x.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma = ctx.saved_tensors
+        d = x.shape[-1]
+        xf = x.reshape(-1, d).float()
+        gf = g.reshape(-1, d).float()
+        xc = xf - xf.mean(-1, keepdim=True)
+        rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + ctx.eps)
+        xhat = xc * rstd
+        dgamma = (gf * xhat).sum(0)
+        dbeta = gf.sum(0)
+        gy = gf * gamma.float()
+        dx = rstd * (gy - gy.mean(-1, keepdim=True)
+                     - xhat * (gy * xhat).mean(-1, keepdim=True))
+        return (dx.reshape(x.shape).to(x.dtype), dgamma.to(gamma.dtype),
+                dbeta.to(gamma.dtype), None)
+
+
 def layer_norm(x, gamma, beta, eps=1e-6):
     """LayerNorm over the last axis.  ``x`` ``(..., D)``, ``gamma`` /
-    ``beta`` ``(D,)``; returns ``x.dtype``."""
-    _common.forbid_grad('layer_norm', x, gamma, beta)
-    if not _common.on_cuda(x, gamma, beta):
-        return layer_norm_reference(x, gamma, beta, eps)
-    d = x.shape[-1]
-    out = ln_forward(x.reshape(-1, d).contiguous(), gamma.contiguous(),
-                     beta.contiguous(), eps)
-    return out.view(x.shape)
+    ``beta`` ``(D,)``; returns ``x.dtype``.  Differentiable in all
+    three."""
+    return _LayerNorm.apply(x, gamma, beta, eps)

@@ -67,8 +67,10 @@ class StandardUpdater:
         self.optimizer.zero_grad(set_to_none=True)
         loss, metrics = self.loss_fn(*arrays)
         loss.backward()
-        if self.model_state:
-            buffers = list(self.model.buffers())
+        # a model without buffers (the transformer) has nothing to sync:
+        # no collective is issued for it
+        buffers = list(self.model.buffers()) if self.model_state else []
+        if buffers:
             with torch.no_grad():
                 for b, synced in zip(buffers,
                                      self.comm.allreduce(buffers, 'mean')):

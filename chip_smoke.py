@@ -32,12 +32,35 @@ Phases, each printing its own lines; any failure exits non-zero:
    launch counts checked against the structure, tokens/s, TTFT, the
    decode step, a profile of decode steps, a replay of the same
    requests with every step's logits checked finite, and an int8-KV
-   engine.
+   engine;
+8. the training kernels against their plain versions on the card: the
+   fused cross-entropy forward at the LM's ``(8192, 32000)`` f32 logits,
+   and the two flash-attention backward kernels (dq; dk and dv) at the
+   LM's ``(8, 1024, 8, 64)`` bf16 causal shape, ragged lengths, every
+   head width, strided views and an expanded gradient, each run twice
+   for bit-equal results;
+9. LM check: a depth-2 f32 full-width ``TransformerLM`` from
+   numpy-seeded weights, ``lm_loss`` and every leaf's gradient on the
+   card (kernels) against the CPU (plain versions);
+10. the LM training main path: ``create_communicator('xla')`` ->
+    ``TransformerLM`` (32000 vocab, d 512, 8 heads, 6 layers, d_ff 2048,
+    max_len 1024; bf16 compute, f32 masters) ->
+    ``create_multi_node_optimizer(torch.optim.Adam(lr=1e-3))`` ->
+    ``StandardUpdater(lm_loss(model))`` -> ``Trainer`` on one fixed batch
+    of 8 x 1024 tokens, with the launch counts checked against the
+    structure, tokens/s, step times, peak memory and a profile.
 
 A kernel row's ``ms``, ``plain_ms`` and ``library_ms`` are times per
 call between CUDA events, launches included; ``device_ms``,
 ``plain_device_ms`` and ``library_device_ms`` sum only the kernels'
-own device time from ``torch.profiler``.
+own device time from ``torch.profiler``, and are null when the tracer
+recorded no device event in any of its tries (the script does not fail
+for a lost trace: every check and every time of the contract comes from
+the kernels' results and from CUDA events).
+
+A kernel row's ``launches`` sums the main paths that run it
+(``launches_by_path`` splits them); each path is driven with the counts
+set to 0 just before it and read just after.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
@@ -67,13 +90,19 @@ SERVE_SLOTS = 32
 SERVE_PROMPT = 128
 SERVE_NEW = 32
 SERVE_REQUESTS = 64
-SERVE_KERNELS = ('layer_norm', 'flash_fwd', 'flash_decode')
 # (rtol, atol) of a serving kernel's bf16 output against its plain
 # version: both compute in f32 and round once, so they differ by f32
 # sums in another order (about 1e-6 on outputs of size 1) and at most
 # one bf16 rounding flip, which is one unit in the last place: at most
 # 2 ** -7 of the value
 BF16_TOL = (2 ** -7, 1e-5)
+# the LM training benchmark's model and batch (bench.py, the transformer
+# model): 8 sequences of 1024 tokens, Adam at 1e-3
+LM_CFG = dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=6,
+              d_ff=2048, max_len=1024)
+LM_BATCH = 8
+LM_SEQ = 1024
+LM_STEPS = 10
 
 
 def _say(phase, msg):
@@ -98,27 +127,33 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+# how often a profiled reading is taken again when its trace holds no
+# device event: the tracer now and then loses a whole session
+PROFILE_TRIES = 3
+
+
 def device_ms(fn, iters=20, warmup=3):
     """Mean device time of ``fn`` per call: the time of every kernel it
     launches, summed from ``torch.profiler`` -- the launch gaps that
-    ``time_ms`` counts are left out."""
+    ``time_ms`` counts are left out.  A trace without device events is
+    taken again; ``None`` (not measured) when every try came back empty,
+    since a lost trace says nothing about the kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and not getattr(e, 'is_user_annotation', False)
-             and not e.key.startswith('Optimizer.'))
-    if us == 0:
-        raise AssertionError('the profiler recorded no device time')
-    return us / iters / 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(_kernel_times(prof).values())
+        if us > 0:
+            return us / iters / 1e3
+        _say('profile', 'a trace held no device event')
+    return None
 
 
 def timings(kernel, plain, library, iters=20, plain_iters=None):
@@ -136,14 +171,18 @@ def timings(kernel, plain, library, iters=20, plain_iters=None):
     return out
 
 
+def _ms(t):
+    return '%.5f' % t if t is not None else 'not measured'
+
+
 def _fmt(t):
     """A row's times for a log line."""
-    return ('per call %.5f ms (plain %.5f, library %s); device only %.5f '
-            'ms (plain %.5f, library %s)' % (
+    return ('per call %.5f ms (plain %.5f, library %s); device only %s '
+            'ms (plain %s, library %s)' % (
                 t['ms'], t['plain_ms'], '%.5f' % t['library_ms']
-                if t['library_ms'] is not None else '-', t['device_ms'],
-                t['plain_device_ms'], '%.5f' % t['library_device_ms']
-                if t['library_device_ms'] is not None else '-'))
+                if t['library_ms'] is not None else '-', _ms(t['device_ms']),
+                _ms(t['plain_device_ms']), _ms(t['library_device_ms'])
+                if t['library_ms'] is not None else '-'))
 
 
 def bound_ms(n_bytes, n_flops, flops_per_s=F32_FLOPS_PER_S):
@@ -342,8 +381,9 @@ def _strided_qkv(gen, lead, h, d, dtype):
 
 
 def _ln_cases(gen):
-    """LayerNorm kernel vs plain at the serving shapes; returns the
-    record and the max error."""
+    """LayerNorm kernel vs plain at the serving shapes and at the LM
+    training shape (bf16 rows, f32 ``gamma`` / ``beta``: the f32 master
+    parameters); returns the record and the max error."""
     import torch
     import torch.nn.functional as F
     from chainermn_tpu_torch import ops
@@ -351,33 +391,47 @@ def _ln_cases(gen):
     err = {f32: 0.0, bf16: 0.0}
     # f32 statistics in another order: 2e-5; bf16 output: BF16_TOL
     tol = {f32: (2e-5, 2e-5), bf16: BF16_TOL}
-    timed = None
-    for n, dtype in ((128, bf16), (32, bf16), (100, f32), (1, bf16)):
+    timed = {}
+    for n, dtype, g_dtype in ((128, bf16, bf16), (32, bf16, bf16),
+                              (100, f32, f32), (1, bf16, bf16),
+                              (32, bf16, f32), (100, f32, bf16),
+                              (LM_BATCH * LM_SEQ, bf16, f32)):
         x = (torch.randn((n, 512), generator=gen, device='cuda') * 3
              + 1).to(dtype)
         g = (torch.randn(512, generator=gen, device='cuda') * 0.5
-             + 1).to(dtype)
-        b = torch.randn(512, generator=gen, device='cuda').to(dtype)
+             + 1).to(g_dtype)
+        b = torch.randn(512, generator=gen, device='cuda').to(g_dtype)
         got = ops.ln_forward(x, g, b)
+        torch.cuda.synchronize()
         want = ops.layer_norm_reference(x, g, b)
-        check_close('layer_norm %s' % ((n, 512),), got, want, *tol[dtype])
+        check_close('layer_norm %s x %s gamma %s' % ((n, 512), dtype, g_dtype),
+                    got, want, *tol[dtype])
         err[dtype] = max(err[dtype], max_err(got, want))
-        if n == 32:
-            timed = (x, g, b)
-    x, g, b = timed
-    n, d = x.shape
-    t = timings(lambda: ops.ln_forward(x, g, b),
-                lambda: ops.layer_norm_reference(x, g, b),
-                lambda: F.layer_norm(x, (d,), g, b, 1e-6), iters=200)
-    b_ms, b_by = bound_ms(2 * n * d * x.element_size() + 2 * d * 2, 8 * n * d)
-    _say('kernels', 'layer_norm max err f32 %.3g, bf16 %.3g (rtol, atol: '
-         '%s, %s); at (32, 512) bf16: %s (F.layer_norm); bound %.5f ms'
-         % (err[f32], err[bf16], tol[f32], tol[bf16], _fmt(t), b_ms))
+        timed[(n, g_dtype)] = (x, g, b)
+    records = {}
+    for key in ((32, bf16), (LM_BATCH * LM_SEQ, f32)):
+        x, g, b = timed[key]
+        n, d = x.shape
+        # the library call takes one dtype: gamma and beta rounded to x's
+        # beforehand, outside the timed call
+        lg, lb = g.to(x.dtype), b.to(x.dtype)
+        t = timings(lambda: ops.ln_forward(x, g, b),
+                    lambda: ops.layer_norm_reference(x, g, b),
+                    lambda: F.layer_norm(x, (d,), lg, lb, 1e-6),
+                    iters=200 if n == 32 else 20)
+        b_ms, b_by = bound_ms(2 * n * d * x.element_size()
+                              + 2 * d * g.element_size(), 8 * n * d)
+        records[key] = dict(bound_ms=b_ms, bound_by=b_by, **t)
+        _say('kernels', 'layer_norm at %s bf16, gamma %s: %s (F.layer_norm); '
+             'bound %.5f ms by %s' % ((n, d), str(g.dtype).split('.')[-1],
+                                      _fmt(t), b_ms, b_by))
+    _say('kernels', 'layer_norm max err f32 %.3g, bf16 %.3g over %d cases '
+         '(rtol, atol: %s, %s)' % (err[f32], err[bf16], len(timed), tol[f32],
+                                   tol[bf16]))
     return dict(name='layer_norm', route='cuda',
                 source='chainermn_tpu_torch/csrc/layer_norm.cu',
                 replaces='chainermn_tpu/ops/layer_norm.py:40',
-                max_abs_err=max(err.values()), bound_ms=b_ms, bound_by=b_by,
-                **t)
+                max_abs_err=max(err.values()), **records[(32, bf16)])
 
 
 def _flash_fwd_cost(b, t, h, d, itemsize):
@@ -398,9 +452,11 @@ def _flash_cases(gen):
     # both): rtol 1e-5, atol 1e-4 (the log of a sum of up to 2048 terms)
     tol = {f32: (1e-5, 1e-5), bf16: BF16_TOL}
     errs = []
+    lm_shape = (LM_BATCH, LM_SEQ, LM_CFG['n_heads'],
+                LM_CFG['d_model'] // LM_CFG['n_heads'])
     cases = [((1, 128, 8, 64), bf16), ((1, 100, 8, 64), f32),
              ((2, 2048, 8, 64), bf16), ((1, 37, 4, 32), bf16),
-             ((1, 70, 2, 128), f32)]
+             ((1, 70, 2, 128), f32), (lm_shape, bf16)]
     timed = {}
     for (b, t, h, d), dtype in cases:
         q, k, v = _strided_qkv(gen, (b, t), h, d, dtype)
@@ -423,13 +479,14 @@ def _flash_cases(gen):
     check_close('flash_fwd non-causal', out, pout, 1e-5, 1e-5)
     errs.append(max_err(out, pout))
     records = {}
-    for shape in ((1, 128, 8, 64), (2, 2048, 8, 64)):
+    for shape in ((1, 128, 8, 64), (2, 2048, 8, 64), lm_shape):
         q, k, v = timed[shape]
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         t = timings(lambda: ops.flash_fwd(q, k, v, True, 0.125),
                     lambda: fa._fwd_plain(q, k, v, True, 0.125),
                     lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True), iters=50, plain_iters=5)
+                        qt, kt, vt, is_causal=True),
+                    iters=50 if shape[1] == 128 else 10, plain_iters=3)
         n_bytes, n_ops = _flash_fwd_cost(*shape, 2)
         b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_TC_FLOPS_PER_S)
         records[shape] = dict(bound_ms=b_ms, bound_by=b_by, **t)
@@ -514,9 +571,9 @@ def _decode_cases(gen):
     i8_ms, _ = bound_ms(2 * live * h * (d + 4) + 2 * rows * h * d * 2, 0)
     _say('kernels', 'flash_decode max err %.3g over %d cases (bf16 rtol, '
          'atol: %s); 32 rows, S 512, %d live positions, bf16: %s (SDPA '
-         'with a length mask); bound %.5f ms; int8 device only %.5f ms '
+         'with a length mask); bound %.5f ms; int8 device only %s ms '
          '(bound %.5f)' % (max(errs), len(errs), BF16_TOL, live, _fmt(t),
-                           b_ms, t_int8, i8_ms))
+                           b_ms, _ms(t_int8), i8_ms))
     return dict(name='flash_decode', route='cuda',
                 source='chainermn_tpu_torch/csrc/flash_attention.cu',
                 replaces='chainermn_tpu/ops/flash_attention.py:650',
@@ -588,39 +645,69 @@ _GROUPS = (('ported kernels', ('stats_partial', 'stats_finalize',
            ('copies and casts', ('memcpy', 'memset', 'copy')))
 
 
-def profile_steps(updater, n=3):
-    """Device time by kernel group over ``n`` more steps of the main
-    path (``torch.profiler``), and the device busy share of that
-    window's wall time."""
+def _kernel_times(prof):
+    """Device time (us) by kernel name from a ``torch.profiler`` run.
+    User annotations (e.g. ``Optimizer.step``) span kernels already
+    counted and are left out."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            updater.update()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
     kernels = {}
     for evt in prof.key_averages():
-        # user annotations (e.g. Optimizer.step) span kernels already
-        # counted: skip them
         if (evt.device_type == torch.autograd.DeviceType.CUDA
                 and not getattr(evt, 'is_user_annotation', False)
                 and not evt.key.startswith('Optimizer.')):
             kernels[evt.key] = kernels.get(evt.key, 0.0) \
                 + evt.self_device_time_total
-    busy = sum(kernels.values())
-    if busy == 0:
-        _say('profile', 'the profiler recorded no device time')
-        return
-    groups = {}
+    return kernels
+
+
+def profiled(step, n):
+    """``n`` calls of ``step`` under ``torch.profiler``: the run, its
+    device time by kernel name and its wall time (us).  A trace without
+    device events is taken again with ``n`` more calls; after
+    ``PROFILE_TRIES`` empty traces the times come back empty and the
+    caller reports the breakdown as not measured."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kernels = _kernel_times(prof)
+        if sum(kernels.values()) > 0:
+            return prof, kernels, wall_us
+        _say('profile', 'a trace held no device event')
+    return prof, {}, wall_us
+
+
+def _by_group(kernels, groups):
+    """Sum ``kernels`` (name -> us) into the first group whose fragment
+    the lowered name holds, else ``other PyTorch kernels``."""
+    out = {}
     for key, us in kernels.items():
         low = key.lower()
-        group = next((g for g, frags in _GROUPS
-                      if any(f in low for f in frags)), 'other')
-        groups[group] = groups.get(group, 0.0) + us
+        group = next((g for g, frags in groups
+                      if any(f in low for f in frags)),
+                     'other PyTorch kernels')
+        out[group] = out.get(group, 0.0) + us
+    return out
+
+
+def profile_steps(updater, n=3):
+    """Device time by kernel group over ``n`` more steps of the main
+    path (``torch.profiler``), and the device busy share of that
+    window's wall time."""
+    _, kernels, wall_us = profiled(updater.update, n)
+    busy = sum(kernels.values())
+    if busy == 0:
+        _say('profile', 'no device event in %d traces: not measured'
+             % PROFILE_TRIES)
+        return
+    groups = _by_group(kernels, _GROUPS)
     _say('profile', '%d steps: wall %.1f ms, device busy %.1f ms (%.1f%%, '
          'idle %.1f%%)' % (n, wall_us / 1e3, busy / 1e3,
                            100 * busy / wall_us, 100 - 100 * busy / wall_us))
@@ -669,9 +756,9 @@ def phase_main_path():
         profile_steps(updater)
     finally:
         comm.close()
-    want = {'bn_stats': BN_PER_STEP * STEPS, 'bn_apply': BN_PER_STEP * STEPS,
-            'momentum_sgd': PARAMS_PER_STEP * (STEPS - 1),
-            'layer_norm': 0, 'flash_fwd': 0, 'flash_decode': 0}
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want.update(bn_stats=BN_PER_STEP * STEPS, bn_apply=BN_PER_STEP * STEPS,
+                momentum_sgd=PARAMS_PER_STEP * (STEPS - 1))
     if counts != want:
         raise AssertionError('launch counts %s, expected %s' % (counts,
                                                                 want))
@@ -816,10 +903,10 @@ def profile_decode(eng, queue, n=5):
     the profiler (and, for comparison, over the profiled steps' own)."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     rng = np.random.RandomState(9)
     reqs = [queue.submit(rng.randint(0, SERVE_CFG['vocab_size'], 64),
-                         2 * n + 4) for _ in range(eng.n_slots)]
+                         (1 + PROFILE_TRIES) * n + 4)
+            for _ in range(eng.n_slots)]
     eng.step(queue)                       # the prefills + one decode step
     eng.step(queue)
     torch.cuda.synchronize()
@@ -828,25 +915,16 @@ def profile_decode(eng, queue, n=5):
         eng.step(queue)
     torch.cuda.synchronize()
     plain_us = (time.perf_counter() - t0) * 1e6
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            eng.step(queue)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    prof, kernels, wall_us = profiled(lambda: eng.step(queue), n)
     _drain(eng, queue, reqs)
-    kernels, launches = {}, 0
-    for evt in prof.key_averages():
-        if (evt.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(evt, 'is_user_annotation', False)):
-            kernels[evt.key] = kernels.get(evt.key, 0.0) \
-                + evt.self_device_time_total
-            launches += evt.count
     busy = sum(kernels.values())
     if busy == 0:
-        raise AssertionError('the profiler recorded no device time')
+        _say('serve-profile', 'no device event in %d traces: not measured'
+             % PROFILE_TRIES)
+        return
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, 'is_user_annotation', False))
     groups = {}
     for key, us in kernels.items():
         low = key.lower()
@@ -929,11 +1007,11 @@ def phase_serving_main():
         raise AssertionError('a request did not generate %d tokens'
                              % SERVE_NEW)
     layers = SERVE_CFG['n_layers']
-    want = {'layer_norm': (2 * layers + 1) * (st['prefills']
-                                              + st['decode_steps']),
-            'flash_fwd': layers * st['prefills'],
-            'flash_decode': layers * st['decode_steps'],
-            'bn_stats': 0, 'bn_apply': 0, 'momentum_sgd': 0}
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want.update(layer_norm=(2 * layers + 1) * (st['prefills']
+                                               + st['decode_steps']),
+                flash_fwd=layers * st['prefills'],
+                flash_decode=layers * st['decode_steps'])
     if counts != want or st['prefills'] != SERVE_REQUESTS:
         raise AssertionError('launch counts %s over %d prefills and %d '
                              'decode steps, expected %s' % (
@@ -990,7 +1068,436 @@ def phase_serving_main():
     _say('serve', 'int8 KV engine: 8 requests x 8 tokens, %d decode steps, '
          'launches %s; %d of 8 token streams equal the bf16 cache\'s'
          % (st8['decode_steps'], c8, same))
-    return {name: counts[name] for name in SERVE_KERNELS}
+    return counts
+
+
+# ---------------------------------------------------------------------
+# TransformerLM training
+
+def _ce_cases(gen):
+    """The cross-entropy kernel against its plain version; returns the
+    record, timed at the LM's ``(8192, 32000)`` f32 logits."""
+    import torch
+    import torch.nn.functional as F
+    from chainermn_tpu_torch import ops
+    ce = importlib.import_module('chainermn_tpu_torch.ops.cross_entropy')
+    bf16, f32 = torch.bfloat16, torch.float32
+    # loss and lse are f32 sums of up to 32000 terms taken in another
+    # order than the plain version's: rtol 1e-5, atol 1e-5
+    tol = (1e-5, 1e-5)
+    errs = []
+    timed = None
+    for (b, v), dtype, pad in (((LM_BATCH * LM_SEQ, 32000), f32, False),
+                               ((13, 1000), bf16, False),
+                               ((5, 33), f32, True),
+                               ((64, 32000), bf16, True)):
+        logits = (torch.randn((b, v), generator=gen, device='cuda')
+                  * 3).to(dtype)
+        labels = torch.randint(0, v, (b,), generator=gen, device='cuda',
+                               dtype=torch.int32)
+        if pad:       # labels outside [0, V) pick nothing: loss = lse
+            labels[::2] = -1
+            labels[1] = v
+        loss, lse = ops.ce_forward(logits, labels)
+        torch.cuda.synchronize()
+        ploss, plse = ce._ce_forward_plain(logits, labels)
+        what = 'cross_entropy %s %s' % ((b, v), str(dtype).split('.')[-1])
+        check_close(what + ' loss', loss, ploss, *tol)
+        check_close(what + ' lse', lse, plse, *tol)
+        if pad and not torch.equal(loss[::2], lse[::2]):
+            raise AssertionError(what + ': a label of -1 picked something')
+        again = ops.ce_forward(logits, labels)
+        if not (torch.equal(again[0], loss) and torch.equal(again[1], lse)):
+            raise AssertionError(what + ': two runs differ')
+        errs.append(max(max_err(loss, ploss), max_err(lse, plse)))
+        if timed is None:
+            timed = (logits, labels)
+    logits, labels = timed
+    b, v = logits.shape
+    long_labels = labels.long()
+    t = timings(lambda: ops.ce_forward(logits, labels),
+                lambda: ce._ce_forward_plain(logits, labels),
+                lambda: F.cross_entropy(logits, long_labels,
+                                        reduction='none'), iters=10)
+    # logits read once, labels read, loss and lse written; per element a
+    # max, a subtraction, an exponential and an add
+    b_ms, b_by = bound_ms(b * v * 4 + 3 * b * 4, 4 * b * v)
+    _say('kernels', 'cross_entropy max err %.3g over %d cases (rtol, atol: '
+         '%s); at %s f32: %s (F.cross_entropy, reduction none); bound %.5f '
+         'ms by %s' % (max(errs), len(errs), tol, (b, v), _fmt(t), b_ms,
+                       b_by))
+    return dict(name='cross_entropy', route='cuda',
+                source='chainermn_tpu_torch/csrc/cross_entropy.cu',
+                replaces='chainermn_tpu/ops/cross_entropy.py:48',
+                max_abs_err=max(errs), bound_ms=b_ms, bound_by=b_by, **t)
+
+
+def _flash_bwd_operands(gen, shape, t_kv, dtype, causal):
+    """q, k, v as strided views of fused projections, a random g, and the
+    kernel forward's out and lse."""
+    import torch
+    from chainermn_tpu_torch import ops
+    b, t_q, h, d = shape
+    q, k, v = _strided_qkv(gen, (b, t_q), h, d, dtype)
+    if t_kv != t_q:
+        _, k, v = _strided_qkv(gen, (b, t_kv), h, d, dtype)
+    g = torch.randn(shape, generator=gen, device='cuda').to(dtype)
+    out, lse = ops.flash_fwd(q, k, v, causal, d ** -0.5)
+    return q, k, v, g, out, lse
+
+
+def _delta(g, out):
+    return (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _flash_bwd_cases(gen):
+    """The two backward kernels against the plain blockwise backward;
+    returns their records, timed at the LM's attention shape."""
+    import torch
+    import torch.nn.functional as F
+    from chainermn_tpu_torch import ops
+    fa = importlib.import_module('chainermn_tpu_torch.ops.flash_attention')
+    bf16, f32 = torch.bfloat16, torch.float32
+    # f32: sums over up to 1024 keys or queries in another order, 1e-4;
+    # bf16: BF16_TOL (f32 on both sides, rounded once)
+    tol = {f32: (1e-4, 1e-4), bf16: BF16_TOL}
+    main = (LM_BATCH, LM_SEQ, LM_CFG['n_heads'],
+            LM_CFG['d_model'] // LM_CFG['n_heads'])
+    cases = [(main, LM_SEQ, bf16, True),
+             ((1, 37, 4, 32), 37, bf16, True),      # less than one tile
+             ((2, 100, 8, 64), 100, f32, True),
+             ((1, 130, 2, 128), 130, f32, True),
+             ((2, 130, 2, 64), 130, bf16, True),
+             ((2, 77, 8, 64), 150, f32, False),     # t_q != t_kv
+             ((1, 200, 2, 128), 90, bf16, False),
+             ((2, 64, 4, 32), 64, f32, False)]
+    errs = {'dq': [], 'dkv': []}
+    timed = None
+    for shape, t_kv, dtype, causal in cases:
+        b, t_q, h, d = shape
+        scale = d ** -0.5
+        q, k, v, g, out, lse = _flash_bwd_operands(gen, shape, t_kv, dtype,
+                                                   causal)
+        delta = _delta(g, out)
+        dq = ops.flash_bwd_dq(q, k, v, g, lse, delta, causal, scale)
+        torch.cuda.synchronize()
+        dk, dv = ops.flash_bwd_dkv(q, k, v, g, lse, delta, causal, scale)
+        torch.cuda.synchronize()
+        pdq, pdk, pdv = fa._bwd_plain(q, k, v, out, lse, g, causal, scale)
+        what = 'flash_bwd %s t_kv %d %s causal=%s' % (
+            shape, t_kv, str(dtype).split('.')[-1], causal)
+        for name, got, want in (('dq', dq, pdq), ('dk', dk, pdk),
+                                ('dv', dv, pdv)):
+            check_close('%s %s' % (what, name), got, want, *tol[dtype])
+        errs['dq'].append(max_err(dq, pdq))
+        errs['dkv'].append(max(max_err(dk, pdk), max_err(dv, pdv)))
+        # no float atomics: a second run gives the same bits; contiguous
+        # operands give the same bits as the strided views
+        qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+        for args in ((q, k, v), (qc, kc, vc)):
+            dq2 = ops.flash_bwd_dq(*args, g, lse, delta, causal, scale)
+            dk2, dv2 = ops.flash_bwd_dkv(*args, g, lse, delta, causal, scale)
+            if not (torch.equal(dq2, dq) and torch.equal(dk2, dk)
+                    and torch.equal(dv2, dv)):
+                raise AssertionError(
+                    what + ': a second run (or contiguous operands) '
+                    'gave other bits')
+        if timed is None:
+            timed = (q, k, v, g, out, lse, delta)
+    # the gradient of out.sum(): an expanded scalar, every stride 0
+    shape, d = (2, 100, 8, 64), 64
+    q, k, v, g, out, lse = _flash_bwd_operands(gen, shape, 100, bf16, True)
+    ones = torch.ones((), dtype=bf16, device='cuda').expand(shape)
+    full = ones.contiguous()
+    if any(ones.stride()):
+        raise AssertionError('expected an expanded gradient')
+    delta = _delta(ones, out)
+    a = (ops.flash_bwd_dq(q, k, v, ones, lse, delta, True, d ** -0.5),
+         *ops.flash_bwd_dkv(q, k, v, ones, lse, delta, True, d ** -0.5))
+    c = (ops.flash_bwd_dq(q, k, v, full, lse, delta, True, d ** -0.5),
+         *ops.flash_bwd_dkv(q, k, v, full, lse, delta, True, d ** -0.5))
+    if not all(torch.equal(x, y) for x, y in zip(a, c)):
+        raise AssertionError('flash_bwd: an expanded g gave other bits than '
+                             'its contiguous copy')
+    # through autograd, against autograd of the full-softmax oracle (f32)
+    q, k, v, g, _, _ = _flash_bwd_operands(gen, (2, 70, 4, 64), 70, f32, True)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    got = torch.autograd.grad(ops.flash_attention(*leaves, causal=True),
+                              leaves, g)
+    want = torch.autograd.grad(ops.mha_reference(*leaves, causal=True),
+                               leaves, g)
+    for name, x, y in zip(('dq', 'dk', 'dv'), got, want):
+        check_close('flash_attention autograd %s vs the oracle' % name, x, y,
+                    *tol[f32])
+
+    q, k, v, g, out, lse, delta = timed
+    b, t, h, d = q.shape
+    # the library yardstick: the backward of SDPA through autograd (dq,
+    # dk and dv in one call; the same time stands in both rows)
+    lq, lk, lv = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    lout = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+    lg = g.transpose(1, 2)
+
+    def library():
+        return torch.autograd.grad(lout, (lq, lk, lv), lg, retain_graph=True)
+
+    def plain():
+        return fa._bwd_plain(q, k, v, out, lse, g, True, 0.125)
+
+    pairs = t * (t + 1) // 2
+    records = []
+    for name, kernel, n_products, n_tensors, line in (
+            ('flash_bwd_dq',
+             lambda: ops.flash_bwd_dq(q, k, v, g, lse, delta, True, 0.125),
+             3, 5, 375),
+            ('flash_bwd_dkv',
+             lambda: ops.flash_bwd_dkv(q, k, v, g, lse, delta, True, 0.125),
+             4, 6, 397)):
+        tm = timings(kernel, plain, library, iters=10, plain_iters=3)
+        # q, k, v, g read once and the gradients written once (bf16), lse
+        # and delta read (f32); s, dp and the kernel's own products over
+        # the causal half, at the bf16 tensor-core rate
+        n_bytes = n_tensors * b * t * h * d * 2 + 2 * b * h * t * 4
+        b_ms, b_by = bound_ms(n_bytes, n_products * 2 * b * h * pairs * d,
+                              BF16_TC_FLOPS_PER_S)
+        key = 'dq' if name.endswith('dq') else 'dkv'
+        _say('kernels', '%s max err %.3g over %d cases (f32 %s, bf16 %s); '
+             'causal %s bf16: %s (SDPA backward, dq + dk + dv; the plain '
+             'version also computes all three); bound %.5f ms by %s' % (
+                 name, max(errs[key]), len(errs[key]), tol[f32], tol[bf16],
+                 (b, t, h, d), _fmt(tm), b_ms, b_by))
+        records.append(dict(
+            name=name, route='cuda',
+            source='chainermn_tpu_torch/csrc/flash_attention.cu',
+            replaces='chainermn_tpu/ops/flash_attention.py:%d' % line,
+            max_abs_err=max(errs[key]), bound_ms=b_ms, bound_by=b_by, **tm))
+    return records
+
+
+def phase_training_kernels():
+    """The LM training path's new kernels against their plain versions on
+    the card, at the shapes of the full-width TransformerLM."""
+    import torch
+    gen = torch.Generator(device='cuda').manual_seed(4)
+    return [_ce_cases(gen)] + _flash_bwd_cases(gen)
+
+
+def phase_lm_check():
+    """A depth-2 f32 full-width ``TransformerLM`` from numpy-seeded
+    weights, once on the card (kernels, TF32 off) and once on the CPU
+    (plain versions): the ``lm_loss`` value and every leaf's gradient."""
+    import numpy as np
+    import torch
+    from chainermn_tpu_torch import models
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError('expected full-f32 matmuls (allow_tf32 False)')
+    rng = np.random.RandomState(11)
+    # 160 tokens: ragged against the backward's 64-row tiles
+    toks = rng.randint(0, LM_CFG['vocab_size'], (2, 160)).astype(np.int32)
+    tgts = rng.randint(0, LM_CFG['vocab_size'], (2, 160)).astype(np.int32)
+    tgts[0, :7] = -1                        # padded targets get no gradient
+    weights = None
+    loss, grads = {}, {}
+    for dev in ('cuda', 'cpu'):
+        model = models.TransformerLM(dtype=torch.float32, device=dev,
+                                     **dict(LM_CFG, n_layers=2))
+        weights = weights or _numpy_lm_weights(model, 12)
+        models.load_flax_variables(model, weights)
+        value, metrics = models.lm_loss(model)(
+            torch.from_numpy(toks).to(dev), torch.from_numpy(tgts).to(dev))
+        value.backward()
+        loss[dev] = (float(value.detach()), float(metrics['perp']))
+        grads[dev] = {name: p.grad.detach().float().cpu()
+                      for name, p in model.named_parameters()}
+        del model
+    # f32 with TF32 off: the card and the CPU sum every product in another
+    # order through two blocks.  A leaf is held as a whole: its error
+    # against the largest entry of the CPU's gradient (entries that cancel
+    # to ~0, like the key bias's, have no meaningful relative error)
+    tol = 2e-4
+    if abs(loss['cuda'][0] - loss['cpu'][0]) > tol * abs(loss['cpu'][0]):
+        raise AssertionError('lm_loss card %r vs CPU %r' % (loss['cuda'],
+                                                             loss['cpu']))
+    worst = ('', 0.0)
+    for name, want in grads['cpu'].items():
+        err = max_err(grads['cuda'][name], want) / float(want.abs().max())
+        if not err <= tol:
+            raise AssertionError('gradient of %s: err %.3g of its largest '
+                                 'entry, beyond %g' % (name, err, tol))
+        worst = max(worst, (name, err), key=lambda kv: kv[1])
+    _say('lm-check', 'f32 depth 2, 2 x 160 tokens, card vs CPU: loss %.6f vs '
+         '%.6f, perp %.3f vs %.3f; %d gradient leaves, worst %s at %.3g of '
+         'its largest entry (tolerance %g)' % (
+             loss['cuda'][0], loss['cpu'][0], loss['cuda'][1],
+             loss['cpu'][1], len(grads['cpu']), worst[0], worst[1], tol))
+
+
+# kernel-name fragments of each group in the LM training profile
+_LM_GROUPS = (('layer_norm', ('ln_kernel',)),
+              ('flash_fwd', ('flash_fwd_kernel',)),
+              ('flash_bwd_dq', ('flash_bwd_dq_kernel',)),
+              ('flash_bwd_dkv', ('flash_bwd_dkv_kernel',)),
+              # "::" keeps at::native::reduce_kernel out
+              ('cross_entropy', ('::ce_kernel<',)),
+              # the head is the path's only f32 product
+              ('matmuls, f32 (the head)', ('sgemm', 'f32f32')),
+              ('matmuls, bf16', ('gemm', 'cutlass', 'xmma', 'nvjet', 'sm90_',
+                                 'cublas')),
+              ('copies and casts', ('memcpy', 'memset', 'copy')))
+# CPU-side profiler events whose device time is reported beside the groups
+_LM_OPS = ('_SoftmaxCrossEntropyBackward', '_LayerNormBackward',
+           '_FlashAttentionBackward', 'Optimizer.step#Adam.step',
+           'IndexSelectBackward0')
+
+
+def profile_lm(updater, n=3):
+    """``n`` unprofiled steps for the wall time, then ``n`` steps under
+    ``torch.profiler``: the device's busy and idle share of an unprofiled
+    step, device time by kernel group, and the device time under the
+    backward of each op that the port writes in PyTorch ops."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        updater.update()
+    torch.cuda.synchronize()
+    plain_us = (time.perf_counter() - t0) * 1e6
+    prof, kernels, wall_us = profiled(updater.update, n)
+    busy = sum(kernels.values())
+    if busy == 0:
+        _say('lm-profile', 'no device event in %d traces: not measured'
+             % PROFILE_TRIES)
+        return
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, 'is_user_annotation', False))
+    _say('lm-profile', '%d steps: wall %.2f ms/step without the profiler, '
+         '%.2f ms/step under it; device busy %.2f ms/step, idle %.1f%% of '
+         'the unprofiled wall; %d device kernels/step' % (
+             n, plain_us / n / 1e3, wall_us / n / 1e3, busy / n / 1e3,
+             100 - 100 * busy / plain_us, launches // n))
+    groups = _by_group(kernels, _LM_GROUPS)
+    for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        _say('lm-profile', '  %-24s %8.3f ms/step  %5.1f%% of device time'
+             % (group, us / n / 1e3, 100 * us / busy))
+    for key, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:14]:
+        _say('lm-profile', '  %8.3f ms/step  %s' % (us / n / 1e3, key[:100]))
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CPU \
+                and e.key.startswith(_LM_OPS):
+            _say('lm-profile', '  op %-36s %8.3f ms/step device, %3d '
+                 'calls/step' % (e.key[:36], e.device_time_total / n / 1e3,
+                                 e.count // n))
+
+
+def _time_f32_head():
+    """The LM head alone: forward and backward of the f32 ``(8192, 512) x
+    (512, 32000)`` product with its bias, as the model runs it."""
+    import torch
+    x = torch.randn((LM_BATCH * LM_SEQ, LM_CFG['d_model']), device='cuda',
+                    requires_grad=True)
+    w = torch.randn((LM_CFG['d_model'], LM_CFG['vocab_size']), device='cuda',
+                    requires_grad=True)
+    bias = torch.zeros(LM_CFG['vocab_size'], device='cuda',
+                       requires_grad=True)
+    g = torch.randn((LM_BATCH * LM_SEQ, LM_CFG['vocab_size']), device='cuda')
+
+    def run():
+        out = x @ w + bias
+        torch.autograd.grad(out, (x, w, bias), g)
+
+    ms = time_ms(run, iters=5, warmup=2)
+    flops = 3 * 2 * x.shape[0] * x.shape[1] * w.shape[1]
+    _say('lm', 'the f32 head alone, forward + backward at %s x %s: %.3f ms '
+         '(%.1f TFLOP/s of f32; allow_tf32 %s)' % (
+             tuple(x.shape), tuple(w.shape), ms, flops / ms / 1e9,
+             torch.backends.cuda.matmul.allow_tf32))
+
+
+def phase_lm_main():
+    """The LM training main path at full width and depth: the entry
+    points of the repo's transformer benchmark on one fixed batch."""
+    import numpy as np
+    import torch
+    import chainermn_tpu_torch as cmt
+    from chainermn_tpu_torch import models, ops, training
+    comm = cmt.create_communicator('xla')
+    try:
+        model = models.TransformerLM(
+            **LM_CFG, generator=torch.Generator().manual_seed(0))
+        n_params = sum(p.numel() for p in model.parameters())
+        opt = cmt.create_multi_node_optimizer(
+            torch.optim.Adam(model.parameters(), lr=1e-3), comm)
+        rng = np.random.RandomState(0)
+        toks = rng.randint(0, LM_CFG['vocab_size'],
+                           (LM_BATCH, LM_SEQ)).astype(np.int32)
+        tgts = rng.randint(0, LM_CFG['vocab_size'],
+                           (LM_BATCH, LM_SEQ)).astype(np.int32)
+        data = [(toks[i], tgts[i]) for i in range(LM_BATCH)]
+        updater = training.StandardUpdater(
+            training.SerialIterator(data, LM_BATCH, shuffle=False), opt,
+            models.lm_loss(model), model, comm)
+        # one broadcast call (no step), then LM_STEPS steps
+        trainer = training.Trainer(updater, (LM_STEPS + 1, 'iteration'))
+        marks, losses = [], []
+
+        def record(tr):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            losses.append(tr.observation['loss'])
+
+        trainer.extend(record)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.run()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        profile_lm(updater)
+    finally:
+        comm.close()
+    layers, calls = LM_CFG['n_layers'], LM_STEPS + 1
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want.update(layer_norm=(2 * layers + 1) * calls,
+                flash_fwd=layers * calls, flash_bwd_dq=layers * calls,
+                flash_bwd_dkv=layers * calls, cross_entropy=calls)
+    if counts != want:
+        raise AssertionError('launch counts %s, expected %s' % (counts,
+                                                                want))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError('non-finite loss: %s' % losses)
+    # the first call broadcasts instead of stepping: the same batch and
+    # the same weights give the same loss at calls 0 and 1
+    if abs(losses[0] - losses[1]) > 1e-4 * abs(losses[0]):
+        raise AssertionError('loss at call 0 %r != call 1 %r'
+                             % (losses[0], losses[1]))
+    if not losses[-1] < losses[1]:
+        raise AssertionError('the loss did not fall: %s' % losses)
+    steps = [b - a for a, b in zip([t0] + marks[:-1], marks)]
+    timed = sorted(steps[3:])            # the broadcast call + 2 warm-ups
+    p50 = timed[len(timed) // 2]
+    worst = timed[-1]
+    tokens = LM_BATCH * LM_SEQ
+    _say('lm', 'TransformerLM %d parameters, bf16 compute, f32 masters, '
+         'Adam 1e-3, %d x %d tokens a step; allow_tf32 %s' % (
+             n_params, LM_BATCH, LM_SEQ,
+             torch.backends.cuda.matmul.allow_tf32))
+    _say('lm', 'losses %s' % ', '.join('%.4f' % v for v in losses))
+    _say('lm', 'launches %s over 1 broadcast call + %d steps (per call: %d '
+         'layer_norm, %d flash_fwd, %d flash_bwd_dq, %d flash_bwd_dkv, 1 '
+         'cross_entropy)' % (counts, LM_STEPS, 2 * layers + 1, layers,
+                             layers, layers))
+    _say('lm', 'step times ms %s; p50 of steps 3..%d %.2f ms (max of these '
+         '%d steps %.2f ms) = %.1f tokens/s at %d tokens a step; peak memory '
+         '%.2f GiB' % (
+             ', '.join('%.1f' % (1e3 * s) for s in steps), LM_STEPS,
+             1e3 * p50, len(timed), 1e3 * worst, tokens / p50, tokens,
+             peak / 2 ** 30))
+    _time_f32_head()
+    return counts
 
 
 def main():
@@ -1002,13 +1509,21 @@ def main():
     import chainermn_tpu_torch  # noqa: F401  (fails alone, as it should)
     name, smi = phase_device()
     phase_build()
-    records = phase_kernels() + phase_serving_kernels()
+    records = (phase_kernels() + phase_serving_kernels()
+               + phase_training_kernels())
     phase_model_check()
-    counts = phase_main_path()
+    paths = {'resnet_training': phase_main_path()}
     phase_serving_check()
-    counts.update(phase_serving_main())
+    paths['lm_serving'] = phase_serving_main()
+    phase_lm_check()
+    paths['lm_training'] = phase_lm_main()
     for rec in records:
-        rec['launches'] = counts[rec['name']]
+        by_path = {path: counts[rec['name']]
+                   for path, counts in paths.items() if counts[rec['name']]}
+        if not by_path:
+            raise AssertionError('no main path launched %s' % rec['name'])
+        rec['launches'] = sum(by_path.values())
+        rec['launches_by_path'] = by_path
     print(json.dumps({'kernels': records}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -1,16 +1,20 @@
-"""The port's flash attention forward and decode (plain versions on the
-CPU) against the JAX package's ``ops.flash_attention``, its internal
-``_flash_fwd`` (for ``lse``) and ``ops.flash_attention_decode``, run as
-the JAX package's own tests run them: the ``fallback`` (jnp) and
-``interpret`` (the Pallas kernels in the interpreter) modes.
+"""The port's flash attention forward, backward and decode (plain
+versions on the CPU) against the JAX package's ``ops.flash_attention``
+(and ``jax.grad`` of it), its internal ``_flash_fwd`` (for ``lse``) and
+``ops.flash_attention_decode``, run as the JAX package's own tests run
+them: the ``fallback`` (jnp) and ``interpret`` (the Pallas kernels in
+the interpreter) modes.
 
-Tolerances: f32 rtol/atol 1e-5 (the same recurrence, sums in another
-order), bf16 5e-2 (one bf16 rounding of the output may land on either
-side).  The int8 caches of the two packages are compared bit for bit.
+Tolerances: forward f32 rtol/atol 1e-5 (the same recurrence, sums in
+another order), gradients f32 1e-4 (sums over every key or query of
+products of recomputed probabilities), bf16 5e-2 (one bf16 rounding of
+the output may land on either side).  The int8 caches of the two
+packages are compared bit for bit.
 """
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -264,11 +268,121 @@ def test_kernel_wrappers_take_cuda_tensors_only():
     assert ops.launch_counts() == before     # CPU: the plain versions
 
 
-def test_forward_only_refuses_autograd():
-    (q, k, v), _ = _qkv((1, 4, 1, 32), 'float32', 10)
-    q = q.detach().requires_grad_()
+# ---------------------------------------------------------------------
+# backward
+
+GRAD_TOL = {'float32': dict(rtol=1e-4, atol=1e-4),
+            'bfloat16': dict(rtol=5e-2, atol=5e-2)}
+
+
+def _grads(fn, operands, weights):
+    """d(sum(fn(q, k, v) * weights)) / d(q, k, v) on fresh leaves that
+    keep the operands' strides."""
+    leaves = [x.detach().requires_grad_() for x in operands]
+    out = fn(*leaves)
+    loss = out.sum() if weights is None else (out.float() * weights).sum()
+    return torch.autograd.grad(loss, leaves)
+
+
+def _assert_grads_match_jax(tensors, arrays, causal, dtype, weighted, seed):
+    q = tensors[0]
+    weights = None
+    if weighted:
+        weights = np.random.RandomState(seed).randn(*q.shape).astype(
+            np.float32)
+
+    def jloss(jq, jk, jv):
+        out = jops.flash_attention(jq, jk, jv, causal=causal).astype(
+            jnp.float32)
+        return jnp.sum(out if weights is None else out * weights)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*arrays)
+    got = _grads(lambda a, b, c: ops.flash_attention(a, b, c, causal=causal),
+                 tensors,
+                 None if weights is None else torch.from_numpy(weights))
+    for name, g, w, x in zip(('dq', 'dk', 'dv'), got, want, tensors):
+        assert g.dtype == x.dtype and g.shape == x.shape, name
+        np.testing.assert_allclose(g.float().numpy(), _f32(w), err_msg=name,
+                                   **GRAD_TOL[dtype])
+
+
+# a weighted loss hands the backward a dense gradient; ``sum()`` hands it
+# an expanded scalar (every stride 0)
+@pytest.mark.parametrize('weighted', [True, False])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('shape,causal', CASES)
+def test_gradients_match_jax(mode, shape, causal, dtype, weighted):
+    tensors, arrays = _qkv(shape, dtype, 20)
+    assert not tensors[0].is_contiguous()       # strided qkv views
+    _assert_grads_match_jax(tensors, arrays, causal, dtype, weighted, 21)
+
+
+def test_gradients_match_jax_non_causal_with_other_key_length(mode):
+    (q, _, _), (jq, _, _) = _qkv((2, 20, 2, 32), 'float32', 22)
+    (_, k, v), (_, jk, jv) = _qkv((2, 150, 2, 32), 'float32', 23)
+    _assert_grads_match_jax((q, k, v), (jq, jk, jv), False, 'float32', True,
+                            24)
+
+
+def test_gradients_of_strided_views_equal_contiguous_operands():
+    tensors, _ = _qkv((2, 37, 2, 32), 'float32', 25)
+    w = torch.from_numpy(np.random.RandomState(26).randn(2, 37, 2, 32)
+                         .astype(np.float32))
+
+    def fn(a, b, c):
+        return ops.flash_attention(a, b, c, causal=True)
+
+    strided = _grads(fn, tensors, w)
+    dense = _grads(fn, [x.contiguous() for x in tensors], w)
+    for a, c in zip(strided, dense):
+        torch.testing.assert_close(a, c, rtol=0, atol=0)
+
+
+def test_gradients_match_the_full_softmax_oracle():
+    tensors, _ = _qkv((2, 70, 2, 32), 'float32', 27)
+    w = torch.from_numpy(np.random.RandomState(28).randn(2, 70, 2, 32)
+                         .astype(np.float32))
+    for causal in (False, True):
+        got = _grads(lambda a, b, c: ops.flash_attention(a, b, c,
+                                                         causal=causal),
+                     tensors, w)
+        want = _grads(lambda a, b, c: ops.mha_reference(a, b, c,
+                                                        causal=causal),
+                      tensors, w)
+        for a, c in zip(got, want):
+            torch.testing.assert_close(a, c, **GRAD_TOL['float32'])
+
+
+def test_lse_carries_no_gradient():
+    tensors, _ = _qkv((1, 9, 2, 32), 'float32', 29)
+    leaves = [x.detach().requires_grad_() for x in tensors]
+    out, lse = ops.flash_attention_fwd(*leaves, causal=True)
+    assert out.requires_grad and not lse.requires_grad
+
+
+def test_backward_kernel_wrappers_take_cuda_tensors_only():
+    (q, k, v), _ = _qkv((1, 4, 1, 32), 'float32', 30)
+    rows = torch.zeros(1, 1, 4)
+    with pytest.raises(ValueError, match='CUDA'):
+        ops.flash_bwd_dq(q, k, v, q, rows, rows, True, 0.1)
+    with pytest.raises(ValueError, match='CUDA'):
+        ops.flash_bwd_dkv(q, k, v, q, rows, rows, True, 0.1)
+    before = ops.launch_counts()
+    _grads(lambda a, b, c: ops.flash_attention(a, b, c, causal=True),
+           (q, k, v), None)
+    assert ops.launch_counts() == before     # CPU: the plain versions
+    assert {'flash_bwd_dq', 'flash_bwd_dkv'} <= set(before)
+
+
+def test_decode_refuses_autograd():
+    """Decode is inference: no backward, as in the JAX package."""
+    q, k, v = (torch.from_numpy(a) for a in _cache(1, 4, 1, 32, 'float32',
+                                                   10))
+    lens = torch.ones(1, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match='forward-only'):
-        ops.flash_attention(q, k, v, causal=True)
+        ops.flash_attention_decode(q.requires_grad_(), k, v, lens)
+    with torch.no_grad():
+        ops.flash_attention_decode(q, k, v, lens)
 
 
 @pytest.mark.cuda
@@ -289,3 +403,16 @@ def test_kernels_match_plain_on_the_card(cuda):
     torch.testing.assert_close(got.cpu().float(), want.float(), rtol=1e-2,
                                atol=1e-2)
     assert fa.flash_decode.launches > 0
+    # the backward kernels against the plain backward, through autograd
+    w = torch.from_numpy(np.random.RandomState(13).randn(2, 100, 8, 64)
+                         .astype(np.float32))
+
+    def fn(a, b, c):
+        return ops.flash_attention(a, b, c, causal=True)
+
+    want = _grads(fn, (q, k, v), w)
+    got = _grads(fn, (q.cuda(), k.cuda(), v.cuda()), w.cuda())
+    for g, x in zip(got, want):
+        torch.testing.assert_close(g.cpu().float(), x.float(), rtol=1e-2,
+                                   atol=1e-2)
+    assert fa.flash_bwd_dq.launches > 0 and fa.flash_bwd_dkv.launches > 0

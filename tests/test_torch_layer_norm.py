@@ -1,13 +1,14 @@
-"""The port's LayerNorm (plain version on the CPU) against the JAX
-package's ``ops.layer_norm``, run as the JAX package's own tests run it:
-the ``fallback`` (jnp) and ``interpret`` (the Pallas kernel in the
-interpreter) modes.
+"""The port's LayerNorm (plain version on the CPU) and its backward
+against the JAX package's ``ops.layer_norm`` and ``jax.grad`` of it, run
+as the JAX package's own tests run it: the ``fallback`` (jnp) and
+``interpret`` (the Pallas kernel in the interpreter) modes.
 
 Tolerances: f32 rtol/atol 1e-5 (f32 statistics summed in another
-order), bf16 5e-2 (one bf16 rounding of the output may land on either
-side).
+order; 1e-4 for the gradients, which sum over every row), bf16 5e-2
+(one bf16 rounding of the output may land on either side).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -95,12 +96,49 @@ def test_eps_is_the_jax_packages():
     assert not np.allclose(eps5.numpy(), np.asarray(want), atol=1e-2)
 
 
-def test_forward_only_refuses_autograd():
-    x = torch.zeros(2, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match='forward-only'):
-        ops.layer_norm(x, torch.ones(8), torch.zeros(8))
-    with torch.no_grad():
-        ops.layer_norm(x, torch.ones(8), torch.zeros(8))
+GRAD_TOL = {'float32': dict(rtol=1e-4, atol=1e-4),
+            'bfloat16': dict(rtol=5e-2, atol=5e-2)}
+
+
+# the transformer's two cases: an f32 stream, and a bf16 stream under
+# f32 gamma / beta (dx in x.dtype, dgamma and dbeta in gamma.dtype)
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('shape', SHAPES)
+def test_gradients_match_jax(mode, shape, dtype):
+    x, g, b = _inputs(shape, dtype, 'float32', 2)
+    w = np.random.RandomState(3).randn(*shape).astype(np.float32)
+
+    def jloss(jx, jg, jb):
+        return jnp.sum(jops.layer_norm(jx, jg, jb).astype(jnp.float32) * w)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(x, dtype), jnp.asarray(g), jnp.asarray(b))
+    leaves = [torch.tensor(x, dtype=TDTYPE[dtype], requires_grad=True),
+              torch.tensor(g, requires_grad=True),
+              torch.tensor(b, requires_grad=True)]
+    (ops.layer_norm(*leaves).float() * torch.from_numpy(w)).sum().backward()
+    for name, leaf, jgrad in zip(('dx', 'dgamma', 'dbeta'), leaves, want):
+        assert leaf.grad.dtype == leaf.dtype, name
+        assert leaf.grad.shape == leaf.shape, name
+        # dgamma and dbeta are f32 sums over the same rows on both sides
+        np.testing.assert_allclose(
+            leaf.grad.float().numpy(),
+            np.asarray(jgrad.astype(jnp.float32)), err_msg=name,
+            **GRAD_TOL[dtype if name == 'dx' else 'float32'])
+
+
+def test_gradients_match_torch_layer_norm():
+    x, g, b = _inputs((3, 7, 48), 'float32', 'float32', 4)
+    w = torch.from_numpy(np.random.RandomState(5).randn(3, 7, 48)
+                         .astype(np.float32))
+    grads = []
+    for fn in (lambda a, c, d: ops.layer_norm(a, c, d),
+               lambda a, c, d: torch.nn.functional.layer_norm(
+                   a, (48,), c, d, 1e-6)):
+        leaves = [torch.tensor(v, requires_grad=True) for v in (x, g, b)]
+        grads.append(torch.autograd.grad((fn(*leaves) * w).sum(), leaves))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, **GRAD_TOL['float32'])
 
 
 def test_kernel_wrapper_takes_cuda_tensors_only():
@@ -114,11 +152,14 @@ def test_kernel_wrapper_takes_cuda_tensors_only():
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_the_card(cuda):
     gen = torch.Generator().manual_seed(0)
-    for n, dtype, tol in ((100, torch.float32, 2e-5),
-                          (32, torch.bfloat16, 2e-2)):
+    f32, bf16 = torch.float32, torch.bfloat16
+    # the last case is the training path's: bf16 rows, f32 parameters
+    for n, dtype, g_dtype, tol in ((100, f32, f32, 2e-5),
+                                   (32, bf16, bf16, 2e-2),
+                                   (300, bf16, f32, 2e-2)):
         x = torch.randn((n, 512), generator=gen).to(dtype)
-        g = torch.randn(512, generator=gen).to(dtype)
-        b = torch.randn(512, generator=gen).to(dtype)
+        g = torch.randn(512, generator=gen).to(g_dtype)
+        b = torch.randn(512, generator=gen).to(g_dtype)
         want = ops.layer_norm_reference(x, g, b)
         got = ops.layer_norm(x.cuda(), g.cuda(), b.cuda()).cpu()
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,

@@ -1,11 +1,14 @@
-"""The port's ``TransformerLM`` and its slot-KV-cache serving functions
-(plain versions on the CPU) against the JAX package's flax model and its
-``init_kv_cache`` / ``prefill`` / ``decode_step``, from the same flax
-weights carried across by ``load_flax_variables``.
+"""The port's ``TransformerLM``, its ``lm_loss`` with every leaf's
+gradient, and its slot-KV-cache serving functions (plain versions on the
+CPU) against the JAX package's flax model, ``jax.value_and_grad`` of its
+``lm_loss`` and its ``init_kv_cache`` / ``prefill`` / ``decode_step``,
+from the same flax weights carried across by ``load_flax_variables``.
 
 Tolerances are those of ``tests/test_transformer.py``: f32 rtol/atol
 1e-5 (the same arithmetic, matmuls summed in another order), bf16 and
-int8-KV 5e-2.
+int8-KV 5e-2.  A gradient leaf is held as a whole, against its largest
+entry: 1e-4 of it in f32, 5e-2 in bf16 (entries that cancel to ~0, like
+the key bias's, have no meaningful relative error of their own).
 """
 
 import copy
@@ -68,6 +71,14 @@ def _f32(a):
     return np.asarray(jnp.asarray(a).astype(jnp.float32))
 
 
+def _flat(tree, prefix=''):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, prefix + k + '/')
+        else:
+            yield prefix + k, v
+
+
 def _tokens(shape, seed):
     return np.random.RandomState(seed).randint(
         0, CFG['vocab_size'], shape).astype(np.int32)
@@ -93,22 +104,80 @@ def test_forward_matches_flax_bf16():
     np.testing.assert_allclose(got.numpy(), _f32(want), **TOL['bfloat16'])
 
 
-def test_forward_needs_no_grad():
+# ---------------------------------------------------------------------
+# the training loss and its gradients
+
+GRAD_TOL = {'float32': 1e-4, 'bfloat16': 5e-2}
+
+
+@pytest.mark.parametrize('pad_id', [-1, 0])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_lm_loss_and_gradients_match_jax(mode, dtype, pad_id):
+    jm, params, tm = _pair(dtype)
+    toks = _tokens((2, 11), 3)
+    tgts = _tokens((2, 11), 4)
+    tgts[0, :3] = pad_id            # -1: outside the vocabulary; 0: inside
+    jloss = jmodels.lm_loss(lambda p, t: jm.apply({'params': p}, t),
+                            pad_id=pad_id)
+    (want, waux), wgrads = jax.value_and_grad(jloss, has_aux=True)(
+        params, jnp.asarray(toks), jnp.asarray(tgts))
+    tm.zero_grad(set_to_none=True)
+    loss, aux = models.lm_loss(tm, pad_id=pad_id)(torch.from_numpy(toks),
+                                                  torch.from_numpy(tgts))
+    loss.backward()
+    assert loss.dtype == torch.float32 and sorted(aux) == ['perp']
+    tol = TOL[dtype]
+    np.testing.assert_allclose(loss.item(), float(want), **tol)
+    np.testing.assert_allclose(aux['perp'].item(), float(waux['perp']),
+                               rtol=10 * tol['rtol'])
+    wflat = dict(_flat(jax.device_get(wgrads)))
+    got = {name.replace('.', '/'): p.grad
+           for name, p in tm.named_parameters()}
+    assert sorted(got) == sorted(wflat)
+    for name, grad in got.items():
+        w = np.asarray(wflat[name], np.float32)
+        assert grad.dtype == torch.float32 and grad.shape == w.shape, name
+        err = np.abs(grad.numpy() - w).max() / np.abs(w).max()
+        assert err <= GRAD_TOL[dtype], (name, err)
+    tm.zero_grad(set_to_none=True)
+
+
+def test_lm_loss_sum_counts_unmasked_tokens():
     _, _, tm = _pair()
-    with pytest.raises(NotImplementedError, match='forward-only'):
-        tm(torch.zeros((1, 3), dtype=torch.int64))
+    toks = torch.from_numpy(_tokens((2, 7), 5))
+    tgts = torch.from_numpy(_tokens((2, 7), 6))
+    tgts[1, 2:] = -1
+    with torch.no_grad():
+        (total, n), aux = models.lm_loss_sum(tm)(toks, tgts)
+        loss, metrics = models.lm_loss(tm)(toks, tgts)
+        # any callable from tokens to logits will do for apply_fn
+        again, _ = models.lm_loss(lambda t: tm(t))(toks, tgts)
+    assert float(n) == 9.0 and aux == {}
+    np.testing.assert_allclose(float(total) / 9.0, float(loss), rtol=1e-6)
+    assert float(again) == float(loss)
+    np.testing.assert_allclose(float(metrics['perp']),
+                               np.exp(min(float(loss), 20.0)), rtol=1e-6)
+    # every target masked: the loss is 0 / max(0, 1), not NaN
+    with torch.no_grad():
+        empty, _ = models.lm_loss(tm)(toks, torch.full_like(tgts, -1))
+    assert float(empty) == 0.0
+
+
+def test_masked_targets_get_no_gradient():
+    _, _, tm = _pair()
+    toks = torch.from_numpy(_tokens((1, 6), 7))
+    tgts = torch.from_numpy(_tokens((1, 6), 8))
+    tgts[0, 4:] = -1
+    logits = tm(toks).detach().requires_grad_()
+    loss, _ = models.lm_loss(lambda t: logits)(toks, tgts)
+    loss.backward()
+    assert float(logits.grad[0, 4:].abs().max()) == 0.0
+    assert float(logits.grad[0, :4].abs().min()) > 0.0
+    tm.zero_grad(set_to_none=True)
 
 
 # ---------------------------------------------------------------------
 # carrying weights across
-
-def _flat(tree, prefix=''):
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            yield from _flat(v, prefix + k + '/')
-        else:
-            yield prefix + k, v
-
 
 def test_weight_round_trip_keeps_the_4d_qkv_kernel_as_is():
     jm, params, tm = _pair()
