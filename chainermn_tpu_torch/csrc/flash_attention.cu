@@ -1,7 +1,8 @@
 // Flash attention for Hopper (sm_90a): the prefill forward, its backward
-// (dq; dk and dv) and the single-query decode read of a slot KV cache.
+// (dq; dk and dv) and the single-query decode read of a slot KV cache or
+// of a paged KV pool.
 //
-// Replaces four Pallas TPU kernels of chainermn_tpu/ops/flash_attention.py:
+// Replaces five Pallas TPU kernels of chainermn_tpu/ops/flash_attention.py:
 //   _fwd_kernel     (launched by _fwd_pallas,    flash_attention.py:144)
 //                                                   -> cmn_flash_fwd
 //   _bwd_dq_kernel  (launched by _bwd_pallas,    flash_attention.py:375)
@@ -10,6 +11,8 @@
 //                                                   -> cmn_flash_bwd_dkv
 //   _decode_kernel  (launched by _decode_pallas, flash_attention.py:650)
 //                                                   -> cmn_flash_decode
+//   _decode_paged_kernel (launched by _decode_paged_pallas,
+//                         flash_attention.py:953)   -> cmn_flash_decode_paged
 //
 // All keep the TPU kernels' online-softmax recurrence in f32 -- running
 // max m, running sum l, accumulator acc; scores masked with the finite
@@ -83,6 +86,23 @@
 // kernel does.
 // What bounds it on the H100: device-memory bytes (one pass over the live
 // cache, 2 flops per byte of bf16 K/V).
+//
+// ---- paged decode (cmn_flash_decode_paged) ----
+// The TPU kernel walks a (B*H, n_max) grid, one page per grid step, with
+// the page table in SMEM and the fetch of dead pages clamped to the live
+// frontier.  Here it is the slot decode kernel itself, instantiated with
+// kPaged: the same block of 128 threads per (row, head), the same tiles of
+// 128 positions, only ceil(length / 128) of them, the same block_max /
+// block_sum order.  Only the address of a position changes: position p of
+// row b lives at pool + table[b, p / ps] * page_stride + (p % ps) *
+// offset_stride (its int8 scale at the same page and offset), each thread
+// looking up its own position's page.  A tile may span several pages and
+// the pages need not be in order; the P.V phase reads each key's v offset
+// from shared memory, where the thread that scored the key left it.  So
+// paged and slot decode over the same K/V give equal bits, and a thread
+// never reads a table entry or a page past the row's live length.
+// What bounds it: device-memory bytes, as the slot kernel (the table adds
+// 4 bytes per page).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -635,6 +655,10 @@ BwdArgs bwd_args(const void* q, const void* k, const void* v, const void* g,
 constexpr int kDecThreads = 128;
 constexpr int kDecBK = kDecThreads;  // keys per tile: one per thread
 
+// The slot kernel reads a (slots, S, H, D) cache; the paged kernel a pool
+// (P, page_size, H, D) through per-row page tables.  For the paged kernel
+// the "slot" strides below are the pool's page strides and the "position"
+// strides its in-page offset strides.
 struct DecArgs {
   const void* q;  // (N, H, D), D contiguous
   int64_t q_sn, q_sh;
@@ -648,10 +672,26 @@ struct DecArgs {
   int64_t vs_ss, vs_sp, vs_sh;
   const int* lengths;  // (N,) live positions per row, >= 1
   const int* slots;    // (N,) row -> slot; null: row i reads slot i
+  const int* tables;   // paged: (N, n_max) page ids, contiguous
+  int n_max, page_size;
   void* out;           // (N, H, D), contiguous, q's dtype
-  int h, s_max;
+  int h, s_max;        // paged: s_max = n_max * page_size
   float scale;
 };
+
+// Element offset of position `pos` of a row in a cache operand of strides
+// (ss: slot or page, sp: position or in-page offset).  The paged form
+// reads table[pos / page_size] -- only ever for pos < length, so no entry
+// at or past ceil(length / page_size) is read.
+template <bool kPaged>
+__device__ __forceinline__ int64_t pos_offset(const DecArgs& a, int64_t slot,
+                                              const int* table, int pos,
+                                              int64_t ss, int64_t sp) {
+  if (kPaged)
+    return (int64_t)table[pos / a.page_size] * ss +
+           (int64_t)(pos % a.page_size) * sp;
+  return slot * ss + (int64_t)pos * sp;
+}
 
 __device__ __forceinline__ float block_max(float v, float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -696,28 +736,31 @@ __device__ __forceinline__ float dot_row(const float* qs, const TK* kr,
   return dot;
 }
 
-template <typename TQ, typename TK, int D>
+// One template for both caches: the arithmetic, the tiles and the order of
+// every reduction are the same, only the address of a position differs
+// (pos_offset), so paged and slot decode over the same K/V give equal bits.
+template <typename TQ, typename TK, int D, bool kPaged>
 __global__ void __launch_bounds__(kDecThreads) flash_decode_kernel(DecArgs a) {
   constexpr int G = kDecThreads / D;  // key groups of the P.V phase
   __shared__ float qs[D];
   __shared__ float ps[kDecBK];
   __shared__ float red[kDecThreads / 32];
   __shared__ float part[kDecThreads];
+  __shared__ int64_t voff[kPaged ? kDecBK : 1];  // paged: v offset per key
 
   const int row = blockIdx.x / a.h, hh = blockIdx.x % a.h;
   const int tid = threadIdx.x;
   int len = a.lengths[row];
   if (len > a.s_max) len = a.s_max;
-  const int64_t slot = a.slots != nullptr ? a.slots[row] : row;
+  const int64_t slot = kPaged ? 0 : (a.slots != nullptr ? a.slots[row] : row);
+  const int* table = kPaged ? a.tables + (int64_t)row * a.n_max : nullptr;
 
   const TQ* qp = static_cast<const TQ*>(a.q) + row * a.q_sn + hh * a.q_sh;
   for (int c = tid; c < D; c += kDecThreads) qs[c] = to_f32(qp[c]) * a.scale;
-  const TK* kb = static_cast<const TK*>(a.k) + slot * a.k_ss + hh * a.k_sh;
-  const TK* vb = static_cast<const TK*>(a.v) + slot * a.v_ss + hh * a.v_sh;
-  const float* ksb =
-      a.ks != nullptr ? a.ks + slot * a.ks_ss + hh * a.ks_sh : nullptr;
-  const float* vsb =
-      a.vs != nullptr ? a.vs + slot * a.vs_ss + hh * a.vs_sh : nullptr;
+  const TK* kh = static_cast<const TK*>(a.k) + hh * a.k_sh;
+  const TK* vh = static_cast<const TK*>(a.v) + hh * a.v_sh;
+  const float* ksh = a.ks != nullptr ? a.ks + hh * a.ks_sh : nullptr;
+  const float* vsh = a.vs != nullptr ? a.vs + hh * a.vs_sh : nullptr;
   __syncthreads();
 
   const int col = tid % D, grp = tid / D;
@@ -728,21 +771,32 @@ __global__ void __launch_bounds__(kDecThreads) flash_decode_kernel(DecArgs a) {
     const int pos = p0 + tid;
     float s = kNegInf;
     if (pos < len)
-      s = dot_row<TK, D>(qs, kb + pos * a.k_sp,
-                         ksb != nullptr ? ksb[pos * a.ks_sp] : 1.f);
+      s = dot_row<TK, D>(
+          qs, kh + pos_offset<kPaged>(a, slot, table, pos, a.k_ss, a.k_sp),
+          ksh != nullptr
+              ? ksh[pos_offset<kPaged>(a, slot, table, pos, a.ks_ss, a.ks_sp)]
+              : 1.f);
     const float m_new = fmaxf(m, block_max(s, red));
     const float alpha = expf(m - m_new);
     const float p = expf(s - m_new);
     l = l * alpha + block_sum(p, red);
     m = m_new;
     // v's dequant scale rides on p (l sums the unscaled p)
-    ps[tid] = (vsb != nullptr && pos < len) ? p * vsb[pos * a.vs_sp] : p;
+    ps[tid] = (vsh != nullptr && pos < len)
+                  ? p * vsh[pos_offset<kPaged>(a, slot, table, pos, a.vs_ss,
+                                               a.vs_sp)]
+                  : p;
+    if (kPaged && pos < len)
+      voff[tid] = pos_offset<kPaged>(a, slot, table, pos, a.v_ss, a.v_sp);
     __syncthreads();
     acc *= alpha;
     const int live = len - p0 < kDecBK ? len - p0 : kDecBK;
-    for (int jj = grp; jj < live; jj += G)
-      acc = fmaf(ps[jj], to_f32(vb[(p0 + jj) * a.v_sp + col]), acc);
-    __syncthreads();  // ps is rewritten by the next tile
+    for (int jj = grp; jj < live; jj += G) {
+      const int64_t vo =
+          kPaged ? voff[jj] : slot * a.v_ss + (int64_t)(p0 + jj) * a.v_sp;
+      acc = fmaf(ps[jj], to_f32(vh[vo + col]), acc);
+    }
+    __syncthreads();  // ps and voff are rewritten by the next tile
   }
   part[tid] = acc;
   __syncthreads();
@@ -755,28 +809,81 @@ __global__ void __launch_bounds__(kDecThreads) flash_decode_kernel(DecArgs a) {
   }
 }
 
-template <typename TQ, typename TK>
+template <typename TQ, typename TK, bool kPaged>
 cudaError_t launch_decode(const DecArgs& a, int n, int d,
                           cudaStream_t stream) {
   const dim3 grid((unsigned)(n * a.h));
   if (d == 32)
-    flash_decode_kernel<TQ, TK, 32><<<grid, kDecThreads, 0, stream>>>(a);
+    flash_decode_kernel<TQ, TK, 32, kPaged>
+        <<<grid, kDecThreads, 0, stream>>>(a);
   else if (d == 64)
-    flash_decode_kernel<TQ, TK, 64><<<grid, kDecThreads, 0, stream>>>(a);
+    flash_decode_kernel<TQ, TK, 64, kPaged>
+        <<<grid, kDecThreads, 0, stream>>>(a);
   else if (d == 128)
-    flash_decode_kernel<TQ, TK, 128><<<grid, kDecThreads, 0, stream>>>(a);
+    flash_decode_kernel<TQ, TK, 128, kPaged>
+        <<<grid, kDecThreads, 0, stream>>>(a);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
 
-template <typename TQ>
+template <typename TQ, bool kPaged>
 cudaError_t launch_decode_kv(const DecArgs& a, int kv_dtype, int n, int d,
                              cudaStream_t stream) {
-  if (kv_dtype == 0) return launch_decode<TQ, float>(a, n, d, stream);
-  if (kv_dtype == 1) return launch_decode<TQ, __nv_bfloat16>(a, n, d, stream);
-  if (kv_dtype == 2) return launch_decode<TQ, int8_t>(a, n, d, stream);
+  if (kv_dtype == 0) return launch_decode<TQ, float, kPaged>(a, n, d, stream);
+  if (kv_dtype == 1)
+    return launch_decode<TQ, __nv_bfloat16, kPaged>(a, n, d, stream);
+  if (kv_dtype == 2) return launch_decode<TQ, int8_t, kPaged>(a, n, d, stream);
   return cudaErrorInvalidValue;
+}
+
+template <bool kPaged>
+cudaError_t launch_decode_any(const DecArgs& a, int q_dtype, int kv_dtype,
+                              int n, int d, cudaStream_t stream) {
+  if (q_dtype == 0)
+    return launch_decode_kv<float, kPaged>(a, kv_dtype, n, d, stream);
+  if (q_dtype == 1)
+    return launch_decode_kv<__nv_bfloat16, kPaged>(a, kv_dtype, n, d, stream);
+  return cudaErrorInvalidValue;
+}
+
+DecArgs decode_args(const void* q, int64_t q_sn, int64_t q_sh, const void* k,
+                    const void* v, int64_t k_ss, int64_t k_sp, int64_t k_sh,
+                    int64_t v_ss, int64_t v_sp, int64_t v_sh, const float* ks,
+                    const float* vs, int64_t ks_ss, int64_t ks_sp,
+                    int64_t ks_sh, int64_t vs_ss, int64_t vs_sp,
+                    int64_t vs_sh, const int* lengths, void* out, int h,
+                    int s_max, float scale) {
+  DecArgs a;
+  a.q = q;
+  a.q_sn = q_sn;
+  a.q_sh = q_sh;
+  a.k = k;
+  a.v = v;
+  a.k_ss = k_ss;
+  a.k_sp = k_sp;
+  a.k_sh = k_sh;
+  a.v_ss = v_ss;
+  a.v_sp = v_sp;
+  a.v_sh = v_sh;
+  a.ks = ks;
+  a.vs = vs;
+  a.ks_ss = ks_ss;
+  a.ks_sp = ks_sp;
+  a.ks_sh = ks_sh;
+  a.vs_ss = vs_ss;
+  a.vs_sp = vs_sp;
+  a.vs_sh = vs_sh;
+  a.lengths = lengths;
+  a.slots = nullptr;
+  a.tables = nullptr;
+  a.n_max = 0;
+  a.page_size = 1;
+  a.out = out;
+  a.h = h;
+  a.s_max = s_max;
+  a.scale = scale;
+  return a;
 }
 
 }  // namespace
@@ -872,37 +979,40 @@ int cmn_flash_decode(const void* q, int q_dtype, int64_t q_sn, int64_t q_sh,
   if (n <= 0 || h <= 0 || s_max <= 0) return (int)cudaErrorInvalidValue;
   if ((kv_dtype == 2) != (ks != nullptr && vs != nullptr))
     return (int)cudaErrorInvalidValue;
-  DecArgs a;
-  a.q = q;
-  a.q_sn = q_sn;
-  a.q_sh = q_sh;
-  a.k = k;
-  a.v = v;
-  a.k_ss = k_ss;
-  a.k_sp = k_sp;
-  a.k_sh = k_sh;
-  a.v_ss = v_ss;
-  a.v_sp = v_sp;
-  a.v_sh = v_sh;
-  a.ks = ks;
-  a.vs = vs;
-  a.ks_ss = ks_ss;
-  a.ks_sp = ks_sp;
-  a.ks_sh = ks_sh;
-  a.vs_ss = vs_ss;
-  a.vs_sp = vs_sp;
-  a.vs_sh = vs_sh;
-  a.lengths = lengths;
+  DecArgs a = decode_args(q, q_sn, q_sh, k, v, k_ss, k_sp, k_sh, v_ss, v_sp,
+                          v_sh, ks, vs, ks_ss, ks_sp, ks_sh, vs_ss, vs_sp,
+                          vs_sh, lengths, out, h, s_max, scale);
   a.slots = slots;
-  a.out = out;
-  a.h = h;
-  a.s_max = s_max;
-  a.scale = scale;
-  if (q_dtype == 0)
-    return (int)launch_decode_kv<float>(a, kv_dtype, n, d, stream);
-  if (q_dtype == 1)
-    return (int)launch_decode_kv<__nv_bfloat16>(a, kv_dtype, n, d, stream);
-  return (int)cudaErrorInvalidValue;
+  return (int)launch_decode_any<false>(a, q_dtype, kv_dtype, n, d, stream);
+}
+
+// The paged twin of cmn_flash_decode.  k, v: one layer's pool (P, ps, H, D)
+// through strides (page, in-page offset, head), every row 16-byte aligned;
+// ks, vs: (P, ps, H) f32 scales for an int8 pool, or null.  tables: (N,
+// n_max) int32 contiguous, position p of row i at page tables[i, p / ps],
+// offset p % ps; entries at or past ceil(lengths[i] / ps) are never read.
+// lengths: (N,) int32 in 1..n_max * ps.  out: (N, H, D) contiguous in q's
+// dtype.  D is 32, 64 or 128.
+int cmn_flash_decode_paged(
+    const void* q, int q_dtype, int64_t q_sn, int64_t q_sh, const void* k,
+    const void* v, int kv_dtype, int64_t k_sg, int64_t k_so, int64_t k_sh,
+    int64_t v_sg, int64_t v_so, int64_t v_sh, const float* ks,
+    const float* vs, int64_t ks_sg, int64_t ks_so, int64_t ks_sh,
+    int64_t vs_sg, int64_t vs_so, int64_t vs_sh, const int* tables,
+    int n_max, int page_size, const int* lengths, void* out, int n, int h,
+    int d, float scale, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (n <= 0 || h <= 0 || n_max <= 0 || page_size <= 0)
+    return (int)cudaErrorInvalidValue;
+  if ((kv_dtype == 2) != (ks != nullptr && vs != nullptr))
+    return (int)cudaErrorInvalidValue;
+  DecArgs a = decode_args(q, q_sn, q_sh, k, v, k_sg, k_so, k_sh, v_sg, v_so,
+                          v_sh, ks, vs, ks_sg, ks_so, ks_sh, vs_sg, vs_so,
+                          vs_sh, lengths, out, h, n_max * page_size, scale);
+  a.tables = tables;
+  a.n_max = n_max;
+  a.page_size = page_size;
+  return (int)launch_decode_any<true>(a, q_dtype, kv_dtype, n, d, stream);
 }
 
 const char* cmn_fa_strerror(int err) {

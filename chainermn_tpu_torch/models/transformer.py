@@ -1,13 +1,16 @@
-"""Decoder-only transformer LM, its training loss and its
-slot-KV-cache serving functions.
+"""Decoder-only transformer LM, its training loss and its serving
+functions over a slot or a paged KV cache.
 
 Counterpart of ``chainermn_tpu/models/transformer.py``: the same blocks
 (pre-LayerNorm, fused qkv projection, causal flash attention, gelu MLP),
 the same parameter tree, the next-token loss (:func:`lm_loss`,
 :func:`lm_loss_sum`) over the fused cross-entropy, and module-level
-serving functions (:func:`init_kv_cache`, :func:`prefill`,
-:func:`decode_step`) that do the same arithmetic as
-:meth:`TransformerLM.forward` over the same parameters.
+serving functions that do the same arithmetic as
+:meth:`TransformerLM.forward` over the same parameters: a slot cache
+(:func:`init_kv_cache`, :func:`prefill`, :func:`decode_step`), a paged
+cache (:func:`init_paged_kv_cache`, :func:`prefill_paged` for one
+prompt chunk, :func:`decode_step_paged`), and the speculative verify
+pass over either (:func:`spec_verify`, :func:`spec_verify_paged`).
 :meth:`TransformerLM.forward` records gradients (LayerNorm, flash
 attention and the cross-entropy each carry their backward); the serving
 functions are inference: call them under ``torch.no_grad()``.
@@ -20,8 +23,8 @@ LM head is a float32 product over activations first rounded to
 ``dtype``, as in the JAX package.
 
 Not ported yet (they raise ``NotImplementedError``): ``tp_axis``,
-``sequence_axis`` and dropout (ROADMAP.md A6, A7), the paged cache and
-speculative verification (ROADMAP.md A8).
+``sequence_axis``, dropout and a tensor-parallel cache (ROADMAP.md A6,
+A7).
 """
 
 import torch
@@ -30,7 +33,7 @@ from torch import nn
 
 from chainermn_tpu_torch import ops
 from chainermn_tpu_torch.ops._common import resolve_device
-from chainermn_tpu_torch.precision import quantize_kv
+from chainermn_tpu_torch.precision import dequantize_kv, quantize_kv
 
 
 def _trunc_normal(shape, std, generator):
@@ -236,10 +239,17 @@ def init_kv_cache(model, n_slots, max_len=None, dtype=None, tp=1,
     if tp != 1:
         raise NotImplementedError(
             'a tensor-parallel cache is not ported yet (ROADMAP.md A7)')
+    return _zero_cache(model, (int(n_slots), int(max_len or model.max_len)),
+                       dtype, int8_kv, device)
+
+
+def _zero_cache(model, slab, dtype, int8_kv, device):
+    """``{'k'|'v': (n_layers, *slab, H, d_head)}`` zeros in ``dtype``
+    (default ``model.dtype``), or int8 with f32 ``k_scale`` / ``v_scale``
+    ``(n_layers, *slab, H)``."""
     device = resolve_device(device)
-    d_head = model.d_model // model.n_heads
-    shape = (model.n_layers, int(n_slots), int(max_len or model.max_len),
-             model.n_heads, d_head)
+    shape = (model.n_layers,) + slab + (model.n_heads,
+                                        model.d_model // model.n_heads)
     if int8_kv:
         return {'k': torch.zeros(shape, dtype=torch.int8, device=device),
                 'v': torch.zeros(shape, dtype=torch.int8, device=device),
@@ -248,6 +258,26 @@ def init_kv_cache(model, n_slots, max_len=None, dtype=None, tp=1,
     dtype = dtype or model.dtype
     return {'k': torch.zeros(shape, dtype=dtype, device=device),
             'v': torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_paged_kv_cache(model, n_pages, page_size, dtype=None, tp=1,
+                        int8_kv=False, device=None):
+    """Zeroed PAGED KV cache: a pool of ``n_pages`` pages of
+    ``page_size`` positions each, shared by every sequence:
+    ``{'k'|'v': (n_layers, n_pages, page_size, H, d_head)}`` (+
+    ``'k_scale'`` / ``'v_scale'`` ``(n_layers, n_pages, page_size, H)``
+    float32 under ``int8_kv``), on ``device`` (default: the current CUDA
+    device).  Sequences address it through page tables
+    (:func:`decode_step_paged`, :func:`prefill_paged`); allocation,
+    sharing and copy-on-write are host code in
+    :mod:`chainermn_tpu_torch.serving.paged`.  Page 0 is the allocator's
+    scratch page: pad rows write there and no live table points at it.
+    Pages are reused without zeroing: reads mask by the live length."""
+    if tp != 1:
+        raise NotImplementedError(
+            'a tensor-parallel cache is not ported yet (ROADMAP.md A7)')
+    return _zero_cache(model, (int(n_pages), int(page_size)), dtype,
+                       int8_kv, device)
 
 
 def _cache_int8(cache):
@@ -289,15 +319,21 @@ def _write_kv(cache, layer, k_new, v_new, slots, positions):
     n = k_new.shape[0]
     rows = (torch.arange(n, device=k_new.device) if slots is None
             else slots.long())
-    pos = positions.long()
+    return _scatter_kv(cache, layer, k_new, v_new, rows, positions.long())
+
+
+def _scatter_kv(cache, layer, k_new, v_new, idx0, idx1):
+    """Write K/V ``(..., H, d_head)`` in place at ``(layer, idx0, idx1)``
+    (slot and position, or page and offset; index tensors of the K/V's
+    leading shape), quantized with their scales under int8."""
     if _cache_int8(cache):
         for name, val in (('k', k_new), ('v', v_new)):
             qv, scale = quantize_kv(val)
-            cache[name][layer, rows, pos] = qv
-            cache[name + '_scale'][layer, rows, pos] = scale
+            cache[name][layer, idx0, idx1] = qv
+            cache[name + '_scale'][layer, idx0, idx1] = scale
         return cache
-    cache['k'][layer, rows, pos] = k_new.to(cache['k'].dtype)
-    cache['v'][layer, rows, pos] = v_new.to(cache['v'].dtype)
+    cache['k'][layer, idx0, idx1] = k_new.to(cache['k'].dtype)
+    cache['v'][layer, idx0, idx1] = v_new.to(cache['v'].dtype)
     return cache
 
 
@@ -404,3 +440,247 @@ def prefill(model, params, cache, tokens, length, slot):
                             params['lnf_bias'])
     return _head_logits(model, params, x_last)[0], cache
 
+
+# ---------------------------------------------------------------------
+# incremental decode: paged KV cache
+#
+# The pool of init_paged_kv_cache is read through per-sequence page
+# tables: position p of a sequence lives at page table[p // page_size],
+# offset p % page_size.  The arithmetic is the slot functions': only the
+# write and the attention read go through the tables.
+
+def decode_step_paged(model, params, cache, tokens, positions, page_tables):
+    """One incremental decode step against a PAGED cache: ``tokens`` /
+    ``positions`` ``(N,)`` as in :func:`decode_step`, ``page_tables``
+    ``(N, n_max)`` int mapping row i's position ``p`` to page
+    ``page_tables[i, p // page_size]``.  The entry covering
+    ``positions[i]`` must be allocated; entries past the live prefix are
+    never read (pad rows carry all-zero tables: they write and read the
+    scratch page 0).  Returns ``(logits (N, V) f32, cache)``; the cache
+    is updated in place."""
+    ps = cache['k'].shape[2]
+    positions = positions.long()
+    lengths = (positions + 1).to(torch.int32)
+    n = tokens.shape[0]
+    tables = page_tables.to(torch.int32)
+    pages = tables[torch.arange(n, device=tables.device),
+                   positions // ps].long()
+    offsets = positions % ps
+
+    def write(cache, layer, k_new, v_new):
+        return _scatter_kv(cache, layer, k_new, v_new, pages, offsets)
+
+    def attend(cache, layer, q):
+        scales = {}
+        if _cache_int8(cache):
+            scales = dict(k_scale=cache['k_scale'][layer],
+                          v_scale=cache['v_scale'][layer])
+        return ops.flash_attention_decode_paged(
+            q, cache['k'][layer], cache['v'][layer], tables, lengths,
+            **scales)
+
+    return _decode_core(model, params, cache, tokens, positions, write,
+                        attend)
+
+
+def _gather_context(cache, layer, tables):
+    """Each row's pages of one layer, ``(N, n_max * page_size, ...)``
+    per leaf: the banked context a chunk or a verify window attends."""
+    n, n_max = tables.shape
+    idx = tables.reshape(-1).long()
+
+    def gather(name):
+        g = cache[name][layer].index_select(0, idx)
+        return g.reshape((n, n_max * g.shape[1]) + g.shape[2:])
+
+    ctx = {'k_ctx': gather('k'), 'v_ctx': gather('v')}
+    if _cache_int8(cache):
+        ctx.update(k_scale=gather('k_scale'), v_scale=gather('v_scale'))
+    return ctx
+
+
+def prefill_paged(model, params, cache, tokens, length, page_table, pos0):
+    """Prefill ONE CHUNK of a prompt into a paged cache: ``tokens`` ``(1,
+    C)`` the chunk padded to a fixed width, ``length`` its valid prefix,
+    ``page_table`` ``(n_max,)`` the sequence's pages, ``pos0`` the
+    absolute position of its first token (tokens banked by earlier
+    chunks).  Returns ``(logits (V,) f32 at chunk position length - 1,
+    cache)``.
+
+    Each chunk's K/V is written into its pages in place (pad rows go to
+    the scratch page 0); attention is
+    :func:`~chainermn_tpu_torch.ops.flash_attention_chunk`, causal
+    within the chunk plus the banked context masked at ``pos0``.  With
+    ``pos0 == 0`` there is no context to read: attention is the slot
+    :func:`prefill`'s causal :func:`~chainermn_tpu_torch.ops.
+    flash_attention_fwd`, so an unchunked paged prefill is bitwise the
+    slot one.  int8 KV:
+    the chunk attends its fresh float K/V as the slot prefill does; only
+    the banked context is dequantized.  Nothing before ``pos0`` is
+    written (shared prefix pages stay read-only)."""
+    dtype = model.dtype
+    b, c = tokens.shape
+    if b != 1:
+        raise ValueError('prefill_paged takes one prompt chunk per call, got '
+                         'batch %d' % b)
+    length, pos0 = int(length), int(pos0)
+    table = page_table.reshape(-1).to(torch.int32)
+    n_max = table.shape[0]
+    ps = cache['k'].shape[2]
+    x = _embed(params['embed']['embedding'], tokens, dtype)
+    # the JAX package's dynamic_slice: the window start is clamped so the
+    # window stays inside the table
+    start = max(0, min(pos0, params['pos_embed'].shape[0] - c))
+    x = x + params['pos_embed'][start:start + c].to(dtype)
+    t = torch.arange(c, device=table.device)
+    p_abs = pos0 + t
+    page_idx = torch.clamp(p_abs // ps, 0, n_max - 1)
+    pages = torch.where(t < length, table[page_idx], 0).long()
+    offsets = p_abs % ps
+    ctx_len = torch.full((1,), pos0, dtype=torch.int32, device=table.device)
+    for i in range(model.n_layers):
+        bp = params['block_%d' % i]
+        h = ops.layer_norm(x, bp['ln1_scale'], bp['ln1_bias']).to(dtype)
+        qkv = _qkv_proj(h, bp, dtype)            # (1, C, 3, H, d_head)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        _scatter_kv(cache, i, k[0], v[0], pages, offsets)
+        if pos0:
+            attn = ops.flash_attention_chunk(
+                q, k, v, ctx_len=ctx_len,
+                **_gather_context(cache, i, table[None]))
+        else:
+            # no banked context: the slot prefill's causal forward
+            attn = ops.flash_attention_fwd(q, k, v, causal=True)[0]
+        x = x + _dense(attn.reshape(1, c, -1), bp['proj'], dtype)
+        h = ops.layer_norm(x, bp['ln2_scale'], bp['ln2_bias']).to(dtype)
+        x = x + _mlp(h, bp, dtype)
+    x_last = ops.layer_norm(x[0, length - 1:length], params['lnf_scale'],
+                            params['lnf_bias'])
+    return _head_logits(model, params, x_last)[0], cache
+
+
+# ---------------------------------------------------------------------
+# speculative decoding: the k-token verify pass
+
+def _verify_core(model, params, cache, tokens, positions, write, attend):
+    """The windowed twin of :func:`_decode_core`: ``tokens`` ``(N, K)``,
+    row i's window of K consecutive tokens from absolute position
+    ``positions[i]``; embed + per layer (norm -> qkv -> ``write`` the
+    window's K/V -> ``attend(cache, layer, q, k_new, v_new)`` window-
+    causal against the banked prefix -> proj residual -> MLP residual)
+    -> final norm -> head at all K positions.  Returns ``(logits (N, K,
+    V) f32, cache)``."""
+    dtype = model.dtype
+    n, kk = tokens.shape
+    window = positions.long()[:, None] + torch.arange(
+        kk, device=positions.device)[None, :]
+    # a window overhanging the position table: its columns are never
+    # committed, any row of the table will do
+    window = torch.clamp(window, max=params['pos_embed'].shape[0] - 1)
+    x = _embed(params['embed']['embedding'], tokens, dtype)
+    x = x + _embed(params['pos_embed'], window, dtype)
+    for i in range(model.n_layers):
+        bp = params['block_%d' % i]
+        h = ops.layer_norm(x, bp['ln1_scale'], bp['ln1_bias']).to(dtype)
+        qkv = _qkv_proj(h, bp, dtype)            # (N, K, 3, H, d_head)
+        q, k_new, v_new = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        cache = write(cache, i, k_new, v_new)
+        attn = attend(cache, i, q, k_new, v_new)
+        x = x + _dense(attn.reshape(n, kk, -1), bp['proj'], dtype)
+        h = ops.layer_norm(x, bp['ln2_scale'], bp['ln2_bias']).to(dtype)
+        x = x + _mlp(h, bp, dtype)
+    x = ops.layer_norm(x, params['lnf_scale'], params['lnf_bias'])
+    return _head_logits(model, params, x), cache
+
+
+def _roundtrip_kv(cache, k_new, v_new):
+    """What the sequential decode loop's next step would read back for
+    the window's fresh K/V: the cache-dtype cast, or the int8 quantize ->
+    dequantize round trip.  Fed as the chunk's fresh half, they make the
+    verify pass argmax-equal to the decode loop in every cache mode."""
+    if _cache_int8(cache):
+        return (dequantize_kv(*quantize_kv(k_new)),
+                dequantize_kv(*quantize_kv(v_new)))
+    dt = cache['k'].dtype
+    return k_new.to(dt), v_new.to(dt)
+
+
+def _attend_window(cache, q, k_new, v_new, positions, ctx):
+    k_att, v_att = _roundtrip_kv(cache, k_new, v_new)
+    return ops.flash_attention_chunk(q, k_att, v_att, ctx_len=positions,
+                                     **ctx)
+
+
+def spec_verify(model, params, cache, tokens, positions, slots=None):
+    """Speculative-decoding verify pass over a slot cache: score K
+    consecutive tokens per row in one pass.  ``tokens`` ``(N, K)``: row
+    i's window ``[last committed token, draft_1, ..., draft_{K-1}]`` at
+    absolute positions ``positions[i] + [0, K)``; ``slots`` as in
+    :func:`decode_step` (``None``: the full bucket, one row per slot).
+    Returns ``(logits (N, K, V) f32, cache)``: ``logits[i, j]`` is the
+    next-token distribution given the window through ``tokens[i, j]``.
+
+    Attention is :func:`~chainermn_tpu_torch.ops.flash_attention_chunk`
+    (the window is the chunk, the slot's cache the context masked at
+    ``positions``), with the fresh half round-tripped through the cache
+    dtype.  Window positions at or past the cache depth are not written
+    and never committed.  Rollback after the accept decision is a
+    position rewind: rejected columns' K/V stay as masked garbage."""
+    n_slots, depth = cache['k'].shape[1:3]
+    if slots is None and tokens.shape[0] != n_slots:
+        raise ValueError(
+            'full-bucket verify needs one row per cache slot (%d rows vs %d '
+            'slots); pass slots= for a compacted bucket'
+            % (tokens.shape[0], n_slots))
+    n, kk = tokens.shape
+    positions = positions.long()
+    window = positions[:, None] + torch.arange(kk, device=positions.device)
+    rows = (torch.arange(n, device=positions.device) if slots is None
+            else slots.long())
+    rows_w = rows[:, None].expand(n, kk)
+    inside = window < depth                       # the rest is dropped
+
+    def write(cache, layer, k_new, v_new):
+        return _scatter_kv(cache, layer, k_new[inside], v_new[inside],
+                           rows_w[inside], window[inside])
+
+    def attend(cache, layer, q, k_new, v_new):
+        ctx = {'k_ctx': cache['k'][layer], 'v_ctx': cache['v'][layer]}
+        if _cache_int8(cache):
+            ctx.update(k_scale=cache['k_scale'][layer],
+                       v_scale=cache['v_scale'][layer])
+        if slots is not None:
+            ctx = {key: val.index_select(0, rows) for key, val in ctx.items()}
+        return _attend_window(cache, q, k_new, v_new, positions, ctx)
+
+    return _verify_core(model, params, cache, tokens, positions, write,
+                        attend)
+
+
+def spec_verify_paged(model, params, cache, tokens, positions, page_tables):
+    """:func:`spec_verify` against a PAGED cache: ``page_tables`` ``(N,
+    n_max)`` as in :func:`decode_step_paged`; the entries covering
+    ``[positions[i], positions[i] + K)`` must be allocated, and window
+    rows past the table's span go to the scratch page like pad rows.
+    The context is gathered through the tables and masked at
+    ``positions``."""
+    n, kk = tokens.shape
+    tables = page_tables.to(torch.int32)
+    n_max = tables.shape[1]
+    ps = cache['k'].shape[2]
+    positions = positions.long()
+    window = positions[:, None] + torch.arange(kk, device=positions.device)
+    page_idx = torch.clamp(window // ps, 0, n_max - 1)
+    pages = torch.where(window < n_max * ps,
+                        torch.gather(tables.long(), 1, page_idx), 0)
+    offsets = window % ps
+
+    def write(cache, layer, k_new, v_new):
+        return _scatter_kv(cache, layer, k_new, v_new, pages, offsets)
+
+    def attend(cache, layer, q, k_new, v_new):
+        return _attend_window(cache, q, k_new, v_new, positions,
+                              _gather_context(cache, layer, tables))
+
+    return _verify_core(model, params, cache, tokens, positions, write,
+                        attend)

@@ -13,9 +13,11 @@ from chainermn_tpu_torch.ops.batch_norm_act import (  # noqa: F401
 from chainermn_tpu_torch.ops.cross_entropy import (  # noqa: F401
     ce_forward, softmax_cross_entropy, softmax_cross_entropy_reference)
 from chainermn_tpu_torch.ops.flash_attention import (  # noqa: F401
-    decode_attention_reference, flash_attention, flash_attention_decode,
-    flash_attention_fwd, flash_bwd_dkv, flash_bwd_dq, flash_decode, flash_fwd,
-    mha_reference)
+    chunk_attention_reference, decode_attention_paged_reference,
+    decode_attention_reference, flash_attention, flash_attention_chunk,
+    flash_attention_decode, flash_attention_decode_paged,
+    flash_attention_fwd, flash_bwd_dkv, flash_bwd_dq, flash_decode,
+    flash_decode_paged, flash_fwd, mha_reference)
 from chainermn_tpu_torch.ops.layer_norm import (  # noqa: F401
     layer_norm, layer_norm_reference, ln_forward)
 from chainermn_tpu_torch.ops.optimizer import (  # noqa: F401
@@ -26,7 +28,8 @@ KERNELS = {'bn_stats': bn_stats, 'bn_apply': bn_apply,
            'momentum_sgd': sgd_update, 'layer_norm': ln_forward,
            'flash_fwd': flash_fwd, 'flash_decode': flash_decode,
            'flash_bwd_dq': flash_bwd_dq, 'flash_bwd_dkv': flash_bwd_dkv,
-           'cross_entropy': ce_forward}
+           'cross_entropy': ce_forward,
+           'flash_decode_paged': flash_decode_paged}
 
 
 def launch_counts():

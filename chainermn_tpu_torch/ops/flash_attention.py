@@ -26,6 +26,18 @@ layouts: ``(B, T, H, D)`` activations, ``(B, S, H, D)`` caches.
   (:func:`_decode_blockwise`), which gathers the rows first as the JAX
   package's ``_attend_cache`` does.  Forward only, as in the JAX package
   (decode is inference): it raises when asked to record a gradient.
+- :func:`flash_attention_decode_paged` (the same read of a PAGED cache:
+  a pool ``(P, page_size, H, D)`` shared by all sequences, addressed
+  through per-row page tables): on CUDA tensors the kernel
+  ``cmn_flash_decode_paged`` (:func:`flash_decode_paged`), the decode
+  kernel with each position's address looked up in the row's table; on
+  CPU tensors the plain version (:func:`_decode_paged_plain`, one page
+  per row per step).  Forward only.
+- :func:`flash_attention_chunk` (a prefill chunk or a speculative
+  verify window against its banked context): the causal in-chunk half
+  through :func:`flash_attention_fwd` (so ``cmn_flash_fwd`` on CUDA),
+  the context half as a blockwise scan in PyTorch ops (as the JAX
+  package leaves it to XLA), merged through the two log-sum-exps.
 """
 
 import ctypes
@@ -145,6 +157,123 @@ def _decode_blockwise(q, k, v, lengths, scale, block_k, k_scale=None,
     return (acc / torch.clamp_min(l, 1e-30)[:, None]).to(q.dtype)
 
 
+def _gather_pages(x, tables):
+    """Each row's pages of a pool ``(P, ps, ...)`` in position order:
+    ``(B, n_max * ps, ...)`` for ``tables`` ``(B, n_max)``."""
+    b, n_max = tables.shape
+    g = x.index_select(0, tables.reshape(-1).long())
+    return g.reshape((b, n_max * x.shape[1]) + x.shape[2:])
+
+
+def decode_attention_paged_reference(q, k, v, page_tables, lengths,
+                                     scale=None, k_scale=None, v_scale=None):
+    """Plain oracle of :func:`flash_attention_decode_paged` (the twin of
+    the JAX ``decode_attention_paged_reference``): gathers each row's
+    pages into the contiguous ``(B, S, H, D)`` layout and defers to
+    :func:`decode_attention_reference` -- paging is a storage
+    indirection, never an arithmetic change."""
+    return decode_attention_reference(
+        q, _gather_pages(k, page_tables), _gather_pages(v, page_tables),
+        lengths, scale=scale,
+        k_scale=None if k_scale is None else _gather_pages(k_scale,
+                                                           page_tables),
+        v_scale=None if v_scale is None else _gather_pages(v_scale,
+                                                           page_tables))
+
+
+def _decode_paged_plain(q, k, v, page_tables, lengths, scale, k_scale=None,
+                        v_scale=None):
+    """Plain paged decode (the twin of the JAX
+    ``_decode_paged_blockwise_jnp``): the kernel's online-softmax update
+    over the page-table axis, gathering ONE page per row per step.  Dead
+    entries (at or past ``ceil(lengths / ps)``) are not followed: a dead
+    step reads page 0 and masks all of it."""
+    b, h, d = q.shape
+    ps = k.shape[1]
+    n_max = page_tables.shape[1]
+    lengths = lengths.to(torch.int64)
+    tables = page_tables.to(torch.int64)
+    qf = q.float() * scale
+    m = torch.full((b, h), NEG_INF, device=q.device)
+    l = torch.zeros((b, h), device=q.device)
+    acc = torch.zeros((b, h, d), device=q.device)
+    offsets = torch.arange(ps, device=q.device)
+    for j in range(n_max):
+        pages = torch.where(j * ps < lengths, tables[:, j], 0)
+        kj = k.index_select(0, pages).float()            # (B, ps, H, D)
+        vj = v.index_select(0, pages).float()
+        if k_scale is not None:
+            kj = kj * k_scale.index_select(0, pages).float()[..., None]
+            vj = vj * v_scale.index_select(0, pages).float()[..., None]
+        s = torch.einsum('bhd,bkhd->bhk', qf, kj)         # (B, H, ps)
+        ok = (j * ps + offsets)[None, None, :] < lengths[:, None, None]
+        s = torch.where(ok, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum('bhk,bkhd->bhd', p, vj)
+        m = m_new
+    return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
+
+
+def chunk_attention_reference(q, k_new, v_new, k_ctx, v_ctx, ctx_len,
+                              scale=None, k_scale=None, v_scale=None):
+    """Plain oracle of :func:`flash_attention_chunk` (the twin of the JAX
+    ``chunk_attention_reference``): one softmax over the banked context
+    (masked at ``ctx_len``) and the chunk itself (causal)."""
+    scale = _scale(q, scale)
+    c = q.shape[1]
+    kcf, vcf = k_ctx.float(), v_ctx.float()
+    if k_scale is not None:
+        kcf = kcf * k_scale.float()[..., None]
+        vcf = vcf * v_scale.float()[..., None]
+    kf = torch.cat([kcf, k_new.float()], dim=1)
+    vf = torch.cat([vcf, v_new.float()], dim=1)
+    s = torch.einsum('bqhd,bkhd->bhqk', q.float(), kf) * scale
+    s_ctx = k_ctx.shape[1]
+    k_pos = torch.arange(s_ctx + c, device=q.device)[None, None, None, :]
+    q_pos = torch.arange(c, device=q.device)[None, None, :, None]
+    cl = ctx_len.to(q.device).long()[:, None, None, None]
+    in_ctx = (k_pos < s_ctx) & (k_pos < cl)
+    in_chunk = (k_pos >= s_ctx) & (k_pos - s_ctx <= q_pos)
+    p = torch.softmax(torch.where(in_ctx | in_chunk, s, NEG_INF), dim=-1)
+    return torch.einsum('bhqk,bkhd->bqhd', p, vf).to(q.dtype)
+
+
+def _ctx_blockwise(q, k, v, ctx_len, scale, block_k, k_scale=None,
+                   v_scale=None):
+    """Non-causal blockwise attention of ``t_q`` query rows against a
+    context masked by a per-row length: the chunk's context half (the
+    twin of the JAX ``_ctx_blockwise_jnp``).  Merged operands: ``q``
+    ``(BH, Tq, D)``, ``k`` / ``v`` ``(BH, S, D)`` with S a multiple of
+    ``block_k``, scales ``(BH, S)``, ``ctx_len`` ``(BH,)``.  Returns
+    ``(out in q.dtype, lse f32)``."""
+    bh, t_q, d = q.shape
+    qf = q.float() * scale
+    m = torch.full((bh, t_q), NEG_INF, device=q.device)
+    l = torch.zeros((bh, t_q), device=q.device)
+    acc = torch.zeros((bh, t_q, d), device=q.device)
+    for j in range(k.shape[1] // block_k):
+        blk = slice(j * block_k, (j + 1) * block_k)
+        kj, vj = k[:, blk].float(), v[:, blk].float()
+        if k_scale is not None:
+            kj = kj * k_scale[:, blk, None]
+            vj = vj * v_scale[:, blk, None]
+        s = torch.einsum('bqd,bkd->bqk', qf, kj)
+        k_pos = j * block_k + torch.arange(block_k, device=q.device)
+        s = torch.where(k_pos[None, None, :] < ctx_len[:, None, None], s,
+                        NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum('bqk,bkd->bqd', p, vj)
+        m = m_new
+    l_safe = torch.clamp_min(l, 1e-30)
+    return (acc / l_safe[..., None]).to(q.dtype), m + torch.log(l_safe)
+
+
 def _merge(x):
     """``(B, T, H, ...)`` -> ``(B*H, T, ...)``."""
     x = x.transpose(1, 2)
@@ -259,6 +388,11 @@ def _lib():
             + [i64] * 6 + [vp, vp, vp, i32, i32, i32, i32, ctypes.c_float,
                            vp])
         lib.cmn_flash_decode.restype = ctypes.c_int
+        lib.cmn_flash_decode_paged.argtypes = (
+            [vp, i32, i64, i64, vp, vp, i32] + [i64] * 6 + [vp, vp]
+            + [i64] * 6 + [vp, i32, i32, vp, vp, i32, i32, i32,
+                           ctypes.c_float, vp])
+        lib.cmn_flash_decode_paged.restype = ctypes.c_int
         lib.cmn_fa_strerror.argtypes = [ctypes.c_int]
         lib.cmn_fa_strerror.restype = ctypes.c_char_p
         lib._cmn_typed = True
@@ -418,72 +552,136 @@ def flash_decode(q, k, v, lengths, scale, k_scale=None, v_scale=None,
     ``(N,)``, each in 1..S; ``slots`` int32 ``(N,)`` maps row i to its
     cache slot (``None``: row i reads slot i).  Returns ``(N, H, D)``
     contiguous in ``q.dtype``.  Replaces ``_decode_pallas``."""
-    _check_cuda('flash_decode', q, k, v, lengths, k_scale, v_scale, slots)
-    if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError('flash_decode: expects q (N, H, D) and k, v '
-                         '(slots, S, H, D), got %s %s %s'
-                         % (tuple(q.shape), tuple(k.shape), tuple(v.shape)))
-    n, h, d = q.shape
+    what = 'flash_decode'
+    _check_cuda(what, q, k, v, lengths, k_scale, v_scale, slots)
+    n, h, d, q_code = _check_decode_operands(what, q, k, v, k_scale,
+                                             v_scale, '(slots, S, H, D)')
+    _check_int_vectors(what, (lengths, 'lengths', (n,)),
+                       (slots, 'slots', (n,)))
     n_slots, s_max = k.shape[:2]
-    if k.shape[2:] != (h, d):
-        raise ValueError('flash_decode: q %s and cache %s disagree on H or D'
-                         % (tuple(q.shape), tuple(k.shape)))
-    if d not in HEAD_DIMS:
-        raise ValueError('flash_decode: head dim %d, the kernel takes %s'
-                         % (d, HEAD_DIMS))
-    q_code = _common.dtype_code(q, 'flash_decode q')
-    if k.dtype not in KV_CODES or v.dtype != k.dtype:
-        raise TypeError('flash_decode: cache dtypes %s %s (float32, bfloat16 '
-                        'or int8)' % (k.dtype, v.dtype))
-    quantized = k.dtype == torch.int8
-    if quantized != (k_scale is not None) or \
-            (k_scale is None) != (v_scale is None):
-        raise ValueError('flash_decode: an int8 cache needs both k_scale and '
-                         'v_scale, a float cache neither')
-    if q.stride(2) != 1:
-        raise ValueError('flash_decode: q needs a contiguous head dim, got '
-                         'strides %s' % (q.stride(),))
-    for t, name in ((k, 'k'), (v, 'v')):
-        if t.stride(3) != 1 or not _aligned16(t):
-            raise ValueError('flash_decode: %s needs a contiguous head dim '
-                             'and 16-byte aligned rows, got strides %s'
-                             % (name, t.stride()))
-    if quantized:
-        for t, name in ((k_scale, 'k_scale'), (v_scale, 'v_scale')):
-            if t.shape != k.shape[:3] or t.dtype != torch.float32:
-                raise ValueError('flash_decode: %s must be float32 %s, got '
-                                 '%s %s' % (name, tuple(k.shape[:3]),
-                                            t.dtype, tuple(t.shape)))
-    for t, name, want in ((lengths, 'lengths', n), (slots, 'slots', n)):
-        if t is not None and (t.dtype != torch.int32 or t.shape != (want,)
-                              or not t.is_contiguous()):
-            raise ValueError('flash_decode: %s must be a contiguous int32 '
-                             '(%d,) vector, got %s %s'
-                             % (name, want, t.dtype, tuple(t.shape)))
     if slots is None and n > n_slots:
         raise ValueError('flash_decode: %d rows but %d cache slots and no '
                          'slots map' % (n, n_slots))
-    if n == 0:
-        raise ValueError('flash_decode: no rows')
     out = torch.empty((n, h, d), dtype=q.dtype, device=q.device)
-    ks = k_scale.stride() if quantized else (0, 0, 0)
-    vs = v_scale.stride() if quantized else (0, 0, 0)
     lib = _lib()
     err = lib.cmn_flash_decode(
-        _common.ptr(q), q_code, q.stride(0), q.stride(1),
-        _common.ptr(k), _common.ptr(v), KV_CODES[k.dtype],
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        _common.ptr(k_scale), _common.ptr(v_scale),
-        ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
+        *_decode_lead(q, q_code, k, v, k_scale, v_scale),
         _common.ptr(lengths), _common.ptr(slots), _common.ptr(out),
         n, h, s_max, d, float(scale), _common.stream_ptr(q.device))
-    _common.check_launch(err, lib.cmn_fa_strerror, 'flash_decode')
+    _common.check_launch(err, lib.cmn_fa_strerror, what)
     flash_decode.launches += 1
     return out
 
 
 flash_decode.launches = 0
+
+
+def _check_decode_operands(what, q, k, v, k_scale, v_scale, layout):
+    """The checks both decode kernels make of ``q`` ``(N, H, D)`` and of
+    one layer's cache ``(X, Y, H, D)`` (``layout`` names X and Y) with
+    its int8 scales; returns ``(n, h, d, q dtype code)``."""
+    if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError('%s: expects q (N, H, D) and k, v %s, got %s %s %s'
+                         % (what, layout, tuple(q.shape), tuple(k.shape),
+                            tuple(v.shape)))
+    n, h, d = q.shape
+    if k.shape[2:] != (h, d):
+        raise ValueError('%s: q %s and cache %s disagree on H or D'
+                         % (what, tuple(q.shape), tuple(k.shape)))
+    if d not in HEAD_DIMS:
+        raise ValueError('%s: head dim %d, the kernel takes %s'
+                         % (what, d, HEAD_DIMS))
+    q_code = _common.dtype_code(q, what + ' q')
+    if k.dtype not in KV_CODES or v.dtype != k.dtype:
+        raise TypeError('%s: cache dtypes %s %s (float32, bfloat16 or int8)'
+                        % (what, k.dtype, v.dtype))
+    quantized = k.dtype == torch.int8
+    if quantized != (k_scale is not None) or \
+            (k_scale is None) != (v_scale is None):
+        raise ValueError('%s: an int8 cache needs both k_scale and v_scale, '
+                         'a float cache neither' % what)
+    if q.stride(2) != 1:
+        raise ValueError('%s: q needs a contiguous head dim, got strides %s'
+                         % (what, q.stride()))
+    for t, name in ((k, 'k'), (v, 'v')):
+        if t.stride(3) != 1 or not _aligned16(t):
+            raise ValueError('%s: %s needs a contiguous head dim and 16-byte '
+                             'aligned rows, got strides %s'
+                             % (what, name, t.stride()))
+    if quantized:
+        for t, name in ((k_scale, 'k_scale'), (v_scale, 'v_scale')):
+            if t.shape != k.shape[:3] or t.dtype != torch.float32:
+                raise ValueError('%s: %s must be float32 %s, got %s %s'
+                                 % (what, name, tuple(k.shape[:3]), t.dtype,
+                                    tuple(t.shape)))
+    if n == 0:
+        raise ValueError('%s: no rows' % what)
+    return n, h, d, q_code
+
+
+def _check_int_vectors(what, *operands):
+    """Each ``(tensor, name, shape)``: a contiguous int32 tensor of that
+    shape (``None`` tensors pass)."""
+    for t, name, want in operands:
+        if t is not None and (t.dtype != torch.int32
+                              or tuple(t.shape) != want
+                              or not t.is_contiguous()):
+            raise ValueError('%s: %s must be a contiguous int32 %s tensor, '
+                             'got %s %s' % (what, name, want, t.dtype,
+                                            tuple(t.shape)))
+
+
+def _decode_lead(q, q_code, k, v, k_scale, v_scale):
+    """The leading arguments both decode entry points share: q and its
+    strides, the cache operands with their strides, the scales with
+    theirs (zeros for a float cache)."""
+    ks = k_scale.stride() if k_scale is not None else (0, 0, 0)
+    vs = v_scale.stride() if v_scale is not None else (0, 0, 0)
+    return (_common.ptr(q), q_code, q.stride(0), q.stride(1),
+            _common.ptr(k), _common.ptr(v), KV_CODES[k.dtype],
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            _common.ptr(k_scale), _common.ptr(v_scale),
+            ks[0], ks[1], ks[2], vs[0], vs[1], vs[2])
+
+
+def flash_decode_paged(q, k, v, page_tables, lengths, scale, k_scale=None,
+                       v_scale=None):
+    """Kernel wrapper: one query row per (row, head) against its pages.
+    ``q`` CUDA ``(N, H, D)`` bf16/f32 (D contiguous); ``k`` / ``v`` one
+    layer's pool ``(P, ps, H, D)`` bf16/f32, or int8 with f32 ``k_scale``
+    / ``v_scale`` ``(P, ps, H)``, read in place through their strides (a
+    layer slice of the 5-D cache is taken as it is); ``page_tables``
+    int32 ``(N, n_max)`` contiguous, position p of row i at page
+    ``page_tables[i, p // ps]``; ``lengths`` int32 ``(N,)``, each in
+    1..n_max * ps.  Table entries at or past ``ceil(lengths[i] / ps)``
+    are never read.  Returns ``(N, H, D)`` contiguous in ``q.dtype``.
+    Replaces ``_decode_paged_pallas``."""
+    what = 'flash_decode_paged'
+    _check_cuda(what, q, k, v, page_tables, lengths, k_scale, v_scale)
+    n, h, d, q_code = _check_decode_operands(what, q, k, v, k_scale,
+                                             v_scale, '(P, ps, H, D)')
+    if page_tables.dim() != 2 or page_tables.shape[0] != n:
+        raise ValueError('%s: page_tables must be (%d, n_max), got %s'
+                         % (what, n, tuple(page_tables.shape)))
+    n_max = page_tables.shape[1]
+    _check_int_vectors(what, (page_tables, 'page_tables', (n, n_max)),
+                       (lengths, 'lengths', (n,)))
+    if n_max == 0:
+        raise ValueError('%s: empty page tables' % what)
+    out = torch.empty((n, h, d), dtype=q.dtype, device=q.device)
+    lib = _lib()
+    err = lib.cmn_flash_decode_paged(
+        *_decode_lead(q, q_code, k, v, k_scale, v_scale),
+        _common.ptr(page_tables), n_max, k.shape[1], _common.ptr(lengths),
+        _common.ptr(out), n, h, d, float(scale),
+        _common.stream_ptr(q.device))
+    _common.check_launch(err, lib.cmn_fa_strerror, what)
+    flash_decode_paged.launches += 1
+    return out
+
+
+flash_decode_paged.launches = 0
 
 
 # ---------------------------------------------------------------------
@@ -559,3 +757,90 @@ def flash_attention_decode(q, k, v, lengths, scale=None, k_scale=None,
             v_scale,
             None if slots is None else slots.to(torch.int32).contiguous())
     return _decode_plain(q, k, v, lengths, scale, k_scale, v_scale, slots)
+
+
+def flash_attention_decode_paged(q, k, v, page_tables, lengths, scale=None,
+                                 k_scale=None, v_scale=None):
+    """Single-token decode attention against a PAGED KV cache.
+
+    ``q`` ``(B, H, D)``: one query row per sequence.  ``k`` / ``v``
+    ``(P, page_size, H, D)``: the page pool shared by all sequences.
+    ``page_tables`` ``(B, n_max)``: each sequence's pages in position
+    order (position ``p`` at page ``page_tables[b, p // page_size]``,
+    offset ``p % page_size``).  ``lengths`` ``(B,)``: the live prefix;
+    table entries at or past ``ceil(lengths[b] / page_size)`` are never
+    read, so an allocator can leave them pointing at its scratch page.
+    int8 pools pass ``k_scale`` / ``v_scale`` ``(P, page_size, H)``.  The
+    arithmetic is that of :func:`flash_attention_decode`; forward only.
+    """
+    _common.forbid_grad('flash_attention_decode_paged', q, k, v, k_scale,
+                        v_scale)
+    if k.dim() != 4:
+        raise ValueError('paged cache must be (P, page_size, H, D), got '
+                         'shape %r' % (tuple(k.shape),))
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError('int8 KV decode needs BOTH k_scale and v_scale '
+                         '(or neither)')
+    scale = _scale(q, scale)
+    if _common.on_cuda(q, k, v, page_tables, lengths, k_scale, v_scale):
+        return flash_decode_paged(
+            q, k, v, page_tables.to(torch.int32).contiguous(),
+            lengths.to(torch.int32).contiguous(), scale, k_scale, v_scale)
+    return _decode_paged_plain(q, k, v, page_tables, lengths, scale,
+                               k_scale, v_scale)
+
+
+def flash_attention_chunk(q, k_new, v_new, k_ctx, v_ctx, ctx_len, scale=None,
+                          k_scale=None, v_scale=None):
+    """Prefill-chunk attention: C fresh query rows at absolute positions
+    ``ctx_len + [0, C)`` against the banked context plus causal attention
+    within the chunk.
+
+    ``q`` / ``k_new`` / ``v_new`` ``(B, C, H, D)``; ``k_ctx`` / ``v_ctx``
+    ``(B, S, H, D)`` gathered cache rows (int8 with ``k_scale`` /
+    ``v_scale`` ``(B, S, H)``; the chunk half always attends the fresh
+    K/V); ``ctx_len`` ``(B,)``: context positions at or past it are
+    masked.  The causal in-chunk half goes through
+    :func:`flash_attention_fwd` (the kernel ``cmn_flash_fwd`` on CUDA
+    tensors), the context half through a blockwise scan in PyTorch ops,
+    and the two are merged exactly through their log-sum-exps.  With an
+    empty context (``ctx_len == 0``, or ``S == 0``) the merge leaves the
+    in-chunk half untouched: the result is bitwise the causal forward.
+    Forward only."""
+    _common.forbid_grad('flash_attention_chunk', q, k_new, v_new, k_ctx,
+                        v_ctx)
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError('int8 KV context needs BOTH k_scale and v_scale '
+                         '(or neither)')
+    b, c, h, d = q.shape
+    s_ctx = k_ctx.shape[1]
+    scale = _scale(q, scale)
+    if k_new.dtype != q.dtype:
+        # dequantized fresh K/V (f32) beside a bf16 query: the kernel takes
+        # one dtype, and the JAX fallback widens all three to f32 anyway
+        q_c, k_new, v_new = q.float(), k_new.float(), v_new.float()
+    else:
+        q_c = q
+    out_c, lse_c = flash_attention_fwd(q_c, k_new, v_new, causal=True,
+                                       scale=scale)
+    out_c = out_c.to(q.dtype)
+    block = min(BLOCK, max(s_ctx, 1))
+    n_k = -(-s_ctx // block) * block
+    km, vm = _pad_to(_merge(k_ctx), n_k), _pad_to(_merge(v_ctx), n_k)
+    ksm = vsm = None
+    if k_scale is not None:
+        ksm = _pad_to(_merge(k_scale.float()), n_k)
+        vsm = _pad_to(_merge(v_scale.float()), n_k)
+    ctx_bh = ctx_len.to(device=q.device,
+                        dtype=torch.int64).repeat_interleave(h)
+    out_x, lse_x = _ctx_blockwise(_merge(q), km, vm, ctx_bh, scale, block,
+                                  ksm, vsm)
+    # exact log-sum-exp merge; an empty context (lse_x ~ -1e30) gives
+    # w_c = exp(0) = 1 and w_x = 0 exactly, and out_x stays finite
+    lse_x = lse_x.reshape(b, h, c)
+    m_tot = torch.maximum(lse_c, lse_x)
+    w_c = torch.exp(lse_c - m_tot).transpose(1, 2)[..., None]  # (B, C, H, 1)
+    w_x = torch.exp(lse_x - m_tot).transpose(1, 2)[..., None]
+    out_x = out_x.reshape(b, h, c, d).transpose(1, 2)
+    out = (out_c.float() * w_c + out_x.float() * w_x) / (w_c + w_x)
+    return out.to(q.dtype)

@@ -1,33 +1,56 @@
-"""Autoregressive generation: bucketed slot-KV-cache decode with
-continuous token-level batching.
+"""Autoregressive generation: bucketed KV-cache decode with continuous
+token-level batching, over a slot cache or a paged one, optionally
+speculative.
 
-Counterpart of the slot-cache mode of ``chainermn_tpu/serving/generate.py``:
+Counterpart of ``chainermn_tpu/serving/generate.py``:
 
 - **Prefill** runs one prompt per call, padded to a power-of-two
-  PROMPT-LENGTH bucket, and banks every layer's K/V in one cache slot
-  (:func:`chainermn_tpu_torch.models.prefill`).
+  PROMPT-LENGTH bucket, and banks every layer's K/V in the cache
+  (:func:`chainermn_tpu_torch.models.prefill` into one slot, or
+  :func:`~chainermn_tpu_torch.models.prefill_paged` into pages).
 - **Decode** runs one token per live sequence, padded to a power-of-two
   ACTIVE-SLOT-COUNT bucket, over the same persistent cache
-  (:func:`chainermn_tpu_torch.models.decode_step`).  The full bucket
-  reads the cache in place (row i IS slot i); a smaller bucket carries a
-  row -> slot map.
+  (:func:`~chainermn_tpu_torch.models.decode_step` /
+  :func:`~chainermn_tpu_torch.models.decode_step_paged`).  The full slot
+  bucket reads the cache in place (row i IS slot i); a smaller one
+  carries a row -> slot map; paged rows carry their page tables.
 - **Continuous batching**: a sequence that finishes (or whose deadline
   expires mid-generation) frees its slot, and the slot is refilled from
   the queue at the NEXT step; the rest of the batch never waits.
+- **Paged mode** (``paged=True``): a pool of pages shared by every
+  sequence (:mod:`~chainermn_tpu_torch.serving.paged`), with a radix
+  index over finished prompts (a request whose prompt starts with a
+  banked prefix retains its full pages and copies the boundary page
+  once), LRU eviction when the pool runs dry, typed ``kv_pages``
+  shedding when nothing is evictable, and chunked prefill
+  (``prefill_chunk=C``: one C-token chunk per sequence per tick,
+  interleaved with decode steps).  Unchunked and without prefix hits,
+  greedy outputs equal the slot engine's; a banked context goes through
+  the chunk op's f32 merge and one more rounding, so in bf16 a near-tie
+  may resolve to another token (in f32 they are equal).
+- **Speculative decoding** (``draft_model=``): a small draft proposes
+  ``spec_tokens`` tokens a tick, the target scores the window in one
+  verify pass (:func:`~chainermn_tpu_torch.models.spec_verify` /
+  :func:`~chainermn_tpu_torch.models.spec_verify_paged`), and each row
+  commits the longest agreeing draft prefix plus the target's own next
+  token.  In f32 the greedy outputs equal the non-speculative
+  engine's; in bf16 the verify's merge rounds once more, so a near-tie
+  may resolve to another token.  The acceptance rate moves only
+  throughput.
 
 Decoding is greedy (argmax on the device; only the token ids come back
-to the host).  The cache is updated in place, which is what the JAX
+to the host).  The caches are updated in place, which is what the JAX
 package's buffer donation buys there.  The JAX package compiles one
 executable per bucket and refuses any operand signature outside that
 set (``abstract_signature``); the port runs eagerly, and
 :meth:`GenerationEngine.guard_signature` keeps the same refusal over the
 set of bucket shapes, so a later CUDA graph per bucket can rely on it.
 
-Not ported yet (they raise ``NotImplementedError``, ROADMAP.md A8): the
-paged cache and chunked prefill, speculative decoding, tensor-parallel
-serving (``plan`` / ``param_specs``), ``Int8Policy`` weights,
-``swap_params`` and ``from_checkpoint``.  Telemetry spans and metrics,
-chaos sites and the load generator are host layers of ROADMAP.md A9.
+Not ported yet (they raise ``NotImplementedError``, ROADMAP.md A7, A8):
+tensor-parallel serving (``plan`` / ``param_specs``), ``Int8Policy``
+weights, ``swap_params`` and ``from_checkpoint``.  Telemetry spans and
+metrics, chaos sites and the load generator are host layers of
+ROADMAP.md A9.
 """
 
 import threading
@@ -37,12 +60,15 @@ import numpy as np
 import torch
 
 from chainermn_tpu_torch.models.flax_weights import param_tree
-from chainermn_tpu_torch.models.transformer import (decode_step,
-                                                    init_kv_cache, prefill)
+from chainermn_tpu_torch.models.transformer import (
+    decode_step, decode_step_paged, init_kv_cache, init_paged_kv_cache,
+    prefill, prefill_paged, spec_verify, spec_verify_paged)
 from chainermn_tpu_torch.ops._common import resolve_device
 from chainermn_tpu_torch.precision import cast_floating
 from chainermn_tpu_torch.serving.batcher import (bucket_edges, bucket_of,
                                                  next_request_id)
+from chainermn_tpu_torch.serving.paged import (PagePool, RadixPrefixIndex,
+                                               prefix_key)
 from chainermn_tpu_torch.utils.failure import OverloadError
 
 #: default admission knobs (the generation twins of batcher's)
@@ -54,15 +80,18 @@ class GenRequest:
     ids), ``max_new_tokens``, optional absolute ``deadline``
     (``clock()`` units, enforced at admission AND between decode steps),
     and a one-shot completion cell filled with the generated token ids
-    or a typed error.  ``on_token`` (optional) is called as
-    ``on_token(request_id, [int, ...])`` each time tokens are emitted."""
+    or a typed error.  ``prefix_key`` (stamped by a paged engine's queue)
+    is a stable hash of the page-aligned prompt prefix.  ``on_token``
+    (optional) is called as ``on_token(request_id, [int, ...])`` each
+    time tokens are emitted."""
 
     __slots__ = ('prompt', 'max_new_tokens', 'deadline', 'seq',
-                 't_submit', 'request_id', 'on_token', '_done', '_result',
-                 '_error')
+                 't_submit', 'request_id', 'prefix_key', 'on_token',
+                 '_done', '_result', '_error')
 
     def __init__(self, prompt, max_new_tokens, deadline=None, seq=0,
-                 t_submit=0.0, request_id=None, on_token=None):
+                 t_submit=0.0, request_id=None, prefix_key=None,
+                 on_token=None):
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         if self.prompt.size < 1:
             raise ValueError('empty prompt')
@@ -73,6 +102,7 @@ class GenRequest:
         self.deadline = deadline
         self.seq = seq
         self.t_submit = t_submit
+        self.prefix_key = prefix_key
         self.on_token = on_token
         self.request_id = request_id or next_request_id()
         self._done = threading.Event()
@@ -104,7 +134,7 @@ class GenRequest:
     def result(self, timeout=None):
         """Block for the generated tokens; re-raises the typed shed
         error (``OverloadError`` with reason queue_full / deadline /
-        shutdown)."""
+        kv_pages / shutdown)."""
         if not self._done.wait(timeout):
             raise TimeoutError('request %d not completed within %rs'
                                % (self.seq, timeout))
@@ -116,15 +146,16 @@ class GenRequest:
 class GenerationQueue:
     """Bounded admission queue for generation requests: the engine pops
     AT MOST as many requests as it has free cache slots each step; a
-    full or closed queue sheds typed (``OverloadError``)."""
+    full or closed queue sheds typed (``OverloadError``).
+
+    ``page_size`` (set when feeding a paged engine) stamps each request's
+    :attr:`GenRequest.prefix_key` and unlocks ``pop(...,
+    group_prefix=True)`` co-admission."""
 
     def __init__(self, max_prompt_len, max_queue=DEFAULT_MAX_QUEUE,
                  clock=time.monotonic, page_size=None):
-        if page_size:
-            raise NotImplementedError(
-                'the paged engine and its prefix keys are not ported yet '
-                '(ROADMAP.md A8)')
         self.max_prompt_len = int(max_prompt_len)
+        self.page_size = int(page_size) if page_size else None
         self.max_queue = int(max_queue)
         self._clock = clock
         self._lock = threading.Lock()
@@ -159,26 +190,42 @@ class GenerationQueue:
                     reason='queue_full', queue_depth=len(self._waiting))
             self._seq += 1
             self.submitted += 1
+            key = (prefix_key(prompt, self.page_size)
+                   if self.page_size is not None else None)
             req = GenRequest(prompt, max_new_tokens, deadline=deadline,
                              seq=self._seq, t_submit=self._clock(),
-                             request_id=request_id, on_token=on_token)
+                             request_id=request_id, prefix_key=key,
+                             on_token=on_token)
             self._waiting.append(req)
         return req
 
-    def pop(self, k):
+    def pop(self, k, group_prefix=False):
         """Up to ``k`` live requests in arrival order; requests whose
-        deadline already expired while queued are shed typed here."""
+        deadline already expired while queued are shed typed here.
+
+        ``group_prefix=True`` (the paged engine's admission): after the
+        head request is taken in arrival order, later waiters sharing
+        its ``prefix_key`` are pulled forward into the same admission
+        wave.  Order within a key group is kept, and requests without a
+        key are never reordered past each other."""
         now = self._clock()
         out = []
         with self._lock:
+            head_key = None
             while self._waiting and len(out) < k:
-                req = self._waiting.pop(0)
+                idx = 0
+                if group_prefix and head_key is not None:
+                    idx = next((j for j, r in enumerate(self._waiting)
+                                if r.prefix_key == head_key), 0)
+                req = self._waiting.pop(idx)
                 if req.deadline is not None and now > req.deadline:
                     self.shed_deadline += 1
                     req.set_error(OverloadError(
                         'deadline expired after %.1f ms in queue'
                         % ((now - req.t_submit) * 1e3), reason='deadline'))
                     continue
+                if not out and group_prefix:
+                    head_key = req.prefix_key
                 out.append(req)
         return out
 
@@ -202,15 +249,35 @@ class GenerationQueue:
 
 
 class _Slot:
-    """Host-side state of one cache slot."""
+    """Host-side state of one cache slot in its decode phase."""
 
-    __slots__ = ('request', 'position', 'remaining', 'generated')
+    __slots__ = ('request', 'position', 'remaining', 'generated', 'pages')
 
-    def __init__(self, request, position, remaining, first_token):
+    def __init__(self, request, position, remaining, first_token,
+                 pages=None):
         self.request = request
         self.position = position          # next token's position
         self.remaining = remaining        # tokens still to generate
         self.generated = [first_token]
+        # paged engine: this sequence's page table (one pool reference
+        # per entry, released on completion or expiry); None otherwise
+        self.pages = pages
+
+
+class _PrefillState:
+    """Host-side state of a sequence whose prompt is still being
+    prefilled (paged engine): chunked prefill runs one chunk a tick, so
+    a long prompt spends several ticks here before it becomes a
+    :class:`_Slot`."""
+
+    __slots__ = ('request', 'pages', 'pos', 'matched', 'chunks')
+
+    def __init__(self, request, pages, pos, matched):
+        self.request = request
+        self.pages = pages       # page table so far (references held)
+        self.pos = pos           # next absolute position to prefill
+        self.matched = matched   # prompt tokens reused from the index
+        self.chunks = 0          # chunks run so far
 
 
 def _signature(args):
@@ -238,11 +305,28 @@ class GenerationEngine:
         are the powers of two up to it.
       max_prompt_len: prompt-length cap; prefill buckets are the powers
         of two up to it.
-      max_len: cache depth per slot (default ``model.max_len``).
+      max_len: cache depth per sequence (default ``model.max_len``).
       eos_id: optional stop token.
       policy: a float :class:`~chainermn_tpu_torch.precision.Policy`
-        casts the weights to its compute dtype at load.
+        casts the weights (the draft's too) to its compute dtype at load.
       int8_kv: store the KV cache int8 with per-(position, head) scales.
+      paged: a pool of ``n_pages`` pages of ``page_size`` positions
+        shared by all sequences through page tables, with refcounted
+        prefix sharing and copy-on-write, in place of one slab per slot.
+        ``n_pages`` defaults to ``1 + n_slots * ceil(max_len /
+        page_size)`` (the slot engine's capacity plus the scratch page).
+      prefill_chunk: paged mode only: prefill prompts in chunks of this
+        many tokens, one chunk per sequence per tick between decode
+        steps (``None``: a prompt's whole remainder in one tick).
+      prefix_sharing: ``False`` disables the radix index (pages still
+        pool; nothing is reused across requests).
+      draft_model / draft_params: speculative decoding with this draft
+        (same vocabulary, ``max_len`` covering the cache depth) and its
+        parameter tree; its cache has the target's geometry and rides
+        the same slots, page tables, copies and rollbacks.
+      spec_tokens: the verify window ``k`` (>= 2): one tick runs ``k``
+        draft decode steps and one target verify, committing 1..k tokens
+        per row.
       device: where the engine runs (default: the current CUDA device;
         raises when there is none).
     """
@@ -253,12 +337,6 @@ class GenerationEngine:
                  prefill_chunk=None, prefix_sharing=True, draft_model=None,
                  draft_params=None, spec_tokens=4, plan=None,
                  param_specs=None, device=None):
-        del page_size, prefix_sharing, spec_tokens  # paged / speculative
-        if paged or n_pages is not None or prefill_chunk:
-            _unported('the paged KV cache (paged=, n_pages=, '
-                      'prefill_chunk=)')
-        if draft_model is not None or draft_params is not None:
-            _unported('speculative decoding (draft_model=)')
         if plan is not None or param_specs is not None:
             _unported('tensor-parallel serving (plan=, param_specs=)', 'A7')
         if getattr(policy, 'quantize', None) is not None:
@@ -277,25 +355,112 @@ class GenerationEngine:
         self.decode_edges = bucket_edges(self.n_slots)
         self.params = self._place_params(
             param_tree(model) if params is None else params)
+
         self.int8_kv = bool(int8_kv)
-        self._cache = init_kv_cache(model, self.n_slots, self.max_len,
-                                    int8_kv=self.int8_kv, device=self.device)
-        self._slots = {}      # slot id -> _Slot
+        self.paged = bool(paged)
+        self.page_size = int(page_size)
+        self.prefill_chunk = int(prefill_chunk) if prefill_chunk else None
+        if self.prefill_chunk is not None and not self.paged:
+            raise ValueError('prefill_chunk requires paged=True (the slot '
+                             'cache prefills whole prompts)')
+        if self.prefill_chunk is not None \
+                and self.prefill_chunk > self.max_prompt_len:
+            raise ValueError('prefill_chunk %d exceeds max_prompt_len %d'
+                             % (self.prefill_chunk, self.max_prompt_len))
+        if self.paged:
+            self.pages_per_seq = -(-self.max_len // self.page_size)
+            self.n_pages = int(n_pages
+                               or 1 + self.n_slots * self.pages_per_seq)
+            self.pool = PagePool(self.n_pages, self.page_size)
+            self._prefix_index = (RadixPrefixIndex(self.pool)
+                                  if prefix_sharing else None)
+        else:
+            if n_pages is not None:
+                raise ValueError('n_pages requires paged=True')
+            self.pages_per_seq = self.n_pages = self.pool = None
+            self._prefix_index = None
+        self._cache = self._new_cache(model)
+
+        # speculative decoding: the draft twin
+        self.spec_tokens = int(spec_tokens)
+        self.draft_model = draft_model
+        self.speculative = draft_model is not None
+        if draft_params is not None and draft_model is None:
+            raise ValueError('draft_params requires draft_model')
+        self._draft_params = self._draft_cache = None
+        if self.speculative:
+            if draft_params is None:
+                raise ValueError('draft_model requires draft_params')
+            if self.spec_tokens < 2:
+                raise ValueError('spec_tokens must be >= 2 (1 is plain '
+                                 'decode), got %d' % self.spec_tokens)
+            if draft_model.vocab_size != model.vocab_size:
+                raise ValueError(
+                    'draft vocab %d != target vocab %d -- speculative '
+                    'decoding compares token ids, so the tokenizer must be '
+                    'shared' % (draft_model.vocab_size, model.vocab_size))
+            if draft_model.max_len < self.max_len:
+                raise ValueError('draft max_len %d cannot cover the cache '
+                                 'depth %d' % (draft_model.max_len,
+                                               self.max_len))
+            self._draft_params = self._place_params(draft_params)
+            self._draft_cache = self._new_cache(draft_model)
+
+        # prefill widths: chunked paged mode runs ONE fixed chunk width,
+        # otherwise one width per prompt bucket
+        self._prefill_widths = ((self.prefill_chunk,)
+                                if self.prefill_chunk is not None
+                                else tuple(self.prefill_edges))
+        self._slots = {}        # slot id -> _Slot (decode phase)
+        self._prefilling = {}   # slot id -> _PrefillState (paged only)
         self._free = list(range(self.n_slots))
-        self._prefill_run = set()   # prompt buckets run so far
-        self._decode_run = set()    # slot buckets run so far
-        i32 = np.zeros((), np.int32)
-        self._signatures = {
-            _signature((np.zeros((1, b), np.int32), i32, i32))
-            for b in self.prefill_edges}
-        for b in self.decode_edges:
-            vec = np.zeros((b,), np.int32)
-            self._signatures.add(_signature(
-                (vec, vec) if b == self.n_slots else (vec, vec, vec)))
+        self._prefill_run = set()   # prefill widths run so far
+        self._decode_run = set()    # decode buckets run so far
+        self._verify_run = set()    # verify buckets run so far
+        self._signatures = self._bucket_signatures()
         self.prefills = 0
+        self.prefill_chunks = 0
+        self.cow_copies = 0
         self.decode_steps = 0
+        self.draft_steps = 0
+        self.verify_steps = 0
+        self.draft_proposed = 0
+        self.draft_accepted = 0
         self.tokens_generated = 0
         self.cancelled = 0
+
+    def _new_cache(self, model):
+        if self.paged:
+            return init_paged_kv_cache(model, self.n_pages, self.page_size,
+                                       int8_kv=self.int8_kv,
+                                       device=self.device)
+        return init_kv_cache(model, self.n_slots, self.max_len,
+                             int8_kv=self.int8_kv, device=self.device)
+
+    def _bucket_signatures(self):
+        """The operand signatures of every prefill width, decode bucket,
+        verify bucket and (paged) the page copy."""
+        i32 = np.zeros((), np.int32)
+        vec = lambda *shape: np.zeros(shape, np.int32)  # noqa: E731
+        sigs = set()
+        for w in self._prefill_widths:
+            args = (vec(1, w), i32, i32)
+            sigs.add(_signature(args + (vec(self.pages_per_seq),)
+                                if self.paged else args))
+        windows = [()] + ([(self.spec_tokens,)] if self.speculative else [])
+        for b in self.decode_edges:
+            for window in windows:
+                tokens = vec(b, *window)
+                if self.paged:
+                    args = (tokens, vec(b), vec(b, self.pages_per_seq))
+                elif b == self.n_slots:
+                    args = (tokens, vec(b))
+                else:
+                    args = (tokens, vec(b), vec(b))
+                sigs.add(_signature(args))
+        if self.paged:
+            sigs.add(_signature((i32, i32)))
+        return sigs
 
     def _place_params(self, params):
         """Load-time transform + placement: tensors detached from
@@ -323,53 +488,137 @@ class GenerationEngine:
         """Greedy tokens of ``logits`` ``(..., V)`` as numpy."""
         return torch.argmax(logits, dim=-1).reshape(-1).cpu().numpy()
 
-    def _run_prefill(self, tokens, length, slot):
+    def _dev(self, a):
+        return torch.from_numpy(np.asarray(a)).to(self.device)
+
+    def _twin(self, draft):
+        if draft:
+            return self.draft_model, self._draft_params, self._draft_cache
+        return self.model, self.params, self._cache
+
+    def _run_prefill(self, tokens, length, where, draft=False):
+        """One prefill of the target (or the draft): ``where`` is the
+        slot id, or ``(pos0, page table)`` in paged mode."""
+        model, params, cache = self._twin(draft)
         with torch.inference_mode():
-            logits, self._cache = prefill(
-                self.model, self.params, self._cache,
-                torch.from_numpy(tokens).to(self.device), length, slot)
+            if self.paged:
+                pos0, table = where
+                logits, _ = prefill_paged(model, params, cache,
+                                          self._dev(tokens), length,
+                                          self._dev(table), pos0)
+            else:
+                logits, _ = prefill(model, params, cache, self._dev(tokens),
+                                    length, where)
             return int(self._tokens(logits)[0])
 
-    def _run_decode(self, tokens, positions, slots=None):
-        dev = self.device
+    def _run_decode(self, tokens, positions, rows=None, draft=False):
+        """One decode step of the target (or the draft): ``rows`` is the
+        row -> slot map of a compacted slot bucket (``None``: the full
+        bucket), or the page tables in paged mode."""
+        model, params, cache = self._twin(draft)
+        tokens, positions = self._dev(tokens), self._dev(positions)
         with torch.inference_mode():
-            logits, self._cache = decode_step(
-                self.model, self.params, self._cache,
-                torch.from_numpy(tokens).to(dev),
-                torch.from_numpy(positions).to(dev),
-                slots=None if slots is None
-                else torch.from_numpy(slots).to(dev))
+            if self.paged:
+                logits, _ = decode_step_paged(model, params, cache, tokens,
+                                              positions, self._dev(rows))
+            else:
+                logits, _ = decode_step(
+                    model, params, cache, tokens, positions,
+                    slots=None if rows is None else self._dev(rows))
             return self._tokens(logits)
 
+    def _run_verify(self, window, positions, rows=None):
+        """One target verify pass over ``window`` ``(bucket, k)``;
+        ``rows`` as :meth:`_run_decode` takes it.  Returns the target's
+        greedy token after every window column, ``(bucket, k)``."""
+        tokens, positions = self._dev(window), self._dev(positions)
+        with torch.inference_mode():
+            if self.paged:
+                logits, _ = spec_verify_paged(self.model, self.params,
+                                              self._cache, tokens, positions,
+                                              self._dev(rows))
+            else:
+                logits, _ = spec_verify(
+                    self.model, self.params, self._cache, tokens, positions,
+                    slots=None if rows is None else self._dev(rows))
+            return self._tokens(logits).reshape(window.shape)
+
+    def _copy_page(self, src, dst):
+        """Copy pool page ``src`` into the private page ``dst`` (already
+        allocated): every layer's K and V, and under int8 both scale
+        leaves.  A speculative engine copies the draft's page too: both
+        caches are addressed through the same page tables."""
+        self._copy_leaves(src, dst)
+        self.cow_copies += 1
+
+    def _copy_leaves(self, src, dst):
+        caches = [self._cache] + ([self._draft_cache] if self.speculative
+                                  else [])
+        with torch.inference_mode():
+            for cache in caches:
+                for leaf in cache.values():
+                    leaf[:, dst] = leaf[:, src]
+
+    def _zero_rows(self, bucket):
+        """The row operand of an all-free decode or verify bucket."""
+        if self.paged:
+            return np.zeros((bucket, self.pages_per_seq), np.int32)
+        return (None if bucket == self.n_slots
+                else np.arange(bucket, dtype=np.int32))
+
     def warmup(self):
-        """Run every prefill and decode bucket once, largest first, on the
-        idle engine: the first call builds the kernels.  Every slot is
-        free, so the garbage the runs write is never attended (reads
-        mask by live length).  Returns ``{'prefill': {bucket: seconds},
-        'decode': {bucket: seconds}}``."""
-        if self._slots:
+        """Run every prefill width and decode bucket once, largest first,
+        on the idle engine (and the page copy, the draft's prefill and
+        decode buckets and the verify buckets where they exist): the
+        first call builds the kernels.  Every slot is free and every
+        table all zeros, so what the runs write is never attended.
+        Returns ``{'prefill': {width: seconds}, 'decode': {bucket:
+        seconds}}``, plus ``'draft_prefill'``, ``'draft_decode'`` and
+        ``'verify'`` on a speculative engine."""
+        if self._slots or self._prefilling:
             raise RuntimeError('warmup needs an idle engine: %d sequences '
-                               'are live' % len(self._slots))
-        out = {'prefill': {}, 'decode': {}}
-        for bucket in sorted(self.prefill_edges, reverse=True):
-            t0 = time.perf_counter()
-            self._run_prefill(np.zeros((1, bucket), np.int32), 1, 0)
-            out['prefill'][bucket] = time.perf_counter() - t0
-            self._prefill_run.add(bucket)
-        for bucket in sorted(self.decode_edges, reverse=True):
-            zeros = np.zeros((bucket,), np.int32)
-            slots = (None if bucket == self.n_slots
-                     else np.arange(bucket, dtype=np.int32))
-            t0 = time.perf_counter()
-            self._run_decode(zeros, zeros, slots)
-            out['decode'][bucket] = time.perf_counter() - t0
-            self._decode_run.add(bucket)
+                               'are live'
+                               % (len(self._slots) + len(self._prefilling)))
+        drafts = (False, True) if self.speculative else (False,)
+        out = {}
+        for draft in drafts:
+            key = 'draft_prefill' if draft else 'prefill'
+            out[key] = {}
+            for width in sorted(self._prefill_widths, reverse=True):
+                where = ((0, np.zeros((self.pages_per_seq,), np.int32))
+                         if self.paged else 0)
+                t0 = time.perf_counter()
+                self._run_prefill(np.zeros((1, width), np.int32), 1, where,
+                                  draft)
+                out[key][width] = time.perf_counter() - t0
+                self._prefill_run.add(width)
+        for draft in drafts:
+            key = 'draft_decode' if draft else 'decode'
+            out[key] = {}
+            for bucket in sorted(self.decode_edges, reverse=True):
+                zeros = np.zeros((bucket,), np.int32)
+                t0 = time.perf_counter()
+                self._run_decode(zeros, zeros, self._zero_rows(bucket),
+                                 draft)
+                out[key][bucket] = time.perf_counter() - t0
+                self._decode_run.add(bucket)
+        if self.speculative:
+            out['verify'] = {}
+            for bucket in sorted(self.decode_edges, reverse=True):
+                t0 = time.perf_counter()
+                self._run_verify(
+                    np.zeros((bucket, self.spec_tokens), np.int32),
+                    np.zeros((bucket,), np.int32), self._zero_rows(bucket))
+                out['verify'][bucket] = time.perf_counter() - t0
+                self._verify_run.add(bucket)
+        if self.paged:
+            self._copy_leaves(0, 0)
         return out
 
     def guard_signature(self, args):
-        """Refuse any operand signature outside the prefill/decode bucket
-        set instead of running it: the scheduler and the bucket geometry
-        must agree."""
+        """Refuse any operand signature outside the prefill/decode/verify
+        bucket set instead of running it: the scheduler and the bucket
+        geometry must agree."""
         sig = _signature(args)
         if sig not in self._signatures:
             raise RuntimeError(
@@ -378,26 +627,105 @@ class GenerationEngine:
                 'geometry disagree' % (sig,))
         return sig
 
+    # -- paged-mode page accounting ------------------------------------
+    def _release_pages(self, pages):
+        for page in pages or ():
+            self.pool.release(page)
+
+    def _alloc_page(self):
+        """One free page, LRU-evicting banked prefixes when the pool is
+        dry; ``None`` only when nothing is evictable either (the caller
+        sheds typed)."""
+        page = self.pool.alloc()
+        while page is None and self._prefix_index is not None \
+                and self._prefix_index.evict(1):
+            page = self.pool.alloc()
+        return page
+
+    def _grow(self, pages, last_position):
+        """Allocate pages until ``pages`` covers ``last_position``; False
+        when the pool ran dry (the caller sheds)."""
+        while len(pages) <= last_position // self.page_size:
+            page = self._alloc_page()
+            if page is None:
+                return False
+            pages.append(page)
+        return True
+
+    def _tables(self, rows):
+        """Page tables of decode rows (slot ids, ``None`` for a pad
+        row): pad rows carry all-zero tables, i.e. the scratch page."""
+        tables = np.zeros((len(rows), self.pages_per_seq), np.int32)
+        for i, sid in enumerate(rows):
+            if sid is not None:
+                pages = self._slots[sid].pages
+                tables[i, :len(pages)] = pages
+        return tables
+
+    def _shed_paged(self, req, pages, where):
+        """Typed shed when the page pool is exhausted: the pages retained
+        so far go back, the client gets ``OverloadError(reason=
+        'kv_pages')``."""
+        self._release_pages(pages)
+        self.cancelled += 1
+        req.set_error(OverloadError(
+            'KV page pool exhausted (%d/%d pages live, nothing evictable) '
+            'during %s; retry with backoff'
+            % (self.pool.in_use(), self.pool.n_pages, where),
+            reason='kv_pages'))
+
     # -- the continuous-batching scheduler -----------------------------
     def _expire(self, now):
-        """Shed active requests whose deadline passed: typed
-        ``OverloadError(reason='deadline')`` now, slot freed for refill
-        at this step's admission."""
+        """Shed requests whose deadline passed, live or mid-prefill:
+        typed ``OverloadError(reason='deadline')`` now, their pages back
+        to the pool, the slot free for this step's admission."""
         doomed = [sid for sid, slot in self._slots.items()
                   if slot.request.deadline is not None
                   and now > slot.request.deadline]
         for sid in doomed:
             slot = self._slots.pop(sid)
+            self._release_pages(slot.pages)
             self._free.append(sid)
             self.cancelled += 1
             slot.request.set_error(OverloadError(
                 'deadline expired mid-generation after %d tokens'
                 % len(slot.generated), reason='deadline'))
-        return len(doomed)
+        late = [sid for sid, st in self._prefilling.items()
+                if st.request.deadline is not None
+                and now > st.request.deadline]
+        for sid in late:
+            st = self._prefilling.pop(sid)
+            self._release_pages(st.pages)
+            self._free.append(sid)
+            self.cancelled += 1
+            st.request.set_error(OverloadError(
+                'deadline expired mid-prefill at position %d' % st.pos,
+                reason='deadline'))
+        return len(doomed) + len(late)
+
+    def _first_token(self, sid, req, tok, pages=None):
+        """A prompt's first token is out: the request completes (eos or
+        a one-token budget) or its slot moves to the decode phase."""
+        self.prefills += 1
+        self.tokens_generated += 1
+        req.notify_tokens([tok])
+        if self.eos_id is not None and tok == self.eos_id \
+                or req.max_new_tokens == 1:
+            req.set_result([tok])
+            self._release_pages(pages)
+            self._free.append(sid)
+            return
+        self._slots[sid] = _Slot(req, req.prompt.size,
+                                 req.max_new_tokens - 1, tok, pages)
 
     def _admit(self, queue):
-        """Refill free slots from the queue: one PREFILL per request,
-        bucketed by prompt length."""
+        """Refill free slots from the queue.  Slot cache: one PREFILL per
+        request, bucketed by prompt length (and the draft's prefill of
+        the same prompt on a speculative engine).  Paged: see
+        :meth:`_admit_paged`."""
+        if self.paged:
+            self._admit_paged(queue)
+            return
         for req in queue.pop(len(self._free)):
             sid = self._free.pop(0)
             prompt = req.prompt
@@ -407,51 +735,167 @@ class GenerationEngine:
             self.guard_signature((tokens, np.int32(prompt.size),
                                   np.int32(sid)))
             tok = self._run_prefill(tokens, prompt.size, sid)
+            if self.speculative:
+                # the draft banks the prompt in its own cache; its own
+                # first token is discarded (the target's is authoritative)
+                self._run_prefill(tokens, prompt.size, sid, draft=True)
             self._prefill_run.add(bucket)
-            self.prefills += 1
-            self.tokens_generated += 1
-            req.notify_tokens([tok])
-            if self.eos_id is not None and tok == self.eos_id \
-                    or req.max_new_tokens == 1:
-                req.set_result([tok])
+            self._first_token(sid, req, tok)
+
+    def _admit_paged(self, queue):
+        """Paged admission: claim a slot id, walk the prefix index for
+        the longest banked prefix (retaining its shared FULL pages; a
+        partly covered boundary page is copied once, here), and park the
+        request in ``self._prefilling``; :meth:`_prefill_tick` runs its
+        prefill."""
+        group = self._prefix_index is not None
+        for req in queue.pop(len(self._free), group_prefix=group):
+            sid = self._free.pop(0)
+            prompt = req.prompt
+            pages, matched = [], 0
+            if self._prefix_index is not None:
+                shared, tail_page, tail_len = self._prefix_index.lookup(
+                    prompt)
+                # always recompute >= 1 prompt token (the last chunk gives
+                # the first token's logits): cap the match at size - 1 and
+                # demote an over-covering full page to a copy candidate
+                max_match = prompt.size - 1
+                dropped = None
+                while len(shared) * self.page_size > max_match:
+                    dropped = shared.pop()
+                for page in shared:
+                    self.pool.retain(page)
+                    pages.append(page)
+                matched = len(shared) * self.page_size
+                if dropped is not None:
+                    tail_page, tail_len = dropped, self.page_size
+                tail_use = (min(tail_len, max_match - matched)
+                            if tail_page is not None else 0)
+                if tail_use > 0:
+                    dst = self._alloc_page()
+                    if dst is None:
+                        self._shed_paged(req, pages, 'admission')
+                        self._free.append(sid)
+                        continue
+                    self._copy_page(tail_page, dst)
+                    pages.append(dst)
+                    matched += tail_use
+            self._prefilling[sid] = _PrefillState(req, pages, matched,
+                                                  matched)
+
+    def _prefill_tick(self):
+        """Advance every mid-prefill sequence by ONE chunk (the whole
+        remaining prompt, bucketed, without ``prefill_chunk``).  A
+        finished prompt's pages are banked in the prefix index before the
+        sequence moves to decode.  Returns True when a chunk ran."""
+        worked = False
+        for sid in sorted(self._prefilling):
+            st = self._prefilling[sid]
+            req = st.request
+            prompt = req.prompt
+            remaining = prompt.size - st.pos
+            width = (self.prefill_chunk if self.prefill_chunk is not None
+                     else bucket_of(remaining, self.prefill_edges))
+            n = min(width, remaining)
+            if not self._grow(st.pages, st.pos + n - 1):
+                del self._prefilling[sid]
+                self._shed_paged(req, st.pages, 'prefill')
                 self._free.append(sid)
                 continue
-            self._slots[sid] = _Slot(req, prompt.size,
-                                     req.max_new_tokens - 1, tok)
+            worked = True
+            tokens = np.zeros((1, width), np.int32)
+            tokens[0, :n] = prompt[st.pos:st.pos + n]
+            table = np.zeros((self.pages_per_seq,), np.int32)
+            table[:len(st.pages)] = st.pages
+            self.guard_signature((tokens, np.int32(n), np.int32(st.pos),
+                                  table))
+            tok = self._run_prefill(tokens, n, (st.pos, table))
+            if self.speculative:
+                # the same chunk into the same pages of the draft cache:
+                # banked prefix pages then serve the draft too
+                self._run_prefill(tokens, n, (st.pos, table), draft=True)
+            self._prefill_run.add(width)
+            st.pos += n
+            st.chunks += 1
+            self.prefill_chunks += 1
+            if st.pos < prompt.size:
+                continue
+            del self._prefilling[sid]
+            if self._prefix_index is not None:
+                n_cover = -(-prompt.size // self.page_size)
+                self._prefix_index.insert(prompt, st.pages[:n_cover])
+            self._first_token(sid, req, tok, st.pages)
+        return worked
 
-    def _decode_once(self):
-        """One decode step over every active slot, compacted to the
-        smallest slot-count bucket; finished sequences resolve and free
-        their slots (refilled at the NEXT step)."""
+    def _decode_rows(self):
+        """``(rows, bucket, k)`` of this tick's decode: the active slots
+        padded to a bucket.  Paged rows are positional (pad rows are
+        ``None``); the full slot bucket is every slot in id order (an
+        inactive row writes a garbage token at position 0 of its FREE
+        slot, overwritten by that slot's next prefill); a compacted slot
+        bucket pads with free slots (there are enough)."""
         active = sorted(self._slots)
         k = len(active)
         bucket = bucket_of(k, self.decode_edges)
-        if bucket == self.n_slots:
-            # the full bucket reads the cache in place: row i IS slot i,
-            # so rows are every slot in id order even when k < n_slots --
-            # an inactive row writes a garbage token at position 0 of its
-            # FREE slot, overwritten by that slot's next prefill
+        if self.paged:
+            rows = active + [None] * (bucket - k)
+        elif bucket == self.n_slots:
             rows = list(range(self.n_slots))
         else:
-            # compacted bucket: pad with FREE slots (there are enough:
-            # bucket < n_slots and only k are active), same contract
             rows = active + self._free[:bucket - k]
+        return rows, bucket, k
+
+    def _row_operand(self, rows, bucket):
+        if self.paged:
+            return self._tables(rows)
+        return (None if bucket == self.n_slots
+                else np.asarray(rows, np.int32))
+
+    def _finish(self, sid, slot):
+        slot.request.set_result(slot.generated)
+        self._release_pages(slot.pages)
+        del self._slots[sid]
+        self._free.append(sid)
+
+    def _grow_or_shed(self, window):
+        """Paged: grow every live table to cover the next ``window``
+        positions before dispatch (clamped at the cache depth); a dry
+        pool sheds that request typed."""
+        for sid in sorted(self._slots):
+            slot = self._slots[sid]
+            last = min(slot.position + window - 1, self.max_len - 1)
+            if not self._grow(slot.pages, last):
+                del self._slots[sid]
+                self._shed_paged(slot.request, slot.pages, 'decode')
+                self._free.append(sid)
+
+    def _decode_once(self):
+        """One decode step over every active slot, compacted to the
+        smallest bucket; finished sequences resolve and free their slots
+        (refilled at the NEXT step)."""
+        if self.paged:
+            self._grow_or_shed(1)
+            if not self._slots:
+                return
+        rows, bucket, k = self._decode_rows()
         tokens = np.asarray(
             [self._slots[s].generated[-1] if s in self._slots else 0
              for s in rows], np.int32)
         positions = np.asarray(
             [self._slots[s].position if s in self._slots else 0
              for s in rows], np.int32)
-        slots = None if bucket == self.n_slots else np.asarray(rows,
-                                                              np.int32)
-        self.guard_signature((tokens, positions) if slots is None
-                             else (tokens, slots, positions))
-        toks = self._run_decode(tokens, positions, slots)
+        row_op = self._row_operand(rows, bucket)
+        if self.paged:
+            self.guard_signature((tokens, positions, row_op))
+        else:
+            self.guard_signature((tokens, positions) if row_op is None
+                                 else (tokens, row_op, positions))
+        toks = self._run_decode(tokens, positions, row_op)
         self._decode_run.add(bucket)
         for i, sid in enumerate(rows):
             slot = self._slots.get(sid)
             if slot is None:
-                continue   # free pad row (or inactive full-bucket row)
+                continue   # pad row (or inactive full-bucket row)
             tok = int(toks[i])
             slot.generated.append(tok)
             slot.request.notify_tokens([tok])
@@ -459,24 +903,117 @@ class GenerationEngine:
             slot.remaining -= 1
             if slot.remaining == 0 or (self.eos_id is not None
                                        and tok == self.eos_id):
-                slot.request.set_result(slot.generated)
-                del self._slots[sid]
-                self._free.append(sid)
+                self._finish(sid, slot)
         self.decode_steps += 1
         self.tokens_generated += k
 
+    def _spec_once(self):
+        """One SPECULATIVE tick over every active slot: ``spec_tokens``
+        draft decode steps propose a window, one target verify scores
+        it, and each row commits the longest prefix where draft and
+        target agree plus the target's own next token (the correction
+        at the first divergence, the bonus on full acceptance).
+
+        Rollback is a position rewind: rejected positions' K/V in both
+        caches stay as garbage masked by the live length, and in paged
+        mode the page-table tail past the accepted boundary goes back
+        to the pool."""
+        kk = self.spec_tokens
+        if self.paged:
+            self._grow_or_shed(kk)
+            if not self._slots:
+                return
+        rows, bucket, k = self._decode_rows()
+        base_tok = np.asarray(
+            [self._slots[s].generated[-1] if s in self._slots else 0
+             for s in rows], np.int32)
+        base_pos = np.asarray(
+            [self._slots[s].position if s in self._slots else 0
+             for s in rows], np.int32)
+        row_op = self._row_operand(rows, bucket)
+
+        def guard(tok, pos):
+            if self.paged:
+                self.guard_signature((tok, pos, row_op))
+            else:
+                self.guard_signature((tok, pos) if row_op is None
+                                     else (tok, row_op, pos))
+
+        # the draft proposes: k steps, positions clamped at the cache
+        # depth (a proposal past it is garbage and never committed)
+        proposals = np.zeros((bucket, kk), np.int32)
+        cur = base_tok
+        for j in range(kk):
+            pos = np.minimum(base_pos + j, self.max_len - 1).astype(np.int32)
+            guard(cur, pos)
+            cur = self._run_decode(cur, pos, row_op, draft=True).astype(
+                np.int32)
+            proposals[:, j] = cur
+            self.draft_steps += 1
+        # the window: [last committed token, draft_1 .. draft_{k-1}]; the
+        # k-th proposal is never verified -- its step keeps the draft
+        # cache covering every position the window can commit
+        win = np.zeros((bucket, kk), np.int32)
+        win[:, 0] = base_tok
+        win[:, 1:] = proposals[:, :kk - 1]
+        guard(win, base_pos)
+        tgt = self._run_verify(win, base_pos, row_op)
+        self._verify_run.add(bucket)
+        self.verify_steps += 1
+        proposed = accepted = emitted_total = 0
+        for i, sid in enumerate(rows):
+            slot = self._slots.get(sid)
+            if slot is None:
+                continue   # pad row (or inactive full-bucket row)
+            drafts, targets = win[i, 1:], tgt[i]
+            m = 0
+            while m < kk - 1 and drafts[m] == targets[m]:
+                m += 1
+            proposed += kk - 1
+            accepted += m
+            emitted = [int(x) for x in drafts[:m]] + [int(targets[m])]
+            # the budget first, then eos: where the plain loop stops
+            emitted = emitted[:min(len(emitted), slot.remaining)]
+            if self.eos_id is not None and self.eos_id in emitted:
+                emitted = emitted[:emitted.index(self.eos_id) + 1]
+            slot.generated.extend(emitted)
+            slot.request.notify_tokens(emitted)
+            slot.position += len(emitted)
+            slot.remaining -= len(emitted)
+            emitted_total += len(emitted)
+            if slot.remaining == 0 or (self.eos_id is not None
+                                       and emitted[-1] == self.eos_id):
+                self._finish(sid, slot)
+            elif self.paged:
+                # roll the table back to the accepted boundary: pages
+                # grown for rejected positions return to the pool now
+                keep = (slot.position - 1) // self.page_size + 1
+                while len(slot.pages) > keep:
+                    self.pool.release(slot.pages.pop())
+        self.draft_proposed += proposed
+        self.draft_accepted += accepted
+        self.decode_steps += 1
+        self.tokens_generated += emitted_total
+
     def step(self, queue, clock=time.monotonic):
         """One scheduler tick: expire -> admit (slot refill) -> one
-        decode step.  Returns True when a decode step ran."""
+        prefill chunk per mid-prefill sequence (paged) -> one decode
+        step (speculative or plain).  Returns True when any work ran."""
         self._expire(clock())
         self._admit(queue)
-        if not self._slots:
-            return False
-        self._decode_once()
-        return True
+        worked = False
+        if self.paged and self._prefilling:
+            worked = self._prefill_tick()
+        if self._slots:
+            if self.speculative:
+                self._spec_once()
+            else:
+                self._decode_once()
+            worked = True
+        return worked
 
     def stats(self):
-        return {
+        out = {
             'prefill_buckets': sorted(self._prefill_run),
             'decode_buckets': sorted(self._decode_run),
             'prefill_edges': list(self.prefill_edges),
@@ -489,3 +1026,34 @@ class GenerationEngine:
             'cancelled': self.cancelled,
             'active_slots': len(self._slots),
         }
+        if self.paged:
+            out.update(
+                paged=True, page_size=self.page_size, n_pages=self.n_pages,
+                pages_per_seq=self.pages_per_seq,
+                pages_in_use=self.pool.in_use(),
+                pages_free=self.pool.available(),
+                peak_pages_in_use=self.pool.peak_in_use,
+                prefill_chunk=self.prefill_chunk,
+                prefill_chunks=self.prefill_chunks,
+                cow_copies=self.cow_copies,
+                prefilling=len(self._prefilling))
+            if self._prefix_index is not None:
+                index = self._prefix_index
+                out.update(prefix_lookups=index.lookups,
+                           prefix_hits=index.hits,
+                           prefix_hit_rate=index.hit_rate(),
+                           prefix_tokens_reused=index.tokens_reused)
+        out['speculative'] = False
+        if self.speculative:
+            out['speculative'] = {
+                'spec_tokens': self.spec_tokens,
+                'draft_steps': self.draft_steps,
+                'verify_steps': self.verify_steps,
+                'draft_proposed': self.draft_proposed,
+                'draft_accepted': self.draft_accepted,
+                'accepted_draft_rate': (
+                    self.draft_accepted / self.draft_proposed
+                    if self.draft_proposed else None),
+                'verify_buckets': sorted(self._verify_run),
+            }
+        return out

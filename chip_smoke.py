@@ -11,8 +11,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    once) into ``build/chainermn_tpu_torch/``;
 3. kernels against their plain PyTorch versions on the card, at shapes
    of the ResNet-50 training path and of the full-width TransformerLM
-   serving path (LayerNorm, flash forward, decode attention in bf16,
-   f32 and int8), with kernel / plain / library times and the bound;
+   serving paths (LayerNorm, flash forward, decode attention and paged
+   decode attention in bf16, f32 and int8; paged decode also bit-equal
+   to decode over the same pages gathered, with shuffled pages and
+   dead table entries outside the pool), with kernel / plain / library
+   times and the bound;
 4. one train-mode forward of full-width ResNet-50 (f32, TF32 off, batch
    2) on the card (kernels) against the same model on the CPU (plain
    versions);
@@ -33,6 +36,21 @@ Phases, each printing its own lines; any failure exits non-zero:
    decode step, a profile of decode steps, a replay of the same
    requests with every step's logits checked finite, and an int8-KV
    engine;
+7a. paged check: at full width, depth 2, f32, from phase 6's weights,
+   the paged engine (whole prompts; chunks of 8; a shared-prefix set
+   that hits the radix index and copies on write) and the speculative
+   engine (a depth-1 draft; paged and not) on the card give the CPU's
+   greedy tokens, and each speculative engine its plain twin's;
+7b. the paged serving main path: ``GenerationEngine(paged=True,
+   page_size=16)`` over phase 7's model and prompts, every stream equal
+   to the slot engine's, launch counts checked (6 paged decode launches
+   a decode step, 6 flash forwards a prefill chunk), metrics, pages in
+   use and a decode profile; then ``prefill_chunk=32``; then one
+   120-token leader and 31 followers sharing it (31 prefix hits, 31
+   copies on write), with and without prefix sharing;
+7c. the speculative main path: the same target with a 3-layer draft
+   from another seed, ``spec_tokens=4``, paged, the 64 prompts; every
+   request finishes, launch counts checked, the acceptance rate;
 8. the training kernels against their plain versions on the card: the
    fused cross-entropy forward at the LM's ``(8192, 32000)`` f32 logits,
    and the two flash-attention backward kernels (dq; dk and dv) at the
@@ -454,9 +472,12 @@ def _flash_cases(gen):
     errs = []
     lm_shape = (LM_BATCH, LM_SEQ, LM_CFG['n_heads'],
                 LM_CFG['d_model'] // LM_CFG['n_heads'])
+    # (32, 4, 8, 64): the speculative verify window (bucket rows of
+    # spec_tokens rows each); (1, 32, 8, 64): a 32-row prefill chunk
     cases = [((1, 128, 8, 64), bf16), ((1, 100, 8, 64), f32),
              ((2, 2048, 8, 64), bf16), ((1, 37, 4, 32), bf16),
-             ((1, 70, 2, 128), f32), (lm_shape, bf16)]
+             ((1, 70, 2, 128), f32), (lm_shape, bf16),
+             ((32, 4, 8, 64), bf16), ((1, 32, 8, 64), bf16)]
     timed = {}
     for (b, t, h, d), dtype in cases:
         q, k, v = _strided_qkv(gen, (b, t), h, d, dtype)
@@ -577,15 +598,142 @@ def _decode_cases(gen):
     return dict(name='flash_decode', route='cuda',
                 source='chainermn_tpu_torch/csrc/flash_attention.cu',
                 replaces='chainermn_tpu/ops/flash_attention.py:650',
+                max_abs_err=max(errs), bound_ms=b_ms, bound_by=b_by,
+                **t), lengths
+
+
+def _paged_pool(gen, lengths, s, h, d, ps, dtype, n_pages=None):
+    """A page pool ``(P, ps, H, D)`` with the rows' pages drawn in a
+    shuffled order (so pages are not in position order), their tables
+    with every dead entry set to a page id outside the pool, and the
+    same tables with dead entries at page 0 (for gathering)."""
+    import torch
+    rows, n_max = lengths.numel(), -(-s // ps)
+    n_pages = n_pages or 1 + rows * n_max
+    perm = torch.randperm(n_pages - 1, generator=gen, device='cuda') + 1
+    pages = perm[:rows * n_max].reshape(rows, n_max).to(torch.int32)
+    live = (torch.arange(n_max, device='cuda')[None, :] * ps
+            < lengths[:, None])
+    tables = torch.where(live, pages, n_pages + 1000).to(torch.int32)
+    safe = torch.where(live, pages, 0).to(torch.int32)
+    k = torch.randn((n_pages, ps, h, d), generator=gen, device='cuda')
+    v = torch.randn((n_pages, ps, h, d), generator=gen, device='cuda')
+    return k.to(dtype), v.to(dtype), tables.contiguous(), safe
+
+
+def _paged_decode_cases(gen, serve_lengths):
+    """The paged decode kernel against its plain version, against itself
+    (two runs) and against the slot decode kernel over the same cache
+    gathered into a contiguous copy (bit-equal); timed at the serving
+    shape with row 9's live lengths."""
+    import torch
+    import torch.nn.functional as F
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.precision import quantize_kv
+    fa = importlib.import_module('chainermn_tpu_torch.ops.flash_attention')
+    bf16, f32 = torch.bfloat16, torch.float32
+    # f32 sums in another order, 1e-5; bf16 out: BF16_TOL; int8 as in the
+    # slot decode (the scale applied to p in the kernel, to v in the plain)
+    tol = {f32: (1e-5, 1e-5), bf16: BF16_TOL}
+    errs = []
+    timed = {}
+    ragged = lambda n, s: torch.randint(  # noqa: E731
+        1, s + 1, (n,), generator=gen, device='cuda', dtype=torch.int32)
+    cases = [(serve_lengths, 512, 8, 64, 16, bf16, 1 + 32 * 32),
+             (serve_lengths, 512, 8, 64, 16, f32, None),
+             (ragged(9, 512), 512, 4, 128, 8, f32, None),
+             (ragged(7, 300), 300, 2, 32, 32, bf16, None),
+             (ragged(5, 77), 77, 8, 64, 8, bf16, None),
+             (torch.ones(3, dtype=torch.int32, device='cuda'), 16, 8, 64, 16,
+              bf16, None)]
+    for lengths, s, h, d, ps, dtype, n_pages in cases:
+        lengths = lengths.clone()
+        lengths[0] = 1                  # a pad row: one position of a page
+        rows = lengths.numel()
+        k, v, tables, safe = _paged_pool(gen, lengths, s, h, d, ps, dtype,
+                                         n_pages)
+        q, _, _ = _strided_qkv(gen, (rows,), h, d, dtype)
+        for kind in ('float', 'int8'):
+            scales = {}
+            kk, vv = k, v
+            if kind == 'int8':
+                kk, ks = quantize_kv(k)
+                vv, vs = quantize_kv(v)
+                scales = dict(k_scale=ks, v_scale=vs)
+            what = 'flash_decode_paged %s ps %d %s %s' % (
+                (rows, s, h, d), ps, str(dtype).split('.')[-1], kind)
+            got = ops.flash_decode_paged(q, kk, vv, tables, lengths,
+                                         d ** -0.5, **scales)
+            torch.cuda.synchronize()
+            want = fa._decode_paged_plain(q, kk, vv, safe, lengths,
+                                          d ** -0.5, scales.get('k_scale'),
+                                          scales.get('v_scale'))
+            check_close(what, got, want, *tol[dtype])
+            errs.append(max_err(got, want))
+            again = ops.flash_decode_paged(q, kk, vv, tables, lengths,
+                                           d ** -0.5, **scales)
+            if not torch.equal(again, got):
+                raise AssertionError(what + ': two runs differ')
+            gathered = {key: fa._gather_pages(val, safe)
+                        for key, val in scales.items()}
+            slot = ops.flash_decode(q, fa._gather_pages(kk, safe),
+                                    fa._gather_pages(vv, safe), lengths,
+                                    d ** -0.5, **gathered)
+            if not torch.equal(slot, got):
+                raise AssertionError(
+                    what + ': not bit-equal to flash_decode over the '
+                    'gathered cache (max diff %.3g)' % max_err(slot, got))
+            if n_pages is not None:
+                timed[kind] = (q, kk, vv, tables, safe, lengths, scales)
+    q, k, v, tables, safe, lengths, _ = timed['float']
+    rows, h, d = q.shape
+    s = safe.shape[1] * k.shape[1]
+    mask = (torch.arange(s, device='cuda')[None, :]
+            < lengths[:, None])[:, None, None, :]
+
+    def library():
+        # the gather into the contiguous layout is part of the call
+        kt = fa._gather_pages(k, safe).transpose(1, 2)
+        vt = fa._gather_pages(v, safe).transpose(1, 2)
+        return F.scaled_dot_product_attention(q[:, :, None], kt, vt,
+                                              attn_mask=mask)
+
+    t = timings(lambda: ops.flash_decode_paged(q, k, v, tables, lengths,
+                                               0.125),
+                lambda: fa._decode_paged_plain(q, k, v, safe, lengths, 0.125),
+                library, iters=200, plain_iters=5)
+    live = int(lengths.sum())
+    n_live_pages = int((-(-lengths // k.shape[1])).sum())
+    # live K/V read once, q read and out written (bf16), the live table
+    # entries and the lengths
+    n_bytes = (2 * live * h * d * k.element_size() + 2 * rows * h * d * 2
+               + 4 * n_live_pages + 4 * rows)
+    b_ms, b_by = bound_ms(n_bytes, 4 * live * h * d)
+    qi, ki, vi, ti, _, _, sc = timed['int8']
+    t_int8 = device_ms(lambda: ops.flash_decode_paged(qi, ki, vi, ti,
+                                                      lengths, 0.125, **sc))
+    _say('kernels', 'flash_decode_paged max err %.3g over %d cases (bf16 '
+         'rtol, atol: %s); bit-equal to flash_decode over the gathered cache '
+         'and between two runs in every case; 32 rows, pool %s, ps %d, %d '
+         'live positions on %d shuffled pages, bf16: %s (SDPA with a length '
+         'mask, the gather of the pages included); bound %.5f ms by %s; '
+         'int8 device only %s ms' % (
+             max(errs), len(errs), BF16_TOL, tuple(k.shape), k.shape[1],
+             live, n_live_pages, _fmt(t), b_ms, b_by, _ms(t_int8)))
+    return dict(name='flash_decode_paged', route='cuda',
+                source='chainermn_tpu_torch/csrc/flash_attention.cu',
+                replaces='chainermn_tpu/ops/flash_attention.py:953',
                 max_abs_err=max(errs), bound_ms=b_ms, bound_by=b_by, **t)
 
 
 def phase_serving_kernels():
-    """The serving path's kernels against their plain versions on the
+    """The serving paths' kernels against their plain versions on the
     card, at the shapes of the full-width TransformerLM."""
     import torch
     gen = torch.Generator(device='cuda').manual_seed(3)
-    return [_ln_cases(gen), _flash_cases(gen), _decode_cases(gen)]
+    records = [_ln_cases(gen), _flash_cases(gen)]
+    decode, lengths = _decode_cases(gen)
+    return records + [decode, _paged_decode_cases(gen, lengths)]
 
 
 def phase_model_check():
@@ -955,13 +1103,73 @@ def profile_decode(eng, queue, n=5):
                  e.cpu_time_total / n / 1e3))
 
 
+def _timed_serve(eng, queue, prompts, n_new=SERVE_NEW):
+    """Submit ``prompts`` at once and drain them through ``step()``, with
+    the launch counts set to 0 just before and read just after.  Returns
+    the outputs, the counts, ``stats()``, the wall time, the TTFTs (from
+    submit), the times of ticks that ran no prefill work, and the peak
+    memory."""
+    import torch
+    from chainermn_tpu_torch import ops
+    first = {}
+
+    def on_token(rid, toks):
+        first.setdefault(rid, time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = [queue.submit(p, n_new, on_token=on_token) for p in prompts]
+    steps = []          # (seconds, prefill work in the step)
+    while not all(r.done() for r in reqs):
+        n0, s0 = eng.prefills + eng.prefill_chunks, time.perf_counter()
+        eng.step(queue)
+        steps.append((time.perf_counter() - s0,
+                      eng.prefills + eng.prefill_chunks - n0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(outs=[r.result() for r in reqs], counts=ops.launch_counts(),
+                stats=eng.stats(), wall=wall,
+                ttft=sorted(first[r.request_id] - t0 for r in reqs),
+                decode=sorted(t for t, n in steps if n == 0),
+                peak=torch.cuda.max_memory_allocated())
+
+
+def _serve_metrics(res):
+    """The serving metrics of a :func:`_timed_serve` run, for a log
+    line."""
+    st, ttft, decode = res['stats'], res['ttft'], res['decode']
+    return ('%d requests x %d tokens in %d prefills (%d chunks) and %d '
+            'decode steps (%.3f s): serve_generate_tokens_per_sec_per_chip '
+            '%.1f; TTFT p50 %.2f ms (p99 %.2f ms, from submit, all '
+            'submitted at once); decode-step p50 %.3f ms over %d ticks that '
+            'ran no prefill (p99 %.3f ms); peak memory %.3f GiB' % (
+                len(res['outs']), len(res['outs'][0]), st['prefills'],
+                st.get('prefill_chunks', 0), st['decode_steps'], res['wall'],
+                st['tokens_generated'] / res['wall'],
+                1e3 * ttft[len(ttft) // 2], 1e3 * ttft[-1],
+                1e3 * decode[len(decode) // 2], len(decode),
+                1e3 * decode[min(len(decode) - 1, int(0.99 * len(decode)))],
+                res['peak'] / 2 ** 30))
+
+
+def _serve_prompts():
+    """The serving main paths' 64 prompts of 4..128 tokens."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    lengths = [4, SERVE_PROMPT] + list(rng.randint(4, SERVE_PROMPT + 1,
+                                                   size=SERVE_REQUESTS - 2))
+    return [rng.randint(0, SERVE_CFG['vocab_size'], n) for n in lengths]
+
+
 def phase_serving_main():
     """The serving main path: ``GenerationEngine`` over the full-width
     ``TransformerLM`` of the repo's serving benchmark under
     ``Policy.bf16()``; 64 prompts of 4..128 tokens, 32 new tokens each,
     drained through ``step()``, with the kernel launch counts checked
-    against the structure."""
-    import numpy as np
+    against the structure.  Returns the counts, the model, the prompts
+    and the token streams."""
     import torch
     from chainermn_tpu_torch import models, ops, precision, serving
     model = models.TransformerLM(**SERVE_CFG,
@@ -976,33 +1184,11 @@ def phase_serving_main():
              n_params, SERVE_SLOTS, SERVE_CFG['max_len'],
              len(warm['prefill']) + len(warm['decode']),
              sum(warm['prefill'].values()) + sum(warm['decode'].values())))
-    rng = np.random.RandomState(0)
-    lengths = [4, SERVE_PROMPT] + list(rng.randint(4, SERVE_PROMPT + 1,
-                                                   size=SERVE_REQUESTS - 2))
-    prompts = [rng.randint(0, SERVE_CFG['vocab_size'], n) for n in lengths]
+    prompts = _serve_prompts()
     queue = serving.GenerationQueue(max_prompt_len=SERVE_PROMPT,
                                     max_queue=SERVE_REQUESTS)
-    first = {}
-
-    def on_token(rid, toks):
-        first.setdefault(rid, time.perf_counter())
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    reqs = [queue.submit(p, SERVE_NEW, on_token=on_token) for p in prompts]
-    steps = []          # (seconds, prefills in the step)
-    while not all(r.done() for r in reqs):
-        n0, s0 = eng.prefills, time.perf_counter()
-        eng.step(queue)
-        steps.append((time.perf_counter() - s0, eng.prefills - n0))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
-    st = eng.stats()
-    peak = torch.cuda.max_memory_allocated()
-    outs = [r.result() for r in reqs]
+    res = _timed_serve(eng, queue, prompts)
+    counts, st, outs = res['counts'], res['stats'], res['outs']
     if any(len(o) != SERVE_NEW for o in outs):
         raise AssertionError('a request did not generate %d tokens'
                              % SERVE_NEW)
@@ -1017,19 +1203,7 @@ def phase_serving_main():
                              'decode steps, expected %s' % (
                                  counts, st['prefills'],
                                  st['decode_steps'], want))
-    ttft = sorted(first[r.request_id] - t0 for r in reqs)
-    decode = sorted(t for t, n in steps if n == 0)
-    _say('serve', '%d requests x %d tokens in %d prefills and %d decode '
-         'steps (%.3f s): serve_generate_tokens_per_sec_per_chip %.1f; '
-         'TTFT p50 %.2f ms (p99 %.2f ms, from submit, all %d submitted '
-         'at once); decode-step p50 %.3f ms over %d ticks that admitted '
-         'nothing (p99 %.3f ms); peak memory %.3f GiB' % (
-             SERVE_REQUESTS, SERVE_NEW, st['prefills'], st['decode_steps'],
-             wall, st['tokens_generated'] / wall,
-             1e3 * ttft[len(ttft) // 2], 1e3 * ttft[-1], SERVE_REQUESTS,
-             1e3 * decode[len(decode) // 2], len(decode),
-             1e3 * decode[min(len(decode) - 1, int(0.99 * len(decode)))],
-             peak / 2 ** 30))
+    _say('serve', _serve_metrics(res))
     _say('serve', 'launches %s (per prefill: %d layer_norm, %d flash_fwd; '
          'per decode step: %d layer_norm, %d flash_decode)' % (
              counts, 2 * layers + 1, layers, 2 * layers + 1, layers))
@@ -1068,6 +1242,279 @@ def phase_serving_main():
     _say('serve', 'int8 KV engine: 8 requests x 8 tokens, %d decode steps, '
          'launches %s; %d of 8 token streams equal the bf16 cache\'s'
          % (st8['decode_steps'], c8, same))
+    return counts, model, prompts, [o.tolist() for o in outs]
+
+
+# ---------------------------------------------------------------------
+# paged and speculative serving
+
+def _shared_prefix_prompts(rng, n_followers, prefix_len=120):
+    """One ``prefix_len``-token leader (7 full 16-token pages and an
+    8-token tail at 120) and ``n_followers`` prompts that extend it by a
+    distinct 1..8-token suffix; the suffixes start with distinct tokens,
+    so no follower's prompt is a prefix of another's."""
+    vocab = SERVE_CFG['vocab_size']
+    leader = rng.randint(0, vocab, prefix_len)
+    heads = rng.choice(vocab, n_followers, replace=False)
+    followers = [list(leader) + [int(heads[i])]
+                 + list(rng.randint(0, vocab, i % 8)) for i in
+                 range(n_followers)]
+    return list(leader), followers
+
+
+def _serve_shared(eng, queue, leader, followers, n_new):
+    """The leader alone, then every follower at once; returns the
+    followers' tokens."""
+    _drain(eng, queue, [queue.submit(leader, n_new)])
+    reqs = [queue.submit(p, n_new) for p in followers]
+    _drain(eng, queue, reqs)
+    return [r.result().tolist() for r in reqs]
+
+
+def phase_paged_check():
+    """The paged engine (whole prompts; chunks of 8; a shared-prefix set
+    that hits the radix index and copies on write) and the speculative
+    engine (a depth-1 draft; paged and not) at full width, depth 2, f32,
+    from the numpy-seeded weights of phase 6: once on the card (kernels,
+    TF32 off) and once on the CPU (plain versions).  Every mode gives the
+    CPU's greedy tokens, and on the card each speculative engine gives
+    its plain twin's."""
+    import numpy as np
+    import torch
+    from chainermn_tpu_torch import models, serving
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError('expected full-f32 matmuls (allow_tf32 False)')
+    rng = np.random.RandomState(7)
+    lengths = [4, 128] + list(rng.randint(4, 129, size=4))
+    prompts = [rng.randint(0, SERVE_CFG['vocab_size'], n) for n in lengths]
+    leader, followers = _shared_prefix_prompts(rng, 5)
+    # spec: the depth-1 draft; 'self': the target drafts for itself, so
+    # the accept path runs too (a random draft rarely agrees)
+    modes = {'slot': {}, 'paged': dict(paged=True),
+             'chunked': dict(paged=True, prefill_chunk=8),
+             'spec_slot': dict(spec='draft'),
+             'spec_paged': dict(paged=True, spec='draft'),
+             'spec_self': dict(paged=True, spec='self')}
+    toks, shared, rates = {}, {}, {}
+    weights = draft_weights = None
+    for dev in ('cuda', 'cpu'):
+        model = models.TransformerLM(dtype=torch.float32, device=dev,
+                                     **dict(SERVE_CFG, n_layers=2))
+        weights = weights or _numpy_lm_weights(model, 6)
+        models.load_flax_variables(model, weights)
+        draft = models.TransformerLM(dtype=torch.float32, device=dev,
+                                     **dict(SERVE_CFG, n_layers=1))
+        draft_weights = draft_weights or _numpy_lm_weights(draft, 8)
+        models.load_flax_variables(draft, draft_weights)
+        toks[dev], rates[dev] = {}, {}
+        for name, kw in modes.items():
+            kw = dict(kw)
+            spec = kw.pop('spec', None)
+            if spec:
+                dm = draft if spec == 'draft' else model
+                kw.update(draft_model=dm, draft_params=models.param_tree(dm))
+            eng = serving.GenerationEngine(
+                model, n_slots=8, max_prompt_len=128, max_len=512,
+                device=dev, **kw)
+            queue = serving.GenerationQueue(
+                max_prompt_len=128, page_size=16 if eng.paged else None)
+            reqs = [queue.submit(p, 8) for p in prompts]
+            _drain(eng, queue, reqs)
+            toks[dev][name] = [r.result().tolist() for r in reqs]
+            if spec:
+                rates[dev][name] = eng.stats()['speculative'][
+                    'accepted_draft_rate']
+        eng = serving.GenerationEngine(model, n_slots=8, max_prompt_len=128,
+                                       max_len=512, device=dev, paged=True)
+        queue = serving.GenerationQueue(max_prompt_len=128, page_size=16)
+        toks[dev]['shared'] = _serve_shared(eng, queue, leader, followers, 8)
+        st = eng.stats()
+        shared[dev] = (st['prefix_hits'], st['cow_copies'],
+                       st['prefix_tokens_reused'])
+        if shared[dev] != (5, 5, 5 * len(leader)):
+            raise AssertionError('shared prefix on %s: hits, copies, reused '
+                                 '%s' % (dev, shared[dev]))
+        del eng, model, draft
+    for name in toks['cpu']:
+        if toks['cuda'][name] != toks['cpu'][name]:
+            raise AssertionError('%s engine: greedy tokens differ, card %s vs '
+                                 'CPU %s' % (name, toks['cuda'][name],
+                                             toks['cpu'][name]))
+    for spec, twin in (('spec_slot', 'slot'), ('spec_paged', 'paged'),
+                       ('spec_self', 'paged')):
+        if toks['cuda'][spec] != toks['cuda'][twin]:
+            raise AssertionError('%s: tokens differ from the %s engine\'s'
+                                 % (spec, twin))
+    own = rates['cuda']['spec_self']
+    if not own >= 0.5:
+        raise AssertionError('the target drafting for itself accepted only '
+                             '%s of its proposals' % own)
+    _say('paged-check', 'f32 depth 2, %d prompts x 8 tokens (and %d '
+         'followers of a %d-token prefix): card and CPU tokens identical in '
+         'the modes %s; the speculative engines equal their plain twins on '
+         'the card; accepted_draft_rate on the card %s; prefix hits, '
+         'copies, tokens reused %s; paged equals slot on the card: %s, on '
+         'the CPU: %s' % (
+             len(prompts), len(followers), len(leader),
+             ', '.join(sorted(toks['cpu'])),
+             ', '.join('%s %.4f' % kv for kv in sorted(rates['cuda'].items())),
+             shared['cuda'],
+             toks['cuda']['paged'] == toks['cuda']['slot'],
+             toks['cpu']['paged'] == toks['cpu']['slot']))
+
+
+def _paged_engine(model, **kw):
+    from chainermn_tpu_torch import precision, serving
+    return serving.GenerationEngine(
+        model, n_slots=SERVE_SLOTS, max_prompt_len=SERVE_PROMPT,
+        policy=precision.Policy.bf16(), paged=True, page_size=16, **kw)
+
+
+def _paged_queue():
+    from chainermn_tpu_torch import serving
+    return serving.GenerationQueue(max_prompt_len=SERVE_PROMPT,
+                                   max_queue=SERVE_REQUESTS, page_size=16)
+
+
+def phase_paged_main(model, prompts, slot_outs):
+    """The paged serving main path: ``GenerationEngine(paged=True,
+    page_size=16)`` over phase 7's model, bf16, 32 slots, the same 64
+    prompts; every stream equal to the slot engine's, the launch counts
+    checked against the structure.  Then chunked prefill (32), and a
+    shared-prefix set against the same requests without sharing."""
+    from chainermn_tpu_torch import ops
+    eng = _paged_engine(model)
+    warm = eng.warmup()
+    _say('paged', 'pool %s pages of 16 positions (%d per sequence), %d '
+         'slots; warmup of %d buckets %.2f s' % (
+             eng.n_pages, eng.pages_per_seq, SERVE_SLOTS,
+             len(warm['prefill']) + len(warm['decode']),
+             sum(warm['prefill'].values()) + sum(warm['decode'].values())))
+    queue = _paged_queue()
+    res = _timed_serve(eng, queue, prompts)
+    counts, st = res['counts'], res['stats']
+    outs = [o.tolist() for o in res['outs']]
+    layers = SERVE_CFG['n_layers']
+    chunks = st['prefill_chunks']
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want.update(layer_norm=(2 * layers + 1) * (chunks + st['decode_steps']),
+                flash_fwd=layers * chunks,
+                flash_decode_paged=layers * st['decode_steps'])
+    if counts != want or chunks != SERVE_REQUESTS:
+        raise AssertionError('paged launch counts %s over %d chunks and %d '
+                             'decode steps, expected %s'
+                             % (counts, chunks, st['decode_steps'], want))
+    same = sum(a == b for a, b in zip(outs, slot_outs))
+    if same != len(slot_outs):
+        raise AssertionError('paged engine: %d of %d streams equal the slot '
+                             'engine\'s' % (same, len(slot_outs)))
+    slab = SERVE_SLOTS * st['pages_per_seq']
+    _say('paged', _serve_metrics(res))
+    _say('paged', 'launches %s (per chunk: %d layer_norm, %d flash_fwd; per '
+         'decode step: %d layer_norm, %d flash_decode_paged); all %d streams '
+         'equal the slot engine\'s; peak_pages_in_use %d of the '
+         'slab-equivalent %d (%d slots x %d pages); prefix lookups %d, hits '
+         '%d' % (counts, 2 * layers + 1, layers, 2 * layers + 1, layers,
+                 same, st['peak_pages_in_use'], slab, SERVE_SLOTS,
+                 st['pages_per_seq'], st['prefix_lookups'],
+                 st['prefix_hits']))
+    profile_decode(eng, queue)
+    del eng
+    # chunked prefill
+    eng = _paged_engine(model, prefill_chunk=32)
+    eng.warmup()
+    res = _timed_serve(eng, _paged_queue(), prompts)
+    st = res['stats']
+    same = sum(a.tolist() == b for a, b in zip(res['outs'], slot_outs))
+    _say('paged', 'prefill_chunk 32: %s; peak_pages_in_use %d; %d of %d '
+         'streams equal the slot engine\'s' % (
+             _serve_metrics(res), st['peak_pages_in_use'], same,
+             len(slot_outs)))
+    del eng
+    # shared prefix, with and without the radix index
+    import numpy as np
+    leader, followers = _shared_prefix_prompts(np.random.RandomState(8),
+                                               SERVE_SLOTS - 1)
+    peaks = {}
+    for sharing in (True, False):
+        eng = _paged_engine(model, prefix_sharing=sharing)
+        eng.warmup()
+        queue = _paged_queue()
+        t0 = time.perf_counter()
+        got = _serve_shared(eng, queue, leader, followers, SERVE_NEW)
+        wall = time.perf_counter() - t0
+        st = eng.stats()
+        peaks[sharing] = st['peak_pages_in_use']
+        if sharing:
+            n = len(followers)
+            if (st['prefix_hits'], st['cow_copies'],
+                    st['prefix_tokens_reused']) != (n, n, n * len(leader)):
+                raise AssertionError(
+                    'shared prefix: hits %d, copies %d, tokens reused %d; '
+                    'expected %d, %d, %d' % (
+                        st['prefix_hits'], st['cow_copies'],
+                        st['prefix_tokens_reused'], n, n, n * len(leader)))
+            shared_outs, hits = got, st
+        elif got != shared_outs:
+            _say('paged', 'shared prefix: %d of %d streams equal without '
+                 'sharing' % (sum(a == b for a, b in zip(got, shared_outs)),
+                              len(got)))
+        _say('paged', 'shared prefix (%d-token leader, then %d followers, %d '
+             'new tokens each), prefix_sharing=%s: %.3f s, peak_pages_in_use '
+             '%d' % (len(leader), len(followers), SERVE_NEW, sharing, wall,
+                     st['peak_pages_in_use']))
+        del eng
+    _say('paged', 'shared prefix: prefix_hits %d, cow_copies %d, '
+         'prefix_tokens_reused %d (= %d x %d); peak_pages_in_use %d with '
+         'sharing vs %d without' % (
+             hits['prefix_hits'], hits['cow_copies'],
+             hits['prefix_tokens_reused'], len(followers), len(leader),
+             peaks[True], peaks[False]))
+    return counts, outs
+
+
+def phase_spec_main(model, prompts, paged_outs):
+    """The speculative main path: the full-width target with a 3-layer
+    draft of the same widths from another seed (as ``bench.py
+    --speculative``), ``spec_tokens=4``, paged, over the 64 prompts; the
+    launch counts checked against the structure."""
+    import torch
+    from chainermn_tpu_torch import models, ops
+    draft = models.TransformerLM(**dict(SERVE_CFG, n_layers=3),
+                                 generator=torch.Generator().manual_seed(7))
+    eng = _paged_engine(model, draft_model=draft,
+                        draft_params=models.param_tree(draft), spec_tokens=4)
+    eng.warmup()
+    res = _timed_serve(eng, _paged_queue(), prompts)
+    counts, st = res['counts'], res['stats']
+    spec = st['speculative']
+    if any(len(o) != SERVE_NEW for o in res['outs']):
+        raise AssertionError('a speculative request did not generate %d '
+                             'tokens' % SERVE_NEW)
+    layers, d_layers = SERVE_CFG['n_layers'], draft.n_layers
+    chunks, verify = st['prefill_chunks'], spec['verify_steps']
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want.update(
+        layer_norm=((2 * layers + 1) * (chunks + verify)
+                    + (2 * d_layers + 1) * (chunks + spec['draft_steps'])),
+        flash_fwd=(layers + d_layers) * chunks + layers * verify,
+        flash_decode_paged=d_layers * spec['draft_steps'])
+    if counts != want or spec['draft_steps'] != 4 * verify:
+        raise AssertionError('speculative launch counts %s over %d chunks, '
+                             '%d draft steps and %d verify passes, expected '
+                             '%s' % (counts, chunks, spec['draft_steps'],
+                                     verify, want))
+    same = sum(a.tolist() == b for a, b in zip(res['outs'], paged_outs))
+    _say('spec', _serve_metrics(res))
+    _say('spec', 'draft 3 layers (seed 7), k 4: %d draft steps, %d verify '
+         'passes, accepted_draft_rate %.4f (%d of %d proposed); %.4f verify '
+         'passes and %.4f verify flash_fwd launches per generated token; '
+         'launches %s; %d of %d streams equal the plain paged engine\'s' % (
+             spec['draft_steps'], verify, spec['accepted_draft_rate'],
+             spec['draft_accepted'], spec['draft_proposed'],
+             verify / st['tokens_generated'],
+             layers * verify / st['tokens_generated'], counts, same,
+             len(paged_outs)))
     return counts
 
 
@@ -1500,6 +1947,14 @@ def phase_lm_main():
     return counts
 
 
+def _timed(phase, *args):
+    """Run one phase and log its wall time."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    _say('time', '%s %.1f s' % (phase.__name__, time.perf_counter() - t0))
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1507,16 +1962,25 @@ def main():
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import chainermn_tpu_torch  # noqa: F401  (fails alone, as it should)
+    t_start = time.perf_counter()
     name, smi = phase_device()
-    phase_build()
-    records = (phase_kernels() + phase_serving_kernels()
-               + phase_training_kernels())
-    phase_model_check()
-    paths = {'resnet_training': phase_main_path()}
-    phase_serving_check()
-    paths['lm_serving'] = phase_serving_main()
-    phase_lm_check()
-    paths['lm_training'] = phase_lm_main()
+    _timed(phase_build)
+    records = (_timed(phase_kernels) + _timed(phase_serving_kernels)
+               + _timed(phase_training_kernels))
+    _timed(phase_model_check)
+    paths = {'resnet_training': _timed(phase_main_path)}
+    _timed(phase_serving_check)
+    paths['lm_serving'], model, prompts, slot_outs = _timed(
+        phase_serving_main)
+    _timed(phase_paged_check)
+    paths['lm_serving_paged'], paged_outs = _timed(
+        phase_paged_main, model, prompts, slot_outs)
+    paths['lm_serving_spec'] = _timed(phase_spec_main, model, prompts,
+                                      paged_outs)
+    del model
+    _timed(phase_lm_check)
+    paths['lm_training'] = _timed(phase_lm_main)
+    _say('time', 'all phases %.1f s' % (time.perf_counter() - t_start))
     for rec in records:
         by_path = {path: counts[rec['name']]
                    for path, counts in paths.items() if counts[rec['name']]}

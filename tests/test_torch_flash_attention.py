@@ -416,3 +416,34 @@ def test_kernels_match_plain_on_the_card(cuda):
         torch.testing.assert_close(g.cpu().float(), x.float(), rtol=1e-2,
                                    atol=1e-2)
     assert fa.flash_bwd_dq.launches > 0 and fa.flash_bwd_dkv.launches > 0
+
+
+@pytest.mark.cuda
+def test_paged_decode_kernel_matches_plain_on_the_card(cuda):
+    """The paged decode kernel against its plain version, and bit-equal
+    to the slot decode kernel over the same pages gathered into a
+    contiguous cache; dead table entries hold a page id outside the pool
+    (never read)."""
+    rng = np.random.RandomState(14)
+    n_pages, ps, h, d = 20, 8, 8, 64
+    k = torch.from_numpy(rng.randn(n_pages, ps, h, d).astype(np.float32))
+    v = torch.from_numpy(rng.randn(n_pages, ps, h, d).astype(np.float32))
+    q = torch.from_numpy(rng.randn(3, h, d).astype(np.float32))
+    lens = torch.tensor([1, 30, 17], dtype=torch.int32)
+    live = torch.tensor([[7, 0, 0, 0], [3, 12, 5, 9], [1, 19, 2, 0]],
+                        dtype=torch.int32)
+    dead = torch.where(live == 0, 1000, live).to(torch.int32)
+    dead[1:, 0] = live[1:, 0]
+    for dtype in (torch.float32, torch.bfloat16):
+        want = ops.flash_attention_decode_paged(
+            q.to(dtype), k.to(dtype), v.to(dtype), live, lens)
+        kc, vc, qc = (x.to(dtype).cuda() for x in (k, v, q))
+        got = ops.flash_attention_decode_paged(qc, kc, vc, dead.cuda(),
+                                               lens.cuda())
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   rtol=1e-2, atol=1e-2)
+        slot = ops.flash_attention_decode(
+            qc, fa._gather_pages(kc, live.cuda()),
+            fa._gather_pages(vc, live.cuda()), lens.cuda())
+        assert torch.equal(slot, got)
+    assert fa.flash_decode_paged.launches > 0

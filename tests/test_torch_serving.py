@@ -226,16 +226,44 @@ def test_entry_point_without_a_device_raises(monkeypatch):
         serving.GenerationEngine(tm, n_slots=2, max_prompt_len=8)
 
 
-@pytest.mark.parametrize('kw', [dict(paged=True), dict(prefill_chunk=4),
-                                dict(n_pages=8),
-                                dict(draft_model=object()),
-                                dict(plan=object()),
+@pytest.mark.parametrize('kw', [dict(plan=object()),
                                 dict(param_specs={})])
 def test_unported_modes_raise(kw):
     _, _, tm = _pair()
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         serving.GenerationEngine(tm, n_slots=2, max_prompt_len=8,
                                  device='cpu', **kw)
+
+
+def _other_vocab_draft():
+    draft = models.TransformerLM(dtype=torch.float32, device='cpu',
+                                 **dict(CFG, vocab_size=16, n_layers=1))
+    return dict(draft_model=draft, draft_params=models.param_tree(draft))
+
+
+@pytest.mark.parametrize('kw,match', [
+    (dict(prefill_chunk=4), 'requires paged'),
+    (dict(n_pages=8), 'requires paged'),
+    (dict(paged=True, prefill_chunk=16), 'exceeds max_prompt_len'),
+    ('other_vocab_draft', 'vocab')])
+def test_paged_and_speculative_options_are_checked_as_jax_does(kw, match):
+    """The JAX constructor's typed ValueErrors, raised by both engines."""
+    jm, params, tm = _pair()
+    if kw == 'other_vocab_draft':
+        kw = _other_vocab_draft()
+        jd = jmodels.TransformerLM(dtype=jnp.float32,
+                                   **dict(CFG, vocab_size=16, n_layers=1))
+        jkw = dict(draft_model=jd, draft_params=jax.device_get(
+            jax.jit(jd.init)(jax.random.PRNGKey(1),
+                             jnp.zeros((1, 4), jnp.int32))['params']))
+    else:
+        jkw = kw
+    with pytest.raises(ValueError, match=match):
+        serving.GenerationEngine(tm, n_slots=2, max_prompt_len=8,
+                                 device='cpu', **kw)
+    with pytest.raises(ValueError, match=match):
+        jserving.GenerationEngine(jm, params, n_slots=2, max_prompt_len=8,
+                                  **jkw)
 
 
 def test_unported_methods_raise():
@@ -252,8 +280,6 @@ def test_unported_methods_raise():
         eng.swap_params(None)
     with pytest.raises(NotImplementedError):
         serving.GenerationEngine.from_checkpoint('x', tm, None)
-    with pytest.raises(NotImplementedError):
-        serving.GenerationQueue(max_prompt_len=8, page_size=4)
 
 
 # ---------------------------------------------------------------------
