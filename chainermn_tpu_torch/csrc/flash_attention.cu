@@ -17,10 +17,14 @@
 // All keep the TPU kernels' online-softmax recurrence in f32 -- running
 // max m, running sum l, accumulator acc; scores masked with the finite
 // NEG_INF = -1e30 of chainermn_tpu/ops/_common.py; the output divided by
-// max(l, 1e-30) -- and all compute in f32 on every input dtype, as the
-// TPU kernels do (they widen q, k, v to f32 before each product).
+// max(l, 1e-30) -- and all hold the TPU kernels' numerics (they widen q,
+// k, v to f32 before each product).  Two routes by dtype, both written
+// here: f32 operands take scalar f32 FMA kernels (every cmn_* entry);
+// bf16 operands of cmn_flash_fwd and cmn_flash_bwd_dkv take tensor-core
+// kernels ("tensor cores" below), those of the dq and decode kernels the
+// scalar ones.
 //
-// ---- forward (cmn_flash_fwd) ----
+// ---- forward (cmn_flash_fwd, f32 operands) ----
 // One block per (batch*head, block of kBQ query rows).  The TPU walks the
 // key blocks as a sequential grid axis and carries (m, l, acc) in VMEM
 // scratch between grid steps; blocks on Hopper run in no order, so here a
@@ -38,7 +42,7 @@
 // ~295.  This first version runs scalar f32 FMAs (no tensor cores), so it
 // sits far from that bound; mma/wgmma tiles are the next step.
 //
-// ---- backward (cmn_flash_bwd_dq, cmn_flash_bwd_dkv) ----
+// ---- backward (cmn_flash_bwd_dq; cmn_flash_bwd_dkv, f32 operands) ----
 // With p = exp(s - lse) recomputed from the forward's lse (s formed as the
 // forward forms it: the pre-scaled query times the key, then the mask),
 // dp = g.v^T, ds = p * (dp - delta) * scale and delta = rowsum(g * out):
@@ -70,6 +74,47 @@
 // operands).  Like the forward they run scalar f32 FMAs, and the two
 // kernels recompute s and dp each (7 products for the 5 the gradient
 // needs), so they sit far from the tensor-core bound.
+//
+// ---- tensor cores (bf16: flash_fwd_tc_kernel, flash_bwd_dkv_tc_kernel) ----
+// FlashAttention-2's structure on mma.sync.m16n8k16 (bf16 operands, f32
+// sums), with the TPU kernels' numerics:
+//  - a bf16 x bf16 product is exact in f32, so Q.K^T, V.G^T and K.Q^T go
+//    to mma as they are; the softmax scale multiplies the f32 scores
+//    after the product (d^-0.5 is no power of two at D = 32 or 128: a
+//    pre-scaled bf16 q would be rounded), and dK is scaled at the end;
+//  - the second products need p (and ds) as a 16-bit operand.  One bf16
+//    rounding would move an output by ~2^-9 of max|v|, beyond the
+//    holds at outputs that cancel to ~0, so each is split into hi =
+//    bf16(x) and lo = bf16(x - hi) and both meet the same B fragments:
+//    x to ~2^-17, for 3 products where 2 would do (forward) and 6 for 4
+//    (dk/dv);
+//  - the softmax runs in log2 units (exp2f of scale * log2(e) * s); lse
+//    comes out in natural units.
+// A block is 4 warps, 16 owned rows a warp (64 a block).  Operands stay
+// bf16 in shared memory, rows padded by 16 bytes so that ldmatrix reads
+// them without bank conflicts, filled by 16-byte cp.async (zero-filled
+// past the edge) in a two-stage ring: the next tile streams in while the
+// tensor cores work on this one.  The m16n8 accumulator layout is the
+// m16n8k16 A-operand layout, so p and ds go from registers to mma.
+//   forward: one block per (64 query rows, b*h), the tile order reversed
+//     so the longest causal tiles start first; the warp's Q fragment is
+//     held in registers, unscaled; key tiles of 64 up to the causal
+//     frontier; a row's max and sum live in a quad of 4 lanes (two
+//     shuffles each); only tiles on the causal diagonal or the t_kv edge
+//     are masked.  Shared memory 45 KB at D = 64, 85 KB at D = 128.
+//   dk/dv: one block per (64 key rows, b*h), each block owning its dK and
+//     dV tile (no float atomics: runs are bit-equal); query tiles of 64
+//     (32 at D = 128) streamed from the causal frontier on with their lse
+//     and delta, 16 queries at a time: S^T = K.Q^T and dP^T = V.G^T on
+//     mma, P^T = exp(scale S^T - lse) (0 where masked), dS^T = P^T (dP^T -
+//     delta), then dV += P^T.G and dK += dS^T.Q with G and Q read through
+//     ldmatrix.trans.  The warp's K and V fragments are held in registers
+//     at D <= 64; at D = 128 the 128 accumulators of dK and dV leave no
+//     room for them, and they are read from shared memory.
+// What bounds them: operations at the bf16 tensor-core rate; this design
+// issues 1.5x (forward) and 1.5x (dk/dv's second products) the minimum
+// for the hi/lo split, on mma.sync, which reaches a part of the rate
+// that wgmma does.
 //
 // ---- decode (cmn_flash_decode) ----
 // One block of 128 threads per (row, head): one query row against its
@@ -107,6 +152,9 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -584,13 +632,23 @@ cudaError_t launch_bwd(K kernel, const BwdArgs& a, int tiles, int bh,
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_dkv_tc(const BwdArgs& a, int bh, cudaStream_t stream);
+
+// bf16 dk/dv goes to the tensor-core kernel; dq, and f32 dk/dv, to the
+// scalar kernels above
 template <typename T, int D>
 cudaError_t launch_bwd_td(const BwdArgs& a, int bh, bool dkv,
                           cudaStream_t stream) {
   constexpr int BO = BwdCfg<D>::kBO;
-  if (dkv)
-    return launch_bwd(flash_bwd_dkv_kernel<T, D>, a, (a.t_kv + BO - 1) / BO,
-                      bh, BwdCfg<D>::kSmemDkv, stream);
+  if (dkv) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value)
+      return launch_dkv_tc<D>(a, bh, stream);
+    else
+      return launch_bwd(flash_bwd_dkv_kernel<T, D>, a,
+                        (a.t_kv + BO - 1) / BO, bh, BwdCfg<D>::kSmemDkv,
+                        stream);
+  }
   return launch_bwd(flash_bwd_dq_kernel<T, D>, a, (a.t_q + BO - 1) / BO, bh,
                     BwdCfg<D>::kSmemDq, stream);
 }
@@ -647,6 +705,525 @@ BwdArgs bwd_args(const void* q, const void* k, const void* v, const void* g,
   a.scale = scale;
   a.causal = causal;
   return a;
+}
+
+// ---------------------------------------------------------------------
+// tensor-core kernels: the bf16 routes of cmn_flash_fwd and
+// cmn_flash_bwd_dkv (see "tensor cores" at the top of the file)
+
+constexpr int kTcWarps = 4;
+constexpr int kTcThreads = kTcWarps * 32;
+constexpr int kTcRows = 16 * kTcWarps;  // owned rows a block: 16 per warp
+constexpr int kPad = 8;  // bf16 elements of padding after each shared row
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled (and nothing
+// read) when !live
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(live ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, one row address per lane
+// (lanes 8i..8i+7 give the rows of matrix i); .trans transposes each.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// d += a (16 x 16, row) . b (16 x 8, col): bf16 operands, f32 sums
+__device__ __forceinline__ void mma16816(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 h) {
+  uint32_t u;
+  memcpy(&u, &h, sizeof(u));
+  return u;
+}
+
+// (x, y) as a 16-bit pair hi = bf16(x, y) and the remainder lo =
+// bf16((x, y) - hi): hi + lo holds x and y to about 2^-17 of each
+__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(x - __low2float(h), y - __high2float(h)));
+}
+
+// The A operand (16 x 16, rows = this lane's quad rows) of the m16n8
+// accumulators c0 (columns 0..7) and c1 (columns 8..15), split hi / lo.
+__device__ __forceinline__ void split_frag(const float (&c0)[4],
+                                           const float (&c1)[4],
+                                           uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+  split2(c0[0], c0[1], hi[0], lo[0]);
+  split2(c0[2], c0[3], hi[1], lo[1]);
+  split2(c1[0], c1[1], hi[2], lo[2]);
+  split2(c1[2], c1[3], hi[3], lo[3]);
+}
+
+// Rows [t0, t0 + ROWS) of a (T, D) bf16 operand (rows `st` elements
+// apart, 16-byte aligned) into shared memory, rows D + kPad apart; rows
+// at or past t_end are zero-filled.  Every thread issues its part.
+template <int D, int ROWS>
+__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src,
+                                          int64_t st, int t0, int t_end) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks a row
+  static_assert(ROWS * kChunks % kTcThreads == 0, "uneven copy");
+#pragma unroll
+  for (int e = threadIdx.x; e < ROWS * kChunks; e += kTcThreads) {
+    const int r = e / kChunks, c = (e % kChunks) * 8, t = t0 + r;
+    const bool live = t < t_end;
+    cp_async16(dst + r * (D + kPad) + c, live ? src + t * st + c : src, live);
+  }
+}
+
+// n f32 values src[t0 + i] into dst[i], zero at or past t_end
+__device__ __forceinline__ void copy_vec(float* dst, const float* src, int n,
+                                         int t0, int t_end) {
+  for (int i = threadIdx.x; i < n; i += kTcThreads) {
+    const bool live = t0 + i < t_end;
+    cp_async4(dst + i, live ? src + t0 + i : src, live);
+  }
+}
+
+template <int D>
+struct TcFwdCfg {
+  static constexpr int kBK = 64;  // keys a tile
+  // the query tile, then two stages each of K and V
+  static constexpr size_t kSmem =
+      sizeof(bf16) * (size_t)(D + kPad) * (kTcRows + 4 * kBK);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+    flash_fwd_tc_kernel(FwdArgs a) {
+  constexpr int BK = TcFwdCfg<D>::kBK, P = D + kPad;
+  constexpr int KS = D / 16;  // k-steps of Q.K^T
+  constexpr int NS = BK / 8;  // n-blocks of S (8 keys each)
+  constexpr int NO = D / 8;   // n-blocks of O (8 columns each)
+  extern __shared__ float4 tc_smem[];  // 16-byte aligned
+  bf16* qs = reinterpret_cast<bf16*>(tc_smem);  // kTcRows x P
+  bf16* ks = qs + kTcRows * P;                   // 2 x BK x P
+  bf16* vs = ks + 2 * BK * P;                    // 2 x BK x P
+
+  const int bh = blockIdx.y;
+  const int b = bh / a.h, hh = bh % a.h;
+  // the longest causal tiles (the last query rows) start first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTcRows;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gr = lane >> 2, tg = lane & 3;  // quad row, lane in quad
+  const bf16* qp = static_cast<const bf16*>(a.q) + b * a.q_sb + hh * a.q_sh;
+  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.k_sb + hh * a.k_sh;
+  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.v_sb + hh * a.v_sh;
+
+  int n_tiles = (a.t_kv + BK - 1) / BK;
+  if (a.causal) {
+    const int frontier = (q0 + kTcRows + BK - 1) / BK;  // keys < q0 + rows
+    if (frontier < n_tiles) n_tiles = frontier;
+  }
+  copy_rows<D, kTcRows>(qs, qp, a.q_st, q0, a.t_q);
+  copy_rows<D, BK>(ks, kp, a.k_st, 0, a.t_kv);
+  copy_rows<D, BK>(vs, vp, a.v_st, 0, a.t_kv);
+  cp_async_commit();
+
+  uint32_t qf[KS][4];
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // rows gr, gr + 8
+  const float sl2 = a.scale * kLog2e;  // scores in log2 units
+  const int wq = q0 + warp * 16;       // the warp's first query row
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {  // the next tile streams in during this one
+      const int nx = (j + 1) & 1;
+      copy_rows<D, BK>(ks + nx * BK * P, kp, a.k_st, (j + 1) * BK, a.t_kv);
+      copy_rows<D, BK>(vs + nx * BK * P, vp, a.v_st, (j + 1) * BK, a.t_kv);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (j == 0) {  // the warp's 16 query rows, held unscaled from here on
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldsm_x4(qf[kk], qs + (warp * 16 + (lane & 15)) * P + kk * 16 +
+                            (lane >> 4) * 8);
+    }
+    const bf16* kt = ks + (j & 1) * BK * P;
+    const bf16* vt = vs + (j & 1) * BK * P;
+
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int n = 0; n < NS; n += 2)
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t kb[4];
+        ldsm_x4(kb, kt + (n * 8 + (lane & 7) + ((lane >> 4) << 3)) * P +
+                        kk * 16 + ((lane >> 3) & 1) * 8);
+        mma16816(s[n], qf[kk], kb[0], kb[1]);
+        mma16816(s[n + 1], qf[kk], kb[2], kb[3]);
+      }
+
+    // scale after the product; mask only a tile on the causal diagonal
+    // or the t_kv edge
+    const int k0 = j * BK;
+    const bool edge =
+        k0 + BK > a.t_kv || (a.causal && k0 + BK - 1 > wq);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float x = s[n][c] * sl2;
+        if (edge) {
+          const int kpos = k0 + n * 8 + 2 * tg + (c & 1);
+          const int qpos = wq + gr + (c >> 1) * 8;
+          if (kpos >= a.t_kv || (a.causal && kpos > qpos)) x = kNegInf;
+        }
+        s[n][c] = x;
+        mx[c >> 1] = fmaxf(mx[c >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // a row lives in a quad of 4 lanes
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = exp2f(s[n][c] - m[c >> 1]);
+        s[n][c] = p;
+        l[c >> 1] += p;  // this lane's part of the row sum
+      }
+
+    // O += P.V: the accumulators of S are the A operand, split hi / lo
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+      split_frag(s[2 * kk], s[2 * kk + 1], ph, pl);
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t vb[4];
+        ldsm_x4_t(vb, vt + (kk * 16 + (lane & 15)) * P + n * 8 +
+                          (lane >> 4) * 8);
+        mma16816(o[n], ph, vb[0], vb[1]);
+        mma16816(o[n], pl, vb[0], vb[1]);
+        mma16816(o[n + 1], ph, vb[2], vb[3]);
+        mma16816(o[n + 1], pl, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();  // this stage is refilled by the next iteration
+  }
+
+  bf16* op = static_cast<bf16*>(a.out);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int qpos = wq + gr + 8 * r;
+    if (qpos >= a.t_q) continue;  // padded query rows are dropped
+    const float l_safe = fmaxf(l[r], 1e-30f);
+    bf16* orow = op + (((int64_t)b * a.t_q + qpos) * a.h + hh) * D + 2 * tg;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
+          __floats2bfloat162_rn(o[n][2 * r] / l_safe,
+                                o[n][2 * r + 1] / l_safe);
+    if (tg == 0) a.lse[(int64_t)bh * a.t_q + qpos] = m[r] * kLn2 + logf(l_safe);
+  }
+}
+
+template <int D>
+cudaError_t launch_fwd_tc(const FwdArgs& a, int bh, cudaStream_t stream) {
+  constexpr size_t smem = TcFwdCfg<D>::kSmem;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((unsigned)((a.t_q + kTcRows - 1) / kTcRows), (unsigned)bh);
+  flash_fwd_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_fwd_tc_d(const FwdArgs& a, int d, int bh,
+                            cudaStream_t stream) {
+  if (d == 32) return launch_fwd_tc<32>(a, bh, stream);
+  if (d == 64) return launch_fwd_tc<64>(a, bh, stream);
+  if (d == 128) return launch_fwd_tc<128>(a, bh, stream);
+  return cudaErrorInvalidValue;
+}
+
+// One k-step (16 columns) of S^T = K.Q^T and dP^T = V.G^T for a warp's
+// 16 keys against 16 queries: ka, va the keys' A fragments, q and g this
+// lane's row addresses in the query tile.
+__device__ __forceinline__ void score_k16(float (&s)[2][4], float (&d)[2][4],
+                                          const uint32_t (&ka)[4],
+                                          const uint32_t (&va)[4],
+                                          const bf16* q, const bf16* g) {
+  uint32_t qb[4], gb[4];
+  ldsm_x4(qb, q);
+  ldsm_x4(gb, g);
+  mma16816(s[0], ka, qb[0], qb[1]);
+  mma16816(s[1], ka, qb[2], qb[3]);
+  mma16816(d[0], va, gb[0], gb[1]);
+  mma16816(d[1], va, gb[2], gb[3]);
+}
+
+template <int D>
+struct TcBwdCfg {
+  static constexpr int kBQ = D == 128 ? 32 : 64;  // streamed query rows
+  // the warp's K and V fragments live in registers at D <= 64; at D = 128
+  // they are read from shared memory for each product (registers)
+  static constexpr bool kKvRegs = D <= 64;
+  // lse and delta (two stages each), the K and V tiles, two stages each
+  // of the Q and G tiles
+  static constexpr size_t kSmem =
+      sizeof(float) * 4 * (size_t)kBQ +
+      sizeof(bf16) * (size_t)(D + kPad) * (2 * kTcRows + 4 * kBQ);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+    flash_bwd_dkv_tc_kernel(BwdArgs a) {
+  constexpr int BQ = TcBwdCfg<D>::kBQ, P = D + kPad;
+  constexpr bool kRegs = TcBwdCfg<D>::kKvRegs;
+  constexpr int KS = D / 16;  // k-steps of K.Q^T and V.G^T
+  constexpr int NO = D / 8;   // n-blocks of dK and dV
+  // without the fragments in registers, one query slice at a time too
+  constexpr int kSqUnroll = kRegs ? BQ / 16 : 1;
+  extern __shared__ float4 tc_smem[];
+  float* ls = reinterpret_cast<float*>(tc_smem);  // 2 x BQ: lse
+  float* des = ls + 2 * BQ;                       // 2 x BQ: delta
+  bf16* kt = reinterpret_cast<bf16*>(des + 2 * BQ);  // kTcRows x P
+  bf16* vt = kt + kTcRows * P;                       // kTcRows x P
+  bf16* qs = vt + kTcRows * P;                       // 2 x BQ x P
+  bf16* gs = qs + 2 * BQ * P;                        // 2 x BQ x P
+
+  const int bh = blockIdx.y;
+  const int b = bh / a.h, hh = bh % a.h;
+  const int k0 = blockIdx.x * kTcRows;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gr = lane >> 2, tg = lane & 3;
+  const bf16* qp = static_cast<const bf16*>(a.q) + b * a.q_sb + hh * a.q_sh;
+  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.k_sb + hh * a.k_sh;
+  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.v_sb + hh * a.v_sh;
+  const bf16* gp = static_cast<const bf16*>(a.g) + b * a.g_sb + hh * a.g_sh;
+  const float* lp = a.lse + (int64_t)bh * a.t_q;
+  const float* dp = a.delta + (int64_t)bh * a.t_q;
+
+  const int n_tiles = (a.t_q + BQ - 1) / BQ;
+  // causal: query tiles wholly before this key tile contribute nothing
+  const int first = a.causal ? k0 / BQ : 0;
+  copy_rows<D, kTcRows>(kt, kp, a.k_st, k0, a.t_kv);
+  copy_rows<D, kTcRows>(vt, vp, a.v_st, k0, a.t_kv);
+  copy_rows<D, BQ>(qs, qp, a.q_st, first * BQ, a.t_q);
+  copy_rows<D, BQ>(gs, gp, a.g_st, first * BQ, a.t_q);
+  copy_vec(ls, lp, BQ, first * BQ, a.t_q);
+  copy_vec(des, dp, BQ, first * BQ, a.t_q);
+  cp_async_commit();
+
+  uint32_t kf[kRegs ? KS : 1][4], vf[kRegs ? KS : 1][4];
+  float dk[NO][4], dv[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dk[n][c] = dv[n][c] = 0.f;
+  const float sl2 = a.scale * kLog2e;
+  const int wk = k0 + warp * 16;  // the warp's first key row
+  // this lane's A-operand row address in the K and V tiles
+  const int a_off = (warp * 16 + (lane & 15)) * P + (lane >> 4) * 8;
+
+  for (int j = first; j < n_tiles; ++j) {
+    const int stage = (j - first) & 1;
+    if (j + 1 < n_tiles) {  // the next tile streams in during this one
+      const int nx = stage ^ 1;
+      copy_rows<D, BQ>(qs + nx * BQ * P, qp, a.q_st, (j + 1) * BQ, a.t_q);
+      copy_rows<D, BQ>(gs + nx * BQ * P, gp, a.g_st, (j + 1) * BQ, a.t_q);
+      copy_vec(ls + nx * BQ, lp, BQ, (j + 1) * BQ, a.t_q);
+      copy_vec(des + nx * BQ, dp, BQ, (j + 1) * BQ, a.t_q);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (kRegs) {
+      if (j == first) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          ldsm_x4(kf[kk], kt + a_off + kk * 16);
+          ldsm_x4(vf[kk], vt + a_off + kk * 16);
+        }
+      }
+    }
+    const bf16* qt = qs + stage * BQ * P;
+    const bf16* gt = gs + stage * BQ * P;
+    const float* lt = ls + stage * BQ;
+    const float* dt = des + stage * BQ;
+    const int q0 = j * BQ;
+    // mask only a tile that straddles the causal diagonal of this warp's
+    // keys or the t_q edge
+    const bool edge = q0 + BQ > a.t_q || (a.causal && q0 < wk + 15);
+
+#pragma unroll(kSqUnroll)
+    for (int sq = 0; sq < BQ / 16; ++sq) {  // 16 queries at a time
+      // S^T = K.Q^T and dP^T = V.G^T for the warp's 16 keys
+      float s[2][4], d[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[n][c] = d[n][c] = 0.f;
+      const int b_off = (sq * 16 + (lane & 7) + ((lane >> 4) << 3)) * P +
+                        ((lane >> 3) & 1) * 8;
+      if constexpr (kRegs) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          score_k16(s, d, kf[kk], vf[kk], qt + b_off + kk * 16,
+                    gt + b_off + kk * 16);
+      } else {
+        // one k-step at a time: the 128 accumulators of dK and dV leave
+        // no registers for loads hoisted from later steps
+#pragma unroll 1
+        for (int kk = 0; kk < KS; ++kk) {
+          uint32_t ka[4], va[4];
+          ldsm_x4(ka, kt + a_off + kk * 16);
+          ldsm_x4(va, vt + a_off + kk * 16);
+          score_k16(s, d, ka, va, qt + b_off + kk * 16, gt + b_off + kk * 16);
+        }
+      }
+      // P^T = exp(scale S^T - lse), masked to 0; dS^T = P^T (dP^T - delta)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int qi = sq * 16 + n * 8 + 2 * tg + (c & 1);
+          float p = exp2f(s[n][c] * sl2 - lt[qi] * kLog2e);
+          if (edge) {
+            const int qpos = q0 + qi, kpos = wk + gr + (c >> 1) * 8;
+            if (qpos >= a.t_q || (a.causal && qpos < kpos)) p = 0.f;
+          }
+          s[n][c] = p;
+          d[n][c] = p * (d[n][c] - dt[qi]);
+        }
+      // dV += P^T.G and dK += dS^T.Q: the accumulators are the A
+      // operands (split hi / lo), G and Q the B operands (transposed)
+      uint32_t ph[4], pl[4], dh[4], dl[4];
+      split_frag(s[0], s[1], ph, pl);
+      split_frag(d[0], d[1], dh, dl);
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t gb[4], qb[4];
+        const int t_off = (sq * 16 + (lane & 15)) * P + n * 8 + (lane >> 4) * 8;
+        ldsm_x4_t(gb, gt + t_off);
+        ldsm_x4_t(qb, qt + t_off);
+        mma16816(dv[n], ph, gb[0], gb[1]);
+        mma16816(dv[n], pl, gb[0], gb[1]);
+        mma16816(dv[n + 1], ph, gb[2], gb[3]);
+        mma16816(dv[n + 1], pl, gb[2], gb[3]);
+        mma16816(dk[n], dh, qb[0], qb[1]);
+        mma16816(dk[n], dl, qb[0], qb[1]);
+        mma16816(dk[n + 1], dh, qb[2], qb[3]);
+        mma16816(dk[n + 1], dl, qb[2], qb[3]);
+      }
+    }
+    __syncthreads();  // this stage is refilled by the next iteration
+  }
+
+  bf16* dkp = static_cast<bf16*>(a.dk);
+  bf16* dvp = static_cast<bf16*>(a.dv);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kpos = wk + gr + 8 * r;
+    if (kpos >= a.t_kv) continue;
+    const int64_t off = (((int64_t)b * a.t_kv + kpos) * a.h + hh) * D + 2 * tg;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dkp + off + n * 8) =
+          __floats2bfloat162_rn(dk[n][2 * r] * a.scale,
+                                dk[n][2 * r + 1] * a.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvp + off + n * 8) =
+          __floats2bfloat162_rn(dv[n][2 * r], dv[n][2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dkv_tc(const BwdArgs& a, int bh, cudaStream_t stream) {
+  constexpr size_t smem = TcBwdCfg<D>::kSmem;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dkv_tc_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((unsigned)((a.t_kv + kTcRows - 1) / kTcRows), (unsigned)bh);
+  flash_bwd_dkv_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------
@@ -927,7 +1504,7 @@ int cmn_flash_fwd(const void* q, const void* k, const void* v, int dtype,
   a.scale = scale;
   a.causal = causal;
   if (dtype == 0) return (int)launch_fwd_d<float>(a, d, b * h, stream);
-  if (dtype == 1) return (int)launch_fwd_d<__nv_bfloat16>(a, d, b * h, stream);
+  if (dtype == 1) return (int)launch_fwd_tc_d(a, d, b * h, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -4,7 +4,9 @@ plain PyTorch version.
 Layer conventions (counterpart of ``chainermn_tpu.ops``): a wrapper
 launches its kernel on CUDA tensors and runs its plain version on CPU
 tensors (dispatch by device alone, ``_common.on_cuda``); every wrapper
-counts its launches in a plain integer attribute ``launches``.
+counts its launches in a plain integer attribute ``launches``; the
+wrappers with a tensor-core route for bf16 operands (``TC_KERNELS``)
+count those launches in ``tc_launches`` as well.
 """
 
 from chainermn_tpu_torch.ops.batch_norm_act import (  # noqa: F401
@@ -32,10 +34,21 @@ KERNELS = {'bn_stats': bn_stats, 'bn_apply': bn_apply,
            'flash_decode_paged': flash_decode_paged}
 
 
+#: the kernels with a tensor-core route for bf16 operands: their wrappers
+#: also count those launches in ``tc_launches``
+TC_KERNELS = ('flash_fwd', 'flash_bwd_dkv')
+
+
 def launch_counts():
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def tc_launch_counts():
+    return {name: KERNELS[name].tc_launches for name in TC_KERNELS}
 
 
 def reset_launch_counts():
     for fn in KERNELS.values():
         fn.launches = 0
+    for name in TC_KERNELS:
+        KERNELS[name].tc_launches = 0

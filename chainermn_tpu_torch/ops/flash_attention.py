@@ -440,11 +440,18 @@ def _check_qkv(what, q, k, v, causal):
 
 def flash_fwd(q, k, v, causal, scale):
     """Kernel wrapper: attention forward of CUDA ``(B, T, H, D)``
-    operands of one dtype (bf16 or f32), read through their strides (the
-    head axis D must be contiguous; ``qkv[:, :, 0]`` views are taken as
-    they are).  Returns ``(out (B, Tq, H, D) contiguous, q.dtype; lse
+    operands of one dtype, read through their strides (the head axis D
+    must be contiguous; ``qkv[:, :, 0]`` views are taken as they are).
+    bf16 operands launch the tensor-core kernel (counted in
+    ``flash_fwd.tc_launches`` too), which copies rows with 16-byte
+    ``cp.async``: an operand whose rows are not 16-byte aligned is handed
+    over as a contiguous copy (:func:`_rows16`).  f32 operands launch the
+    scalar kernel.  Returns ``(out (B, Tq, H, D) contiguous, q.dtype; lse
     (B, H, Tq) f32)``.  Replaces ``_fwd_pallas``."""
     b, t_q, t_kv, h, d, code = _check_qkv('flash_fwd', q, k, v, causal)
+    tc = q.dtype == torch.bfloat16
+    if tc:
+        q, k, v = _rows16(q), _rows16(k), _rows16(v)
     out = torch.empty((b, t_q, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t_q), dtype=torch.float32, device=q.device)
     lib = _lib()
@@ -456,17 +463,21 @@ def flash_fwd(q, k, v, causal, scale):
         int(bool(causal)), _common.stream_ptr(q.device))
     _common.check_launch(err, lib.cmn_fa_strerror, 'flash_fwd')
     flash_fwd.launches += 1
+    flash_fwd.tc_launches += tc
     return out, lse
 
 
 flash_fwd.launches = 0
+flash_fwd.tc_launches = 0
 
 
-def _bwd_operands(what, q, k, v, g, lse, delta, causal):
+def _bwd_operands(what, q, k, v, g, lse, delta, causal, tc=False):
     """Check the backward kernels' operands; returns the kernels' leading
     arguments (``g`` made contiguous when its head axis is not: the
-    gradient of ``out.sum()`` is an expanded scalar with every stride 0)
-    and ``(b, t_q, t_kv, h, d)``."""
+    gradient of ``out.sum()`` is an expanded scalar with every stride 0;
+    with ``tc``, bf16 operands whose rows are not 16-byte aligned as
+    contiguous copies), the operands they point to and ``(b, t_q, t_kv,
+    h, d)``."""
     b, t_q, t_kv, h, d, code = _check_qkv(what, q, k, v, causal)
     _check_cuda(what, g, lse, delta)
     if g.shape != q.shape or g.dtype != q.dtype:
@@ -475,6 +486,8 @@ def _bwd_operands(what, q, k, v, g, lse, delta, causal):
                             g.dtype))
     if g.stride(3) != 1:
         g = g.contiguous()
+    if tc and q.dtype == torch.bfloat16:
+        q, k, v, g = _rows16(q), _rows16(k), _rows16(v), _rows16(g)
     for t, name in ((lse, 'lse'), (delta, 'delta')):
         if (t.shape != (b, h, t_q) or t.dtype != torch.float32
                 or not t.is_contiguous()):
@@ -485,9 +498,9 @@ def _bwd_operands(what, q, k, v, g, lse, delta, causal):
                                       for i in range(3)))
     lead = (_common.ptr(q), _common.ptr(k), _common.ptr(v), _common.ptr(g),
             code, d, strides, _common.ptr(lse), _common.ptr(delta))
-    # g is returned too: the caller allocates its outputs before the
-    # launch, and a copy of g freed by then could be handed out again
-    return lead, g, (b, t_q, t_kv, h, d)
+    # the operands are returned too: the caller allocates its outputs
+    # before the launch, and a copy freed by then could be handed out again
+    return lead, (q, k, v, g), (b, t_q, t_kv, h, d)
 
 
 def flash_bwd_dq(q, k, v, g, lse, delta, causal, scale):
@@ -498,7 +511,7 @@ def flash_bwd_dq(q, k, v, g, lse, delta, causal, scale):
     rowsum(g * out)``, both f32 ``(B, H, Tq)``.  Returns ``dq`` ``(B, Tq,
     H, D)`` contiguous in ``q.dtype``.  Replaces the first
     ``pallas_call`` of ``_bwd_pallas`` (``_bwd_dq_kernel``)."""
-    lead, g, (b, t_q, t_kv, h, d) = _bwd_operands(
+    lead, _keep, (b, t_q, t_kv, h, d) = _bwd_operands(
         'flash_bwd_dq', q, k, v, g, lse, delta, causal)
     dq = torch.empty((b, t_q, h, d), dtype=q.dtype, device=q.device)
     lib = _lib()
@@ -515,11 +528,14 @@ flash_bwd_dq.launches = 0
 
 def flash_bwd_dkv(q, k, v, g, lse, delta, causal, scale):
     """Kernel wrapper: ``dk`` and ``dv`` of the attention forward, from
-    the operands of :func:`flash_bwd_dq`.  Returns ``(dk, dv)``, each
-    ``(B, Tkv, H, D)`` contiguous in ``k.dtype``.  Replaces the second
-    ``pallas_call`` of ``_bwd_pallas`` (``_bwd_dkv_kernel``)."""
-    lead, g, (b, t_q, t_kv, h, d) = _bwd_operands(
-        'flash_bwd_dkv', q, k, v, g, lse, delta, causal)
+    the operands of :func:`flash_bwd_dq`.  bf16 operands launch the
+    tensor-core kernel (counted in ``flash_bwd_dkv.tc_launches`` too;
+    rows not 16-byte aligned are handed over as contiguous copies, as in
+    :func:`flash_fwd`), f32 operands the scalar kernel.  Returns ``(dk,
+    dv)``, each ``(B, Tkv, H, D)`` contiguous in ``k.dtype``.  Replaces
+    the second ``pallas_call`` of ``_bwd_pallas`` (``_bwd_dkv_kernel``)."""
+    lead, _keep, (b, t_q, t_kv, h, d) = _bwd_operands(
+        'flash_bwd_dkv', q, k, v, g, lse, delta, causal, tc=True)
     dk = torch.empty((b, t_kv, h, d), dtype=k.dtype, device=k.device)
     dv = torch.empty((b, t_kv, h, d), dtype=v.dtype, device=v.device)
     lib = _lib()
@@ -528,18 +544,32 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, causal, scale):
         float(scale), int(bool(causal)), _common.stream_ptr(q.device))
     _common.check_launch(err, lib.cmn_fa_strerror, 'flash_bwd_dkv')
     flash_bwd_dkv.launches += 1
+    flash_bwd_dkv.tc_launches += q.dtype == torch.bfloat16
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.tc_launches = 0
 
 
 def _aligned16(t):
-    """The kernel reads cache rows as 16-byte vectors."""
+    """True when every ``(B, T, H, D)`` row of ``t`` starts on a 16-byte
+    boundary: the decode kernels read cache rows as 16-byte vectors, the
+    tensor-core kernels copy them with 16-byte ``cp.async``."""
     size = t.element_size()
     return (t.data_ptr() % 16 == 0
             and all((s * size) % 16 == 0 for s in t.stride()[:3])
             and (t.shape[3] * size) % 16 == 0)
+
+
+def _rows16(t):
+    """A bf16 operand of the tensor-core kernels as they can read it:
+    ``t`` itself when its rows are 16-byte aligned (the model's
+    ``qkv.select`` views are), else a contiguous copy (a fresh
+    allocation, so aligned)."""
+    if _aligned16(t):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def flash_decode(q, k, v, lengths, scale, k_scale=None, v_scale=None,

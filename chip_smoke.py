@@ -8,14 +8,17 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. device: the card's name and power limit;
 2. build: every ``chainermn_tpu_torch/csrc/*.cu`` with ``nvcc`` (all at
-   once) into ``build/chainermn_tpu_torch/``;
+   once) into ``build/chainermn_tpu_torch/``, each kernel's registers and
+   spills from ``-Xptxas -v`` (a tensor-core kernel that spills fails);
 3. kernels against their plain PyTorch versions on the card, at shapes
    of the ResNet-50 training path and of the full-width TransformerLM
    serving paths (LayerNorm, flash forward, decode attention and paged
    decode attention in bf16, f32 and int8; paged decode also bit-equal
    to decode over the same pages gathered, with shuffled pages and
-   dead table entries outside the pool), with kernel / plain / library
-   times and the bound;
+   dead table entries outside the pool; the flash forward's bf16
+   tensor-core route at every head width, ragged, non-causal against
+   more keys and with misaligned rows, its f32 scalar route), with
+   kernel / plain / library times and the bound;
 4. one train-mode forward of full-width ResNet-50 (f32, TF32 off, batch
    2) on the card (kernels) against the same model on the CPU (plain
    versions);
@@ -55,8 +58,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    fused cross-entropy forward at the LM's ``(8192, 32000)`` f32 logits,
    and the two flash-attention backward kernels (dq; dk and dv) at the
    LM's ``(8, 1024, 8, 64)`` bf16 causal shape, ragged lengths, every
-   head width, strided views and an expanded gradient, each run twice
-   for bit-equal results;
+   head width, strided views, an expanded gradient and misaligned rows,
+   each run twice for bit-equal results (dk/dv in bf16 on the
+   tensor-core kernel, in f32 on the scalar one);
 9. LM check: a depth-2 f32 full-width ``TransformerLM`` from
    numpy-seeded weights, ``lm_loss`` and every leaf's gradient on the
    card (kernels) against the CPU (plain versions);
@@ -78,17 +82,24 @@ the kernels' results and from CUDA events).
 
 A kernel row's ``launches`` sums the main paths that run it
 (``launches_by_path`` splits them); each path is driven with the counts
-set to 0 just before it and read just after.
+set to 0 just before it and read just after.  The rows of the kernels
+with a tensor-core route (bf16 ``flash_fwd`` and ``flash_bwd_dkv``) add
+``tc_launches``: every launch of theirs on a main path took it (each
+path asserts so), their times are the tensor-core kernel's at the LM
+shape, and ``scalar_f32_ms`` / ``scalar_f32_device_ms`` time the scalar
+kernel on f32 operands of that shape in the same call.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
 without one it exits non-zero and prints no result.
 """
 
+import gc
 import importlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -235,6 +246,40 @@ def phase_device():
     return name, smi
 
 
+def _entry_name(mangled):
+    """A kernel's name and the rest of its mangled name (the template
+    arguments and parameters), from the length-prefixed identifiers of
+    an Itanium-mangled ``_ZN...`` name."""
+    if not mangled.startswith('_ZN'):
+        return mangled
+    i, name = 3, mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    return '%s[%s]' % (name, mangled[i:]) if i < len(mangled) else name
+
+
+def ptxas_report(text):
+    """``(kernel, registers, spill-store bytes)`` for each entry function
+    of an ``nvcc -Xptxas -v`` log."""
+    out, name, spill = [], None, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = _entry_name(m.group(1)), 0
+            continue
+        m = re.search(r'(\d+) bytes spill stores', line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r'Used (\d+) registers', line)
+        if m and name is not None:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    return out
+
+
 def phase_build():
     from chainermn_tpu_torch.ops._build import BUILD_DIR, LIBRARIES
     t0 = time.perf_counter()
@@ -242,11 +287,18 @@ def phase_build():
     _say('build', 'nvcc %s in %.1f s wall (per source: %s)' % (
         'ran' if times else 'cache hit', time.perf_counter() - t0,
         ', '.join('%s %.1f s' % kv for kv in times.items()) or '-'))
+    spilled = []
     for log in sorted(BUILD_DIR.glob('*.log')):
-        for line in log.read_text(errors='replace').splitlines():
-            if 'Used' in line or 'spill' in line:
-                _say('build', '%s: %s' % (log.stem.split('-')[0],
-                                          line.strip()))
+        for name, regs, spill in ptxas_report(
+                log.read_text(errors='replace')):
+            _say('build', '%s: %s: %d registers, %d bytes spill stores' % (
+                log.stem.split('-')[0], name, regs, spill))
+            if spill:
+                spilled.append(name)
+    _say('build', 'kernels that spill: %s' % (', '.join(spilled) or 'none'))
+    # the tensor-core kernels are laid out to keep everything in registers
+    if any('_tc_kernel' in name for name in spilled):
+        raise AssertionError('a tensor-core kernel spills: %s' % spilled)
 
 
 def _bn_case(gen, m, c, dtype, residual, relu):
@@ -460,6 +512,21 @@ def _flash_fwd_cost(b, t, h, d, itemsize):
             4 * b * h * pairs * d)
 
 
+def _misaligned(x):
+    """A copy of ``x`` whose rows start 2 bytes past a 16-byte boundary:
+    the tensor-core wrappers hand the kernel a contiguous copy of it."""
+    import torch
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = flat[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+def _tc_count(name):
+    from chainermn_tpu_torch import ops
+    return ops.tc_launch_counts()[name]
+
+
 def _flash_cases(gen):
     import torch
     import torch.nn.functional as F
@@ -473,15 +540,23 @@ def _flash_cases(gen):
     lm_shape = (LM_BATCH, LM_SEQ, LM_CFG['n_heads'],
                 LM_CFG['d_model'] // LM_CFG['n_heads'])
     # (32, 4, 8, 64): the speculative verify window (bucket rows of
-    # spec_tokens rows each); (1, 32, 8, 64): a 32-row prefill chunk
+    # spec_tokens rows each); (1, 32, 8, 64): a 32-row prefill chunk.
+    # bf16 takes the tensor-core kernel, f32 the scalar one; the last
+    # three bf16 cases: every head width ragged across the 64-row tile
     cases = [((1, 128, 8, 64), bf16), ((1, 100, 8, 64), f32),
              ((2, 2048, 8, 64), bf16), ((1, 37, 4, 32), bf16),
              ((1, 70, 2, 128), f32), (lm_shape, bf16),
-             ((32, 4, 8, 64), bf16), ((1, 32, 8, 64), bf16)]
+             ((32, 4, 8, 64), bf16), ((1, 32, 8, 64), bf16),
+             ((2, 130, 4, 32), bf16), ((2, 65, 4, 64), bf16),
+             ((1, 130, 2, 128), bf16)]
     timed = {}
     for (b, t, h, d), dtype in cases:
         q, k, v = _strided_qkv(gen, (b, t), h, d, dtype)
+        tc0 = _tc_count('flash_fwd')
         out, lse = ops.flash_fwd(q, k, v, True, d ** -0.5)
+        if _tc_count('flash_fwd') - tc0 != (dtype == bf16):
+            raise AssertionError('flash_fwd %s: the tensor-core kernel runs '
+                                 'for bf16 and only for bf16' % dtype)
         pout, plse = fa._fwd_plain(q, k, v, True, d ** -0.5)
         check_close('flash_fwd out %s %s' % ((b, t, h, d), dtype), out, pout,
                     *tol[dtype])
@@ -493,12 +568,32 @@ def _flash_cases(gen):
         check_close('flash_fwd strided vs contiguous', out, cout, 0.0, 0.0)
         errs.append(max_err(out, pout))
         timed[(b, t, h, d)] = (q, k, v)
-    # a non-causal call (the kv_len mask alone)
+    # non-causal calls (the kv_len mask alone), t_q == t_kv in f32, t_q !=
+    # t_kv in bf16
     q, k, v = _strided_qkv(gen, (2, 77), 8, 64, f32)
     out, lse = ops.flash_fwd(q, k, v, False, 0.125)
     pout, plse = fa._fwd_plain(q, k, v, False, 0.125)
     check_close('flash_fwd non-causal', out, pout, 1e-5, 1e-5)
     errs.append(max_err(out, pout))
+    for (b, t, h, d), t_kv in (((2, 77, 8, 64), 150), ((1, 40, 2, 128), 90)):
+        q, _, _ = _strided_qkv(gen, (b, t), h, d, bf16)
+        _, k, v = _strided_qkv(gen, (b, t_kv), h, d, bf16)
+        out, lse = ops.flash_fwd(q, k, v, False, d ** -0.5)
+        pout, plse = fa._fwd_plain(q, k, v, False, d ** -0.5)
+        what = 'flash_fwd non-causal %s against %d keys bf16' % ((b, t, h, d),
+                                                                t_kv)
+        check_close(what, out, pout, *BF16_TOL)
+        check_close(what + ' lse', lse, plse, 1e-5, 1e-4)
+        errs.append(max_err(out, pout))
+    # rows that are not 16-byte aligned: the wrapper hands the kernel a
+    # contiguous copy, which gives the aligned operands' bits
+    q, k, v = timed[(1, 128, 8, 64)]
+    mq = _misaligned(q)
+    if fa._aligned16(mq) or not fa._aligned16(q):
+        raise AssertionError('expected a misaligned copy of aligned rows')
+    out, _ = ops.flash_fwd(mq, k, v, True, 0.125)
+    want, _ = ops.flash_fwd(q, k, v, True, 0.125)
+    check_close('flash_fwd misaligned q', out, want, 0.0, 0.0)
     records = {}
     for shape in ((1, 128, 8, 64), (2, 2048, 8, 64), lm_shape):
         q, k, v = timed[shape]
@@ -511,14 +606,27 @@ def _flash_cases(gen):
         n_bytes, n_ops = _flash_fwd_cost(*shape, 2)
         b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_TC_FLOPS_PER_S)
         records[shape] = dict(bound_ms=b_ms, bound_by=b_by, **t)
-        _say('kernels', 'flash_fwd causal %s bf16: %s (SDPA); bound %.5f ms '
-             'by %s' % (shape, _fmt(t), b_ms, b_by))
+        _say('kernels', 'flash_fwd causal %s bf16 (tensor cores): %s (SDPA); '
+             'bound %.5f ms by %s' % (shape, _fmt(t), b_ms, b_by))
+    # the scalar kernel (the f32 route, the design the tensor-core kernel
+    # replaced for bf16) at the LM shape, in the same call
+    qf, kf, vf = (x.float() for x in timed[lm_shape])
+    scalar = dict(scalar_f32_ms=time_ms(
+        lambda: ops.flash_fwd(qf, kf, vf, True, 0.125), 10),
+        scalar_f32_device_ms=device_ms(
+            lambda: ops.flash_fwd(qf, kf, vf, True, 0.125), 10))
+    _say('kernels', 'flash_fwd causal %s f32 (scalar kernel): per call %.5f '
+         'ms, device only %s ms' % (lm_shape, scalar['scalar_f32_ms'],
+                                    _ms(scalar['scalar_f32_device_ms'])))
     _say('kernels', 'flash_fwd max err %.3g over %d cases (bf16 rtol, atol: '
          '%s)' % (max(errs), len(errs), BF16_TOL))
     return dict(name='flash_fwd', route='cuda',
                 source='chainermn_tpu_torch/csrc/flash_attention.cu',
                 replaces='chainermn_tpu/ops/flash_attention.py:144',
-                max_abs_err=max(errs), **records[(1, 128, 8, 64)])
+                max_abs_err=max(errs), shape=list(lm_shape),
+                other_shapes={str(sh): records[sh] for sh in
+                              ((1, 128, 8, 64), (2, 2048, 8, 64))},
+                **scalar, **records[lm_shape])
 
 
 def _decode_inputs(gen, rows, n_slots, s, h, d, dtype):
@@ -866,6 +974,20 @@ def profile_steps(updater, n=3):
         _say('profile', '  %8.2f ms/step  %s' % (us / n / 1e3, key[:90]))
 
 
+def with_tc(what, counts, tc):
+    """A main path's launch counts with each tensor-core route's count
+    beside them (``<name>.tc``), after checking that every launch of a
+    kernel with such a route took it: the main paths run bf16 only."""
+    for name, n in tc.items():
+        if n != counts[name]:
+            raise AssertionError('%s: %d of %d %s launches took the '
+                                 'tensor-core kernel' % (what, n,
+                                                         counts[name], name))
+    out = dict(counts)
+    out.update(('%s.tc' % name, n) for name, n in tc.items())
+    return out
+
+
 def phase_main_path():
     import torch
     import chainermn_tpu_torch as cmt
@@ -900,7 +1022,7 @@ def phase_main_path():
         t0 = time.perf_counter()
         trainer.run()
         torch.cuda.synchronize()
-        counts = ops.launch_counts()
+        counts, tc = ops.launch_counts(), ops.tc_launch_counts()
         profile_steps(updater)
     finally:
         comm.close()
@@ -910,6 +1032,7 @@ def phase_main_path():
     if counts != want:
         raise AssertionError('launch counts %s, expected %s' % (counts,
                                                                 want))
+    counts = with_tc('ResNet-50 training', counts, tc)
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError('non-finite loss: %s' % losses)
     # the same batch at steps 0 and 1, and step 0 broadcasts instead of
@@ -1038,6 +1161,7 @@ def phase_serving_check():
 
 # kernel-name fragments of each group in the serving profile
 _SERVE_GROUPS = (('ported kernels', ('ln_kernel', 'flash_fwd_kernel',
+                                     'flash_fwd_tc_kernel',
                                      'flash_decode_kernel')),
                  ('matmuls', ('gemm', 'cutlass', 'xmma', 'nvjet', 'sm90_',
                               'cublas')),
@@ -1116,6 +1240,9 @@ def _timed_serve(eng, queue, prompts, n_new=SERVE_NEW):
     def on_token(rid, toks):
         first.setdefault(rid, time.perf_counter())
 
+    # earlier engines' caches may wait for the cycle collector: free them
+    # first, so that the peak is this engine's own
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -1130,7 +1257,7 @@ def _timed_serve(eng, queue, prompts, n_new=SERVE_NEW):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return dict(outs=[r.result() for r in reqs], counts=ops.launch_counts(),
-                stats=eng.stats(), wall=wall,
+                tc=ops.tc_launch_counts(), stats=eng.stats(), wall=wall,
                 ttft=sorted(first[r.request_id] - t0 for r in reqs),
                 decode=sorted(t for t, n in steps if n == 0),
                 peak=torch.cuda.max_memory_allocated())
@@ -1203,6 +1330,7 @@ def phase_serving_main():
                              'decode steps, expected %s' % (
                                  counts, st['prefills'],
                                  st['decode_steps'], want))
+    counts = with_tc('slot serving', counts, res['tc'])
     _say('serve', _serve_metrics(res))
     _say('serve', 'launches %s (per prefill: %d layer_norm, %d flash_fwd; '
          'per decode step: %d layer_norm, %d flash_decode)' % (
@@ -1404,6 +1532,7 @@ def phase_paged_main(model, prompts, slot_outs):
         raise AssertionError('paged launch counts %s over %d chunks and %d '
                              'decode steps, expected %s'
                              % (counts, chunks, st['decode_steps'], want))
+    counts = with_tc('paged serving', counts, res['tc'])
     same = sum(a == b for a, b in zip(outs, slot_outs))
     if same != len(slot_outs):
         raise AssertionError('paged engine: %d of %d streams equal the slot '
@@ -1504,6 +1633,7 @@ def phase_spec_main(model, prompts, paged_outs):
                              '%d draft steps and %d verify passes, expected '
                              '%s' % (counts, chunks, spec['draft_steps'],
                                      verify, want))
+    counts = with_tc('speculative serving', counts, res['tc'])
     same = sum(a.tolist() == b for a, b in zip(res['outs'], paged_outs))
     _say('spec', _serve_metrics(res))
     _say('spec', 'draft 3 layers (seed 7), k 4: %d draft steps, %d verify '
@@ -1610,6 +1740,9 @@ def _flash_bwd_cases(gen):
     tol = {f32: (1e-4, 1e-4), bf16: BF16_TOL}
     main = (LM_BATCH, LM_SEQ, LM_CFG['n_heads'],
             LM_CFG['d_model'] // LM_CFG['n_heads'])
+    # bf16 dk/dv takes the tensor-core kernel, f32 the scalar one (dq is
+    # scalar for both); the last five bf16 cases: every head width ragged
+    # across the 64-key tile, t_q != t_kv, the verify window
     cases = [(main, LM_SEQ, bf16, True),
              ((1, 37, 4, 32), 37, bf16, True),      # less than one tile
              ((2, 100, 8, 64), 100, f32, True),
@@ -1617,7 +1750,12 @@ def _flash_bwd_cases(gen):
              ((2, 130, 2, 64), 130, bf16, True),
              ((2, 77, 8, 64), 150, f32, False),     # t_q != t_kv
              ((1, 200, 2, 128), 90, bf16, False),
-             ((2, 64, 4, 32), 64, f32, False)]
+             ((2, 64, 4, 32), 64, f32, False),
+             ((2, 130, 4, 32), 130, bf16, True),
+             ((2, 65, 4, 64), 65, bf16, True),
+             ((1, 130, 2, 128), 130, bf16, True),
+             ((2, 77, 8, 64), 150, bf16, False),
+             ((32, 4, 8, 64), 4, bf16, True)]
     errs = {'dq': [], 'dkv': []}
     timed = None
     for shape, t_kv, dtype, causal in cases:
@@ -1628,8 +1766,12 @@ def _flash_bwd_cases(gen):
         delta = _delta(g, out)
         dq = ops.flash_bwd_dq(q, k, v, g, lse, delta, causal, scale)
         torch.cuda.synchronize()
+        tc0 = _tc_count('flash_bwd_dkv')
         dk, dv = ops.flash_bwd_dkv(q, k, v, g, lse, delta, causal, scale)
         torch.cuda.synchronize()
+        if _tc_count('flash_bwd_dkv') - tc0 != (dtype == bf16):
+            raise AssertionError('flash_bwd_dkv %s: the tensor-core kernel '
+                                 'runs for bf16 and only for bf16' % dtype)
         pdq, pdk, pdv = fa._bwd_plain(q, k, v, out, lse, g, causal, scale)
         what = 'flash_bwd %s t_kv %d %s causal=%s' % (
             shape, t_kv, str(dtype).split('.')[-1], causal)
@@ -1666,6 +1808,15 @@ def _flash_bwd_cases(gen):
     if not all(torch.equal(x, y) for x, y in zip(a, c)):
         raise AssertionError('flash_bwd: an expanded g gave other bits than '
                              'its contiguous copy')
+    # operands whose rows are not 16-byte aligned: handed to the
+    # tensor-core kernel as contiguous copies, the same bits
+    mk, mg = _misaligned(k), _misaligned(ones)
+    if fa._aligned16(mk) or fa._aligned16(mg):
+        raise AssertionError('expected misaligned copies')
+    m = ops.flash_bwd_dkv(q, mk, v, mg, lse, delta, True, d ** -0.5)
+    if not all(torch.equal(x, y) for x, y in zip(m, a[1:])):
+        raise AssertionError('flash_bwd_dkv: misaligned operands gave other '
+                             'bits')
     # through autograd, against autograd of the full-softmax oracle (f32)
     q, k, v, g, _, _ = _flash_bwd_operands(gen, (2, 70, 4, 64), 70, f32, True)
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
@@ -1694,14 +1845,26 @@ def _flash_bwd_cases(gen):
 
     pairs = t * (t + 1) // 2
     records = []
-    for name, kernel, n_products, n_tensors, line in (
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    for name, kernel, n_products, n_tensors, line, scalar in (
             ('flash_bwd_dq',
              lambda: ops.flash_bwd_dq(q, k, v, g, lse, delta, True, 0.125),
-             3, 5, 375),
+             3, 5, 375, None),
             ('flash_bwd_dkv',
              lambda: ops.flash_bwd_dkv(q, k, v, g, lse, delta, True, 0.125),
-             4, 6, 397)):
+             4, 6, 397,
+             # the scalar kernel (the f32 route, the design the
+             # tensor-core kernel replaced for bf16) in the same call
+             lambda: ops.flash_bwd_dkv(qf, kf, vf, gf, lse, delta, True,
+                                       0.125))):
         tm = timings(kernel, plain, library, iters=10, plain_iters=3)
+        if scalar is not None:
+            tm.update(scalar_f32_ms=time_ms(scalar, 10),
+                      scalar_f32_device_ms=device_ms(scalar, 10))
+            _say('kernels', '%s causal %s f32 (scalar kernel): per call %.5f '
+                 'ms, device only %s ms' % (
+                     name, (b, t, h, d), tm['scalar_f32_ms'],
+                     _ms(tm['scalar_f32_device_ms'])))
         # q, k, v, g read once and the gradients written once (bf16), lse
         # and delta read (f32); s, dp and the kernel's own products over
         # the causal half, at the bf16 tensor-core rate
@@ -1710,10 +1873,11 @@ def _flash_bwd_cases(gen):
                               BF16_TC_FLOPS_PER_S)
         key = 'dq' if name.endswith('dq') else 'dkv'
         _say('kernels', '%s max err %.3g over %d cases (f32 %s, bf16 %s); '
-             'causal %s bf16: %s (SDPA backward, dq + dk + dv; the plain '
+             'causal %s bf16%s: %s (SDPA backward, dq + dk + dv; the plain '
              'version also computes all three); bound %.5f ms by %s' % (
                  name, max(errs[key]), len(errs[key]), tol[f32], tol[bf16],
-                 (b, t, h, d), _fmt(tm), b_ms, b_by))
+                 (b, t, h, d), ' (tensor cores)' if scalar else '', _fmt(tm),
+                 b_ms, b_by))
         records.append(dict(
             name=name, route='cuda',
             source='chainermn_tpu_torch/csrc/flash_attention.cu',
@@ -1782,9 +1946,10 @@ def phase_lm_check():
 
 # kernel-name fragments of each group in the LM training profile
 _LM_GROUPS = (('layer_norm', ('ln_kernel',)),
-              ('flash_fwd', ('flash_fwd_kernel',)),
+              ('flash_fwd', ('flash_fwd_kernel', 'flash_fwd_tc_kernel')),
               ('flash_bwd_dq', ('flash_bwd_dq_kernel',)),
-              ('flash_bwd_dkv', ('flash_bwd_dkv_kernel',)),
+              ('flash_bwd_dkv', ('flash_bwd_dkv_kernel',
+                                 'flash_bwd_dkv_tc_kernel')),
               # "::" keeps at::native::reduce_kernel out
               ('cross_entropy', ('::ce_kernel<',)),
               # the head is the path's only f32 product
@@ -1901,7 +2066,7 @@ def phase_lm_main():
         t0 = time.perf_counter()
         trainer.run()
         torch.cuda.synchronize()
-        counts = ops.launch_counts()
+        counts, tc = ops.launch_counts(), ops.tc_launch_counts()
         peak = torch.cuda.max_memory_allocated()
         profile_lm(updater)
     finally:
@@ -1914,6 +2079,7 @@ def phase_lm_main():
     if counts != want:
         raise AssertionError('launch counts %s, expected %s' % (counts,
                                                                 want))
+    counts = with_tc('LM training', counts, tc)
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError('non-finite loss: %s' % losses)
     # the first call broadcasts instead of stepping: the same batch and
@@ -1988,6 +2154,10 @@ def main():
             raise AssertionError('no main path launched %s' % rec['name'])
         rec['launches'] = sum(by_path.values())
         rec['launches_by_path'] = by_path
+        tc_key = rec['name'] + '.tc'
+        if any(tc_key in counts for counts in paths.values()):
+            rec['tc_launches'] = sum(counts.get(tc_key, 0)
+                                     for counts in paths.values())
     print(json.dumps({'kernels': records}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {
