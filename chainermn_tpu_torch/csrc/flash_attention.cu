@@ -20,9 +20,9 @@
 // max(l, 1e-30) -- and all hold the TPU kernels' numerics (they widen q,
 // k, v to f32 before each product).  Two routes by dtype, both written
 // here: f32 operands take scalar f32 FMA kernels (every cmn_* entry);
-// bf16 operands of cmn_flash_fwd and cmn_flash_bwd_dkv take tensor-core
-// kernels ("tensor cores" below), those of the dq and decode kernels the
-// scalar ones.
+// bf16 operands of cmn_flash_fwd, cmn_flash_bwd_dq and cmn_flash_bwd_dkv
+// take tensor-core kernels ("tensor cores" below), those of the decode
+// kernels the scalar ones.
 //
 // ---- forward (cmn_flash_fwd, f32 operands) ----
 // One block per (batch*head, block of kBQ query rows).  The TPU walks the
@@ -45,7 +45,10 @@
 // ---- backward (cmn_flash_bwd_dq; cmn_flash_bwd_dkv, f32 operands) ----
 // With p = exp(s - lse) recomputed from the forward's lse (s formed as the
 // forward forms it: the pre-scaled query times the key, then the mask),
-// dp = g.v^T, ds = p * (dp - delta) * scale and delta = rowsum(g * out):
+// dp = g.v^T, ds = p * (dp - delta) * scale and delta = rowsum(g * out)
+// (formed by the dq kernel's prologue from the g and out tiles it loads,
+// in a fixed order, and written for the dk/dv kernel, which runs after it
+// on the same stream):
 //   dq = sum over keys    ds . k        dv = sum over queries p^T . g
 //                                        dk = sum over queries ds^T . q
 // Two kernels, as on the TPU, because the two sums run over different
@@ -75,7 +78,8 @@
 // kernels recompute s and dp each (7 products for the 5 the gradient
 // needs), so they sit far from the tensor-core bound.
 //
-// ---- tensor cores (bf16: flash_fwd_tc_kernel, flash_bwd_dkv_tc_kernel) ----
+// ---- tensor cores (bf16: flash_fwd_tc_kernel, flash_bwd_dq_tc_kernel,
+//      flash_bwd_dkv_tc_kernel) ----
 // FlashAttention-2's structure on mma.sync.m16n8k16 (bf16 operands, f32
 // sums), with the TPU kernels' numerics:
 //  - a bf16 x bf16 product is exact in f32, so Q.K^T, V.G^T and K.Q^T go
@@ -86,8 +90,8 @@
 //    rounding would move an output by ~2^-9 of max|v|, beyond the
 //    holds at outputs that cancel to ~0, so each is split into hi =
 //    bf16(x) and lo = bf16(x - hi) and both meet the same B fragments:
-//    x to ~2^-17, for 3 products where 2 would do (forward) and 6 for 4
-//    (dk/dv);
+//    x to ~2^-17, for 3 products where 2 would do (forward), 4 for 3
+//    (dq) and 6 for 4 (dk/dv);
 //  - the softmax runs in log2 units (exp2f of scale * log2(e) * s); lse
 //    comes out in natural units.
 // A block is 4 warps, 16 owned rows a warp (64 a block).  Operands stay
@@ -111,10 +115,20 @@
 //     ldmatrix.trans.  The warp's K and V fragments are held in registers
 //     at D <= 64; at D = 128 the 128 accumulators of dK and dV leave no
 //     room for them, and they are read from shared memory.
-// What bounds them: operations at the bf16 tensor-core rate; this design
-// issues 1.5x (forward) and 1.5x (dk/dv's second products) the minimum
-// for the hi/lo split, on mma.sync, which reaches a part of the rate
-// that wgmma does.
+//   dq: one block per (64 query rows, b*h), each block owning its dQ tile,
+//     the tile order reversed as in the forward; the prologue forms delta
+//     from the G and out tiles (its out tile borrows a K/V ring stage);
+//     key tiles of 64 up to the causal frontier, 16 keys at a time: S =
+//     Q.K^T and dP = G.V^T on mma, P = exp(scale S - lse) (0 where
+//     masked), dS = P (dP - delta), then dQ += dS.K with K read through
+//     ldmatrix.trans; lse and delta of a lane's two rows stay in
+//     registers.  Q and G fragments are held in registers at D <= 64 and
+//     read from shared memory at D = 128.  Shared memory 54 KB at D = 64,
+//     102 KB at D = 128.
+// What bounds them: operations at the bf16 tensor-core rate; for the
+// hi/lo split this design runs 1.5x (forward), 1.33x (dq) and 1.5x
+// (dk/dv's second products) the minimum, on mma.sync, which reaches a
+// part of the rate that wgmma does.
 //
 // ---- decode (cmn_flash_decode) ----
 // One block of 128 threads per (row, head): one query row against its
@@ -350,10 +364,11 @@ struct BwdCfg {
   static constexpr int kRows = D <= 64 ? 8 : 4;  // owned rows per warp
   static constexpr int kBO = kBwdWarps * kRows;  // owned rows per block
   static constexpr int kPer = D / 32;            // output columns per lane
-  // dq: q and g tiles (owned), the ds patch, k and v tiles (streamed)
+  // dq: q and g tiles (owned), the ds patch, k and v tiles (streamed),
+  // the owned rows' lse and delta
   static constexpr size_t kSmemDq =
       sizeof(float) * (2 * (size_t)kBO * D + (size_t)kBO * kBT +
-                       2 * (size_t)kBT * (D + 1));
+                       2 * (size_t)kBT * (D + 1) + 2 * (size_t)kBO);
   // dkv: k and v tiles (owned), the p and ds patches, q and g tiles
   // (streamed), their lse and delta
   static constexpr size_t kSmemDkv =
@@ -366,12 +381,14 @@ struct BwdArgs {
   const void* k;
   const void* v;
   const void* g;             // d(loss)/d(out), laid out like q
+  const void* out;           // the forward's output, laid out like q (dq)
   int64_t q_sb, q_st, q_sh;  // element strides: batch, token, head
   int64_t k_sb, k_st, k_sh;
   int64_t v_sb, v_st, v_sh;
   int64_t g_sb, g_st, g_sh;
-  const float* lse;    // (B, H, Tq) f32, the forward's
-  const float* delta;  // (B, H, Tq) f32, rowsum(g * out)
+  int64_t o_sb, o_st, o_sh;
+  const float* lse;  // (B, H, Tq) f32, the forward's
+  float* delta;      // (B, H, Tq) f32, rowsum(g * out): dq writes, dkv reads
   void* dq;            // (B, Tq, H, D) contiguous, q's dtype
   void* dk;            // (B, Tkv, H, D) contiguous
   void* dv;
@@ -452,6 +469,11 @@ __device__ __forceinline__ void accumulate_rows(float (*acc)[D / 32],
   }
 }
 
+// The f32 route of cmn_flash_bwd_dq.  Its prologue forms delta =
+// rowsum(g * out) of the owned rows (lanes over the columns, a warp_sum
+// in a fixed order) and writes it for the dk/dv kernel; lse and delta of
+// the owned rows wait in shared memory, not registers (at D = 64 the
+// eight rows' 16 values in registers spilled).
 template <typename T, int D>
 __global__ void __launch_bounds__(kBwdWarps * 32)
     flash_bwd_dq_kernel(BwdArgs a) {
@@ -464,6 +486,8 @@ __global__ void __launch_bounds__(kBwdWarps * 32)
   float* dss = gs + BO * D;                        // BO x kBT: ds patches
   float* ks = dss + BO * kBT;                      // kBT x (D + 1)
   float* vs = ks + kBT * (D + 1);                  // kBT x (D + 1)
+  float* ls = vs + kBT * (D + 1);                  // BO: lse
+  float* des = ls + BO;                            // BO: delta
 
   const int bh = blockIdx.y;
   const int b = bh / a.h, hh = bh % a.h;
@@ -473,20 +497,36 @@ __global__ void __launch_bounds__(kBwdWarps * 32)
   const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + hh * a.k_sh;
   const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + hh * a.v_sh;
   const T* gp = static_cast<const T*>(a.g) + b * a.g_sb + hh * a.g_sh;
+  const T* op = static_cast<const T*>(a.out) + b * a.o_sb + hh * a.o_sh;
 
   load_tile<T, D>(qs, D, qp, a.q_st, q0, BO, a.t_q, a.scale);
   load_tile<T, D>(gs, D, gp, a.g_st, q0, BO, a.t_q, 1.f);
+  __syncthreads();  // gs is written
 
-  float lse[R], delta[R], acc[R][P];
-#pragma unroll
+  // delta = rowsum(g * out) of the warp's rows
   for (int r = 0; r < R; ++r) {
-    const int qpos = q0 + warp * R + r;
-    const bool live = qpos < a.t_q;
-    lse[r] = live ? a.lse[(int64_t)bh * a.t_q + qpos] : 0.f;
-    delta[r] = live ? a.delta[(int64_t)bh * a.t_q + qpos] : 0.f;
+    const int row = warp * R + r, qpos = q0 + row;
+    const bool live = qpos < a.t_q;  // the same for the whole warp
+    float x = 0.f;
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < P; ++i)
+        x = fmaf(gs[row * D + lane + 32 * i],
+                 to_f32(op[qpos * a.o_st + lane + 32 * i]), x);
+    }
+    x = warp_sum(x);
+    if (lane == 0) {
+      des[row] = x;
+      ls[row] = live ? a.lse[(int64_t)bh * a.t_q + qpos] : 0.f;
+      if (live) a.delta[(int64_t)bh * a.t_q + qpos] = x;
+    }
+  }
+
+  float acc[R][P];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int i = 0; i < P; ++i) acc[r][i] = 0.f;
-  }
 
   int n_tiles = (a.t_kv + kBT - 1) / kBT;
   if (a.causal) {
@@ -494,9 +534,11 @@ __global__ void __launch_bounds__(kBwdWarps * 32)
     if (frontier < n_tiles) n_tiles = frontier;
   }
   float* patch = dss + warp * R * kBT;
+  const float* lse = ls + warp * R;
+  const float* delta = des + warp * R;
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * kBT;
-    __syncthreads();  // the previous tile is consumed (and qs, gs written)
+    __syncthreads();  // the previous tile is consumed (and qs, ls written)
     load_tile<T, D>(ks, D + 1, kp, a.k_st, k0, kBT, a.t_kv, 1.f);
     load_tile<T, D>(vs, D + 1, vp, a.v_st, k0, kBT, a.t_kv, 1.f);
     __syncthreads();
@@ -520,12 +562,12 @@ __global__ void __launch_bounds__(kBwdWarps * 32)
     accumulate_rows<R, D>(acc, patch, ks, lane);
   }
 
-  T* op = static_cast<T*>(a.dq);
+  T* dqp = static_cast<T*>(a.dq);
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int qpos = q0 + warp * R + r;
     if (qpos >= a.t_q) continue;
-    T* orow = op + (((int64_t)b * a.t_q + qpos) * a.h + hh) * D;
+    T* orow = dqp + (((int64_t)b * a.t_q + qpos) * a.h + hh) * D;
 #pragma unroll
     for (int i = 0; i < P; ++i) store_f32(orow + lane + 32 * i, acc[r][i]);
   }
@@ -634,23 +676,26 @@ cudaError_t launch_bwd(K kernel, const BwdArgs& a, int tiles, int bh,
 
 template <int D>
 cudaError_t launch_dkv_tc(const BwdArgs& a, int bh, cudaStream_t stream);
+template <int D>
+cudaError_t launch_dq_tc(const BwdArgs& a, int bh, cudaStream_t stream);
 
-// bf16 dk/dv goes to the tensor-core kernel; dq, and f32 dk/dv, to the
-// scalar kernels above
+// bf16 operands go to the tensor-core kernels, f32 operands to the scalar
+// kernels above
 template <typename T, int D>
 cudaError_t launch_bwd_td(const BwdArgs& a, int bh, bool dkv,
                           cudaStream_t stream) {
   constexpr int BO = BwdCfg<D>::kBO;
-  if (dkv) {
-    if constexpr (std::is_same<T, __nv_bfloat16>::value)
-      return launch_dkv_tc<D>(a, bh, stream);
-    else
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return dkv ? launch_dkv_tc<D>(a, bh, stream)
+               : launch_dq_tc<D>(a, bh, stream);
+  } else {
+    if (dkv)
       return launch_bwd(flash_bwd_dkv_kernel<T, D>, a,
                         (a.t_kv + BO - 1) / BO, bh, BwdCfg<D>::kSmemDkv,
                         stream);
+    return launch_bwd(flash_bwd_dq_kernel<T, D>, a, (a.t_q + BO - 1) / BO,
+                      bh, BwdCfg<D>::kSmemDq, stream);
   }
-  return launch_bwd(flash_bwd_dq_kernel<T, D>, a, (a.t_q + BO - 1) / BO, bh,
-                    BwdCfg<D>::kSmemDq, stream);
 }
 
 template <typename T>
@@ -675,7 +720,7 @@ cudaError_t launch_bwd_any(const BwdArgs& a, int dtype, int d, int b, bool dkv,
 
 // The 12 strides are those of q, k, v, g: batch, token, head each.
 BwdArgs bwd_args(const void* q, const void* k, const void* v, const void* g,
-                 const int64_t* strides, const float* lse, const float* delta,
+                 const int64_t* strides, const float* lse, float* delta,
                  int h, int t_q, int t_kv, float scale, int causal) {
   BwdArgs a;
   a.q = q;
@@ -694,6 +739,8 @@ BwdArgs bwd_args(const void* q, const void* k, const void* v, const void* g,
   a.g_sb = strides[9];
   a.g_st = strides[10];
   a.g_sh = strides[11];
+  a.out = nullptr;
+  a.o_sb = a.o_st = a.o_sh = 0;
   a.lse = lse;
   a.delta = delta;
   a.dq = nullptr;
@@ -1226,6 +1273,220 @@ cudaError_t launch_dkv_tc(const BwdArgs& a, int bh, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int D>
+struct TcDqCfg {
+  static constexpr int kBK = 64;  // keys a tile
+  // the warp's Q and G fragments live in registers at D <= 64; at D = 128
+  // they are read from shared memory for each product (registers)
+  static constexpr bool kQgRegs = D <= 64;
+  // the Q and G tiles, then two stages each of the K and V tiles (the
+  // prologue's out tile borrows the second V stage)
+  static constexpr size_t kSmem =
+      sizeof(bf16) * (size_t)(D + kPad) * (2 * kTcRows + 4 * kBK);
+};
+
+// The bf16 route of cmn_flash_bwd_dq (see "tensor cores" at the top of the
+// file): one block per (64 query rows, b*h), each block owning its dQ
+// tile (no float atomics: runs are bit-equal), the tile order reversed so
+// the longest causal rows start first.  The prologue loads the Q, G and
+// out tiles once and forms delta = rowsum(g * out) of the warp's rows
+// (each lane of a quad sums its columns, two shuffles join them: a fixed
+// order) and writes it for the dk/dv kernel.  Key tiles of 64 stream in
+// up to the causal frontier, 16 keys at a time: S = Q.K^T and dP = G.V^T
+// on mma, P = exp(scale S - lse) (0 where masked), dS = P (dP - delta),
+// then dQ += dS.K with K read through ldmatrix.trans.  Each lane keeps
+// lse and delta of its two mma rows in registers for the whole loop.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+    flash_bwd_dq_tc_kernel(BwdArgs a) {
+  constexpr int BK = TcDqCfg<D>::kBK, P = D + kPad;
+  constexpr bool kRegs = TcDqCfg<D>::kQgRegs;
+  constexpr int KS = D / 16;  // k-steps of Q.K^T and G.V^T
+  constexpr int NO = D / 8;   // n-blocks of dQ
+  // without the fragments in registers, one key slice at a time too
+  constexpr int kSkUnroll = kRegs ? BK / 16 : 1;
+  static_assert(BK == kTcRows, "out's tile borrows a V stage");
+  extern __shared__ float4 tc_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(tc_smem);  // kTcRows x P
+  bf16* gs = qs + kTcRows * P;                   // kTcRows x P
+  bf16* ks = gs + kTcRows * P;                   // 2 x BK x P
+  bf16* vs = ks + 2 * BK * P;                    // 2 x BK x P
+  bf16* os = vs + BK * P;  // the second V stage, until tile 1 streams in
+
+  const int bh = blockIdx.y;
+  const int b = bh / a.h, hh = bh % a.h;
+  // the longest causal tiles (the last query rows) start first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTcRows;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gr = lane >> 2, tg = lane & 3;  // quad row, lane in quad
+  const bf16* qp = static_cast<const bf16*>(a.q) + b * a.q_sb + hh * a.q_sh;
+  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.k_sb + hh * a.k_sh;
+  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.v_sb + hh * a.v_sh;
+  const bf16* gp = static_cast<const bf16*>(a.g) + b * a.g_sb + hh * a.g_sh;
+  const bf16* op =
+      static_cast<const bf16*>(a.out) + b * a.o_sb + hh * a.o_sh;
+
+  int n_tiles = (a.t_kv + BK - 1) / BK;
+  if (a.causal) {
+    const int frontier = (q0 + kTcRows + BK - 1) / BK;  // keys < q0 + rows
+    if (frontier < n_tiles) n_tiles = frontier;
+  }
+  copy_rows<D, kTcRows>(qs, qp, a.q_st, q0, a.t_q);
+  copy_rows<D, kTcRows>(gs, gp, a.g_st, q0, a.t_q);
+  copy_rows<D, kTcRows>(os, op, a.o_st, q0, a.t_q);
+  copy_rows<D, BK>(ks, kp, a.k_st, 0, a.t_kv);
+  copy_rows<D, BK>(vs, vp, a.v_st, 0, a.t_kv);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int wq = q0 + warp * 16;  // the warp's first query row
+  // lse (in log2 units) and delta of this lane's rows wq + gr, wq + gr + 8
+  float lse2[2], dr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = warp * 16 + gr + 8 * r, qpos = q0 + row;
+    const bf16* grow = gs + row * P + 2 * tg;
+    const bf16* orow = os + row * P + 2 * tg;
+    float x = 0.f;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const float2 gv = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(grow + n * 8));
+      const float2 ov = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(orow + n * 8));
+      x = fmaf(gv.x, ov.x, x);
+      x = fmaf(gv.y, ov.y, x);
+    }
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+    x += __shfl_xor_sync(0xffffffffu, x, 2);
+    const bool live = qpos < a.t_q;  // rows past t_q: zero g, zero out
+    dr[r] = x;
+    lse2[r] = live ? a.lse[(int64_t)bh * a.t_q + qpos] * kLog2e : 0.f;
+    if (live && tg == 0) a.delta[(int64_t)bh * a.t_q + qpos] = x;
+  }
+  // this lane's A-operand row address in the Q and G tiles
+  const int a_off = (warp * 16 + (lane & 15)) * P + (lane >> 4) * 8;
+  uint32_t qf[kRegs ? KS : 1][4], gf[kRegs ? KS : 1][4];
+  if constexpr (kRegs) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      ldsm_x4(qf[kk], qs + a_off + kk * 16);
+      ldsm_x4(gf[kk], gs + a_off + kk * 16);
+    }
+  }
+  __syncthreads();  // out's tile is read: tile 1 may stream into its stage
+
+  float dq[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  const float sl2 = a.scale * kLog2e;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int stage = j & 1;
+    if (j + 1 < n_tiles) {  // the next tile streams in during this one
+      const int nx = stage ^ 1;
+      copy_rows<D, BK>(ks + nx * BK * P, kp, a.k_st, (j + 1) * BK, a.t_kv);
+      copy_rows<D, BK>(vs + nx * BK * P, vp, a.v_st, (j + 1) * BK, a.t_kv);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* kt = ks + stage * BK * P;
+    const bf16* vt = vs + stage * BK * P;
+    const int k0 = j * BK;
+    // mask only a tile on the causal diagonal of this warp's rows or at
+    // the t_kv edge
+    const bool edge = k0 + BK > a.t_kv || (a.causal && k0 + BK - 1 > wq);
+
+#pragma unroll(kSkUnroll)
+    for (int sk = 0; sk < BK / 16; ++sk) {  // 16 keys at a time
+      // S = Q.K^T and dP = G.V^T for the warp's 16 query rows
+      float s[2][4], d[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[n][c] = d[n][c] = 0.f;
+      const int b_off = (sk * 16 + (lane & 7) + ((lane >> 4) << 3)) * P +
+                        ((lane >> 3) & 1) * 8;
+      if constexpr (kRegs) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          score_k16(s, d, qf[kk], gf[kk], kt + b_off + kk * 16,
+                    vt + b_off + kk * 16);
+      } else {
+        // one k-step at a time: loads hoisted from later steps would take
+        // the registers the dQ accumulators need
+#pragma unroll 1
+        for (int kk = 0; kk < KS; ++kk) {
+          uint32_t qa[4], ga[4];
+          ldsm_x4(qa, qs + a_off + kk * 16);
+          ldsm_x4(ga, gs + a_off + kk * 16);
+          score_k16(s, d, qa, ga, kt + b_off + kk * 16, vt + b_off + kk * 16);
+        }
+      }
+      // P = exp(scale S - lse), masked to 0; dS = P (dP - delta)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int r = c >> 1;
+          float p = exp2f(s[n][c] * sl2 - lse2[r]);
+          if (edge) {
+            const int kpos = k0 + sk * 16 + n * 8 + 2 * tg + (c & 1);
+            const int qpos = wq + gr + 8 * r;
+            if (kpos >= a.t_kv || (a.causal && kpos > qpos)) p = 0.f;
+          }
+          d[n][c] = p * (d[n][c] - dr[r]);
+        }
+      // dQ += dS.K: the accumulators of dS are the A operand (split hi /
+      // lo), the K slice the B operand (transposed)
+      uint32_t dh[4], dl[4];
+      split_frag(d[0], d[1], dh, dl);
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t kb[4];
+        ldsm_x4_t(kb, kt + (sk * 16 + (lane & 15)) * P + n * 8 +
+                          (lane >> 4) * 8);
+        mma16816(dq[n], dh, kb[0], kb[1]);
+        mma16816(dq[n], dl, kb[0], kb[1]);
+        mma16816(dq[n + 1], dh, kb[2], kb[3]);
+        mma16816(dq[n + 1], dl, kb[2], kb[3]);
+      }
+    }
+    __syncthreads();  // this stage is refilled by the next iteration
+  }
+
+  bf16* dqp = static_cast<bf16*>(a.dq);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = wq + gr + 8 * r;
+    if (qpos >= a.t_q) continue;  // padded query rows are dropped
+    bf16* orow = dqp + (((int64_t)b * a.t_q + qpos) * a.h + hh) * D + 2 * tg;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
+          __floats2bfloat162_rn(dq[n][2 * r] * a.scale,
+                                dq[n][2 * r + 1] * a.scale);
+  }
+}
+
+template <int D>
+cudaError_t launch_dq_tc(const BwdArgs& a, int bh, cudaStream_t stream) {
+  constexpr size_t smem = TcDqCfg<D>::kSmem;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dq_tc_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((unsigned)((a.t_q + kTcRows - 1) / kTcRows), (unsigned)bh);
+  flash_bwd_dq_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------
 // decode
 
@@ -1509,18 +1770,26 @@ int cmn_flash_fwd(const void* q, const void* k, const void* v, int dtype,
 }
 
 // The backward's operands: q, k, v and g (the gradient of out) are
-// (B, T, H, D) of one dtype, D contiguous, other axes through the 12
-// element strides of `strides` (q, k, v, g; batch, token, head each); lse
-// and delta = rowsum(g * out) are (B, H, Tq) f32.  Causal needs Tq == Tkv.
-// D is 32, 64 or 128.  dq is (B, Tq, H, D), dk and dv (B, Tkv, H, D), all
-// contiguous in the operands' dtype.
+// (B, T, H, D) of one dtype, D contiguous, other axes through the element
+// strides of `strides` (q, k, v, g; batch, token, head each: 12); lse is
+// (B, H, Tq) f32.  Causal needs Tq == Tkv.  D is 32, 64 or 128.  dq is
+// (B, Tq, H, D), dk and dv (B, Tkv, H, D), all contiguous in the
+// operands' dtype.
+//
+// cmn_flash_bwd_dq also reads out (the forward's output, (B, Tq, H, D) in
+// the operands' dtype through strides[12..14]) and WRITES delta =
+// rowsum(g * out), (B, H, Tq) f32, which cmn_flash_bwd_dkv then reads.
 int cmn_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const void* g, int dtype, int d, const int64_t* strides,
-                     const float* lse, const float* delta, void* dq, int b,
-                     int h, int t_q, int t_kv, float scale, int causal,
-                     void* stream_ptr) {
+                     const float* lse, float* delta, const void* out,
+                     void* dq, int b, int h, int t_q, int t_kv, float scale,
+                     int causal, void* stream_ptr) {
   BwdArgs a =
       bwd_args(q, k, v, g, strides, lse, delta, h, t_q, t_kv, scale, causal);
+  a.out = out;
+  a.o_sb = strides[12];
+  a.o_st = strides[13];
+  a.o_sh = strides[14];
   a.dq = dq;
   return (int)launch_bwd_any(a, dtype, d, b, false,
                              static_cast<cudaStream_t>(stream_ptr));
@@ -1531,8 +1800,9 @@ int cmn_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       const float* lse, const float* delta, void* dk, void* dv,
                       int b, int h, int t_q, int t_kv, float scale, int causal,
                       void* stream_ptr) {
-  BwdArgs a =
-      bwd_args(q, k, v, g, strides, lse, delta, h, t_q, t_kv, scale, causal);
+  // the dk/dv kernels only read delta
+  BwdArgs a = bwd_args(q, k, v, g, strides, lse, const_cast<float*>(delta),
+                       h, t_q, t_kv, scale, causal);
   a.dk = dk;
   a.dv = dv;
   return (int)launch_bwd_any(a, dtype, d, b, true,

@@ -5,7 +5,16 @@ Counterpart of ``chainermn_tpu/multi_node_optimizer.py`` (rebuild of
 the parameters from rank 0 and does NOT step (the wrapped optimizer's
 state, e.g. the velocity, stays untouched); every later ``step()``
 mean-allreduces the gradients and then steps.
+
+A parameter that got no gradient on a step (its ``grad`` is ``None``:
+it was outside that step's graph) is given a zero gradient first, as
+``jax.grad`` gives every leaf one: the wrapped optimizer then steps it
+as the reference's optimizers do (momentum keeps moving it, Adam's
+moments decay), and every rank packs the same gradients, in the same
+order, into its allreduce.
 """
+
+import torch
 
 
 class _MultiNodeOptimizer:
@@ -29,7 +38,10 @@ class _MultiNodeOptimizer:
             self.communicator.broadcast_data(params)
             self.needs_broadcast = False
             return None
-        grads = [p.grad for p in params if p.grad is not None]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)  # in p's layout
+        grads = [p.grad for p in params]
         if self.allreduce_dtype is None:
             self.communicator.allreduce_grad(grads)
         else:

@@ -6,7 +6,8 @@ launches its kernel on CUDA tensors and runs its plain version on CPU
 tensors (dispatch by device alone, ``_common.on_cuda``); every wrapper
 counts its launches in a plain integer attribute ``launches``; the
 wrappers with a tensor-core route for bf16 operands (``TC_KERNELS``)
-count those launches in ``tc_launches`` as well.
+count those launches in ``tc_launches`` as well, and the multi-tensor
+momentum SGD counts the tensors its launches updated in ``tensors``.
 """
 
 from chainermn_tpu_torch.ops.batch_norm_act import (  # noqa: F401
@@ -27,7 +28,7 @@ from chainermn_tpu_torch.ops.optimizer import (  # noqa: F401
 
 #: name -> kernel wrapper (each carries a ``launches`` count)
 KERNELS = {'bn_stats': bn_stats, 'bn_apply': bn_apply,
-           'momentum_sgd': sgd_update, 'layer_norm': ln_forward,
+           'momentum_sgd': momentum_sgd, 'layer_norm': ln_forward,
            'flash_fwd': flash_fwd, 'flash_decode': flash_decode,
            'flash_bwd_dq': flash_bwd_dq, 'flash_bwd_dkv': flash_bwd_dkv,
            'cross_entropy': ce_forward,
@@ -36,7 +37,7 @@ KERNELS = {'bn_stats': bn_stats, 'bn_apply': bn_apply,
 
 #: the kernels with a tensor-core route for bf16 operands: their wrappers
 #: also count those launches in ``tc_launches``
-TC_KERNELS = ('flash_fwd', 'flash_bwd_dkv')
+TC_KERNELS = ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv')
 
 
 def launch_counts():
@@ -52,3 +53,4 @@ def reset_launch_counts():
         fn.launches = 0
     for name in TC_KERNELS:
         KERNELS[name].tc_launches = 0
+    momentum_sgd.tensors = 0

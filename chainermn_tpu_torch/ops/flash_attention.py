@@ -12,12 +12,12 @@ layouts: ``(B, T, H, D)`` activations, ``(B, S, H, D)`` caches.
   tensors the kernel ``cmn_flash_fwd`` of ``csrc/flash_attention.cu``
   (:func:`flash_fwd`), on CPU tensors the plain blockwise version
   (:func:`_fwd_blockwise`, the twin of the JAX ``_fwd_blockwise_jnp``).
-  Both record a gradient: the backward forms ``delta = rowsum(g * out)``
-  in PyTorch ops (as the JAX package leaves it to XLA) and then, on CUDA
-  tensors, launches the two kernels ``cmn_flash_bwd_dq``
-  (:func:`flash_bwd_dq`) and ``cmn_flash_bwd_dkv``
-  (:func:`flash_bwd_dkv`); on CPU tensors it runs the plain blockwise
-  version (:func:`_bwd_blockwise`, the twin of the JAX one).
+  Both record a gradient: on CUDA tensors the backward launches the two
+  kernels ``cmn_flash_bwd_dq`` (:func:`flash_bwd_dq`, which also forms
+  ``delta = rowsum(g * out)``, left to XLA in the JAX package) and
+  ``cmn_flash_bwd_dkv`` (:func:`flash_bwd_dkv`, which reads that
+  ``delta``); on CPU tensors it runs the plain blockwise version
+  (:func:`_bwd_blockwise`, the twin of the JAX one).
 - :func:`flash_attention_decode` (one query row per sequence against its
   cache prefix, per-row lengths, float or int8 caches with per-(position,
   head) scales, an optional row -> slot map): on CUDA tensors the kernel
@@ -379,7 +379,7 @@ def _lib():
         lib.cmn_flash_fwd.restype = ctypes.c_int
         bwd = [vp, vp, vp, vp, i32, i32, ctypes.POINTER(i64), vp, vp]
         tail = [i32, i32, i32, i32, ctypes.c_float, i32, vp]
-        lib.cmn_flash_bwd_dq.argtypes = bwd + [vp] + tail
+        lib.cmn_flash_bwd_dq.argtypes = bwd + [vp, vp] + tail
         lib.cmn_flash_bwd_dq.restype = ctypes.c_int
         lib.cmn_flash_bwd_dkv.argtypes = bwd + [vp, vp] + tail
         lib.cmn_flash_bwd_dkv.restype = ctypes.c_int
@@ -471,71 +471,90 @@ flash_fwd.launches = 0
 flash_fwd.tc_launches = 0
 
 
-def _bwd_operands(what, q, k, v, g, lse, delta, causal, tc=False):
+def _bwd_operands(what, q, k, v, g, lse, delta, causal, out=None):
     """Check the backward kernels' operands; returns the kernels' leading
-    arguments (``g`` made contiguous when its head axis is not: the
-    gradient of ``out.sum()`` is an expanded scalar with every stride 0;
-    with ``tc``, bf16 operands whose rows are not 16-byte aligned as
-    contiguous copies), the operands they point to and ``(b, t_q, t_kv,
-    h, d)``."""
+    arguments, the operands they point to and ``(b, t_q, t_kv, h, d)``.
+    ``g`` (and ``out``) are made contiguous when their head axis is not:
+    the gradient of ``out.sum()`` is an expanded scalar with every stride
+    0.  bf16 operands, which the tensor-core kernels copy with 16-byte
+    ``cp.async``, are handed over as contiguous copies where their rows
+    are not 16-byte aligned (:func:`_rows16`).  With ``out`` (the dq
+    kernel), ``delta`` is the kernel's output, allocated here when
+    ``None``, and the strides are those of q, k, v, g and out."""
     b, t_q, t_kv, h, d, code = _check_qkv(what, q, k, v, causal)
-    _check_cuda(what, g, lse, delta)
-    if g.shape != q.shape or g.dtype != q.dtype:
-        raise ValueError('%s: g must be like q, %s %s, got %s %s'
-                         % (what, tuple(q.shape), q.dtype, tuple(g.shape),
-                            g.dtype))
+    _check_cuda(what, g, lse, delta, out)
+    like_q = [(g, 'g')] + ([] if out is None else [(out, 'out')])
+    for t, name in like_q:
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError('%s: %s must be like q, %s %s, got %s %s'
+                             % (what, name, tuple(q.shape), q.dtype,
+                                tuple(t.shape), t.dtype))
     if g.stride(3) != 1:
         g = g.contiguous()
-    if tc and q.dtype == torch.bfloat16:
-        q, k, v, g = _rows16(q), _rows16(k), _rows16(v), _rows16(g)
+    if out is not None and out.stride(3) != 1:
+        out = out.contiguous()
+    operands = [q, k, v, g] + ([] if out is None else [out])
+    if q.dtype == torch.bfloat16:
+        operands = [_rows16(x) for x in operands]
+    if delta is None:
+        delta = torch.empty((b, h, t_q), dtype=torch.float32,
+                            device=q.device)
     for t, name in ((lse, 'lse'), (delta, 'delta')):
         if (t.shape != (b, h, t_q) or t.dtype != torch.float32
                 or not t.is_contiguous()):
             raise ValueError('%s: %s must be a contiguous float32 %s, got '
                              '%s %s' % (what, name, (b, h, t_q), t.dtype,
                                         tuple(t.shape)))
-    strides = (ctypes.c_int64 * 12)(*(x.stride(i) for x in (q, k, v, g)
-                                      for i in range(3)))
-    lead = (_common.ptr(q), _common.ptr(k), _common.ptr(v), _common.ptr(g),
-            code, d, strides, _common.ptr(lse), _common.ptr(delta))
+    strides = (ctypes.c_int64 * (3 * len(operands)))(
+        *(x.stride(i) for x in operands for i in range(3)))
+    lead = (*(_common.ptr(x) for x in operands[:4]), code, d, strides,
+            _common.ptr(lse), _common.ptr(delta))
     # the operands are returned too: the caller allocates its outputs
     # before the launch, and a copy freed by then could be handed out again
-    return lead, (q, k, v, g), (b, t_q, t_kv, h, d)
+    return lead, (operands, delta), (b, t_q, t_kv, h, d)
 
 
-def flash_bwd_dq(q, k, v, g, lse, delta, causal, scale):
-    """Kernel wrapper: ``dq`` of the attention forward.  ``q``, ``k``,
-    ``v`` as :func:`flash_fwd` takes them (read in place through their
-    strides), ``g`` the gradient of ``out`` (``(B, Tq, H, D)`` in
-    ``q.dtype``, any strides), ``lse`` the forward's and ``delta =
-    rowsum(g * out)``, both f32 ``(B, H, Tq)``.  Returns ``dq`` ``(B, Tq,
-    H, D)`` contiguous in ``q.dtype``.  Replaces the first
-    ``pallas_call`` of ``_bwd_pallas`` (``_bwd_dq_kernel``)."""
-    lead, _keep, (b, t_q, t_kv, h, d) = _bwd_operands(
-        'flash_bwd_dq', q, k, v, g, lse, delta, causal)
+def flash_bwd_dq(q, k, v, g, out, lse, causal, scale):
+    """Kernel wrapper: ``dq`` of the attention forward, and ``delta =
+    rowsum(g * out)`` for :func:`flash_bwd_dkv`.  ``q``, ``k``, ``v`` as
+    :func:`flash_fwd` takes them (read in place through their strides),
+    ``g`` the gradient of ``out`` and ``out`` the forward's output (both
+    ``(B, Tq, H, D)`` in ``q.dtype``, any strides), ``lse`` the
+    forward's, f32 ``(B, H, Tq)``.  bf16 operands launch the tensor-core
+    kernel (counted in ``flash_bwd_dq.tc_launches`` too; rows not 16-byte
+    aligned are handed over as contiguous copies, as in
+    :func:`flash_fwd`), f32 operands the scalar kernel.  Returns ``(dq
+    (B, Tq, H, D) contiguous in q.dtype, delta (B, H, Tq) f32)``.
+    Replaces the first ``pallas_call`` of ``_bwd_pallas``
+    (``_bwd_dq_kernel``) and the ``delta`` before it."""
+    lead, (operands, delta), (b, t_q, t_kv, h, d) = _bwd_operands(
+        'flash_bwd_dq', q, k, v, g, lse, None, causal, out=out)
     dq = torch.empty((b, t_q, h, d), dtype=q.dtype, device=q.device)
     lib = _lib()
     err = lib.cmn_flash_bwd_dq(
-        *lead, _common.ptr(dq), b, h, t_q, t_kv, float(scale),
-        int(bool(causal)), _common.stream_ptr(q.device))
+        *lead, _common.ptr(operands[4]), _common.ptr(dq), b, h, t_q, t_kv,
+        float(scale), int(bool(causal)), _common.stream_ptr(q.device))
     _common.check_launch(err, lib.cmn_fa_strerror, 'flash_bwd_dq')
     flash_bwd_dq.launches += 1
-    return dq
+    flash_bwd_dq.tc_launches += q.dtype == torch.bfloat16
+    return dq, delta
 
 
 flash_bwd_dq.launches = 0
+flash_bwd_dq.tc_launches = 0
 
 
 def flash_bwd_dkv(q, k, v, g, lse, delta, causal, scale):
     """Kernel wrapper: ``dk`` and ``dv`` of the attention forward, from
-    the operands of :func:`flash_bwd_dq`.  bf16 operands launch the
-    tensor-core kernel (counted in ``flash_bwd_dkv.tc_launches`` too;
-    rows not 16-byte aligned are handed over as contiguous copies, as in
-    :func:`flash_fwd`), f32 operands the scalar kernel.  Returns ``(dk,
-    dv)``, each ``(B, Tkv, H, D)`` contiguous in ``k.dtype``.  Replaces
-    the second ``pallas_call`` of ``_bwd_pallas`` (``_bwd_dkv_kernel``)."""
+    the operands of :func:`flash_bwd_dq` and the ``delta`` it returned.
+    bf16 operands launch the tensor-core kernel (counted in
+    ``flash_bwd_dkv.tc_launches`` too; rows not 16-byte aligned are
+    handed over as contiguous copies, as in :func:`flash_fwd`), f32
+    operands the scalar kernel.  Returns ``(dk, dv)``, each ``(B, Tkv, H,
+    D)`` contiguous in ``k.dtype``.  Replaces the second ``pallas_call``
+    of ``_bwd_pallas`` (``_bwd_dkv_kernel``)."""
     lead, _keep, (b, t_q, t_kv, h, d) = _bwd_operands(
-        'flash_bwd_dkv', q, k, v, g, lse, delta, causal, tc=True)
+        'flash_bwd_dkv', q, k, v, g, lse, delta, causal)
     dk = torch.empty((b, t_kv, h, d), dtype=k.dtype, device=k.device)
     dv = torch.empty((b, t_kv, h, d), dtype=v.dtype, device=v.device)
     lib = _lib()
@@ -739,9 +758,8 @@ class _FlashAttention(torch.autograd.Function):
             dq, dk, dv = _bwd_plain(q, k, v, out, lse, g, ctx.causal,
                                     ctx.scale)
             return dq, dk, dv, None, None
-        # delta = rowsum(g * out), (B, Tq, H) -> (B, H, Tq) as lse
-        delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-        dq = flash_bwd_dq(q, k, v, g, lse, delta, ctx.causal, ctx.scale)
+        dq, delta = flash_bwd_dq(q, k, v, g, out, lse, ctx.causal,
+                                 ctx.scale)
         dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, ctx.causal, ctx.scale)
         return dq, dk, dv, None, None
 

@@ -14,11 +14,14 @@ narrowed, then ``p <- p + (-lr * v')`` with the step cast to ``g``'s
 dtype and then to ``p``'s.  Unlike the JAX version, the update runs IN
 PLACE on ``p`` and ``v``.
 
-On CUDA tensors each parameter's update launches the hand-written kernel
-``csrc/momentum_sgd.cu`` (:func:`sgd_update`); on CPU tensors it runs the
-plain version (:func:`_sgd_update_ref`).
+On CUDA tensors the update of a whole list of tensors is one launch of
+the hand-written kernel ``csrc/momentum_sgd.cu``, which walks a table of
+the tensors (one launch for each pair of gradient and parameter dtypes;
+:func:`sgd_table`); on CPU tensors it runs the plain version
+(:func:`_sgd_update_ref`) tensor by tensor.
 """
 
+import array
 import ctypes
 
 import torch
@@ -28,7 +31,7 @@ from chainermn_tpu_torch.ops._build import LIBRARIES
 
 
 def _sgd_update_ref(p, g, v, lr, momentum):
-    """Plain version of :func:`sgd_update` (in place on ``p``, ``v``)."""
+    """Plain version of one tensor's update (in place on ``p``, ``v``)."""
     v_new = momentum * v + g.float()
     v.copy_(v_new)
     p.add_((-lr * v_new).to(g.dtype).to(p.dtype))
@@ -37,11 +40,10 @@ def _sgd_update_ref(p, g, v, lr, momentum):
 def _lib():
     lib = LIBRARIES.get('momentum_sgd')
     if not getattr(lib, '_cmn_typed', False):
-        vp = ctypes.c_void_p
-        lib.cmn_momentum_sgd.argtypes = [vp, ctypes.c_int, vp, vp,
-                                         ctypes.c_int, ctypes.c_int64,
-                                         ctypes.c_float, ctypes.c_float,
-                                         ctypes.c_int, vp]
+        lib.cmn_momentum_sgd.argtypes = [
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_float, ctypes.c_float,
+            ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
         lib.cmn_momentum_sgd.restype = ctypes.c_int
         lib.cmn_sgd_strerror.argtypes = [ctypes.c_int]
         lib.cmn_sgd_strerror.restype = ctypes.c_char_p
@@ -61,68 +63,132 @@ def _order(t):
     return tuple(st for sz, st in zip(t.shape, t.stride()) if sz != 1)
 
 
-def sgd_update(p, g, v, lr, momentum):
-    """Kernel wrapper: one in-place heavy-ball step of CUDA tensor ``p``
-    with gradient ``g`` and f32 velocity ``v``.  The three must share
-    shape, element order and device, and be dense (contiguous or
-    channels_last), so the kernel walks them as flat arrays.  Replaces
-    ``_leaf_update_pallas``."""
-    if p.device.type != 'cuda':
-        raise ValueError('sgd_update: the kernel takes CUDA tensors, got %s'
-                         % p.device)
+def _check_operands(p, g, v):
+    """The kernel's demands on one tensor's operands: the three share
+    shape, element order and device and are dense (contiguous or
+    channels_last), so the kernel walks them as flat arrays; the
+    velocity is float32."""
     for t, name in ((p, 'param'), (g, 'grad'), (v, 'velocity')):
         if t.device != p.device:
-            raise ValueError('sgd_update: %s must be on %s, got %s'
+            raise ValueError('momentum_sgd: %s must be on %s, got %s'
                              % (name, p.device, t.device))
         if t.shape != p.shape or _order(t) != _order(p) or not _dense(t):
             raise ValueError(
-                'sgd_update: %s must be dense with the param\'s shape and '
+                'momentum_sgd: %s must be dense with the param\'s shape and '
                 'strides %s %s, got %s %s' % (name, tuple(p.shape),
                                               p.stride(), tuple(t.shape),
                                               t.stride()))
     if v.dtype != torch.float32:
-        raise TypeError('sgd_update: velocity must be float32, got %s'
+        raise TypeError('momentum_sgd: velocity must be float32, got %s'
                         % v.dtype)
-    n = p.numel()
-    if n == 0:
-        return
-    blocks = max(1, min(-(-n // 256), 8 * _common.sm_count(p.device)))
+
+
+def sgd_table(params, grads, velocity):
+    """The kernel's table: ``{(grad dtype code, param dtype code): rows}``
+    where ``rows`` is an int64 ``array`` of 4 entries a tensor (its
+    gradient's, velocity's and parameter's data pointers and its element
+    count), the tensors of each group in the lists' order, empty ones
+    left out.  One launch takes one group.  Checks nothing but the
+    dtypes: the callers have checked the operands."""
+    groups = {}
+    codes = _common.DTYPE_CODES
+    for p, g, v in zip(params, grads, velocity, strict=True):
+        n = p.numel()
+        if not n:
+            continue
+        key = (codes.get(g.dtype), codes.get(p.dtype))
+        if None in key:
+            raise TypeError('momentum_sgd: grad %s, param %s: the kernel '
+                            'takes float32 or bfloat16' % (g.dtype, p.dtype))
+        rows = groups.get(key)
+        if rows is None:
+            rows = groups[key] = array.array('q')
+        rows.extend((g.data_ptr(), v.data_ptr(), p.data_ptr(), n))
+    return groups
+
+
+def _launch(groups, lr, momentum, device):
+    """One kernel launch per group of :func:`sgd_table` (more for a group
+    of more tensors than a launch's table holds)."""
     lib = _lib()
-    err = lib.cmn_momentum_sgd(
-        _common.ptr(g), _common.dtype_code(g, 'sgd_update grad'),
-        _common.ptr(v), _common.ptr(p),
-        _common.dtype_code(p, 'sgd_update param'), n, float(lr),
-        float(momentum), blocks, _common.stream_ptr(p.device))
-    _common.check_launch(err, lib.cmn_sgd_strerror, 'sgd_update')
-    sgd_update.launches += 1
+    stream = _common.stream_ptr(device)
+    for (g_code, p_code), rows in groups.items():
+        n = len(rows) // 4
+        launches = ctypes.c_int(0)
+        err = lib.cmn_momentum_sgd(
+            ctypes.cast(rows.buffer_info()[0],
+                        ctypes.POINTER(ctypes.c_int64)), n, g_code, p_code,
+            float(lr), float(momentum), ctypes.byref(launches), stream)
+        momentum_sgd.launches += launches.value
+        momentum_sgd.tensors += n
+        _common.check_launch(err, lib.cmn_sgd_strerror, 'momentum_sgd')
 
 
-sgd_update.launches = 0
+def sgd_update(p, g, v, lr, momentum):
+    """Kernel wrapper, one tensor: one in-place heavy-ball step of CUDA
+    tensor ``p`` with gradient ``g`` and f32 velocity ``v`` -- the kernel
+    of :func:`momentum_sgd` with a table of one."""
+    if p.device.type != 'cuda':
+        raise ValueError('sgd_update: the kernel takes CUDA tensors, got %s'
+                         % p.device)
+    _check_operands(p, g, v)
+    _launch(sgd_table([p], [g], [v]), lr, momentum, p.device)
 
 
 @torch.no_grad()
 def momentum_sgd(params, grads, velocity, lr, momentum=0.9):
     """One fused update over lists of tensors, IN PLACE on ``params``
     and ``velocity``; returns ``(params, velocity)``.  Matches
-    ``optax.sgd(lr, momentum)`` (heavy-ball ``v = mu*v + g; p -= lr*v``)."""
-    for p, g, v in zip(params, grads, velocity, strict=True):
-        if _common.on_cuda(p, g, v):
-            sgd_update(p, g, v, lr, momentum)
-        else:
+    ``optax.sgd(lr, momentum)`` (heavy-ball ``v = mu*v + g; p -= lr*v``).
+    Kernel wrapper: on CUDA tensors one launch updates them all (one for
+    each pair of gradient and parameter dtypes), counted in
+    ``momentum_sgd.launches`` and, by tensor, ``momentum_sgd.tensors``.
+    Replaces ``_leaf_update_pallas``."""
+    ps, gs, vs = list(params), list(grads), list(velocity)
+    if len(ps) != len(gs) or len(ps) != len(vs):
+        raise ValueError('momentum_sgd: %d params, %d grads, %d velocities'
+                         % (len(ps), len(gs), len(vs)))
+    if ps and _common.on_cuda(*ps, *gs, *vs):
+        for p, g, v in zip(ps, gs, vs):
+            _check_operands(p, g, v)
+        _launch(sgd_table(ps, gs, vs), lr, momentum, ps[0].device)
+    else:
+        for p, g, v in zip(ps, gs, vs):
             _sgd_update_ref(p, g, v, lr, momentum)
     return params, velocity
 
 
+momentum_sgd.launches = 0
+momentum_sgd.tensors = 0
+
+
 class FusedMomentumSGD(torch.optim.Optimizer):
     """Fused momentum SGD: each ``step()`` updates every parameter that
-    has a gradient in place, launching one kernel per CUDA parameter.
-    The per-parameter state is ``'velocity'``, float32 whatever the
-    parameter's dtype."""
+    has a gradient in place, in one kernel launch for all the CUDA
+    parameters of a param group.  The per-parameter state is
+    ``'velocity'``, float32 whatever the parameter's dtype; a parameter's
+    layout is checked once, when its velocity is made, and each step
+    checks only that its gradient has the parameter's shape and
+    strides."""
 
     def __init__(self, params, lr, momentum=0.9):
         if lr < 0.0:
             raise ValueError('invalid learning rate %r' % lr)
         super().__init__(params, dict(lr=lr, momentum=momentum))
+        # param -> (shape, strides, element order), checked once
+        self._layouts = {}
+
+    def _first_use(self, p):
+        """Make ``p``'s velocity and check, once, that the kernel can walk
+        the two as flat arrays; returns ``p``'s layout."""
+        state = self.state[p]
+        if 'velocity' not in state:
+            state['velocity'] = torch.zeros_like(
+                p, dtype=torch.float32, memory_format=torch.preserve_format)
+        if p.is_cuda:
+            _check_operands(p, p, state['velocity'])
+        layout = self._layouts[p] = (p.shape, p.stride(), _order(p))
+        return layout
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -133,15 +199,24 @@ class FusedMomentumSGD(torch.optim.Optimizer):
         for group in self.param_groups:
             ps, gs, vs = [], [], []
             for p in group['params']:
-                if p.grad is None:
+                g = p.grad
+                if g is None:
                     continue
-                state = self.state[p]
-                if 'velocity' not in state:
-                    state['velocity'] = torch.zeros_like(
-                        p, dtype=torch.float32,
-                        memory_format=torch.preserve_format)
+                layout = self._layouts.get(p) or self._first_use(p)
+                if g.shape != layout[0] or (g.stride() != layout[1]
+                                            and _order(g) != layout[2]):
+                    raise ValueError(
+                        'FusedMomentumSGD: a grad %s %s does not match its '
+                        'param %s %s' % (tuple(g.shape), g.stride(),
+                                         tuple(layout[0]), layout[1]))
                 ps.append(p)
-                gs.append(p.grad)
-                vs.append(state['velocity'])
-            momentum_sgd(ps, gs, vs, group['lr'], group['momentum'])
+                gs.append(g)
+                vs.append(self.state[p]['velocity'])
+            if not ps:
+                continue
+            if _common.on_cuda(*ps, *vs):
+                _launch(sgd_table(ps, gs, vs), group['lr'],
+                        group['momentum'], ps[0].device)
+            else:
+                momentum_sgd(ps, gs, vs, group['lr'], group['momentum'])
         return loss

@@ -17,7 +17,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    to decode over the same pages gathered, with shuffled pages and
    dead table entries outside the pool; the flash forward's bf16
    tensor-core route at every head width, ragged, non-causal against
-   more keys and with misaligned rows, its f32 scalar route), with
+   more keys and with misaligned rows, its f32 scalar route; momentum
+   SGD over ResNet-50's 161 tensors in one launch a step, bit-equal to
+   its plain version over three steps and with bf16 gradients), with
    kernel / plain / library times and the bound;
 4. one train-mode forward of full-width ResNet-50 (f32, TF32 off, batch
    2) on the card (kernels) against the same model on the CPU (plain
@@ -27,7 +29,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    compute) + ``StatefulClassifier`` -> ``create_multi_node_optimizer(
    FusedMomentumSGD)`` -> ``StandardUpdater`` -> ``Trainer`` over the
    synthetic ImageNet set at batch 64, with the kernel launch counts of
-   that run checked against the model's structure;
+   that run checked against the model's structure (one SGD launch a
+   step for all 161 tensors);
 6. serving check: two f32 ``GenerationEngine``s at full width and depth
    2 from the same numpy-seeded weights, one on the card and one on the
    CPU, give the same greedy tokens for 8 prompts;
@@ -56,11 +59,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    request finishes, launch counts checked, the acceptance rate;
 8. the training kernels against their plain versions on the card: the
    fused cross-entropy forward at the LM's ``(8192, 32000)`` f32 logits,
-   and the two flash-attention backward kernels (dq; dk and dv) at the
-   LM's ``(8, 1024, 8, 64)`` bf16 causal shape, ragged lengths, every
-   head width, strided views, an expanded gradient and misaligned rows,
-   each run twice for bit-equal results (dk/dv in bf16 on the
-   tensor-core kernel, in f32 on the scalar one);
+   and the two flash-attention backward kernels (dq with ``delta``; dk
+   and dv) at the LM's ``(8, 1024, 8, 64)`` bf16 causal shape, ragged
+   lengths, every head width, strided views, an expanded gradient and
+   misaligned rows, each run twice for bit-equal results (in bf16 on the
+   tensor-core kernels, in f32 on the scalar ones), the dq kernel's
+   ``delta`` against ``rowsum(g * out)``, and dq + dk/dv timed together
+   against SDPA's whole backward;
 9. LM check: a depth-2 f32 full-width ``TransformerLM`` from
    numpy-seeded weights, ``lm_loss`` and every leaf's gradient on the
    card (kernels) against the CPU (plain versions);
@@ -83,11 +88,15 @@ the kernels' results and from CUDA events).
 A kernel row's ``launches`` sums the main paths that run it
 (``launches_by_path`` splits them); each path is driven with the counts
 set to 0 just before it and read just after.  The rows of the kernels
-with a tensor-core route (bf16 ``flash_fwd`` and ``flash_bwd_dkv``) add
-``tc_launches``: every launch of theirs on a main path took it (each
-path asserts so), their times are the tensor-core kernel's at the LM
-shape, and ``scalar_f32_ms`` / ``scalar_f32_device_ms`` time the scalar
-kernel on f32 operands of that shape in the same call.
+with a tensor-core route (bf16 ``flash_fwd``, ``flash_bwd_dq`` and
+``flash_bwd_dkv``) add ``tc_launches``: every launch of theirs on a main
+path took it (each path asserts so), their times are the tensor-core
+kernel's at the LM shape, and ``scalar_f32_ms`` / ``scalar_f32_device_ms``
+time the scalar kernel on f32 operands of that shape in the same call.
+The ``momentum_sgd`` row times ``FusedMomentumSGD.step`` over the 161
+tensors against ``torch.optim.SGD(fused=True).step``, and
+``per_tensor_ms`` / ``per_tensor_device_ms`` the same kernel launched
+once a tensor (``sgd_update``, a table of one), in the same call.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
@@ -296,9 +305,12 @@ def phase_build():
             if spill:
                 spilled.append(name)
     _say('build', 'kernels that spill: %s' % (', '.join(spilled) or 'none'))
-    # the tensor-core kernels are laid out to keep everything in registers
-    if any('_tc_kernel' in name for name in spilled):
-        raise AssertionError('a tensor-core kernel spills: %s' % spilled)
+    # the tensor-core kernels and every dq instantiation are laid out to
+    # keep everything in registers
+    bad = [name for name in spilled
+           if '_tc_kernel' in name or 'flash_bwd_dq' in name]
+    if bad:
+        raise AssertionError('a tensor-core or dq kernel spills: %s' % bad)
 
 
 def _bn_case(gen, m, c, dtype, residual, relu):
@@ -386,7 +398,8 @@ def phase_kernels():
         max_abs_err=apply_err, bound_ms=b_ms, bound_by=b_by, **t))
     _say('kernels', 'bn_apply at %s bf16 + residual: %s' % ((m, c), _fmt(t)))
 
-    # momentum SGD over the ResNet-50 parameter list, 3 steps
+    # momentum SGD over the ResNet-50 parameter list, 3 steps, one launch
+    # a step for all 161 tensors
     shapes_model = models.ResNet50(device='cuda')
     params = [p.detach() for p in shapes_model.parameters()]
     if len(params) != PARAMS_PER_STEP:
@@ -400,8 +413,14 @@ def phase_kernels():
     for _ in range(3):
         # the param's own strides, as autograd lays out its gradient
         grads = [torch.empty_like(p).normal_(generator=gen) for p in params]
-        for p, g, v in zip(kp, grads, kv):
-            ops.sgd_update(p, g, v, 0.1, 0.9)
+        before = (ops.momentum_sgd.launches, ops.momentum_sgd.tensors)
+        ops.momentum_sgd(kp, grads, kv, 0.1, 0.9)
+        made = (ops.momentum_sgd.launches - before[0],
+                ops.momentum_sgd.tensors - before[1])
+        if made != (1, PARAMS_PER_STEP):
+            raise AssertionError('momentum_sgd: %d launches for %d tensors, '
+                                 'expected 1 for %d' % (*made,
+                                                        PARAMS_PER_STEP))
         for p, g, v in zip(pp, grads, pv):
             sgd._sgd_update_ref(p, g, v, 0.1, 0.9)
     sgd_err = max(max_err(a, b) for a, b in zip(kp + kv, pp + pv))
@@ -409,25 +428,47 @@ def phase_kernels():
     if sgd_err != 0.0:
         raise AssertionError('momentum_sgd: max abs err %.3g, expected 0'
                              % sgd_err)
-    # the bf16-gradient instantiation (v stays f32)
-    p1, v1 = torch.ones(4096, device='cuda'), torch.zeros(4096,
-                                                         device='cuda')
-    p2, v2 = p1.clone(), v1.clone()
-    g16 = torch.randn(4096, generator=gen, device='cuda').to(bf16)
-    ops.sgd_update(p1, g16, v1, 0.1, 0.9)
-    sgd._sgd_update_ref(p2, g16, v2, 0.1, 0.9)
-    check_close('momentum_sgd bf16 grads', p1, p2, 0.0, 0.0)
-    check_close('momentum_sgd bf16 grads velocity', v1, v2, 0.0, 0.0)
+    # the bf16-gradient instantiation (v stays f32), in one table with a
+    # tensor of another dtype pair: one launch each
+    p1 = [torch.ones(4096, device='cuda'), torch.ones(999, device='cuda')]
+    v1 = [torch.zeros_like(p) for p in p1]
+    p2, v2 = [p.clone() for p in p1], [v.clone() for v in v1]
+    g16 = [torch.randn(4096, generator=gen, device='cuda').to(bf16),
+           torch.randn(999, generator=gen, device='cuda')]
+    before = ops.momentum_sgd.launches
+    ops.momentum_sgd(p1, g16, v1, 0.1, 0.9)
+    if ops.momentum_sgd.launches - before != 2:
+        raise AssertionError('momentum_sgd: two dtype pairs took %d launches'
+                             % (ops.momentum_sgd.launches - before))
+    for p, g, v in zip(p2, g16, v2):
+        sgd._sgd_update_ref(p, g, v, 0.1, 0.9)
+    for a, b in zip(p1 + v1, p2 + v2):
+        check_close('momentum_sgd bf16 grads', a, b, 0.0, 0.0)
+    # the one-tensor wrapper is the same kernel with a table of one
+    p3, v3 = kp[0].clone(), kv[0].clone()
+    ops.sgd_update(p3, grads[0], v3, 0.1, 0.9)
+    sgd._sgd_update_ref(pp[0], grads[0], pv[0], 0.1, 0.9)
+    check_close('sgd_update', p3, pp[0], 0.0, 0.0)
     n = sum(p.numel() for p in params)
+    # the optimizers as a training step calls them: ours (a layout check
+    # per grad and one launch) against PyTorch's fused multi-tensor SGD
+    fp = [torch.nn.Parameter(p.clone()) for p in params]
     lp = [torch.nn.Parameter(p.clone()) for p in params]
-    for p, g in zip(lp, grads):
-        p.grad = g.clone()
+    for a, b, g in zip(fp, lp, grads):
+        a.grad, b.grad = g.clone(), g.clone()
+    opt = ops.FusedMomentumSGD(fp, 0.1, 0.9)
     lib_opt = torch.optim.SGD(lp, lr=0.1, momentum=0.9, fused=True)
-    t = timings(lambda: [ops.sgd_update(p, g, v, 0.1, 0.9)
-                         for p, g, v in zip(kp, grads, kv)],
+    t = timings(opt.step,
                 lambda: [sgd._sgd_update_ref(p, g, v, 0.1, 0.9)
                          for p, g, v in zip(pp, grads, pv)],
                 lib_opt.step, iters=10)
+    # the same kernel launched once a tensor (a table of one each), in
+    # the same call
+    t.update(per_tensor_ms=time_ms(lambda: [
+        ops.sgd_update(p, g, v, 0.1, 0.9)
+        for p, g, v in zip(kp, grads, kv)], 10), per_tensor_device_ms=(
+        device_ms(lambda: [ops.sgd_update(p, g, v, 0.1, 0.9)
+                           for p, g, v in zip(kp, grads, kv)], 10)))
     b_ms, b_by = bound_ms(20 * n, 4 * n)
     records.append(dict(
         name='momentum_sgd', route='cuda',
@@ -435,8 +476,11 @@ def phase_kernels():
         replaces='chainermn_tpu/ops/optimizer.py:56',
         max_abs_err=sgd_err, bound_ms=b_ms, bound_by=b_by, **t))
     _say('kernels', 'momentum_sgd over %d ResNet-50 tensors (%d f32 '
-         'elements), one step: %s (SGD(fused=True))'
-         % (len(params), n, _fmt(t)))
+         'elements), one launch, FusedMomentumSGD.step: %s '
+         '(SGD(fused=True).step); the same kernel once a tensor: per call '
+         '%.5f ms, device only %s ms; bound %.5f ms by %s'
+         % (len(params), n, _fmt(t), t['per_tensor_ms'],
+            _ms(t['per_tensor_device_ms']), b_ms, b_by))
     return records
 
 
@@ -957,12 +1001,24 @@ def profile_steps(updater, n=3):
     """Device time by kernel group over ``n`` more steps of the main
     path (``torch.profiler``), and the device busy share of that
     window's wall time."""
-    _, kernels, wall_us = profiled(updater.update, n)
+    import torch
+    prof, kernels, wall_us = profiled(updater.update, n)
     busy = sum(kernels.values())
     if busy == 0:
         _say('profile', 'no device event in %d traces: not measured'
              % PROFILE_TRIES)
         return
+    # the optimizer's step: its host span under the profiler, and the
+    # device time of the SGD kernel by name (the tracer does not tie a
+    # launch from the kernel libraries to the span that made it)
+    sgd_us = sum(us for key, us in kernels.items() if 'momentum_sgd' in key)
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CPU
+                and e.key.startswith('Optimizer.step#')):
+            _say('profile', '  op %s: host %.3f ms/step under the profiler, '
+                 '%d calls/step; momentum_sgd_kernel %.4f ms/step on the '
+                 'device' % (e.key, e.cpu_time_total / n / 1e3,
+                             e.count // n, sgd_us / n / 1e3))
     groups = _by_group(kernels, _GROUPS)
     _say('profile', '%d steps: wall %.1f ms, device busy %.1f ms (%.1f%%, '
          'idle %.1f%%)' % (n, wall_us / 1e3, busy / 1e3,
@@ -1023,15 +1079,20 @@ def phase_main_path():
         trainer.run()
         torch.cuda.synchronize()
         counts, tc = ops.launch_counts(), ops.tc_launch_counts()
+        sgd_tensors = ops.momentum_sgd.tensors
         profile_steps(updater)
     finally:
         comm.close()
+    # one SGD launch a step updates all 161 tensors
     want = dict.fromkeys(ops.KERNELS, 0)
     want.update(bn_stats=BN_PER_STEP * STEPS, bn_apply=BN_PER_STEP * STEPS,
-                momentum_sgd=PARAMS_PER_STEP * (STEPS - 1))
+                momentum_sgd=STEPS - 1)
     if counts != want:
         raise AssertionError('launch counts %s, expected %s' % (counts,
                                                                 want))
+    if sgd_tensors != PARAMS_PER_STEP * (STEPS - 1):
+        raise AssertionError('momentum_sgd updated %d tensors, expected %d'
+                             % (sgd_tensors, PARAMS_PER_STEP * (STEPS - 1)))
     counts = with_tc('ResNet-50 training', counts, tc)
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError('non-finite loss: %s' % losses)
@@ -1045,8 +1106,8 @@ def phase_main_path():
     p50 = timed[len(timed) // 2]
     _say('main', 'losses %s' % ', '.join('%.4f' % v for v in losses))
     _say('main', 'launches %s over %d steps (per step: %d stats, %d apply, '
-         '%d sgd after step 0)' % (counts, STEPS, BN_PER_STEP, BN_PER_STEP,
-                                   PARAMS_PER_STEP))
+         '1 sgd for %d tensors after step 0)' % (
+             counts, STEPS, BN_PER_STEP, BN_PER_STEP, PARAMS_PER_STEP))
     _say('main', 'step times ms %s; p50 of steps 2..%d %.2f ms = %.1f '
          'images/s at batch %d; peak memory %.2f GiB' % (
              ', '.join('%.1f' % (1e3 * s) for s in steps), STEPS - 1,
@@ -1740,9 +1801,9 @@ def _flash_bwd_cases(gen):
     tol = {f32: (1e-4, 1e-4), bf16: BF16_TOL}
     main = (LM_BATCH, LM_SEQ, LM_CFG['n_heads'],
             LM_CFG['d_model'] // LM_CFG['n_heads'])
-    # bf16 dk/dv takes the tensor-core kernel, f32 the scalar one (dq is
-    # scalar for both); the last five bf16 cases: every head width ragged
-    # across the 64-key tile, t_q != t_kv, the verify window
+    # bf16 dq and dk/dv take the tensor-core kernels, f32 the scalar ones;
+    # the last five bf16 cases: every head width ragged across the 64-row
+    # tile, t_q != t_kv, the verify window
     cases = [(main, LM_SEQ, bf16, True),
              ((1, 37, 4, 32), 37, bf16, True),      # less than one tile
              ((2, 100, 8, 64), 100, f32, True),
@@ -1756,67 +1817,78 @@ def _flash_bwd_cases(gen):
              ((1, 130, 2, 128), 130, bf16, True),
              ((2, 77, 8, 64), 150, bf16, False),
              ((32, 4, 8, 64), 4, bf16, True)]
-    errs = {'dq': [], 'dkv': []}
+    errs = {'dq': [], 'dkv': [], 'delta': []}
     timed = None
     for shape, t_kv, dtype, causal in cases:
         b, t_q, h, d = shape
         scale = d ** -0.5
         q, k, v, g, out, lse = _flash_bwd_operands(gen, shape, t_kv, dtype,
                                                    causal)
-        delta = _delta(g, out)
-        dq = ops.flash_bwd_dq(q, k, v, g, lse, delta, causal, scale)
+        tc0 = ops.tc_launch_counts()
+        dq, delta = ops.flash_bwd_dq(q, k, v, g, out, lse, causal, scale)
         torch.cuda.synchronize()
-        tc0 = _tc_count('flash_bwd_dkv')
+        # dk/dv reads the delta the dq kernel wrote
         dk, dv = ops.flash_bwd_dkv(q, k, v, g, lse, delta, causal, scale)
         torch.cuda.synchronize()
-        if _tc_count('flash_bwd_dkv') - tc0 != (dtype == bf16):
-            raise AssertionError('flash_bwd_dkv %s: the tensor-core kernel '
-                                 'runs for bf16 and only for bf16' % dtype)
+        tc1 = ops.tc_launch_counts()
+        for name in ('flash_bwd_dq', 'flash_bwd_dkv'):
+            if tc1[name] - tc0[name] != (dtype == bf16):
+                raise AssertionError('%s %s: the tensor-core kernel runs for '
+                                     'bf16 and only for bf16' % (name, dtype))
         pdq, pdk, pdv = fa._bwd_plain(q, k, v, out, lse, g, causal, scale)
         what = 'flash_bwd %s t_kv %d %s causal=%s' % (
             shape, t_kv, str(dtype).split('.')[-1], causal)
         for name, got, want in (('dq', dq, pdq), ('dk', dk, pdk),
                                 ('dv', dv, pdv)):
             check_close('%s %s' % (what, name), got, want, *tol[dtype])
+        # delta: f32 sums of D exact products, in another order than
+        # torch's
+        pdelta = _delta(g, out)
+        check_close('%s delta' % what, delta, pdelta, 1e-5, 1e-4)
         errs['dq'].append(max_err(dq, pdq))
         errs['dkv'].append(max(max_err(dk, pdk), max_err(dv, pdv)))
+        errs['delta'].append(max_err(delta, pdelta))
         # no float atomics: a second run gives the same bits; contiguous
         # operands give the same bits as the strided views
         qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
         for args in ((q, k, v), (qc, kc, vc)):
-            dq2 = ops.flash_bwd_dq(*args, g, lse, delta, causal, scale)
-            dk2, dv2 = ops.flash_bwd_dkv(*args, g, lse, delta, causal, scale)
-            if not (torch.equal(dq2, dq) and torch.equal(dk2, dk)
-                    and torch.equal(dv2, dv)):
+            dq2, delta2 = ops.flash_bwd_dq(*args, g, out, lse, causal, scale)
+            dk2, dv2 = ops.flash_bwd_dkv(*args, g, lse, delta2, causal,
+                                         scale)
+            if not (torch.equal(dq2, dq) and torch.equal(delta2, delta)
+                    and torch.equal(dk2, dk) and torch.equal(dv2, dv)):
                 raise AssertionError(
                     what + ': a second run (or contiguous operands) '
                     'gave other bits')
         if timed is None:
             timed = (q, k, v, g, out, lse, delta)
+
+    def both(q, k, v, g, out, lse, scale):
+        """The backward as autograd runs it: dq (and delta), then dk/dv."""
+        dq, delta = ops.flash_bwd_dq(q, k, v, g, out, lse, True, scale)
+        return (dq, delta, *ops.flash_bwd_dkv(q, k, v, g, lse, delta, True,
+                                              scale))
+
     # the gradient of out.sum(): an expanded scalar, every stride 0
     shape, d = (2, 100, 8, 64), 64
     q, k, v, g, out, lse = _flash_bwd_operands(gen, shape, 100, bf16, True)
     ones = torch.ones((), dtype=bf16, device='cuda').expand(shape)
-    full = ones.contiguous()
     if any(ones.stride()):
         raise AssertionError('expected an expanded gradient')
-    delta = _delta(ones, out)
-    a = (ops.flash_bwd_dq(q, k, v, ones, lse, delta, True, d ** -0.5),
-         *ops.flash_bwd_dkv(q, k, v, ones, lse, delta, True, d ** -0.5))
-    c = (ops.flash_bwd_dq(q, k, v, full, lse, delta, True, d ** -0.5),
-         *ops.flash_bwd_dkv(q, k, v, full, lse, delta, True, d ** -0.5))
+    a = both(q, k, v, ones, out, lse, d ** -0.5)
+    c = both(q, k, v, ones.contiguous(), out, lse, d ** -0.5)
     if not all(torch.equal(x, y) for x, y in zip(a, c)):
         raise AssertionError('flash_bwd: an expanded g gave other bits than '
                              'its contiguous copy')
     # operands whose rows are not 16-byte aligned: handed to the
-    # tensor-core kernel as contiguous copies, the same bits
-    mk, mg = _misaligned(k), _misaligned(ones)
-    if fa._aligned16(mk) or fa._aligned16(mg):
+    # tensor-core kernels as contiguous copies, the same bits
+    mk, mg, mo = _misaligned(k), _misaligned(ones), _misaligned(out)
+    if fa._aligned16(mk) or fa._aligned16(mg) or fa._aligned16(mo):
         raise AssertionError('expected misaligned copies')
-    m = ops.flash_bwd_dkv(q, mk, v, mg, lse, delta, True, d ** -0.5)
-    if not all(torch.equal(x, y) for x, y in zip(m, a[1:])):
-        raise AssertionError('flash_bwd_dkv: misaligned operands gave other '
-                             'bits')
+    m = both(q, mk, v, mg, mo, lse, d ** -0.5)
+    if not all(torch.equal(x, y) for x, y in zip(m, a)):
+        raise AssertionError('flash_bwd_dq / flash_bwd_dkv: misaligned '
+                             'operands gave other bits')
     # through autograd, against autograd of the full-softmax oracle (f32)
     q, k, v, g, _, _ = _flash_bwd_operands(gen, (2, 70, 4, 64), 70, f32, True)
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
@@ -1845,44 +1917,61 @@ def _flash_bwd_cases(gen):
 
     pairs = t * (t + 1) // 2
     records = []
-    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    # the scalar kernels (the f32 route, the design the tensor-core
+    # kernels replaced for bf16) in the same call
+    qf, kf, vf, gf, of = (x.float() for x in (q, k, v, g, out))
     for name, kernel, n_products, n_tensors, line, scalar in (
             ('flash_bwd_dq',
-             lambda: ops.flash_bwd_dq(q, k, v, g, lse, delta, True, 0.125),
-             3, 5, 375, None),
+             lambda: ops.flash_bwd_dq(q, k, v, g, out, lse, True, 0.125),
+             3, 6, 375,
+             lambda: ops.flash_bwd_dq(qf, kf, vf, gf, of, lse, True, 0.125)),
             ('flash_bwd_dkv',
              lambda: ops.flash_bwd_dkv(q, k, v, g, lse, delta, True, 0.125),
              4, 6, 397,
-             # the scalar kernel (the f32 route, the design the
-             # tensor-core kernel replaced for bf16) in the same call
              lambda: ops.flash_bwd_dkv(qf, kf, vf, gf, lse, delta, True,
                                        0.125))):
         tm = timings(kernel, plain, library, iters=10, plain_iters=3)
-        if scalar is not None:
-            tm.update(scalar_f32_ms=time_ms(scalar, 10),
-                      scalar_f32_device_ms=device_ms(scalar, 10))
-            _say('kernels', '%s causal %s f32 (scalar kernel): per call %.5f '
-                 'ms, device only %s ms' % (
-                     name, (b, t, h, d), tm['scalar_f32_ms'],
-                     _ms(tm['scalar_f32_device_ms'])))
-        # q, k, v, g read once and the gradients written once (bf16), lse
-        # and delta read (f32); s, dp and the kernel's own products over
-        # the causal half, at the bf16 tensor-core rate
+        tm.update(scalar_f32_ms=time_ms(scalar, 10),
+                  scalar_f32_device_ms=device_ms(scalar, 10))
+        _say('kernels', '%s causal %s f32 (scalar kernel): per call %.5f '
+             'ms, device only %s ms' % (
+                 name, (b, t, h, d), tm['scalar_f32_ms'],
+                 _ms(tm['scalar_f32_device_ms'])))
+        # dq: q, k, v, g, out read once and dq written once (bf16), lse
+        # read and delta written (f32); dk/dv: q, k, v, g read and dk, dv
+        # written, lse and delta read.  s, dp and the kernel's own
+        # products over the causal half, at the bf16 tensor-core rate
         n_bytes = n_tensors * b * t * h * d * 2 + 2 * b * h * t * 4
         b_ms, b_by = bound_ms(n_bytes, n_products * 2 * b * h * pairs * d,
                               BF16_TC_FLOPS_PER_S)
         key = 'dq' if name.endswith('dq') else 'dkv'
         _say('kernels', '%s max err %.3g over %d cases (f32 %s, bf16 %s); '
-             'causal %s bf16%s: %s (SDPA backward, dq + dk + dv; the plain '
-             'version also computes all three); bound %.5f ms by %s' % (
-                 name, max(errs[key]), len(errs[key]), tol[f32], tol[bf16],
-                 (b, t, h, d), ' (tensor cores)' if scalar else '', _fmt(tm),
-                 b_ms, b_by))
+             'causal %s bf16 (tensor cores): %s (SDPA backward, dq + dk + '
+             'dv; the plain version also computes all three); bound %.5f ms '
+             'by %s' % (name, max(errs[key]), len(errs[key]), tol[f32],
+                        tol[bf16], (b, t, h, d), _fmt(tm), b_ms, b_by))
         records.append(dict(
             name=name, route='cuda',
             source='chainermn_tpu_torch/csrc/flash_attention.cu',
             replaces='chainermn_tpu/ops/flash_attention.py:%d' % line,
             max_abs_err=max(errs[key]), bound_ms=b_ms, bound_by=b_by, **tm))
+    _say('kernels', 'flash_bwd_dq delta max err %.3g over %d cases (rtol '
+         '1e-5, atol 1e-4)' % (max(errs['delta']), len(errs['delta'])))
+    # the whole backward, dq (with delta) then dk/dv, against SDPA's
+    whole = dict(
+        ms=time_ms(lambda: both(q, k, v, g, out, lse, 0.125), 10),
+        device_ms=device_ms(lambda: both(q, k, v, g, out, lse, 0.125), 10))
+    dq_rec = records[0]
+    dq_rec.update(dq_plus_dkv_ms=whole['ms'],
+                  dq_plus_dkv_device_ms=whole['device_ms'])
+    _say('kernels', 'flash backward dq + dk/dv causal %s bf16: per call '
+         '%.5f ms, device only %s ms; SDPA\'s whole backward per call %.5f '
+         'ms, device only %s ms; ratio (device) %s' % (
+             (b, t, h, d), whole['ms'], _ms(whole['device_ms']),
+             dq_rec['library_ms'], _ms(dq_rec['library_device_ms']),
+             '%.2f' % (whole['device_ms'] / dq_rec['library_device_ms'])
+             if whole['device_ms'] and dq_rec['library_device_ms']
+             else 'not measured'))
     return records
 
 
@@ -1947,7 +2036,8 @@ def phase_lm_check():
 # kernel-name fragments of each group in the LM training profile
 _LM_GROUPS = (('layer_norm', ('ln_kernel',)),
               ('flash_fwd', ('flash_fwd_kernel', 'flash_fwd_tc_kernel')),
-              ('flash_bwd_dq', ('flash_bwd_dq_kernel',)),
+              ('flash_bwd_dq', ('flash_bwd_dq_kernel',
+                                'flash_bwd_dq_tc_kernel')),
               ('flash_bwd_dkv', ('flash_bwd_dkv_kernel',
                                  'flash_bwd_dkv_tc_kernel')),
               # "::" keeps at::native::reduce_kernel out

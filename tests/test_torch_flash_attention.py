@@ -13,6 +13,7 @@ packages are compared bit for bit.
 """
 
 import importlib
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -364,7 +365,7 @@ def test_backward_kernel_wrappers_take_cuda_tensors_only():
     (q, k, v), _ = _qkv((1, 4, 1, 32), 'float32', 30)
     rows = torch.zeros(1, 1, 4)
     with pytest.raises(ValueError, match='CUDA'):
-        ops.flash_bwd_dq(q, k, v, q, rows, rows, True, 0.1)
+        ops.flash_bwd_dq(q, k, v, q, q, rows, True, 0.1)
     with pytest.raises(ValueError, match='CUDA'):
         ops.flash_bwd_dkv(q, k, v, q, rows, rows, True, 0.1)
     before = ops.launch_counts()
@@ -372,6 +373,44 @@ def test_backward_kernel_wrappers_take_cuda_tensors_only():
            (q, k, v), None)
     assert ops.launch_counts() == before     # CPU: the plain versions
     assert {'flash_bwd_dq', 'flash_bwd_dkv'} <= set(before)
+
+
+def test_dq_wrapper_takes_out_and_returns_delta():
+    """``flash_bwd_dq(q, k, v, g, out, lse, causal, scale) -> (dq,
+    delta)``: the kernel forms ``delta`` from ``g`` and ``out`` itself.
+    On CPU tensors it raises, whichever operand lies there."""
+    params = list(inspect.signature(ops.flash_bwd_dq).parameters)
+    assert params == ['q', 'k', 'v', 'g', 'out', 'lse', 'causal', 'scale']
+    (q, k, v), _ = _qkv((1, 4, 1, 32), 'bfloat16', 31)
+    lse = torch.zeros(1, 1, 4)
+    for i in range(5):
+        args = [q, k, v, q, q]
+        args[i] = args[i].clone()
+        with pytest.raises(ValueError, match='CUDA'):
+            ops.flash_bwd_dq(*args, lse, True, 0.1)
+
+
+@pytest.mark.parametrize('dtype,causal', [('float32', True),
+                                          ('float32', False),
+                                          ('bfloat16', True)])
+def test_autograd_backward_on_the_cpu_matches_the_oracle(dtype, causal):
+    """``_FlashAttention.backward`` on CPU tensors (the plain backward,
+    which forms its own ``delta``) against autograd through
+    ``mha_reference``: f32 at the gradient tolerance, bf16 leaves widened
+    to f32 for the oracle, at its bf16 tolerance."""
+    tensors, _ = _qkv((2, 37, 2, 64), dtype, 32)
+    w = torch.from_numpy(np.random.RandomState(33).randn(2, 37, 2, 64)
+                         .astype(np.float32)).to(tensors[0].dtype)
+    got = _grads(lambda a, b, c: ops.flash_attention(a, b, c,
+                                                     causal=causal),
+                 tensors, w)
+    want = _grads(lambda a, b, c: ops.mha_reference(a, b, c,
+                                                    causal=causal),
+                  [x.float() for x in tensors], w.float())
+    before = ops.launch_counts()
+    for a, c in zip(got, want):
+        torch.testing.assert_close(a.float(), c, **GRAD_TOL[dtype])
+    assert ops.launch_counts() == before
 
 
 def test_decode_refuses_autograd():
@@ -429,11 +468,18 @@ def test_kernels_match_plain_on_the_card(cuda):
         torch.testing.assert_close(lse.cpu(), wlse, rtol=1e-5, atol=1e-4)
         g = torch.from_numpy(np.random.RandomState(seed).randn(*shape)
                              .astype(np.float32)).to(torch.bfloat16)
-        _, pdk, pdv = fa._bwd_plain(q, k, v, want, wlse, g, True,
-                                    shape[3] ** -0.5)
+        pdq, pdk, pdv = fa._bwd_plain(q, k, v, want, wlse, g, True,
+                                      shape[3] ** -0.5)
         gc = g.cuda()
-        delta = (gc.float() * got.float()).sum(-1).transpose(1, 2)
-        delta = delta.contiguous()
+        # the dq kernel forms delta = rowsum(g * out) for dk/dv
+        dq_runs = [ops.flash_bwd_dq(qc, kc, vc, gc, got, lse, True,
+                                    shape[3] ** -0.5) for _ in range(2)]
+        dq, delta = dq_runs[0]
+        torch.testing.assert_close(dq.cpu().float(), pdq.float(), rtol=1e-2,
+                                   atol=1e-2)
+        want_delta = (gc.float() * got.float()).sum(-1).transpose(1, 2)
+        torch.testing.assert_close(delta, want_delta, rtol=1e-5, atol=1e-4)
+        assert all(torch.equal(a, b) for a, b in zip(*dq_runs))
         runs = [ops.flash_bwd_dkv(qc, kc, vc, gc, lse, delta, True,
                                   shape[3] ** -0.5) for _ in range(2)]
         for x, y in zip(runs[0], (pdk, pdv)):
@@ -442,6 +488,7 @@ def test_kernels_match_plain_on_the_card(cuda):
         assert all(torch.equal(a, b) for a, b in zip(*runs))
         after = ops.tc_launch_counts()
         assert after['flash_fwd'] == tc['flash_fwd'] + 1
+        assert after['flash_bwd_dq'] == tc['flash_bwd_dq'] + 2
         assert after['flash_bwd_dkv'] == tc['flash_bwd_dkv'] + 2
 
 

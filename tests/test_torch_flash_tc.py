@@ -1,5 +1,5 @@
 """The rounding model of the tensor-core flash kernels (the bf16 routes
-of ``cmn_flash_fwd`` and ``cmn_flash_bwd_dkv`` in
+of ``cmn_flash_fwd``, ``cmn_flash_bwd_dq`` and ``cmn_flash_bwd_dkv`` in
 ``chainermn_tpu_torch/csrc/flash_attention.cu``) against the JAX
 package's ``ops.flash_attention`` and its gradient, run as the JAX
 package's own tests run them (the ``fallback`` and ``interpret`` modes);
@@ -11,8 +11,10 @@ bf16 operands, f32 products (a bf16 x bf16 product is exact in f32, so
 ``Q.K^T``, ``V.G^T`` and ``K.Q^T`` on ``mma`` match the widened f32
 products), the softmax scale applied to the f32 scores after the
 product, and the second products' 16-bit operand -- ``p`` in the
-forward, ``p`` and ``ds`` in dk/dv -- split into ``hi = bf16(x)`` and
-``lo = bf16(x - hi)``, each multiplied on its own and summed in f32.
+forward, ``ds`` in dq, ``p`` and ``ds`` in dk/dv -- split into ``hi =
+bf16(x)`` and ``lo = bf16(x - hi)``, each multiplied on its own and
+summed in f32.  The dq kernel forms ``delta = rowsum(g * out)`` itself,
+in f32, from its g and out tiles.
 
 Tolerances: the bf16 outputs of the model and of the JAX package (f32
 inside, rounded once) at ``BF16_TOL = (2**-7, 1e-5)``, the holds
@@ -38,9 +40,10 @@ jfa = importlib.import_module('chainermn_tpu.ops.flash_attention')
 torch.set_num_threads(2)
 
 BF16_TOL = dict(rtol=2 ** -7, atol=1e-5)
-# the kernels' tiles: 64 keys a forward tile, 64 query rows a dk/dv tile
-# (32 at D = 128)
+# the kernels' tiles: 64 keys a forward or dq tile, 64 query rows a dk/dv
+# tile (32 at D = 128)
 FWD_KEYS = 64
+DQ_KEYS = 64
 
 
 @pytest.fixture(params=['fallback', 'interpret'])
@@ -125,6 +128,32 @@ def dkv_model(q, k, v, g, out, lse, causal, scale, split=True):
                   for part in _split(ds, split))
     dk = dk * scale
     return tuple(x.reshape(b, h, t_kv, d).transpose(1, 2) for x in (dk, dv))
+
+
+def dq_model(q, k, v, g, out, lse, causal, scale, split=True):
+    """The tensor-core dq kernel's arithmetic: returns ``(dq f32 before
+    its rounding (B, Tq, H, D), delta (B, H, Tq))``, with ``delta`` formed
+    as the kernel's prologue forms it."""
+    b, t_q, h, d = q.shape
+    t_kv = k.shape[1]
+    qm, km, vm, gm = _merged(q), _merged(k), _merged(v), _merged(g)
+    delta = (gm * _merged(out)).sum(-1)
+    lse = lse.reshape(b * h, t_q)
+    dq = torch.zeros((b * h, t_q, d))
+    q_pos = torch.arange(t_q)[:, None]
+    for k0 in range(0, t_kv, DQ_KEYS):
+        kj, vj = km[:, k0:k0 + DQ_KEYS], vm[:, k0:k0 + DQ_KEYS]
+        s = torch.einsum('bqd,bkd->bqk', qm, kj) * scale
+        if causal:
+            k_pos = k0 + torch.arange(kj.shape[1])[None]
+            s = torch.where(q_pos >= k_pos, s, fa.NEG_INF)
+        p = torch.exp(s - lse[..., None])
+        dp = torch.einsum('bqd,bkd->bqk', gm, vj)
+        ds = p * (dp - delta[..., None])
+        dq += sum(torch.einsum('bqk,bkd->bqd', part, kj)
+                  for part in _split(ds, split))
+    dq = (dq * scale).reshape(b, h, t_q, d).transpose(1, 2)
+    return dq, delta.reshape(b, h, t_q)
 
 
 # ---------------------------------------------------------------------
@@ -226,6 +255,26 @@ def _check_dkv(shape, t_kv, causal, seed, adversarial=False):
                                **BF16_TOL)
 
 
+def _check_dq(shape, t_kv, causal, seed, adversarial=False):
+    q, k, v, g = _operands(shape, t_kv, seed, adversarial)
+    scale = shape[3] ** -0.5
+    jq, jk, jv = _jax(q), _jax(k), _jax(v)
+    out, vjp = jax.vjp(
+        lambda a, b, c: jops.flash_attention(a, b, c, causal=causal),
+        jq, jk, jv)
+    want_dq, _, _ = vjp(_jax(g))
+    _, lse = fwd_model(_torch(q), _torch(k), _torch(v), causal, scale)
+    tout = _torch(_np(out))
+    dq, delta = dq_model(_torch(q), _torch(k), _torch(v), _torch(g), tout,
+                         lse, causal, scale)
+    np.testing.assert_allclose(_as_bf16(dq), _np(want_dq), err_msg='dq',
+                               **BF16_TOL)
+    # delta: the f32 rowsum of the bf16 g and out, (B, H, Tq) as lse
+    want_delta = np.einsum('bqhd,bqhd->bhq', g, _np(out))
+    np.testing.assert_allclose(delta.numpy(), want_delta, rtol=1e-5,
+                               atol=1e-4)
+
+
 @pytest.mark.parametrize('shape,t_kv,causal', CASES)
 def test_forward_model_matches_jax(mode, shape, t_kv, causal):
     _check_forward(shape, t_kv, causal, 0)
@@ -234,6 +283,16 @@ def test_forward_model_matches_jax(mode, shape, t_kv, causal):
 @pytest.mark.parametrize('shape,t_kv,causal', CASES)
 def test_dkv_model_matches_jax(mode, shape, t_kv, causal):
     _check_dkv(shape, t_kv, causal, 1)
+
+
+@pytest.mark.parametrize('shape,t_kv,causal', CASES)
+def test_dq_model_matches_jax(mode, shape, t_kv, causal):
+    _check_dq(shape, t_kv, causal, 5)
+
+
+@pytest.mark.parametrize('d', [64, 128])
+def test_dq_model_matches_jax_adversarial(mode, d):
+    _check_dq((1, 130, 2, d), 130, True, 6, adversarial=True)
 
 
 @pytest.mark.parametrize('d', [64, 128])
@@ -284,6 +343,28 @@ def test_split_is_what_keeps_the_second_products_exact(d):
                        ((out, ref_out), (dk, ref_dk), (dv, ref_dv))]
     for name, one, two in zip(('out', 'dk', 'dv'), errs[False], errs[True]):
         assert one >= 16 * two, (name, one, two)
+
+
+@pytest.mark.parametrize('d', [64, 128])
+def test_split_is_what_keeps_dq_exact(d):
+    """On the same inputs, ``ds`` rounded once to bf16 gives at least 16
+    times the split's error in dq, in f32 before its own rounding."""
+    shape = (1, 130, 2, d)
+    q, k, v, g = _operands(shape, 130, 7)
+    scale = d ** -0.5
+    out, vjp = jax.vjp(
+        lambda a, b, c: jops.flash_attention(a, b, c, causal=True,
+                                             scale=scale),
+        *(_jax(x, jnp.float32) for x in (q, k, v)))
+    ref_dq = _np(vjp(_jax(g, jnp.float32))[0])
+    tq, tk, tv, tg = (_torch(x) for x in (q, k, v, g))
+    _, lse = fwd_model(tq, tk, tv, True, scale)
+    errs = {}
+    for split in (True, False):
+        dq, _ = dq_model(tq, tk, tv, tg, _torch(_np(out), torch.float32),
+                         lse, True, scale, split)
+        errs[split] = float(np.abs(dq.numpy() - ref_dq).max())
+    assert errs[False] >= 16 * errs[True], errs
 
 
 # ---------------------------------------------------------------------

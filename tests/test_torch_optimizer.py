@@ -1,6 +1,8 @@
 """The port's fused momentum SGD (plain version on the CPU) against the
 JAX package's ``ops.momentum_sgd`` and ``ops.fused_momentum_sgd``, in the
-``fallback`` and ``interpret`` modes, over 3 steps.
+``fallback`` and ``interpret`` modes, over 3 steps; and the host side of
+the multi-tensor kernel (its table of tensors, the optimizer's layout
+checks).
 
 f32 at rtol 1e-6: the update is the same two products and two sums in
 the same order on both sides, so only the last bit may differ.  The
@@ -9,6 +11,8 @@ delta`` nearly cancels, one ulp of ``p`` is a large relative error of
 the small result (XLA may contract ``mu * v + g`` into an FMA in
 interpret mode).
 """
+
+import importlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -139,3 +143,51 @@ def test_jax_update_tree_layout(lr):
         np.asarray(optax.apply_updates(
             {'w': jnp.zeros(3)},
             tx.update({'w': jnp.ones(3)}, state)[0])['w']), **TOL)
+
+
+# ---------------------------------------------------------------------
+# the multi-tensor kernel's table (built on the host; no card needed)
+
+def test_sgd_table_groups_by_dtype_pair_keeping_order_and_counts():
+    sgd = importlib.import_module('chainermn_tpu_torch.ops.optimizer')
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (param dtype, grad dtype, shape): two pairs interleaved, an empty
+    # tensor left out
+    spec = [(f32, f32, (3, 4)), (f32, bf16, (5,)), (f32, f32, (0, 2)),
+            (f32, f32, (2, 3, 1, 1)), (bf16, bf16, (7,)),
+            (f32, bf16, (2, 2))]
+    ps = [torch.zeros(s, dtype=pd) for pd, _, s in spec]
+    gs = [torch.zeros(s, dtype=gd) for _, gd, s in spec]
+    vs = [torch.zeros(s) for _, _, s in spec]
+    groups = sgd.sgd_table(ps, gs, vs)
+    codes = {f32: 0, bf16: 1}
+    want = {}
+    for (pd, gd, shape), p, g, v in zip(spec, ps, gs, vs):
+        if p.numel():
+            want.setdefault((codes[gd], codes[pd]), []).extend(
+                [g.data_ptr(), v.data_ptr(), p.data_ptr(), p.numel()])
+    assert list(groups) == [(0, 0), (1, 0), (1, 1)]   # first-seen order
+    assert {k: list(v) for k, v in groups.items()} == want
+    assert [len(v) // 4 for v in groups.values()] == [2, 2, 1]
+    with pytest.raises(TypeError, match='float32 or bfloat16'):
+        sgd.sgd_table([torch.zeros(2)], [torch.zeros(2, dtype=torch.half)],
+                      [torch.zeros(2)])
+    with pytest.raises(ValueError):
+        sgd.sgd_table(ps, gs[:-1], vs)
+
+
+def test_fused_optimizer_checks_layouts_once_and_grads_every_step():
+    w = torch.nn.Parameter(torch.ones(4, 6))
+    opt = ops.FusedMomentumSGD([w], LR, MU)
+    w.grad = torch.ones(4, 6)
+    opt.step()
+    assert list(opt._layouts) == [w]
+    assert set(opt.state[w]) == {'velocity'}
+    layout = opt._layouts[w]
+    w.grad = torch.ones(4, 6)
+    opt.step()
+    assert opt._layouts[w] is layout           # not checked again
+    # a grad laid out otherwise than its param is refused
+    w.grad = torch.ones(6, 4).t()
+    with pytest.raises(ValueError, match='does not match'):
+        opt.step()
