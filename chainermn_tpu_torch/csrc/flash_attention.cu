@@ -130,38 +130,58 @@
 // (dk/dv's second products) the minimum, on mma.sync, which reaches a
 // part of the rate that wgmma does.
 //
-// ---- decode (cmn_flash_decode) ----
-// One block of 128 threads per (row, head): one query row against its
-// slot's cache, read in place in its (slots, S, H, D) layout through
-// strides (no per-step merge or pad copy of the layer's cache), with an
-// optional row -> slot map so a compacted bucket reads its rows without a
-// gather.  The loop covers ceil(length / 128) key tiles only, and inside
-// the last tile only positions < length are read, so the kernel moves the
-// live bytes and nothing else.  Thread t scores position t of the tile
-// (its K row read with 16-byte vector loads), the block reduces max and
-// sum, and for P.V thread t owns column t % D of a key group, the groups
-// summed in a fixed order at the end.  int8 caches are dequantized with
-// their per-(position, head) f32 scales before the products, as the TPU
-// kernel does.
-// What bounds it on the H100: device-memory bytes (one pass over the live
-// cache, 2 flops per byte of bf16 K/V).
-//
-// ---- paged decode (cmn_flash_decode_paged) ----
-// The TPU kernel walks a (B*H, n_max) grid, one page per grid step, with
-// the page table in SMEM and the fetch of dead pages clamped to the live
-// frontier.  Here it is the slot decode kernel itself, instantiated with
-// kPaged: the same block of 128 threads per (row, head), the same tiles of
-// 128 positions, only ceil(length / 128) of them, the same block_max /
-// block_sum order.  Only the address of a position changes: position p of
-// row b lives at pool + table[b, p / ps] * page_stride + (p % ps) *
-// offset_stride (its int8 scale at the same page and offset), each thread
-// looking up its own position's page.  A tile may span several pages and
-// the pages need not be in order; the P.V phase reads each key's v offset
-// from shared memory, where the thread that scored the key left it.  So
-// paged and slot decode over the same K/V give equal bits, and a thread
-// never reads a table entry or a page past the row's live length.
-// What bounds it: device-memory bytes, as the slot kernel (the table adds
-// 4 bytes per page).
+// ---- decode (cmn_flash_decode, cmn_flash_decode_paged): split-K ----
+// One query row per (row, head) against its cache: the slot form reads a
+// (slots, S, H, D) cache in place through strides, with an optional row ->
+// slot map (replaces _decode_kernel, launched by _decode_pallas); the
+// paged form reads a pool (P, ps, H, D) through the row's page table
+// (replaces _decode_paged_kernel, launched by _decode_paged_pallas).  Both
+// are flash_decode_split_kernel, with kPaged choosing the address of a
+// position: slot * slot_stride + p * pos_stride, or table[b, p / ps] *
+// page_stride + (p % ps) * offset_stride.  int8 caches carry per-(position,
+// head) f32 scales: the K scale multiplies the score, the V scale rides on
+// p (l sums the unscaled p).
+// What bounds it on the H100: device-memory bytes -- one pass over the
+// live K/V, 2 flops per byte of bf16 (no tensor-core work: one query row
+// a head).  A row's live bytes are a few KB to a few hundred KB, so the
+// time is the latency of getting them moving: the kernel has to put many
+// bytes in flight at once on every SM.
+// What the design does about it (flash-decoding):
+//  - the key axis is cut into splits of kSplit = 128 positions, a block
+//    per (row, head, split): at 32 rows x 8 heads and S = 512, up to 1024
+//    blocks.  Row r has ceil(len_r / kSplit) live splits; the grid is
+//    sized from S (slot) or n_max * ps (paged), which the host knows, and
+//    a block past its row's live splits exits at once.  128 and not 64:
+//    the serving engine's rows (prompts up to 128 tokens plus the tokens
+//    made so far) mostly fit one split and skip the merge, which costs a
+//    fence, an atomic and a second read of the partials (on the H100, 64
+//    took 0.0054 ms a call at the serve profile's lengths 65-96 against
+//    0.0028-0.0039 for 128, and 0.0103 against 0.0107 at S 512, uniform
+//    lengths; PERF.md);
+//  - a block requests ALL of its split's K and V chunks (16 bytes a lane)
+//    into registers before it uses any: kLanes = D * sizeof(TK) / 16
+//    lanes read one row contiguously, kThreads / kLanes rows at once,
+//    kRows (<= 8) times: 16 KB of K and 16 KB of V in flight a block at
+//    bf16 D = 64.  Registers and not shared memory: the time is a chain
+//    of dependent latencies -- the length, the table entry, the K/V
+//    bytes, the merge -- not the bytes in flight, and a cp.async staging
+//    measured 10-15% slower.  The lanes of a row join their partial dots
+//    by xor shuffles; for P.V each lane keeps the kVec columns of its
+//    chunk, summed over its rows in order, then over a warp's row groups
+//    by xor shuffles, then over the warps in order;
+//  - each split writes its (m, l, acc[D]) in f32 to a workspace, and the
+//    last block of the row to finish (a ticket counter, atomicInc, which
+//    wraps back to zero) merges the splits in split order 0..n-1: M =
+//    max m_j, l = sum l_j exp(m_j - M), acc likewise, out = acc / max(l,
+//    1e-30).  No atomic touches a value.  A row with one live split
+//    writes its output directly: a merge of one has weight exp(0) = 1 and
+//    gives the same bits.
+// Why the two forms stay bit-equal: the split boundaries are a function of
+// the position alone (never of the page size), and every sum runs in the
+// same order in both; only the addresses differ.  Two runs give equal
+// bits for the same reason.  No table entry or page at or past a row's
+// live length is read.  The rounding order is modelled in PyTorch ops in
+// tests/test_torch_decode_split.py.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -1490,8 +1510,12 @@ cudaError_t launch_dq_tc(const BwdArgs& a, int bh, cudaStream_t stream) {
 // ---------------------------------------------------------------------
 // decode
 
-constexpr int kDecThreads = 128;
-constexpr int kDecBK = kDecThreads;  // keys per tile: one per thread
+// Positions of the key axis one block owns.  The split boundaries are a
+// function of the position alone -- never of the page size, the layout
+// or the card -- so paged and slot decode over the same K/V give equal
+// bits.  chainermn_tpu_torch/ops/flash_attention.py DECODE_SPLIT names
+// the same number (the wrapper sizes the workspace with it).
+constexpr int kSplit = 128;
 
 // The slot kernel reads a (slots, S, H, D) cache; the paged kernel a pool
 // (P, page_size, H, D) through per-row page tables.  For the paged kernel
@@ -1515,154 +1539,212 @@ struct DecArgs {
   void* out;           // (N, H, D), contiguous, q's dtype
   int h, s_max;        // paged: s_max = n_max * page_size
   float scale;
+  // split partials: acc (N*H, n_split, D) then (m, l) (N*H, n_split, 2),
+  // f32; tickets (N*H,) zero between launches (the last block of a
+  // (row, head) leaves its counter at zero again)
+  float* ws;
+  unsigned* tickets;
+  int n_split;         // ceil(s_max / kSplit), the grid's y
 };
 
-// Element offset of position `pos` of a row in a cache operand of strides
-// (ss: slot or page, sp: position or in-page offset).  The paged form
-// reads table[pos / page_size] -- only ever for pos < length, so no entry
-// at or past ceil(length / page_size) is read.
-template <bool kPaged>
-__device__ __forceinline__ int64_t pos_offset(const DecArgs& a, int64_t slot,
-                                              const int* table, int pos,
-                                              int64_t ss, int64_t sp) {
-  if (kPaged)
-    return (int64_t)table[pos / a.page_size] * ss +
-           (int64_t)(pos % a.page_size) * sp;
-  return slot * ss + (int64_t)pos * sp;
-}
-
-__device__ __forceinline__ float block_max(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_max(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int w = 1; w < kDecThreads / 32; ++w) r = fmaxf(r, red[w]);
-  __syncthreads();  // red is reused by the next reduction
-  return r;
-}
-
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int w = 1; w < kDecThreads / 32; ++w) r += red[w];  // fixed order
-  __syncthreads();
-  return r;
-}
-
-// q_s . (k_row * kscale) over D elements read as 16-byte vectors (the
-// wrapper guarantees 16-byte alignment of every row).
+// How a block of the (TK, D) instantiation covers its split: a row of D
+// elements is kLanes 16-byte chunks, one lane each; kThreads / kLanes rows
+// are read at once, kRows times.
 template <typename TK, int D>
-__device__ __forceinline__ float dot_row(const float* qs, const TK* kr,
-                                         float kscale) {
-  constexpr int kVec = 16 / sizeof(TK);
-  const uint4* kv = reinterpret_cast<const uint4*>(kr);
-  float dot = 0.f;
-#pragma unroll
-  for (int u = 0; u < D / kVec; ++u) {
-    const uint4 w = __ldg(kv + u);
-    const TK* e = reinterpret_cast<const TK*>(&w);
-#pragma unroll
-    for (int t = 0; t < kVec; ++t)
-      dot = fmaf(qs[u * kVec + t], to_f32(e[t]) * kscale, dot);
-  }
-  return dot;
-}
+struct DecShape {
+  static constexpr int kVec = 16 / (int)sizeof(TK);  // elements a chunk
+  static constexpr int kLanes = D / kVec;            // lanes a row: 2..32
+  static constexpr int kThreads =
+      kSplit * kLanes >= 1024 ? kSplit * kLanes / 8 : 128;
+  static constexpr int kStride = kThreads / kLanes;  // rows read at once
+  static constexpr int kRows = kSplit / kStride;     // rows a thread
+  static constexpr int kWarps = kThreads / 32;
+  static_assert(kLanes >= 2 && kLanes <= 32 && 32 % kLanes == 0, "lanes");
+  static_assert(kRows * kStride == kSplit && D <= kThreads, "split");
+};
 
-// One template for both caches: the arithmetic, the tiles and the order of
-// every reduction are the same, only the address of a position differs
-// (pos_offset), so paged and slot decode over the same K/V give equal bits.
+// One template for both caches: the arithmetic, the split and the order
+// of every reduction are the same, only the address of a position
+// differs, so paged and slot decode over the same K/V give equal bits.
+// Block (row * h + head, split) scores positions [split * kSplit, +kSplit)
+// of its row; blocks past the row's live splits exit at once.
 template <typename TQ, typename TK, int D, bool kPaged>
-__global__ void __launch_bounds__(kDecThreads) flash_decode_kernel(DecArgs a) {
-  constexpr int G = kDecThreads / D;  // key groups of the P.V phase
-  __shared__ float qs[D];
-  __shared__ float ps[kDecBK];
-  __shared__ float red[kDecThreads / 32];
-  __shared__ float part[kDecThreads];
-  __shared__ int64_t voff[kPaged ? kDecBK : 1];  // paged: v offset per key
+__global__ void __launch_bounds__(DecShape<TK, D>::kThreads)
+    flash_decode_split_kernel(DecArgs a) {
+  using S = DecShape<TK, D>;
+  constexpr int kVec = S::kVec, kLanes = S::kLanes, kRows = S::kRows;
+  constexpr bool kQuant = std::is_same<TK, int8_t>::value;
+  __shared__ float red[S::kWarps];
+  __shared__ float lsum[S::kWarps];
+  __shared__ float part[S::kWarps][D];
+  __shared__ bool last;
 
-  const int row = blockIdx.x / a.h, hh = blockIdx.x % a.h;
-  const int tid = threadIdx.x;
+  const int bh = blockIdx.x, split = blockIdx.y;
+  const int row = bh / a.h, hh = bh % a.h;
   int len = a.lengths[row];
-  if (len > a.s_max) len = a.s_max;
+  len = len < a.s_max ? len : a.s_max;
+  const int n_live = len > kSplit ? (len + kSplit - 1) / kSplit : 1;
+  if (split >= n_live) return;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c = tid % kLanes, rg = tid / kLanes;
+  const int p0 = split * kSplit;
   const int64_t slot = kPaged ? 0 : (a.slots != nullptr ? a.slots[row] : row);
   const int* table = kPaged ? a.tables + (int64_t)row * a.n_max : nullptr;
+  const TK* kh = static_cast<const TK*>(a.k) + hh * a.k_sh + c * kVec;
+  const TK* vh = static_cast<const TK*>(a.v) + hh * a.v_sh + c * kVec;
 
-  const TQ* qp = static_cast<const TQ*>(a.q) + row * a.q_sn + hh * a.q_sh;
-  for (int c = tid; c < D; c += kDecThreads) qs[c] = to_f32(qp[c]) * a.scale;
-  const TK* kh = static_cast<const TK*>(a.k) + hh * a.k_sh;
-  const TK* vh = static_cast<const TK*>(a.v) + hh * a.v_sh;
-  const float* ksh = a.ks != nullptr ? a.ks + hh * a.ks_sh : nullptr;
-  const float* vsh = a.vs != nullptr ? a.vs + hh * a.vs_sh : nullptr;
-  __syncthreads();
-
-  const int col = tid % D, grp = tid / D;
-  float m = kNegInf, l = 0.f, acc = 0.f;
-  const int n_tiles = (len + kDecBK - 1) / kDecBK;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int p0 = j * kDecBK;
-    const int pos = p0 + tid;
-    float s = kNegInf;
-    if (pos < len)
-      s = dot_row<TK, D>(
-          qs, kh + pos_offset<kPaged>(a, slot, table, pos, a.k_ss, a.k_sp),
-          ksh != nullptr
-              ? ksh[pos_offset<kPaged>(a, slot, table, pos, a.ks_ss, a.ks_sp)]
-              : 1.f);
-    const float m_new = fmaxf(m, block_max(s, red));
-    const float alpha = expf(m - m_new);
-    const float p = expf(s - m_new);
-    l = l * alpha + block_sum(p, red);
-    m = m_new;
-    // v's dequant scale rides on p (l sums the unscaled p)
-    ps[tid] = (vsh != nullptr && pos < len)
-                  ? p * vsh[pos_offset<kPaged>(a, slot, table, pos, a.vs_ss,
-                                               a.vs_sp)]
-                  : p;
-    if (kPaged && pos < len)
-      voff[tid] = pos_offset<kPaged>(a, slot, table, pos, a.v_ss, a.v_sp);
-    __syncthreads();
-    acc *= alpha;
-    const int live = len - p0 < kDecBK ? len - p0 : kDecBK;
-    for (int jj = grp; jj < live; jj += G) {
-      const int64_t vo =
-          kPaged ? voff[jj] : slot * a.v_ss + (int64_t)(p0 + jj) * a.v_sp;
-      acc = fmaf(ps[jj], to_f32(vh[vo + col]), acc);
-    }
-    __syncthreads();  // ps and voff are rewritten by the next tile
-  }
-  part[tid] = acc;
-  __syncthreads();
-  if (tid < D) {
-    float t = part[tid];
+  // Every K and V chunk (and int8 scale) of the split's live rows is
+  // requested here, before any is used: kRows 16-byte loads of K and of V
+  // a thread in flight at once.  The paged form looks each live
+  // position's page up in the table; no entry at or past
+  // ceil(len / page_size) is read.
+  uint4 kc[kRows], vc[kRows];
+  float ksc[kRows], vsc[kRows];
 #pragma unroll
-    for (int g = 1; g < G; ++g) t += part[g * D + tid];  // fixed order
-    TQ* op = static_cast<TQ*>(a.out) + ((int64_t)row * a.h + hh) * D;
-    store_f32(op + tid, t / fmaxf(l, 1e-30f));
+  for (int i = 0; i < kRows; ++i) {
+    const int pos = p0 + rg + i * S::kStride;
+    kc[i] = make_uint4(0u, 0u, 0u, 0u);
+    vc[i] = kc[i];
+    ksc[i] = vsc[i] = 1.f;
+    if (pos < len) {
+      const int64_t base = kPaged ? (int64_t)table[pos / a.page_size] : slot;
+      const int64_t off = kPaged ? pos % a.page_size : pos;
+      kc[i] = __ldg(reinterpret_cast<const uint4*>(kh + base * a.k_ss +
+                                                    off * a.k_sp));
+      vc[i] = __ldg(reinterpret_cast<const uint4*>(vh + base * a.v_ss +
+                                                    off * a.v_sp));
+      if (kQuant) {
+        ksc[i] = __ldg(a.ks + hh * a.ks_sh + base * a.ks_ss + off * a.ks_sp);
+        vsc[i] = __ldg(a.vs + hh * a.vs_sh + base * a.vs_ss + off * a.vs_sp);
+      }
+    }
   }
+  // this lane's kVec columns of the query, pre-scaled
+  const TQ* qp =
+      static_cast<const TQ*>(a.q) + row * a.q_sn + hh * a.q_sh + c * kVec;
+  float qs[kVec];
+#pragma unroll
+  for (int t = 0; t < kVec; ++t) qs[t] = to_f32(qp[t]) * a.scale;
+
+  // scores: a row's kLanes lanes each dot their chunk, then join by xor
+  // shuffles (every lane of the group ends with the same bits); int8: the
+  // K scale multiplies the score
+  float s[kRows];
+  float m = kNegInf;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const TK* e = reinterpret_cast<const TK*>(&kc[i]);
+    float dot = 0.f;
+#pragma unroll
+    for (int t = 0; t < kVec; ++t) dot = fmaf(qs[t], to_f32(e[t]), dot);
+#pragma unroll
+    for (int off = kLanes / 2; off > 0; off >>= 1)
+      dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    s[i] = p0 + rg + i * S::kStride < len ? dot * ksc[i] : kNegInf;
+    m = fmaxf(m, s[i]);
+  }
+  m = warp_max(m);
+  if (lane == 0) red[warp] = m;
+  __syncthreads();
+  m = red[0];
+#pragma unroll
+  for (int w = 1; w < S::kWarps; ++w) m = fmaxf(m, red[w]);
+
+  // p = exp(s - m) of the split; the V scale rides on p (l sums the
+  // unscaled p).  Each lane sums its rows in order, then the row groups
+  // of a warp join by xor shuffles and the warps in order 0..kWarps-1.
+  float l = 0.f, acc[kVec];
+#pragma unroll
+  for (int t = 0; t < kVec; ++t) acc[t] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const float p =
+        p0 + rg + i * S::kStride < len ? expf(s[i] - m) : 0.f;
+    l += p;
+    const float pv = p * vsc[i];
+    const TK* e = reinterpret_cast<const TK*>(&vc[i]);
+#pragma unroll
+    for (int t = 0; t < kVec; ++t) acc[t] = fmaf(pv, to_f32(e[t]), acc[t]);
+  }
+#pragma unroll
+  for (int off = 16; off >= kLanes; off >>= 1) {
+    l += __shfl_xor_sync(0xffffffffu, l, off);
+#pragma unroll
+    for (int t = 0; t < kVec; ++t)
+      acc[t] += __shfl_xor_sync(0xffffffffu, acc[t], off);
+  }
+  if (lane < kLanes) {
+#pragma unroll
+    for (int t = 0; t < kVec; ++t) part[warp][c * kVec + t] = acc[t];
+  }
+  if (lane == 0) lsum[warp] = l;
+  __syncthreads();
+
+  TQ* op = static_cast<TQ*>(a.out) + (int64_t)bh * D;
+  const int64_t pi = (int64_t)bh * a.n_split + split;
+  float* ws_ml = a.ws + (int64_t)gridDim.x * a.n_split * D;
+  if (tid < D) {
+    float o = part[0][tid], lt = lsum[0];
+#pragma unroll
+    for (int w = 1; w < S::kWarps; ++w) {
+      o += part[w][tid];
+      lt += lsum[w];
+    }
+    if (n_live == 1) {
+      // a merge of one split: weight exp(m - m) = 1, the same bits
+      store_f32(op + tid, o / fmaxf(lt, 1e-30f));
+    } else {
+      a.ws[pi * D + tid] = o;
+      if (tid == 0) {
+        ws_ml[pi * 2] = m;
+        ws_ml[pi * 2 + 1] = lt;
+      }
+    }
+  }
+  if (n_live == 1) return;
+
+  // The last of the row's live blocks to finish merges the splits, in
+  // split order 0..n_live-1 whichever block it is.  The ticket wraps to
+  // zero on the last increment (atomicInc), ready for the next launch;
+  // no atomic touches a value.
+  __threadfence();
+  __syncthreads();
+  if (tid == 0)
+    last = atomicInc(a.tickets + bh, (unsigned)(n_live - 1)) ==
+           (unsigned)(n_live - 1);
+  __syncthreads();
+  if (!last || tid >= D) return;
+  const float* ml = ws_ml + (int64_t)bh * a.n_split * 2;
+  const float* ac = a.ws + (int64_t)bh * a.n_split * D + tid;
+  float mx = kNegInf;
+  for (int j = 0; j < n_live; ++j) mx = fmaxf(mx, __ldcg(ml + 2 * j));
+  float lt = 0.f, o = 0.f;
+  for (int j = 0; j < n_live; ++j) {
+    const float w = expf(__ldcg(ml + 2 * j) - mx);
+    lt = fmaf(__ldcg(ml + 2 * j + 1), w, lt);
+    o = fmaf(__ldcg(ac + (int64_t)j * D), w, o);
+  }
+  store_f32(op + tid, o / fmaxf(lt, 1e-30f));
+}
+
+template <typename TQ, typename TK, int D, bool kPaged>
+cudaError_t launch_decode_split(const DecArgs& a, int n,
+                                cudaStream_t stream) {
+  const dim3 grid((unsigned)(n * a.h), (unsigned)a.n_split);
+  flash_decode_split_kernel<TQ, TK, D, kPaged>
+      <<<grid, DecShape<TK, D>::kThreads, 0, stream>>>(a);
+  return cudaGetLastError();
 }
 
 template <typename TQ, typename TK, bool kPaged>
 cudaError_t launch_decode(const DecArgs& a, int n, int d,
                           cudaStream_t stream) {
-  const dim3 grid((unsigned)(n * a.h));
-  if (d == 32)
-    flash_decode_kernel<TQ, TK, 32, kPaged>
-        <<<grid, kDecThreads, 0, stream>>>(a);
-  else if (d == 64)
-    flash_decode_kernel<TQ, TK, 64, kPaged>
-        <<<grid, kDecThreads, 0, stream>>>(a);
-  else if (d == 128)
-    flash_decode_kernel<TQ, TK, 128, kPaged>
-        <<<grid, kDecThreads, 0, stream>>>(a);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  if (d == 32) return launch_decode_split<TQ, TK, 32, kPaged>(a, n, stream);
+  if (d == 64) return launch_decode_split<TQ, TK, 64, kPaged>(a, n, stream);
+  if (d == 128)
+    return launch_decode_split<TQ, TK, 128, kPaged>(a, n, stream);
+  return cudaErrorInvalidValue;
 }
 
 template <typename TQ, bool kPaged>
@@ -1675,9 +1757,18 @@ cudaError_t launch_decode_kv(const DecArgs& a, int kv_dtype, int n, int d,
   return cudaErrorInvalidValue;
 }
 
+// Checks the workspace and tickets the wrapper handed over, then launches.
 template <bool kPaged>
-cudaError_t launch_decode_any(const DecArgs& a, int q_dtype, int kv_dtype,
-                              int n, int d, cudaStream_t stream) {
+cudaError_t launch_decode_any(DecArgs& a, int q_dtype, int kv_dtype, int n,
+                              int d, int64_t ws_floats, int64_t n_tickets,
+                              cudaStream_t stream) {
+  a.n_split = (a.s_max + kSplit - 1) / kSplit;
+  if (a.n_split > 65535 || (int64_t)n * a.h > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  if (ws_floats < (int64_t)n * a.h * a.n_split * (d + 2) ||
+      n_tickets < (int64_t)n * a.h || a.ws == nullptr ||
+      a.tickets == nullptr)
+    return cudaErrorInvalidValue;
   if (q_dtype == 0)
     return launch_decode_kv<float, kPaged>(a, kv_dtype, n, d, stream);
   if (q_dtype == 1)
@@ -1691,7 +1782,7 @@ DecArgs decode_args(const void* q, int64_t q_sn, int64_t q_sh, const void* k,
                     const float* vs, int64_t ks_ss, int64_t ks_sp,
                     int64_t ks_sh, int64_t vs_ss, int64_t vs_sp,
                     int64_t vs_sh, const int* lengths, void* out, int h,
-                    int s_max, float scale) {
+                    int s_max, float scale, float* ws, unsigned* tickets) {
   DecArgs a;
   a.q = q;
   a.q_sn = q_sn;
@@ -1721,6 +1812,9 @@ DecArgs decode_args(const void* q, int64_t q_sn, int64_t q_sh, const void* k,
   a.h = h;
   a.s_max = s_max;
   a.scale = scale;
+  a.ws = ws;
+  a.tickets = tickets;
+  a.n_split = 0;
   return a;
 }
 
@@ -1813,7 +1907,10 @@ int cmn_flash_bwd_dkv(const void* q, const void* k, const void* v,
 // cache (slots, S, H, D) through strides (slot, position, head), every row
 // 16-byte aligned; ks, vs: (slots, S, H) f32 scales for an int8 cache, or
 // null.  lengths: (N,) int32 >= 1; slots: (N,) int32 or null.  out:
-// (N, H, D) contiguous in q's dtype.  D is 32, 64 or 128.
+// (N, H, D) contiguous in q's dtype.  D is 32, 64 or 128.  ws: f32
+// scratch of at least N * H * ceil(S / kSplit) * (D + 2) floats (its
+// contents need not be set); tickets: at least N * H uint32 counters,
+// zero before the launch and zero again after it.
 int cmn_flash_decode(const void* q, int q_dtype, int64_t q_sn, int64_t q_sh,
                      const void* k, const void* v, int kv_dtype, int64_t k_ss,
                      int64_t k_sp, int64_t k_sh, int64_t v_ss, int64_t v_sp,
@@ -1821,16 +1918,19 @@ int cmn_flash_decode(const void* q, int q_dtype, int64_t q_sn, int64_t q_sh,
                      int64_t ks_ss, int64_t ks_sp, int64_t ks_sh,
                      int64_t vs_ss, int64_t vs_sp, int64_t vs_sh,
                      const int* lengths, const int* slots, void* out, int n,
-                     int h, int s_max, int d, float scale, void* stream_ptr) {
+                     int h, int s_max, int d, float scale, float* ws,
+                     int64_t ws_floats, unsigned* tickets, int64_t n_tickets,
+                     void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (n <= 0 || h <= 0 || s_max <= 0) return (int)cudaErrorInvalidValue;
   if ((kv_dtype == 2) != (ks != nullptr && vs != nullptr))
     return (int)cudaErrorInvalidValue;
   DecArgs a = decode_args(q, q_sn, q_sh, k, v, k_ss, k_sp, k_sh, v_ss, v_sp,
                           v_sh, ks, vs, ks_ss, ks_sp, ks_sh, vs_ss, vs_sp,
-                          vs_sh, lengths, out, h, s_max, scale);
+                          vs_sh, lengths, out, h, s_max, scale, ws, tickets);
   a.slots = slots;
-  return (int)launch_decode_any<false>(a, q_dtype, kv_dtype, n, d, stream);
+  return (int)launch_decode_any<false>(a, q_dtype, kv_dtype, n, d, ws_floats,
+                                       n_tickets, stream);
 }
 
 // The paged twin of cmn_flash_decode.  k, v: one layer's pool (P, ps, H, D)
@@ -1839,7 +1939,8 @@ int cmn_flash_decode(const void* q, int q_dtype, int64_t q_sn, int64_t q_sh,
 // n_max) int32 contiguous, position p of row i at page tables[i, p / ps],
 // offset p % ps; entries at or past ceil(lengths[i] / ps) are never read.
 // lengths: (N,) int32 in 1..n_max * ps.  out: (N, H, D) contiguous in q's
-// dtype.  D is 32, 64 or 128.
+// dtype.  D is 32, 64 or 128.  ws and tickets as for cmn_flash_decode,
+// with S = n_max * ps.
 int cmn_flash_decode_paged(
     const void* q, int q_dtype, int64_t q_sn, int64_t q_sh, const void* k,
     const void* v, int kv_dtype, int64_t k_sg, int64_t k_so, int64_t k_sh,
@@ -1847,19 +1948,23 @@ int cmn_flash_decode_paged(
     const float* vs, int64_t ks_sg, int64_t ks_so, int64_t ks_sh,
     int64_t vs_sg, int64_t vs_so, int64_t vs_sh, const int* tables,
     int n_max, int page_size, const int* lengths, void* out, int n, int h,
-    int d, float scale, void* stream_ptr) {
+    int d, float scale, float* ws, int64_t ws_floats, unsigned* tickets,
+    int64_t n_tickets, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (n <= 0 || h <= 0 || n_max <= 0 || page_size <= 0)
+  if (n <= 0 || h <= 0 || n_max <= 0 || page_size <= 0 ||
+      (int64_t)n_max * page_size > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   if ((kv_dtype == 2) != (ks != nullptr && vs != nullptr))
     return (int)cudaErrorInvalidValue;
   DecArgs a = decode_args(q, q_sn, q_sh, k, v, k_sg, k_so, k_sh, v_sg, v_so,
                           v_sh, ks, vs, ks_sg, ks_so, ks_sh, vs_sg, vs_so,
-                          vs_sh, lengths, out, h, n_max * page_size, scale);
+                          vs_sh, lengths, out, h, n_max * page_size, scale,
+                          ws, tickets);
   a.tables = tables;
   a.n_max = n_max;
   a.page_size = page_size;
-  return (int)launch_decode_any<true>(a, q_dtype, kv_dtype, n, d, stream);
+  return (int)launch_decode_any<true>(a, q_dtype, kv_dtype, n, d, ws_floats,
+                                      n_tickets, stream);
 }
 
 const char* cmn_fa_strerror(int err) {

@@ -22,10 +22,12 @@ layouts: ``(B, T, H, D)`` activations, ``(B, S, H, D)`` caches.
   cache prefix, per-row lengths, float or int8 caches with per-(position,
   head) scales, an optional row -> slot map): on CUDA tensors the kernel
   ``cmn_flash_decode`` (:func:`flash_decode`), which reads the cache in
-  place through its strides; on CPU tensors the plain blockwise version
-  (:func:`_decode_blockwise`), which gathers the rows first as the JAX
-  package's ``_attend_cache`` does.  Forward only, as in the JAX package
-  (decode is inference): it raises when asked to record a gradient.
+  place through its strides, a block per split of ``DECODE_SPLIT``
+  positions, the splits merged in a fixed order; on CPU tensors the
+  plain blockwise version (:func:`_decode_blockwise`), which gathers the
+  rows first as the JAX package's ``_attend_cache`` does.  Forward only,
+  as in the JAX package (decode is inference): it raises when asked to
+  record a gradient.
 - :func:`flash_attention_decode_paged` (the same read of a PAGED cache:
   a pool ``(P, page_size, H, D)`` shared by all sequences, addressed
   through per-row page tables): on CUDA tensors the kernel
@@ -55,6 +57,10 @@ BLOCK = 128
 HEAD_DIMS = (32, 64, 128)
 #: dtype codes of the decode kernel's cache operand
 KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+#: positions of the key axis one block of the decode kernels owns:
+#: ``kSplit`` of ``csrc/flash_attention.cu`` (the wrappers size the
+#: split workspace with it)
+DECODE_SPLIT = 128
 
 
 def _scale(q, scale):
@@ -383,15 +389,16 @@ def _lib():
         lib.cmn_flash_bwd_dq.restype = ctypes.c_int
         lib.cmn_flash_bwd_dkv.argtypes = bwd + [vp, vp] + tail
         lib.cmn_flash_bwd_dkv.restype = ctypes.c_int
+        scratch = [vp, i64, vp, i64, vp]   # workspace, tickets, stream
         lib.cmn_flash_decode.argtypes = (
             [vp, i32, i64, i64, vp, vp, i32] + [i64] * 6 + [vp, vp]
-            + [i64] * 6 + [vp, vp, vp, i32, i32, i32, i32, ctypes.c_float,
-                           vp])
+            + [i64] * 6 + [vp, vp, vp, i32, i32, i32, i32, ctypes.c_float]
+            + scratch)
         lib.cmn_flash_decode.restype = ctypes.c_int
         lib.cmn_flash_decode_paged.argtypes = (
             [vp, i32, i64, i64, vp, vp, i32] + [i64] * 6 + [vp, vp]
             + [i64] * 6 + [vp, i32, i32, vp, vp, i32, i32, i32,
-                           ctypes.c_float, vp])
+                           ctypes.c_float] + scratch)
         lib.cmn_flash_decode_paged.restype = ctypes.c_int
         lib.cmn_fa_strerror.argtypes = [ctypes.c_int]
         lib.cmn_fa_strerror.restype = ctypes.c_char_p
@@ -600,7 +607,10 @@ def flash_decode(q, k, v, lengths, scale, k_scale=None, v_scale=None,
     S, H)``, read in place through their strides; ``lengths`` int32
     ``(N,)``, each in 1..S; ``slots`` int32 ``(N,)`` maps row i to its
     cache slot (``None``: row i reads slot i).  Returns ``(N, H, D)``
-    contiguous in ``q.dtype``.  Replaces ``_decode_pallas``."""
+    contiguous in ``q.dtype``.  One launch: a block per (row, head,
+    split of ``DECODE_SPLIT`` positions), the splits merged in split
+    order by the row's last block (:func:`_decode_scratch`).  Replaces
+    ``_decode_pallas``."""
     what = 'flash_decode'
     _check_cuda(what, q, k, v, lengths, k_scale, v_scale, slots)
     n, h, d, q_code = _check_decode_operands(what, q, k, v, k_scale,
@@ -612,11 +622,12 @@ def flash_decode(q, k, v, lengths, scale, k_scale=None, v_scale=None,
         raise ValueError('flash_decode: %d rows but %d cache slots and no '
                          'slots map' % (n, n_slots))
     out = torch.empty((n, h, d), dtype=q.dtype, device=q.device)
+    scratch, _keep = _decode_scratch(q, n, h, d, s_max)
     lib = _lib()
     err = lib.cmn_flash_decode(
         *_decode_lead(q, q_code, k, v, k_scale, v_scale),
         _common.ptr(lengths), _common.ptr(slots), _common.ptr(out),
-        n, h, s_max, d, float(scale), _common.stream_ptr(q.device))
+        n, h, s_max, d, float(scale), *scratch)
     _common.check_launch(err, lib.cmn_fa_strerror, what)
     flash_decode.launches += 1
     return out
@@ -680,6 +691,33 @@ def _check_int_vectors(what, *operands):
                                             tuple(t.shape)))
 
 
+# (device, stream) -> the decode kernels' ticket counters: zero between
+# launches (the last block of each (row, head) leaves its counter at zero),
+# so they are allocated once, zeroed, and kept; one set a stream, since
+# launches on one stream never overlap
+_TICKETS = {}
+
+
+def _decode_scratch(q, n, h, d, s_max):
+    """The trailing arguments of both decode entry points -- a float32
+    workspace for the splits' ``(m, l, acc)`` (``torch.empty``: a merge
+    reads only entries its launch wrote), its size, the ticket counters,
+    their count, and the stream -- and the tensors they point to, which
+    the caller holds until the launch is queued."""
+    n_split = -(-s_max // DECODE_SPLIT)
+    ws = torch.empty(n * h * n_split * (d + 2), dtype=torch.float32,
+                     device=q.device)
+    stream = torch.cuda.current_stream(q.device)
+    key = (q.device, stream.cuda_stream)
+    tickets = _TICKETS.get(key)
+    if tickets is None or tickets.numel() < n * h:
+        tickets = torch.zeros(n * h, dtype=torch.int32, device=q.device)
+        _TICKETS[key] = tickets
+    return ((_common.ptr(ws), ws.numel(), _common.ptr(tickets),
+             tickets.numel(), ctypes.c_void_p(stream.cuda_stream)),
+            (ws, tickets))
+
+
 def _decode_lead(q, q_code, k, v, k_scale, v_scale):
     """The leading arguments both decode entry points share: q and its
     strides, the cache operands with their strides, the scales with
@@ -705,6 +743,8 @@ def flash_decode_paged(q, k, v, page_tables, lengths, scale, k_scale=None,
     ``page_tables[i, p // ps]``; ``lengths`` int32 ``(N,)``, each in
     1..n_max * ps.  Table entries at or past ``ceil(lengths[i] / ps)``
     are never read.  Returns ``(N, H, D)`` contiguous in ``q.dtype``.
+    The slot kernel's split and merge over the row's positions, so its
+    bits equal :func:`flash_decode`'s over the same pages gathered.
     Replaces ``_decode_paged_pallas``."""
     what = 'flash_decode_paged'
     _check_cuda(what, q, k, v, page_tables, lengths, k_scale, v_scale)
@@ -719,12 +759,12 @@ def flash_decode_paged(q, k, v, page_tables, lengths, scale, k_scale=None,
     if n_max == 0:
         raise ValueError('%s: empty page tables' % what)
     out = torch.empty((n, h, d), dtype=q.dtype, device=q.device)
+    scratch, _keep = _decode_scratch(q, n, h, d, n_max * k.shape[1])
     lib = _lib()
     err = lib.cmn_flash_decode_paged(
         *_decode_lead(q, q_code, k, v, k_scale, v_scale),
         _common.ptr(page_tables), n_max, k.shape[1], _common.ptr(lengths),
-        _common.ptr(out), n, h, d, float(scale),
-        _common.stream_ptr(q.device))
+        _common.ptr(out), n, h, d, float(scale), *scratch)
     _common.check_launch(err, lib.cmn_fa_strerror, what)
     flash_decode_paged.launches += 1
     return out

@@ -9,13 +9,16 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. device: the card's name and power limit;
 2. build: every ``chainermn_tpu_torch/csrc/*.cu`` with ``nvcc`` (all at
    once) into ``build/chainermn_tpu_torch/``, each kernel's registers and
-   spills from ``-Xptxas -v`` (a tensor-core kernel that spills fails);
+   spills from ``-Xptxas -v`` (a tensor-core, dq or decode kernel that
+   spills fails);
 3. kernels against their plain PyTorch versions on the card, at shapes
    of the ResNet-50 training path and of the full-width TransformerLM
    serving paths (LayerNorm, flash forward, decode attention and paged
-   decode attention in bf16, f32 and int8; paged decode also bit-equal
-   to decode over the same pages gathered, with shuffled pages and
-   dead table entries outside the pool; the flash forward's bf16
+   decode attention in bf16, f32 and int8, at lengths on both sides of
+   the decode kernels' split boundaries, each bit-equal across two runs,
+   timed also at the serve profile's lengths; paged decode also
+   bit-equal to decode over the same pages gathered, with shuffled
+   pages and dead table entries outside the pool; the flash forward's bf16
    tensor-core route at every head width, ragged, non-causal against
    more keys and with misaligned rows, its f32 scalar route; momentum
    SGD over ResNet-50's 161 tensors in one launch a step, bit-equal to
@@ -305,12 +308,14 @@ def phase_build():
             if spill:
                 spilled.append(name)
     _say('build', 'kernels that spill: %s' % (', '.join(spilled) or 'none'))
-    # the tensor-core kernels and every dq instantiation are laid out to
-    # keep everything in registers
+    # the tensor-core kernels, every dq instantiation and every decode
+    # instantiation are laid out to keep everything in registers
     bad = [name for name in spilled
-           if '_tc_kernel' in name or 'flash_bwd_dq' in name]
+           if '_tc_kernel' in name or 'flash_bwd_dq' in name
+           or 'flash_decode' in name]
     if bad:
-        raise AssertionError('a tensor-core or dq kernel spills: %s' % bad)
+        raise AssertionError('a tensor-core, dq or decode kernel spills: %s'
+                             % bad)
 
 
 def _bn_case(gen, m, c, dtype, residual, relu):
@@ -673,15 +678,53 @@ def _flash_cases(gen):
                 **scalar, **records[lm_shape])
 
 
-def _decode_inputs(gen, rows, n_slots, s, h, d, dtype):
+def _decode_inputs(gen, rows, n_slots, s, h, d, dtype, lengths=None):
     import torch
     q, _, _ = _strided_qkv(gen, (rows,), h, d, dtype)
     k = torch.randn((n_slots, s, h, d), generator=gen, device='cuda')
     v = torch.randn((n_slots, s, h, d), generator=gen, device='cuda')
-    lengths = torch.randint(1, s + 1, (rows,), generator=gen, device='cuda',
-                            dtype=torch.int32)
-    lengths[0], lengths[-1] = 1, s
+    if lengths is None:
+        lengths = torch.randint(1, s + 1, (rows,), generator=gen,
+                                device='cuda', dtype=torch.int32)
+        lengths[0], lengths[-1] = 1, s
+    else:
+        lengths = torch.tensor(lengths, dtype=torch.int32, device='cuda')
     return q, k.to(dtype), v.to(dtype), lengths
+
+
+def _split_lengths(s):
+    """Lengths on both sides of the decode kernels' split boundaries (the
+    splits are ``DECODE_SPLIT`` positions): 1, kSplit - 1, kSplit, kSplit
+    + 1, two splits and one more, three splits, S - 1 and S (those up to
+    S)."""
+    fa = importlib.import_module('chainermn_tpu_torch.ops.flash_attention')
+    n = fa.DECODE_SPLIT
+    return [x for x in (1, n - 1, n, n + 1, 2 * n, 2 * n + 1, 3 * n)
+            if x < s - 1] + [s - 1, s]
+
+
+def _serve_lengths(gen, rows=SERVE_SLOTS):
+    """The live lengths of the serve profile's decode steps: 64-token
+    prompts a few steps in, 65-96."""
+    import torch
+    return torch.randint(65, 97, (rows,), generator=gen, device='cuda',
+                         dtype=torch.int32)
+
+
+def _decode_bytes(lengths, h, d, itemsize, scales=False):
+    """The live K/V read once (with their f32 scales for int8), q read and
+    out written (bf16)."""
+    live = int(lengths.sum())
+    per_pos = 2 * h * (d * itemsize + (4 if scales else 0))
+    return live * per_pos + 2 * lengths.numel() * h * d * 2, live
+
+
+def _decode_row(kernel, plain, library, lengths, h, d, itemsize, extra=0):
+    """Times and bound of one decode shape (bf16 K/V)."""
+    t = timings(kernel, plain, library, iters=200, plain_iters=5)
+    n_bytes, live = _decode_bytes(lengths, h, d, itemsize)
+    b_ms, b_by = bound_ms(n_bytes + extra, 4 * live * h * d)
+    return dict(bound_ms=b_ms, bound_by=b_by, live_positions=live, **t)
 
 
 def _decode_cases(gen):
@@ -692,16 +735,25 @@ def _decode_cases(gen):
     fa = importlib.import_module('chainermn_tpu_torch.ops.flash_attention')
     bf16, f32 = torch.bfloat16, torch.float32
     # f32 sums in another order, 1e-5; bf16 out: BF16_TOL; int8: the same
-    # dequantized values, the scale applied to p in the kernel and to v
-    # in the plain version (the same f32 products in another order)
+    # dequantized values, the scales applied to the score and to p in the
+    # kernel and to k and v in the plain version (the same f32 products
+    # in another order)
     tol = {f32: (1e-5, 1e-5), bf16: BF16_TOL}
     errs = []
     timed = {}
-    for rows, n_slots, s, h, d, dtype in ((32, 32, 512, 8, 64, bf16),
-                                          (32, 32, 512, 8, 64, f32),
-                                          (5, 9, 300, 4, 128, f32),
-                                          (7, 7, 33, 2, 32, bf16)):
-        q, k, v, lengths = _decode_inputs(gen, rows, n_slots, s, h, d, dtype)
+    # the last three: lengths on both sides of the split boundaries, at
+    # every head width
+    for rows, n_slots, s, h, d, dtype, lens in (
+            (32, 32, 512, 8, 64, bf16, None),
+            (32, 32, 512, 8, 64, f32, None),
+            (5, 9, 300, 4, 128, f32, None),
+            (7, 7, 33, 2, 32, bf16, None),
+            (9, 12, 512, 8, 64, bf16, _split_lengths(512)),
+            (9, 9, 300, 4, 128, bf16, _split_lengths(300)),
+            (9, 11, 400, 2, 32, f32, _split_lengths(400))):
+        rows = rows if lens is None else len(lens)
+        q, k, v, lengths = _decode_inputs(gen, rows, n_slots, s, h, d, dtype,
+                                          lens)
         slots = torch.randperm(n_slots, generator=gen, device='cuda')[:rows]
         slots = slots.to(torch.int32)
         for kind in ('float', 'int8'):
@@ -712,46 +764,60 @@ def _decode_cases(gen):
             else:
                 args = (k, v, {})
             for sl in ((None, slots) if rows == n_slots else (slots,)):
+                what = 'flash_decode %s %s %s slots=%s' % (
+                    (rows, n_slots, s, h, d), dtype, kind, sl is not None)
                 got = ops.flash_decode(q, args[0], args[1], lengths,
                                        d ** -0.5, slots=sl, **args[2])
                 want = fa._decode_plain(q, args[0], args[1], lengths,
                                         d ** -0.5, args[2].get('k_scale'),
                                         args[2].get('v_scale'), sl)
-                check_close('flash_decode %s %s %s slots=%s' % (
-                    (rows, n_slots, s, h, d), dtype, kind, sl is not None),
-                    got, want, *tol[dtype])
+                check_close(what, got, want, *tol[dtype])
                 errs.append(max_err(got, want))
-            if (rows, s, dtype) == (32, 512, bf16):
+                again = ops.flash_decode(q, args[0], args[1], lengths,
+                                         d ** -0.5, slots=sl, **args[2])
+                if not torch.equal(again, got):
+                    raise AssertionError(what + ': two runs differ')
+            if (rows, s, dtype, lens) == (32, 512, bf16, None):
                 timed[kind] = (q, args, lengths)
     q, (k, v, _), lengths = timed['float']
     rows, h, d = q.shape
-    mask = (torch.arange(k.shape[1], device='cuda')[None, :]
-            < lengths[:, None])[:, None, None, :]
-    # (rows, H, 1, D) queries against (rows, H, S, D) views of the cache
-    qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-    t = timings(lambda: ops.flash_decode(q, k, v, lengths, 0.125),
-                lambda: fa._decode_plain(q, k, v, lengths, 0.125, None, None,
-                                         None),
-                lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                       attn_mask=mask),
-                iters=200, plain_iters=5)
-    live = int(lengths.sum())
-    n_bytes = 2 * live * h * d * k.element_size() + 2 * rows * h * d * 2
-    b_ms, b_by = bound_ms(n_bytes, 4 * live * h * d)
+
+    def row(lengths):
+        mask = (torch.arange(k.shape[1], device='cuda')[None, :]
+                < lengths[:, None])[:, None, None, :]
+        # (rows, H, 1, D) queries against (rows, H, S, D) views of the cache
+        qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        return _decode_row(
+            lambda: ops.flash_decode(q, k, v, lengths, 0.125),
+            lambda: fa._decode_plain(q, k, v, lengths, 0.125, None, None,
+                                     None),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   attn_mask=mask),
+            lengths, h, d, k.element_size())
+
+    rec = row(lengths)
+    serve_lengths = _serve_lengths(gen)
+    serve = row(serve_lengths)
     qi, (ki, vi, sc), _ = timed['int8']
     t_int8 = device_ms(lambda: ops.flash_decode(qi, ki, vi, lengths, 0.125,
                                                 **sc))
-    i8_ms, _ = bound_ms(2 * live * h * (d + 4) + 2 * rows * h * d * 2, 0)
+    i8_ms, _ = bound_ms(_decode_bytes(lengths, h, d, 1, True)[0], 0)
+    for what, r in (('S 512, uniform lengths', rec),
+                    ('S 512, the serve profile\'s lengths 65-96', serve)):
+        _say('kernels', 'flash_decode 32 rows, %s, %d live positions, bf16: '
+             '%s (SDPA with a length mask); bound %.5f ms' % (
+                 what, r['live_positions'], _fmt(r), r['bound_ms']))
     _say('kernels', 'flash_decode max err %.3g over %d cases (bf16 rtol, '
-         'atol: %s); 32 rows, S 512, %d live positions, bf16: %s (SDPA '
-         'with a length mask); bound %.5f ms; int8 device only %s ms '
-         '(bound %.5f)' % (max(errs), len(errs), BF16_TOL, live, _fmt(t),
-                           b_ms, _ms(t_int8), i8_ms))
+         'atol: %s), bit-equal between two runs in every case; int8 at S '
+         '512, uniform lengths: device only %s ms (bound %.5f)' % (
+             max(errs), len(errs), BF16_TOL, _ms(t_int8), i8_ms))
+    rec.update(int8_device_ms=t_int8, int8_bound_ms=i8_ms)
     return dict(name='flash_decode', route='cuda',
                 source='chainermn_tpu_torch/csrc/flash_attention.cu',
                 replaces='chainermn_tpu/ops/flash_attention.py:650',
-                max_abs_err=max(errs), bound_ms=b_ms, bound_by=b_by,
-                **t), lengths
+                max_abs_err=max(errs), shape=[rows, k.shape[1], h, d],
+                other_shapes={'serve lengths 65-96': serve},
+                **rec), (lengths, serve_lengths)
 
 
 def _paged_pool(gen, lengths, s, h, d, ps, dtype, n_pages=None):
@@ -773,11 +839,12 @@ def _paged_pool(gen, lengths, s, h, d, ps, dtype, n_pages=None):
     return k.to(dtype), v.to(dtype), tables.contiguous(), safe
 
 
-def _paged_decode_cases(gen, serve_lengths):
+def _paged_decode_cases(gen, lengths_by_shape):
     """The paged decode kernel against its plain version, against itself
     (two runs) and against the slot decode kernel over the same cache
     gathered into a contiguous copy (bit-equal); timed at the serving
-    shape with row 9's live lengths."""
+    shape with the slot decode row's live lengths, and with the serve
+    profile's."""
     import torch
     import torch.nn.functional as F
     from chainermn_tpu_torch import ops
@@ -789,15 +856,23 @@ def _paged_decode_cases(gen, serve_lengths):
     tol = {f32: (1e-5, 1e-5), bf16: BF16_TOL}
     errs = []
     timed = {}
+    serve_lengths, profile_lengths = lengths_by_shape
     ragged = lambda n, s: torch.randint(  # noqa: E731
         1, s + 1, (n,), generator=gen, device='cuda', dtype=torch.int32)
+    split = lambda s: torch.tensor(  # noqa: E731
+        _split_lengths(s), dtype=torch.int32, device='cuda')
+    # the last three: lengths on both sides of the split boundaries, with
+    # pages that do and do not divide the split
     cases = [(serve_lengths, 512, 8, 64, 16, bf16, 1 + 32 * 32),
              (serve_lengths, 512, 8, 64, 16, f32, None),
              (ragged(9, 512), 512, 4, 128, 8, f32, None),
              (ragged(7, 300), 300, 2, 32, 32, bf16, None),
              (ragged(5, 77), 77, 8, 64, 8, bf16, None),
              (torch.ones(3, dtype=torch.int32, device='cuda'), 16, 8, 64, 16,
-              bf16, None)]
+              bf16, None),
+             (split(512), 512, 8, 64, 16, bf16, None),
+             (split(300), 300, 4, 128, 24, bf16, None),
+             (split(400), 400, 2, 32, 5, f32, None)]
     for lengths, s, h, d, ps, dtype, n_pages in cases:
         lengths = lengths.clone()
         lengths[0] = 1                  # a pad row: one position of a page
@@ -839,43 +914,58 @@ def _paged_decode_cases(gen, serve_lengths):
                 timed[kind] = (q, kk, vv, tables, safe, lengths, scales)
     q, k, v, tables, safe, lengths, _ = timed['float']
     rows, h, d = q.shape
-    s = safe.shape[1] * k.shape[1]
-    mask = (torch.arange(s, device='cuda')[None, :]
-            < lengths[:, None])[:, None, None, :]
+    ps = k.shape[1]
+    s = safe.shape[1] * ps
 
-    def library():
-        # the gather into the contiguous layout is part of the call
-        kt = fa._gather_pages(k, safe).transpose(1, 2)
-        vt = fa._gather_pages(v, safe).transpose(1, 2)
-        return F.scaled_dot_product_attention(q[:, :, None], kt, vt,
-                                              attn_mask=mask)
+    def row(k, v, tables, safe, lengths):
+        mask = (torch.arange(s, device='cuda')[None, :]
+                < lengths[:, None])[:, None, None, :]
 
-    t = timings(lambda: ops.flash_decode_paged(q, k, v, tables, lengths,
-                                               0.125),
-                lambda: fa._decode_paged_plain(q, k, v, safe, lengths, 0.125),
-                library, iters=200, plain_iters=5)
-    live = int(lengths.sum())
-    n_live_pages = int((-(-lengths // k.shape[1])).sum())
-    # live K/V read once, q read and out written (bf16), the live table
-    # entries and the lengths
-    n_bytes = (2 * live * h * d * k.element_size() + 2 * rows * h * d * 2
-               + 4 * n_live_pages + 4 * rows)
-    b_ms, b_by = bound_ms(n_bytes, 4 * live * h * d)
+        def library():
+            # the gather into the contiguous layout is part of the call
+            kt = fa._gather_pages(k, safe).transpose(1, 2)
+            vt = fa._gather_pages(v, safe).transpose(1, 2)
+            return F.scaled_dot_product_attention(q[:, :, None], kt, vt,
+                                                  attn_mask=mask)
+
+        n_live_pages = int((-(-lengths // ps)).sum())
+        # beside the slot kernel's bytes: the live table entries and the
+        # lengths
+        r = _decode_row(
+            lambda: ops.flash_decode_paged(q, k, v, tables, lengths, 0.125),
+            lambda: fa._decode_paged_plain(q, k, v, safe, lengths, 0.125),
+            library, lengths, h, d, k.element_size(),
+            extra=4 * n_live_pages + 4 * rows)
+        r['live_pages'] = n_live_pages
+        return r
+
+    rec = row(k, v, tables, safe, lengths)
+    # the serve profile's lengths (the slot row's), on a pool of the
+    # same shape
+    sl = profile_lengths
+    serve = row(*_paged_pool(gen, sl, s, h, d, ps, k.dtype, k.shape[0]), sl)
     qi, ki, vi, ti, _, _, sc = timed['int8']
     t_int8 = device_ms(lambda: ops.flash_decode_paged(qi, ki, vi, ti,
                                                       lengths, 0.125, **sc))
+    for what, r in (('uniform lengths', rec),
+                    ('the serve profile\'s lengths 65-96', serve)):
+        _say('kernels', 'flash_decode_paged 32 rows, pool %s, ps %d, %s, %d '
+             'live positions on %d shuffled pages, bf16: %s (SDPA with a '
+             'length mask, the gather of the pages included); bound %.5f ms '
+             'by %s' % (tuple(k.shape), ps, what, r['live_positions'],
+                        r['live_pages'], _fmt(r), r['bound_ms'],
+                        r['bound_by']))
     _say('kernels', 'flash_decode_paged max err %.3g over %d cases (bf16 '
          'rtol, atol: %s); bit-equal to flash_decode over the gathered cache '
-         'and between two runs in every case; 32 rows, pool %s, ps %d, %d '
-         'live positions on %d shuffled pages, bf16: %s (SDPA with a length '
-         'mask, the gather of the pages included); bound %.5f ms by %s; '
-         'int8 device only %s ms' % (
-             max(errs), len(errs), BF16_TOL, tuple(k.shape), k.shape[1],
-             live, n_live_pages, _fmt(t), b_ms, b_by, _ms(t_int8)))
+         'and between two runs in every case; int8 at uniform lengths: '
+         'device only %s ms' % (max(errs), len(errs), BF16_TOL,
+                                _ms(t_int8)))
+    rec.update(int8_device_ms=t_int8)
     return dict(name='flash_decode_paged', route='cuda',
                 source='chainermn_tpu_torch/csrc/flash_attention.cu',
                 replaces='chainermn_tpu/ops/flash_attention.py:953',
-                max_abs_err=max(errs), bound_ms=b_ms, bound_by=b_by, **t)
+                max_abs_err=max(errs), shape=[rows, s, h, d, ps],
+                other_shapes={'serve lengths 65-96': serve}, **rec)
 
 
 def phase_serving_kernels():
@@ -884,8 +974,8 @@ def phase_serving_kernels():
     import torch
     gen = torch.Generator(device='cuda').manual_seed(3)
     records = [_ln_cases(gen), _flash_cases(gen)]
-    decode, lengths = _decode_cases(gen)
-    return records + [decode, _paged_decode_cases(gen, lengths)]
+    decode, lengths_by_shape = _decode_cases(gen)
+    return records + [decode, _paged_decode_cases(gen, lengths_by_shape)]
 
 
 def phase_model_check():
@@ -1223,7 +1313,7 @@ def phase_serving_check():
 # kernel-name fragments of each group in the serving profile
 _SERVE_GROUPS = (('ported kernels', ('ln_kernel', 'flash_fwd_kernel',
                                      'flash_fwd_tc_kernel',
-                                     'flash_decode_kernel')),
+                                     'flash_decode_split_kernel')),
                  ('matmuls', ('gemm', 'cutlass', 'xmma', 'nvjet', 'sm90_',
                               'cublas')),
                  ('copies', ('memcpy', 'memset', 'copy')))
@@ -1274,6 +1364,16 @@ def profile_decode(eng, queue, n=5):
     for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         _say('serve-profile', '  %-16s %8.4f ms/step  %5.1f%% of device '
              'time' % (group, us / n / 1e3, 100 * us / busy))
+    # the decode kernel's share (slot or paged: one launch a layer a step)
+    dec = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and 'flash_decode' in e.key]
+    dec_us = sum(e.self_device_time_total for e in dec)
+    dec_n = sum(e.count for e in dec)
+    _say('serve-profile', '  decode kernel    %8.4f ms/step  %5.1f%% of '
+         'device time, %d launches/step, %.2f us a launch' % (
+             dec_us / n / 1e3, 100 * dec_us / busy, dec_n // n,
+             dec_us / max(dec_n, 1)))
     for key, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:10]:
         _say('serve-profile', '  %8.4f ms/step  %s' % (us / n / 1e3,
                                                        key[:90]))
