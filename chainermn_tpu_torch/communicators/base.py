@@ -12,6 +12,8 @@ Correspondence with the JAX package:
 - ``allreduce_grad``    -> mean over all processes, strategy-defined
 - ``allreduce(x, op)``  -> metrics and BatchNorm statistics
 - ``broadcast_data``    -> root's values to every process
+- ``allreduce_obj`` / ``bcast_obj`` -> one scalar / one picklable
+  object (the evaluator's collectives)
 
 Unlike the JAX versions, ``allreduce_grad`` and ``broadcast_data``
 update their tensors IN PLACE.
@@ -164,6 +166,33 @@ class CommunicatorBase:
                 p.copy_(buf[offset:offset + n].view(p.shape))
                 offset += n
         return params
+
+    # -- object collectives (the evaluator's) -------------------------------
+    def allreduce_obj(self, value, op='mean'):
+        """Allreduce one scalar (a Python number, a numpy scalar or a
+        0-d tensor) over all processes, in f64; returns a Python float.
+        The reference's pickle-based ``mpi_comm.allreduce`` of a metric
+        (``multi_node_evaluator.py:31-38``)."""
+        return float(self.allreduce(torch.tensor(
+            float(value), dtype=torch.float64, device=self.device), op))
+
+    def bcast_obj(self, obj, root=0):
+        """Every process receives ``root``'s picklable ``obj``."""
+        box = [obj]
+        dist.broadcast_object_list(box, src=root, device=self.device)
+        return box[0]
+
+    def send_obj(self, *args, **kwargs):
+        raise NotImplementedError(
+            'send_obj (with deadlines) is not ported yet (ROADMAP.md A1)')
+
+    def recv_obj(self, *args, **kwargs):
+        raise NotImplementedError(
+            'recv_obj (with deadlines) is not ported yet (ROADMAP.md A1)')
+
+    def barrier(self, *args, **kwargs):
+        raise NotImplementedError(
+            'barrier(timeout) is not ported yet (ROADMAP.md A1)')
 
     def __repr__(self):
         return '%s(rank=%d, size=%d, device=%s)' % (

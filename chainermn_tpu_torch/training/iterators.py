@@ -17,6 +17,7 @@ class SerialIterator:
         self.batch_size = batch_size
         self._repeat = repeat
         self._shuffle = shuffle
+        self._seed = seed
         self._rng = np.random.RandomState(seed)
         self.reset()
 
@@ -31,6 +32,28 @@ class SerialIterator:
         n = len(self.dataset)
         return (self._rng.permutation(n) if self._shuffle
                 else np.arange(n))
+
+    @property
+    def epoch_detail(self):
+        """Epochs done, with the fraction of the current one."""
+        return self.epoch + self._pos / max(1, len(self.dataset))
+
+    def restore_position(self, epoch_detail):
+        """Land where an uninterrupted run stood at ``epoch_detail``:
+        its epoch, its position in the epoch and, when shuffling, its
+        permutation (a repeating iterator draws one order at the start
+        and one at each epoch's end, so the seed's ``epoch + 1``-th
+        draw is the order of the current epoch).  The JAX package's
+        elastic ``restore_position`` keeps the position but draws a
+        fresh order; this one resumes the same sequence of batches."""
+        n = len(self.dataset)
+        epoch = int(epoch_detail)
+        self.epoch = epoch
+        self._pos = int(round((float(epoch_detail) - epoch) * n))
+        self.is_new_epoch = False
+        self._rng = np.random.RandomState(self._seed)
+        for _ in range(epoch + 1):
+            self._order = self._new_order()
 
     def __iter__(self):
         return self

@@ -16,6 +16,7 @@ into one SPMD program; here the same steps run eagerly in each process:
 
 import torch
 
+from chainermn_tpu_torch.models.flax_weights import to_flax_variables
 from chainermn_tpu_torch.training.convert import concat_examples
 
 
@@ -86,8 +87,19 @@ class StandardUpdater:
         return {k: float(v) for k, v in metrics.items()}
 
     @property
+    def params(self):
+        """The model's parameters as the JAX package's flax-named tree
+        (numpy copies, ``models.to_flax_variables``): what snapshots
+        store and ``NanGuard`` audits."""
+        return to_flax_variables(self.model)['params']
+
+    @property
     def epoch(self):
         return getattr(self.iterator, 'epoch', 0)
+
+    @property
+    def epoch_detail(self):
+        return getattr(self.iterator, 'epoch_detail', 0.0)
 
     @property
     def is_new_epoch(self):

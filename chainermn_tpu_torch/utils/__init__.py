@@ -1,2 +1,3 @@
 from chainermn_tpu_torch.utils.failure import (  # noqa: F401
-    CommFailure, OverloadError)
+    CheckpointCorruptError, CommFailure, DivergenceError, NanGuard,
+    OverloadError, check_finite)

@@ -21,8 +21,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    pages and dead table entries outside the pool; the flash forward's bf16
    tensor-core route at every head width, ragged, non-causal against
    more keys and with misaligned rows, its f32 scalar route; momentum
-   SGD over ResNet-50's 161 tensors in one launch a step, bit-equal to
-   its plain version over three steps and with bf16 gradients), with
+   SGD over ResNet-50's 161 tensors and over the MNIST MLP's 6 in one
+   launch a step, bit-equal to its plain version over three steps, and
+   with bf16 gradients), with
    kernel / plain / library times and the bound;
 4. one train-mode forward of full-width ResNet-50 (f32, TF32 off, batch
    2) on the card (kernels) against the same model on the CPU (plain
@@ -34,6 +35,18 @@ Phases, each printing its own lines; any failure exits non-zero:
    synthetic ImageNet set at batch 64, with the kernel launch counts of
    that run checked against the model's structure (one SGD launch a
    step for all 161 tensors);
+5a. the MNIST main path (``mnist``): the reference's convergence gate
+   (``MLP(100)``, ``FusedMomentumSGD(0.1, 0.9)``, the hard stand-in, a
+   batch of 104, 5 epochs, ``create_multi_node_evaluator`` every epoch,
+   ``create_communicator('xla')`` on NCCL) reaches 0.95, launches
+   ``momentum_sgd`` once a step after the broadcast call and no other
+   kernel, and its first 5 losses, and every parameter and velocity
+   after iteration 5, agree with the same run on the CPU; then the
+   example ``train_mnist.main`` at full width (``MLP(1000)``, Adam, the
+   classic stand-in, batch 100, 2 epochs): images/s from the p50 of the
+   synchronized ``update()`` calls and over the whole window, the
+   update p50/p99, the evaluator's time an epoch, the device busy share
+   over 3 profiled steps, and its log and snapshots;
 6. serving check: two f32 ``GenerationEngine``s at full width and depth
    2 from the same numpy-seeded weights, one on the card and one on the
    CPU, give the same greedy tokens for 8 prompts;
@@ -87,6 +100,12 @@ own device time from ``torch.profiler``, and are null when the tracer
 recorded no device event in any of its tries (the script does not fail
 for a lost trace: every check and every time of the contract comes from
 the kernels' results and from CUDA events).
+
+No PyTorch call computes the ``bn_apply`` row's case (+ residual,
++ relu), so its ``library_ms`` is null.  ``F.batch_norm(training=False)``
+on the same statistics computes the kernel's no-residual, no-relu case:
+the ``no_residual_*`` keys time the kernel and that call in that case,
+with ``no_residual_bound_ms`` its bound.
 
 A kernel row's ``launches`` sums the main paths that run it
 (``launches_by_path`` splits them); each path is driven with the counts
@@ -357,6 +376,7 @@ def _bn_case(gen, m, c, dtype, residual, relu):
 
 def phase_kernels():
     import torch
+    import torch.nn.functional as F
     from chainermn_tpu_torch import models, ops
     # the module (ops.batch_norm_act is the function of the same name)
     bn = importlib.import_module('chainermn_tpu_torch.ops.batch_norm_act')
@@ -391,9 +411,32 @@ def phase_kernels():
         replaces='chainermn_tpu/ops/batch_norm_act.py:110',
         max_abs_err=stats_err, bound_ms=b_ms, bound_by=b_by, **t))
     _say('kernels', 'bn_stats at %s bf16: %s (var_mean)' % ((m, c), _fmt(t)))
+    # F.batch_norm in inference form, from the same statistics, computes
+    # the kernel's no-residual, no-relu case: checked to agree
+    def library():
+        return F.batch_norm(x, mean, var, scale, bias, training=False,
+                            eps=1e-5)
+
+    def kernel_alone():
+        return ops.bn_apply(x, None, mean, rstd, scale, bias, False)
+
+    check_close('F.batch_norm vs bn_apply %s' % ((m, c),), library(),
+                kernel_alone(), 2e-2, 2e-2)
+    # no PyTorch call computes the row's case (+ residual, + relu), so
+    # its library_ms is null; the library's own case is timed under the
+    # ``no_residual_*`` keys, kernel and library side by side
     t = timings(lambda: ops.bn_apply(x, res, mean, rstd, scale, bias, True),
                 lambda: bn._apply_ref(x, mean, rstd, scale, bias, res, True),
                 None)
+    nr_bound, nr_by = bound_ms(2 * m * c * x.element_size() + 4 * c * 4,
+                               4 * m * c)
+    t.update(no_residual_case='no residual, no relu: F.batch_norm(x, '
+             'mean, var, scale, bias, training=False)',
+             no_residual_ms=time_ms(kernel_alone),
+             no_residual_device_ms=device_ms(kernel_alone),
+             no_residual_library_ms=time_ms(library),
+             no_residual_library_device_ms=device_ms(library),
+             no_residual_bound_ms=nr_bound)
     b_ms, b_by = bound_ms(3 * m * c * x.element_size() + 4 * c * 4,
                           5 * m * c)
     records.append(dict(
@@ -401,7 +444,12 @@ def phase_kernels():
         source='chainermn_tpu_torch/csrc/batch_norm_act.cu',
         replaces='chainermn_tpu/ops/batch_norm_act.py:161',
         max_abs_err=apply_err, bound_ms=b_ms, bound_by=b_by, **t))
-    _say('kernels', 'bn_apply at %s bf16 + residual: %s' % ((m, c), _fmt(t)))
+    _say('kernels', 'bn_apply at %s bf16 + residual + relu: %s; without '
+         'residual and relu: kernel per call %.5f ms (F.batch_norm %.5f), '
+         'device only %s ms (F.batch_norm %s); bound %.5f ms by %s' % (
+             (m, c), _fmt(t), t['no_residual_ms'],
+             t['no_residual_library_ms'], _ms(t['no_residual_device_ms']),
+             _ms(t['no_residual_library_device_ms']), nr_bound, nr_by))
 
     # momentum SGD over the ResNet-50 parameter list, 3 steps, one launch
     # a step for all 161 tensors
@@ -433,6 +481,26 @@ def phase_kernels():
     if sgd_err != 0.0:
         raise AssertionError('momentum_sgd: max abs err %.3g, expected 0'
                              % sgd_err)
+    # the MNIST MLP's six tensors (MLP(100)), as the gate steps them: one
+    # launch a step, bit-equal too
+    mlp = [(100, 784), (100,), (100, 100), (100,), (10, 100), (10,)]
+    mp = [torch.empty(s, device='cuda').normal_(generator=gen) for s in mlp]
+    mv = [torch.zeros_like(p) for p in mp]
+    rp, rv = [p.clone() for p in mp], [v.clone() for v in mv]
+    for _ in range(3):
+        mg = [torch.empty_like(p).normal_(generator=gen) for p in mp]
+        before = ops.momentum_sgd.launches
+        ops.momentum_sgd(mp, mg, mv, 0.1, 0.9)
+        if ops.momentum_sgd.launches - before != 1:
+            raise AssertionError('momentum_sgd: the MLP\'s tensors took %d '
+                                 'launches' % (ops.momentum_sgd.launches
+                                               - before))
+        for p, g, v in zip(rp, mg, rv):
+            sgd._sgd_update_ref(p, g, v, 0.1, 0.9)
+    mlp_err = max(max_err(a, b) for a, b in zip(mp + mv, rp + rv))
+    if mlp_err != 0.0:
+        raise AssertionError('momentum_sgd at the MLP\'s shapes: max abs '
+                             'err %.3g, expected 0' % mlp_err)
     # the bf16-gradient instantiation (v stays f32), in one table with a
     # tensor of another dtype pair: one launch each
     p1 = [torch.ones(4096, device='cuda'), torch.ones(999, device='cuda')]
@@ -1087,17 +1155,17 @@ def _by_group(kernels, groups):
     return out
 
 
-def profile_steps(updater, n=3):
+def profile_steps(updater, n=3, groups=_GROUPS):
     """Device time by kernel group over ``n`` more steps of the main
-    path (``torch.profiler``), and the device busy share of that
-    window's wall time."""
+    path (``torch.profiler``); returns the device busy share of that
+    window's wall time (None when no trace held a device event)."""
     import torch
     prof, kernels, wall_us = profiled(updater.update, n)
     busy = sum(kernels.values())
     if busy == 0:
         _say('profile', 'no device event in %d traces: not measured'
              % PROFILE_TRIES)
-        return
+        return None
     # the optimizer's step: its host span under the profiler, and the
     # device time of the SGD kernel by name (the tracer does not tie a
     # launch from the kernel libraries to the span that made it)
@@ -1109,15 +1177,16 @@ def profile_steps(updater, n=3):
                  '%d calls/step; momentum_sgd_kernel %.4f ms/step on the '
                  'device' % (e.key, e.cpu_time_total / n / 1e3,
                              e.count // n, sgd_us / n / 1e3))
-    groups = _by_group(kernels, _GROUPS)
+    by_group = _by_group(kernels, groups)
     _say('profile', '%d steps: wall %.1f ms, device busy %.1f ms (%.1f%%, '
          'idle %.1f%%)' % (n, wall_us / 1e3, busy / 1e3,
                            100 * busy / wall_us, 100 - 100 * busy / wall_us))
-    for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+    for group, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
         _say('profile', '  %-16s %8.2f ms/step  %5.1f%% of device time'
              % (group, us / n / 1e3, 100 * us / busy))
     for key, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
         _say('profile', '  %8.2f ms/step  %s' % (us / n / 1e3, key[:90]))
+    return busy / wall_us
 
 
 def with_tc(what, counts, tc):
@@ -1153,7 +1222,7 @@ def phase_main_path():
         updater = training.StandardUpdater(
             training.SerialIterator(train, BATCH, shuffle=False), opt,
             clf.loss, model, comm)
-        trainer = training.Trainer(updater, (STEPS, 'iteration'))
+        trainer = training.Trainer(updater, (STEPS, 'iteration'), out=None)
         marks, losses = [], []
 
         def record(tr):
@@ -1161,7 +1230,7 @@ def phase_main_path():
             marks.append(time.perf_counter())
             losses.append(tr.observation['loss'])
 
-        trainer.extend(record)
+        trainer.extend(record, trigger=(1, 'iteration'))
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         ops.reset_launch_counts()
@@ -1203,6 +1272,215 @@ def phase_main_path():
              ', '.join('%.1f' % (1e3 * s) for s in steps), STEPS - 1,
              1e3 * p50, BATCH / p50, BATCH,
              torch.cuda.max_memory_allocated() / 2 ** 30))
+    return counts
+
+
+# the MNIST gate's configuration (tests/test_mnist.py, the reference's CI
+# gate): MLP(100), momentum SGD 0.1 / 0.9, the hard stand-in, a global
+# batch of 104, 5 epochs
+MNIST_UNITS = 100
+MNIST_BATCH = 104
+MNIST_EPOCHS = 5
+MNIST_PARAMS = 6               # the MLP's parameter tensors
+MNIST_CHECK_ITER = 5           # the card run is held to the CPU run here
+# kernel-name fragments of the MNIST example's profile breakdown
+_MNIST_GROUPS = (('matmuls', ('gemm', 'cutlass', 'xmma', 'sm90')),
+                 ('adam', ('adam',)),
+                 ('nccl', ('nccl',)),
+                 ('copies and casts', ('memcpy', 'memset', 'copy')))
+
+
+def _sgd_state(updater):
+    """The model's parameters and ``FusedMomentumSGD``'s velocities, in
+    parameter order, copied to the host."""
+    opt = updater.optimizer.actual_optimizer
+    params = list(updater.model.parameters())
+    return [t.detach().cpu().clone() for t in params + [
+        opt.state[p]['velocity'] for p in params]]
+
+
+def _mnist_gate(device, stop, losses, states):
+    """The gate's trainer on ``device`` with the 'xla' communicator (a
+    world of one), stopped at ``stop``; each step's loss goes to
+    ``losses``, and the parameters and velocities after iteration
+    ``MNIST_CHECK_ITER`` go to ``states``.  Returns ``(trainer, log)``."""
+    import chainermn_tpu_torch as cmt
+    from chainermn_tpu_torch import models, ops, training
+    from chainermn_tpu_torch.datasets import mnist
+    comm = cmt.create_communicator('xla', device=device)
+    model = models.MLP(n_units=MNIST_UNITS, device=comm.device)
+    clf = models.Classifier(model)
+    opt = cmt.create_multi_node_optimizer(
+        ops.FusedMomentumSGD(model.parameters(), 0.1, 0.9), comm)
+    train, test = mnist.get_mnist(variant='hard')
+    updater = training.StandardUpdater(
+        training.SerialIterator(train, MNIST_BATCH), opt, clf, model, comm)
+    trainer = training.Trainer(updater, stop, out=None)
+    trainer.extend(cmt.create_multi_node_evaluator(training.Evaluator(
+        training.SerialIterator(test, MNIST_BATCH, repeat=False,
+                                shuffle=False), clf.eval_metrics, comm),
+        comm))
+    log = training.extensions.LogReport()
+    trainer.extend(log)
+    trainer.extend(lambda tr: losses.append(tr.observation['loss']),
+                   trigger=(1, 'iteration'))
+    def capture(tr):
+        if tr.updater.iteration == MNIST_CHECK_ITER:
+            states.extend(_sgd_state(tr.updater))
+
+    trainer.extend(capture, trigger=(1, 'iteration'))
+    return trainer, log
+
+
+def _mnist_example(out):
+    """``train_mnist.main`` at full width on the card, each update timed
+    (synchronized before and after) and each evaluation timed; returns
+    ``(trainer, update ms, evaluation ms, window s)``, the window running
+    from the first update's start to the end of the run, extensions
+    included."""
+    import torch
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.examples.mnist import train_mnist
+    update, evaluate = training.StandardUpdater.update, \
+        training.Evaluator.evaluate
+    update_ms, eval_ms, starts = [], [], []
+
+    def timed(fn, into):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            starts.append(t0)
+            result = fn(*args, **kw)
+            torch.cuda.synchronize()
+            into.append(1e3 * (time.perf_counter() - t0))
+            return result
+        return call
+
+    training.StandardUpdater.update = timed(update, update_ms)
+    training.Evaluator.evaluate = timed(evaluate, eval_ms)
+    try:
+        trainer = train_mnist.main(['--unit', '1000', '--epoch', '2',
+                                    '--out', out])
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - starts[0]
+    finally:
+        training.StandardUpdater.update = update
+        training.Evaluator.evaluate = evaluate
+    return trainer, update_ms, eval_ms, window_s
+
+
+def phase_mnist():
+    import shutil
+    import tempfile
+    import torch
+    from chainermn_tpu_torch import ops
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError('expected full-f32 matmuls (allow_tf32 False)')
+    # 1. the gate: first the same configuration on the CPU (gloo), five
+    # iterations, then the whole run on the card (NCCL)
+    cpu_losses, losses, cpu_states, states = [], [], [], []
+    trainer, _ = _mnist_gate('cpu', (MNIST_CHECK_ITER, 'iteration'),
+                             cpu_losses, cpu_states)
+    trainer.run()
+    trainer.updater.comm.close()
+    trainer, log = _mnist_gate(None, (MNIST_EPOCHS, 'epoch'), losses, states)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        trainer.run()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        sgd_tensors = ops.momentum_sgd.tensors
+    finally:
+        trainer.updater.comm.close()
+    gate_s = time.perf_counter() - t0
+    iterations = trainer.updater.iteration
+    acc = trainer.observation['validation/main/accuracy']
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want.update(momentum_sgd=iterations - 1)   # the first call broadcasts
+    if counts != want:
+        raise AssertionError('MNIST gate: launch counts %s, expected %s'
+                             % (counts, want))
+    if sgd_tensors != MNIST_PARAMS * (iterations - 1):
+        raise AssertionError('momentum_sgd updated %d tensors, expected %d'
+                             % (sgd_tensors, MNIST_PARAMS * (iterations - 1)))
+    if trainer.updater.epoch != MNIST_EPOCHS or len(log.log) != MNIST_EPOCHS:
+        raise AssertionError('MNIST gate: %d epochs, %d log entries'
+                             % (trainer.updater.epoch, len(log.log)))
+    for i, (a, b) in enumerate(zip(losses, cpu_losses)):
+        if abs(a - b) > 1e-4 * abs(b):
+            raise AssertionError('MNIST gate: loss %d card %r vs CPU %r'
+                                 % (i, a, b))
+    if len(cpu_losses) != MNIST_CHECK_ITER:
+        raise AssertionError('MNIST gate: %d CPU steps' % len(cpu_losses))
+    # after the broadcast call and 4 steps, every parameter and velocity
+    # of the card run against the CPU run's (the f32 parity tolerance):
+    # the momentum_sgd kernel at the MLP's six shapes, on the path
+    if len(states) != len(cpu_states) or len(states) != 2 * MNIST_PARAMS:
+        raise AssertionError('MNIST gate: %d card, %d CPU state tensors'
+                             % (len(states), len(cpu_states)))
+    names = ['param %d' % i for i in range(MNIST_PARAMS)] + [
+        'velocity %d' % i for i in range(MNIST_PARAMS)]
+    for name, a, b in zip(names, states, cpu_states):
+        check_close('MNIST gate %s at iteration %d' % (name,
+                                                       MNIST_CHECK_ITER),
+                    a, b, 1e-5, 1e-6)
+    state_err = max(max_err(a, b) for a, b in zip(states, cpu_states))
+    if acc < 0.95:
+        raise AssertionError('MNIST gate: validation accuracy %.4f < 0.95'
+                             % acc)
+    _say('mnist', 'gate (MLP(%d), FusedMomentumSGD(0.1, 0.9), hard stand-in, '
+         'batch %d, %d epochs, xla on NCCL): validation accuracy %.4f, %d '
+         'iterations, %.1f s; first losses card %s, CPU %s; parameters '
+         'and velocities after iteration %d: max abs err %.3g; launches %s'
+         % (MNIST_UNITS, MNIST_BATCH, MNIST_EPOCHS, acc, iterations, gate_s,
+            ', '.join('%.6f' % v for v in losses[:5]),
+            ', '.join('%.6f' % v for v in cpu_losses), MNIST_CHECK_ITER,
+            state_err, counts))
+    # 2. the example at full width: Adam, the classic stand-in, batch 100
+    out = tempfile.mkdtemp(prefix='mnist_example_')
+    try:
+        ops.reset_launch_counts()
+        trainer, update_ms, eval_ms, window_s = _mnist_example(out)
+        example_counts = ops.launch_counts()
+        example_iters = trainer.updater.iteration   # before the profiling
+        try:
+            busy = profile_steps(trainer.updater, groups=_MNIST_GROUPS)
+        finally:
+            trainer.updater.comm.close()
+        with open(os.path.join(out, 'log')) as f:
+            entries = json.load(f)
+        snapshots = sorted(n for n in os.listdir(out)
+                           if n.startswith('snapshot_iter_'))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    if any(example_counts.values()):
+        # Adam, dense products and F.cross_entropy: no port kernel
+        raise AssertionError('MNIST example launched %s' % example_counts)
+    if [e['epoch'] for e in entries] != [1, 2] or snapshots != [
+            'snapshot_iter_120.npz', 'snapshot_iter_60.npz']:
+        raise AssertionError('MNIST example: log %s, snapshots %s'
+                             % (entries, snapshots))
+    if not entries[1]['loss'] < entries[0]['loss']:
+        raise AssertionError('MNIST example: the loss did not fall: %s'
+                             % entries)
+    timed = sorted(update_ms[2:])   # after the broadcast call and a step
+    p50 = timed[len(timed) // 2]
+    p99 = timed[min(len(timed) - 1, int(math.ceil(0.99 * len(timed))) - 1)]
+    _say('mnist', 'example (MLP(1000), Adam 1e-3, classic stand-in, batch '
+         '100, 2 epochs): %.1f train images/s from the p50 of the '
+         'synchronized update() calls, %.3f ms (p99 %.3f ms, %d updates '
+         'after 2 warm-up); %.1f images/s over the whole window (%d '
+         'images in %.3f s from the first update to the end of the run, '
+         'extensions and evaluation included); evaluator %s ms an '
+         'epoch; device busy %s over 3 profiled steps; loss %.4f -> %.4f; '
+         'final validation accuracy %.4f' % (
+             100 / (p50 / 1e3), p50, p99, len(timed),
+             100 * example_iters / window_s, 100 * example_iters, window_s,
+             ', '.join('%.2f' % t for t in eval_ms),
+             'not measured' if busy is None else '%.1f%%' % (100 * busy),
+             entries[0]['loss'], entries[1]['loss'],
+             entries[1]['validation/main/accuracy']))
     return counts
 
 
@@ -2241,7 +2519,8 @@ def phase_lm_main():
             training.SerialIterator(data, LM_BATCH, shuffle=False), opt,
             models.lm_loss(model), model, comm)
         # one broadcast call (no step), then LM_STEPS steps
-        trainer = training.Trainer(updater, (LM_STEPS + 1, 'iteration'))
+        trainer = training.Trainer(updater, (LM_STEPS + 1, 'iteration'),
+                                   out=None)
         marks, losses = [], []
 
         def record(tr):
@@ -2249,7 +2528,7 @@ def phase_lm_main():
             marks.append(time.perf_counter())
             losses.append(tr.observation['loss'])
 
-        trainer.extend(record)
+        trainer.extend(record, trigger=(1, 'iteration'))
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         ops.reset_launch_counts()
@@ -2325,6 +2604,7 @@ def main():
                + _timed(phase_training_kernels))
     _timed(phase_model_check)
     paths = {'resnet_training': _timed(phase_main_path)}
+    paths['mnist_training'] = _timed(phase_mnist)
     _timed(phase_serving_check)
     paths['lm_serving'], model, prompts, slot_outs = _timed(
         phase_serving_main)

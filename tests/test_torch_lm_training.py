@@ -59,7 +59,7 @@ def _flat(tree, prefix=''):
             yield prefix + k, np.asarray(v)
 
 
-def test_lm_training_slice_matches_jax(interpret):
+def test_lm_training_slice_matches_jax(interpret, tmp_path):
     steps = 4                                  # 1 broadcast + 3 Adam updates
     data = _batch()
     jm = jmodels.TransformerLM(dtype=jnp.float32, **CFG)
@@ -82,7 +82,7 @@ def test_lm_training_slice_matches_jax(interpret):
     up = training.StandardUpdater(
         training.SerialIterator(data, 4, shuffle=False), opt,
         models.lm_loss(model), model, comm)
-    trainer = training.Trainer(up, (steps, 'iteration'))
+    trainer = training.Trainer(up, (steps, 'iteration'), out=str(tmp_path))
     seen = []
 
     def compare(tr):
@@ -94,7 +94,7 @@ def test_lm_training_slice_matches_jax(interpret):
         np.testing.assert_allclose(tr.observation['perp'], jmetrics['perp'],
                                    rtol=1e-3)
 
-    trainer.extend(compare)
+    trainer.extend(compare, trigger=(1, 'iteration'))
     before = ops.launch_counts()
     trainer.run()
     assert ops.launch_counts() == before           # CPU: plain versions

@@ -195,7 +195,7 @@ def _dataset(n=4, size=32, classes=10):
              np.int32(rng.randint(classes))) for _ in range(n)]
 
 
-def test_training_slice_matches_jax(interpret):
+def test_training_slice_matches_jax(interpret, tmp_path):
     steps, lr, mu = 3, 0.1, 0.9
     data = _dataset()
     jmodel = JaxResNet(stage_sizes=[1, 1], width=8, num_classes=10,
@@ -223,7 +223,7 @@ def test_training_slice_matches_jax(interpret):
     up = training.StandardUpdater(
         training.SerialIterator(data, 4, shuffle=False), opt,
         models.StatefulClassifier(model).loss, model, comm)
-    trainer = training.Trainer(up, (steps, 'iteration'))
+    trainer = training.Trainer(up, (steps, 'iteration'), out=str(tmp_path))
     seen = []
 
     def compare(tr):
@@ -246,7 +246,7 @@ def test_training_slice_matches_jax(interpret):
                     leaf, np.asarray(w[path]), rtol=1e-4, atol=1e-4,
                     err_msg='%s %s step %d' % (coll, path, len(seen)))
 
-    trainer.extend(compare)
+    trainer.extend(compare, trigger=(1, 'iteration'))
     trainer.run()
     assert up.iteration == steps and len(seen) == steps
     # step 0 broadcasts instead of stepping: same batch, same loss
