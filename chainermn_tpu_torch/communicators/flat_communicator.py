@@ -9,6 +9,7 @@ import functools
 
 import torch
 
+from chainermn_tpu_torch.communicators import memory_utility
 from chainermn_tpu_torch.communicators.base import CommunicatorBase
 
 
@@ -17,5 +18,6 @@ class FlatCommunicator(CommunicatorBase):
     def _allreduce_impl(self, tensors):
         common = functools.reduce(torch.promote_types,
                                   [t.dtype for t in tensors])
-        return self._reduce_grouped(tensors, 'mean',
-                                    dtype_of=lambda t: common)
+        return memory_utility.fused_reduce(
+            tensors, lambda buf: self._all_reduce(buf, 'mean'),
+            plan=lambda ts: [list(range(len(ts)))], dtype=common)

@@ -1,7 +1,8 @@
-"""ResNet-50 (the flagship training workload).
+"""ResNet-50 (the flagship training workload), ResNet-101 and ResNet-152.
 
 Counterpart of ``chainermn_tpu/models/resnet50.py``: bottleneck blocks
-of [3, 4, 6, 3], stride on the 3x3 (v1.5), bf16 compute with f32 master
+of [3, 4, 6, 3] ([3, 4, 23, 3] and [3, 8, 36, 3] for the deeper two),
+stride on the 3x3 (v1.5), bf16 compute with f32 master
 parameters and f32 BatchNorm statistics, ``fused_norm=`` selecting the
 fused BN kernels.
 
@@ -125,6 +126,8 @@ class ResNet(nn.Module):
     and moved to ``device`` (default: the current CUDA device; raises
     when there is none)."""
 
+    insize = 224   # the reference's resnet50.py insize
+
     def __init__(self, stage_sizes, num_classes=1000, width=64,
                  dtype=torch.bfloat16, stem='standard',
                  fused_norm=False, device=None, generator=None):
@@ -180,9 +183,15 @@ def ResNet50(num_classes=1000, dtype=torch.bfloat16, stem='standard',
                   device=device, generator=generator)
 
 
-def ResNet101(*args, **kwargs):
-    raise NotImplementedError('ResNet-101 is not ported yet (ROADMAP.md A3)')
+def ResNet101(num_classes=1000, dtype=torch.bfloat16, fused_norm=False,
+              device=None, generator=None, width=64):
+    return ResNet(stage_sizes=[3, 4, 23, 3], num_classes=num_classes,
+                  width=width, dtype=dtype, fused_norm=fused_norm,
+                  device=device, generator=generator)
 
 
-def ResNet152(*args, **kwargs):
-    raise NotImplementedError('ResNet-152 is not ported yet (ROADMAP.md A3)')
+def ResNet152(num_classes=1000, dtype=torch.bfloat16, fused_norm=False,
+              device=None, generator=None, width=64):
+    return ResNet(stage_sizes=[3, 8, 36, 3], num_classes=num_classes,
+                  width=width, dtype=dtype, fused_norm=fused_norm,
+                  device=device, generator=generator)

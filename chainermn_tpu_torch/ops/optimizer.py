@@ -168,11 +168,19 @@ class FusedMomentumSGD(torch.optim.Optimizer):
     parameters of a param group.  The per-parameter state is
     ``'velocity'``, float32 whatever the parameter's dtype; a parameter's
     layout is checked once, when its velocity is made, and each step
-    checks only that its gradient has the parameter's shape and
-    strides."""
+    checks only that its gradient has the parameter's shape and strides.
+
+    ``lr`` is a number or a schedule, ``step -> lr`` (e.g.
+    ``utils.distributed_sgd_schedule``).  A schedule is read at the
+    update count of the group's first stepped parameter, kept in its
+    state as ``'step'`` and 0 at the first update, as optax's ``count``
+    (``optax.sgd(schedule, momentum)`` computes what this optimizer
+    computes; with a number, the state is the JAX
+    ``fused_momentum_sgd``'s, ``'velocity'`` alone).
+    """
 
     def __init__(self, params, lr, momentum=0.9):
-        if lr < 0.0:
+        if not callable(lr) and lr < 0.0:
             raise ValueError('invalid learning rate %r' % lr)
         super().__init__(params, dict(lr=lr, momentum=momentum))
         # param -> (shape, strides, element order), checked once
@@ -214,9 +222,16 @@ class FusedMomentumSGD(torch.optim.Optimizer):
                 vs.append(self.state[p]['velocity'])
             if not ps:
                 continue
+            lr = schedule = group['lr']
+            if callable(schedule):
+                lr = schedule(int(self.state[ps[0]].get('step', 0)))
             if _common.on_cuda(*ps, *vs):
-                _launch(sgd_table(ps, gs, vs), group['lr'],
-                        group['momentum'], ps[0].device)
+                _launch(sgd_table(ps, gs, vs), lr, group['momentum'],
+                        ps[0].device)
             else:
-                momentum_sgd(ps, gs, vs, group['lr'], group['momentum'])
+                momentum_sgd(ps, gs, vs, lr, group['momentum'])
+            if callable(schedule):
+                for p in ps:
+                    state = self.state[p]
+                    state['step'] = int(state.get('step', 0)) + 1
         return loss

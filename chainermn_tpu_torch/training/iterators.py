@@ -1,11 +1,18 @@
 """Dataset iterators.
 
-Counterpart of ``chainermn_tpu/training/iterators.py`` (``SerialIterator``
-only; the prefetching iterators come in a later slice).  Host-side data
-handling stays in numpy; device placement is the updater's job.
+Counterpart of ``chainermn_tpu/training/iterators.py``:
+``SerialIterator``, ``MultiprocessIterator`` (a prefetch thread over it)
+and ``DevicePrefetchIterator`` (collation and the host-to-device copy
+of the next batches on a side CUDA stream, behind the running step).
+``PipelineIterator`` waits for the native batch pipeline (ROADMAP.md
+A2).  Host-side data handling stays in numpy.
 """
 
+import queue as queue_mod
+import threading
+
 import numpy as np
+import torch
 
 
 class SerialIterator:
@@ -83,3 +90,227 @@ class SerialIterator:
             self._pos += 1
         self.iteration += 1
         return batch
+
+
+class _PrefetchingIterator:
+    """Worker thread and queue shared by the prefetching iterators.
+
+    A daemon thread calls :meth:`_produce` (pull from the inner
+    iterator, transform, snapshot the inner counters) and feeds a
+    bounded queue; ``__next__`` unpacks the items.  The worker holds ITS
+    OWN queue and stop event, so a worker outliving a reset sees its
+    own, set, stop event and never races its replacement; puts are
+    bounded and check the stop event; the terminal item (StopIteration
+    or the worker's exception) is remembered, since the worker has
+    exited after sending it, and raised again until :meth:`reset`.
+    """
+
+    def _start_worker(self):
+        self._queue = queue_mod.Queue(maxsize=self._depth)
+        self._stop = threading.Event()
+        self._terminal = None
+        self._thread = threading.Thread(
+            target=self._worker_loop, args=(self._queue, self._stop),
+            daemon=True)
+        self._thread.start()
+
+    def _stop_worker(self):
+        self._stop.set()
+        # drain, so that a producer blocked in put() sees the stop flag
+        while self._thread.is_alive():
+            try:
+                while True:
+                    self._queue.get_nowait()
+            except queue_mod.Empty:
+                pass
+            self._thread.join(timeout=0.2)
+
+    def _worker_loop(self, out_queue, stop):
+        try:
+            while not stop.is_set():
+                try:
+                    item = self._produce()
+                except StopIteration:
+                    out_queue.put(StopIteration)
+                    return
+                while not stop.is_set():
+                    try:
+                        out_queue.put(item, timeout=0.2)
+                        break
+                    except queue_mod.Full:
+                        continue
+        except Exception as e:  # the consumer raises it
+            out_queue.put(e)
+
+    def _next_item(self):
+        if self._terminal is not None:
+            raise self._terminal
+        item = self._queue.get()
+        if item is StopIteration:
+            self._terminal = StopIteration()
+            raise StopIteration
+        if isinstance(item, Exception):
+            self._terminal = item
+            raise item
+        return item
+
+    def __iter__(self):
+        return self
+
+    def finalize(self):
+        """Stop the worker (and the inner iterator's, when it has one)."""
+        self._stop_worker()
+        fin = getattr(self._source, 'finalize', None)
+        if fin is not None:
+            fin()
+
+
+class MultiprocessIterator(_PrefetchingIterator):
+    """Prefetching iterator: a thread runs a :class:`SerialIterator` up to
+    ``n_prefetch`` batches ahead, so the same batches come in the same
+    order.  The reference needs worker processes for its Python-side
+    JPEG decoding; the port's pipeline is numpy, whose array work frees
+    the interpreter lock, so a thread hides it without fork hazards; the
+    class name is the reference's.  ``epoch``, ``epoch_detail`` and
+    ``is_new_epoch`` count what the consumer has taken, not the
+    thread's read-ahead."""
+
+    def __init__(self, dataset, batch_size, repeat=True, shuffle=True,
+                 seed=0, n_prefetch=4, n_processes=None):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self._source = SerialIterator(dataset, batch_size, repeat,
+                                      shuffle, seed)
+        self.epoch = 0
+        self.iteration = 0
+        self.is_new_epoch = False
+        self._consumed_pos = 0
+        self._depth = n_prefetch
+        self._start_worker()
+
+    def _produce(self):
+        inner = self._source
+        batch = next(inner)
+        return (batch, inner.epoch, inner.iteration, inner.is_new_epoch,
+                inner._pos)
+
+    def reset(self):
+        """Stop the thread and restart from a fresh pass."""
+        self._stop_worker()
+        self._source.reset()
+        self.epoch = 0
+        self.iteration = 0
+        self.is_new_epoch = False
+        self._consumed_pos = 0
+        self._start_worker()
+
+    def restore_position(self, epoch_detail):
+        """Land the inner iterator at ``epoch_detail``
+        (``SerialIterator.restore_position``) and the consumer's
+        counters with it, dropping the read-ahead."""
+        self._stop_worker()
+        self._source.restore_position(float(epoch_detail))
+        self.epoch = self._source.epoch
+        self._consumed_pos = self._source._pos
+        self.is_new_epoch = False
+        self._start_worker()
+
+    def __next__(self):
+        batch, self.epoch, self.iteration, self.is_new_epoch, \
+            self._consumed_pos = self._next_item()
+        return batch
+
+    next = __next__
+
+    @property
+    def epoch_detail(self):
+        return self.epoch + self._consumed_pos / max(1, len(self.dataset))
+
+
+class DevicePrefetchIterator(_PrefetchingIterator):
+    """Collation and the host-to-device copy of the next ``depth``
+    batches, behind the running step: a thread pulls batches from
+    ``inner`` and runs ``place_fn(batch) -> tuple of tensors`` on them
+    (``StandardUpdater(device_prefetch=N)`` passes one that collates
+    into pinned host memory and copies with ``non_blocking=True``).
+
+    On a CUDA ``device`` the thread runs ``place_fn`` on a side stream
+    and records an event after it; ``__next__`` makes the current stream
+    wait on that event (the step never reads a half-copied batch) and
+    calls ``record_stream`` on the tensors (the caching allocator does
+    not hand their memory out again while the step may read it).  Epoch
+    accounting is what the consumer has taken, as
+    :class:`MultiprocessIterator`'s."""
+
+    def __init__(self, inner, place_fn, depth=2, device=None):
+        if depth < 1:
+            raise ValueError('depth must be >= 1')
+        self.inner = self._source = inner
+        self._place = place_fn
+        self._depth = depth
+        self._device = torch.device(device) if device is not None else None
+        self._stream = (torch.cuda.Stream(self._device)
+                        if self._device is not None
+                        and self._device.type == 'cuda' else None)
+        self._rebase_counters()
+        self._start_worker()
+
+    def _rebase_counters(self):
+        inner = self._source
+        self.epoch = getattr(inner, 'epoch', 0)
+        self.iteration = getattr(inner, 'iteration', 0)
+        self.is_new_epoch = False
+        self._consumed_detail = float(getattr(inner, 'epoch_detail', 0.0))
+
+    def _produce(self):
+        inner = self._source
+        batch = next(inner)
+        event = None
+        if self._stream is None:
+            placed = self._place(batch)
+        else:
+            with torch.cuda.device(self._device), \
+                    torch.cuda.stream(self._stream):
+                placed = self._place(batch)
+                event = torch.cuda.Event()
+                event.record(self._stream)
+        return (placed, event, getattr(inner, 'epoch', 0),
+                getattr(inner, 'iteration', 0),
+                getattr(inner, 'is_new_epoch', False),
+                float(getattr(inner, 'epoch_detail', 0.0)))
+
+    def __next__(self):
+        (placed, event, self.epoch, self.iteration, self.is_new_epoch,
+         self._consumed_detail) = self._next_item()
+        if event is not None:
+            current = torch.cuda.current_stream(self._device)
+            current.wait_event(event)
+            for t in placed:
+                if t.is_cuda:
+                    t.record_stream(current)
+        return placed
+
+    next = __next__
+
+    @property
+    def epoch_detail(self):
+        return self._consumed_detail
+
+    def reset(self):
+        self._stop_worker()
+        if hasattr(self.inner, 'reset'):
+            self.inner.reset()
+        self._rebase_counters()
+        self._start_worker()
+
+    def restore_position(self, epoch_detail):
+        """Restore the inner iterator at ``epoch_detail`` (its
+        ``restore_position``, else its integer ``epoch``) and rebase the
+        consumer's counters, dropping the read-ahead."""
+        self._stop_worker()
+        if hasattr(self.inner, 'restore_position'):
+            self.inner.restore_position(float(epoch_detail))
+        else:
+            self.inner.epoch = int(epoch_detail)
+        self._rebase_counters()
+        self._start_worker()

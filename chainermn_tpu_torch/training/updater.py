@@ -18,6 +18,7 @@ import torch
 
 from chainermn_tpu_torch.models.flax_weights import to_flax_variables
 from chainermn_tpu_torch.training.convert import concat_examples
+from chainermn_tpu_torch.training.iterators import DevicePrefetchIterator
 
 
 class StandardUpdater:
@@ -33,6 +34,10 @@ class StandardUpdater:
       comm: communicator for the statistics and metric averages.
       model_state: mean-sync the model's buffers (BatchNorm running
         statistics) across processes after every step.
+      device_prefetch: with N >= 1, the iterator is wrapped in a
+        :class:`~chainermn_tpu_torch.training.DevicePrefetchIterator` of
+        depth N: the next batches are collated into pinned host memory
+        and copied to the device on a side stream while the step runs.
     """
 
     def __init__(self, iterator, optimizer, loss_fn, model, comm,
@@ -40,13 +45,11 @@ class StandardUpdater:
                  remat=False, device_prefetch=0):
         for name, value, default in (
                 ('zero', zero, False), ('accum_steps', accum_steps, 1),
-                ('policy', policy, None), ('remat', remat, False),
-                ('device_prefetch', device_prefetch, 0)):
+                ('policy', policy, None), ('remat', remat, False)):
             if value != default:
                 raise NotImplementedError(
                     'StandardUpdater(%s=...) is not ported yet '
                     '(ROADMAP.md A5)' % name)
-        self.iterator = iterator
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self.model = model
@@ -54,13 +57,39 @@ class StandardUpdater:
         self.model_state = model_state
         self.device = next(model.parameters()).device
         self.iteration = 0
+        self._device_prefetch = bool(device_prefetch)
+        if device_prefetch:
+            iterator = DevicePrefetchIterator(
+                iterator, self._place, depth=device_prefetch,
+                device=self.device)
+        self.iterator = iterator
 
-    def shard_batch(self, batch):
-        """Collate a list of examples and move it to the device."""
+    @staticmethod
+    def _collate(batch):
         arrays = concat_examples(batch)
         if isinstance(arrays, dict):
             arrays = tuple(arrays.values())
-        return tuple(torch.from_numpy(a).to(self.device) for a in arrays)
+        return arrays
+
+    def shard_batch(self, batch):
+        """Collate a list of examples and move it to the device."""
+        return tuple(torch.from_numpy(a).to(self.device)
+                     for a in self._collate(batch))
+
+    def collate_pinned(self, batch):
+        """Collate a list of examples into host tensors, pinned when the
+        model is on a CUDA device (a copy from pinned memory can run
+        asynchronously)."""
+        host = [torch.from_numpy(a) for a in self._collate(batch)]
+        if self.device.type == 'cuda':
+            host = [t.pin_memory() for t in host]
+        return tuple(host)
+
+    def _place(self, batch):
+        """``device_prefetch``'s placement: pinned collation, then a
+        non-blocking copy (on the prefetcher's side stream)."""
+        return tuple(t.to(self.device, non_blocking=True)
+                     for t in self.collate_pinned(batch))
 
     def update_core(self, arrays):
         """One iteration on device tensors; returns the averaged metrics
@@ -83,7 +112,9 @@ class StandardUpdater:
 
     def update(self):
         """Advance one iteration; returns the metrics as floats."""
-        metrics = self.update_core(self.shard_batch(next(self.iterator)))
+        batch = next(self.iterator)
+        metrics = self.update_core(
+            batch if self._device_prefetch else self.shard_batch(batch))
         return {k: float(v) for k, v in metrics.items()}
 
     @property

@@ -1,5 +1,6 @@
-"""Typed failures of the port (the subset its ported paths raise), and
-the numeric divergence detector.
+"""Typed failures of the port (the subset its ported paths raise), the
+bounded-wait arithmetic of the eager channel, and the numeric
+divergence detector.
 
 Counterpart of ``chainermn_tpu/utils/failure.py``: the same class names,
 bases, ``status_name`` codes and constructor arguments, so a caller
@@ -13,7 +14,9 @@ parameters (the updater's flax-named ``params``) and the observation.
 import json
 import math
 import os
+import random
 import sys
+import time
 
 import torch
 import torch.distributed as dist
@@ -25,6 +28,16 @@ class CommFailure(RuntimeError):
     """Base of the failure taxonomy."""
 
     status_name = 'CMN_ERROR'
+
+
+class ChannelTimeout(CommFailure, TimeoutError):
+    """A bounded wait expired without evidence that the peer is dead.
+    Retryable: the sequence cursor of the waiting stream is never
+    advanced on timeout, so the same call can simply be issued again.
+    (Telling a dead peer from a slow one, ``PeerDeadError``, needs the
+    liveness layer: ROADMAP.md A9.)"""
+
+    status_name = 'CMN_TIMEOUT'
 
 
 class OverloadError(CommFailure):
@@ -64,6 +77,90 @@ class CheckpointCorruptError(ValueError):
         self.path = path
         self.leaf = leaf
         self.kind = kind
+
+
+class Deadline:
+    """Absolute time budget for a (possibly multi-step) blocking
+    operation.  ``timeout=None`` means unbounded (every query reports
+    ``inf`` remaining); all arithmetic is on the monotonic clock.
+    Slices handed to sub-waits are ``min(want, remaining)``, so the
+    sum of the slices never exceeds the budget."""
+
+    def __init__(self, timeout, clock=time.monotonic):
+        self._clock = clock
+        self.timeout = timeout
+        self._t0 = clock()
+
+    def elapsed(self):
+        return self._clock() - self._t0
+
+    def remaining(self):
+        if self.timeout is None:
+            return float('inf')
+        return self.timeout - self.elapsed()
+
+    def expired(self):
+        return self.remaining() <= 0.0
+
+    def slice(self, want, floor=1e-3):
+        """Clamp a sub-wait to the remaining budget (never below
+        ``floor``, so a wait API that rejects non-positive timeouts
+        still gets a valid value; the caller checks :meth:`expired`
+        before trusting the slice)."""
+        return max(min(want, self.remaining()), floor)
+
+
+class Backoff:
+    """Deterministic exponential backoff: ``initial * factor**k`` capped
+    at ``max_delay``, with optional jitter drawn from a SEEDED rng, so
+    two processes given the same seed replay the same schedule.
+
+    :meth:`next` gives the next delay (advancing the schedule),
+    :meth:`sleep` also sleeps it, :meth:`reset` starts over."""
+
+    def __init__(self, initial=0.05, factor=2.0, max_delay=2.0,
+                 jitter=0.0, seed=0):
+        if initial <= 0 or factor < 1.0 or max_delay < initial:
+            raise ValueError(
+                'need initial > 0, factor >= 1, max_delay >= initial')
+        self.initial = initial
+        self.factor = factor
+        self.max_delay = max_delay
+        self.jitter = jitter
+        self._seed = seed
+        self.reset()
+
+    def reset(self):
+        self.attempt = 0
+        self._rng = random.Random(self._seed)
+
+    def peek(self):
+        """The delay :meth:`next` would return, without advancing
+        (jitter left out: it is drawn when the step is taken)."""
+        return min(self.initial * self.factor ** self.attempt,
+                   self.max_delay)
+
+    def next(self):
+        base = self.peek()
+        self.attempt += 1
+        if self.jitter:
+            base += base * self.jitter * self._rng.random()
+        return min(base, self.max_delay * (1.0 + self.jitter))
+
+    def sleep(self, deadline=None):
+        """Sleep the next delay (clamped to ``deadline.remaining()``
+        when given); returns the time slept."""
+        d = self.next()
+        if deadline is not None:
+            d = max(min(d, deadline.remaining()), 0.0)
+        if d > 0:
+            time.sleep(d)
+        return d
+
+    def delays(self, n):
+        """The first ``n`` delays without jitter (does not advance)."""
+        return [min(self.initial * self.factor ** k, self.max_delay)
+                for k in range(n)]
 
 
 class DivergenceError(RuntimeError):

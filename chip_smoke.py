@@ -28,6 +28,11 @@ Phases, each printing its own lines; any failure exits non-zero:
 4. one train-mode forward of full-width ResNet-50 (f32, TF32 off, batch
    2) on the card (kernels) against the same model on the CPU (plain
    versions);
+4a. the communicators (``comm``): each of the nine strategies on NCCL
+   in a world of one, ``allreduce_grad`` of ResNet-50's 161 gradient
+   tensors bit-equal to its input (and, with ``reduce_dtype`` bf16, to
+   the bf16 round trip), its time a call (packing only: no wire), a
+   bounded barrier and an object sent to this rank and back;
 5. the training main path: ``create_communicator('xla')`` (NCCL, a
    world of one) -> ``ResNet50(fused_norm=True)`` (224 px, bf16
    compute) + ``StatefulClassifier`` -> ``create_multi_node_optimizer(
@@ -47,6 +52,17 @@ Phases, each printing its own lines; any failure exits non-zero:
    synchronized ``update()`` calls and over the whole window, the
    update p50/p99, the evaluator's time an epoch, the device busy share
    over 3 profiled steps, and its log and snapshots;
+5b. the ImageNet main path (``imagenet``): the twin of
+   ``examples/imagenet/train_imagenet.py`` (``train_imagenet.main``) with
+   ``--communicator hierarchical --arch resnet50 --batchsize 64 --epoch
+   1`` at insize 224 on the synthetic 1280 / 128 set: the
+   ``distributed_sgd_schedule`` rate on ``FusedMomentumSGD``, a
+   ``MultiprocessIterator`` under the updater's ``device_prefetch``
+   (pinned batches, checked), the multi-node evaluator, a snapshot;
+   ``momentum_sgd`` once an update after the broadcast call and no other
+   kernel, finite losses, images/s from the p50 of the synchronized
+   ``update()`` calls and over the whole window, the device busy share
+   over 3 profiled steps, peak memory;
 6. serving check: two f32 ``GenerationEngine``s at full width and depth
    2 from the same numpy-seeded weights, one on the card and one on the
    CPU, give the same greedy tokens for 8 prompts;
@@ -1272,6 +1288,182 @@ def phase_main_path():
              ', '.join('%.1f' % (1e3 * s) for s in steps), STEPS - 1,
              1e3 * p50, BATCH / p50, BATCH,
              torch.cuda.max_memory_allocated() / 2 ** 30))
+    return counts
+
+
+# the communicator strategies, in the JAX package's table order
+COMM_NAMES = ('xla', 'hierarchical', 'two_dimensional', 'flat', 'naive',
+              'single_node', 'non_cuda_aware', 'dummy', 'bucketed')
+
+
+def phase_communicators():
+    """Every strategy on NCCL in a world of one: ``allreduce_grad`` of
+    ResNet-50's 161 gradient tensors gives them back bit for bit (the
+    mean over one), and with ``reduce_dtype=bfloat16`` their bf16 round
+    trip; its time a call is the strategy's packing cost (no wire in a
+    world of one).  Then a bounded barrier and an object sent to this
+    rank and received back."""
+    import numpy as np
+    import torch
+    import chainermn_tpu_torch as cmt
+    from chainermn_tpu_torch import models
+    model = models.ResNet50()
+    torch.manual_seed(0)
+    grads = [torch.randn_like(p) for p in model.parameters()]
+    del model
+    if len(grads) != PARAMS_PER_STEP:
+        raise AssertionError('%d gradient tensors' % len(grads))
+    times = {}
+    for name in COMM_NAMES:
+        for reduce_dtype in (None, torch.bfloat16):
+            comm = cmt.create_communicator(name, reduce_dtype=reduce_dtype)
+            try:
+                work = [g.clone() for g in grads]
+                comm.allreduce_grad(work)
+                torch.cuda.synchronize()
+                for i, (got, g) in enumerate(zip(work, grads)):
+                    want = g if reduce_dtype is None else \
+                        g.to(reduce_dtype).to(g.dtype)
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            '%s (reduce_dtype %s): tensor %d is not its '
+                            'input: max abs err %.3g' % (
+                                name, reduce_dtype, i, max_err(got, want)))
+                times[name, reduce_dtype] = time_ms(
+                    lambda: comm.allreduce_grad(work), iters=10, warmup=2)
+                if name == 'hierarchical' and reduce_dtype is None:
+                    comm.barrier(timeout=5)
+                    obj = {'step': 3, 'x': np.arange(4.0)}
+                    comm.send_obj(obj, dest=comm.rank, tag='self')
+                    back = comm.recv_obj(comm.rank, tag='self', timeout=5)
+                    if back['step'] != 3 or back['x'].tolist() != [
+                            0.0, 1.0, 2.0, 3.0]:
+                        raise AssertionError('send_obj / recv_obj: %r'
+                                             % (back,))
+            finally:
+                comm.close()
+    _say('comm', '%d strategies, NCCL, a world of one: allreduce_grad of '
+         "ResNet-50's %d gradient tensors bit-equal to the input (f32) "
+         'and to its bf16 round trip (reduce_dtype bf16); barrier(5 s) '
+         'returned; send_obj / recv_obj to this rank round-tripped'
+         % (len(COMM_NAMES), PARAMS_PER_STEP))
+    for name in COMM_NAMES:
+        _say('comm', '  %-16s %8.3f ms a call f32, %8.3f ms bf16 (packing '
+             'cost in a world of one, not wire time)'
+             % (name, times[name, None], times[name, torch.bfloat16]))
+
+
+# the ImageNet example's run (examples/imagenet: the synthetic 1280 / 128
+# set, insize 224, hierarchical), one epoch at a global batch of 64
+IMAGENET_ARGV = ['--communicator', 'hierarchical', '--arch', 'resnet50',
+                 '--batchsize', '64', '--epoch', '1']
+IMAGENET_BATCH = 64
+
+
+def _imagenet_example(out):
+    """``train_imagenet.main`` with each update timed (synchronized
+    before and after, its loss kept) and the prefetcher's host batches
+    checked for pinned memory; returns ``(trainer, update ms, losses,
+    pinned flags, window s)``."""
+    import torch
+    from chainermn_tpu_torch import training
+    from chainermn_tpu_torch.examples.imagenet import train_imagenet
+    update = training.StandardUpdater.update
+    collate = training.StandardUpdater.collate_pinned
+    update_ms, losses, pinned, starts = [], [], [], []
+
+    def timed(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        starts.append(t0)
+        result = update(self)
+        torch.cuda.synchronize()
+        update_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(result['loss'])
+        return result
+
+    def checked(self, batch):
+        host = collate(self, batch)
+        pinned.append(all(t.is_pinned() for t in host))
+        return host
+
+    training.StandardUpdater.update = timed
+    training.StandardUpdater.collate_pinned = checked
+    try:
+        trainer = train_imagenet.main(IMAGENET_ARGV + ['--out', out])
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - starts[0]
+    finally:
+        training.StandardUpdater.update = update
+        training.StandardUpdater.collate_pinned = collate
+    return trainer, update_ms, losses, pinned, window_s
+
+
+def phase_imagenet():
+    import shutil
+    import tempfile
+    import torch
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.examples.imagenet import train_imagenet
+    out = tempfile.mkdtemp(prefix='imagenet_example_')
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        trainer, update_ms, losses, pinned, window_s = _imagenet_example(out)
+        counts = ops.launch_counts()
+        sgd_tensors = ops.momentum_sgd.tensors
+        peak = torch.cuda.max_memory_allocated()
+        iterations = trainer.updater.iteration   # before the profiling
+        obs = dict(trainer.observation)
+        try:
+            busy = profile_steps(trainer.updater)
+        finally:
+            train_imagenet.close(trainer)
+        snapshots = sorted(n for n in os.listdir(out)
+                           if n.startswith('snapshot_iter_'))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want.update(momentum_sgd=iterations - 1)   # the first call broadcasts
+    if counts != want:
+        raise AssertionError('ImageNet example: launch counts %s, expected '
+                             '%s' % (counts, want))
+    if sgd_tensors != PARAMS_PER_STEP * (iterations - 1):
+        raise AssertionError('momentum_sgd updated %d tensors, expected %d'
+                             % (sgd_tensors,
+                                PARAMS_PER_STEP * (iterations - 1)))
+    if len(losses) != iterations or not all(math.isfinite(v)
+                                            for v in losses):
+        raise AssertionError('ImageNet example: losses %s' % losses)
+    acc = obs.get('validation/main/accuracy')
+    if acc is None or not 0.0 <= acc <= 1.0:
+        raise AssertionError('ImageNet example: validation accuracy %r'
+                             % acc)
+    if snapshots != ['snapshot_iter_%d.npz' % iterations]:
+        raise AssertionError('ImageNet example: snapshots %s' % snapshots)
+    if not pinned or not all(pinned):
+        raise AssertionError('ImageNet example: %d of %d prefetched batches '
+                             'pinned' % (sum(pinned), len(pinned)))
+    timed = sorted(update_ms[2:])   # after the broadcast call and a step
+    p50 = timed[len(timed) // 2]
+    p99 = timed[min(len(timed) - 1, int(math.ceil(0.99 * len(timed))) - 1)]
+    _say('imagenet', 'example (ResNet-50, hierarchical on NCCL, insize 224, '
+         'bf16, the synthetic 1280 / 128 set, global batch %d, 1 epoch, '
+         'device_prefetch 2): %d iterations, %d momentum_sgd launches and '
+         'no other kernel; %.1f train images/s from the p50 of the '
+         'synchronized update() calls, %.3f ms (p99 %.3f ms, %d updates '
+         'after 2 warm-up); %.1f images/s over the whole window (%d images '
+         'in %.3f s from the first update to the end of the run, '
+         'evaluation and snapshot included); device busy %s over 3 '
+         'profiled steps; peak memory %.2f GiB; loss %.4f -> %.4f; '
+         'validation accuracy %.4f; %d of %d prefetched batches pinned' % (
+             IMAGENET_BATCH, iterations, counts['momentum_sgd'],
+             IMAGENET_BATCH / (p50 / 1e3), p50, p99, len(timed),
+             IMAGENET_BATCH * iterations / window_s,
+             IMAGENET_BATCH * iterations, window_s,
+             'not measured' if busy is None else '%.1f%%' % (100 * busy),
+             peak / 2 ** 30, losses[0], losses[-1], acc, sum(pinned),
+             len(pinned)))
     return counts
 
 
@@ -2603,8 +2795,10 @@ def main():
     records = (_timed(phase_kernels) + _timed(phase_serving_kernels)
                + _timed(phase_training_kernels))
     _timed(phase_model_check)
+    _timed(phase_communicators)
     paths = {'resnet_training': _timed(phase_main_path)}
     paths['mnist_training'] = _timed(phase_mnist)
+    paths['imagenet_training'] = _timed(phase_imagenet)
     _timed(phase_serving_check)
     paths['lm_serving'], model, prompts, slot_outs = _timed(
         phase_serving_main)

@@ -146,6 +146,14 @@ def test_unported_updater_options_still_raise(name):
     comm = cmt.create_communicator('xla', device='cpu')
     model = models.TransformerLM(dtype=torch.float32, device='cpu', **CFG)
     opt = torch.optim.Adam(model.parameters(), lr=LR)
+    if name == 'device_prefetch':   # ported: it wraps the iterator
+        up = training.StandardUpdater(iter([]), opt, models.lm_loss(model),
+                                      model, comm, device_prefetch=2)
+        assert isinstance(up.iterator, training.DevicePrefetchIterator)
+        with pytest.raises(StopIteration):
+            up.update()
+        up.iterator.finalize()
+        return
     with pytest.raises(NotImplementedError, match=name):
         training.StandardUpdater(iter([]), opt, models.lm_loss(model), model,
                                  comm, **{name: 2})

@@ -199,7 +199,10 @@ def test_same_pads_match_xla(size, kernel, stride, want):
 def test_unported_variants_raise():
     with pytest.raises(NotImplementedError, match='space_to_depth'):
         models.ResNet50(stem='space_to_depth', device='cpu')
-    with pytest.raises(NotImplementedError):
-        models.ResNet101()
-    with pytest.raises(NotImplementedError):
-        models.ResNet152()
+    with pytest.raises(NotImplementedError, match='A3'):
+        models.get_arch('resnet50_s2d', device='cpu')
+    for name in ('alex', 'googlenet', 'googlenetbn', 'nin', 'vgg16'):
+        with pytest.raises(NotImplementedError, match='A6'):
+            models.get_arch(name, device='cpu')
+    with pytest.raises(ValueError):
+        models.get_arch('resnet18', device='cpu')

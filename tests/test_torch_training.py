@@ -79,9 +79,14 @@ def test_allreduce_ops_and_structures():
         comm.allreduce(torch.zeros(1), 'prod')
 
 
+ALL_NAMES = ['xla', 'hierarchical', 'two_dimensional', 'flat', 'naive',
+             'single_node', 'non_cuda_aware', 'dummy', 'bucketed']
+
+
 def test_unported_names_raise():
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        cmt.create_communicator('hierarchical', device='cpu')
+    for name in ALL_NAMES:  # all nine strategies are ported
+        comm = cmt.create_communicator(name, device='cpu')
+        assert (comm.inter_size, comm.intra_size) == (1, 1)
     with pytest.raises(ValueError):
         cmt.create_communicator('nope', device='cpu')
 
@@ -113,7 +118,7 @@ dist.destroy_process_group()
 '''
 
 
-@pytest.mark.parametrize('name', ['xla', 'naive'])
+@pytest.mark.parametrize('name', ALL_NAMES)
 def test_two_rank_gloo_mean_and_broadcast(tmp_path, name):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     procs = [subprocess.Popen(
@@ -132,6 +137,8 @@ def test_two_rank_gloo_mean_and_broadcast(tmp_path, name):
     for r in range(2):
         got = np.load(tmp_path / ('r%d.npz' % r))
         assert int(got['size']) == 2 and int(got['rank']) == r
+        if name == 'dummy':  # packing only: each rank keeps its own
+            mean0, mean1 = want[r]
         np.testing.assert_allclose(got['g0'], mean0, rtol=1e-6, atol=1e-7)
         np.testing.assert_allclose(got['g1'], mean1, rtol=1e-6, atol=1e-7)
         np.testing.assert_array_equal(got['p'], np.ones(4, np.float32))
