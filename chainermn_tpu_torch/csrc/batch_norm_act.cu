@@ -24,7 +24,12 @@
 //
 // Rounding: every product and sum uses the __f*_rn intrinsics, which nvcc
 // never contracts into an FMA, so the kernel rounds where the plain
-// PyTorch version (and XLA's _apply_ref order) rounds.
+// PyTorch version (and XLA's _apply_ref order) rounds.  The statistics'
+// sums are compensated (Kahan): a chunk's rows, its lanes and the chunks
+// are each summed in a fixed order, and the rounding error of every
+// addition is carried into the next.  Plain f32 sums in that order lose
+// about five times the accuracy of torch's tree reduction on the
+// variance E[x^2] - E[x]^2, which cancels; compensated they do not.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -44,6 +49,19 @@ __device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
+// s + v with the rounding error of each addition carried in c; the sum is
+// s - c.  The __f*_rn intrinsics keep nvcc from reassociating it away.
+struct KahanSum {
+  float s = 0.f, c = 0.f;
+  __device__ __forceinline__ void add(float v) {
+    const float y = __fsub_rn(v, c);
+    const float t = __fadd_rn(s, y);
+    c = __fsub_rn(__fsub_rn(t, s), y);
+    s = t;
+  }
+  __device__ __forceinline__ float value() const { return __fsub_rn(s, c); }
+};
+
 // Pass 1: per (row chunk, channel) partial sum and sum of squares.
 template <typename T>
 __global__ void stats_partial_kernel(const T* __restrict__ x,
@@ -58,31 +76,32 @@ __global__ void stats_partial_kernel(const T* __restrict__ x,
   const int64_t r0 = chunk * rows_per_chunk;
   int64_t r1 = r0 + rows_per_chunk;
   if (r1 > m) r1 = m;
-  float s = 0.f, q = 0.f;
+  KahanSum s, q;
   if (ch < c) {
     for (int64_t r = r0 + ty; r < r1; r += kLanes) {
       const float v = load_f32(x + r * c + ch);
-      s = __fadd_rn(s, v);
-      q = __fadd_rn(q, __fmul_rn(v, v));
+      s.add(v);
+      q.add(__fmul_rn(v, v));
     }
   }
-  ssum[ty][tx] = s;
-  ssq[ty][tx] = q;
+  ssum[ty][tx] = s.value();
+  ssq[ty][tx] = q.value();
   __syncthreads();
   if (ty == 0 && ch < c) {
     // fixed lane order: deterministic
-    for (int l = 1; l < kLanes; ++l) {
-      s = __fadd_rn(s, ssum[l][tx]);
-      q = __fadd_rn(q, ssq[l][tx]);
+    KahanSum ls, lq;
+    for (int l = 0; l < kLanes; ++l) {
+      ls.add(ssum[l][tx]);
+      lq.add(ssq[l][tx]);
     }
-    psum[chunk * c + ch] = s;
-    psq[chunk * c + ch] = q;
+    psum[chunk * c + ch] = ls.value();
+    psq[chunk * c + ch] = lq.value();
   }
 }
 
-// Pass 2: sum the partials per channel in chunk order, then form the
-// flax-parity statistics over the REAL row count: mean, fast variance
-// clipped at zero, rstd = 1 / sqrt(var + eps).
+// Pass 2: sum the partials per channel in chunk order (compensated), then
+// form the flax-parity statistics over the REAL row count: mean, fast
+// variance clipped at zero, rstd = 1 / sqrt(var + eps).
 __global__ void stats_finalize_kernel(const float* __restrict__ psum,
                                       const float* __restrict__ psq,
                                       int64_t n_chunks, int64_t c, int64_t m,
@@ -91,14 +110,14 @@ __global__ void stats_finalize_kernel(const float* __restrict__ psum,
                                       float* __restrict__ rstd) {
   const int64_t ch = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (ch >= c) return;
-  float s = 0.f, q = 0.f;
+  KahanSum s, q;
   for (int64_t k = 0; k < n_chunks; ++k) {
-    s = __fadd_rn(s, psum[k * c + ch]);
-    q = __fadd_rn(q, psq[k * c + ch]);
+    s.add(psum[k * c + ch]);
+    q.add(psq[k * c + ch]);
   }
   const float fm = (float)m;
-  const float mu = __fdiv_rn(s, fm);
-  float v = __fsub_rn(__fdiv_rn(q, fm), __fmul_rn(mu, mu));
+  const float mu = __fdiv_rn(s.value(), fm);
+  float v = __fsub_rn(__fdiv_rn(q.value(), fm), __fmul_rn(mu, mu));
   v = v > 0.f ? v : 0.f;
   mean[ch] = mu;
   var[ch] = v;

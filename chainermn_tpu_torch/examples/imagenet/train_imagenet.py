@@ -17,7 +17,12 @@ device:
 ``--batchsize`` and ``--val_batchsize`` are global; each process takes
 its share.  ``--cpu`` runs on the CPU over gloo (the JAX script's 8 host
 devices become however many processes torchrun starts); ``--mesh IxJ``
-sets the communicator's ``mesh_shape``.  Without ``CHAINERMN_TPU_IMAGENET``
+sets the communicator's ``mesh_shape``.  ``--arch`` takes every
+architecture of ``models.get_arch`` (all but ``resnet50_s2d``), each at
+its own input size (224; 227 for alex and nin; with ``--quick`` 64, and
+96 for alex and nin, as the JAX script sizes them); the dropout of
+VGG-16, Alex, NIN and GoogLeNet draws from the updater's generator,
+seeded per rank and iteration.  Without ``CHAINERMN_TPU_IMAGENET``
 the data is the synthetic stand-in of the JAX script (1280 / 128 images,
 512 with ``--quick``).
 """
@@ -105,11 +110,16 @@ def main(argv=None):
                          % (args.batchsize, comm.size))
     batch = args.batchsize // comm.size
 
-    model = get_arch(args.arch, dtype=getattr(torch, args.dtype),
-                     device=comm.device)
-    insize = model.insize
+    # a tiny synthetic set and small images for smoke runs; alex and nin
+    # have VALID-padded stems that collapse below ~68 px (the models
+    # raise), so their smoke size is larger.  VGG's and Alex's Dense
+    # widths follow the size, so the model is built at it.
+    size = {}
     if args.quick:
-        insize = 64   # tiny synthetic set and small images for smoke runs
+        size['insize'] = 96 if args.arch in ('alex', 'nin') else 64
+    model = get_arch(args.arch, dtype=getattr(torch, args.dtype),
+                     device=comm.device, **size)
+    insize = model.insize
 
     if comm.rank == 0:
         print('==========================================')

@@ -11,31 +11,39 @@ from chainermn_tpu_torch.models.classifier import (  # noqa: F401
 from chainermn_tpu_torch.models.flax_weights import (  # noqa: F401
     load_flax_variables, param_tree, to_flax_variables)
 from chainermn_tpu_torch.models.mlp import MLP  # noqa: F401
+from chainermn_tpu_torch.models._layers import (  # noqa: F401
+    Dropout, set_dropout_generator)
+from chainermn_tpu_torch.models.alex import Alex  # noqa: F401
+from chainermn_tpu_torch.models.googlenet import GoogLeNet  # noqa: F401
+from chainermn_tpu_torch.models.googlenetbn import (  # noqa: F401
+    GoogLeNetBN, InceptionBN)
+from chainermn_tpu_torch.models.nin import NIN  # noqa: F401
 from chainermn_tpu_torch.models.resnet50 import (  # noqa: F401
     Bottleneck, ResNet, ResNet50, ResNet101, ResNet152)
+from chainermn_tpu_torch.models.seq2seq import (  # noqa: F401
+    Seq2seq, bucket_batches, seq2seq_loss)
 from chainermn_tpu_torch.models.transformer import (  # noqa: F401
     TransformerBlock, TransformerLM, decode_step, decode_step_paged,
     init_kv_cache, init_paged_kv_cache, lm_loss, lm_loss_sum, prefill,
     prefill_paged, spec_verify, spec_verify_paged)
+from chainermn_tpu_torch.models.vgg import VGG, VGG16  # noqa: F401
 
 
 _NOT_PORTED = {
     'resnet50_s2d': 'the space_to_depth stem is not ported yet '
                     '(ROADMAP.md A3)',
-    'alex': 'Alex is not ported yet (ROADMAP.md A6)',
-    'googlenet': 'GoogLeNet is not ported yet (ROADMAP.md A6)',
-    'googlenetbn': 'GoogLeNetBN is not ported yet (ROADMAP.md A6)',
-    'nin': 'NIN is not ported yet (ROADMAP.md A6)',
-    'vgg16': 'VGG16 is not ported yet (ROADMAP.md A6)',
 }
-_ARCHS = {'resnet50': ResNet50, 'resnet101': ResNet101,
-          'resnet152': ResNet152}
+_ARCHS = {'alex': Alex, 'googlenet': GoogLeNet, 'googlenetbn': GoogLeNetBN,
+          'nin': NIN, 'resnet50': ResNet50, 'resnet101': ResNet101,
+          'resnet152': ResNet152, 'vgg16': VGG16}
 
 
 def get_arch(name, **kwargs):
     """Architecture registry, with the JAX package's names (the
     reference's arch table, ``train_imagenet.py:103-109``); keyword
-    arguments go to the model (``dtype``, ``device``, ...)."""
+    arguments go to the model (``dtype``, ``device``, ``insize``, ...).
+    Every model takes ``insize`` and keeps it as an attribute; VGG's,
+    Alex's and GoogLeNet's widths follow it (a Dense after a flatten)."""
     if name in _NOT_PORTED:
         raise NotImplementedError(_NOT_PORTED[name])
     if name not in _ARCHS:

@@ -22,18 +22,19 @@ import torch
 from torch import nn
 
 from chainermn_tpu_torch.ops.batch_norm_act import (
-    batch_norm_act, batch_norm_act_inference)
+    _wide, batch_norm_act, batch_norm_act_inference)
 
 
 def _flax_batch_norm(x, scale, bias, eps, residual, relu):
-    """flax ``BatchNorm`` (train mode) + add + relu as plain PyTorch ops;
+    """flax ``BatchNorm`` (train mode) + add + relu as plain PyTorch ops,
+    computed in f32 (or in the input's wider type, as flax promotes);
     returns ``(out, batch_mean, batch_var)``."""
-    xf = x.float()
+    xf = _wide(x)
     dims = tuple(range(x.dim() - 1))
     mean = xf.mean(dims)
     var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
-    y = (xf - mean) * (torch.rsqrt(var + eps) * scale.float()) \
-        + bias.float()
+    y = (xf - mean) * (torch.rsqrt(var + eps) * scale.to(xf.dtype)) \
+        + bias.to(xf.dtype)
     y = y.to(x.dtype)
     if residual is not None:
         y = y + residual
@@ -51,11 +52,20 @@ def _flax_batch_norm_inference(x, scale, bias, mean, var, eps, residual,
 
 
 def norm_act(x, scale, bias, running_mean, running_var, *, train, fused,
-             residual=None, relu=True, momentum=0.9, epsilon=1e-5):
+             residual=None, relu=True, momentum=0.9, epsilon=1e-5,
+             use_norm=True):
     """Normalize ``x`` (``(..., C)``, C last) with batch statistics
     (``train=True``, updating ``running_mean`` / ``running_var`` in
     place) or running statistics (``train=False``), then add
-    ``residual`` and apply relu."""
+    ``residual`` and apply relu.
+
+    ``use_norm=False`` (VGG and NIN: models without a norm) skips the
+    norm: the residual add and the relu still run here, so the call
+    sites stay uniform, and ``fused`` has no effect (there is nothing
+    to fuse), as in the JAX package."""
+    if not use_norm:
+        y = x if residual is None else x + residual
+        return torch.relu(y) if relu else y
     if not train:
         if fused:
             return batch_norm_act_inference(

@@ -25,16 +25,19 @@ class MLP(nn.Module):
     precision for f32 inputs); parameters are float32 whatever it is.
     They are made on the CPU from ``generator`` (default: seed 0), with
     flax's ``Dense`` initializers, and moved to ``device`` (default: the
-    current CUDA device; raises when there is none)."""
+    current CUDA device; raises when there is none).  ``n_in`` is the
+    input width (flax infers it at ``init``): 784 for a flattened
+    MNIST image, ``n_units`` for the second stage of the
+    model-parallel example."""
 
     def __init__(self, n_units=100, n_out=10, dtype=None, device=None,
-                 generator=None):
+                 generator=None, n_in=N_IN):
         super().__init__()
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.dtype = dtype
-        widths = (N_IN, n_units, n_units, n_out)
+        widths = (n_in, n_units, n_units, n_out)
         for i in range(3):
             layer = nn.Linear(widths[i], widths[i + 1])
             with torch.no_grad():

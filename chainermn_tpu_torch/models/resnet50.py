@@ -23,68 +23,13 @@ Module names follow flax's auto-numbering (``conv_init``, ``bn_init``,
 mechanically.
 """
 
-import math
-
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from chainermn_tpu_torch.models._layers import (  # noqa: F401
+    Conv, _lecun_normal_, max_pool_same, same_pads)
 from chainermn_tpu_torch.models._norm import NormAct
 from chainermn_tpu_torch.ops._common import resolve_device
-
-
-def same_pads(size, kernel, stride):
-    """flax/XLA ``SAME`` padding ``(lo, hi)`` of one spatial dim."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + kernel - size, 0)
-    return total // 2, total - total // 2
-
-
-def _lecun_normal_(w, fan_in, generator):
-    """flax's default kernel init: truncated normal at +-2 std, variance
-    1 / fan_in."""
-    std = math.sqrt(1.0 / fan_in) / .87962566103423978
-    return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
-                                 generator=generator)
-
-
-class Conv(nn.Module):
-    """flax ``nn.Conv`` without bias and with ``SAME`` padding, on NHWC
-    tensors; the weight is an f32 OIHW channels_last master cast to
-    ``dtype`` for the convolution."""
-
-    def __init__(self, in_features, features, kernel, stride=1,
-                 dtype=torch.bfloat16, generator=None):
-        super().__init__()
-        self.kernel = kernel
-        self.stride = stride
-        self.dtype = dtype
-        w = torch.empty((features, in_features, kernel, kernel))
-        _lecun_normal_(w, in_features * kernel * kernel, generator)
-        self.weight = nn.Parameter(
-            w.contiguous(memory_format=torch.channels_last))
-
-    def forward(self, x):
-        xc = x.permute(0, 3, 1, 2).to(self.dtype)
-        (ht, hb), (wl, wr) = (same_pads(s, self.kernel, self.stride)
-                              for s in xc.shape[2:])
-        if ht == hb and wl == wr:
-            pad = (ht, wl)
-        else:
-            xc = F.pad(xc, (wl, wr, ht, hb))
-            pad = 0
-        y = F.conv2d(xc, self.weight.to(self.dtype), stride=self.stride,
-                     padding=pad)
-        return y.permute(0, 2, 3, 1)
-
-
-def max_pool_same(x, kernel=3, stride=2):
-    """``nn.max_pool(x, (k, k), strides=(s, s), padding='SAME')`` on an
-    NHWC tensor: -inf padding, asymmetric where flax pads so."""
-    xc = x.permute(0, 3, 1, 2)
-    (ht, hb), (wl, wr) = (same_pads(s, kernel, stride) for s in xc.shape[2:])
-    xc = F.pad(xc, (wl, wr, ht, hb), value=float('-inf'))
-    return F.max_pool2d(xc, kernel, stride).permute(0, 2, 3, 1)
 
 
 class Bottleneck(nn.Module):
@@ -124,13 +69,13 @@ class ResNet(nn.Module):
 
     Parameters are made on the CPU from ``generator`` (default: seed 0)
     and moved to ``device`` (default: the current CUDA device; raises
-    when there is none)."""
-
-    insize = 224   # the reference's resnet50.py insize
+    when there is none).  ``insize`` (the reference's 224) is the input
+    size the data pipeline crops to; the widths do not depend on it."""
 
     def __init__(self, stage_sizes, num_classes=1000, width=64,
                  dtype=torch.bfloat16, stem='standard',
-                 fused_norm=False, device=None, generator=None):
+                 fused_norm=False, device=None, generator=None,
+                 insize=224):
         super().__init__()
         if stem == 'space_to_depth':
             raise NotImplementedError(
@@ -143,6 +88,7 @@ class ResNet(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.dtype = dtype
+        self.insize = insize
         self.fused_norm = fused_norm
         self.conv_init = Conv(3, width, 7, 2, dtype=dtype,
                               generator=generator)
@@ -177,21 +123,21 @@ class ResNet(nn.Module):
 
 
 def ResNet50(num_classes=1000, dtype=torch.bfloat16, stem='standard',
-             fused_norm=False, device=None, generator=None):
+             fused_norm=False, device=None, generator=None, insize=224):
     return ResNet(stage_sizes=[3, 4, 6, 3], num_classes=num_classes,
                   dtype=dtype, stem=stem, fused_norm=fused_norm,
-                  device=device, generator=generator)
+                  device=device, generator=generator, insize=insize)
 
 
 def ResNet101(num_classes=1000, dtype=torch.bfloat16, fused_norm=False,
-              device=None, generator=None, width=64):
+              device=None, generator=None, width=64, insize=224):
     return ResNet(stage_sizes=[3, 4, 23, 3], num_classes=num_classes,
                   width=width, dtype=dtype, fused_norm=fused_norm,
-                  device=device, generator=generator)
+                  device=device, generator=generator, insize=insize)
 
 
 def ResNet152(num_classes=1000, dtype=torch.bfloat16, fused_norm=False,
-              device=None, generator=None, width=64):
+              device=None, generator=None, width=64, insize=224):
     return ResNet(stage_sizes=[3, 8, 36, 3], num_classes=num_classes,
                   width=width, dtype=dtype, fused_norm=fused_norm,
-                  device=device, generator=generator)
+                  device=device, generator=generator, insize=insize)

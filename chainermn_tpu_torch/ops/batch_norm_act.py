@@ -32,10 +32,16 @@ _TILE_C = 32   # channels per block (kTileC in the .cu source)
 _LANES = 8     # row lanes per block (kLanes in the .cu source)
 
 
+def _wide(t):
+    """``t`` in f32, or in its own wider type (the plain versions of a
+    float64 model compute in float64, as flax promotes)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def _batch_stats(x2d, eps):
     """Plain version of :func:`bn_stats`: flax-parity batch statistics
     (f32, fast variance, clipped); returns ``(mean, var, rstd)``."""
-    xf = x2d.float()
+    xf = _wide(x2d)
     mean = xf.mean(0)
     mean2 = (xf * xf).mean(0)
     var = torch.clamp_min(mean2 - mean * mean, 0.0)
@@ -45,9 +51,9 @@ def _batch_stats(x2d, eps):
 def _apply_ref(x, mean, rstd, scale, bias, residual, relu):
     """Plain version of :func:`bn_apply`: normalize + affine (+ add)
     (+ relu) in f32, output in ``x.dtype``."""
-    y = (x.float() - mean) * (rstd * scale) + bias
+    y = (_wide(x) - mean) * (rstd * scale) + bias
     if residual is not None:
-        y = y + residual.float()
+        y = y + _wide(residual)
     if relu:
         y = torch.clamp_min(y, 0.0)
     return y.to(x.dtype)
@@ -108,7 +114,8 @@ def _check_vec(v, c, device, what):
 def bn_stats(x2d, eps):
     """Kernel wrapper: per-channel ``(mean, var, rstd)`` in f32 over the
     rows of a CUDA ``(M, C)`` matrix, in two launches (partials per row
-    chunk, then a fixed-order sum).  Replaces ``_stats_pallas``."""
+    chunk, then a fixed-order sum; every sum compensated).  Replaces
+    ``_stats_pallas``."""
     code = _check_rows(x2d, 'bn_stats')
     m, c = x2d.shape
     dev = x2d.device
@@ -200,20 +207,20 @@ class _BatchNormAct(torch.autograd.Function):
         x, scale, mean, rstd, out = ctx.saved_tensors
         shape = x.shape
         c = shape[-1]
-        xf = x.reshape(-1, c).float()
-        gf = g.reshape(-1, c).float()
+        xf = _wide(x.reshape(-1, c))
+        gf = _wide(g.reshape(-1, c))
         m = xf.shape[0]
         xhat = (xf - mean) * rstd          # recomputed, never saved
         gm = gf * (out.reshape(-1, c) > 0) if ctx.relu else gf
-        scale_f = scale.float()
+        scale_f = _wide(scale)
         dbeta = gm.sum(0)
         dgamma = (gm * xhat).sum(0)
         dx = (scale_f * rstd) * (gm - dbeta / m - xhat * (dgamma / m))
         # closed-form terms of the statistics outputs (zero in training,
         # where they feed only the undifferentiated running averages)
         if g_mean is not None or g_var is not None:
-            gmf = g_mean.float() if g_mean is not None else 0.0
-            gvf = g_var.float() if g_var is not None else 0.0
+            gmf = _wide(g_mean) if g_mean is not None else 0.0
+            gvf = _wide(g_var) if g_var is not None else 0.0
             dx = dx + (gmf + 2.0 * (xf - mean) * gvf) / m
         dres = gm.to(x.dtype).reshape(shape) if ctx.has_residual else None
         return (dx.to(x.dtype).reshape(shape), dgamma.to(scale.dtype),

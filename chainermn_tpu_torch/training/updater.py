@@ -16,6 +16,7 @@ into one SPMD program; here the same steps run eagerly in each process:
 
 import torch
 
+from chainermn_tpu_torch.models._layers import set_dropout_generator
 from chainermn_tpu_torch.models.flax_weights import to_flax_variables
 from chainermn_tpu_torch.training.convert import concat_examples
 from chainermn_tpu_torch.training.iterators import DevicePrefetchIterator
@@ -38,11 +39,17 @@ class StandardUpdater:
         :class:`~chainermn_tpu_torch.training.DevicePrefetchIterator` of
         depth N: the next batches are collated into pinned host memory
         and copied to the device on a side stream while the step runs.
+      rng: the seed (an int, default 0) of the dropout masks.  When the
+        model has :class:`~chainermn_tpu_torch.models.Dropout` layers,
+        the updater owns one generator on the model's device
+        (``dropout_generator``), points them at it, and reseeds it from
+        (seed, iteration, rank) before every step: the counterpart of
+        the JAX updater's ``fold_in(fold_in(rng, iteration), rank)``.
     """
 
     def __init__(self, iterator, optimizer, loss_fn, model, comm,
                  model_state=True, zero=False, accum_steps=1, policy=None,
-                 remat=False, device_prefetch=0):
+                 remat=False, device_prefetch=0, rng=None):
         for name, value, default in (
                 ('zero', zero, False), ('accum_steps', accum_steps, 1),
                 ('policy', policy, None), ('remat', remat, False)):
@@ -57,6 +64,10 @@ class StandardUpdater:
         self.model_state = model_state
         self.device = next(model.parameters()).device
         self.iteration = 0
+        self.seed = 0 if rng is None else int(rng)
+        gen = torch.Generator(self.device)
+        self.dropout_generator = \
+            gen if set_dropout_generator(model, gen) else None
         self._device_prefetch = bool(device_prefetch)
         if device_prefetch:
             iterator = DevicePrefetchIterator(
@@ -95,6 +106,10 @@ class StandardUpdater:
         """One iteration on device tensors; returns the averaged metrics
         as 0-d tensors."""
         self.optimizer.zero_grad(set_to_none=True)
+        if self.dropout_generator is not None:
+            self.dropout_generator.manual_seed(
+                ((self.seed * 1000003 + self.iteration) * 65537
+                 + self.comm.rank) % 2 ** 63)
         loss, metrics = self.loss_fn(*arrays)
         loss.backward()
         # a model without buffers (the transformer) has nothing to sync:

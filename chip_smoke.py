@@ -23,7 +23,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    more keys and with misaligned rows, its f32 scalar route; momentum
    SGD over ResNet-50's 161 tensors and over the MNIST MLP's 6 in one
    launch a step, bit-equal to its plain version over three steps, and
-   with bf16 gradients), with
+   with bf16 gradients; both BN kernels at four of GoogLeNet-BN's
+   interludes, ``GBN_SHAPES``, bf16 + relu, the whole forward within
+   ``BF16_TOL``, each timed under the row's ``googlenetbn_shapes``), with
    kernel / plain / library times and the bound;
 4. one train-mode forward of full-width ResNet-50 (f32, TF32 off, batch
    2) on the card (kernels) against the same model on the CPU (plain
@@ -63,6 +65,46 @@ Phases, each printing its own lines; any failure exits non-zero:
    kernel, finite losses, images/s from the p50 of the synchronized
    ``update()`` calls and over the whole window, the device busy share
    over 3 profiled steps, peak memory;
+5c. the conv zoo (``zoo``): GoogLeNet-BN ``fused_norm=True`` against
+   ``fused_norm=False`` on the card (f32, TF32 off, batch 4, 224 px:
+   logits, loss and running averages against each other; every
+   interlude on its own input and output gradient against the flax
+   oracle; every gradient against the f64 model on the CPU, the fused
+   path's relative L2 error within twice the larger of the unfused
+   path's on the card and on the CPU); then its main path,
+   ``GoogLeNetBN(fused_norm=True)`` (bf16, 224 px, batch 64) trained 6
+   steps through ``StandardUpdater`` with ``FusedMomentumSGD``, one
+   ``bn_stats`` and one ``bn_apply`` per interlude (68 a step, counted
+   from the model) and two SGD launches a step (206 tensors; a launch's
+   table holds 200), checked, images/s, the device busy share and peak
+   memory; one more step's forward and backward holds each of the 68
+   interludes, at the shapes and in the dtype of the main path, against
+   the oracle on the same input and output gradient (the output within
+   ``BF16_TOL``, the statistics within ``STATS_TOL``, the gradients
+   within ``GRAD_TOL``, dx within ``BF16_TOL``'s rtol), and the whole
+   model against unfused copies with the same weights (the loss within
+   5e-2 of the bf16 copy's; the gradients' relative L2 distance from an
+   f32 copy's within twice the bf16 copy's);
+   then the ImageNet twin
+   (``hierarchical``, batch 64, one epoch) for ``vgg16`` and
+   ``googlenetbn`` at 224 px and ``alex``, ``nin`` and ``googlenet`` at
+   ``--quick``: ``momentum_sgd`` once an update (twice for GoogLeNet-BN's
+   206 tensors) and no other kernel,
+   finite losses, images/s, peak memory;
+5d. the model-parallel MNIST twin (``model_parallel``):
+   ``train_mnist_model_parallel`` (``MultiNodeChainList(spmd=True)`` over
+   ``MLP(200, 200)`` and ``MLP(200, 10)``, Adam 1e-3, batch 100) in a
+   world of one: 5 iterations on the CPU (gloo) and on the card (NCCL)
+   give the same losses and parameters (rtol 1e-4; parameters also
+   atol 1e-4, a tenth of Adam's lr), then the whole run
+   (5 epochs) on the card, timed, no kernel launched;
+   ``pseudo_connect`` and a self-edge ``send`` on CUDA tensors;
+5e. seq2seq (``seq2seq``): the twin of ``examples/seq2seq/train_seq2seq.py``
+   at its defaults (2 x 256 LSTM, vocabulary 512, batch 64, buckets 8 /
+   16 / 32, bf16) for one epoch of 8192 pairs: finite losses falling in
+   every bucket, target tokens/s, no kernel launched; then
+   ``Seq2seq()`` at its class defaults (2 x 512, vocabulary 8000) in
+   f32, card against CPU on one padded 16 x 16 batch;
 6. serving check: two f32 ``GenerationEngine``s at full width and depth
    2 from the same numpy-seeded weights, one on the card and one on the
    CPU, give the same greedy tokens for 8 prompts;
@@ -390,6 +432,54 @@ def _bn_case(gen, m, c, dtype, residual, relu):
     return x, res, scale, bias, stats_err, max_err(out, pout)
 
 
+# GoogLeNet-BN's interludes at batch 64 and 224 px, (rows, channels): the
+# stem's 112 x 112 x 64, two branch widths at 28 x 28 and the last stage's
+# 352 channels at 7 x 7 (every channel count of the model is a multiple of
+# the stats kernel's 32-channel tile; the ragged case above covers the
+# partial tile)
+GBN_SHAPES = ((BATCH * 112 * 112, 64), (BATCH * 28 * 28, 96),
+              (BATCH * 28 * 28, 32), (BATCH * 7 * 7, 352))
+
+
+def _googlenetbn_bn_rows(gen):
+    """Both BN kernels at ``GBN_SHAPES`` in bf16 (relu, no residual, as
+    every GoogLeNet-BN interlude): held to their plain versions (the
+    whole forward within ``BF16_TOL``) and timed with their bounds;
+    returns the ``googlenetbn_shapes`` entries of the two rows."""
+    import torch
+    from chainermn_tpu_torch import ops
+    bn = importlib.import_module('chainermn_tpu_torch.ops.batch_norm_act')
+    stats_rows, apply_rows = [], []
+    for m, c in GBN_SHAPES:
+        x, _, scale, bias, se, ae = _bn_case(gen, m, c, torch.bfloat16,
+                                             False, True)
+        full, _, _ = ops.batch_norm_act(x, scale, bias, relu=True)
+        pmean, _, prstd = bn._batch_stats(x, 1e-5)
+        ref = bn._apply_ref(x, pmean, prstd, scale, bias, None, True)
+        check_close('batch_norm_act at GoogLeNet-BN %s' % ((m, c),), full,
+                    ref, *BF16_TOL)
+        mean, _, rstd = ops.bn_stats(x, 1e-5)
+        t = timings(lambda: ops.bn_stats(x, 1e-5),
+                    lambda: bn._batch_stats(x, 1e-5),
+                    lambda: torch.var_mean(x, 0, correction=0), iters=10)
+        b_ms, b_by = bound_ms(m * c * 2 + 3 * c * 4, 3 * m * c)
+        stats_rows.append(dict(shape=[m, c], max_abs_err=se, bound_ms=b_ms,
+                               bound_by=b_by, **t))
+        _say('kernels', 'bn_stats at GoogLeNet-BN %s bf16: %s; bound %.5f '
+             'ms by %s' % ((m, c), _fmt(t), b_ms, b_by))
+        t = timings(
+            lambda: ops.bn_apply(x, None, mean, rstd, scale, bias, True),
+            lambda: bn._apply_ref(x, mean, rstd, scale, bias, None, True),
+            None, iters=10)
+        b_ms, b_by = bound_ms(2 * m * c * 2 + 4 * c * 4, 4 * m * c)
+        apply_rows.append(dict(shape=[m, c], max_abs_err=ae, bound_ms=b_ms,
+                               bound_by=b_by, forward_err=max_err(full, ref),
+                               **t))
+        _say('kernels', 'bn_apply at GoogLeNet-BN %s bf16 + relu: %s; bound '
+             '%.5f ms by %s' % ((m, c), _fmt(t), b_ms, b_by))
+    return stats_rows, apply_rows
+
+
 def phase_kernels():
     import torch
     import torch.nn.functional as F
@@ -412,6 +502,7 @@ def phase_kernels():
         stats_err, apply_err = max(stats_err, se), max(apply_err, ae)
         if timed is None:
             timed = (x, res, scale, bias)
+    gbn_stats, gbn_apply = _googlenetbn_bn_rows(gen)
     records = []
     # times at the stage-1 exit interlude, bf16 (64*56*56, 256) + residual
     x, res, scale, bias = timed
@@ -425,7 +516,8 @@ def phase_kernels():
         name='bn_stats', route='cuda',
         source='chainermn_tpu_torch/csrc/batch_norm_act.cu',
         replaces='chainermn_tpu/ops/batch_norm_act.py:110',
-        max_abs_err=stats_err, bound_ms=b_ms, bound_by=b_by, **t))
+        max_abs_err=stats_err, bound_ms=b_ms, bound_by=b_by,
+        googlenetbn_shapes=gbn_stats, **t))
     _say('kernels', 'bn_stats at %s bf16: %s (var_mean)' % ((m, c), _fmt(t)))
     # F.batch_norm in inference form, from the same statistics, computes
     # the kernel's no-residual, no-relu case: checked to agree
@@ -459,7 +551,8 @@ def phase_kernels():
         name='bn_apply', route='cuda',
         source='chainermn_tpu_torch/csrc/batch_norm_act.cu',
         replaces='chainermn_tpu/ops/batch_norm_act.py:161',
-        max_abs_err=apply_err, bound_ms=b_ms, bound_by=b_by, **t))
+        max_abs_err=apply_err, bound_ms=b_ms, bound_by=b_by,
+        googlenetbn_shapes=gbn_apply, **t))
     _say('kernels', 'bn_apply at %s bf16 + residual + relu: %s; without '
          'residual and relu: kernel per call %.5f ms (F.batch_norm %.5f), '
          'device only %s ms (F.batch_norm %s); bound %.5f ms by %s' % (
@@ -1360,11 +1453,11 @@ IMAGENET_ARGV = ['--communicator', 'hierarchical', '--arch', 'resnet50',
 IMAGENET_BATCH = 64
 
 
-def _imagenet_example(out):
-    """``train_imagenet.main`` with each update timed (synchronized
-    before and after, its loss kept) and the prefetcher's host batches
-    checked for pinned memory; returns ``(trainer, update ms, losses,
-    pinned flags, window s)``."""
+def _imagenet_example(out, argv=IMAGENET_ARGV):
+    """``train_imagenet.main(argv)`` with each update timed
+    (synchronized before and after, its loss kept) and the prefetcher's
+    host batches checked for pinned memory; returns ``(trainer, update
+    ms, losses, pinned flags, window s)``."""
     import torch
     from chainermn_tpu_torch import training
     from chainermn_tpu_torch.examples.imagenet import train_imagenet
@@ -1390,7 +1483,7 @@ def _imagenet_example(out):
     training.StandardUpdater.update = timed
     training.StandardUpdater.collate_pinned = checked
     try:
-        trainer = train_imagenet.main(IMAGENET_ARGV + ['--out', out])
+        trainer = train_imagenet.main(argv + ['--out', out])
         torch.cuda.synchronize()
         window_s = time.perf_counter() - starts[0]
     finally:
@@ -1673,6 +1766,730 @@ def phase_mnist():
              'not measured' if busy is None else '%.1f%%' % (100 * busy),
              entries[0]['loss'], entries[1]['loss'],
              entries[1]['validation/main/accuracy']))
+    return counts
+
+
+# the conv zoo's main path: GoogLeNet-BN with the fused BN kernels at full
+# width, then the ImageNet twin over the other BASELINE.json models
+ZOO_STEPS = 6
+SGD_TABLE = 200                # tensors a momentum_sgd launch takes
+                               # (kMaxTensors, csrc/momentum_sgd.cu)
+ZOO_CHECK_BATCH = 4            # the fused / unfused check on the card, f32
+# (arch, quick): vgg16 and googlenetbn at their insize (224), the others
+# at the JAX script's --quick size (64; 96 for alex and nin)
+ZOO_TWINS = (('vgg16', False), ('googlenetbn', False), ('alex', True),
+             ('nin', True), ('googlenet', True))
+
+
+def _capture_interludes(model):
+    """Hooks on every ``NormAct`` of ``model``: a train-mode forward
+    records each interlude's input, and the backward after it the
+    gradient of its output.  Returns ``(records, remove)``: records by
+    module name (``{'x': ..., 'g': ...}``) and a function that removes
+    the hooks."""
+    from chainermn_tpu_torch.models import NormAct
+    records, handles = {}, []
+
+    def pre(name):
+        def hook(mod, args):
+            records[name] = {'x': args[0].detach()}
+        return hook
+
+    def post(name):
+        def hook(mod, args, out):
+            out.register_hook(
+                lambda g: records[name].__setitem__('g', g.detach()))
+        return hook
+
+    for name, mod in model.named_modules():
+        if isinstance(mod, NormAct):
+            handles.append(mod.register_forward_pre_hook(pre(name)))
+            handles.append(mod.register_forward_hook(post(name)))
+    return records, lambda: [h.remove() for h in handles]
+
+
+def _rel_l2(a, b):
+    return float((a.double() - b.double()).norm()
+                 / (b.double().norm() + 1e-30))
+
+
+# an interlude's statistics (f32 sums of the same values in another
+# order) against the oracle's: _bn_case's tolerance
+STATS_TOL = (1e-4, 1e-5)
+
+
+def _units(got, want, rtol, atol):
+    """The largest ``|got - want| / (atol + rtol |want|)``: at most 1 is
+    within the tolerance."""
+    want = want.double()
+    return float(((got.double() - want).abs()
+                  / (atol + rtol * want.abs())).max())
+
+
+def _interlude_readings(mod, x, g):
+    """One BN interlude on its real input ``x`` and output gradient ``g``
+    through three routes: the fused op (the BN kernels, then its closed-
+    form backward), the flax oracle in ``x.dtype`` (``fused_norm=False``:
+    plain PyTorch, autograd) and the flax oracle in float64 (the truth).
+
+    The forward runs as the layer does (with its relu): the fused output
+    and statistics against the oracle's, in units of ``BF16_TOL`` and
+    ``STATS_TOL``.  The backward runs without the relu on ``g`` masked by
+    the truth's relu: the relu's gradient is a step, and an output within
+    rounding of zero on the other side (a relu flip; the forward's
+    tolerance covers it) would move one element's gradient from ``g`` to
+    0.  Each route's dx, dscale and dbias against the truth, and the
+    fused ones against the oracle's, as relative L2 errors."""
+    import torch
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.models._norm import _flax_batch_norm
+    eps = mod.epsilon
+    routes = {
+        'fused': (lambda a, s, b, relu: ops.batch_norm_act(a, s, b, eps,
+                                                           relu=relu), x),
+        'oracle': (lambda a, s, b, relu: _flax_batch_norm(a, s, b, eps, None,
+                                                          relu), x),
+        'truth': (lambda a, s, b, relu: _flax_batch_norm(a, s, b, eps, None,
+                                                         relu), x.double())}
+    fwd, bwd = {}, {}
+    with torch.no_grad():
+        for route, (fn, xin) in routes.items():
+            out, mean, var = fn(xin, mod.scale, mod.bias, mod.relu)
+            fwd[route] = dict(out=out, mean=mean, var=var)
+    gm = g * (fwd['truth']['out'] > 0) if mod.relu else g
+    for route, (fn, xin) in routes.items():
+        xin = xin.detach().requires_grad_(True)
+        scale = mod.scale.detach().clone().requires_grad_(True)
+        bias = mod.bias.detach().clone().requires_grad_(True)
+        out, _, _ = fn(xin, scale, bias, False)
+        out.backward(gm.to(out.dtype))
+        bwd[route] = dict(dx=xin.grad, dscale=scale.grad, dbias=bias.grad)
+    f, o, t = fwd['fused'], fwd['oracle'], fwd['truth']
+    rstd_t = torch.rsqrt(t['var'] + eps)
+    xd = x.double().reshape(-1, x.shape[-1])
+    grads = ('dx', 'dscale', 'dbias')
+    return dict(
+        shape=(xd.shape[0], xd.shape[1]),
+        out_units=_units(f['out'], o['out'], *BF16_TOL),
+        stats_units=max(_units(f[k], o[k], *STATS_TOL)
+                        for k in ('mean', 'var')),
+        # how ill-conditioned the fast variance E[x^2] - E[x]^2 is: the
+        # largest E[x^2] / (var + eps) over channels
+        cond=float(((xd * xd).mean(0) / (t['var'] + eps)).max()),
+        # outputs on the other side of the relu from the truth's
+        flips={r: int(((fwd[r]['out'] > 0) != (t['out'] > 0)).sum())
+               for r in ('fused', 'oracle')},
+        rstd={r: float(((torch.rsqrt(fwd[r]['var'].double() + eps) - rstd_t)
+                        .abs() / rstd_t).max()) for r in ('fused', 'oracle')},
+        truth={r: {k: _rel_l2(bwd[r][k], bwd['truth'][k]) for k in grads}
+               for r in ('fused', 'oracle')},
+        vs_oracle={k: _rel_l2(bwd['fused'][k], bwd['oracle'][k])
+                   for k in grads})
+
+
+def _interlude_report(model, records):
+    """:func:`_interlude_readings` for every interlude ``records`` holds
+    (taking each record out as it goes), in forward order."""
+    rows = []
+    mods = dict(model.named_modules())
+    for name in list(records):
+        rec = records.pop(name)
+        rows.append(dict(_interlude_readings(mods[name], rec['x'],
+                                             rec['g']), name=name))
+    return rows
+
+
+def _say_interludes(phase, what, rows, n=8):
+    """Log the ``n`` interludes whose fused dx is furthest from the
+    oracle's."""
+    for r in sorted(rows, key=lambda r: -r['vs_oracle']['dx'])[:n]:
+        f, o, v = r['truth']['fused'], r['truth']['oracle'], r['vs_oracle']
+        _say(phase, '%s %s %s: cond %.3g; out %.3g of BF16_TOL, stats %.3g '
+             'of STATS_TOL; against f64, fused / oracle: rstd %.3g / %.3g, '
+             'relu flips %d / %d, dx %.3g / %.3g, dscale %.3g / %.3g, dbias '
+             '%.3g / %.3g; fused against oracle: dx %.3g, dscale %.3g, dbias '
+             '%.3g' % (what, r['name'], r['shape'], r['cond'],
+                       r['out_units'], r['stats_units'], r['rstd']['fused'],
+                       r['rstd']['oracle'], r['flips']['fused'],
+                       r['flips']['oracle'], f['dx'], o['dx'], f['dscale'],
+                       o['dscale'], f['dbias'], o['dbias'], v['dx'],
+                       v['dscale'], v['dbias']))
+
+
+def _say_worst(phase, what, rows):
+    """Log the worst of each reading over ``rows``."""
+    _say(phase, '%s, %d interludes at worst: out %.3g of BF16_TOL, stats '
+         '%.3g of STATS_TOL, cond %.3g, relu flips fused / oracle %d / %d; '
+         'fused against oracle: dx %.3g, dscale %.3g, dbias %.3g; against '
+         'f64, fused / oracle: dx %.3g / %.3g, dscale %.3g / %.3g, dbias '
+         '%.3g / %.3g' % (
+             what, len(rows), _worst(rows, 'out_units'),
+             _worst(rows, 'stats_units'), _worst(rows, 'cond'),
+             _worst(rows, 'flips', 'fused'), _worst(rows, 'flips', 'oracle'),
+             *(_worst(rows, 'vs_oracle', k) for k in ('dx', 'dscale',
+                                                      'dbias')),
+             *(_worst(rows, 'truth', r, k) for k in ('dx', 'dscale', 'dbias')
+               for r in ('fused', 'oracle'))))
+
+
+# an interlude's dscale and dbias (f32 sums over its rows) against the
+# oracle's, relative L2: the gradient tolerance of the parity tests
+GRAD_TOL = 1e-4
+
+
+def _hold_interludes(what, rows, dtype):
+    """Fail unless every interlude's fused forward and backward agree
+    with the oracle's: the output within ``BF16_TOL``, the statistics
+    within ``STATS_TOL``, dscale and dbias within ``GRAD_TOL`` and dx
+    within ``GRAD_TOL`` in f32 or, in bf16 (both round once to bf16),
+    within ``BF16_TOL``'s rtol."""
+    import torch
+    dx_tol = BF16_TOL[0] if dtype == torch.bfloat16 else GRAD_TOL
+    for r in rows:
+        bad = [k for k, v, tol in (
+            ('out', r['out_units'], 1.0), ('stats', r['stats_units'], 1.0),
+            ('dx', r['vs_oracle']['dx'], dx_tol),
+            ('dscale', r['vs_oracle']['dscale'], GRAD_TOL),
+            ('dbias', r['vs_oracle']['dbias'], GRAD_TOL)) if not v <= tol]
+        if bad:
+            raise AssertionError('GoogLeNet-BN %s interlude %s %s: fused '
+                                 'against the oracle beyond its tolerance '
+                                 'in %s: %s' % (what, r['name'], r['shape'],
+                                                bad, r))
+
+
+def _worst(rows, *keys):
+    """The largest reading under ``keys`` over ``rows``."""
+    def get(r):
+        for k in keys:
+            r = r[k]
+        return r
+    return max(get(r) for r in rows)
+
+
+def _zoo_fused_check():
+    """GoogLeNet-BN ``fused_norm=True`` (the BN kernels) against
+    ``fused_norm=False`` (plain PyTorch BatchNorm) on the card, f32 with
+    TF32 off, from the same seed and batch: train-mode logits, loss and
+    running averages against each other; every interlude of the fused
+    model on its own input and output gradient against the oracle
+    (:func:`_interlude_readings`); every gradient against the float64
+    model on the CPU, beside the errors of ``fused_norm=False`` on the
+    card and on the CPU (f32 under two other summation orders)."""
+    import torch
+    import torch.nn.functional as F
+    from chainermn_tpu_torch import models
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    what = 'f32 batch %d' % ZOO_CHECK_BATCH
+    try:
+        gen = torch.Generator().manual_seed(4)
+        x = torch.randn((ZOO_CHECK_BATCH, 224, 224, 3), generator=gen)
+        y = torch.randint(0, 1000, (ZOO_CHECK_BATCH,), generator=gen)
+        outs = {}
+        for name, fused, dev, dtype in (
+                ('fused', True, 'cuda', torch.float32),
+                ('unfused', False, 'cuda', torch.float32),
+                ('unfused_cpu', False, 'cpu', torch.float32),
+                ('f64', False, 'cpu', torch.float64)):
+            model = models.GoogLeNetBN(
+                dtype=dtype, fused_norm=fused, device=dev,
+                generator=torch.Generator().manual_seed(5)).to(dtype)
+            model.train()
+            if fused:
+                records, unhook = _capture_interludes(model)
+            logits = model(x.to(dev, dtype))
+            loss = F.cross_entropy(logits, y.to(dev))
+            loss.backward()
+            if fused:
+                unhook()
+                interludes = _interlude_report(model, records)
+            outs[name] = (logits.detach().cpu().double(),
+                          loss.detach().cpu().double(),
+                          models.to_flax_variables(model)['batch_stats'],
+                          {k: p.grad.detach().cpu().double()
+                           for k, p in model.named_parameters()})
+            del model
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    _say_interludes('zoo', what, interludes, n=4)
+    _say_worst('zoo', what, interludes)
+    _hold_interludes(what, interludes, torch.float32)
+    (fl, floss, fstats, fgrads), (ul, uloss, ustats, ugrads) = \
+        outs['fused'], outs['unfused']
+    tloss, tgrads = outs['f64'][1], outs['f64'][3]
+    # the two differ in the statistics' summation order and the
+    # backward's op order (about 1e-6 relative), renormalized 68 times
+    tol = 1e-3
+    check_close('GoogLeNet-BN fused vs unfused logits', fl, ul, tol, tol)
+    check_close('GoogLeNet-BN fused vs unfused loss', floss, uloss, tol, tol)
+    want_stats = dict(_flat(ustats))
+    for key, leaf in _flat(fstats):
+        check_close('GoogLeNet-BN running stats ' + key,
+                    torch.from_numpy(leaf), torch.from_numpy(want_stats[key]),
+                    tol, tol)
+    # gradients against the f64 model.  In f32 the whole model's
+    # gradient is not a smooth function of the rounding: a max pool
+    # routes a near-tie's gradient to another element and a relu output
+    # within rounding of zero flips, and each moves a whole element's
+    # gradient, so one tensor's error moves by orders of magnitude with
+    # the forward's rounding (InceptionBN_9.Conv_1.weight: 4.34e-05
+    # unfused on an H100, 4.11e-04 unfused on the CPU).  The fused path
+    # is held to f32 under the two other summation orders:
+    # each tensor, and the worst, within twice the larger of the two
+    # unfused errors
+    others = (('unfused', ugrads), ('unfused_cpu', outs['unfused_cpu'][3]))
+    errs = {}
+    for key, truth in tgrads.items():
+        norm = float(truth.norm()) or 1.0
+        errs[key] = {name: float((grads[key] - truth).norm()) / norm
+                     for name, grads in (('fused', fgrads),) + others}
+    worst = {name: max(e[name] for e in errs.values())
+             for name in ('fused', 'unfused', 'unfused_cpu')}
+
+    def limit(e):
+        return 2 * max(e['unfused'], e['unfused_cpu'])
+
+    for key in sorted(errs, key=lambda k: -errs[k]['fused']
+                      / max(limit(errs[k]), 1e-30))[:4]:
+        _say('zoo', '%s gradient %s: relative L2 error against f64 %.3g '
+             'fused, %.3g unfused, %.3g unfused on the CPU' % (
+                 what, key, errs[key]['fused'], errs[key]['unfused'],
+                 errs[key]['unfused_cpu']))
+    for key, e in errs.items():
+        if e['fused'] > limit(e):
+            raise AssertionError(
+                'GoogLeNet-BN gradient %s: relative L2 error against f64 '
+                '%.3g fused, %.3g unfused, %.3g unfused on the CPU'
+                % (key, e['fused'], e['unfused'], e['unfused_cpu']))
+    if worst['fused'] > limit(worst):
+        raise AssertionError('GoogLeNet-BN gradients: worst relative L2 '
+                             'error against f64 %.3g fused, %.3g unfused, '
+                             '%.3g unfused on the CPU' % (
+                                 worst['fused'], worst['unfused'],
+                                 worst['unfused_cpu']))
+    _say('zoo', 'GoogLeNet-BN %s, fused_norm True vs False on the card: '
+         'logits err %.3g, loss %.6f vs %.6f (f64 on the CPU %.6f); %d '
+         'gradient tensors, worst relative L2 error against the f64 model '
+         '%.3g fused, %.3g unfused, %.3g unfused on the CPU (bound: each '
+         'tensor and the worst within twice the larger unfused error)' % (
+             what, max_err(fl, ul), float(floss), float(uloss), float(tloss),
+             len(fgrads), worst['fused'], worst['unfused'],
+             worst['unfused_cpu']))
+
+
+def _zoo_interlude_check(model, clf, batch):
+    """GoogLeNet-BN's main path, interlude by interlude: one more train-
+    mode forward and backward of ``model`` (bf16, batch 64) records every
+    interlude's input and output gradient, and each is held against the
+    flax oracle (``fused_norm=False``'s BatchNorm) on the same tensors
+    (:func:`_hold_interludes`); then the whole model against unfused
+    copies with the same weights on the same batch: the loss against the
+    bf16 copy's, the gradients' distance from the f32 copy's against the
+    bf16 copy's distance."""
+    import torch
+    from chainermn_tpu_torch import models
+    model.zero_grad(set_to_none=True)
+    records, unhook = _capture_interludes(model)
+    try:
+        loss, _ = clf.loss(*batch)
+        loss.backward()
+    finally:
+        unhook()
+    fused_grads = {k: p.grad.detach().clone()
+                   for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    rows = _interlude_report(model, records)
+    if len(rows) != model.n_norms:
+        raise AssertionError('%d of %d interludes recorded'
+                             % (len(rows), model.n_norms))
+    _say_interludes('zoo', 'bf16 batch %d' % BATCH, rows, n=4)
+    _say_worst('zoo', 'bf16 batch %d' % BATCH, rows)
+    _hold_interludes('bf16 batch %d' % BATCH, rows, torch.bfloat16)
+    # the whole model: the fused and the unfused bf16 models against an
+    # unfused f32 model (TF32 off), all with the same weights on the same
+    # batch.  bf16 gradients are far from f32 ones (a BatchNorm bias
+    # gradient is a sum that cancels, over inputs rounded to bf16), so
+    # the fused model is held to the unfused one's distance
+    grads, losses = {'fused': fused_grads}, {'fused': float(loss.detach())}
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, dtype in (('unfused', torch.bfloat16),
+                            ('f32', torch.float32)):
+            other = models.GoogLeNetBN(fused_norm=False, dtype=dtype)
+            other.load_state_dict(model.state_dict())
+            oloss, _ = models.StatefulClassifier(other).loss(*batch)
+            oloss.backward()
+            losses[name] = float(oloss.detach())
+            grads[name] = {k: p.grad for k, p in other.named_parameters()}
+            del other
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    dist = {}
+    for name in ('fused', 'unfused'):
+        diff = sum(float((grads[name][k].double() - g.double()).norm()) ** 2
+                   for k, g in grads['f32'].items())
+        norm = sum(float(g.double().norm()) ** 2
+                   for g in grads['f32'].values())
+        dist[name] = math.sqrt(diff / norm)
+    gerrs = {k: _rel_l2(fused_grads[k], g)
+             for k, g in grads['unfused'].items()}
+    worst = max(gerrs, key=gerrs.get)
+    _say('zoo', 'bf16 batch %d, the whole model with the same weights on the '
+         'same batch: loss %.6f fused, %.6f unfused, %.6f f32; gradients '
+         'over all %d tensors %.3g fused and %.3g unfused from the f32 '
+         'model in relative L2 (bound: fused within twice unfused); fused '
+         'and unfused tensors at most %.3g apart (%s)' % (
+             BATCH, losses['fused'], losses['unfused'], losses['f32'],
+             len(gerrs), dist['fused'], dist['unfused'], gerrs[worst], worst))
+    # the loss within the bf16 tolerance of the reference's parity tests
+    check_close('GoogLeNet-BN bf16 loss fused vs unfused',
+                torch.tensor(losses['fused']), torch.tensor(losses['unfused']),
+                5e-2, 0.0)
+    if dist['fused'] > 2 * dist['unfused']:
+        raise AssertionError('GoogLeNet-BN bf16 gradients: %.3g fused, %.3g '
+                             'unfused from the f32 model' % (
+                                 dist['fused'], dist['unfused']))
+
+
+def _zoo_main():
+    """GoogLeNet-BN (``fused_norm=True``, 224 px, bf16) trained for
+    ``ZOO_STEPS`` steps at batch 64 through ``StandardUpdater``; returns
+    the launch counts of that run."""
+    import torch
+    import chainermn_tpu_torch as cmt
+    from chainermn_tpu_torch import models, ops, training
+    from chainermn_tpu_torch.datasets import imagenet
+    comm = cmt.create_communicator('xla')
+    try:
+        model = models.GoogLeNetBN(fused_norm=True)
+        n_norms, n_params = model.n_norms, len(list(model.parameters()))
+        if n_norms != 68:
+            raise AssertionError('GoogLeNet-BN has %d BN interludes' % n_norms)
+        clf = models.StatefulClassifier(model)
+        opt = cmt.create_multi_node_optimizer(
+            ops.FusedMomentumSGD(model.parameters(), 0.1, 0.9), comm)
+        raw, _ = imagenet.get_imagenet(BATCH, 8, size=256)
+        mean = imagenet.compute_mean(raw, limit=BATCH)
+        train = imagenet.PreprocessedDataset(raw, mean, 224, random=False)
+        train = [train[i] for i in range(len(train))]   # set-up, once
+        updater = training.StandardUpdater(
+            training.SerialIterator(train, BATCH, shuffle=False), opt,
+            clf.loss, model, comm)
+        trainer = training.Trainer(updater, (ZOO_STEPS, 'iteration'),
+                                   out=None)
+        marks, losses = [], []
+
+        def record(tr):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            losses.append(tr.observation['loss'])
+
+        trainer.extend(record, trigger=(1, 'iteration'))
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.run()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        sgd_tensors = ops.momentum_sgd.tensors
+        peak = torch.cuda.max_memory_allocated()
+        busy = profile_steps(updater)
+        _zoo_interlude_check(model, clf, updater.shard_batch(train[:BATCH]))
+    finally:
+        comm.close()
+    want = dict.fromkeys(ops.KERNELS, 0)
+    # 206 tensors: two launches a step (a launch's table holds 200)
+    per_step = -(-n_params // SGD_TABLE)
+    want.update(bn_stats=n_norms * ZOO_STEPS, bn_apply=n_norms * ZOO_STEPS,
+                momentum_sgd=per_step * (ZOO_STEPS - 1))
+    if counts != want:
+        raise AssertionError('GoogLeNet-BN launch counts %s, expected %s'
+                             % (counts, want))
+    if sgd_tensors != n_params * (ZOO_STEPS - 1):
+        raise AssertionError('momentum_sgd updated %d tensors, expected %d'
+                             % (sgd_tensors, n_params * (ZOO_STEPS - 1)))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError('GoogLeNet-BN: non-finite loss %s' % losses)
+    steps = [b - a for a, b in zip([t0] + marks[:-1], marks)]
+    timed = sorted(steps[2:])
+    p50 = timed[len(timed) // 2]
+    _say('zoo', 'GoogLeNet-BN fused_norm=True, bf16, 224 px, batch %d, %d '
+         'steps: losses %s; launches %s (%d interludes a step: one '
+         'bn_stats and one bn_apply each; %d momentum_sgd for %d tensors '
+         'after step 0); step times ms %s; p50 of steps 2..%d %.2f ms = '
+         '%.1f images/s; device busy %s over 3 profiled steps; peak memory '
+         '%.2f GiB' % (BATCH, ZOO_STEPS, ', '.join('%.4f' % v for v in losses),
+                       counts, n_norms, per_step, n_params,
+                       ', '.join('%.1f' % (1e3 * v) for v in steps),
+                       ZOO_STEPS - 1, 1e3 * p50, BATCH / p50,
+                       'not measured' if busy is None
+                       else '%.1f%%' % (100 * busy), peak / 2 ** 30))
+    return counts
+
+
+def _zoo_twins():
+    """The ImageNet twin for each of ``ZOO_TWINS`` (hierarchical on NCCL,
+    global batch 64, one epoch); returns the launch counts summed over
+    the runs."""
+    import shutil
+    import tempfile
+    import torch
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.examples.imagenet import train_imagenet
+    total = dict.fromkeys(ops.KERNELS, 0)
+    for arch, quick in ZOO_TWINS:
+        argv = ['--communicator', 'hierarchical', '--arch', arch,
+                '--batchsize', str(IMAGENET_BATCH), '--epoch', '1']
+        if quick:
+            argv.append('--quick')
+        out = tempfile.mkdtemp(prefix='zoo_twin_')
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            trainer, update_ms, losses, pinned, window_s = \
+                _imagenet_example(out, argv)
+            counts = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            iterations = trainer.updater.iteration
+            insize = trainer.updater.model.insize
+            # empty tensors (GoogLeNet's aux Dense at 64 px) take no row
+            per_update = -(-sum(1 for p in trainer.updater.model.parameters()
+                                if p.numel()) // SGD_TABLE)
+            acc = dict(trainer.observation).get('validation/main/accuracy')
+            train_imagenet.close(trainer)
+        finally:
+            shutil.rmtree(out, ignore_errors=True)
+        want = dict.fromkeys(ops.KERNELS, 0)
+        # the first update broadcasts
+        want.update(momentum_sgd=per_update * (iterations - 1))
+        if counts != want:
+            raise AssertionError('ImageNet twin %s: launch counts %s, '
+                                 'expected %s' % (arch, counts, want))
+        if len(losses) != iterations or not all(math.isfinite(v)
+                                                for v in losses):
+            raise AssertionError('ImageNet twin %s: losses %s'
+                                 % (arch, losses))
+        if not pinned or not all(pinned):
+            raise AssertionError('ImageNet twin %s: %d of %d batches pinned'
+                                 % (arch, sum(pinned), len(pinned)))
+        for key, n in counts.items():
+            total[key] += n
+        timed = sorted(update_ms[2:])
+        p50 = timed[len(timed) // 2]
+        _say('zoo', 'ImageNet twin --arch %s%s (insize %d, bf16, '
+             'hierarchical on NCCL, global batch %d): %d iterations, %d '
+             'momentum_sgd launches (%d an update) and no other kernel; '
+             'update p50 %.3f ms '
+             '= %.1f images/s (%d updates after 2 warm-up); %.1f images/s '
+             'over the whole window; loss %.4f -> %.4f; validation accuracy '
+             '%s; peak memory %.2f GiB' % (
+                 arch, ' --quick' if quick else '', insize, IMAGENET_BATCH,
+                 iterations, counts['momentum_sgd'], per_update, p50,
+                 IMAGENET_BATCH / (p50 / 1e3), len(timed),
+                 IMAGENET_BATCH * iterations / window_s, losses[0],
+                 losses[-1], acc, peak / 2 ** 30))
+    return total
+
+
+def phase_zoo():
+    """The fused / unfused check, GoogLeNet-BN's main path and the
+    ImageNet twin over the zoo; returns ``(GoogLeNet-BN counts, twins'
+    counts)``."""
+    _zoo_fused_check()
+    return _zoo_main(), _zoo_twins()
+
+
+MP_CHECK_ITER = 5              # the card run is held to the CPU run here
+
+
+def phase_model_parallel():
+    """The model-parallel MNIST twin (``MultiNodeChainList`` over two MLP
+    stages) in a world of one: 5 iterations on the CPU (gloo) and on the
+    card (NCCL) agree, then the whole run at its defaults on the card;
+    ``pseudo_connect`` and a self-edge ``send`` on CUDA tensors."""
+    import torch
+    import chainermn_tpu_torch as cmt
+    from chainermn_tpu_torch import functions, ops
+    from chainermn_tpu_torch.examples.mnist import (
+        train_mnist_model_parallel as twin)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError('expected full-f32 matmuls (allow_tf32 False)')
+    runs = {}
+    for name, argv in (('cpu', ['--cpu']), ('cuda', [])):
+        run = twin.main(argv, max_iterations=MP_CHECK_ITER)
+        try:
+            runs[name] = (run.losses, [p.detach().cpu().clone()
+                                       for p in run.model.parameters()])
+        finally:
+            run.comm.close()
+    (closs, cparams), (gloss, gparams) = runs['cpu'], runs['cuda']
+    if len(gloss) != MP_CHECK_ITER or len(closs) != MP_CHECK_ITER:
+        raise AssertionError('model-parallel: %d card, %d CPU steps'
+                             % (len(gloss), len(closs)))
+    for i, (a, b) in enumerate(zip(gloss, closs)):
+        if abs(a - b) > 1e-4 * abs(b):
+            raise AssertionError('model-parallel: loss %d card %r vs CPU %r'
+                                 % (i, a, b))
+    # rtol 1e-4, and an absolute 1e-4 (a tenth of Adam's lr): Adam
+    # divides each gradient by its own running scale, so an element whose
+    # gradient cancels to rounding noise (a pixel that is zero in all but
+    # a few images) steps by up to about lr whatever the noise's size, on
+    # the card and on the CPU alike (the LM test's key-bias gotcha)
+    for i, (a, b) in enumerate(zip(gparams, cparams)):
+        check_close('model-parallel parameter %d after %d iterations'
+                    % (i, MP_CHECK_ITER), a, b, 1e-4, 1e-4)
+    param_err = max(max_err(a, b) for a, b in zip(gparams, cparams))
+    n_off = sum(int(((a - b).abs() > 1e-6).sum())
+                for a, b in zip(gparams, cparams))
+    n_all = sum(a.numel() for a in gparams)
+    # the whole run on the card, each step timed
+    marks = []
+
+    def on_step(i, loss):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = twin.main([], on_step=on_step)
+    try:
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        window_s = time.perf_counter() - t0
+        losses, accs = run.losses, run.val_accuracy
+    finally:
+        run.comm.close()
+    if any(counts.values()):
+        raise AssertionError('model-parallel twin launched %s' % counts)
+    if not all(math.isfinite(v) for v in losses) or not accs[-1] > 0.5:
+        raise AssertionError('model-parallel twin: losses %s..., accuracy '
+                             '%s' % (losses[:5], accs))
+    steps = sorted(b - a for a, b in zip(marks[1:-1], marks[2:]))
+    p50 = steps[len(steps) // 2]
+    # the differentiable functions on CUDA tensors
+    comm = cmt.create_communicator('xla')
+    try:
+        x = torch.randn(7, device='cuda', requires_grad=True)
+        d = torch.randn(3, device='cuda', requires_grad=True)
+        out = functions.pseudo_connect(d * 2.0, x)
+        (out * 3.0).sum().backward()
+        check_close('pseudo_connect forward', out.detach(), x.detach(), 0, 0)
+        check_close('pseudo_connect actual grad', x.grad,
+                    torch.full_like(x, 3.0), 0, 0)
+        check_close('pseudo_connect delegate grad', d.grad,
+                    torch.zeros_like(d), 0, 0)
+        x.grad = None
+        y = functions.send(x, comm, rank=0, src=0)
+        (y * 5.0).sum().backward()
+        check_close('self-edge send', y.detach(), x.detach(), 0, 0)
+        check_close('self-edge send grad', x.grad, torch.full_like(x, 5.0),
+                    0, 0)
+    finally:
+        comm.close()
+    _say('model_parallel', 'twin (MLP(200, 200) -> MLP(200, 10) over '
+         'MultiNodeChainList(spmd=True), Adam 1e-3, batch 100, a world of '
+         'one): first %d losses card %s, CPU %s; parameters after %d '
+         'iterations: max abs err %.3g, %d of %d elements beyond 1e-6; the '
+         'whole run on NCCL: %d '
+         'iterations in %.2f s, step p50 %.3f ms = %.1f images/s, '
+         'validation accuracy by epoch %s, no kernel launched; '
+         'pseudo_connect and a self-edge send on the card: exact' % (
+             MP_CHECK_ITER, ', '.join('%.6f' % v for v in gloss),
+             ', '.join('%.6f' % v for v in closs), MP_CHECK_ITER, param_err,
+             n_off, n_all, len(losses), window_s, 1e3 * p50, 100 / p50,
+             ', '.join('%.4f' % a for a in accs)))
+    return counts
+
+
+def phase_seq2seq():
+    """The seq2seq twin at its defaults (2 x 256 LSTM, vocabulary 512,
+    batch 64, buckets 8 / 16 / 32, bf16) for one epoch on the card, then
+    ``Seq2seq()`` at its class defaults (512 units, vocabulary 8000) in
+    f32, card against CPU on one bucket."""
+    import torch
+    import torch.nn.functional as F
+    from chainermn_tpu_torch import models, ops
+    from chainermn_tpu_torch.examples.seq2seq import train_seq2seq
+    marks, widths = [], []
+
+    def on_step(width, metrics):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        widths.append(width)
+
+    ops.reset_launch_counts()
+    run = train_seq2seq.main(['--epoch', '1'], on_step=on_step)
+    try:
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    finally:
+        run.comm.close()
+    losses, tokens = run.losses, run.tokens
+    if any(counts.values()):
+        # jnp and optax in the JAX package: no kernel on this path
+        raise AssertionError('seq2seq twin launched %s' % counts)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError('seq2seq twin: non-finite loss %s' % losses)
+    # the buckets run in turn (8, 16, 32), each with its own loss level:
+    # the loss falls within each, mean of its first 3 steps to its last 3
+    falls = {}
+    for w in sorted(set(widths)):
+        ls = [v for v, x in zip(losses, widths) if x == w]
+        falls[w] = (sum(ls[:3]) / 3, sum(ls[-3:]) / 3, len(ls))
+        if len(ls) < 6 or not falls[w][1] < falls[w][0]:
+            raise AssertionError('seq2seq twin: bucket %d did not learn: %s'
+                                 % (w, ls))
+    window = marks[-1] - marks[1]
+    steps = sorted(b - a for a, b in zip(marks[1:-1], marks[2:]))
+    _say('seq2seq', 'twin (2 x 256 LSTM, vocabulary 512, batch 64, buckets '
+         '8/16/32, bf16, xla on NCCL, 1 epoch of 8192 pairs): %d steps; '
+         'loss by bucket (first 3 -> last 3, steps) %s; %.0f target tokens/s '
+         'over steps 2..%d (%d tokens in %.3f s), step p50 %.2f ms; no '
+         'kernel launched' % (
+             len(losses), ', '.join('%d: %.4f -> %.4f (%d)' % (w, *f)
+                                    for w, f in sorted(falls.items())),
+             sum(tokens[2:]) / window, len(losses), sum(tokens[2:]), window,
+             1e3 * steps[len(steps) // 2]))
+    # Seq2seq() at its class defaults in f32, card vs CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(6)
+    xs = torch.randint(4, 8000, (16, 16), generator=gen)
+    yin = torch.randint(4, 8000, (16, 16), generator=gen)
+    yout = torch.randint(4, 8000, (16, 16), generator=gen)
+    xs[:, 12:] = 0
+    yin[:, 13:] = 0
+    yout[:, 12:] = 0
+    outs = {}
+    for dev in ('cuda', 'cpu'):
+        model = models.Seq2seq(dtype=torch.float32, device=dev,
+                               generator=torch.Generator().manual_seed(7))
+        logits = model(xs.to(dev), yin.to(dev))
+        loss, _ = models.seq2seq_loss(model)(xs.to(dev), yin.to(dev),
+                                             yout.to(dev))
+        loss.backward()
+        outs[dev] = (logits.detach().cpu(), loss.detach().cpu(),
+                     model.out.weight.grad.detach().cpu(),
+                     model.encoder_0.cell.ii.kernel.grad.detach().cpu())
+        del model
+    (gl, gloss, gout, genc), (cl, closs, cout, cenc) = outs['cuda'], \
+        outs['cpu']
+    check_close('Seq2seq logits card vs CPU', gl, cl, 1e-4, 1e-4)
+    check_close('Seq2seq loss card vs CPU', gloss, closs, 1e-5, 1e-5)
+    for what, a, b in (('out kernel', gout, cout),
+                       ('encoder_0 ii kernel', genc, cenc)):
+        scale = float(b.abs().max())
+        check_close('Seq2seq %s gradient card vs CPU' % what, a, b, 1e-3,
+                    1e-4 * scale)
+    _say('seq2seq', 'Seq2seq() at its class defaults (2 x 512, vocabulary '
+         '8000), f32, batch 16 x 16 with pads, card vs CPU: logits err %.3g, '
+         'loss %.6f vs %.6f (perplexity %.1f), gradient err %.3g (out) and '
+         '%.3g (encoder_0 ii)' % (
+             max_err(gl, cl), float(gloss), float(closs),
+             math.exp(float(gloss)), max_err(gout, cout),
+             max_err(genc, cenc)))
     return counts
 
 
@@ -2799,6 +3616,9 @@ def main():
     paths = {'resnet_training': _timed(phase_main_path)}
     paths['mnist_training'] = _timed(phase_mnist)
     paths['imagenet_training'] = _timed(phase_imagenet)
+    paths['googlenetbn_training'], paths['imagenet_zoo'] = _timed(phase_zoo)
+    paths['mnist_model_parallel'] = _timed(phase_model_parallel)
+    paths['seq2seq_training'] = _timed(phase_seq2seq)
     _timed(phase_serving_check)
     paths['lm_serving'], model, prompts, slot_outs = _timed(
         phase_serving_main)
