@@ -12,7 +12,7 @@ momentum SGD counts the tensors its launches updated in ``tensors``.
 
 from chainermn_tpu_torch.ops.batch_norm_act import (  # noqa: F401
     batch_norm_act, batch_norm_act_inference, batch_norm_act_reference,
-    bn_apply, bn_stats)
+    bn_apply, bn_backward, bn_stats)
 from chainermn_tpu_torch.ops.cross_entropy import (  # noqa: F401
     ce_forward, softmax_cross_entropy, softmax_cross_entropy_reference)
 from chainermn_tpu_torch.ops.flash_attention import (  # noqa: F401
@@ -28,6 +28,7 @@ from chainermn_tpu_torch.ops.optimizer import (  # noqa: F401
 
 #: name -> kernel wrapper (each carries a ``launches`` count)
 KERNELS = {'bn_stats': bn_stats, 'bn_apply': bn_apply,
+           'bn_backward': bn_backward,
            'momentum_sgd': momentum_sgd, 'layer_norm': ln_forward,
            'flash_fwd': flash_fwd, 'flash_decode': flash_decode,
            'flash_bwd_dq': flash_bwd_dq, 'flash_bwd_dkv': flash_bwd_dkv,

@@ -82,6 +82,26 @@ def check_launch(err, strerror, what):
             what, err, strerror(err).decode(errors='replace')))
 
 
+# (device, stream) -> ticket counters of the kernels whose last block
+# finishes a launch (the decode merge, the BN column sums): zero between
+# launches (each launch's last block leaves its counters at zero), so they
+# are allocated once, zeroed, and kept; one set a stream, since launches
+# on one stream never overlap
+_TICKETS = {}
+
+
+def tickets(device, n):
+    """At least ``n`` int32 ticket counters, zero, for launches on the
+    current stream of ``device``."""
+    stream = torch.cuda.current_stream(device)
+    key = (torch.device(device), stream.cuda_stream)
+    found = _TICKETS.get(key)
+    if found is None or found.numel() < n:
+        found = torch.zeros(n, dtype=torch.int32, device=device)
+        _TICKETS[key] = found
+    return found
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count

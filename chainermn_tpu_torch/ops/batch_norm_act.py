@@ -8,11 +8,12 @@ normalized value from the saved ``(x, mean, rstd)`` and takes the relu
 mask from the sign of the saved OUTPUT, so no activation-sized f32 tensor
 crosses the forward/backward boundary.
 
-On a CUDA tensor the forward launches two hand-written kernels
-(``csrc/batch_norm_act.cu``): :func:`bn_stats` and :func:`bn_apply`.  On
-a CPU tensor it runs their plain PyTorch versions (:func:`_batch_stats`,
-:func:`_apply_ref`).  The backward is PyTorch ops on both, as the JAX
-package's backward is ``jnp``.
+On a CUDA tensor the op launches three hand-written kernels
+(``csrc/batch_norm_act.cu``): :func:`bn_stats` and :func:`bn_apply` in
+the forward, :func:`bn_backward` in the backward.  On a CPU tensor it
+runs their plain PyTorch versions (:func:`_batch_stats`,
+:func:`_apply_ref`; :func:`_bwd_sums_ref` and :func:`_bwd_apply_ref`,
+the JAX package's ``jnp`` backward split at its per-channel sums).
 
 Layout: the public functions take the JAX package's layout, an
 activation ``(..., C)`` with C last and contiguous, viewed without a copy
@@ -21,6 +22,7 @@ NHWC is such a tensor.  The statistics match ``flax.linen.BatchNorm``:
 f32, fast variance ``E[x^2] - E[x]^2`` clipped at zero.
 """
 
+import collections
 import ctypes
 
 import torch
@@ -28,8 +30,14 @@ import torch
 from chainermn_tpu_torch.ops import _common
 from chainermn_tpu_torch.ops._build import LIBRARIES
 
-_TILE_C = 32   # channels per block (kTileC in the .cu source)
-_LANES = 8     # row lanes per block (kLanes in the .cu source)
+_TILE_C = 32   # bn_apply: channels per block (kTileC in the .cu source)
+_LANES = 8     # bn_apply: row lanes per block (kLanes in the .cu source)
+
+# bn_stats / bn_backward (kThreads, kMaxTileVec in the .cu source)
+_THREADS = 256        # threads a block
+_MAX_TILE_VEC = 8     # 16-byte vectors a block covers along C
+_BLOCKS_PER_SM = 2    # chunks: about this many blocks per SM in all ...
+_MIN_CHUNK_BYTES = 32768   # ... each reading at least this much
 
 
 def _wide(t):
@@ -59,35 +67,106 @@ def _apply_ref(x, mean, rstd, scale, bias, residual, relu):
     return y.to(x.dtype)
 
 
+def _bwd_terms(x2d, g2d, out2d, mean, rstd, relu):
+    """The backward's per-element values: ``(x, gm, xhat)`` in the wide
+    type, ``gm`` the output gradient masked by the relu (the sign of the
+    saved output), ``xhat`` recomputed, never saved."""
+    xf = _wide(x2d)
+    gf = _wide(g2d)
+    gm = gf * (out2d > 0) if relu else gf
+    return xf, gm, (xf - mean) * rstd
+
+
+def _bwd_sums_ref(x2d, g2d, out2d, mean, rstd, relu):
+    """Plain version of :func:`bn_backward`'s reduce pass: per channel
+    ``(dbeta, dgamma) = (sum gm, sum gm * xhat)``."""
+    _, gm, xhat = _bwd_terms(x2d, g2d, out2d, mean, rstd, relu)
+    return gm.sum(0), (gm * xhat).sum(0)
+
+
+def _bwd_apply_ref(x2d, g2d, out2d, mean, rstd, scale, dbeta, dgamma,
+                   g_mean, g_var, relu, want_dres):
+    """Plain version of :func:`bn_backward`'s elementwise pass, in the
+    kernel's rounding order: ``dx`` (in ``x2d.dtype``) of the JAX
+    package's ``_bn_act_bwd`` from the sums, and the residual's gradient
+    ``gm`` (None unless ``want_dres``).  ``g_mean`` / ``g_var`` are the
+    statistics outputs' cotangents, None when zero.  Divisions by the row
+    count divide by a tensor: on CUDA, PyTorch multiplies by the
+    reciprocal of a Python scalar divisor, which rounds otherwise."""
+    xf, gm, xhat = _bwd_terms(x2d, g2d, out2d, mean, rstd, relu)
+    m = torch.full_like(dbeta, xf.shape[0])
+    dx = (_wide(scale) * rstd) * (gm - dbeta / m - xhat * (dgamma / m))
+    # closed-form terms of the statistics outputs (zero in training,
+    # where they feed only the undifferentiated running averages)
+    if g_mean is not None or g_var is not None:
+        gmf = _wide(g_mean) if g_mean is not None else 0.0
+        gvf = _wide(g_var) if g_var is not None else 0.0
+        dx = dx + (gmf + 2.0 * (xf - mean) * gvf) / m
+    return dx.to(x2d.dtype), gm.to(x2d.dtype) if want_dres else None
+
+
 # ---------------------------------------------------------------------
 # CUDA kernel wrappers
 
 def _lib():
     lib = LIBRARIES.get('batch_norm_act')
     if not getattr(lib, '_cmn_typed', False):
-        vp, i64, f32p = ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p
-        lib.cmn_bn_stats.argtypes = [vp, ctypes.c_int, i64, i64, i64, f32p,
-                                     f32p, ctypes.c_float, f32p, f32p, f32p,
-                                     vp]
-        lib.cmn_bn_stats.restype = ctypes.c_int
-        lib.cmn_bn_apply.argtypes = [vp, vp, ctypes.c_int, f32p, f32p, f32p,
-                                     f32p, vp, i64, i64, i64, ctypes.c_int,
-                                     vp]
-        lib.cmn_bn_apply.restype = ctypes.c_int
-        lib.cmn_bn_strerror.argtypes = [ctypes.c_int]
+        vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        plan = [i64, i64, ci, ci, ci, ci, i64, ci]
+        lib.cmn_bn_stats.argtypes = [vp, ci, *plan, vp, vp, ctypes.c_float,
+                                     vp, vp, vp, vp]
+        lib.cmn_bn_stats.restype = ci
+        lib.cmn_bn_apply.argtypes = [vp, vp, ci, vp, vp, vp, vp, vp, i64,
+                                     i64, i64, ci, vp]
+        lib.cmn_bn_apply.restype = ci
+        lib.cmn_bn_backward.argtypes = [vp, vp, vp, ci, *plan, vp, vp, vp,
+                                        vp, vp, ci, vp, vp, vp, vp, vp, vp,
+                                        vp]
+        lib.cmn_bn_backward.restype = ci
+        lib.cmn_bn_strerror.argtypes = [ci]
         lib.cmn_bn_strerror.restype = ctypes.c_char_p
         lib._cmn_typed = True
     return lib
 
 
 def _rows_per_chunk(m, c, device):
-    """Rows each block walks: enough blocks to fill the card about eight
-    blocks deep per SM, a multiple of the row lanes."""
+    """:func:`bn_apply`'s rows a block: enough blocks to fill the card
+    about eight blocks deep per SM, a multiple of the row lanes."""
     c_tiles = -(-c // _TILE_C)
     target = max(1, (8 * _common.sm_count(device)) // c_tiles)
     chunks = max(1, min(-(-m // _LANES), target))
     rows = -(-m // chunks)
     return -(-rows // _LANES) * _LANES
+
+
+#: how a :func:`bn_stats` / :func:`bn_backward` launch covers ``(M, C)``:
+#: ``vec`` elements a load (16 bytes' worth, or 1 when C or a pointer is
+#: not aligned to it), channel tiles of ``tcv`` vectors (``n_ctiles`` of
+#: them; the last may be ragged), ``lanes`` row lanes a block, chunks of
+#: ``rows`` rows (``n_chunks``; the last may be short)
+Plan = collections.namedtuple(
+    'Plan', 'm c vec tcv lanes n_ctiles rows n_chunks')
+
+
+def _plan(m, c, itemsize, aligned, sms):
+    """The launch plan of the column-sum kernels.  A block covers at most
+    128 bytes of a row (``_MAX_TILE_VEC`` vectors), so its threads read
+    16 bytes each, neighbours on neighbouring addresses, and at C = 32
+    bf16 a warp reads 8 rows at once.  Chunks are sized by the bytes a
+    tile reads: about ``_BLOCKS_PER_SM`` blocks per SM in all, each
+    reading at least ``_MIN_CHUNK_BYTES``, so the last block of a tile
+    sums few partials."""
+    full = 16 // itemsize
+    vec = full if aligned and c % full == 0 else 1
+    cv = c // vec
+    n_ctiles = -(-cv // _MAX_TILE_VEC)
+    tcv = -(-cv // n_ctiles)
+    lanes = _THREADS // tcv
+    row_bytes = tcv * vec * itemsize
+    by_wave = max(1, _BLOCKS_PER_SM * sms // n_ctiles)
+    by_bytes = max(1, m * row_bytes // _MIN_CHUNK_BYTES)
+    rows = -(-m // min(by_wave, by_bytes, m))
+    return Plan(m, c, vec, tcv, lanes, n_ctiles, rows, -(-m // rows))
 
 
 def _check_rows(x2d, what):
@@ -103,6 +182,17 @@ def _check_rows(x2d, what):
     return _common.dtype_code(x2d, what)
 
 
+def _check_like(t, x2d, what):
+    """``t`` must be a contiguous matrix of ``x2d``'s shape, dtype and
+    device."""
+    if (t.shape != x2d.shape or t.dtype != x2d.dtype
+            or t.device != x2d.device or not t.is_contiguous()):
+        raise ValueError('%s must be a contiguous %s %s on %s like x, got '
+                         '%s %s on %s' % (what, x2d.dtype,
+                                          tuple(x2d.shape), x2d.device,
+                                          t.dtype, tuple(t.shape), t.device))
+
+
 def _check_vec(v, c, device, what):
     if (v.dtype != torch.float32 or v.shape != (c,) or v.device != device
             or not v.is_contiguous()):
@@ -111,23 +201,35 @@ def _check_vec(v, c, device, what):
                                                   tuple(v.shape), v.device))
 
 
-def bn_stats(x2d, eps):
-    """Kernel wrapper: per-channel ``(mean, var, rstd)`` in f32 over the
-    rows of a CUDA ``(M, C)`` matrix, in two launches (partials per row
-    chunk, then a fixed-order sum; every sum compensated).  Replaces
-    ``_stats_pallas``."""
-    code = _check_rows(x2d, 'bn_stats')
+def _launch_plan(*operands):
+    """The plan of a launch over the (M, C) operands (16-byte loads when
+    every operand's address allows them) and its scratch: the chunks'
+    compensated partials and the tiles' ticket counters."""
+    x2d = operands[0]
     m, c = x2d.shape
     dev = x2d.device
-    rows = _rows_per_chunk(m, c, dev)
-    n_chunks = -(-m // rows)
-    partials = torch.empty((2, n_chunks, c), dtype=torch.float32, device=dev)
+    aligned = all(t.data_ptr() % 16 == 0 for t in operands)
+    plan = _plan(m, c, x2d.element_size(), aligned, _common.sm_count(dev))
+    part = torch.empty((4, plan.n_chunks, c), dtype=torch.float32,
+                       device=dev)
+    return plan, part, _common.tickets(dev, plan.n_ctiles)
+
+
+def bn_stats(x2d, eps):
+    """Kernel wrapper: per-channel ``(mean, var, rstd)`` in f32 over the
+    rows of a CUDA ``(M, C)`` matrix, in one launch (chunk partials, the
+    last block of each channel tile sums them in a fixed order; every sum
+    compensated).  Replaces ``_stats_pallas``."""
+    code = _check_rows(x2d, 'bn_stats')
+    c = x2d.shape[1]
+    dev = x2d.device
+    plan, part, tickets = _launch_plan(x2d)
     mean, var, rstd = (torch.empty((c,), dtype=torch.float32, device=dev)
                        for _ in range(3))
     lib = _lib()
     err = lib.cmn_bn_stats(
-        _common.ptr(x2d), code, m, c, rows, _common.ptr(partials[0]),
-        _common.ptr(partials[1]), float(eps), _common.ptr(mean),
+        _common.ptr(x2d), code, *plan, _common.ptr(part),
+        _common.ptr(tickets), float(eps), _common.ptr(mean),
         _common.ptr(var), _common.ptr(rstd), _common.stream_ptr(dev))
     _common.check_launch(err, lib.cmn_bn_strerror, 'bn_stats')
     bn_stats.launches += 1
@@ -144,13 +246,8 @@ def bn_apply(x2d, res2d, mean, rstd, scale, bias, relu):
     code = _check_rows(x2d, 'bn_apply')
     m, c = x2d.shape
     dev = x2d.device
-    if res2d is not None and (res2d.shape != x2d.shape
-                              or res2d.dtype != x2d.dtype
-                              or res2d.device != dev
-                              or not res2d.is_contiguous()):
-        raise ValueError('bn_apply: residual must match x (%s %s), got %s '
-                         '%s' % (tuple(x2d.shape), x2d.dtype,
-                                 tuple(res2d.shape), res2d.dtype))
+    if res2d is not None:
+        _check_like(res2d, x2d, 'bn_apply: residual')
     for v, name in ((mean, 'mean'), (rstd, 'rstd'), (scale, 'scale'),
                     (bias, 'bias')):
         _check_vec(v, c, dev, 'bn_apply ' + name)
@@ -167,6 +264,49 @@ def bn_apply(x2d, res2d, mean, rstd, scale, bias, relu):
 
 
 bn_apply.launches = 0
+
+
+def bn_backward(x2d, g2d, out2d, mean, rstd, scale, g_mean, g_var, relu,
+                want_dres):
+    """Kernel wrapper: the fused op's backward over CUDA ``(M, C)``
+    matrices -- ``x2d`` the saved input, ``g2d`` the output's gradient,
+    ``out2d`` the saved output (its sign is the relu mask) -- in one call
+    of two launches: the per-channel sums ``dbeta`` / ``dgamma`` on
+    :func:`bn_stats`' reduction, then ``dx`` and the residual's gradient
+    in one elementwise pass.  ``g_mean`` / ``g_var``: the statistics
+    outputs' cotangents, None when zero.  Returns ``(dx, dgamma, dbeta,
+    dres)``: ``dx`` and ``dres`` (None unless ``want_dres``) in
+    ``x2d.dtype``, the sums f32.  Computes the JAX package's ``jnp``
+    ``_bn_act_bwd``."""
+    what = 'bn_backward'
+    code = _check_rows(x2d, what)
+    c = x2d.shape[1]
+    dev = x2d.device
+    _check_like(g2d, x2d, what + ': g')
+    _check_like(out2d, x2d, what + ': out')
+    for v, name in ((mean, 'mean'), (rstd, 'rstd'), (scale, 'scale'),
+                    (g_mean, 'g_mean'), (g_var, 'g_var')):
+        if v is not None:
+            _check_vec(v, c, dev, '%s %s' % (what, name))
+    plan, part, tickets = _launch_plan(x2d, g2d, out2d)
+    dx = torch.empty_like(x2d)
+    dres = torch.empty_like(x2d) if want_dres else None
+    dbeta, dgamma = (torch.empty((c,), dtype=torch.float32, device=dev)
+                     for _ in range(2))
+    lib = _lib()
+    err = lib.cmn_bn_backward(
+        _common.ptr(x2d), _common.ptr(g2d), _common.ptr(out2d), code, *plan,
+        _common.ptr(mean), _common.ptr(rstd), _common.ptr(scale),
+        _common.ptr(g_mean), _common.ptr(g_var), int(relu),
+        _common.ptr(part), _common.ptr(tickets), _common.ptr(dbeta),
+        _common.ptr(dgamma), _common.ptr(dx), _common.ptr(dres),
+        _common.stream_ptr(dev))
+    _common.check_launch(err, lib.cmn_bn_strerror, what)
+    bn_backward.launches += 1
+    return dx, dgamma, dbeta, dres
+
+
+bn_backward.launches = 0
 
 
 # ---------------------------------------------------------------------
@@ -196,6 +336,7 @@ class _BatchNormAct(torch.autograd.Function):
             mean, var, rstd = _batch_stats(x2d, eps)
             out2d = _apply_ref(x2d, mean, rstd, scale_f, bias_f, res2d, relu)
         out = out2d.view(x.shape)
+        ctx.set_materialize_grads(False)
         ctx.relu = relu
         ctx.has_residual = residual is not None
         ctx.save_for_backward(x, scale, mean, rstd, out)
@@ -203,28 +344,31 @@ class _BatchNormAct(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g, g_mean, g_var):
-        # transcription of the JAX package's _bn_act_bwd
+        # the JAX package's _bn_act_bwd; a cotangent that autograd leaves
+        # unmaterialized (None) is zero
         x, scale, mean, rstd, out = ctx.saved_tensors
         shape = x.shape
         c = shape[-1]
-        xf = _wide(x.reshape(-1, c))
-        gf = _wide(g.reshape(-1, c))
-        m = xf.shape[0]
-        xhat = (xf - mean) * rstd          # recomputed, never saved
-        gm = gf * (out.reshape(-1, c) > 0) if ctx.relu else gf
-        scale_f = _wide(scale)
-        dbeta = gm.sum(0)
-        dgamma = (gm * xhat).sum(0)
-        dx = (scale_f * rstd) * (gm - dbeta / m - xhat * (dgamma / m))
-        # closed-form terms of the statistics outputs (zero in training,
-        # where they feed only the undifferentiated running averages)
-        if g_mean is not None or g_var is not None:
-            gmf = _wide(g_mean) if g_mean is not None else 0.0
-            gvf = _wide(g_var) if g_var is not None else 0.0
-            dx = dx + (gmf + 2.0 * (xf - mean) * gvf) / m
-        dres = gm.to(x.dtype).reshape(shape) if ctx.has_residual else None
-        return (dx.to(x.dtype).reshape(shape), dgamma.to(scale.dtype),
-                dbeta.to(scale.dtype), dres, None, None)
+        if g is None:
+            g = torch.zeros_like(x)
+        x2d, out2d = x.view(-1, c), out.view(-1, c)
+        g2d = g.reshape(-1, c)
+        if _common.on_cuda(x, g, scale, g_mean, g_var):
+            dx, dgamma, dbeta, dres = bn_backward(
+                x2d, g2d.contiguous(), out2d, mean, rstd,
+                scale.float().contiguous(),
+                None if g_mean is None else g_mean.float().contiguous(),
+                None if g_var is None else g_var.float().contiguous(),
+                ctx.relu, ctx.has_residual)
+        else:
+            dbeta, dgamma = _bwd_sums_ref(x2d, g2d, out2d, mean, rstd,
+                                          ctx.relu)
+            dx, dres = _bwd_apply_ref(x2d, g2d, out2d, mean, rstd, scale,
+                                      dbeta, dgamma, g_mean, g_var, ctx.relu,
+                                      ctx.has_residual)
+        return (dx.view(shape), dgamma.to(scale.dtype),
+                dbeta.to(scale.dtype),
+                dres.view(shape) if dres is not None else None, None, None)
 
 
 def batch_norm_act(x, scale, bias, eps=1e-5, residual=None, relu=True):

@@ -691,13 +691,6 @@ def _check_int_vectors(what, *operands):
                                             tuple(t.shape)))
 
 
-# (device, stream) -> the decode kernels' ticket counters: zero between
-# launches (the last block of each (row, head) leaves its counter at zero),
-# so they are allocated once, zeroed, and kept; one set a stream, since
-# launches on one stream never overlap
-_TICKETS = {}
-
-
 def _decode_scratch(q, n, h, d, s_max):
     """The trailing arguments of both decode entry points -- a float32
     workspace for the splits' ``(m, l, acc)`` (``torch.empty``: a merge
@@ -708,11 +701,7 @@ def _decode_scratch(q, n, h, d, s_max):
     ws = torch.empty(n * h * n_split * (d + 2), dtype=torch.float32,
                      device=q.device)
     stream = torch.cuda.current_stream(q.device)
-    key = (q.device, stream.cuda_stream)
-    tickets = _TICKETS.get(key)
-    if tickets is None or tickets.numel() < n * h:
-        tickets = torch.zeros(n * h, dtype=torch.int32, device=q.device)
-        _TICKETS[key] = tickets
+    tickets = _common.tickets(q.device, n * h)
     return ((_common.ptr(ws), ws.numel(), _common.ptr(tickets),
              tickets.numel(), ctypes.c_void_p(stream.cuda_stream)),
             (ws, tickets))

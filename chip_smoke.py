@@ -25,7 +25,18 @@ Phases, each printing its own lines; any failure exits non-zero:
    launch a step, bit-equal to its plain version over three steps, and
    with bf16 gradients; both BN kernels at four of GoogLeNet-BN's
    interludes, ``GBN_SHAPES``, bf16 + relu, the whole forward within
-   ``BF16_TOL``, each timed under the row's ``googlenetbn_shapes``), with
+   ``BF16_TOL``, each timed under the row's ``googlenetbn_shapes``; the
+   statistics within ``STATS_TOL`` of their plain version and bit-equal
+   across two runs; the BN backward kernel over ``BWD_CASES`` (every
+   distinct interlude of ResNet-50, ``RESNET50_BN``, in bf16; f32; with
+   and without residual and relu, the statistics outputs' cotangents,
+   ragged C, misaligned rows) and at ``GBN_SHAPES``, the statistics of
+   each case held as above: its
+   elementwise pass bit-equal to ``_bwd_apply_ref`` fed the kernel's own
+   sums, dbeta and dgamma within ``BWD_SUM_EPS`` eps sum|term| of f64 sums
+   and within twice the plain version's error, every output bit-equal
+   across two runs, timed against the plain version and, without relu
+   and residual, against ``aten.native_batch_norm_backward``), with
    kernel / plain / library times and the bound;
 4. one train-mode forward of full-width ResNet-50 (f32, TF32 off, batch
    2) on the card (kernels) against the same model on the CPU (plain
@@ -40,8 +51,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    compute) + ``StatefulClassifier`` -> ``create_multi_node_optimizer(
    FusedMomentumSGD)`` -> ``StandardUpdater`` -> ``Trainer`` over the
    synthetic ImageNet set at batch 64, with the kernel launch counts of
-   that run checked against the model's structure (one SGD launch a
-   step for all 161 tensors);
+   that run checked against the model's structure (one ``bn_stats``,
+   ``bn_apply`` and ``bn_backward`` per interlude a step, 53; one SGD
+   launch a step for all 161 tensors); one more forward and backward
+   holds each of the 53 interludes against the oracle on its own input,
+   residual and output gradient, as in 5c (with a residual the oracle is
+   the fused op's plain version: flax rounds before the add);
 5a. the MNIST main path (``mnist``): the reference's convergence gate
    (``MLP(100)``, ``FusedMomentumSGD(0.1, 0.9)``, the hard stand-in, a
    batch of 104, 5 epochs, ``create_multi_node_evaluator`` every epoch,
@@ -69,19 +84,21 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``fused_norm=False`` on the card (f32, TF32 off, batch 4, 224 px:
    logits, loss and running averages against each other; every
    interlude on its own input and output gradient against the flax
-   oracle; every gradient against the f64 model on the CPU, the fused
+   oracle (the fused route's backward is the ``bn_backward`` kernel);
+   every gradient against the f64 model on the CPU, the fused
    path's relative L2 error within twice the larger of the unfused
    path's on the card and on the CPU); then its main path,
    ``GoogLeNetBN(fused_norm=True)`` (bf16, 224 px, batch 64) trained 6
    steps through ``StandardUpdater`` with ``FusedMomentumSGD``, one
-   ``bn_stats`` and one ``bn_apply`` per interlude (68 a step, counted
-   from the model) and two SGD launches a step (206 tensors; a launch's
-   table holds 200), checked, images/s, the device busy share and peak
-   memory; one more step's forward and backward holds each of the 68
-   interludes, at the shapes and in the dtype of the main path, against
-   the oracle on the same input and output gradient (the output within
-   ``BF16_TOL``, the statistics within ``STATS_TOL``, the gradients
-   within ``GRAD_TOL``, dx within ``BF16_TOL``'s rtol), and the whole
+   ``bn_stats``, one ``bn_apply`` and one ``bn_backward`` per interlude
+   (68 a step, counted from the model) and two SGD launches a step (206
+   tensors; a launch's table holds 200), checked, images/s, the device
+   busy share and peak memory; one more step's forward and backward
+   holds each of the 68 interludes, at the shapes and in the dtype of
+   the main path, against the oracle on the same input and output
+   gradient (the output within ``BF16_TOL``, the statistics within
+   ``STATS_TOL``, the gradients within ``GRAD_TOL``, dx within
+   ``BF16_TOL``'s rtol), and the whole
    model against unfused copies with the same weights (the loss within
    5e-2 of the bf16 copy's; the gradients' relative L2 distance from an
    f32 copy's within twice the bf16 copy's);
@@ -163,7 +180,12 @@ No PyTorch call computes the ``bn_apply`` row's case (+ residual,
 + relu), so its ``library_ms`` is null.  ``F.batch_norm(training=False)``
 on the same statistics computes the kernel's no-residual, no-relu case:
 the ``no_residual_*`` keys time the kernel and that call in that case,
-with ``no_residual_bound_ms`` its bound.
+with ``no_residual_bound_ms`` its bound.  Likewise the ``bn_backward``
+row (ResNet-50's + residual + relu; GoogLeNet-BN's + relu) has a null
+``library_ms``, and its ``no_relu_*`` keys time the kernel and
+``aten.native_batch_norm_backward`` without relu and residual.  It
+replaces no Pallas kernel: ``replaces`` names the reference's ``jnp``
+backward.
 
 A kernel row's ``launches`` sums the main paths that run it
 (``launches_by_path`` splits them); each path is driven with the counts
@@ -214,6 +236,10 @@ SERVE_REQUESTS = 64
 # one bf16 rounding flip, which is one unit in the last place: at most
 # 2 ** -7 of the value
 BF16_TOL = (2 ** -7, 1e-5)
+# (rtol, atol) of the BN statistics against their plain version or the
+# oracle's: f32 sums of the same values over up to 8e5 rows in another
+# order
+STATS_TOL = (1e-4, 1e-5)
 # the LM training benchmark's model and batch (bench.py, the transformer
 # model): 8 sequences of 1024 tokens, Adam at 1e-3
 LM_CFG = dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=6,
@@ -395,6 +421,27 @@ def phase_build():
                              % bad)
 
 
+def _hold_stats(x):
+    """``bn_stats`` on ``x`` within ``STATS_TOL`` of its plain version
+    and bit-equal across two runs; returns both results."""
+    import torch
+    from chainermn_tpu_torch import ops
+    bn = importlib.import_module('chainermn_tpu_torch.ops.batch_norm_act')
+    shape = tuple(x.shape)
+    got = ops.bn_stats(x, 1e-5)
+    plain = bn._batch_stats(x, 1e-5)
+    # f32 sums over up to 8e5 rows in another order than torch's
+    for what, a, b in zip(('mean', 'var', 'rstd'), got, plain):
+        check_close('bn_stats %s %s' % (what, shape), a, b, *STATS_TOL)
+    # a fixed order of sums, whichever block finishes last
+    for what, a, b in zip(('mean', 'var', 'rstd'), got,
+                          ops.bn_stats(x, 1e-5)):
+        if not torch.equal(a, b):
+            raise AssertionError('bn_stats %s %s differs between two runs'
+                                 % (what, shape))
+    return got, plain
+
+
 def _bn_case(gen, m, c, dtype, residual, relu):
     """Kernel vs plain on one (M, C) interlude; returns errors."""
     import torch
@@ -407,12 +454,7 @@ def _bn_case(gen, m, c, dtype, residual, relu):
         if residual else None
     scale = torch.randn(c, generator=gen, device=dev) * 0.5 + 1.0
     bias = torch.randn(c, generator=gen, device=dev)
-    mean, var, rstd = ops.bn_stats(x, 1e-5)
-    pmean, pvar, prstd = bn._batch_stats(x, 1e-5)
-    # f32 sums over up to 2e5 rows in another order than torch's
-    for what, a, b in (('mean', mean, pmean), ('var', var, pvar),
-                       ('rstd', rstd, prstd)):
-        check_close('bn_stats %s %s' % (what, (m, c)), a, b, 1e-4, 1e-5)
+    (mean, var, rstd), (pmean, pvar, prstd) = _hold_stats(x)
     out = ops.bn_apply(x, res, mean, rstd, scale, bias, relu)
     pout = bn._apply_ref(x, mean, rstd, scale, bias, res, relu)
     # same inputs, same rounding order: expected bit-equal
@@ -478,6 +520,220 @@ def _googlenetbn_bn_rows(gen):
         _say('kernels', 'bn_apply at GoogLeNet-BN %s bf16 + relu: %s; bound '
              '%.5f ms by %s' % ((m, c), _fmt(t), b_ms, b_by))
     return stats_rows, apply_rows
+
+
+# float32's eps.  A compensated sum of n f32 terms is within (2u + O(n
+# u^2)) sum |term| of the exact sum (Kahan's bound, u = eps / 2), and the
+# trees that merge such sums with TwoSum and the final rounding add about
+# u more: about 1.5 eps sum |term| in all.  bn_backward's dbeta and dgamma
+# are held per channel to BWD_SUM_EPS eps sum |term| of f64 sums of the
+# same f32 terms, and their worst channel to twice the plain version's
+# worst (torch's sums) plus one eps of the largest sum (the result is an
+# f32).
+F32_EPS = 2.0 ** -23
+BWD_SUM_EPS = 2.0
+
+# ResNet-50's interludes at batch 64 and 224 px, each (rows, channels,
+# residual, relu) once: the stem, then each stage's bottleneck BNs, the
+# exit with the shortcut added and the projection (no relu).  The main
+# path runs them in bf16; the first is the row's timed case
+RESNET50_BN = ((BATCH * 56 * 56, 256, True, True),
+               (BATCH * 112 * 112, 64, False, True),
+               (BATCH * 56 * 56, 64, False, True),
+               (BATCH * 56 * 56, 128, False, True),
+               (BATCH * 56 * 56, 256, False, False),
+               (BATCH * 28 * 28, 128, False, True),
+               (BATCH * 28 * 28, 256, False, True),
+               (BATCH * 28 * 28, 512, True, True),
+               (BATCH * 28 * 28, 512, False, False),
+               (BATCH * 14 * 14, 256, False, True),
+               (BATCH * 14 * 14, 512, False, True),
+               (BATCH * 14 * 14, 1024, True, True),
+               (BATCH * 14 * 14, 1024, False, False),
+               (BATCH * 7 * 7, 512, False, True),
+               (BATCH * 7 * 7, 2048, True, True),
+               (BATCH * 7 * 7, 2048, False, False))
+
+# bn_backward's cases (rows, channels, dtype, residual, relu, statistics
+# cotangents, misalignment in elements): every ResNet-50 interlude in bf16,
+# an f32 projection, ragged C (2-byte loads), f32 with the statistics
+# outputs' cotangents, misaligned rows (scalar loads)
+BWD_CASES = tuple((m, c, 'bfloat16', res, relu, False, 0)
+                  for m, c, res, relu in RESNET50_BN) + (
+    (BATCH * 28 * 28, 512, 'float32', False, True, False, 0),
+    (3139, 100, 'bfloat16', True, False, False, 0),
+    (3139, 100, 'float32', True, True, True, 0),
+    (3136, 352, 'bfloat16', False, True, False, 1))
+
+
+def _bwd_case(gen, m, c, dtype, residual, relu, stats_cts=False, offset=0):
+    """``bn_backward`` on one (M, C) case: the elementwise pass bit-equal
+    to ``_bwd_apply_ref`` fed the kernel's own sums, dbeta and dgamma
+    against f64 sums of the same f32 terms (``BWD_SUM_EPS``), every
+    output bit-equal across two runs; the forward's statistics held by
+    :func:`_hold_stats`.  Returns the operands (the forward's, through
+    the BN kernels) and the readings."""
+    import torch
+    from chainermn_tpu_torch import ops
+    bn = importlib.import_module('chainermn_tpu_torch.ops.batch_norm_act')
+    dev = torch.device('cuda')
+    dtype = getattr(torch, dtype)
+
+    def act(shift):
+        buf = torch.randn(m * c + offset, generator=gen, device=dev)
+        return (buf * 2 + shift).to(dtype)[offset:].view(m, c)
+
+    x, g = act(0.5), act(0.0)
+    res = act(0.0) if residual else None
+    scale = torch.randn(c, generator=gen, device=dev) * 0.5 + 1.0
+    bias = torch.randn(c, generator=gen, device=dev)
+    (mean, _, rstd), _ = _hold_stats(x)
+    out = ops.bn_apply(x, res, mean, rstd, scale, bias, relu)
+    g_mean, g_var = ((torch.randn(c, generator=gen, device=dev),
+                      torch.randn(c, generator=gen, device=dev))
+                     if stats_cts else (None, None))
+    args = (x, g, out, mean, rstd, scale, g_mean, g_var, relu, residual)
+    what = 'bn_backward %s %s res=%s relu=%s%s%s' % (
+        (m, c), str(dtype).split('.')[-1], residual, relu,
+        ' with statistics cotangents' if stats_cts else '',
+        ' misaligned' if offset else '')
+    got = ops.bn_backward(*args)
+    for name, a, b in zip(('dx', 'dgamma', 'dbeta', 'dres'), got,
+                          ops.bn_backward(*args)):
+        if a is not None and not torch.equal(a, b):
+            raise AssertionError('%s: %s differs between two runs'
+                                 % (what, name))
+    dx, dgamma, dbeta, dres = got
+    # the elementwise pass: the plain version's rounding order on the
+    # kernel's own sums, expected bit-equal
+    pdx, pdres = bn._bwd_apply_ref(x, g, out, mean, rstd, scale, dbeta,
+                                   dgamma, g_mean, g_var, relu, residual)
+    check_close(what + ' dx', dx, pdx, 0.0, 0.0)
+    if residual:
+        check_close(what + ' dres', dres, pdres, 0.0, 0.0)
+    # the sums against f64 sums of the same f32 terms
+    _, gm, xhat = bn._bwd_terms(x, g, out, mean, rstd, relu)
+    plain = bn._bwd_sums_ref(x, g, out, mean, rstd, relu)
+    units, errs = 0.0, {}
+    for name, kernel, ref, terms in zip(('dbeta', 'dgamma'),
+                                        (dbeta, dgamma), plain,
+                                        (gm, gm * xhat)):
+        exact = terms.double().sum(0)
+        bound = BWD_SUM_EPS * F32_EPS * terms.double().abs().sum(0)
+        err = (kernel.double() - exact).abs()
+        perr = float((ref.double() - exact).abs().max())
+        if not bool((err <= bound).all()):
+            raise AssertionError(
+                '%s %s: %.3g from the f64 sum, beyond %g eps sum|term|'
+                % (what, name, float(err.max()), BWD_SUM_EPS))
+        floor = F32_EPS * float(exact.abs().max())
+        if float(err.max()) > 2 * perr + floor:
+            raise AssertionError(
+                '%s %s: %.3g from the f64 sum, the plain version %.3g'
+                % (what, name, float(err.max()), perr))
+        units = max(units, float((err / bound.clamp_min(1e-30)).max()))
+        errs[name] = (float(err.max()), perr)
+    full = bn._bwd_apply_ref(x, g, out, mean, rstd, scale, *plain, g_mean,
+                             g_var, relu, residual)[0]
+    _say('kernels', '%s: dx bit-equal to the plain pass on the kernel\'s '
+         'sums; against f64 sums, kernel / plain: dbeta %.3g / %.3g, '
+         'dgamma %.3g / %.3g (%.3g of the bound); dx against the whole '
+         'plain backward %.3g' % (what, *errs['dbeta'], *errs['dgamma'],
+                                  units, max_err(dx, full)))
+    return args, dict(sums_units=units, max_abs_err=max(
+        max_err(dx, full), max_err(dbeta, plain[0]),
+        max_err(dgamma, plain[1])))
+
+
+def _bwd_timings(args):
+    """The times of ``bn_backward`` on ``args`` against its plain
+    versions, with the bound; and, in the case a library call computes
+    (no relu, no residual), the kernel against
+    ``aten.native_batch_norm_backward`` on the same operands under the
+    ``no_relu_*`` keys."""
+    import torch
+    from chainermn_tpu_torch import ops
+    bn = importlib.import_module('chainermn_tpu_torch.ops.batch_norm_act')
+    x, g, out, mean, rstd, scale, _, _, relu, residual = args
+    m, c = x.shape
+    size = x.element_size()
+
+    def plain():
+        sums = bn._bwd_sums_ref(x, g, out, mean, rstd, relu)
+        return bn._bwd_apply_ref(x, g, out, mean, rstd, scale, *sums, None,
+                                 None, relu, residual)
+
+    t = timings(lambda: ops.bn_backward(*args), plain, None, iters=10)
+    # read x, g (and out under the relu); write dx (and dres); ~20 f32
+    # operations an element over the two passes
+    t['bound_ms'], t['bound_by'] = bound_ms(
+        (3 + relu + residual) * m * c * size + 4 * c * 4, 20 * m * c)
+    bare = (x, g, out, mean, rstd, scale, None, None, False, False)
+
+    def library():
+        return torch.ops.aten.native_batch_norm_backward(
+            g, x, scale, None, None, mean, rstd, True, 1e-5,
+            [True, True, True])
+
+    want, got = library(), ops.bn_backward(*bare)
+    tol = 1e-4 if x.dtype == torch.float32 else 2e-2
+    check_close('native_batch_norm_backward vs bn_backward dx %s'
+                % ((m, c),), want[0], got[0], tol, tol)
+    for name, a, b in (('dgamma', want[1], got[1]),
+                       ('dbeta', want[2], got[2])):
+        check_close('native_batch_norm_backward vs bn_backward %s %s'
+                    % (name, (m, c)), a, b, 1e-3, 1e-3 * float(
+                        b.abs().max()))
+    t.update(no_relu_case='no relu, no residual: aten.'
+             'native_batch_norm_backward(g, x, scale, None, None, mean, '
+             'rstd, True, eps, [True] * 3)',
+             no_relu_ms=time_ms(lambda: ops.bn_backward(*bare), 10),
+             no_relu_device_ms=device_ms(lambda: ops.bn_backward(*bare), 10),
+             no_relu_library_ms=time_ms(library, 10),
+             no_relu_library_device_ms=device_ms(library, 10),
+             no_relu_bound_ms=bound_ms(3 * m * c * size + 4 * c * 4,
+                                       20 * m * c)[0])
+    return t
+
+
+def _say_bwd(what, t):
+    _say('kernels', 'bn_backward at %s: %s; bound %.5f ms by %s; no relu, '
+         'no residual: kernel per call %.5f ms (native_batch_norm_backward '
+         '%.5f), device only %s ms (library %s); bound %.5f ms' % (
+             what, _fmt(t), t['bound_ms'], t['bound_by'], t['no_relu_ms'],
+             t['no_relu_library_ms'], _ms(t['no_relu_device_ms']),
+             _ms(t['no_relu_library_device_ms']), t['no_relu_bound_ms']))
+
+
+def _bn_backward_record(gen):
+    """``bn_backward``'s row: every case of ``BWD_CASES`` checked, the
+    ResNet-50 case and GoogLeNet-BN's shapes (bf16 + relu, as its
+    interludes) checked and timed."""
+    timed, worst, units = None, 0.0, 0.0
+    for m, c, dtype, residual, relu, cts, offset in BWD_CASES:
+        args, r = _bwd_case(gen, m, c, dtype, residual, relu, cts, offset)
+        worst, units = max(worst, r['max_abs_err']), max(units,
+                                                         r['sums_units'])
+        if timed is None:
+            timed = args
+    gbn = []
+    for m, c in GBN_SHAPES:
+        args, r = _bwd_case(gen, m, c, 'bfloat16', False, True)
+        t = _bwd_timings(args)
+        gbn.append(dict(shape=[m, c], **r, **t))
+        _say_bwd('GoogLeNet-BN %s bf16 + relu' % ((m, c),), t)
+        worst, units = max(worst, r['max_abs_err']), max(units,
+                                                         r['sums_units'])
+    t = _bwd_timings(timed)
+    m, c = timed[0].shape
+    _say_bwd('%s bf16 + residual + relu' % ((m, c),), t)
+    return dict(
+        name='bn_backward', route='cuda',
+        source='chainermn_tpu_torch/csrc/batch_norm_act.cu',
+        replaces='chainermn_tpu/ops/batch_norm_act.py:221',
+        replaces_note='_bn_act_bwd, jnp in the reference (beyond the ten '
+        'Pallas kernels)', max_abs_err=worst, sums_units=units,
+        googlenetbn_shapes=gbn, **t)
 
 
 def phase_kernels():
@@ -559,6 +815,7 @@ def phase_kernels():
              (m, c), _fmt(t), t['no_residual_ms'],
              t['no_residual_library_ms'], _ms(t['no_residual_device_ms']),
              _ms(t['no_residual_library_device_ms']), nr_bound, nr_by))
+    records.append(_bn_backward_record(gen))
 
     # momentum SGD over the ResNet-50 parameter list, 3 steps, one launch
     # a step for all 161 tensors
@@ -1204,8 +1461,8 @@ def _flat(tree, prefix=''):
 
 
 # kernel-name fragments of each group in the profile breakdown
-_GROUPS = (('ported kernels', ('stats_partial', 'stats_finalize',
-                               'apply_kernel', 'momentum_sgd')),
+_GROUPS = (('ported kernels', ('bn_reduce_kernel', 'apply_kernel',
+                               'momentum_sgd')),
            ('convolutions', ('conv', 'cudnn', 'xmma', 'gemm', 'grad',
                              'fprop', 'implicit', 'cutlass')),
            ('nccl', ('nccl',)),
@@ -1264,12 +1521,62 @@ def _by_group(kernels, groups):
     return out
 
 
-def profile_steps(updater, n=3, groups=_GROUPS):
+# kernel-name fragments of the BN kernels in a profile
+_BN_KERNELS = (('bn_stats', ('StatsOp',)),
+               ('bn_apply', (')::apply_kernel<',)),
+               ('bn_backward', ('BwdSumOp', 'bn_bwd_apply_kernel')))
+
+
+def bn_shapes(model):
+    """Hooks on every ``NormAct`` of ``model`` that record, for each, the
+    shape of its last call: ``(elements, channels, bytes an element,
+    residual, relu)``.  Returns ``(shapes, remove)``: shapes by module
+    name and a function that removes the hooks."""
+    from chainermn_tpu_torch.models import NormAct
+    shapes, handles = {}, []
+
+    def watch(name):
+        def hook(mod, args, kwargs):
+            x = args[0]
+            res = args[1] if len(args) > 1 else kwargs.get('residual')
+            shapes[name] = (x.numel(), x.shape[-1], x.element_size(),
+                            res is not None, mod.relu)
+        return hook
+
+    for name, mod in model.named_modules():
+        if isinstance(mod, NormAct):
+            handles.append(mod.register_forward_pre_hook(
+                watch(name), with_kwargs=True))
+    return shapes, lambda: [h.remove() for h in handles]
+
+
+def bn_bounds(shapes):
+    """The bound (ms) of each BN kernel over one step, from the shapes
+    of :func:`bn_shapes` (each interlude once a step): each interlude's
+    input read once and output written once, over the memory rate."""
+    n_bytes = dict.fromkeys(('bn_stats', 'bn_apply', 'bn_backward'), 0)
+    for n, c, size, res, relu in shapes.values():
+        n_bytes['bn_stats'] += n * size + 3 * c * 4
+        n_bytes['bn_apply'] += (2 + res) * n * size + 4 * c * 4
+        n_bytes['bn_backward'] += (3 + relu + res) * n * size + 5 * c * 4
+    return {k: v / HBM_BYTES_PER_S * 1e3 for k, v in n_bytes.items()}
+
+
+def profile_steps(updater, n=3, groups=_GROUPS, model=None):
     """Device time by kernel group over ``n`` more steps of the main
-    path (``torch.profiler``); returns the device busy share of that
-    window's wall time (None when no trace held a device event)."""
+    path (``torch.profiler``), and, given the ``model``, each BN kernel's
+    device time a step against its bound a step (:func:`bn_bounds` of
+    the shapes its interludes see in those steps); returns the device
+    busy share of that window's wall time (None when no trace held a
+    device event)."""
     import torch
-    prof, kernels, wall_us = profiled(updater.update, n)
+    shapes, unhook = (bn_shapes(model) if model is not None
+                      else ({}, lambda: None))
+    try:
+        prof, kernels, wall_us = profiled(updater.update, n)
+    finally:
+        unhook()
+    bounds = bn_bounds(shapes) if shapes else None
     busy = sum(kernels.values())
     if busy == 0:
         _say('profile', 'no device event in %d traces: not measured'
@@ -1295,6 +1602,13 @@ def profile_steps(updater, n=3, groups=_GROUPS):
              % (group, us / n / 1e3, 100 * us / busy))
     for key, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
         _say('profile', '  %8.2f ms/step  %s' % (us / n / 1e3, key[:90]))
+    for name, frags in _BN_KERNELS if bounds else ():
+        dev = sum(us for key, us in kernels.items()
+                  if any(f in key for f in frags)) / n / 1e3
+        _say('profile', '  %s: device %.3f ms/step, bound %.3f ms/step '
+             '(%.0f%%), device - bound %.3f ms/step' % (
+                 name, dev, bounds[name], 100 * bounds[name] / dev
+                 if dev else 0.0, dev - bounds[name]))
     return busy / wall_us
 
 
@@ -1348,12 +1662,16 @@ def phase_main_path():
         torch.cuda.synchronize()
         counts, tc = ops.launch_counts(), ops.tc_launch_counts()
         sgd_tensors = ops.momentum_sgd.tensors
-        profile_steps(updater)
+        profile_steps(updater, model=model)
+        _hold_main_path_interludes('main', 'ResNet-50', model, clf,
+                                   updater.shard_batch(train[:BATCH]),
+                                   BN_PER_STEP)
     finally:
         comm.close()
     # one SGD launch a step updates all 161 tensors
     want = dict.fromkeys(ops.KERNELS, 0)
     want.update(bn_stats=BN_PER_STEP * STEPS, bn_apply=BN_PER_STEP * STEPS,
+                bn_backward=BN_PER_STEP * STEPS,
                 momentum_sgd=STEPS - 1)
     if counts != want:
         raise AssertionError('launch counts %s, expected %s' % (counts,
@@ -1374,8 +1692,9 @@ def phase_main_path():
     p50 = timed[len(timed) // 2]
     _say('main', 'losses %s' % ', '.join('%.4f' % v for v in losses))
     _say('main', 'launches %s over %d steps (per step: %d stats, %d apply, '
-         '1 sgd for %d tensors after step 0)' % (
-             counts, STEPS, BN_PER_STEP, BN_PER_STEP, PARAMS_PER_STEP))
+         '%d backward, 1 sgd for %d tensors after step 0)' % (
+             counts, STEPS, BN_PER_STEP, BN_PER_STEP, BN_PER_STEP,
+             PARAMS_PER_STEP))
     _say('main', 'step times ms %s; p50 of steps 2..%d %.2f ms = %.1f '
          'images/s at batch %d; peak memory %.2f GiB' % (
              ', '.join('%.1f' % (1e3 * s) for s in steps), STEPS - 1,
@@ -1783,16 +2102,18 @@ ZOO_TWINS = (('vgg16', False), ('googlenetbn', False), ('alex', True),
 
 def _capture_interludes(model):
     """Hooks on every ``NormAct`` of ``model``: a train-mode forward
-    records each interlude's input, and the backward after it the
-    gradient of its output.  Returns ``(records, remove)``: records by
-    module name (``{'x': ..., 'g': ...}``) and a function that removes
-    the hooks."""
+    records each interlude's input and residual (None without one), and
+    the backward after it the gradient of its output.  Returns
+    ``(records, remove)``: records by module name (``{'x': ..., 'res':
+    ..., 'g': ...}``) and a function that removes the hooks."""
     from chainermn_tpu_torch.models import NormAct
     records, handles = {}, []
 
     def pre(name):
-        def hook(mod, args):
-            records[name] = {'x': args[0].detach()}
+        def hook(mod, args, kwargs):
+            res = args[1] if len(args) > 1 else kwargs.get('residual')
+            records[name] = {'x': args[0].detach(), 'res': None if res is
+                             None else res.detach()}
         return hook
 
     def post(name):
@@ -1803,7 +2124,8 @@ def _capture_interludes(model):
 
     for name, mod in model.named_modules():
         if isinstance(mod, NormAct):
-            handles.append(mod.register_forward_pre_hook(pre(name)))
+            handles.append(mod.register_forward_pre_hook(
+                pre(name), with_kwargs=True))
             handles.append(mod.register_forward_hook(post(name)))
     return records, lambda: [h.remove() for h in handles]
 
@@ -1811,11 +2133,6 @@ def _capture_interludes(model):
 def _rel_l2(a, b):
     return float((a.double() - b.double()).norm()
                  / (b.double().norm() + 1e-30))
-
-
-# an interlude's statistics (f32 sums of the same values in another
-# order) against the oracle's: _bn_case's tolerance
-STATS_TOL = (1e-4, 1e-5)
 
 
 def _units(got, want, rtol, atol):
@@ -1826,11 +2143,13 @@ def _units(got, want, rtol, atol):
                   / (atol + rtol * want.abs())).max())
 
 
-def _interlude_readings(mod, x, g):
-    """One BN interlude on its real input ``x`` and output gradient ``g``
-    through three routes: the fused op (the BN kernels, then its closed-
-    form backward), the flax oracle in ``x.dtype`` (``fused_norm=False``:
-    plain PyTorch, autograd) and the flax oracle in float64 (the truth).
+def _interlude_readings(mod, x, g, res=None):
+    """One BN interlude on its real input ``x``, residual ``res`` and
+    output gradient ``g`` through three routes: the fused op (the BN
+    kernels, ``bn_backward`` included), the flax oracle in ``x.dtype``
+    (``fused_norm=False``: plain PyTorch, autograd; with a residual, the
+    fused op's plain version, which adds it before rounding) and the
+    oracle in float64 (the truth).
 
     The forward runs as the layer does (with its relu): the fused output
     and statistics against the oracle's, in units of ``BF16_TOL`` and
@@ -1838,36 +2157,52 @@ def _interlude_readings(mod, x, g):
     the truth's relu: the relu's gradient is a step, and an output within
     rounding of zero on the other side (a relu flip; the forward's
     tolerance covers it) would move one element's gradient from ``g`` to
-    0.  Each route's dx, dscale and dbias against the truth, and the
-    fused ones against the oracle's, as relative L2 errors."""
+    0.  Each route's dx, dscale and dbias (and the residual's gradient,
+    ``dres``) against the truth, and the fused ones against the
+    oracle's, as relative L2 errors."""
     import torch
     from chainermn_tpu_torch import ops
     from chainermn_tpu_torch.models._norm import _flax_batch_norm
     eps = mod.epsilon
+    if res is None:
+        def oracle(a, s, b, r, relu):
+            return _flax_batch_norm(a, s, b, eps, r, relu)
+    else:
+        # flax rounds the normalized value to x.dtype and then adds the
+        # residual; the fused op, as the reference's, adds it in f32 and
+        # rounds once (in bf16 the two differ where the sum cancels).
+        # With a residual the oracle is the fused op's plain version
+        def oracle(a, s, b, r, relu):
+            return ops.batch_norm_act_reference(a, s, b, eps, residual=r,
+                                                relu=relu)
     routes = {
-        'fused': (lambda a, s, b, relu: ops.batch_norm_act(a, s, b, eps,
-                                                           relu=relu), x),
-        'oracle': (lambda a, s, b, relu: _flax_batch_norm(a, s, b, eps, None,
-                                                          relu), x),
-        'truth': (lambda a, s, b, relu: _flax_batch_norm(a, s, b, eps, None,
-                                                         relu), x.double())}
+        'fused': (lambda a, s, b, r, relu: ops.batch_norm_act(
+            a, s, b, eps, residual=r, relu=relu), x.dtype),
+        'oracle': (oracle, x.dtype),
+        'truth': (oracle, torch.float64)}
     fwd, bwd = {}, {}
     with torch.no_grad():
-        for route, (fn, xin) in routes.items():
-            out, mean, var = fn(xin, mod.scale, mod.bias, mod.relu)
+        for route, (fn, dtype) in routes.items():
+            out, mean, var = fn(x.to(dtype), mod.scale, mod.bias,
+                                None if res is None else res.to(dtype),
+                                mod.relu)
             fwd[route] = dict(out=out, mean=mean, var=var)
     gm = g * (fwd['truth']['out'] > 0) if mod.relu else g
-    for route, (fn, xin) in routes.items():
-        xin = xin.detach().requires_grad_(True)
+    for route, (fn, dtype) in routes.items():
+        xin = x.to(dtype).detach().requires_grad_(True)
+        rin = None if res is None else \
+            res.to(dtype).detach().requires_grad_(True)
         scale = mod.scale.detach().clone().requires_grad_(True)
         bias = mod.bias.detach().clone().requires_grad_(True)
-        out, _, _ = fn(xin, scale, bias, False)
+        out, _, _ = fn(xin, scale, bias, rin, False)
         out.backward(gm.to(out.dtype))
         bwd[route] = dict(dx=xin.grad, dscale=scale.grad, dbias=bias.grad)
+        if rin is not None:
+            bwd[route]['dres'] = rin.grad
     f, o, t = fwd['fused'], fwd['oracle'], fwd['truth']
     rstd_t = torch.rsqrt(t['var'] + eps)
     xd = x.double().reshape(-1, x.shape[-1])
-    grads = ('dx', 'dscale', 'dbias')
+    grads = ('dx', 'dscale', 'dbias') + (() if res is None else ('dres',))
     return dict(
         shape=(xd.shape[0], xd.shape[1]),
         out_units=_units(f['out'], o['out'], *BF16_TOL),
@@ -1895,7 +2230,8 @@ def _interlude_report(model, records):
     for name in list(records):
         rec = records.pop(name)
         rows.append(dict(_interlude_readings(mods[name], rec['x'],
-                                             rec['g']), name=name))
+                                             rec['g'], rec['res']),
+                         name=name))
     return rows
 
 
@@ -1918,16 +2254,25 @@ def _say_interludes(phase, what, rows, n=8):
 
 def _say_worst(phase, what, rows):
     """Log the worst of each reading over ``rows``."""
+    with_res = [r for r in rows if 'dres' in r['vs_oracle']]
+    if with_res:
+        _say(phase, '%s, %d interludes with a residual at worst: its '
+             'gradient fused against oracle %.3g; against f64, fused / '
+             'oracle %.3g / %.3g' % (
+                 what, len(with_res), _worst(with_res, 'vs_oracle', 'dres'),
+                 _worst(with_res, 'truth', 'fused', 'dres'),
+                 _worst(with_res, 'truth', 'oracle', 'dres')))
     _say(phase, '%s, %d interludes at worst: out %.3g of BF16_TOL, stats '
          '%.3g of STATS_TOL, cond %.3g, relu flips fused / oracle %d / %d; '
          'fused against oracle: dx %.3g, dscale %.3g, dbias %.3g; against '
-         'f64, fused / oracle: dx %.3g / %.3g, dscale %.3g / %.3g, dbias '
-         '%.3g / %.3g' % (
+         'f64, fused / oracle: rstd %.3g / %.3g, dx %.3g / %.3g, dscale '
+         '%.3g / %.3g, dbias %.3g / %.3g' % (
              what, len(rows), _worst(rows, 'out_units'),
              _worst(rows, 'stats_units'), _worst(rows, 'cond'),
              _worst(rows, 'flips', 'fused'), _worst(rows, 'flips', 'oracle'),
              *(_worst(rows, 'vs_oracle', k) for k in ('dx', 'dscale',
                                                       'dbias')),
+             _worst(rows, 'rstd', 'fused'), _worst(rows, 'rstd', 'oracle'),
              *(_worst(rows, 'truth', r, k) for k in ('dx', 'dscale', 'dbias')
                for r in ('fused', 'oracle'))))
 
@@ -1942,20 +2287,20 @@ def _hold_interludes(what, rows, dtype):
     with the oracle's: the output within ``BF16_TOL``, the statistics
     within ``STATS_TOL``, dscale and dbias within ``GRAD_TOL`` and dx
     within ``GRAD_TOL`` in f32 or, in bf16 (both round once to bf16),
-    within ``BF16_TOL``'s rtol."""
+    within ``BF16_TOL``'s rtol, and so the residual's gradient."""
     import torch
     dx_tol = BF16_TOL[0] if dtype == torch.bfloat16 else GRAD_TOL
     for r in rows:
-        bad = [k for k, v, tol in (
+        v = r['vs_oracle']
+        bad = [k for k, got, tol in (
             ('out', r['out_units'], 1.0), ('stats', r['stats_units'], 1.0),
-            ('dx', r['vs_oracle']['dx'], dx_tol),
-            ('dscale', r['vs_oracle']['dscale'], GRAD_TOL),
-            ('dbias', r['vs_oracle']['dbias'], GRAD_TOL)) if not v <= tol]
+            ('dx', v['dx'], dx_tol), ('dscale', v['dscale'], GRAD_TOL),
+            ('dbias', v['dbias'], GRAD_TOL),
+            ('dres', v.get('dres', 0.0), dx_tol)) if not got <= tol]
         if bad:
-            raise AssertionError('GoogLeNet-BN %s interlude %s %s: fused '
-                                 'against the oracle beyond its tolerance '
-                                 'in %s: %s' % (what, r['name'], r['shape'],
-                                                bad, r))
+            raise AssertionError('%s interlude %s %s: fused against the '
+                                 'oracle beyond its tolerance in %s: %s'
+                                 % (what, r['name'], r['shape'], bad, r))
 
 
 def _worst(rows, *keys):
@@ -2014,7 +2359,7 @@ def _zoo_fused_check():
         torch.backends.cudnn.allow_tf32 = True
     _say_interludes('zoo', what, interludes, n=4)
     _say_worst('zoo', what, interludes)
-    _hold_interludes(what, interludes, torch.float32)
+    _hold_interludes('GoogLeNet-BN ' + what, interludes, torch.float32)
     (fl, floss, fstats, fgrads), (ul, uloss, ustats, ugrads) = \
         outs['fused'], outs['unfused']
     tloss, tgrads = outs['f64'][1], outs['f64'][3]
@@ -2078,17 +2423,14 @@ def _zoo_fused_check():
              worst['unfused_cpu']))
 
 
-def _zoo_interlude_check(model, clf, batch):
-    """GoogLeNet-BN's main path, interlude by interlude: one more train-
-    mode forward and backward of ``model`` (bf16, batch 64) records every
-    interlude's input and output gradient, and each is held against the
-    flax oracle (``fused_norm=False``'s BatchNorm) on the same tensors
-    (:func:`_hold_interludes`); then the whole model against unfused
-    copies with the same weights on the same batch: the loss against the
-    bf16 copy's, the gradients' distance from the f32 copy's against the
-    bf16 copy's distance."""
+def _hold_main_path_interludes(phase, name, model, clf, batch, n_norms):
+    """One more train-mode forward and backward of a main path's model
+    (bf16, batch 64) records every interlude's input, residual and
+    output gradient, and each is held against the flax oracle
+    (``fused_norm=False``'s BatchNorm) on the same tensors
+    (:func:`_hold_interludes`); returns the loss, with the gradients
+    left in the model."""
     import torch
-    from chainermn_tpu_torch import models
     model.zero_grad(set_to_none=True)
     records, unhook = _capture_interludes(model)
     try:
@@ -2096,16 +2438,30 @@ def _zoo_interlude_check(model, clf, batch):
         loss.backward()
     finally:
         unhook()
+    rows = _interlude_report(model, records)
+    if len(rows) != n_norms:
+        raise AssertionError('%s: %d of %d interludes recorded'
+                             % (name, len(rows), n_norms))
+    what = '%s bf16 batch %d' % (name, BATCH)
+    _say_interludes(phase, what, rows, n=4)
+    _say_worst(phase, what, rows)
+    _hold_interludes(what, rows, torch.bfloat16)
+    return loss
+
+
+def _zoo_interlude_check(model, clf, batch):
+    """GoogLeNet-BN's main path, interlude by interlude
+    (:func:`_hold_main_path_interludes`); then the whole model against unfused
+    copies with the same weights on the same batch: the loss against the
+    bf16 copy's, the gradients' distance from the f32 copy's against the
+    bf16 copy's distance."""
+    import torch
+    from chainermn_tpu_torch import models
+    loss = _hold_main_path_interludes('zoo', 'GoogLeNet-BN', model, clf,
+                                      batch, model.n_norms)
     fused_grads = {k: p.grad.detach().clone()
                    for k, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
-    rows = _interlude_report(model, records)
-    if len(rows) != model.n_norms:
-        raise AssertionError('%d of %d interludes recorded'
-                             % (len(rows), model.n_norms))
-    _say_interludes('zoo', 'bf16 batch %d' % BATCH, rows, n=4)
-    _say_worst('zoo', 'bf16 batch %d' % BATCH, rows)
-    _hold_interludes('bf16 batch %d' % BATCH, rows, torch.bfloat16)
     # the whole model: the fused and the unfused bf16 models against an
     # unfused f32 model (TF32 off), all with the same weights on the same
     # batch.  bf16 gradients are far from f32 ones (a BatchNorm bias
@@ -2195,7 +2551,7 @@ def _zoo_main():
         counts = ops.launch_counts()
         sgd_tensors = ops.momentum_sgd.tensors
         peak = torch.cuda.max_memory_allocated()
-        busy = profile_steps(updater)
+        busy = profile_steps(updater, model=model)
         _zoo_interlude_check(model, clf, updater.shard_batch(train[:BATCH]))
     finally:
         comm.close()
@@ -2203,6 +2559,7 @@ def _zoo_main():
     # 206 tensors: two launches a step (a launch's table holds 200)
     per_step = -(-n_params // SGD_TABLE)
     want.update(bn_stats=n_norms * ZOO_STEPS, bn_apply=n_norms * ZOO_STEPS,
+                bn_backward=n_norms * ZOO_STEPS,
                 momentum_sgd=per_step * (ZOO_STEPS - 1))
     if counts != want:
         raise AssertionError('GoogLeNet-BN launch counts %s, expected %s'
@@ -2217,7 +2574,8 @@ def _zoo_main():
     p50 = timed[len(timed) // 2]
     _say('zoo', 'GoogLeNet-BN fused_norm=True, bf16, 224 px, batch %d, %d '
          'steps: losses %s; launches %s (%d interludes a step: one '
-         'bn_stats and one bn_apply each; %d momentum_sgd for %d tensors '
+         'bn_stats, bn_apply and bn_backward each; %d momentum_sgd for %d '
+         'tensors '
          'after step 0); step times ms %s; p50 of steps 2..%d %.2f ms = '
          '%.1f images/s; device busy %s over 3 profiled steps; peak memory '
          '%.2f GiB' % (BATCH, ZOO_STEPS, ', '.join('%.4f' % v for v in losses),
