@@ -13,8 +13,10 @@ Public API: the reference's five entry points,
 and :class:`MultiNodeChainList` (model parallelism, with the
 differentiable ``send`` / ``recv`` / ``pseudo_connect`` of
 :mod:`functions`); :func:`create_empty_dataset`; :mod:`precision`
-(``Policy``, ``quantize_kv``); :mod:`serializers` (npz snapshots in the
-JAX package's container); and the ``datasets``, ``models``, ``ops``,
+(``Policy``, the loss scales, ``all_finite`` / ``tree_select``, all
+also exported here, and ``quantize_kv``); :mod:`serializers` (npz
+snapshots in the JAX package's container); and the ``datasets``,
+``models``, ``ops``,
 ``serving``, ``training`` and ``utils`` subpackages.  The examples
 (``chainermn_tpu_torch.examples.mnist.train_mnist``,
 ``train_mnist_model_parallel``, ``examples.imagenet.train_imagenet``,
@@ -32,6 +34,9 @@ from chainermn_tpu_torch.multi_node_evaluator import (  # noqa: F401
     create_multi_node_evaluator)
 from chainermn_tpu_torch.multi_node_optimizer import (  # noqa: F401
     create_multi_node_optimizer)
+from chainermn_tpu_torch.precision import (  # noqa: F401
+    DynamicLossScale, LossScaleState, Policy, StaticLossScale, all_finite,
+    tree_select)
 from chainermn_tpu_torch import (  # noqa: F401
     datasets, functions, models, ops, precision, serializers, serving,
     training, utils)

@@ -62,6 +62,9 @@ class CommunicatorBase:
     before the strategy's reduction and restored after
     (:meth:`allreduce_grad` only).
 
+    Construction runs one all_reduce of one element over the default
+    group (every rank makes every communicator, in the same order).
+
     ``mesh_shape=(inter, intra)`` lays the processes out as
     ``mesh_utility.resolve_mesh_shape`` does (default: from torchrun's
     ``LOCAL_WORLD_SIZE``); the intra-node and inter-node sub-groups are
@@ -89,6 +92,11 @@ class CommunicatorBase:
             raise RuntimeError(
                 'the process group uses %r, but device %s needs %r'
                 % (joined, self.device, backend))
+        # one collective over the default group, by every rank: a
+        # point-to-point call that leaves a rank out (functions.send in a
+        # MultiNodeChainList) is then never the group's first, which
+        # NCCL's process group requires
+        dist.all_reduce(torch.zeros(1, device=self.device))
         self.reduce_dtype = reduce_dtype
         self.mesh_shape = mesh_utility.resolve_mesh_shape(self.size,
                                                           mesh_shape)

@@ -49,6 +49,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
@@ -60,18 +61,24 @@ constexpr int kFinishBatch = 8;  // chunks a finishing lane loads at once
 constexpr int kTileC = 32;      // apply: channels per block
 constexpr int kLanes = 8;       // apply: row lanes per block
 
-// element storage: bf16 travels as its 16 bits
+// element storage: bf16 travels as its 16 bits, f16 as __half; both
+// widen to f32 exactly, and every sum and statistic stays f32
 template <typename T> struct Storage;
 template <> struct Storage<float> { using type = float; };
 template <> struct Storage<__nv_bfloat16> { using type = unsigned short; };
+template <> struct Storage<__half> { using type = __half; };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(unsigned short b) {
   return __uint_as_float(static_cast<unsigned>(b) << 16);
 }
+__device__ __forceinline__ float to_f32(__half h) { return __half2float(h); }
 __device__ __forceinline__ void from_f32(float& d, float v) { d = v; }
 __device__ __forceinline__ void from_f32(unsigned short& d, float v) {
   d = __bfloat16_as_ushort(__float2bfloat16(v));
+}
+__device__ __forceinline__ void from_f32(__half& d, float v) {
+  d = __float2half_rn(v);
 }
 
 // V neighbouring elements, loaded and stored as one vector
@@ -561,8 +568,9 @@ cudaError_t backward_relu(int relu, const void* x, const void* g,
 
 extern "C" {
 
-// dtype codes shared with the Python wrapper: 0 = float32, 1 = bfloat16.
-// vec (elements a load) is 16 bytes' worth (4 f32, 8 bf16) or 1.
+// dtype codes shared with the Python wrapper: 0 = float32, 1 = bfloat16,
+// 2 = float16.  vec (elements a load) is 16 bytes' worth (4 f32, 8 bf16
+// or f16) or 1.
 // The plan (vec, tcv, lanes, n_ctiles, rows, n_chunks) is the wrapper's
 // _plan; part is (4, n_chunks, C) f32 scratch, tickets n_ctiles counters
 // that are zero between launches (each launch leaves them at zero).
@@ -587,6 +595,12 @@ int cmn_bn_stats(const void* x, int dtype, int64_t m, int64_t c, int vec,
   if (dtype == 1 && vec == 1)
     return (int)stats<unsigned short, 1>(x, p, n_ctiles, part, tickets, eps,
                                          mean, var, rstd, stream);
+  if (dtype == 2 && vec == 8)
+    return (int)stats<__half, 8>(x, p, n_ctiles, part, tickets, eps, mean,
+                                 var, rstd, stream);
+  if (dtype == 2 && vec == 1)
+    return (int)stats<__half, 1>(x, p, n_ctiles, part, tickets, eps, mean,
+                                 var, rstd, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -603,6 +617,9 @@ int cmn_bn_apply(const void* x, const void* res, int dtype, const float* mean,
     return (int)launch_apply<__nv_bfloat16>(x, res, mean, rstd, scale, bias,
                                             out, m, c, rows_per_chunk, relu,
                                             stream);
+  if (dtype == 2)
+    return (int)launch_apply<__half>(x, res, mean, rstd, scale, bias, out, m,
+                                     c, rows_per_chunk, relu, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -639,6 +656,16 @@ int cmn_bn_backward(const void* x, const void* g, const void* out, int dtype,
     return (int)backward_relu<unsigned short, 1>(
         relu, x, g, out, p, n_ctiles, mean, rstd, scale, g_mean, g_var, part,
         tickets, dbeta, dgamma, dx, dres, stream);
+  if (dtype == 2 && vec == 8)
+    return (int)backward_relu<__half, 8>(relu, x, g, out, p, n_ctiles, mean,
+                                         rstd, scale, g_mean, g_var, part,
+                                         tickets, dbeta, dgamma, dx, dres,
+                                         stream);
+  if (dtype == 2 && vec == 1)
+    return (int)backward_relu<__half, 1>(relu, x, g, out, p, n_ctiles, mean,
+                                         rstd, scale, g_mean, g_var, part,
+                                         tickets, dbeta, dgamma, dx, dres,
+                                         stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -85,7 +85,7 @@ def _parser():
                              'collective (e.g. bfloat16)')
     parser.add_argument('--double-buffering', action='store_true',
                         help="apply the previous step's reduced "
-                             'gradients (not ported yet)')
+                             'gradients (a staleness-1 trajectory)')
     parser.add_argument('--dtype', default='bfloat16',
                         choices=['bfloat16', 'float32'])
     return parser
@@ -176,10 +176,10 @@ def main(argv=None):
         train_iter, optimizer, clf.loss, model, comm,
         device_prefetch=args.device_prefetch)
     n_epoch = 1 if args.quick else args.epoch
-    # the JAX script passes async_metrics=True to keep metrics on the
-    # device between steps; the port's updater returns host floats
-    # already, so there is nothing to defer
-    trainer = training.Trainer(updater, (n_epoch, 'epoch'), out=args.out)
+    # async_metrics: the metrics stay on the device each iteration (no
+    # per-step host sync); the extensions read them at their triggers
+    trainer = training.Trainer(updater, (n_epoch, 'epoch'), out=args.out,
+                               async_metrics=True)
 
     evaluator = cmt.create_multi_node_evaluator(
         training.Evaluator(val_iter, clf.eval_metrics, comm), comm)
@@ -198,7 +198,8 @@ def main(argv=None):
 
     trainer.run()
     if comm.rank == 0:
-        print('final observation:', dict(trainer.observation))
+        print('final observation:',
+              {k: float(v) for k, v in trainer.observation.items()})
     return trainer
 
 

@@ -24,6 +24,7 @@ from chainermn_tpu_torch import serializers, training
 from chainermn_tpu_torch.dataset import SubDataset
 from chainermn_tpu_torch.datasets import mnist
 from chainermn_tpu_torch.models import MLP, Classifier
+from chainermn_tpu_torch.precision import Policy
 from chainermn_tpu_torch.training import extensions
 from chainermn_tpu_torch.utils import NanGuard
 
@@ -45,7 +46,9 @@ def _parser():
     parser.add_argument('--quick', action='store_true',
                         help='tiny run for smoke testing')
     parser.add_argument('--policy', default=None,
-                        help='mixed-precision policy (not ported yet)')
+                        help='mixed-precision policy (bf16 | f16 | f32): '
+                             'compute and reduce narrow, f32 master '
+                             'weights')
     return parser
 
 
@@ -54,10 +57,6 @@ def main(argv=None):
     open (``trainer.updater.comm.close()`` ends the process group it
     made)."""
     args = _parser().parse_args(argv)
-    if args.policy:
-        raise NotImplementedError(
-            '--policy is not ported yet: the updater takes no policy '
-            '(ROADMAP.md A4, A5)')
     comm = cmt.create_communicator(args.communicator, device=args.device)
     if args.batchsize % comm.size:
         raise ValueError('--batchsize %d does not divide over %d '
@@ -73,7 +72,9 @@ def main(argv=None):
         print('Num epoch: {}'.format(args.epoch))
         print('==========================================')
 
-    model = MLP(n_units=args.unit, n_out=10, device=comm.device)
+    policy = Policy.from_string(args.policy) if args.policy else None
+    model = MLP(n_units=args.unit, n_out=10, device=comm.device,
+                dtype=policy.compute_dtype if policy else None)
     clf = Classifier(model)
     optimizer = cmt.create_multi_node_optimizer(
         torch.optim.Adam(model.parameters(), lr=1e-3), comm)
@@ -89,7 +90,7 @@ def main(argv=None):
     test_iter = training.SerialIterator(test, batch, repeat=False,
                                         shuffle=False)
     updater = training.StandardUpdater(train_iter, optimizer, clf,
-                                       model, comm)
+                                       model, comm, policy=policy)
     trainer = training.Trainer(updater, (args.epoch, 'epoch'),
                                out=args.out)
     evaluator = cmt.create_multi_node_evaluator(

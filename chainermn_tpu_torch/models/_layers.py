@@ -15,6 +15,7 @@ symmetric in both; ``VALID`` pads nothing.  ``max_pool`` pads with
 (flax's ``count_include_pad=True``).
 """
 
+import contextlib
 import math
 
 import torch
@@ -174,3 +175,20 @@ def set_dropout_generator(model, generator):
     for m in layers:
         m.generator = generator
     return len(layers)
+
+
+@contextlib.contextmanager
+def replaying(generator, state):
+    """Within: ``generator`` draws from ``state`` again; after: it goes
+    on from where it was.  A remat recompute replays the forward's
+    dropout masks so (``torch.utils.checkpoint`` saves and restores only
+    the default generators, not this one).  ``generator=None``: no-op."""
+    if generator is None:
+        yield
+        return
+    now = generator.get_state()
+    generator.set_state(state)
+    try:
+        yield
+    finally:
+        generator.set_state(now)

@@ -18,11 +18,32 @@ Running averages update as ``ra = momentum * ra + (1 - momentum) *
 batch`` with the BIASED fast variance, as flax does.
 """
 
+import contextlib
+import threading
+
 import torch
 from torch import nn
 
 from chainermn_tpu_torch.ops.batch_norm_act import (
     _wide, batch_norm_act, batch_norm_act_inference)
+
+
+_RECOMPUTE = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Within: a train-mode :func:`norm_act` normalizes with batch
+    statistics as usual but leaves the running averages alone.  A remat
+    recompute replays a forward whose update has already happened (JAX
+    takes the statistics from the primal forward only).  Per thread: the
+    backward, and so the recompute, may run on autograd's own thread."""
+    before = getattr(_RECOMPUTE, 'on', False)
+    _RECOMPUTE.on = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.on = before
 
 
 def _flax_batch_norm(x, scale, bias, eps, residual, relu):
@@ -56,8 +77,8 @@ def norm_act(x, scale, bias, running_mean, running_var, *, train, fused,
              use_norm=True):
     """Normalize ``x`` (``(..., C)``, C last) with batch statistics
     (``train=True``, updating ``running_mean`` / ``running_var`` in
-    place) or running statistics (``train=False``), then add
-    ``residual`` and apply relu.
+    place, except inside :func:`recomputing`) or running statistics
+    (``train=False``), then add ``residual`` and apply relu.
 
     ``use_norm=False`` (VGG and NIN: models without a norm) skips the
     norm: the residual add and the relu still run here, so the call
@@ -80,6 +101,10 @@ def norm_act(x, scale, bias, running_mean, running_var, *, train, fused,
     else:
         out, mean, var = _flax_batch_norm(x, scale, bias, epsilon,
                                           residual, relu)
+    if getattr(_RECOMPUTE, 'on', False):
+        return out
+    # the statistics are f32 (the wide type) whatever x's dtype, and the
+    # buffers keep their own dtype
     with torch.no_grad():
         m = momentum
         running_mean.copy_(m * running_mean + (1.0 - m) * mean)

@@ -24,6 +24,7 @@ mechanically.
 """
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from chainermn_tpu_torch.models._layers import (  # noqa: F401
@@ -117,9 +118,11 @@ class ResNet(nn.Module):
         for name in self.block_names:
             x = getattr(self, name)(x)
         # jnp.mean over bf16 accumulates in f32 and rounds to bf16; the
-        # f32 Dense then widens it again
+        # f32 Dense then widens it again, and its parameters too (a
+        # policy hands them over in the compute dtype)
         x = x.float().mean((1, 2)).to(self.dtype)
-        return self.fc(x.float()).float()
+        return F.linear(x.float(), self.fc.weight.float(),
+                        self.fc.bias.float())
 
 
 def ResNet50(num_classes=1000, dtype=torch.bfloat16, stem='standard',

@@ -12,7 +12,11 @@ import functools
 
 import torch
 
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the element types' codes in the kernels' C interfaces
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+#: the types every kernel takes; the BN kernels take float16 as well
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 #: the finite "minus infinity" of masked attention scores (the JAX
 #: package's convention: exp(NEG_INF - m) underflows to 0, never NaN)
@@ -58,12 +62,14 @@ def forbid_grad(what, *tensors):
             'torch.no_grad() or torch.inference_mode()' % what)
 
 
-def dtype_code(t, what):
-    try:
-        return DTYPE_CODES[t.dtype]
-    except KeyError:
-        raise TypeError('%s: dtype %s is not supported by the kernel '
-                        '(float32 or bfloat16)' % (what, t.dtype)) from None
+def dtype_code(t, what, dtypes=KERNEL_DTYPES):
+    """``t``'s code in :data:`DTYPE_CODES`; raises TypeError unless its
+    dtype is one of ``dtypes`` (the kernel's instantiations)."""
+    if t.dtype not in dtypes:
+        raise TypeError('%s: dtype %s is not supported by the kernel (%s)'
+                        % (what, t.dtype, ' or '.join(
+                            str(d).replace('torch.', '') for d in dtypes)))
+    return DTYPE_CODES[t.dtype]
 
 
 def ptr(t):

@@ -1,7 +1,7 @@
 """Fused BatchNorm + activation (+ residual add): one pass per direction.
 
 Counterpart of ``chainermn_tpu/ops/batch_norm_act.py``.  The training-mode
-op normalizes with f32 batch statistics over a bf16 or f32 activation,
+op normalizes with f32 batch statistics over a bf16, f16 or f32 activation,
 applies the affine, adds the optional residual and applies the optional
 relu, in one pass over the activation.  Its backward recomputes the
 normalized value from the saved ``(x, mean, rstd)`` and takes the relu
@@ -29,6 +29,9 @@ import torch
 
 from chainermn_tpu_torch.ops import _common
 from chainermn_tpu_torch.ops._build import LIBRARIES
+
+#: the activation types the three kernels take (statistics and sums f32)
+BN_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 _TILE_C = 32   # bn_apply: channels per block (kTileC in the .cu source)
 _LANES = 8     # bn_apply: row lanes per block (kLanes in the .cu source)
@@ -179,7 +182,7 @@ def _check_rows(x2d, what):
                                             x2d.stride()))
     if x2d.shape[0] == 0 or x2d.shape[1] == 0:
         raise ValueError('%s: empty input %s' % (what, tuple(x2d.shape)))
-    return _common.dtype_code(x2d, what)
+    return _common.dtype_code(x2d, what, BN_DTYPES)
 
 
 def _check_like(t, x2d, what):
@@ -376,7 +379,7 @@ def batch_norm_act(x, scale, bias, eps=1e-5, residual=None, relu=True):
     relu over the last axis of ``x``.
 
     Args:
-      x: contiguous ``(..., C)`` activation, bf16 or f32.
+      x: contiguous ``(..., C)`` activation, bf16, f16 or f32.
       scale, bias: ``(C,)`` affine parameters (f32 masters).
       eps: variance epsilon.
       residual: optional ``(..., C)`` tensor added AFTER the affine,

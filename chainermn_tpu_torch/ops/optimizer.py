@@ -91,7 +91,7 @@ def sgd_table(params, grads, velocity):
     left out.  One launch takes one group.  Checks nothing but the
     dtypes: the callers have checked the operands."""
     groups = {}
-    codes = _common.DTYPE_CODES
+    codes = {d: _common.DTYPE_CODES[d] for d in _common.KERNEL_DTYPES}
     for p, g, v in zip(params, grads, velocity, strict=True):
         n = p.numel()
         if not n:

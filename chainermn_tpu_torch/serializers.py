@@ -261,13 +261,17 @@ def updater_state(updater):
       ``actual_state``, and the multi-node wrapper's
       ``needs_broadcast`` (the JAX package keeps it in its optimizer
       state too, so a resumed run does not broadcast again);
-    - ``iteration``, ``epoch`` and ``epoch_detail``.
+    - ``iteration``, ``epoch`` and ``epoch_detail``;
+    - ``scale_state`` (``scale``, ``growth_count``) under a loss-scaled
+      policy, so a resumed f16 run goes on at its adapted scale, as the
+      JAX package's snapshot does.
     """
     wrapper, inner = _optimizer(updater)
     opt_state = {'actual_state': {
         str(i): dict(s) for i, s in inner.state_dict()['state'].items()}}
     if wrapper is not None:
         opt_state['needs_broadcast'] = np.bool_(wrapper.needs_broadcast)
+    scale_state = getattr(updater, 'scale_state', None)
     state = {
         'params': updater.params,
         'opt_state': opt_state,
@@ -278,6 +282,9 @@ def updater_state(updater):
     stats = to_flax_variables(updater.model)['batch_stats']
     if stats:
         state['model_state'] = {'batch_stats': stats}
+    if scale_state is not None:
+        state['scale_state'] = {k: v.detach().cpu().numpy()
+                                for k, v in scale_state._asdict().items()}
     return state
 
 
@@ -326,7 +333,8 @@ def _opt_state_from(by_key, inner, path):
 def resume_updater(path, updater, comm=None, elastic=False):
     """Restore a snapshot written by ``extensions.snapshot()`` into a
     live updater: parameters, BatchNorm statistics, optimizer state
-    (the multi-node wrapper's ``needs_broadcast`` too) and the
+    (the multi-node wrapper's ``needs_broadcast`` too), the loss-scale
+    state under a loss-scaled policy, and the
     iteration / epoch counters, so stop triggers and file names
     continue rather than restart.  Everything is read and checked
     before anything is assigned, so a corrupt leaf never leaves the
@@ -350,12 +358,18 @@ def resume_updater(path, updater, comm=None, elastic=False):
         flag = _fetch(by_key, 'opt_state/needs_broadcast', np.bool_(True),
                       path)
     iteration = _fetch(by_key, 'iteration', np.int64(0), path)
+    scale = (_fetch_tree(by_key, live['scale_state'], 'scale_state', path)
+             if 'scale_state' in live else None)
     load_flax_variables(updater.model, variables)
     inner.load_state_dict({'state': opt_state,
                            'param_groups': inner.state_dict()[
                                'param_groups']})
     if wrapper is not None:
         wrapper.needs_broadcast = bool(flag)
+    if scale is not None:
+        updater.scale_state = type(updater.scale_state)(**{
+            k: torch.as_tensor(v).to(updater.device)
+            for k, v in scale.items()})
     detail = by_key.get('epoch_detail')
     restore_counters(updater, iteration, by_key.get('epoch', 0),
                      None if detail is None else float(detail))

@@ -4,20 +4,29 @@ in the reference examples, e.g. ``train_mnist.py:99``).  Copy of
 the collated arrays to the device."""
 
 import numpy as np
+import torch
 
 
 def _cast_cols(cols, dtype):
     """Cast floating columns to ``dtype`` on the HOST (integer labels
     untouched): a batch shipped at the step's compute dtype halves the
-    host->device bytes a downstream downcast would otherwise waste."""
+    host->device bytes a downstream downcast would otherwise waste.
+
+    A ``torch.dtype`` (numpy has no bfloat16) makes every column a CPU
+    tensor, the floating ones cast; a numpy dtype keeps numpy arrays."""
     if dtype is None:
         return cols
-    dt = np.dtype(dtype)
+    if isinstance(dtype, torch.dtype):
+        def cast(a):
+            t = torch.as_tensor(a)
+            return t.to(dtype) if t.is_floating_point() else t
+    else:
+        dt = np.dtype(dtype)
 
-    def cast(a):
-        if np.issubdtype(a.dtype, np.floating) and a.dtype != dt:
-            return a.astype(dt)
-        return a
+        def cast(a):
+            if np.issubdtype(a.dtype, np.floating) and a.dtype != dt:
+                return a.astype(dt)
+            return a
 
     if isinstance(cols, dict):
         return {k: cast(v) for k, v in cols.items()}
@@ -34,7 +43,8 @@ def concat_examples(batch, padding=None, dtype=None):
     appended to the result tuple.  ``dtype`` casts floating columns to
     a target dtype host-side (a mixed-precision policy's compute
     dtype; the validity mask stays float32 -- metric averages are kept
-    in f32).
+    in f32).  With a ``torch.dtype`` the columns come back as CPU
+    tensors.
     """
     if len(batch) == 0:
         raise ValueError('batch is empty')
@@ -62,9 +72,8 @@ def concat_examples(batch, padding=None, dtype=None):
         cols = (
             np.stack([np.asarray(b)
                       for b in batch]),)
-    cols = _cast_cols(cols, dtype)
     if padding is None:
-        return cols
+        return _cast_cols(cols, dtype)
     pad_to, fill = padding
     n = len(batch)
     if pad_to < n:
@@ -76,10 +85,13 @@ def concat_examples(batch, padding=None, dtype=None):
         widths = [(0, pad_to - n)] + [(0, 0)] * (a.ndim - 1)
         return np.pad(a, widths, constant_values=fill)
 
+    # the padded columns cast; the mask stays float32
     mask = np.zeros((pad_to,), np.float32)
     mask[:n] = 1.0
+    if isinstance(dtype, torch.dtype):
+        mask = torch.from_numpy(mask)
     if isinstance(cols, dict):
-        cols = {k: pad(v) for k, v in cols.items()}
+        cols = _cast_cols({k: pad(v) for k, v in cols.items()}, dtype)
         cols['mask'] = mask
         return cols
-    return tuple(pad(c) for c in cols) + (mask,)
+    return _cast_cols(tuple(pad(c) for c in cols), dtype) + (mask,)

@@ -12,6 +12,7 @@ import json
 import os
 import sys
 
+import torch
 import torch.distributed as dist
 
 from chainermn_tpu_torch import serializers
@@ -63,19 +64,28 @@ class LogReport:
         self._counts = {}
 
     def accumulate(self, observation):
+        """Add one iteration's values.  A 0-d tensor (the metrics of
+        ``Trainer(async_metrics=True)``) is summed on its device in
+        float64 -- the same sums as of host floats, with no host sync --
+        and read at emit."""
         for k, v in observation.items():
             if self.keys is not None and k not in self.keys:
                 continue
-            f = _as_float(v)
-            if f is not None:
-                self._accum[k] = self._accum.get(k, 0.0) + f
-                self._counts[k] = self._counts.get(k, 0) + 1
+            if torch.is_tensor(v) and v.ndim == 0:
+                v = v.detach().to(torch.float64)
+            elif _as_float(v) is not None:
+                v = float(v)
+            else:
+                continue
+            self._accum[k] = self._accum.get(k, 0.0) + v
+            self._counts[k] = self._counts.get(k, 0) + 1
 
     def __call__(self, trainer):
         self.accumulate(trainer.observation)
         if not self._emit_trigger(trainer):
             return None
-        entry = {k: v / self._counts[k] for k, v in self._accum.items()}
+        entry = {k: float(v) / self._counts[k]
+                 for k, v in self._accum.items()}
         entry.update(epoch=trainer.updater.epoch,
                      iteration=trainer.updater.iteration,
                      elapsed_time=trainer.elapsed_time)
@@ -90,7 +100,8 @@ class LogReport:
 class PrintReport:
     """Print selected observation keys as a table row, under a header
     printed once (the reference registers it at
-    ``train_mnist.py:108-111``)."""
+    ``train_mnist.py:108-111``).  A 0-d tensor is read here, at this
+    extension's own trigger."""
 
     trigger = (1, 'epoch')
     priority = 100

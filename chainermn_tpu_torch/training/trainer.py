@@ -26,19 +26,25 @@ class Trainer:
     """``Trainer(updater, (N, 'epoch'), out='result').run()``.
 
     ``out`` is made when :meth:`run` starts; extensions write their
-    files there.  ``async_metrics`` (metrics left on the device between
-    steps) is not ported: the port's updater returns floats already.
+    files there.
+
+    ``async_metrics=True`` calls ``updater.update(sync=False)``: each
+    iteration's metrics stay 0-d device tensors, so the loop queues step
+    n+1 while step n still runs on the device instead of waiting for it
+    every iteration.  Extensions convert them where they use them
+    (``LogReport`` at its emit, ``PrintReport`` at its trigger,
+    ``NanGuard`` at its audit).  Every ``sync_interval`` iterations the
+    loop reads one scalar, which waits for everything queued up to that
+    step and so bounds how far the host runs ahead.
     """
 
     def __init__(self, updater, stop_trigger=(1, 'epoch'), out='result',
-                 async_metrics=False):
-        if async_metrics:
-            raise NotImplementedError(
-                'Trainer(async_metrics=True) is not ported yet '
-                '(ROADMAP.md A5)')
+                 async_metrics=False, sync_interval=16):
         self.updater = updater
         self.stop_trigger = triggers_mod.get_trigger(stop_trigger)
         self.out = out
+        self.async_metrics = bool(async_metrics)
+        self.sync_interval = max(1, int(sync_interval))
         self.observation = {}
         self.elapsed_time = 0.0
         self._extensions = []
@@ -76,7 +82,15 @@ class Trainer:
         entries = sorted(self._extensions, key=lambda e: -e.priority)
         try:
             while not (self._stop_requested or self.stop_trigger(self)):
-                self.observation = self.updater.update()
+                if self.async_metrics:
+                    self.observation = self.updater.update(sync=False)
+                    if self.updater.iteration % self.sync_interval == 0:
+                        # one scalar: waits for every step queued so far
+                        for v in self.observation.values():
+                            float(v)
+                            break
+                else:
+                    self.observation = self.updater.update()
                 self.elapsed_time = time.time() - start
                 for entry in entries:
                     if entry.trigger(self):

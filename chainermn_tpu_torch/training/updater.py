@@ -4,22 +4,50 @@ Counterpart of ``chainermn_tpu/training/updater.py``.  The JAX updater
 compiles loss, gradient, reduction, optimizer step and metric averaging
 into one SPMD program; here the same steps run eagerly in each process:
 
-1. collate the next batch and move it to the model's device;
-2. forward and backward (a train-mode forward also updates the
-   BatchNorm running statistics in the model's buffers);
-3. mean-sync the running statistics across processes (``model_state``):
+1. collate the next batch (cast to the policy's compute dtype on the
+   host) and move it to the model's device;
+2. forward and backward, once per micro-batch (a train-mode forward
+   also updates the BatchNorm running statistics in the model's
+   buffers); under a policy the forward sees compute-dtype copies of the
+   f32 master parameters, and under ``remat`` the backward recomputes
+   the forward;
+3. under a loss scale: unscale the local gradients and agree across
+   processes whether they are finite; a non-finite step stops here;
+4. mean-sync the running statistics across processes (``model_state``):
    batch statistics stay local, so this is not ``SyncBatchNorm``;
-4. the optimizer step (with a multi-node optimizer: broadcast at the
+5. the optimizer step (with a multi-node optimizer: broadcast at the
    first call, gradient mean-allreduce + step afterwards);
-5. mean-average the metrics across processes.
+6. mean-average the metrics across processes (in f32).
 """
 
-import torch
+import contextlib
 
-from chainermn_tpu_torch.models._layers import set_dropout_generator
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from chainermn_tpu_torch.models._layers import (
+    replaying, set_dropout_generator)
+from chainermn_tpu_torch.models._norm import recomputing
 from chainermn_tpu_torch.models.flax_weights import to_flax_variables
+from chainermn_tpu_torch.precision import all_finite
 from chainermn_tpu_torch.training.convert import concat_examples
 from chainermn_tpu_torch.training.iterators import DevicePrefetchIterator
+
+
+class _LossCall(nn.Module):
+    """Holds the model as its submodule ``model`` and calls ``loss_fn``:
+    ``torch.func.functional_call`` on it swaps the model's own
+    parameters for the call, which a ``loss_fn`` that closes over the
+    model then sees."""
+
+    def __init__(self, model, loss_fn):
+        super().__init__()
+        self.model = model
+        self.loss_fn = loss_fn
+
+    def forward(self, *batch):
+        return self.loss_fn(*batch)
 
 
 class StandardUpdater:
@@ -35,6 +63,48 @@ class StandardUpdater:
       comm: communicator for the statistics and metric averages.
       model_state: mean-sync the model's buffers (BatchNorm running
         statistics) across processes after every step.
+      accum_steps: with k > 1 the per-process batch is split into k
+        micro-batches, each run forward and backward in turn; the
+        gradients are accumulated and scaled by 1/k before the one
+        optimizer step, the metrics averaged.  The running statistics
+        thread through the micro-batches and are synced once a step
+        (the JAX package syncs after each: the same in exact
+        arithmetic, the update being linear).  Each micro-batch draws
+        its own dropout masks.  A batch that k does not divide raises
+        ``ValueError``.
+      policy: a :class:`~chainermn_tpu_torch.precision.Policy`.  Master
+        parameters stay ``param_dtype`` (f32) in the model; the forward
+        and backward see ``compute_dtype`` copies made inside the
+        differentiated region (``torch.func.functional_call``), so every
+        gradient comes back in the master dtype through the cast.  This
+        casts every floating parameter, BatchNorm's scale and bias too,
+        as the JAX updater does; the buffers (running statistics) stay
+        f32.  Batches are cast to the compute dtype on the host
+        (``_collate``; ``collate_pinned`` and ``device_prefetch``
+        inherit it); metric averages are taken in f32; the policy's
+        ``reduce_dtype`` becomes the communicator's ``reduce_dtype``
+        when it has none.  Not ``torch.autocast``: that keeps some ops
+        in f32 and so computes another function.
+        A policy with a ``loss_scale`` (``Policy.f16()``) multiplies the
+        differentiated loss by the scale (the reported loss is
+        unscaled), unscales the local gradients before the allreduce,
+        takes the finiteness verdict as ``all_finite`` min-allreduced
+        across processes, and on a non-finite verdict skips the step on
+        every process: the optimizer is not stepped (parameters, its
+        state and a pending first broadcast stay as they were) and the
+        BatchNorm buffers are put back as they were before the step
+        (the JAX updater keeps that step's running statistics; a batch
+        that overflows would leave them non-finite).  Then the scale
+        adjusts; the metrics carry ``loss_scale`` (the scale this step
+        used) and ``grads_finite``.  The verdict is read on the host to
+        skip the step: one host-device sync a step, under a loss-scaled
+        policy only.
+      remat: the backward recomputes the forward (``torch.utils.
+        checkpoint``, non-reentrant) instead of keeping its activations.
+        The recompute neither updates the running statistics again
+        (``models._norm.recomputing``) nor draws new dropout masks (the
+        dropout generator is put back to its state at the forward,
+        ``models._layers.replaying``).
       device_prefetch: with N >= 1, the iterator is wrapped in a
         :class:`~chainermn_tpu_torch.training.DevicePrefetchIterator` of
         depth N: the next batches are collated into pinned host memory
@@ -45,29 +115,46 @@ class StandardUpdater:
         (``dropout_generator``), points them at it, and reseeds it from
         (seed, iteration, rank) before every step: the counterpart of
         the JAX updater's ``fold_in(fold_in(rng, iteration), rank)``.
+      zero: not ported yet (ROADMAP.md A7).
     """
 
     def __init__(self, iterator, optimizer, loss_fn, model, comm,
                  model_state=True, zero=False, accum_steps=1, policy=None,
                  remat=False, device_prefetch=0, rng=None):
-        for name, value, default in (
-                ('zero', zero, False), ('accum_steps', accum_steps, 1),
-                ('policy', policy, None), ('remat', remat, False)):
-            if value != default:
-                raise NotImplementedError(
-                    'StandardUpdater(%s=...) is not ported yet '
-                    '(ROADMAP.md A5)' % name)
+        if zero:
+            raise NotImplementedError(
+                'StandardUpdater(zero=...) is not ported yet (ROADMAP.md '
+                'A7)')
+        if accum_steps < 1:
+            raise ValueError('accum_steps must be >= 1')
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self.model = model
         self.comm = comm
         self.model_state = model_state
+        self.accum_steps = int(accum_steps)
+        self.policy = policy
+        self.loss_scale = policy.loss_scale if policy is not None else None
+        self.remat = bool(remat)
         self.device = next(model.parameters()).device
         self.iteration = 0
         self.seed = 0 if rng is None else int(rng)
         gen = torch.Generator(self.device)
         self.dropout_generator = \
             gen if set_dropout_generator(model, gen) else None
+        self._loss_call = None
+        if policy is not None:
+            for p in model.parameters():
+                if p.is_floating_point() and p.dtype != policy.param_dtype:
+                    p.data = p.data.to(policy.param_dtype)  # the masters
+            if any(p.is_floating_point() and p.dtype != policy.compute_dtype
+                   for p in model.parameters()):
+                self._loss_call = _LossCall(model, loss_fn)
+            if (policy.reduce_dtype is not None
+                    and getattr(comm, 'reduce_dtype', None) is None):
+                comm.reduce_dtype = policy.reduce_dtype
+        self.scale_state = (self.loss_scale.init(self.device)
+                            if self.loss_scale is not None else None)
         self._device_prefetch = bool(device_prefetch)
         if device_prefetch:
             iterator = DevicePrefetchIterator(
@@ -75,23 +162,24 @@ class StandardUpdater:
                 device=self.device)
         self.iterator = iterator
 
-    @staticmethod
-    def _collate(batch):
-        arrays = concat_examples(batch)
+    def _collate(self, batch):
+        arrays = concat_examples(
+            batch, dtype=(self.policy.compute_dtype
+                          if self.policy is not None else None))
         if isinstance(arrays, dict):
             arrays = tuple(arrays.values())
         return arrays
 
     def shard_batch(self, batch):
         """Collate a list of examples and move it to the device."""
-        return tuple(torch.from_numpy(a).to(self.device)
+        return tuple(torch.as_tensor(a).to(self.device)
                      for a in self._collate(batch))
 
     def collate_pinned(self, batch):
         """Collate a list of examples into host tensors, pinned when the
         model is on a CUDA device (a copy from pinned memory can run
         asynchronously)."""
-        host = [torch.from_numpy(a) for a in self._collate(batch)]
+        host = [torch.as_tensor(a) for a in self._collate(batch)]
         if self.device.type == 'cuda':
             host = [t.pin_memory() for t in host]
         return tuple(host)
@@ -102,34 +190,119 @@ class StandardUpdater:
         return tuple(t.to(self.device, non_blocking=True)
                      for t in self.collate_pinned(batch))
 
+    # -- the differentiated region ----------------------------------------
+    def _loss(self, *batch):
+        """``loss_fn`` on compute-dtype copies of the parameters (under a
+        policy), or on the parameters themselves."""
+        if self._loss_call is None:
+            return self.loss_fn(*batch)
+        dtype = self.policy.compute_dtype
+        params = {'model.' + name: (p.to(dtype) if p.is_floating_point()
+                                    else p)
+                  for name, p in self.model.named_parameters()}
+        return torch.func.functional_call(self._loss_call, params, batch)
+
+    def _remat_contexts(self):
+        """``checkpoint``'s ``context_fn``, called as the forward starts:
+        nothing around the forward; around the recompute, no running
+        statistics update and the dropout generator replayed from here."""
+        gen = self.dropout_generator
+        state = gen.get_state() if gen is not None else None
+
+        @contextlib.contextmanager
+        def recompute():
+            with recomputing(), replaying(gen, state):
+                yield
+
+        return contextlib.nullcontext(), recompute()
+
+    def _forward_backward(self, batch, scale):
+        """Forward and backward of one (micro-)batch; gradients add into
+        the parameters' ``grad``.  Returns the metrics and the unscaled
+        loss as detached tensors, floating ones (and flags) in f32: the
+        metric averages are f32 whatever the compute dtype."""
+        if self.remat:
+            loss, metrics = checkpoint(self._loss, *batch,
+                                       use_reentrant=False,
+                                       context_fn=self._remat_contexts)
+        else:
+            loss, metrics = self._loss(*batch)
+        (loss if scale is None else loss * scale.to(loss.dtype)).backward()
+        out = {}
+        for key, v in dict(metrics, loss=loss).items():
+            v = torch.as_tensor(v, device=self.device).detach()
+            out[key] = (v.to(torch.float32) if v.is_floating_point()
+                        or v.dtype == torch.bool else v)
+        return out
+
     def update_core(self, arrays):
         """One iteration on device tensors; returns the averaged metrics
-        as 0-d tensors."""
+        as 0-d tensors (no host sync, except the loss-scale verdict)."""
+        k = self.accum_steps
+        if arrays[0].shape[0] % k:
+            raise ValueError('batch size %d must be divisible by '
+                             'accum_steps %d' % (arrays[0].shape[0], k))
         self.optimizer.zero_grad(set_to_none=True)
         if self.dropout_generator is not None:
             self.dropout_generator.manual_seed(
                 ((self.seed * 1000003 + self.iteration) * 65537
                  + self.comm.rank) % 2 ** 63)
-        loss, metrics = self.loss_fn(*arrays)
-        loss.backward()
         # a model without buffers (the transformer) has nothing to sync:
         # no collective is issued for it
         buffers = list(self.model.buffers()) if self.model_state else []
-        if buffers:
+        scale = None
+        if self.loss_scale is not None:
+            scale = self.scale_state.scale
+            kept = [b.clone() for b in buffers]
+        if k == 1:
+            metrics = self._forward_backward(arrays, scale)
+        else:
+            micro = [a.split(a.shape[0] // k) for a in arrays]
+            parts = [self._forward_backward(mb, scale)
+                     for mb in zip(*micro)]
+            metrics = {key: torch.stack([m[key] for m in parts]).mean(0)
+                       for key in parts[0]}
+            grads = [p.grad for p in self.model.parameters()
+                     if p.grad is not None]
+            if grads:
+                torch._foreach_div_(grads, float(k))
+        finite = True
+        if self.loss_scale is not None:
+            grads = [p.grad for p in self.model.parameters()
+                     if p.grad is not None]
+            if grads:
+                torch._foreach_mul_(grads, 1.0 / self.scale_state.scale)
+            finite = self.comm.allreduce(
+                all_finite(grads).to(torch.float32), 'min') > 0.5
+            metrics.update(loss_scale=scale,
+                           grads_finite=finite.to(torch.float32))
+            self.scale_state = self.loss_scale.adjust(self.scale_state,
+                                                      finite)
+        if bool(finite):
+            if buffers:
+                with torch.no_grad():
+                    for b, synced in zip(
+                            buffers, self.comm.allreduce(buffers, 'mean')):
+                        b.copy_(synced)
+            self.optimizer.step()
+        else:
+            # skipped on every process (the verdict is the same on all)
             with torch.no_grad():
-                for b, synced in zip(buffers,
-                                     self.comm.allreduce(buffers, 'mean')):
-                    b.copy_(synced)
-        self.optimizer.step()
-        metrics = dict(metrics, loss=loss.detach())
+                for b, old in zip(buffers, kept):
+                    b.copy_(old)
         self.iteration += 1
         return self.comm.allreduce(metrics, 'mean')
 
-    def update(self):
-        """Advance one iteration; returns the metrics as floats."""
+    def update(self, sync=True):
+        """Advance one iteration.  ``sync=True`` (default) returns host
+        floats, which waits for the step on the device.  ``sync=False``
+        returns the 0-d device tensors, so the host can queue the next
+        step while this one runs (``Trainer(async_metrics=True)``)."""
         batch = next(self.iterator)
         metrics = self.update_core(
             batch if self._device_prefetch else self.shard_batch(batch))
+        if not sync:
+            return metrics
         return {k: float(v) for k, v in metrics.items()}
 
     @property

@@ -182,7 +182,9 @@ def check_finite(tree, prefix=''):
 class NanGuard:
     """Trainer extension: stop on non-finite metrics (every iteration)
     and, every ``param_interval`` iterations, audit the parameters
-    themselves (catches corruption the metrics lag behind).
+    themselves (catches corruption the metrics lag behind).  Metrics
+    that are 0-d tensors (``Trainer(async_metrics=True)``) are checked
+    at that audit, not every iteration.
 
     ``checkpoint_on_divergence``: a directory (or ``True`` for
     ``{trainer.out}/divergence``) that receives a forensic npz snapshot
@@ -223,11 +225,19 @@ class NanGuard:
                 'NanGuard: divergence checkpoint failed: %r\n' % e)
 
     def __call__(self, trainer):
-        bad = [k for k, v in trainer.observation.items()
+        obs = trainer.observation
+        bad = [k for k, v in obs.items()
                if isinstance(v, float) and not math.isfinite(v)]
         if not bad and self.param_interval and (
                 trainer.updater.iteration % self.param_interval == 0):
-            bad = check_finite(trainer.updater.params, 'params/')
+            # the 0-d tensor metrics of Trainer(async_metrics=True) are
+            # read here only: every iteration would sync the host with
+            # the device, and the audit reads the parameters anyway
+            bad = [k for k, v in obs.items()
+                   if getattr(v, 'ndim', None) == 0 and not isinstance(
+                       v, float) and not math.isfinite(float(v))]
+            if not bad:
+                bad = check_finite(trainer.updater.params, 'params/')
         if bad:
             msg = ('non-finite values at iteration %d: %s'
                    % (trainer.updater.iteration, ', '.join(bad)))

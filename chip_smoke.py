@@ -37,7 +37,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    and within twice the plain version's error, every output bit-equal
    across two runs, timed against the plain version and, without relu
    and residual, against ``aten.native_batch_norm_backward``), with
-   kernel / plain / library times and the bound;
+   kernel / plain / library times and the bound; the three BN kernels'
+   float16 instantiations at ``F16_SHAPES`` (ResNet-50's stage-1 exit +
+   residual + relu, GoogLeNet-BN's ``(3136, 352)`` + relu) held the same
+   way (the whole forward within ``F16_TOL``), timed, and recorded as
+   ``bn_stats_f16``, ``bn_apply_f16`` and ``bn_backward_f16``;
 4. one train-mode forward of full-width ResNet-50 (f32, TF32 off, batch
    2) on the card (kernels) against the same model on the CPU (plain
    versions);
@@ -57,6 +61,24 @@ Phases, each printing its own lines; any failure exits non-zero:
    holds each of the 53 interludes against the oracle on its own input,
    residual and output gradient, as in 5c (with a residual the oracle is
    the fused op's plain version: flax rounds before the add);
+5f. the training step's precision and loop knobs (``precision``), on
+   ResNet-50 ``fused_norm=True`` at batch 64, 224 px: (a)
+   ``Policy.bf16()`` + ``remat=True`` + ``Trainer(async_metrics=True)``
+   for 10 steps (finite losses, step 0 equal to step 1, two
+   ``bn_stats`` and ``bn_apply`` launches an interlude a step for the
+   forward and its recompute, one ``bn_backward``), against the same
+   with sync metrics and without remat: the running statistics after 2
+   steps within ``STATS_TOL`` of the run without remat, the peak memory,
+   images/s in windows of ``WINDOW_STEPS`` steps taken in turns (async,
+   sync, sync, async; remat, none, none, remat), the busy share and
+   device ms of each over 3 profiled steps; (b)
+   ``Policy.f16()`` on a ResNet-50 built in f16 for ``F16_STEPS`` steps
+   on the f16 BN kernels, ``loss_scale`` and ``grads_finite`` each step,
+   a batch with an inf at ``F16_INF_STEP`` backed off and skipped with
+   every parameter, buffer and optimizer-state tensor bit-equal across
+   it, timed in turns against (a) without remat; (c) ``accum_steps=2``
+   against 1 on the same batch, the losses of steps 0 and 1 within
+   ``ACCUM_RTOL``, launch counts, peak memory, times in turns;
 5a. the MNIST main path (``mnist``): the reference's convergence gate
    (``MLP(100)``, ``FusedMomentumSGD(0.1, 0.9)``, the hard stand-in, a
    batch of 104, 5 epochs, ``create_multi_node_evaluator`` every epoch,
@@ -68,12 +90,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    classic stand-in, batch 100, 2 epochs): images/s from the p50 of the
    synchronized ``update()`` calls and over the whole window, the
    update p50/p99, the evaluator's time an epoch, the device busy share
-   over 3 profiled steps, and its log and snapshots;
+   over 3 profiled steps, and its log and snapshots; then the example
+   under ``--policy bf16`` held to the gate's bar (validation accuracy
+   at least 0.95), its master weights f32;
 5b. the ImageNet main path (``imagenet``): the twin of
    ``examples/imagenet/train_imagenet.py`` (``train_imagenet.main``) with
    ``--communicator hierarchical --arch resnet50 --batchsize 64 --epoch
    1`` at insize 224 on the synthetic 1280 / 128 set: the
-   ``distributed_sgd_schedule`` rate on ``FusedMomentumSGD``, a
+   ``distributed_sgd_schedule`` rate on ``FusedMomentumSGD``,
+   ``Trainer(async_metrics=True)`` as in the JAX script, a
    ``MultiprocessIterator`` under the updater's ``device_prefetch``
    (pinned batches, checked), the multi-node evaluator, a snapshot;
    ``momentum_sgd`` once an update after the broadcast call and no other
@@ -240,6 +265,10 @@ BF16_TOL = (2 ** -7, 1e-5)
 # oracle's: f32 sums of the same values over up to 8e5 rows in another
 # order
 STATS_TOL = (1e-4, 1e-5)
+# (rtol, atol) of an f16 BN output against its plain version on its own
+# statistics: f32 math rounded once to f16, so at most one rounding flip,
+# one unit in the last place: at most 2 ** -10 of the value
+F16_TOL = (2 ** -10, 1e-5)
 # the LM training benchmark's model and batch (bench.py, the transformer
 # model): 8 sequences of 1024 tokens, Adam at 1e-3
 LM_CFG = dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=6,
@@ -460,11 +489,13 @@ def _bn_case(gen, m, c, dtype, residual, relu):
     # same inputs, same rounding order: expected bit-equal
     check_close('bn_apply %s' % ((m, c),), out, pout, 0.0, 0.0)
     # the whole forward against the plain forward (own statistics):
-    # one bf16 rounding may flip, one part in 2**8
+    # one bf16 rounding may flip, one part in 2**8; one f16 rounding, at
+    # most 2**-10 of the value (F16_TOL)
     full, _, _ = ops.batch_norm_act(x, scale, bias, residual=res, relu=relu)
     ref = bn._apply_ref(x, pmean, prstd, scale, bias, res, relu)
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
-    check_close('batch_norm_act %s' % ((m, c),), full, ref, tol, tol)
+    tol = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2),
+           torch.float16: F16_TOL}[dtype]
+    check_close('batch_norm_act %s' % ((m, c),), full, ref, *tol)
     stats_err = max(max_err(mean, pmean), max_err(var, pvar),
                     max_err(rstd, prstd))
     _say('kernels', 'bn %s %s res=%s relu=%s: stats err %.3g, apply err '
@@ -736,6 +767,68 @@ def _bn_backward_record(gen):
         googlenetbn_shapes=gbn, **t)
 
 
+# the float16 instantiations' cases, (rows, channels, residual), relu in
+# both: ResNet-50's stage-1 exit (the bf16 rows' timed case) and
+# GoogLeNet-BN's last stage
+F16_SHAPES = ((BATCH * 56 * 56, 256, True), (BATCH * 7 * 7, 352, False))
+
+
+def _f16_bn_records(gen):
+    """The three BN kernels on float16 activations at ``F16_SHAPES``: the
+    statistics within ``STATS_TOL`` of their plain version and bit-equal
+    across two runs, ``bn_apply`` bit-equal to its plain version, the
+    whole forward within ``F16_TOL`` of the plain forward
+    (:func:`_bn_case`); the backward's elementwise pass bit-equal to
+    ``_bwd_apply_ref`` on the kernel's sums and its sums held to f64
+    (:func:`_bwd_case`); each timed against its plain version and its
+    bytes bound.  Returns the three records (``bn_stats_f16``,
+    ``bn_apply_f16``, ``bn_backward_f16``): the first shape's times, the
+    second's under ``googlenetbn_shapes``."""
+    import torch
+    from chainermn_tpu_torch import ops
+    bn = importlib.import_module('chainermn_tpu_torch.ops.batch_norm_act')
+    source = 'chainermn_tpu_torch/csrc/batch_norm_act.cu'
+    rows = {'bn_stats_f16': [], 'bn_apply_f16': [], 'bn_backward_f16': []}
+    errs = dict.fromkeys(rows, 0.0)
+    for m, c, residual in F16_SHAPES:
+        x, res, scale, bias, se, ae = _bn_case(gen, m, c, torch.float16,
+                                               residual, True)
+        mean, _, rstd = ops.bn_stats(x, 1e-5)
+        t = timings(lambda: ops.bn_stats(x, 1e-5),
+                    lambda: bn._batch_stats(x, 1e-5),
+                    lambda: torch.var_mean(x, 0, correction=0), iters=10)
+        b_ms, b_by = bound_ms(m * c * 2 + 3 * c * 4, 3 * m * c)
+        rows['bn_stats_f16'].append(dict(shape=[m, c], max_abs_err=se,
+                                         bound_ms=b_ms, bound_by=b_by, **t))
+        _say('kernels', 'bn_stats at %s f16: %s (var_mean); bound %.5f ms '
+             'by %s' % ((m, c), _fmt(t), b_ms, b_by))
+        t = timings(
+            lambda: ops.bn_apply(x, res, mean, rstd, scale, bias, True),
+            lambda: bn._apply_ref(x, mean, rstd, scale, bias, res, True),
+            None, iters=10)
+        b_ms, b_by = bound_ms((2 + residual) * m * c * 2 + 4 * c * 4,
+                              5 * m * c)
+        rows['bn_apply_f16'].append(dict(shape=[m, c], max_abs_err=ae,
+                                         bound_ms=b_ms, bound_by=b_by, **t))
+        _say('kernels', 'bn_apply at %s f16%s + relu: %s; bound %.5f ms by '
+             '%s' % ((m, c), ' + residual' if residual else '', _fmt(t),
+                     b_ms, b_by))
+        args, r = _bwd_case(gen, m, c, 'float16', residual, True)
+        t = _bwd_timings(args)
+        rows['bn_backward_f16'].append(dict(shape=[m, c], **r, **t))
+        _say_bwd('%s f16%s + relu' % ((m, c), ' + residual' if residual
+                                     else ''), t)
+        for name, err in zip(rows, (se, ae, r['max_abs_err'])):
+            errs[name] = max(errs[name], err)
+    replaces = {'bn_stats_f16': 'chainermn_tpu/ops/batch_norm_act.py:110',
+                'bn_apply_f16': 'chainermn_tpu/ops/batch_norm_act.py:161',
+                'bn_backward_f16': 'chainermn_tpu/ops/batch_norm_act.py:221'}
+    return [dict(first, name=name, route='cuda', source=source,
+                 replaces=replaces[name], dtype='float16',
+                 max_abs_err=errs[name], googlenetbn_shapes=[gbn])
+            for name, (first, gbn) in rows.items()]
+
+
 def phase_kernels():
     import torch
     import torch.nn.functional as F
@@ -816,6 +909,7 @@ def phase_kernels():
              t['no_residual_library_ms'], _ms(t['no_residual_device_ms']),
              _ms(t['no_residual_library_device_ms']), nr_bound, nr_by))
     records.append(_bn_backward_record(gen))
+    f16_records = _f16_bn_records(gen)
 
     # momentum SGD over the ResNet-50 parameter list, 3 steps, one launch
     # a step for all 161 tensors
@@ -920,7 +1014,7 @@ def phase_kernels():
          '%.5f ms, device only %s ms; bound %.5f ms by %s'
          % (len(params), n, _fmt(t), t['per_tensor_ms'],
             _ms(t['per_tensor_device_ms']), b_ms, b_by))
-    return records
+    return records + f16_records
 
 
 def _strided_qkv(gen, lead, h, d, dtype):
@@ -1703,6 +1797,347 @@ def phase_main_path():
     return counts
 
 
+# the precision phase: ResNet-50 fused_norm=True at batch 64, 224 px
+F16_STEPS = 6                  # part (b)
+F16_INF_STEP = 3               # part (b)'s step fed a batch with an inf
+ACCUM_STEPS = 3                # part (c): steps of each run
+# part (c): the loss of accum_steps=2 against accum_steps=1 at steps 0
+# and 1 (the same weights: step 0 broadcasts), within the bf16 tolerance
+# of the port's parity tests: the micro-batches normalize with their own
+# batch statistics.  After a step the two take different updates
+ACCUM_RTOL = 5e-2
+
+
+def _precision_batch():
+    """Phase 5's synthetic ImageNet batch (64 images, 224 px, labels)."""
+    from chainermn_tpu_torch.datasets import imagenet
+    raw, _ = imagenet.get_imagenet(BATCH, 8, size=256)
+    mean = imagenet.compute_mean(raw, limit=BATCH)
+    train = imagenet.PreprocessedDataset(raw, mean, 224, random=False)
+    return [train[i] for i in range(len(train))]
+
+
+def _free():
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _device(step, n=3):
+    """``(busy share, device ms a call)`` over ``n`` calls of ``step``
+    under the profiler (``(None, None)`` when no trace held a device
+    event)."""
+    _, kernels, wall_us = profiled(step, n)
+    busy = sum(kernels.values())
+    return (busy / wall_us, busy / n / 1e3) if busy else (None, None)
+
+
+# part (a)'s timed windows: steps a window, windows a side (in turns)
+WINDOW_STEPS = 8
+
+
+def _window(updater, sync):
+    """Seconds a step over ``WINDOW_STEPS`` steps issued as the trainer
+    issues them (``update(sync=False)`` under async metrics),
+    synchronized before and after."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(WINDOW_STEPS):
+        updater.update(sync=sync)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / WINDOW_STEPS
+
+
+def _in_turns(a, b):
+    """``a``, ``b``, ``b``, ``a`` (each a callable returning a time):
+    the two sides' times, in that order."""
+    ta1, tb1, tb2, ta2 = a(), b(), b(), a()
+    return (ta1, ta2), (tb1, tb2)
+
+
+def _resnet_run(comm, train, policy, steps, dtype=None, remat=False,
+                async_metrics=False, accum=1):
+    """ResNet-50 ``fused_norm=True`` (seeded weights) trained ``steps``
+    steps on ``train`` through ``StandardUpdater(policy=, remat=,
+    accum_steps=)`` and ``Trainer(async_metrics=)``; returns the losses
+    (floats, read after the run), the launch counts, the peak memory of
+    the run (above what was allocated before its model was built: the
+    updaters kept for the timed windows), the BN buffers after step 2 and
+    the updater."""
+    import torch
+    import chainermn_tpu_torch as cmt
+    from chainermn_tpu_torch import models, ops, training
+    _free()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = models.ResNet50(fused_norm=True, **(
+        {} if dtype is None else {'dtype': dtype}))
+    clf = models.StatefulClassifier(model)
+    opt = cmt.create_multi_node_optimizer(
+        ops.FusedMomentumSGD(model.parameters(), 0.1, 0.9), comm)
+    updater = training.StandardUpdater(
+        training.SerialIterator(train, BATCH, shuffle=False), opt,
+        clf.loss, model, comm, policy=policy, remat=remat,
+        accum_steps=accum)
+    trainer = training.Trainer(updater, (steps, 'iteration'), out=None,
+                               async_metrics=async_metrics)
+    losses, stats = [], []
+
+    def record(tr):
+        losses.append(tr.observation['loss'])
+        if tr.updater.iteration == 2:
+            stats.extend(b.detach().clone() for b in model.buffers())
+
+    trainer.extend(record, trigger=(1, 'iteration'))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    trainer.run()
+    torch.cuda.synchronize()
+    return dict(losses=[float(v) for v in losses],
+                counts=ops.launch_counts(),
+                peak=torch.cuda.max_memory_allocated() - base, stats=stats,
+                updater=updater)
+
+
+def _want(forwards, backwards, sgd):
+    """Launch counts of a ResNet-50 run of ``forwards`` forward passes
+    (a recompute is one) and ``backwards`` backward passes: one stats and
+    one apply launch an interlude a forward, one backward launch an
+    interlude a backward; ``sgd`` momentum SGD launches."""
+    from chainermn_tpu_torch import ops
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want.update(bn_stats=BN_PER_STEP * forwards,
+                bn_apply=BN_PER_STEP * forwards,
+                bn_backward=BN_PER_STEP * backwards, momentum_sgd=sgd)
+    return want
+
+
+def _check_counts(what, counts, want):
+    if counts != want:
+        raise AssertionError('%s: launch counts %s, expected %s'
+                             % (what, counts, want))
+
+
+def _f16_state(updater):
+    """Every parameter, BN buffer and optimizer-state tensor of a run, and
+    the loss-scale state, cloned (for a bit-for-bit comparison)."""
+    opt = updater.optimizer.actual_optimizer
+    model = updater.model
+    out = [t.detach().clone() for t in model.parameters()]
+    out += [t.detach().clone() for t in model.buffers()]
+    out += [v.detach().clone() for p in model.parameters()
+            for v in opt.state.get(p, {}).values() if hasattr(v, 'clone')]
+    return out
+
+
+def _precision_f16(comm, train):
+    """Part (b): ``Policy.f16()`` on ResNet-50 ``fused_norm=True`` built in
+    f16, ``F16_STEPS`` steps through ``update_core``; step
+    ``F16_INF_STEP`` gets a batch with an inf and must be skipped, every
+    parameter, BN buffer and optimizer-state tensor bit-equal across it.
+    Returns the launch counts, the per-step metrics and the updater."""
+    import torch
+    import chainermn_tpu_torch as cmt
+    from chainermn_tpu_torch import models, ops, training
+    from chainermn_tpu_torch.precision import Policy
+    model = models.ResNet50(fused_norm=True, dtype=torch.float16)
+    clf = models.StatefulClassifier(model)
+    opt = cmt.create_multi_node_optimizer(
+        ops.FusedMomentumSGD(model.parameters(), 0.1, 0.9), comm)
+    updater = training.StandardUpdater(
+        training.SerialIterator(train, BATCH, shuffle=False), opt, clf.loss,
+        model, comm, policy=Policy.f16())
+    good = updater.shard_batch(train[:BATCH])
+    if good[0].dtype != torch.float16:
+        raise AssertionError('f16: the batch arrived as %s' % good[0].dtype)
+    bad = (good[0].clone(), good[1])
+    bad[0][0, 0, 0, 0] = float('inf')
+    dtypes = set()
+    handles = [m.register_forward_pre_hook(
+        lambda mod, args: dtypes.add(args[0].dtype))
+        for m in model.modules() if isinstance(m, models.NormAct)]
+    _free()
+    ops.reset_launch_counts()
+    metrics = []
+    try:
+        for i in range(F16_STEPS):
+            before = _f16_state(updater) if i == F16_INF_STEP else None
+            scale = float(updater.scale_state.scale)
+            m = updater.update_core(bad if i == F16_INF_STEP else good)
+            m = {k: float(v) for k, v in m.items()}
+            metrics.append(m)
+            _say('precision', 'f16 step %d%s: loss %.4f, loss_scale %g, '
+                 'grads_finite %g -> scale %g' % (
+                     i, ' (a batch with an inf)' if i == F16_INF_STEP
+                     else '', m['loss'], m['loss_scale'], m['grads_finite'],
+                     float(updater.scale_state.scale)))
+            if m['loss_scale'] != scale:
+                raise AssertionError('f16 step %d: loss_scale %r, the scale '
+                                     'was %r' % (i, m['loss_scale'], scale))
+            if before is None:
+                continue
+            after = _f16_state(updater)
+            if m['grads_finite'] != 0.0 or float(
+                    updater.scale_state.scale) != max(scale / 2, 1.0):
+                raise AssertionError('f16: the inf batch was not backed '
+                                     'off: %s' % m)
+            if len(before) != len(after) or not all(
+                    torch.equal(a, b) for a, b in zip(before, after)):
+                raise AssertionError('f16: the skipped step changed a '
+                                     'parameter, buffer or optimizer state '
+                                     'tensor')
+            _say('precision', 'f16: the skipped step left all %d parameter, '
+                 'buffer and optimizer-state tensors bit-equal' % len(after))
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    finally:
+        for h in handles:
+            h.remove()
+    if dtypes != {torch.float16}:
+        raise AssertionError('f16: the BN interludes saw %s' % dtypes)
+    finite = [m['grads_finite'] == 1.0 for m in metrics]
+    if sum(finite[:F16_INF_STEP] + finite[F16_INF_STEP + 1:]) == 0:
+        raise AssertionError('f16: no finite step: %s' % metrics)
+    if not all(math.isfinite(m['loss']) for m, f in zip(metrics, finite)
+               if f):
+        raise AssertionError('f16: a finite step with a non-finite loss: %s'
+                             % metrics)
+    # the first finite step broadcasts, each later one steps
+    _check_counts('f16', counts, _want(F16_STEPS, F16_STEPS,
+                                       max(0, sum(finite) - 1)))
+    return counts, metrics, updater
+
+
+def _say_turns(what, a, b, names):
+    """Log two sides' windows (seconds a step) as images/s."""
+    _say('precision', '%s, windows of %d steps in turns (%s, %s, %s, %s): '
+         '%s %.2f / %.2f ms a step = %.1f / %.1f images/s; %s %.2f / %.2f '
+         'ms = %.1f / %.1f images/s' % (
+             what, WINDOW_STEPS, names[0], names[1], names[1], names[0],
+             names[0], 1e3 * a[0], 1e3 * a[1], BATCH / a[0], BATCH / a[1],
+             names[1], 1e3 * b[0], 1e3 * b[1], BATCH / b[0], BATCH / b[1]))
+
+
+def phase_precision():
+    """The training step's precision and loop knobs on ResNet-50
+    ``fused_norm=True`` at full width: (a) ``Policy.bf16()`` +
+    ``remat=True`` + ``Trainer(async_metrics=True)``, against the same
+    with sync metrics and without remat; (b) ``Policy.f16()`` on the f16
+    BN kernels with a forced backoff, timed against (a) without remat;
+    (c) ``accum_steps=2`` against 1.  Times are windows of
+    ``WINDOW_STEPS`` steps in turns (a, b, b, a) within this call, the
+    device share and time from 3 profiled steps.  Returns the launch
+    counts of each path."""
+    import chainermn_tpu_torch as cmt
+    from chainermn_tpu_torch.precision import Policy
+    train = _precision_batch()
+    bf16 = Policy.bf16()
+    gib = 2 ** 30
+    comm = cmt.create_communicator('xla')
+    try:
+        # (a) remat + async metrics, and without remat (sync)
+        remat = _resnet_run(comm, train, bf16, STEPS, remat=True,
+                            async_metrics=True)
+        plain = _resnet_run(comm, train, bf16, STEPS)
+        _check_counts('bf16 remat + async', remat['counts'],
+                      _want(2 * STEPS, STEPS, STEPS - 1))
+        _check_counts('bf16 without remat', plain['counts'],
+                      _want(STEPS, STEPS, STEPS - 1))
+        for what, run in (('remat + async', remat),
+                          ('without remat', plain)):
+            losses = run['losses']
+            if len(losses) != STEPS or not all(map(math.isfinite, losses)):
+                raise AssertionError('bf16 %s: losses %s' % (what, losses))
+            # the same batch at steps 0 and 1; step 0 broadcasts
+            if abs(losses[0] - losses[1]) > 1e-3 * max(1.0, abs(losses[0])):
+                raise AssertionError('bf16 %s: loss at step 0 %r != step 1 '
+                                     '%r' % (what, losses[0], losses[1]))
+        # the running statistics take one update a step under remat
+        if len(remat['stats']) != len(plain['stats']) or not remat['stats']:
+            raise AssertionError('precision: %d and %d buffers'
+                                 % (len(remat['stats']), len(plain['stats'])))
+        stats_err = 0.0
+        for i, (a, b) in enumerate(zip(remat['stats'], plain['stats'])):
+            check_close('running statistics %d after 2 steps, remat vs not'
+                        % i, a, b, *STATS_TOL)
+            stats_err = max(stats_err, max_err(a, b))
+        _say('precision', 'bf16 + remat + async metrics: losses %s'
+             % ', '.join('%.4f' % v for v in remat['losses']))
+        _say('precision', 'launches a step under remat: %d bn_stats, %d '
+             'bn_apply (forward and recompute), %d bn_backward; running '
+             'statistics after 2 steps against remat=False: max abs err %.3g '
+             '(STATS_TOL %s); peak memory %.3f GiB with remat, %.3f without'
+             % (2 * BN_PER_STEP, 2 * BN_PER_STEP, BN_PER_STEP, stats_err,
+                STATS_TOL, remat['peak'] / gib, plain['peak'] / gib))
+        ru, pu = remat['updater'], plain['updater']
+        asy, syn = _in_turns(lambda: _window(ru, False),
+                             lambda: _window(ru, True))
+        _say_turns('bf16 + remat, async against sync metrics', asy, syn,
+                   ('async', 'sync'))
+        rem, pla = _in_turns(lambda: _window(ru, True),
+                             lambda: _window(pu, True))
+        _say_turns('bf16, sync metrics, remat against none', rem, pla,
+                   ('remat', 'no remat'))
+        for what, step in (('remat, async metrics',
+                            lambda: ru.update(sync=False)),
+                           ('remat, sync metrics', ru.update),
+                           ('no remat, sync metrics', pu.update)):
+            busy, dev = _device(step)
+            _say('precision', 'bf16 %s: device busy %s, device %s ms a step '
+                 '(3 profiled steps)' % (
+                     what, 'not measured' if busy is None
+                     else '%.1f%%' % (100 * busy),
+                     'not measured' if dev is None else '%.2f' % dev))
+        del remat['updater'], ru
+        # (b) f16 on the f16 BN kernels, timed against bf16 without remat
+        f16_counts, metrics, fu = _precision_f16(comm, train)
+        f16, b16 = _in_turns(lambda: _window(fu, True),
+                             lambda: _window(pu, True))
+        _say_turns('f16 (loss-scaled) against bf16, no remat, sync metrics',
+                   f16, b16, ('f16', 'bf16'))
+        busy, dev = _device(fu.update)
+        _say('precision', 'f16: device busy %s, device %s ms a step (3 '
+             'profiled steps)' % (
+                 'not measured' if busy is None else '%.1f%%' % (100 * busy),
+                 'not measured' if dev is None else '%.2f' % dev))
+        del fu, pu, plain['updater']
+        # (c) accum_steps=2 against 1 on the same batch
+        one = _resnet_run(comm, train, bf16, ACCUM_STEPS)
+        two = _resnet_run(comm, train, bf16, ACCUM_STEPS, accum=2)
+        _check_counts('accum_steps=1', one['counts'],
+                      _want(ACCUM_STEPS, ACCUM_STEPS, ACCUM_STEPS - 1))
+        _check_counts('accum_steps=2', two['counts'],
+                      _want(2 * ACCUM_STEPS, 2 * ACCUM_STEPS,
+                            ACCUM_STEPS - 1))
+        if not all(map(math.isfinite, two['losses'])):
+            raise AssertionError('accum_steps=2: losses %s' % two['losses'])
+        for i, (a, b) in enumerate(zip(two['losses'][:2],
+                                       one['losses'][:2])):
+            if abs(a - b) > ACCUM_RTOL * abs(b):
+                raise AssertionError('accum_steps=2: loss %d %r vs %r'
+                                     % (i, a, b))
+        acc2, acc1 = _in_turns(lambda: _window(two['updater'], True),
+                               lambda: _window(one['updater'], True))
+        _say('precision', 'accum_steps=2 against 1 on the same batch: losses '
+             '%s vs %s; peak memory %.3f vs %.3f GiB' % (
+                 ', '.join('%.4f' % v for v in two['losses']),
+                 ', '.join('%.4f' % v for v in one['losses']),
+                 two['peak'] / gib, one['peak'] / gib))
+        _say_turns('accum_steps=2 against 1, sync metrics', acc2, acc1,
+                   ('accum 2', 'accum 1'))
+        del one['updater'], two['updater']
+    finally:
+        comm.close()
+    f16_path = dict(f16_counts)
+    for name in ('bn_stats', 'bn_apply', 'bn_backward'):
+        f16_path[name + '_f16'] = f16_path.pop(name)
+    _free()
+    return {'resnet_bf16_remat_async': remat['counts'],
+            'resnet_bf16_policy': plain['counts'], 'resnet_f16': f16_path,
+            'resnet_bf16_accum2': two['counts']}
+
+
 # the communicator strategies, in the JAX package's table order
 COMM_NAMES = ('xla', 'hierarchical', 'two_dimensional', 'flat', 'naive',
               'single_node', 'non_cuda_aware', 'dummy', 'bucketed')
@@ -1784,14 +2219,16 @@ def _imagenet_example(out, argv=IMAGENET_ARGV):
     collate = training.StandardUpdater.collate_pinned
     update_ms, losses, pinned, starts = [], [], [], []
 
-    def timed(self):
+    def timed(self, *args, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         starts.append(t0)
-        result = update(self)
+        result = update(self, *args, **kw)
         torch.cuda.synchronize()
         update_ms.append(1e3 * (time.perf_counter() - t0))
-        losses.append(result['loss'])
+        # a 0-d tensor under the twin's async_metrics: read after the
+        # timed span
+        losses.append(float(result['loss']))
         return result
 
     def checked(self, batch):
@@ -1936,7 +2373,7 @@ def _mnist_gate(device, stop, losses, states):
     return trainer, log
 
 
-def _mnist_example(out):
+def _mnist_example(out, extra=()):
     """``train_mnist.main`` at full width on the card, each update timed
     (synchronized before and after) and each evaluation timed; returns
     ``(trainer, update ms, evaluation ms, window s)``, the window running
@@ -1964,7 +2401,7 @@ def _mnist_example(out):
     training.Evaluator.evaluate = timed(evaluate, eval_ms)
     try:
         trainer = train_mnist.main(['--unit', '1000', '--epoch', '2',
-                                    '--out', out])
+                                    '--out', out, *extra])
         torch.cuda.synchronize()
         window_s = time.perf_counter() - starts[0]
     finally:
@@ -2085,6 +2522,36 @@ def phase_mnist():
              'not measured' if busy is None else '%.1f%%' % (100 * busy),
              entries[0]['loss'], entries[1]['loss'],
              entries[1]['validation/main/accuracy']))
+    # 3. the example under --policy bf16, held to the gate's bar: bf16
+    # compute and batches, f32 master weights
+    out = tempfile.mkdtemp(prefix='mnist_bf16_')
+    try:
+        ops.reset_launch_counts()
+        trainer, update_ms, _, _ = _mnist_example(out, ['--policy', 'bf16'])
+        bf16_counts = ops.launch_counts()
+        trainer.updater.comm.close()
+        masters = {p.dtype for p in trainer.updater.model.parameters()}
+        with open(os.path.join(out, 'log')) as f:
+            bf16_entries = json.load(f)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    if any(bf16_counts.values()):
+        raise AssertionError('MNIST bf16 example launched %s' % bf16_counts)
+    if masters != {torch.float32}:
+        raise AssertionError('MNIST bf16 example: master weights %s'
+                             % masters)
+    bf16_acc = bf16_entries[-1]['validation/main/accuracy']
+    if not (len(bf16_entries) == 2 and bf16_acc >= 0.95
+            and bf16_entries[1]['loss'] < bf16_entries[0]['loss']):
+        raise AssertionError('MNIST bf16 example: log %s' % bf16_entries)
+    timed = sorted(update_ms[2:])
+    _say('mnist', 'example under --policy bf16: validation accuracy %.4f '
+         '(f32 %.4f; the gate\'s bar 0.95), epoch losses %.4f -> %.4f (f32 '
+         '%.4f -> %.4f), update p50 %.3f ms' % (
+             bf16_acc, entries[1]['validation/main/accuracy'],
+             bf16_entries[0]['loss'], bf16_entries[1]['loss'],
+             entries[0]['loss'], entries[1]['loss'],
+             timed[len(timed) // 2]))
     return counts
 
 
@@ -3972,6 +4439,7 @@ def main():
     _timed(phase_model_check)
     _timed(phase_communicators)
     paths = {'resnet_training': _timed(phase_main_path)}
+    paths.update(_timed(phase_precision))
     paths['mnist_training'] = _timed(phase_mnist)
     paths['imagenet_training'] = _timed(phase_imagenet)
     paths['googlenetbn_training'], paths['imagenet_zoo'] = _timed(phase_zoo)
@@ -3991,7 +4459,8 @@ def main():
     _say('time', 'all phases %.1f s' % (time.perf_counter() - t_start))
     for rec in records:
         by_path = {path: counts[rec['name']]
-                   for path, counts in paths.items() if counts[rec['name']]}
+                   for path, counts in paths.items()
+                   if counts.get(rec['name'])}
         if not by_path:
             raise AssertionError('no main path launched %s' % rec['name'])
         rec['launches'] = sum(by_path.values())

@@ -6,7 +6,8 @@ interpreter) modes.
 Tolerances are those of ``tests/test_batch_norm_act.py``: f32 1e-5 on
 the forward and 1e-4 on the gradients (the backward sums in another
 order), bf16 5e-2 (one bf16 rounding of the output may land on either
-side).  Statistics are f32 over the same input values in both dtypes,
+side), f16 1e-2 (the same for one f16 rounding, 2**-10 relative against
+bf16's 2**-7).  Statistics are f32 over the same input values in both dtypes,
 so they hold to 1e-5 throughout.
 """
 
@@ -26,11 +27,14 @@ from chainermn_tpu_torch.models import NormAct
 torch.set_num_threads(2)
 
 TOL = {'float32': dict(rtol=1e-5, atol=1e-5),
-       'bfloat16': dict(rtol=5e-2, atol=5e-2)}
+       'bfloat16': dict(rtol=5e-2, atol=5e-2),
+       'float16': dict(rtol=1e-2, atol=1e-2)}
 GRAD_TOL = {'float32': dict(rtol=1e-4, atol=1e-4),
-            'bfloat16': dict(rtol=5e-2, atol=5e-2)}
+            'bfloat16': dict(rtol=5e-2, atol=5e-2),
+            'float16': dict(rtol=1e-2, atol=1e-2)}
 STATS_TOL = dict(rtol=1e-5, atol=1e-5)
-TDTYPE = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
+TDTYPE = {'float32': torch.float32, 'bfloat16': torch.bfloat16,
+          'float16': torch.float16}
 
 
 @pytest.fixture(params=['fallback', 'interpret'])
@@ -67,7 +71,7 @@ def _f32(a):
 SHAPES = [(4, 6, 6, 16), (3, 10, 10, 8)]   # 144 rows; ragged 300 rows
 
 
-@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16', 'float16'])
 @pytest.mark.parametrize('residual', [False, True])
 @pytest.mark.parametrize('relu', [True, False])
 @pytest.mark.parametrize('shape', SHAPES)
@@ -139,7 +143,7 @@ def test_relu_mask_from_output_sign(mode):
                                **TOL['float32'])
 
 
-@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16', 'float16'])
 @pytest.mark.parametrize('residual', [False, True])
 def test_inference_matches_jax(dtype, residual):
     x, res, scale, bias, _ = _inputs((4, 4, 8), dtype, 2, residual)

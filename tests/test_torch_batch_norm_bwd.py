@@ -9,7 +9,8 @@ and the launch plan of the column-sum kernels (``bn_stats`` and
 
 Tolerances are ``tests/test_torch_batch_norm_act.py``'s ``GRAD_TOL``:
 f32 1e-4 (the sums run in another order), bf16 5e-2 (one bf16 rounding
-of dx or of the forward's output may land on either side).
+of dx or of the forward's output may land on either side), f16 1e-2 (the
+same for f16's rounding).
 """
 
 import importlib
@@ -30,8 +31,10 @@ torch.set_num_threads(2)
 bn = importlib.import_module('chainermn_tpu_torch.ops.batch_norm_act')
 
 GRAD_TOL = {'float32': dict(rtol=1e-4, atol=1e-4),
-            'bfloat16': dict(rtol=5e-2, atol=5e-2)}
-TDTYPE = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
+            'bfloat16': dict(rtol=5e-2, atol=5e-2),
+            'float16': dict(rtol=1e-2, atol=1e-2)}
+TDTYPE = {'float32': torch.float32, 'bfloat16': torch.bfloat16,
+          'float16': torch.float16}
 
 
 @pytest.fixture(params=['fallback', 'interpret'])
@@ -107,7 +110,7 @@ def _jax_vjp(x, res, scale, bias, g, g_mean, g_var, dtype, relu):
 CASES = [((4, 6, 6, 16), 0), ((3, 10, 10, 8), 1)]   # 144 rows; 300 rows
 
 
-@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16', 'float16'])
 @pytest.mark.parametrize('residual', [False, True])
 @pytest.mark.parametrize('relu', [True, False])
 @pytest.mark.parametrize('stats_cts', [False, True])
@@ -129,7 +132,7 @@ def test_plain_backward_matches_jax_vjp(mode, dtype, residual, relu,
                                    err_msg=name, **GRAD_TOL[dtype])
 
 
-@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16', 'float16'])
 @pytest.mark.parametrize('only', ['g_mean', 'g_var'])
 def test_op_backward_with_one_stats_cotangent_matches_jax(mode, dtype,
                                                           only):
@@ -179,7 +182,8 @@ def _transcription_backward(x, scale, mean, rstd, out, g, g_mean, g_var,
             dbeta.to(scale.dtype), dres)
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize('residual', [False, True])
 @pytest.mark.parametrize('relu', [True, False])
 def test_op_backward_equals_the_transcription_it_replaced(

@@ -212,11 +212,12 @@ class _Updater:
         self.iteration = 0
         self.fail_at = fail_at
 
-    def update(self):
+    def update(self, sync=True):
         self.iteration += 1
         if self.iteration == self.fail_at:
             raise RuntimeError('boom')
-        return {'loss': 1.0 / self.iteration}
+        loss = 1.0 / self.iteration
+        return {'loss': loss if sync else torch.tensor(loss)}
 
     @property
     def epoch(self):
@@ -265,8 +266,16 @@ def test_trainer_priority_order_defaults_and_finalize(tmp_path):
     stopper.run()
     assert stopper.updater.iteration == 3
     assert stopper.stop_reason == 'enough'
-    with pytest.raises(NotImplementedError, match='A5'):
-        training.Trainer(_Updater(), async_metrics=True)
+    # async_metrics: the observation holds the updater's 0-d tensors,
+    # and the loop reads one every sync_interval iterations
+    reads = []
+    quiet = training.Trainer(_Updater(), (2, 'epoch'), out=None,
+                             async_metrics=True, sync_interval=3)
+    quiet.extend(lambda tr: reads.append(torch.is_tensor(
+        tr.observation['loss'])), trigger=(1, 'iteration'))
+    quiet.run()
+    assert reads == [True] * 4 and quiet.sync_interval == 3
+    assert float(quiet.observation['loss']) == 0.25
 
 
 def _mlp_updater(n=8, lr=0.1):

@@ -433,12 +433,23 @@ def test_imagenet_twin_two_gloo_ranks(tmp_path, monkeypatch):
         train_imagenet.close(trainer)
 
 
-def test_imagenet_twin_refuses_unported_options():
+def test_imagenet_twin_refuses_unported_options(tmp_path):
+    """``--pipeline native`` still raises (A2); ``--double-buffering`` is
+    ported: one quick epoch trains with the double-buffered optimizer
+    under ``Trainer(async_metrics=True)``, as the JAX script does."""
     with pytest.raises(NotImplementedError, match='A2'):
         train_imagenet.main(['--cpu', '--pipeline', 'native'])
-    with pytest.raises(NotImplementedError, match='A4'):
-        train_imagenet.main(['--cpu', '--quick', '--double-buffering',
-                             '--out', ''])
+    trainer = train_imagenet.main([
+        '--cpu', '--quick', '--double-buffering', '--arch', 'nin',
+        '--dtype', 'float32', '--batchsize', '64', '--out',
+        str(tmp_path / 'out')])
+    try:
+        opt = trainer.updater.optimizer
+        assert opt.double_buffering and trainer.async_metrics
+        assert trainer.updater.iteration == 8 and opt.pending is not None
+        assert np.isfinite(float(trainer.observation['loss']))
+    finally:
+        train_imagenet.close(trainer)
 
 
 def test_compute_mean_twin(tmp_path):

@@ -143,17 +143,42 @@ def test_a_model_without_buffers_syncs_no_state():
 @pytest.mark.parametrize('name', ['policy', 'accum_steps', 'remat', 'zero',
                                   'device_prefetch'])
 def test_unported_updater_options_still_raise(name):
+    """``zero`` still raises (ROADMAP A7); the others are ported: on the
+    LM, ``policy`` (bf16 compute, f32 masters), ``accum_steps`` (two
+    micro-batches of 2) and ``remat`` give the losses of the plain step
+    (f32 ones exactly, bf16 within 5e-2), and ``device_prefetch`` wraps
+    the iterator."""
     comm = cmt.create_communicator('xla', device='cpu')
-    model = models.TransformerLM(dtype=torch.float32, device='cpu', **CFG)
-    opt = torch.optim.Adam(model.parameters(), lr=LR)
+
+    def updater(**kw):
+        model = models.TransformerLM(dtype=torch.float32, device='cpu',
+                                     **CFG)
+        opt = cmt.create_multi_node_optimizer(
+            torch.optim.Adam(model.parameters(), lr=LR), comm)
+        return model, training.StandardUpdater(
+            training.SerialIterator(_batch(), 4, shuffle=False), opt,
+            models.lm_loss(model), model, comm, **kw)
+
+    if name == 'zero':
+        with pytest.raises(NotImplementedError, match=name):
+            updater(zero=True)
+        return
     if name == 'device_prefetch':   # ported: it wraps the iterator
-        up = training.StandardUpdater(iter([]), opt, models.lm_loss(model),
-                                      model, comm, device_prefetch=2)
+        _, up = updater(device_prefetch=2)
         assert isinstance(up.iterator, training.DevicePrefetchIterator)
-        with pytest.raises(StopIteration):
-            up.update()
+        up.update()
         up.iterator.finalize()
         return
-    with pytest.raises(NotImplementedError, match=name):
-        training.StandardUpdater(iter([]), opt, models.lm_loss(model), model,
-                                 comm, **{name: 2})
+    value = {'policy': cmt.Policy.bf16(), 'accum_steps': 2,
+             'remat': True}[name]
+    _, plain = updater()
+    model, up = updater(**{name: value})
+    want = [plain.update()['loss'] for _ in range(3)]
+    got = [up.update()['loss'] for _ in range(3)]
+    if name == 'policy':
+        np.testing.assert_allclose(got, want, rtol=5e-2)
+        assert {p.dtype for p in model.parameters()} == {torch.float32}
+    elif name == 'remat':
+        assert got == want
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5)

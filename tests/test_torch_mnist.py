@@ -374,8 +374,18 @@ def test_example_quick_runs_snapshots_and_resumes(tmp_path, capsys):
     resumed.updater.comm.close()
     assert resumed.updater.iteration == trainer.updater.iteration == 10
     assert resumed.observation['loss'] == trainer.observation['loss']
-    with pytest.raises(NotImplementedError, match='A4'):
-        train_mnist.main(['--device', 'cpu', '--policy', 'bf16'])
+    # --policy bf16 (ported): bf16 compute and batches, f32 masters
+    bf16 = train_mnist.main([
+        '--quick', '--device', 'cpu', '--communicator', 'naive', '--unit',
+        '50', '--out', str(tmp_path / 'c'), '--policy', 'bf16'])
+    bf16.updater.comm.close()
+    assert bf16.updater.policy == cmt.Policy.bf16()
+    assert bf16.updater.model.dtype == torch.bfloat16
+    assert {p.dtype for p in bf16.updater.model.parameters()} == {
+        torch.float32}
+    np.testing.assert_allclose(bf16.observation['loss'],
+                               trainer.observation['loss'], rtol=5e-2,
+                               atol=5e-3)
 
 
 _RESUME = r'''

@@ -155,10 +155,20 @@ def test_no_cuda_and_no_device_raises():
 
 
 def test_multi_node_optimizer_double_buffering_not_ported():
+    """Ported now: under double buffering the fill step leaves the
+    parameter and ``FusedMomentumSGD``'s velocity as they were, and the
+    next step applies the fill step's gradient."""
     comm = cmt.create_communicator('xla', device='cpu')
-    opt = ops.FusedMomentumSGD([torch.zeros(2, requires_grad=True)], 0.1)
-    with pytest.raises(NotImplementedError):
-        cmt.create_multi_node_optimizer(opt, comm, double_buffering=True)
+    w = torch.zeros(2, requires_grad=True)
+    inner = ops.FusedMomentumSGD([w], 0.1)
+    opt = cmt.create_multi_node_optimizer(inner, comm, double_buffering=True)
+    opt.step()                                  # the broadcast
+    for g, want in ((1.0, 0.0), (2.0, -0.1)):
+        w.grad = torch.full((2,), g)
+        opt.step()
+        np.testing.assert_allclose(w.detach().numpy(), [want] * 2,
+                                   rtol=1e-6)
+        assert (w in inner.state) == (want != 0.0)
 
 
 # ---------------------------------------------------------------------
