@@ -14,10 +14,10 @@ and :class:`MultiNodeChainList` (model parallelism, with the
 differentiable ``send`` / ``recv`` / ``pseudo_connect`` of
 :mod:`functions`); :func:`create_empty_dataset`; :mod:`precision`
 (``Policy``, the loss scales, ``all_finite`` / ``tree_select``, all
-also exported here, and ``quantize_kv``); :mod:`serializers` (npz
-snapshots in the JAX package's container); and the ``datasets``,
-``models``, ``ops``,
-``serving``, ``training`` and ``utils`` subpackages.  The examples
+also exported here, ``quantize_kv``, and the int8 weight policy
+``Int8Policy``); :mod:`serializers` (npz snapshots in the JAX package's
+container); and the ``datasets``, ``models``, ``ops``, ``serving``,
+``telemetry``, ``training`` and ``utils`` subpackages.  The examples
 (``chainermn_tpu_torch.examples.mnist.train_mnist``,
 ``train_mnist_model_parallel``, ``examples.imagenet.train_imagenet``,
 ``examples.seq2seq.train_seq2seq``) run under ``torchrun``.  Entry
@@ -39,6 +39,6 @@ from chainermn_tpu_torch.precision import (  # noqa: F401
     tree_select)
 from chainermn_tpu_torch import (  # noqa: F401
     datasets, functions, models, ops, precision, serializers, serving,
-    training, utils)
+    telemetry, training, utils)
 
 __version__ = '0.1.0'

@@ -62,8 +62,9 @@ class CommunicatorBase:
     before the strategy's reduction and restored after
     (:meth:`allreduce_grad` only).
 
-    Construction runs one all_reduce of one element over the default
-    group (every rank makes every communicator, in the same order).
+    Construction ends with one all_reduce of one element over the
+    default group, after the sub-groups are made (every rank makes every
+    communicator, in the same order).
 
     ``mesh_shape=(inter, intra)`` lays the processes out as
     ``mesh_utility.resolve_mesh_shape`` does (default: from torchrun's
@@ -92,16 +93,19 @@ class CommunicatorBase:
             raise RuntimeError(
                 'the process group uses %r, but device %s needs %r'
                 % (joined, self.device, backend))
-        # one collective over the default group, by every rank: a
-        # point-to-point call that leaves a rank out (functions.send in a
-        # MultiNodeChainList) is then never the group's first, which
-        # NCCL's process group requires
-        dist.all_reduce(torch.zeros(1, device=self.device))
         self.reduce_dtype = reduce_dtype
         self.mesh_shape = mesh_utility.resolve_mesh_shape(self.size,
                                                           mesh_shape)
         self._intra_group, self._inter_group = mesh_utility.build_groups(
             *self.mesh_shape, self.rank)
+        # one collective over the default group, by every rank, after the
+        # sub-groups: no rank returns while a peer is still connecting
+        # them (gloo's connect finishes on one side first; a rank that
+        # then exited closed the socket its peer was still reading), and
+        # a point-to-point call that leaves a rank out (functions.send in
+        # a MultiNodeChainList) is never the group's first, which NCCL's
+        # process group requires
+        dist.all_reduce(torch.zeros(1, device=self.device))
         # the object channel's key namespace: this communicator's place
         # among the communicators its process made (all ranks make the
         # same communicators in the same order: making the sub-groups

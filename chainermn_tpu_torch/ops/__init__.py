@@ -21,6 +21,8 @@ from chainermn_tpu_torch.ops.flash_attention import (  # noqa: F401
     flash_attention_decode, flash_attention_decode_paged,
     flash_attention_fwd, flash_bwd_dkv, flash_bwd_dq, flash_decode,
     flash_decode_paged, flash_fwd, mha_reference)
+from chainermn_tpu_torch.ops.int8_matmul import (  # noqa: F401
+    dequant, dequant_matmul, dequant_matmul_reference)
 from chainermn_tpu_torch.ops.layer_norm import (  # noqa: F401
     layer_norm, layer_norm_reference, ln_forward)
 from chainermn_tpu_torch.ops.optimizer import (  # noqa: F401

@@ -10,7 +10,9 @@ crosses the forward/backward boundary.
 
 On a CUDA tensor the op launches three hand-written kernels
 (``csrc/batch_norm_act.cu``): :func:`bn_stats` and :func:`bn_apply` in
-the forward, :func:`bn_backward` in the backward.  On a CPU tensor it
+the forward, :func:`bn_backward` in the backward; the inference-mode op
+(:func:`batch_norm_act_inference`, running statistics) is one
+:func:`bn_apply`.  On a CPU tensor it
 runs their plain PyTorch versions (:func:`_batch_stats`,
 :func:`_apply_ref`; :func:`_bwd_sums_ref` and :func:`_bwd_apply_ref`,
 the JAX package's ``jnp`` backward split at its per-channel sums).
@@ -406,9 +408,25 @@ def batch_norm_act_reference(x, scale, bias, eps=1e-5, residual=None,
 
 def batch_norm_act_inference(x, scale, bias, mean, var, eps=1e-5,
                              residual=None, relu=True):
-    """Inference-mode normalize with RUNNING statistics: an elementwise
-    chain of PyTorch ops (the JAX package leaves it to XLA too); f32
-    math, output in ``x.dtype``."""
+    """Inference-mode normalize with RUNNING statistics over the last axis
+    of a contiguous ``(..., C)`` ``x``: ``(x - mean) * (rstd * scale) +
+    bias`` (+ residual) (relu) with ``rstd = rsqrt(var + eps)``, f32 math,
+    output in ``x.dtype``.
+
+    On CUDA tensors it is one :func:`bn_apply` launch (the per-channel
+    ``rstd`` and the f32 vectors are formed first); on CPU tensors it runs
+    the plain version, :func:`_apply_ref`.  The JAX package leaves this
+    chain to XLA, so this is the same function on a kernel the port
+    already has.  Forward-only."""
     rstd = torch.rsqrt(var.float() + eps)
-    return _apply_ref(x, mean.float(), rstd, scale.float(), bias.float(),
-                      residual, relu)
+    mean_f, scale_f, bias_f = mean.float(), scale.float(), bias.float()
+    if not _common.on_cuda(x, residual, scale, bias, mean, var):
+        return _apply_ref(x, mean_f, rstd, scale_f, bias_f, residual, relu)
+    _common.forbid_grad('batch_norm_act_inference', x, residual, scale,
+                        bias)
+    x2d = _rows(x, 'batch_norm_act_inference')
+    res2d = (_rows(residual, 'batch_norm_act_inference residual')
+             if residual is not None else None)
+    out2d = bn_apply(x2d, res2d, mean_f.contiguous(), rstd.contiguous(),
+                     scale_f.contiguous(), bias_f.contiguous(), relu)
+    return out2d.view(x.shape)

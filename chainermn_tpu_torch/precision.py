@@ -7,19 +7,22 @@ Counterpart of ``chainermn_tpu/precision.py``: :func:`cast_floating`,
 :class:`StaticLossScale` and :class:`DynamicLossScale` (GradScaler-style:
 a non-finite step backs the scale off and is skipped by the caller), and
 the KV-cache quantization pair :func:`quantize_kv` /
-:func:`dequantize_kv`.  Dtypes are ``torch.dtype``s; a tree is a nested
+:func:`dequantize_kv`, and the int8 weight policy: :class:`QuantizedLeaf`,
+:data:`QUANT_MIN_ELEMS`, :func:`is_quantized`, :func:`quantize_int8`,
+:func:`dequantize_int8`, :func:`dequantized_view` and
+:class:`Int8Policy`.  Dtypes are ``torch.dtype``s; a tree is a nested
 ``dict`` (the layout of a flax tree), a list or a tuple of tensors.
 
 The cast points live in the training stack, not the model:
 ``StandardUpdater(policy=)`` casts the f32 master parameters to the
 compute dtype inside the differentiated region, so every gradient comes
 back in f32 through the cast (see :mod:`chainermn_tpu_torch.training.updater`).
-
-``Int8Policy`` (weight quantization) is not ported yet (ROADMAP.md A8).
 """
 
+import collections.abc
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -181,6 +184,135 @@ def dequantize_kv(q, scale, dtype=torch.float32):
     return q.to(dtype) * scale[..., None].to(dtype)
 
 
+class QuantizedLeaf(NamedTuple):
+    """One int8-quantized weight: ``q`` (int8, the weight's shape),
+    ``scale`` (float32, one per output channel) and ``axis``, the output
+    channel's axis of ``q`` (-1 for a flax-layout kernel, 0 for a
+    PyTorch module's ``weight``)."""
+    q: torch.Tensor
+    scale: torch.Tensor
+    axis: int = -1
+
+
+def is_quantized(x):
+    return isinstance(x, QuantizedLeaf)
+
+
+#: leaves smaller than this stay in float: biases and norm scales are a
+#: rounding error of the weight bytes, and quantizing them costs accuracy
+QUANT_MIN_ELEMS = 1024
+
+
+def _channel_axis(name):
+    """The output-channel axis of a leaf by its name, the layout rule of
+    :mod:`~chainermn_tpu_torch.models.flax_weights`: a ``weight`` is a
+    PyTorch kernel (OIHW, or ``(out, in)``), output channel first; every
+    other leaf keeps flax's layout (HWIO, ``(in, out)``, the transformer's
+    ``kernel``s and ``embedding``), output channel last."""
+    return 0 if name == 'weight' else -1
+
+
+def _quantize_leaf(w, axis):
+    """Per-channel symmetric int8: ``scale = max|w| / 127`` over every
+    axis but ``axis`` (1 for an all-zero channel), ``q = round(w /
+    scale)`` clipped to +-127, in float32 as the JAX package computes it
+    (``torch.round`` rounds half to even, as ``jnp.round`` does), so the
+    two packages give the same ``q``."""
+    wf = torch.as_tensor(w).float()
+    axis = axis % wf.dim()
+    others = tuple(d for d in range(wf.dim()) if d != axis)
+    amax = wf.abs().amax(dim=others)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    shape = [1] * wf.dim()
+    shape[axis] = -1
+    q = torch.clamp(torch.round(wf / scale.reshape(shape)), -127, 127)
+    return QuantizedLeaf(q=q.to(torch.int8), scale=scale,
+                         axis=-1 if axis == wf.dim() - 1 else axis)
+
+
+def _eligible(w, min_elems):
+    t = torch.as_tensor(w) if isinstance(w, np.ndarray) else w
+    return (torch.is_tensor(t) and t.is_floating_point() and t.dim() >= 2
+            and t.numel() >= min_elems)
+
+
+def quantize_int8(tree, min_elems=QUANT_MIN_ELEMS):
+    """Per-channel symmetric int8 quantization of a weight tree (nested
+    dicts of tensors or numpy arrays).
+
+    Floating leaves with ``ndim >= 2`` and at least ``min_elems``
+    elements become :class:`QuantizedLeaf` s, scaled per output channel
+    (:func:`_channel_axis`: the last axis of a flax-layout leaf, as in the
+    JAX package; axis 0 of a PyTorch ``weight``).  Everything else
+    (biases, norms, small leaves, integer leaves) passes through."""
+    def one(name, w):
+        if isinstance(w, dict):
+            return {k: one(k, v) for k, v in w.items()}
+        if not _eligible(w, min_elems):
+            return w
+        return _quantize_leaf(w, _channel_axis(name))
+
+    return {k: one(k, v) for k, v in tree.items()}
+
+
+def _dequant(leaf, dtype):
+    from chainermn_tpu_torch.ops.int8_matmul import dequant
+    return dequant(leaf.q, leaf.scale, dtype, axis=leaf.axis)
+
+
+def dequantize_int8(tree, dtype=torch.float32):
+    """Inverse of :func:`quantize_int8` (up to rounding): every
+    :class:`QuantizedLeaf` becomes a ``dtype`` tensor, every other
+    floating leaf is cast to ``dtype``."""
+    def one(x):
+        if isinstance(x, dict):
+            return {k: one(v) for k, v in x.items()}
+        if is_quantized(x):
+            return _dequant(x, dtype)
+        if isinstance(x, np.ndarray) and np.issubdtype(x.dtype,
+                                                       np.floating):
+            x = torch.as_tensor(x)
+        if torch.is_tensor(x) and x.is_floating_point():
+            return x.to(dtype)
+        return x
+
+    return one(tree)
+
+
+class _DequantizedView(collections.abc.Mapping):
+    """A read-only view of a quantized tree whose :class:`QuantizedLeaf` s
+    are dequantized when they are read (see :func:`dequantized_view`)."""
+
+    __slots__ = ('_tree', '_dtype')
+
+    def __init__(self, tree, dtype):
+        self._tree = tree
+        self._dtype = dtype
+
+    def __getitem__(self, key):
+        value = self._tree[key]
+        if isinstance(value, dict):
+            return _DequantizedView(value, self._dtype)
+        if is_quantized(value):
+            return _dequant(value, self._dtype)
+        return value
+
+    def __iter__(self):
+        return iter(self._tree)
+
+    def __len__(self):
+        return len(self._tree)
+
+
+def dequantized_view(tree, dtype):
+    """``tree`` with each :class:`QuantizedLeaf` dequantized to ``dtype``
+    when a forward reads it, just before the layer that uses it runs: the
+    whole tree is never dequantized at once, so a forward holds the int8
+    weights and one layer's dequantized weight, not a second copy of the
+    model.  Other leaves are returned as they are."""
+    return _DequantizedView(tree, dtype)
+
+
 def _name(dtype):
     """A dtype's name as the JAX package prints it (``'bfloat16'``)."""
     return str(dtype).replace('torch.', '')
@@ -292,3 +424,51 @@ class Policy:
         return hash((self.param_dtype, self.compute_dtype,
                      self.reduce_dtype, self.output_dtype,
                      id(self.loss_scale)))
+
+
+class Int8Policy(Policy):
+    """Int8-weight inference policy (forward-only).
+
+    Weights are stored int8 with per-channel symmetric float32 scales
+    (:func:`quantize_int8`, computed once at load), activations run in
+    ``compute_dtype`` (float32 by default, bf16 from :meth:`bf16`), and
+    each weight is dequantized just before the layer that reads it
+    (:func:`dequantized_view`; the serving engines).  ``min_elems`` is
+    the size floor of a quantized leaf (:data:`QUANT_MIN_ELEMS`)."""
+
+    #: the serving engines key their quantized path on this flag
+    is_inference_only = True
+
+    def __init__(self, compute_dtype=torch.float32, output_dtype=None,
+                 min_elems=QUANT_MIN_ELEMS):
+        super().__init__(param_dtype=torch.int8,
+                         compute_dtype=compute_dtype,
+                         output_dtype=output_dtype)
+        self.min_elems = int(min_elems)
+
+    def quantize(self, params):
+        """The load-time transform: float weight tree -> mixed tree of
+        :class:`QuantizedLeaf` s and passthrough leaves."""
+        return quantize_int8(params, min_elems=self.min_elems)
+
+    def dequantize(self, qparams):
+        """The inverse at this policy's compute dtype, whole tree at once
+        (the engines use :func:`dequantized_view` instead)."""
+        return dequantize_int8(qparams, self.compute_dtype)
+
+    @classmethod
+    def bf16(cls):
+        """bf16 activations over int8 weights, f32 outputs."""
+        return cls(compute_dtype=torch.bfloat16,
+                   output_dtype=torch.float32)
+
+    @classmethod
+    def from_string(cls, name):
+        """``'int8'`` (f32 activations) or ``'int8_bf16'``."""
+        table = {'int8': cls, 'int8_f32': cls, 'int8_bf16': cls.bf16}
+        try:
+            return table[name.lower()]()
+        except KeyError:
+            raise ValueError(
+                'unknown int8 policy %r (choose from %s)'
+                % (name, ', '.join(sorted(table)))) from None

@@ -46,11 +46,26 @@ set (``abstract_signature``); the port runs eagerly, and
 :meth:`GenerationEngine.guard_signature` keeps the same refusal over the
 set of bucket shapes, so a later CUDA graph per bucket can rely on it.
 
-Not ported yet (they raise ``NotImplementedError``, ROADMAP.md A7, A8):
-tensor-parallel serving (``plan`` / ``param_specs``), ``Int8Policy``
-weights, ``swap_params`` and ``from_checkpoint``.  Telemetry spans and
-metrics, chaos sites and the load generator are host layers of
-ROADMAP.md A9.
+An :class:`~chainermn_tpu_torch.precision.Int8Policy` quantizes the
+weights at load; each weight is dequantized when the model function
+reads it, just before the layer that uses it
+(:func:`~chainermn_tpu_torch.precision.dequantized_view`).
+:meth:`GenerationEngine.run` is the scheduler loop the load generator
+drives; :meth:`~GenerationEngine.swap_params` hot-swaps the weights of a
+drained engine.  Telemetry: the raw-sample histograms
+``serve_ttft_seconds``, ``serve_intertoken_seconds`` and
+``serve_decode_seconds``, the ``serve_tokens_total`` counter, the queue
+gauges, each request's trace stages (``queue_wait`` -> ``bucket_pack``
+-> ``prefill`` -> one ``decode`` a tick) and its ``complete`` / ``shed``
+events.
+
+Not ported yet: tensor-parallel serving (``plan`` / ``param_specs``
+raise ``NotImplementedError``, ROADMAP.md A7), the per-bucket CUDA
+graphs of prefill, decode, draft and verify (ROADMAP.md A8; the engine
+runs eagerly, so it takes no ``cache_dir`` or ``aot`` and
+``stats()['aot']`` reports False), replica identity (``label`` /
+``version``, for the replica fleet of ROADMAP.md A8), and
+the chaos sites and the flight recorder's request table (ROADMAP.md A9).
 """
 
 import threading
@@ -59,17 +74,20 @@ import time
 import numpy as np
 import torch
 
+from chainermn_tpu_torch import telemetry as _telemetry
 from chainermn_tpu_torch.models.flax_weights import param_tree
 from chainermn_tpu_torch.models.transformer import (
     decode_step, decode_step_paged, init_kv_cache, init_paged_kv_cache,
     prefill, prefill_paged, spec_verify, spec_verify_paged)
 from chainermn_tpu_torch.ops._common import resolve_device
-from chainermn_tpu_torch.precision import cast_floating
-from chainermn_tpu_torch.serving.batcher import (bucket_edges, bucket_of,
-                                                 next_request_id)
+from chainermn_tpu_torch.precision import cast_floating, dequantized_view
+from chainermn_tpu_torch.serving.batcher import (
+    bucket_edges, bucket_of, next_request_id, record_shed)
+from chainermn_tpu_torch.serving.engine import (
+    load_params, params_template, place_params)
 from chainermn_tpu_torch.serving.paged import (PagePool, RadixPrefixIndex,
                                                prefix_key)
-from chainermn_tpu_torch.utils.failure import OverloadError
+from chainermn_tpu_torch.utils.failure import OverloadError, WeightSwapError
 
 #: default admission knobs (the generation twins of batcher's)
 DEFAULT_MAX_QUEUE = 256
@@ -83,11 +101,13 @@ class GenRequest:
     or a typed error.  ``prefix_key`` (stamped by a paged engine's queue)
     is a stable hash of the page-aligned prompt prefix.  ``on_token``
     (optional) is called as ``on_token(request_id, [int, ...])`` each
-    time tokens are emitted."""
+    time tokens are emitted.  ``t_trace0`` is the admission instant on the
+    telemetry recorder's clock (None when telemetry was off), the start of
+    the request's ``queue_wait`` stage."""
 
     __slots__ = ('prompt', 'max_new_tokens', 'deadline', 'seq',
-                 't_submit', 'request_id', 'prefix_key', 'on_token',
-                 '_done', '_result', '_error')
+                 't_submit', 'request_id', 't_trace0', 'prefix_key',
+                 'on_token', '_done', '_result', '_error')
 
     def __init__(self, prompt, max_new_tokens, deadline=None, seq=0,
                  t_submit=0.0, request_id=None, prefix_key=None,
@@ -105,6 +125,8 @@ class GenRequest:
         self.prefix_key = prefix_key
         self.on_token = on_token
         self.request_id = request_id or next_request_id()
+        rec = _telemetry.active()
+        self.t_trace0 = rec.now() if rec is not None else None
         self._done = threading.Event()
         self._result = None
         self._error = None
@@ -184,6 +206,9 @@ class GenerationQueue:
                                     queue_depth=len(self._waiting))
             if len(self._waiting) >= self.max_queue:
                 self.shed_queue_full += 1
+                record_shed('queue_full',
+                            request_id=request_id or next_request_id(),
+                            queue_depth=len(self._waiting))
                 raise OverloadError(
                     'generation queue full (%d waiting); retry with '
                     'backoff' % len(self._waiting),
@@ -220,6 +245,10 @@ class GenerationQueue:
                 req = self._waiting.pop(idx)
                 if req.deadline is not None and now > req.deadline:
                     self.shed_deadline += 1
+                    record_shed('deadline', request_id=req.request_id,
+                                queue_depth=len(self._waiting),
+                                waited_ms=round((now - req.t_submit) * 1e3,
+                                                3))
                     req.set_error(OverloadError(
                         'deadline expired after %.1f ms in queue'
                         % ((now - req.t_submit) * 1e3), reason='deadline'))
@@ -238,6 +267,8 @@ class GenerationQueue:
             self._closed = True
             pending, self._waiting = self._waiting, []
         for req in pending:
+            record_shed('shutdown', request_id=req.request_id,
+                        queue_depth=len(pending), count_total=False)
             req.set_error(OverloadError('generation queue shut down',
                                         reason='shutdown'))
 
@@ -251,14 +282,19 @@ class GenerationQueue:
 class _Slot:
     """Host-side state of one cache slot in its decode phase."""
 
-    __slots__ = ('request', 'position', 'remaining', 'generated', 'pages')
+    __slots__ = ('request', 'position', 'remaining', 'generated',
+                 't_last_token', 't_stage_end', 'pages')
 
-    def __init__(self, request, position, remaining, first_token,
-                 pages=None):
+    def __init__(self, request, position, remaining, first_token, t_now,
+                 t_stage_end=None, pages=None):
         self.request = request
         self.position = position          # next token's position
         self.remaining = remaining        # tokens still to generate
         self.generated = [first_token]
+        self.t_last_token = t_now         # clock() of the newest token
+        # telemetry-clock end of the request's newest trace stage (None:
+        # telemetry off): the next decode stage starts there
+        self.t_stage_end = t_stage_end
         # paged engine: this sequence's page table (one pool reference
         # per entry, released on completion or expiry); None otherwise
         self.pages = pages
@@ -270,14 +306,16 @@ class _PrefillState:
     a long prompt spends several ticks here before it becomes a
     :class:`_Slot`."""
 
-    __slots__ = ('request', 'pages', 'pos', 'matched', 'chunks')
+    __slots__ = ('request', 'pages', 'pos', 'matched', 'chunks',
+                 't_stage_end')
 
-    def __init__(self, request, pages, pos, matched):
+    def __init__(self, request, pages, pos, matched, t_stage_end=None):
         self.request = request
         self.pages = pages       # page table so far (references held)
         self.pos = pos           # next absolute position to prefill
         self.matched = matched   # prompt tokens reused from the index
         self.chunks = 0          # chunks run so far
+        self.t_stage_end = t_stage_end
 
 
 def _signature(args):
@@ -308,7 +346,9 @@ class GenerationEngine:
       max_len: cache depth per sequence (default ``model.max_len``).
       eos_id: optional stop token.
       policy: a float :class:`~chainermn_tpu_torch.precision.Policy`
-        casts the weights (the draft's too) to its compute dtype at load.
+        casts the weights (the draft's too) to its compute dtype at load;
+        an :class:`~chainermn_tpu_torch.precision.Int8Policy` quantizes
+        the target's (the draft's stay as given, as in the JAX package).
       int8_kv: store the KV cache int8 with per-(position, head) scales.
       paged: a pool of ``n_pages`` pages of ``page_size`` positions
         shared by all sequences through page tables, with refcounted
@@ -329,6 +369,9 @@ class GenerationEngine:
         per row.
       device: where the engine runs (default: the current CUDA device;
         raises when there is none).
+
+    ``admit_cap`` (an attribute, default None) caps the admissions of a
+    tick below the free slots.
     """
 
     def __init__(self, model, params=None, n_slots=8, max_prompt_len=64,
@@ -339,11 +382,12 @@ class GenerationEngine:
                  param_specs=None, device=None):
         if plan is not None or param_specs is not None:
             _unported('tensor-parallel serving (plan=, param_specs=)', 'A7')
-        if getattr(policy, 'quantize', None) is not None:
-            _unported('int8 weight quantization (Int8Policy)')
         self.model = model
         self.device = resolve_device(device)
+        self.param_version = 0
         self.n_slots = int(n_slots)
+        #: admissions per tick (None: every free slot)
+        self.admit_cap = None
         self.max_prompt_len = int(max_prompt_len)
         self.max_len = int(max_len or model.max_len)
         if self.max_prompt_len > self.max_len:
@@ -353,8 +397,13 @@ class GenerationEngine:
         self.policy = policy
         self.prefill_edges = bucket_edges(self.max_prompt_len)
         self.decode_edges = bucket_edges(self.n_slots)
-        self.params = self._place_params(
-            param_tree(model) if params is None else params)
+        self.quantized = getattr(policy, 'quantize', None) is not None
+        if params is None:
+            params = param_tree(model)
+        # shapes and dtypes of the untransformed tree: what a checkpoint
+        # for a later hot-swap is read against
+        self._params_template = params_template(params)
+        self.params = self._place_params(params)
 
         self.int8_kv = bool(int8_kv)
         self.paged = bool(paged)
@@ -403,7 +452,7 @@ class GenerationEngine:
                 raise ValueError('draft max_len %d cannot cover the cache '
                                  'depth %d' % (draft_model.max_len,
                                                self.max_len))
-            self._draft_params = self._place_params(draft_params)
+            self._draft_params = self._place_draft(draft_params)
             self._draft_cache = self._new_cache(draft_model)
 
         # prefill widths: chunked paged mode runs ONE fixed chunk width,
@@ -428,6 +477,8 @@ class GenerationEngine:
         self.draft_accepted = 0
         self.tokens_generated = 0
         self.cancelled = 0
+        self._step_index = 0
+        self._last_queue_depth = 0
 
     def _new_cache(self, model):
         if self.paged:
@@ -463,25 +514,73 @@ class GenerationEngine:
         return sigs
 
     def _place_params(self, params):
-        """Load-time transform + placement: tensors detached from
-        autograd, cast to the policy's compute dtype, on the device."""
-        def place(x):
-            if isinstance(x, dict):
-                return {k: place(v) for k, v in x.items()}
-            t = x.detach() if torch.is_tensor(x) else torch.as_tensor(
-                np.asarray(x))
-            return t.to(self.device)
-        host = place(params)
-        if self.policy is not None:
-            host = cast_floating(host, self.policy.compute_dtype)
-        return host
+        """Load-time transform + placement (shared by construction and
+        hot-swaps): a copy on the device, quantized or cast by the
+        policy."""
+        return place_params(params, self.device, self.policy)
+
+    def _place_draft(self, params):
+        """The draft's placement: cast by a float policy, left as given
+        under an int8 one (the JAX package quantizes the target only)."""
+        placed = place_params(params, self.device, None)
+        if self.policy is not None and not self.quantized:
+            placed = cast_floating(placed, self.policy.compute_dtype)
+        return placed
 
     def swap_params(self, params, version=None, validate=True):
-        _unported('live weight hot-swap (swap_params)')
+        """Hot-swap the served weights.  Refused with
+        :class:`~chainermn_tpu_torch.utils.failure.WeightSwapError`
+        (engine unchanged) while sequences are in flight: their KV caches
+        were banked under the incumbent weights.  Validation runs one
+        full-slot decode step with the new tree over the idle cache (the
+        warmup's garbage-write contract) and requires finite logits; then
+        the tree is cut over and the old one freed."""
+        if self._slots or self._prefilling:
+            raise WeightSwapError(
+                'swap requires a drained replica: %d sequence(s) still in '
+                'flight hold KV state banked under the incumbent weights'
+                % (len(self._slots) + len(self._prefilling)),
+                version=version)
+        new = self._place_params(params)
+        if validate:
+            b = self.n_slots
+            zeros = np.zeros((b,), np.int32)
+            try:
+                logits = self._decode_logits(
+                    self.model, self._view(new), self._cache, zeros, zeros,
+                    self._zero_rows(b))
+                finite = bool(torch.isfinite(logits).all())
+            except Exception as e:
+                raise WeightSwapError(
+                    'swap validation decode failed (%s: %s) -- keeping the '
+                    'incumbent parameters' % (type(e).__name__, e),
+                    version=version) from e
+            if not finite:
+                raise WeightSwapError(
+                    'swap validation produced non-finite logits -- '
+                    'refusing cutover to version %r' % (version,),
+                    version=version)
+        self.params = new
+        self.param_version = (int(version) if version is not None
+                              else self.param_version + 1)
+        _telemetry.event('weight_swap', kind='serve')
+        return self.param_version
+
+    def swap_from_checkpoint(self, path, version=None, validate=True):
+        """:meth:`swap_params` fed from an npz snapshot's ``params`` tree,
+        read against the boot tree's shapes and dtypes."""
+        return self.swap_params(load_params(path, self._params_template),
+                                version=version, validate=validate)
 
     @classmethod
     def from_checkpoint(cls, path, model, params_template, **kw):
-        _unported('loading serving weights from a checkpoint')
+        """Engine whose weights are an npz snapshot's ``params`` tree (the
+        flax-keyed tree of :func:`~chainermn_tpu_torch.models.
+        param_tree`), read against ``params_template`` (None: the
+        model's own tree)."""
+        if params_template is None:
+            params_template = param_tree(model)
+        return cls(model, load_params(path, params_template), **kw)
 
     # -- device calls --------------------------------------------------
     def _tokens(self, logits):
@@ -491,10 +590,17 @@ class GenerationEngine:
     def _dev(self, a):
         return torch.from_numpy(np.asarray(a)).to(self.device)
 
+    def _view(self, params):
+        """What the model functions read: under an int8 policy a view
+        whose quantized leaves dequantize when read."""
+        if self.quantized:
+            return dequantized_view(params, self.policy.compute_dtype)
+        return params
+
     def _twin(self, draft):
         if draft:
             return self.draft_model, self._draft_params, self._draft_cache
-        return self.model, self.params, self._cache
+        return self.model, self._view(self.params), self._cache
 
     def _run_prefill(self, tokens, length, where, draft=False):
         """One prefill of the target (or the draft): ``where`` is the
@@ -516,6 +622,13 @@ class GenerationEngine:
         row -> slot map of a compacted slot bucket (``None``: the full
         bucket), or the page tables in paged mode."""
         model, params, cache = self._twin(draft)
+        with torch.inference_mode():
+            return self._tokens(self._decode_logits(
+                model, params, cache, tokens, positions, rows))
+
+    def _decode_logits(self, model, params, cache, tokens, positions, rows):
+        """The logits of one decode step of ``model`` over ``params`` (as
+        the model functions read them) on ``cache``."""
         tokens, positions = self._dev(tokens), self._dev(positions)
         with torch.inference_mode():
             if self.paged:
@@ -525,7 +638,7 @@ class GenerationEngine:
                 logits, _ = decode_step(
                     model, params, cache, tokens, positions,
                     slots=None if rows is None else self._dev(rows))
-            return self._tokens(logits)
+        return logits
 
     def _run_verify(self, window, positions, rows=None):
         """One target verify pass over ``window`` ``(bucket, k)``;
@@ -534,12 +647,14 @@ class GenerationEngine:
         tokens, positions = self._dev(window), self._dev(positions)
         with torch.inference_mode():
             if self.paged:
-                logits, _ = spec_verify_paged(self.model, self.params,
+                logits, _ = spec_verify_paged(self.model,
+                                              self._view(self.params),
                                               self._cache, tokens, positions,
                                               self._dev(rows))
             else:
                 logits, _ = spec_verify(
-                    self.model, self.params, self._cache, tokens, positions,
+                    self.model, self._view(self.params), self._cache,
+                    tokens, positions,
                     slots=None if rows is None else self._dev(rows))
             return self._tokens(logits).reshape(window.shape)
 
@@ -668,6 +783,8 @@ class GenerationEngine:
         'kv_pages')``."""
         self._release_pages(pages)
         self.cancelled += 1
+        record_shed('kv_pages', request_id=req.request_id,
+                    queue_depth=self._last_queue_depth, where=where)
         req.set_error(OverloadError(
             'KV page pool exhausted (%d/%d pages live, nothing evictable) '
             'during %s; retry with backoff'
@@ -690,6 +807,11 @@ class GenerationEngine:
             slot.request.set_error(OverloadError(
                 'deadline expired mid-generation after %d tokens'
                 % len(slot.generated), reason='deadline'))
+            _telemetry.event('serve_cancel', kind='serve', slot=sid,
+                             tokens=len(slot.generated))
+            record_shed('deadline', request_id=slot.request.request_id,
+                        queue_depth=self._last_queue_depth, slot=sid,
+                        tokens=len(slot.generated))
         late = [sid for sid, st in self._prefilling.items()
                 if st.request.deadline is not None
                 and now > st.request.deadline]
@@ -701,56 +823,119 @@ class GenerationEngine:
             st.request.set_error(OverloadError(
                 'deadline expired mid-prefill at position %d' % st.pos,
                 reason='deadline'))
+            _telemetry.event('serve_cancel', kind='serve', slot=sid,
+                             tokens=0)
+            record_shed('deadline', request_id=st.request.request_id,
+                        queue_depth=self._last_queue_depth, slot=sid,
+                        position=st.pos)
         return len(doomed) + len(late)
 
-    def _first_token(self, sid, req, tok, pages=None):
-        """A prompt's first token is out: the request completes (eos or
-        a one-token budget) or its slot moves to the decode phase."""
+    def _first_token(self, sid, req, tok, clock, t_prefill0, attrs,
+                     pages=None):
+        """A prompt's first token is out: record its ``prefill`` stage
+        (from ``t_prefill0`` on the recorder's clock) and TTFT, then the
+        request completes (eos or a one-token budget) or its slot moves to
+        the decode phase."""
         self.prefills += 1
         self.tokens_generated += 1
+        rec = _telemetry.active()
+        reg = _telemetry.registry()
+        t_first = clock()
+        t_first_tele = None
+        if rec is not None:
+            t_first_tele = rec.now()
+            rec.child_span(req.request_id, 'prefill', t_prefill0,
+                           t_first_tele, slot=sid,
+                           prompt_tokens=int(req.prompt.size), **attrs)
+        if reg is not None:
+            reg.histogram('serve_ttft_seconds',
+                          help='submit-to-first-token latency (s)'
+                          ).observe(t_first - req.t_submit)
+            reg.counter('serve_tokens_total', help='generated tokens').inc()
         req.notify_tokens([tok])
         if self.eos_id is not None and tok == self.eos_id \
                 or req.max_new_tokens == 1:
             req.set_result([tok])
             self._release_pages(pages)
             self._free.append(sid)
+            if rec is not None:
+                rec.event('complete', kind='request',
+                          request_id=req.request_id, tokens=1, slot=sid)
             return
         self._slots[sid] = _Slot(req, req.prompt.size,
-                                 req.max_new_tokens - 1, tok, pages)
+                                 req.max_new_tokens - 1, tok, t_first,
+                                 t_stage_end=t_first_tele, pages=pages)
 
-    def _admit(self, queue):
+    def _admit_budget(self):
+        """Admissions this tick: every free slot, or ``admit_cap``."""
+        if self.admit_cap is None:
+            return len(self._free)
+        return min(len(self._free), max(0, int(self.admit_cap)))
+
+    def _queue_wait(self, req, clock):
+        """Record a popped request's ``queue_wait`` stage; returns the
+        pop instant on the recorder's clock (None when telemetry is
+        off)."""
+        rec = _telemetry.active()
+        if rec is None:
+            return None
+        t_pop = rec.now()
+        t0 = req.t_trace0
+        if t0 is None:   # telemetry enabled mid-flight
+            t0 = t_pop - (clock() - req.t_submit)
+        rec.child_span(req.request_id, 'queue_wait', t0, t_pop, seq=req.seq)
+        return t_pop
+
+    def _bucket_pack(self, req, t0, bucket, n, **attrs):
+        """Record a request's ``bucket_pack`` stage (from ``t0`` to now);
+        returns its end."""
+        rec = _telemetry.active()
+        if rec is None:
+            return None
+        t1 = rec.now()
+        rec.child_span(req.request_id, 'bucket_pack', t0, t1, bucket=bucket,
+                       pad_fraction=round((bucket - n) / float(bucket), 4),
+                       **attrs)
+        return t1
+
+    def _admit(self, queue, clock):
         """Refill free slots from the queue.  Slot cache: one PREFILL per
         request, bucketed by prompt length (and the draft's prefill of
         the same prompt on a speculative engine).  Paged: see
         :meth:`_admit_paged`."""
         if self.paged:
-            self._admit_paged(queue)
+            self._admit_paged(queue, clock)
             return
-        for req in queue.pop(len(self._free)):
+        for req in queue.pop(self._admit_budget()):
             sid = self._free.pop(0)
+            t_pop = self._queue_wait(req, clock)
             prompt = req.prompt
             bucket = bucket_of(prompt.size, self.prefill_edges)
             tokens = np.zeros((1, bucket), np.int32)
             tokens[0, :prompt.size] = prompt
             self.guard_signature((tokens, np.int32(prompt.size),
                                   np.int32(sid)))
+            t_pf0 = self._bucket_pack(req, t_pop, bucket, prompt.size)
             tok = self._run_prefill(tokens, prompt.size, sid)
             if self.speculative:
                 # the draft banks the prompt in its own cache; its own
                 # first token is discarded (the target's is authoritative)
                 self._run_prefill(tokens, prompt.size, sid, draft=True)
             self._prefill_run.add(bucket)
-            self._first_token(sid, req, tok)
+            self._first_token(sid, req, tok, clock, t_pf0,
+                              dict(bucket=bucket))
 
-    def _admit_paged(self, queue):
+    def _admit_paged(self, queue, clock):
         """Paged admission: claim a slot id, walk the prefix index for
         the longest banked prefix (retaining its shared FULL pages; a
         partly covered boundary page is copied once, here), and park the
         request in ``self._prefilling``; :meth:`_prefill_tick` runs its
         prefill."""
+        reg = _telemetry.registry()
         group = self._prefix_index is not None
-        for req in queue.pop(len(self._free), group_prefix=group):
+        for req in queue.pop(self._admit_budget(), group_prefix=group):
             sid = self._free.pop(0)
+            t_pop = self._queue_wait(req, clock)
             prompt = req.prompt
             pages, matched = [], 0
             if self._prefix_index is not None:
@@ -780,14 +965,24 @@ class GenerationEngine:
                     self._copy_page(tail_page, dst)
                     pages.append(dst)
                     matched += tail_use
+                if reg is not None and matched:
+                    reg.counter('serve_prefix_hits_total',
+                                help='admissions that reused a banked '
+                                     'prompt prefix').inc()
+                    reg.counter('serve_prefix_tokens_total',
+                                help='prompt tokens served from banked '
+                                     'prefix pages').inc(matched)
             self._prefilling[sid] = _PrefillState(req, pages, matched,
-                                                  matched)
+                                                  matched, t_stage_end=t_pop)
 
-    def _prefill_tick(self):
+    def _prefill_tick(self, clock):
         """Advance every mid-prefill sequence by ONE chunk (the whole
         remaining prompt, bucketed, without ``prefill_chunk``).  A
         finished prompt's pages are banked in the prefix index before the
-        sequence moves to decode.  Returns True when a chunk ran."""
+        sequence moves to decode.  The last chunk records the request's
+        ``prefill`` stage; the chunks before it ``prefill_chunk`` stages.
+        Returns True when a chunk ran."""
+        rec = _telemetry.active()
         worked = False
         for sid in sorted(self._prefilling):
             st = self._prefilling[sid]
@@ -809,6 +1004,9 @@ class GenerationEngine:
             table[:len(st.pages)] = st.pages
             self.guard_signature((tokens, np.int32(n), np.int32(st.pos),
                                   table))
+            if st.chunks == 0:
+                st.t_stage_end = self._bucket_pack(
+                    req, st.t_stage_end, width, n, prefix_tokens=st.matched)
             tok = self._run_prefill(tokens, n, (st.pos, table))
             if self.speculative:
                 # the same chunk into the same pages of the draft cache:
@@ -819,12 +1017,21 @@ class GenerationEngine:
             st.chunks += 1
             self.prefill_chunks += 1
             if st.pos < prompt.size:
+                if rec is not None:
+                    t1 = rec.now()
+                    rec.child_span(req.request_id, 'prefill_chunk',
+                                   st.t_stage_end, t1, bucket=width,
+                                   slot=sid, chunk=st.chunks - 1,
+                                   pos=st.pos)
+                    st.t_stage_end = t1
                 continue
             del self._prefilling[sid]
             if self._prefix_index is not None:
                 n_cover = -(-prompt.size // self.page_size)
                 self._prefix_index.insert(prompt, st.pages[:n_cover])
-            self._first_token(sid, req, tok, st.pages)
+            self._first_token(sid, req, tok, clock, st.t_stage_end,
+                              dict(bucket=width, chunks=st.chunks,
+                                   prefix_tokens=st.matched), st.pages)
         return worked
 
     def _decode_rows(self):
@@ -853,6 +1060,11 @@ class GenerationEngine:
 
     def _finish(self, sid, slot):
         slot.request.set_result(slot.generated)
+        rec = _telemetry.active()
+        if rec is not None:
+            rec.event('complete', kind='request',
+                      request_id=slot.request.request_id,
+                      tokens=len(slot.generated), slot=sid)
         self._release_pages(slot.pages)
         del self._slots[sid]
         self._free.append(sid)
@@ -869,7 +1081,48 @@ class GenerationEngine:
                 self._shed_paged(slot.request, slot.pages, 'decode')
                 self._free.append(sid)
 
-    def _decode_once(self):
+    def _emitted(self, sid, slot, emitted, now, t0, **attrs):
+        """Commit a tick's tokens to a slot: stream them, advance the
+        position, observe the inter-token gaps (a tick of ``c`` tokens
+        spreads its gap over them) and record the request's ``decode``
+        stage, which starts where its previous stage ended (so a
+        neighbour's prefill between ticks is latency this request
+        paid)."""
+        c = len(emitted)
+        slot.generated.extend(emitted)
+        slot.request.notify_tokens(emitted)
+        slot.position += c
+        slot.remaining -= c
+        reg = _telemetry.registry()
+        if reg is not None:
+            itl = reg.histogram(
+                'serve_intertoken_seconds',
+                help='per-sequence gap between consecutive tokens (s)')
+            gap = (now - slot.t_last_token) / c
+            for _ in range(c):
+                itl.observe(gap)
+        slot.t_last_token = now
+        rec = _telemetry.active()
+        if rec is not None:
+            now_tele = rec.now()
+            t_prev = slot.t_stage_end
+            if t_prev is None:
+                t_prev = now_tele - (now - t0)
+            rec.child_span(slot.request.request_id, 'decode', t_prev,
+                           now_tele, slot=sid, step=self._step_index,
+                           token_index=len(slot.generated) - 1, **attrs)
+            slot.t_stage_end = now_tele
+
+    def _tick_done(self, t0, now, tokens):
+        reg = _telemetry.registry()
+        if reg is not None:
+            reg.histogram('serve_decode_seconds',
+                          help='per-decode-step wall time (s)'
+                          ).observe(now - t0)
+            reg.counter('serve_tokens_total', help='generated tokens'
+                        ).inc(tokens)
+
+    def _decode_once(self, clock):
         """One decode step over every active slot, compacted to the
         smallest bucket; finished sequences resolve and free their slots
         (refilled at the NEXT step)."""
@@ -890,24 +1143,28 @@ class GenerationEngine:
         else:
             self.guard_signature((tokens, positions) if row_op is None
                                  else (tokens, row_op, positions))
+        reg = _telemetry.registry()
+        if reg is not None:
+            reg.gauge('active_slots',
+                      help='live sequences at this decode step').set(k)
+        t0 = clock()
         toks = self._run_decode(tokens, positions, row_op)
+        now = clock()
         self._decode_run.add(bucket)
         for i, sid in enumerate(rows):
             slot = self._slots.get(sid)
             if slot is None:
                 continue   # pad row (or inactive full-bucket row)
             tok = int(toks[i])
-            slot.generated.append(tok)
-            slot.request.notify_tokens([tok])
-            slot.position += 1
-            slot.remaining -= 1
+            self._emitted(sid, slot, [tok], now, t0)
             if slot.remaining == 0 or (self.eos_id is not None
                                        and tok == self.eos_id):
                 self._finish(sid, slot)
         self.decode_steps += 1
         self.tokens_generated += k
+        self._tick_done(t0, now, k)
 
-    def _spec_once(self):
+    def _spec_once(self, clock):
         """One SPECULATIVE tick over every active slot: ``spec_tokens``
         draft decode steps propose a window, one target verify scores
         it, and each row commits the longest prefix where draft and
@@ -939,6 +1196,11 @@ class GenerationEngine:
                 self.guard_signature((tok, pos) if row_op is None
                                      else (tok, row_op, pos))
 
+        reg = _telemetry.registry()
+        if reg is not None:
+            reg.gauge('active_slots',
+                      help='live sequences at this decode step').set(k)
+        t0 = clock()
         # the draft proposes: k steps, positions clamped at the cache
         # depth (a proposal past it is garbage and never committed)
         proposals = np.zeros((bucket, kk), np.int32)
@@ -958,6 +1220,7 @@ class GenerationEngine:
         win[:, 1:] = proposals[:, :kk - 1]
         guard(win, base_pos)
         tgt = self._run_verify(win, base_pos, row_op)
+        now = clock()
         self._verify_run.add(bucket)
         self.verify_steps += 1
         proposed = accepted = emitted_total = 0
@@ -976,10 +1239,8 @@ class GenerationEngine:
             emitted = emitted[:min(len(emitted), slot.remaining)]
             if self.eos_id is not None and self.eos_id in emitted:
                 emitted = emitted[:emitted.index(self.eos_id) + 1]
-            slot.generated.extend(emitted)
-            slot.request.notify_tokens(emitted)
-            slot.position += len(emitted)
-            slot.remaining -= len(emitted)
+            self._emitted(sid, slot, emitted, now, t0, tokens=len(emitted),
+                          accepted=m)
             emitted_total += len(emitted)
             if slot.remaining == 0 or (self.eos_id is not None
                                        and emitted[-1] == self.eos_id):
@@ -994,32 +1255,92 @@ class GenerationEngine:
         self.draft_accepted += accepted
         self.decode_steps += 1
         self.tokens_generated += emitted_total
+        self._tick_done(t0, now, emitted_total)
+        if reg is not None:
+            reg.counter('serve_draft_proposed_total',
+                        help='draft tokens submitted to target verify'
+                        ).inc(proposed)
+            reg.counter('serve_draft_accepted_total',
+                        help='draft tokens whose target argmax agreed'
+                        ).inc(accepted)
 
     def step(self, queue, clock=time.monotonic):
         """One scheduler tick: expire -> admit (slot refill) -> one
         prefill chunk per mid-prefill sequence (paged) -> one decode
-        step (speculative or plain).  Returns True when any work ran."""
+        step (speculative or plain).  Returns True when any work ran.
+        With telemetry on, the queue pressure is gauged every tick
+        (``serve_queue_depth``, ``serve_prefill_backlog``,
+        ``serve_decode_backlog``; paged: the pages in use and free)."""
+        depth = queue.depth()
+        self._last_queue_depth = depth
+        reg = _telemetry.registry()
+        if reg is not None:
+            reg.gauge('serve_queue_depth',
+                      help='requests waiting in the generation queue at '
+                           'the scheduler tick').set(depth)
+            reg.gauge('serve_prefill_backlog',
+                      help='queued requests still needing their prefill '
+                           '(queued + mid-prefill)'
+                      ).set(depth + len(self._prefilling))
+            reg.gauge('serve_decode_backlog',
+                      help='live slots still generating at the tick'
+                      ).set(len(self._slots))
+            if self.paged:
+                reg.gauge('serve_kv_pages_in_use',
+                          help='allocated KV pages at the tick'
+                          ).set(self.pool.in_use())
+                reg.gauge('serve_kv_pages_free',
+                          help='free KV pages at the tick'
+                          ).set(self.pool.available())
         self._expire(clock())
-        self._admit(queue)
+        self._admit(queue, clock)
         worked = False
         if self.paged and self._prefilling:
-            worked = self._prefill_tick()
+            worked = self._prefill_tick(clock)
         if self._slots:
             if self.speculative:
-                self._spec_once()
+                self._spec_once(clock)
             else:
-                self._decode_once()
+                self._decode_once(clock)
             worked = True
+        if worked:
+            self._step_index += 1
         return worked
 
+    def run(self, queue, stop=None, idle_sleep=0.002):
+        """Scheduler loop: tick until ``stop`` is set and the queue and
+        the slots are drained (the load generator's worker thread).  The
+        thread takes the engine's device as its current one."""
+        if self.device.type == 'cuda':
+            torch.cuda.set_device(self.device)
+        while True:
+            if not self.step(queue):
+                if stop is not None and stop.is_set() \
+                        and queue.depth() == 0 and not self._slots \
+                        and not self._prefilling:
+                    return
+                time.sleep(idle_sleep)
+
     def stats(self):
+        """Counters and geometry; the JAX package's compile and trace
+        counts are 0 and every bucket's ``aot`` False, since the port
+        captures no graph for generation yet (ROADMAP.md A8)."""
         out = {
             'prefill_buckets': sorted(self._prefill_run),
             'decode_buckets': sorted(self._decode_run),
+            'param_version': self.param_version,
             'prefill_edges': list(self.prefill_edges),
             'decode_edges': list(self.decode_edges),
             'n_slots': self.n_slots,
+            'aot': {'prefill': dict.fromkeys(sorted(self._prefill_run),
+                                             False),
+                    'decode': dict.fromkeys(sorted(self._decode_run),
+                                            False)},
+            'quantized': self.quantized,
             'int8_kv': self.int8_kv,
+            'prefill_trace_count': 0,
+            'decode_trace_count': 0,
+            'compile_count': 0,
             'prefills': self.prefills,
             'decode_steps': self.decode_steps,
             'tokens_generated': self.tokens_generated,
@@ -1035,7 +1356,7 @@ class GenerationEngine:
                 peak_pages_in_use=self.pool.peak_in_use,
                 prefill_chunk=self.prefill_chunk,
                 prefill_chunks=self.prefill_chunks,
-                cow_copies=self.cow_copies,
+                cow_copies=self.cow_copies, copy_trace_count=0,
                 prefilling=len(self._prefilling))
             if self._prefix_index is not None:
                 index = self._prefix_index
@@ -1055,5 +1376,7 @@ class GenerationEngine:
                     self.draft_accepted / self.draft_proposed
                     if self.draft_proposed else None),
                 'verify_buckets': sorted(self._verify_run),
+                'draft_trace_count': 0,
+                'verify_trace_count': 0,
             }
         return out

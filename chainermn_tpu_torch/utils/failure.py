@@ -5,8 +5,8 @@ divergence detector.
 Counterpart of ``chainermn_tpu/utils/failure.py``: the same class names,
 bases, ``status_name`` codes and constructor arguments, so a caller
 catches the same types on either package.  The JAX package's
-constructors also drop a telemetry flight record; telemetry is not
-ported yet (ROADMAP.md A9), so these only carry their fields.
+constructors also drop a telemetry flight record; the flight recorder
+is not ported yet (ROADMAP.md A9), so these only carry their fields.
 :func:`check_finite` and :class:`NanGuard` run over the module's
 parameters (the updater's flax-named ``params``) and the observation.
 """
@@ -77,6 +77,20 @@ class CheckpointCorruptError(ValueError):
         self.path = path
         self.leaf = leaf
         self.kind = kind
+
+
+class WeightSwapError(RuntimeError):
+    """A live weight hot-swap was refused or failed validation before
+    cutover: the engine still holds, and keeps serving, its previous
+    parameter version.  Raised by ``swap_params`` when the new tree gives
+    non-finite outputs on the validation forward, or when a generation
+    engine is asked to swap with sequences still in flight (their KV
+    caches were banked under the old weights).  ``version`` is the
+    version that was refused."""
+
+    def __init__(self, message, version=None):
+        super().__init__(message)
+        self.version = version
 
 
 class Deadline:

@@ -173,6 +173,42 @@ Phases, each printing its own lines; any failure exits non-zero:
 7c. the speculative main path: the same target with a 3-layer draft
    from another seed, ``spec_tokens=4``, paged, the 64 prompts; every
    request finishes, launch counts checked, the acceptance rate;
+7d. the request-serving path (``serve_infer``): ``batch_norm_act_inference``
+   (one ``bn_apply`` launch) at ResNet-50's stage-1 exit of bucket 32
+   against ``_apply_ref`` (``BF16_TOL``; whether bit-equal is printed);
+   then full-width ResNet-50 (224 px, ``fused_norm=True``, the zoo's own
+   seeded init but ``BRANCH_SCALE`` for the BatchNorm scales it starts at
+   zero, running statistics from one seeded batch, eval) through
+   ``InferenceEngine.for_model(max_batch=32)`` under ``Policy.bf16()`` and
+   ``Int8Policy.bf16()``: every int8 weight within half a step of its f32
+   weight, every bucket captured as a CUDA graph (53 ``bn_apply``
+   launches recorded in each), each bucket's replay bit-equal to an
+   eager forward of the same engine in bf16, the 53 interludes of one
+   more eager forward of each engine at each bucket (from 49 rows at
+   bucket 1) held against ``_apply_ref`` on their own inputs
+   (``BF16_TOL``), the int8 logits within ``INT8_TOL`` of the bf16
+   engine's, one replay's time against one eager forward's per bucket,
+   weights and peak memory; bench.py's capacity probe, then ``open_loop``
+   at twice it over ``RequestQueue(32, 0.005, 128)`` with
+   ``SERVE_INFER_REQUESTS`` requests (no eager launch in the window),
+   served req/s, latency p50/p99, the shed fraction, pad waste and the
+   device's busy share; a second window under ``torch.profiler``, whose
+   trace's ``bn_apply`` kernels are the path's launches (they must equal
+   the replays times the captured launches, and a trace without them
+   fails the phase); then the int8 branch check on a ResNet-50 whose
+   residual branches reach the logits (``BRANCH_SCALE``): the int8
+   engine's replays bit-equal to a bf16 engine over its own dequantized
+   weights at buckets 1 and 32, their interludes held, the quantization's
+   own error printed; and on that model's bf16 engine a hot swap to a
+   perturbed tree (the replay equal to an engine built on that tree, no
+   new capture) and a NaN tree refused;
+7e. the serving LM under ``open_loop_generate`` (``serve_loadgen``) with
+   ``GenerationEngine.run()`` on its thread: bench.py's capacity probe (2
+   x 32 requests at once), then ``SERVE_GEN_REQUESTS`` at twice that
+   capacity in slot and in paged mode, and an ``Int8Policy.bf16()`` run
+   of the probe's requests; launch counts checked, tokens/s, TTFT,
+   inter-token and decode-step p50/p99, and how many greedy streams of
+   the int8 engine equal the bf16 engine's;
 8. the training kernels against their plain versions on the card: the
    fused cross-entropy forward at the LM's ``(8192, 32000)`` f32 logits,
    and the two flash-attention backward kernels (dq with ``delta``; dk
@@ -201,9 +237,11 @@ recorded no device event in any of its tries (the script does not fail
 for a lost trace: every check and every time of the contract comes from
 the kernels' results and from CUDA events).
 
-No PyTorch call computes the ``bn_apply`` row's case (+ residual,
-+ relu), so its ``library_ms`` is null.  ``F.batch_norm(training=False)``
-on the same statistics computes the kernel's no-residual, no-relu case:
+The ``bn_apply`` row's ``inference_*`` keys are phase 7d's reading of
+the inference call.  No PyTorch call computes the ``bn_apply`` row's
+case (+ residual, + relu), so its ``library_ms`` is null.
+``F.batch_norm(training=False)`` on the same statistics computes the
+kernel's no-residual, no-relu case:
 the ``no_residual_*`` keys time the kernel and that call in that case,
 with ``no_residual_bound_ms`` its bound.  Likewise the ``bn_backward``
 row (ResNet-50's + residual + relu; GoogLeNet-BN's + relu) has a null
@@ -3924,6 +3962,658 @@ def phase_spec_main(model, prompts, paged_outs):
 # ---------------------------------------------------------------------
 # TransformerLM training
 
+# ---------------------------------------------------------------------
+# the request-serving path: InferenceEngine + open_loop, and the
+# generation engine under open_loop_generate
+
+# the serving row's configuration (bench.py --serve): ResNet-50 at 224 px,
+# buckets 1..32, a queue of 128, 2x the probed capacity; 300 requests of
+# bench.py's 1000
+SERVE_INFER_BATCH = 32
+SERVE_INFER_INSIZE = 224
+SERVE_INFER_REQUESTS = 300
+# the generation rows (bench.py --serve --generate): the probe offers
+# 2 x 32 requests at once, the open loop 64 (bench.py 384) at 2x capacity
+SERVE_GEN_REQUESTS = 64
+# the int8 engine's logits against the bf16 engine's: the reference's
+# bound (tests/test_serving.py TestInt8Policy), as rtol and atol
+INT8_TOL = 5e-2
+
+
+# the scale given to each bottleneck's last BatchNorm in the int8 branch
+# check, which the zoo's initialization (as flax's) starts at zero: with
+# zero every residual branch outputs zero and only the stem, the
+# projection shortcuts and fc reach the logits; with this the 48 branch
+# convs reach them too, without the scales near 1 that make a random
+# 50-layer net chaotic
+BRANCH_SCALE = 0.2
+
+
+def _seeded_resnet50(seed=0, branch_scale=None):
+    """Full-width ResNet-50 (bf16, ``fused_norm=True``) as bench.py serves
+    it: the zoo's own initialization from ``seed`` (each bottleneck's last
+    BatchNorm scale starts at zero, as in flax; ``branch_scale`` sets
+    those 16 scales instead), with the running statistics set to the
+    batch statistics of one seeded batch of ``SERVE_INFER_BATCH`` (a
+    train-mode pass with momentum 0), so that eval-mode activations are
+    normalized.  Returns the model in eval mode."""
+    import numpy as np
+    import torch
+    from chainermn_tpu_torch import models
+    model = models.get_arch('resnet50', num_classes=1000, fused_norm=True,
+                            generator=torch.Generator().manual_seed(seed),
+                            insize=SERVE_INFER_INSIZE)
+    rng = np.random.RandomState(seed)
+    norms = [m for m in model.modules() if isinstance(m, models.NormAct)]
+    with torch.no_grad():
+        zero = [m for m in norms if not bool(m.scale.any())]
+        if len(zero) != 16:
+            raise AssertionError('ResNet-50: %d BatchNorms start at zero '
+                                 'scale, expected 16' % len(zero))
+        if branch_scale is not None:
+            for m in zero:
+                m.scale.fill_(branch_scale)
+        for m in norms:
+            m.momentum = 0.0
+        model.train()
+        x = torch.from_numpy(rng.rand(SERVE_INFER_BATCH, SERVE_INFER_INSIZE,
+                                      SERVE_INFER_INSIZE, 3)
+                             .astype(np.float32)).cuda()
+        model(x)
+        for m in norms:
+            m.momentum = 0.9
+    return model.eval()
+
+
+def _inference_bn_record(gen):
+    """Row 2 on the serving path: ``batch_norm_act_inference`` (running
+    statistics, one ``bn_apply`` launch) at ResNet-50's stage-1 exit of
+    bucket 32, bf16 + residual + relu, against its plain version
+    ``_apply_ref`` on the same inputs; timed against it."""
+    import torch
+    from chainermn_tpu_torch import ops
+    bn = importlib.import_module('chainermn_tpu_torch.ops.batch_norm_act')
+    m, c = SERVE_INFER_BATCH * (SERVE_INFER_INSIZE // 4) ** 2, 256
+    x = torch.randn((m, c), generator=gen, device='cuda').to(torch.bfloat16)
+    res = torch.randn((m, c), generator=gen,
+                      device='cuda').to(torch.bfloat16)
+    scale, bias, mean = (torch.randn(c, generator=gen, device='cuda')
+                         for _ in range(3))
+    var = torch.rand(c, generator=gen, device='cuda') + 0.5
+
+    def kernel():
+        return ops.batch_norm_act_inference(x, scale, bias, mean, var,
+                                            residual=res)
+
+    def plain():
+        return bn._apply_ref(x, mean, torch.rsqrt(var + 1e-5), scale, bias,
+                             res, True)
+
+    before = ops.bn_apply.launches
+    got = kernel()
+    if ops.bn_apply.launches - before != 1:
+        raise AssertionError('batch_norm_act_inference took %d bn_apply '
+                             'launches' % (ops.bn_apply.launches - before))
+    want = plain()
+    check_close('batch_norm_act_inference vs _apply_ref', got, want,
+                *BF16_TOL)
+    t = timings(kernel, plain, None)
+    b_ms, b_by = bound_ms(3 * m * c * x.element_size() + 4 * c * 4,
+                          5 * m * c)
+    out = dict(inference_case='batch_norm_act_inference (running '
+               'statistics) at %s bf16 + residual + relu' % ((m, c),),
+               inference_max_abs_err=max_err(got, want),
+               inference_bit_equal=bool(torch.equal(got, want)),
+               inference_bound_ms=b_ms,
+               **{'inference_' + k: v for k, v in t.items()})
+    _say('serve-infer', '%s: max abs err %.3g vs _apply_ref (tolerance %s), '
+         'bit-equal %s; %s; bound %.5f ms by %s' % (
+             out['inference_case'], out['inference_max_abs_err'], BF16_TOL,
+             out['inference_bit_equal'], _fmt(t), b_ms, b_by))
+    return out
+
+
+def _hold_serving_interludes(eng, x):
+    """Row 2 at every shape the serving path gives it: one eager forward
+    of ``eng`` on the padded batch ``x`` with a hook on each ``NormAct``
+    of its stateless module, which holds that interlude's output (one
+    ``batch_norm_act_inference``, one ``bn_apply`` launch) against the
+    plain version ``_apply_ref`` on the same input, residual and running
+    statistics, within ``BF16_TOL``.  Returns ``(interludes, worst
+    units of BF16_TOL, bit-equal interludes, fewest rows)``."""
+    import torch
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.models import NormAct
+    bn = importlib.import_module('chainermn_tpu_torch.ops.batch_norm_act')
+    rows, handles, held = [], [], {}
+
+    def pre(mod, args, kwargs):
+        res = args[1] if len(args) > 1 else kwargs.get('residual')
+        held[id(mod)] = (args[0], res)
+
+    def post(mod, args, out):
+        xin, res = held.pop(id(mod))
+        c = xin.shape[-1]
+        want = bn._apply_ref(
+            xin.reshape(-1, c), mod.mean.float(),
+            torch.rsqrt(mod.var.float() + mod.epsilon), mod.scale.float(),
+            mod.bias.float(), None if res is None else res.reshape(-1, c),
+            mod.relu)
+        got = out.reshape(-1, c)
+        rows.append((got.shape[0], _units(got, want, *BF16_TOL),
+                     bool(torch.equal(got, want))))
+
+    for mod in eng.apply_fn.module.modules():
+        if isinstance(mod, NormAct):
+            handles.append(mod.register_forward_pre_hook(pre,
+                                                         with_kwargs=True))
+            handles.append(mod.register_forward_hook(post))
+    before = ops.bn_apply.launches
+    try:
+        eng.eager(x)
+    finally:
+        for h in handles:
+            h.remove()
+    launched = ops.bn_apply.launches - before
+    if len(rows) != BN_PER_STEP or launched != BN_PER_STEP:
+        raise AssertionError('bucket %d: %d interludes held, %d bn_apply '
+                             'launches, expected %d' % (
+                                 x.shape[0], len(rows), launched,
+                                 BN_PER_STEP))
+    worst = max(r[1] for r in rows)
+    if not worst <= 1.0:
+        raise AssertionError('bucket %d: batch_norm_act_inference against '
+                             '_apply_ref at %.3g of BF16_TOL; by interlude '
+                             '(rows, units, bit-equal): %s'
+                             % (x.shape[0], worst, rows))
+    return (len(rows), worst, sum(r[2] for r in rows),
+            min(r[0] for r in rows))
+
+
+def _hold_int8_weights(eng, state):
+    """Every int8 weight of ``eng`` against the f32 weight it was made
+    from (``state``, the same tree before quantization): the scale is
+    one per output channel (axis 0 of a PyTorch ``weight``), each
+    nonzero channel's largest ``|q|`` is 127, and ``q * scale`` is
+    within half a step (``scale / 2``, plus 2^-16 of it for the f32
+    division) of the weight.  Returns ``(leaves, worst error in half
+    steps)``."""
+    import torch
+    from chainermn_tpu_torch.precision import is_quantized
+    want = dict(_flat(state))
+    n, worst = 0, 0.0
+    for key, leaf in _flat(eng.params):
+        if not is_quantized(leaf):
+            continue
+        w = want[key].double()
+        q, s = leaf.q, leaf.scale.double()
+        others = tuple(range(1, q.dim()))
+        top = q.abs().amax(dim=others)
+        if s.shape != (w.shape[0],) or int(top.max()) > 127 or not bool(
+                ((top == 127) | (w.abs().amax(dim=others) == 0)).all()):
+            raise AssertionError('int8 %s %s: scale %s, |q| <= %d by channel'
+                                 % (key, tuple(w.shape), tuple(s.shape),
+                                    int(q.abs().amax())))
+        half = s.reshape((-1,) + (1,) * len(others)) / 2
+        units = float(((q.double() * 2 * half - w).abs() / half).max())
+        if not units <= 1.0 + 2.0 ** -16:
+            raise AssertionError('int8 %s: q * scale off the weight by %.6g '
+                                 'half steps' % (key, units))
+        n, worst = n + 1, max(worst, units)
+    return n, worst
+
+
+def _kernel_count(prof, pattern):
+    """Kernel events whose name matches ``pattern`` in a
+    ``torch.profiler`` run (kernels replayed in a CUDA graph are traced
+    one by one)."""
+    import torch
+    return sum(evt.count for evt in prof.key_averages()
+               if evt.device_type == torch.autograd.DeviceType.CUDA
+               and re.search(pattern, evt.key))
+
+
+def _map_tree(fn, tree):
+    """``fn`` over the leaves of a nested ``dict``."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _engine_bytes(eng):
+    """Bytes of an engine's placed weights (int8 ``q`` and f32 scales of
+    a quantized leaf)."""
+    from chainermn_tpu_torch.precision import is_quantized
+    total = 0
+    for _, leaf in _flat(eng.params):
+        for t in (leaf[:2] if is_quantized(leaf) else (leaf,)):
+            total += t.numel() * t.element_size()
+    return total
+
+
+# bn_apply's kernel in a profiler trace (not bn_bwd_apply_kernel)
+BN_APPLY_EVENT = r'\bapply_kernel<'
+
+
+def _serve_window(eng, rate, profiled=False):
+    """``open_loop`` over the serving row's queue with the counts set to
+    0 just before and read just after.  Returns the report, the wrapper
+    counts, the replays by bucket in the window, and (``profiled``: the
+    window runs under ``torch.profiler``) the device's busy share over the
+    window, None when the trace held no device event, and the
+    ``bn_apply`` kernels the trace holds (None unprofiled)."""
+    import contextlib
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from chainermn_tpu_torch import ops, serving
+    queue = serving.RequestQueue(max_batch=SERVE_INFER_BATCH,
+                                 max_wait=0.005,
+                                 max_queue=4 * SERVE_INFER_BATCH)
+    replays0 = dict(eng.replays)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    prof = (profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) if profiled
+            else contextlib.nullcontext())
+    with prof:
+        rep = serving.open_loop(eng, queue, rate=rate,
+                                n_requests=SERVE_INFER_REQUESTS, seed=0)
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    replays = {b: eng.replays[b] - replays0.get(b, 0) for b in eng.replays}
+    busy = traced = None
+    if profiled:
+        busy_us = sum(_kernel_times(prof).values())
+        busy = busy_us / (rep['wall_s'] * 1e6) if busy_us > 0 else None
+        traced = _kernel_count(prof, BN_APPLY_EVENT)
+    return rep, counts, replays, busy, traced
+
+
+def _int8_branch_check(example, rng):
+    """The int8 path through every conv, and the hot swap, on a
+    ResNet-50 whose residual branches reach the logits
+    (``branch_scale=BRANCH_SCALE``): an ``Int8Policy.bf16()`` engine
+    against a ``Policy.bf16()`` engine over its own dequantized tree (the
+    same bf16 weights the int8 forward reads), replays bit-equal at
+    buckets 1 and 32, the interludes of both held against ``_apply_ref``;
+    the int8 logits' distance from a ``Policy.bf16()`` engine over the
+    f32 weights is printed (the quantization's own error; the
+    ``INT8_TOL`` check runs on the served model).  Then one
+    ``swap_params`` of that bf16 engine to a perturbed tree: its replay
+    must equal an engine built on the perturbed tree, with no new
+    capture, and a NaN tree must raise ``WeightSwapError``."""
+    import numpy as np
+    import torch
+    from chainermn_tpu_torch import precision, serving
+    from chainermn_tpu_torch.serving.engine import module_state
+    from chainermn_tpu_torch.utils.failure import WeightSwapError
+    model = _seeded_resnet50(branch_scale=BRANCH_SCALE)
+    bf16 = precision.Policy.bf16()
+
+    def engine(tree, policy, warm=True):
+        eng = serving.InferenceEngine.for_model(
+            model, tree, example, max_batch=SERVE_INFER_BATCH, policy=policy,
+            edges=(1, SERVE_INFER_BATCH))
+        if warm and not all(eng.warmup().values()):
+            raise AssertionError('a bucket was not captured')
+        return eng
+
+    e8 = engine(None, precision.Int8Policy.bf16())
+    ed = engine(precision.dequantize_int8(e8.params, torch.bfloat16), bf16)
+    ef = engine(None, bf16)
+    for b in (1, SERVE_INFER_BATCH):
+        x = rng.rand(b, *example.shape).astype(np.float32)
+        y8, yd, yf = e8.infer(x), ed.infer(x), ef.infer(x)
+        if not torch.equal(y8, yd):
+            raise AssertionError('bucket %d: the int8 engine differs from a '
+                                 'bf16 engine over its dequantized weights '
+                                 'by %.3g' % (b, max_err(y8, yd)))
+        held = [_hold_serving_interludes(e, x) for e in (e8, ed)]
+        _say('serve-infer', 'int8 branch check, bucket %2d: int8 replay '
+             'bit-equal to the bf16 engine over its dequantized weights; '
+             'both engines\' %d interludes within %.3g of BF16_TOL of '
+             '_apply_ref; int8 vs bf16 over the f32 weights (quantization '
+             'error, printed only): max abs err %.3g, |logit| <= %.3g, '
+             'relative L2 %.3g' % (b, held[0][0], max(h[1] for h in held),
+                                   max_err(y8, yf), float(yf.abs().max()),
+                                   _rel_l2(y8, yf)))
+    del e8, ed
+    # a hot swap to a perturbed tree: the replay equals a fresh engine's
+    # forward on that tree, no new capture; a NaN tree is refused and the
+    # engine serves on
+    x = rng.rand(SERVE_INFER_BATCH, *example.shape).astype(np.float32)
+    before = ef.infer(x)
+    compiles = ef.compile_count
+    state = module_state(model)
+    prng = np.random.RandomState(1)
+    perturbed = _map_tree(lambda t: t * float(1.0 + 0.05 * prng.randn()),
+                          state)
+    version = ef.swap_params(perturbed, version=1)
+    after = ef.infer(x)
+    want = engine(perturbed, bf16, warm=False).eager(x)
+    if not torch.equal(after, want) or torch.equal(before, after) \
+            or ef.compile_count != compiles:
+        raise AssertionError('swap: %.3g from an engine on the new tree, '
+                             'moved %.3g, captures %d -> %d' % (
+                                 max_err(after, want),
+                                 max_err(after, before), compiles,
+                                 ef.compile_count))
+    nan = _map_tree(lambda t: torch.full_like(t, float('nan')), state)
+    try:
+        ef.swap_params(nan, version=2)
+    except WeightSwapError:
+        pass
+    else:
+        raise AssertionError('a NaN tree was swapped in')
+    if not torch.equal(ef.infer(x), after) or ef.param_version != version:
+        raise AssertionError('the refused swap changed the engine')
+    _say('serve-infer', 'hot swap to version %d: bucket-%d logits moved by '
+         '%.3g and equal an engine built on the new tree, captures %d -> '
+         '%d; a NaN tree refused (WeightSwapError), version %d serves on'
+         % (version, SERVE_INFER_BATCH, max_err(after, before), compiles,
+            ef.compile_count, ef.param_version))
+
+
+def phase_serve_infer():
+    """The request-serving path: ResNet-50 (224 px, ``fused_norm=True``,
+    eval) through ``InferenceEngine.for_model(max_batch=32)`` under
+    ``Policy.bf16()`` and ``Int8Policy.bf16()``, one CUDA graph per
+    bucket, fed by ``open_loop`` at twice the probed capacity.  Returns
+    the path's launch counts (a replay counts nothing in the wrappers:
+    the ``bn_apply`` kernels are counted in the profiled windows' traces
+    and held against the replays times the launches each graph captured)
+    and row 2's inference-call reading."""
+    import numpy as np
+    import torch
+    from chainermn_tpu_torch import ops, precision, serving
+    from chainermn_tpu_torch.serving.engine import module_state
+    gen = torch.Generator(device='cuda').manual_seed(13)
+    inference = _inference_bn_record(gen)
+    model = _seeded_resnet50()
+    example = np.zeros((SERVE_INFER_INSIZE, SERVE_INFER_INSIZE, 3),
+                       np.float32)
+    rng = np.random.RandomState(0)
+    engines, memory = {}, {}
+    for name, policy in (('bf16', precision.Policy.bf16()),
+                         ('int8', precision.Int8Policy.bf16())):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        eng = serving.InferenceEngine.for_model(
+            model, None, example, max_batch=SERVE_INFER_BATCH, policy=policy)
+        t0 = time.perf_counter()
+        aot = eng.warmup()
+        warm_s = time.perf_counter() - t0
+        if sorted(aot) != list(eng.edges) or not all(aot.values()):
+            raise AssertionError('%s engine: buckets captured %s' % (name,
+                                                                     aot))
+        if any(c != {'bn_apply': BN_PER_STEP}
+               for c in eng.graph_launches.values()):
+            raise AssertionError('%s engine: captured launches %s, expected '
+                                 '%d bn_apply a graph' % (
+                                     name, eng.graph_launches, BN_PER_STEP))
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated() - base
+        x = rng.rand(SERVE_INFER_BATCH, SERVE_INFER_INSIZE,
+                                      SERVE_INFER_INSIZE, 3).astype(np.float32)
+        torch.cuda.reset_peak_memory_stats()
+        now = torch.cuda.memory_allocated()
+        eng.eager(x)
+        memory[name] = dict(weights=_engine_bytes(eng), resident=resident,
+                            eager_peak=torch.cuda.max_memory_allocated()
+                            - now)
+        engines[name] = eng
+        if name == 'int8':
+            leaves, units = _hold_int8_weights(eng, module_state(model))
+            _say('serve-infer', 'int8 engine: %d weights quantized per '
+                 'output channel, q * scale within %.6g half steps of the '
+                 'f32 weight at worst' % (leaves, units))
+        _say('serve-infer', '%s engine: %d buckets %s captured in %.2f s '
+             '(%d bn_apply launches in each graph); weights %.1f MiB, '
+             'resident after capture (weights + graph pools) %.1f MiB, an '
+             'eager bucket-%d forward peaks %.1f MiB over that' % (
+                 name, len(aot), list(eng.edges), warm_s, BN_PER_STEP,
+                 memory[name]['weights'] / 2 ** 20, resident / 2 ** 20,
+                 SERVE_INFER_BATCH, memory[name]['eager_peak'] / 2 ** 20))
+    # every bucket: the replay against an eager forward of the same
+    # engine, the int8 engine against the bf16 engine, and the times
+    replay_times = {}
+    for b in engines['bf16'].edges:
+        x = rng.rand(b, *example.shape).astype(np.float32)
+        out, held = {}, {}
+        for name, eng in engines.items():
+            replay, eager = eng.infer(x), eng.eager(x)
+            held[name] = _hold_serving_interludes(eng, x)
+            if not bool(torch.isfinite(replay).all()) \
+                    or tuple(replay.shape) != (b, 1000):
+                raise AssertionError('%s bucket %d: logits %s, finite %s'
+                                     % (name, b, tuple(replay.shape),
+                                        bool(torch.isfinite(replay).all())))
+            equal = bool(torch.equal(replay, eager))
+            if name == 'bf16' and not equal:
+                raise AssertionError('bf16 bucket %d: the replay differs '
+                                     'from the eager forward by %.3g'
+                                     % (b, max_err(replay, eager)))
+            graph, xin, _ = eng._graphs[b]
+            xd = xin.clone()
+            replay_ms = time_ms(graph.replay, iters=10)
+            with torch.no_grad():
+                eager_ms = time_ms(lambda: eng._forward(eng.params, xd),
+                                   iters=5, warmup=1)
+            out[name] = (replay, equal, replay_ms, eager_ms)
+            replay_times.setdefault(name, {})[b] = replay_ms
+        check_close('int8 vs bf16 logits, bucket %d' % b, out['int8'][0],
+                    out['bf16'][0], INT8_TOL, INT8_TOL)
+        _say('serve-infer', 'bucket %2d: replay bit-equal to eager: bf16 %s, '
+             'int8 %s; int8 vs bf16 logits max abs err %.3g (bound '
+             'rtol=atol=%g, |logit| <= %.3g); one replay %.3f ms vs one '
+             'eager forward %.3f ms (bf16), %.3f vs %.3f ms (int8)' % (
+                 b, out['bf16'][1], out['int8'][1],
+                 max_err(out['int8'][0], out['bf16'][0]), INT8_TOL,
+                 float(out['bf16'][0].abs().max()), out['bf16'][2],
+                 out['bf16'][3], out['int8'][2], out['int8'][3]))
+        _say('serve-infer', 'bucket %2d: batch_norm_act_inference against '
+             '_apply_ref on each interlude\'s own inputs: %s' % (
+                 b, '; '.join(
+                     '%s %d interludes from %d rows, worst %.3g of BF16_TOL, '
+                     '%d bit-equal' % ((name,) + held[name][:1]
+                                       + held[name][3:] + held[name][1:3])
+                     for name in held)))
+    # the capacity probe (bench.py's), then the open loop at 2x
+    paths = {}
+    for name, eng in engines.items():
+        big = eng.edges[-1]
+        x = np.repeat(example[None], big, axis=0)
+        eng.infer(x)
+        t0 = time.perf_counter()
+        for _ in range(6):
+            eng.infer(x)
+        batch_s = (time.perf_counter() - t0) / 6
+        mean_items = (1 + max(1, SERVE_INFER_BATCH // 2)) / 2.0
+        capacity = big / batch_s / mean_items
+        rep, counts, replays, _, _ = _serve_window(eng, 2.0 * capacity)
+        if any(counts.values()):
+            raise AssertionError('%s open loop: eager launches %s (every '
+                                 'batch must replay a graph)' % (name, counts))
+        if rep['served'] + rep['shed_submit'] + rep['shed_deadline'] \
+                + rep['errored'] != SERVE_INFER_REQUESTS \
+                or rep['errored'] or not rep['served']:
+            raise AssertionError('%s open loop: %s' % (name, rep))
+        launched = sum(n * eng.graph_launches[b]['bn_apply']
+                       for b, n in replays.items())
+        if not launched:
+            raise AssertionError('%s open loop: no graph replayed' % name)
+        # the device's busy share: the window's replays at their measured
+        # replay times, and a second window under the profiler, whose
+        # trace counts the bn_apply kernels the replays ran: the path's
+        # launches, held against the replays times the captured launches
+        est = sum(n * replay_times[name][b]
+                  for b, n in replays.items()) / (1e3 * rep['wall_s'])
+        prep, pcounts, preplays, busy, traced = _serve_window(
+            eng, 2.0 * capacity, profiled=True)
+        expected = sum(n * eng.graph_launches[b]['bn_apply']
+                       for b, n in preplays.items())
+        if any(pcounts.values()) or prep['errored'] or not traced \
+                or traced != expected:
+            raise AssertionError('%s profiled open loop: %d bn_apply kernels '
+                                 'in the trace, %d replayed (replays %s x %d '
+                                 'a graph); eager launches %s; errored %d' % (
+                                     name, traced or 0, expected, preplays,
+                                     BN_PER_STEP, pcounts, prep['errored']))
+        paths[name] = traced
+        _say('serve-infer', '%s open loop: probed capacity %.1f req/s '
+             '(bucket %d in %.3f ms), offered %.1f req/s x %d: served %d '
+             '(%.1f req/s), shed %d at submit + %d by deadline (shed '
+             'fraction %.3f); latency p50 %.2f ms p99 %.2f ms; queue wait '
+             'p50 %.2f ms p99 %.2f ms; pad waste %.3f; replays by bucket '
+             '%s (%d bn_apply kernels through the graphs); device busy '
+             '%.1f%% of the %.3f s window from the replays\' times; under '
+             'the profiler a second window served %.1f req/s, device busy '
+             '%s, its trace holds %d bn_apply kernels (replays x captured '
+             'launches: %d)' % (
+                 name, capacity, big, 1e3 * batch_s, 2.0 * capacity,
+                 SERVE_INFER_REQUESTS, rep['served'],
+                 rep['served_req_per_s'], rep['shed_submit'],
+                 rep['shed_deadline'], rep['shed_fraction'],
+                 rep['latency_p50_ms'], rep['latency_p99_ms'],
+                 rep['queue_wait_p50_ms'], rep['queue_wait_p99_ms'],
+                 rep['pad_waste_fraction'],
+                 {b: n for b, n in sorted(replays.items()) if n},
+                 launched, 100 * est, rep['wall_s'],
+                 prep['served_req_per_s'], 'not measured' if busy is None
+                 else '%.1f%%' % (100 * busy), traced, expected))
+        worst = (rep['worst_request'] or {}).get('worst')
+        if worst:
+            _say('serve-infer', '%s worst request %s: e2e %.2f ms = %s' % (
+                name, worst['request_id'], worst['e2e_ms'], ', '.join(
+                    '%s %.2f' % kv for kv in sorted(
+                        worst['stage_ms'].items()))))
+    _say('serve-infer', 'peak memory, bf16 against int8: weights %.1f vs '
+         '%.1f MiB; resident after capture %.1f vs %.1f MiB; an eager '
+         'bucket-%d forward over that %.1f vs %.1f MiB' % (
+             memory['bf16']['weights'] / 2 ** 20,
+             memory['int8']['weights'] / 2 ** 20,
+             memory['bf16']['resident'] / 2 ** 20,
+             memory['int8']['resident'] / 2 ** 20, SERVE_INFER_BATCH,
+             memory['bf16']['eager_peak'] / 2 ** 20,
+             memory['int8']['eager_peak'] / 2 ** 20))
+    del engines, eng, model
+    _int8_branch_check(example, rng)
+    counts = dict.fromkeys(ops.KERNELS, 0)
+    counts['bn_apply'] = sum(paths.values())
+    return counts, inference
+
+
+def _gen_window(eng, queue, rate, n, seed):
+    """``open_loop_generate`` with the counts set to 0 just before and read
+    just after; the queue records the request handles."""
+    from chainermn_tpu_torch import ops, serving
+    handles = []
+    submit = queue.submit
+
+    def recording(*args, **kw):
+        req = submit(*args, **kw)
+        handles.append(req)
+        return req
+
+    queue.submit = recording
+    ops.reset_launch_counts()
+    rep = serving.open_loop_generate(
+        eng, queue, rate=rate, n_requests=n, seed=seed,
+        prompt_len_range=(4, SERVE_PROMPT), max_new_tokens=SERVE_NEW)
+    return rep, ops.launch_counts(), ops.tc_launch_counts(), handles
+
+
+def _check_gen_counts(what, rep, counts, decode):
+    from chainermn_tpu_torch import ops
+    layers = SERVE_CFG['n_layers']
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want.update({'layer_norm': (2 * layers + 1) * (rep['prefills']
+                                                   + rep['decode_steps']),
+                 'flash_fwd': layers * rep['prefills'],
+                 decode: layers * rep['decode_steps']})
+    if counts != want or rep['errored'] or not rep['served']:
+        raise AssertionError('%s: launch counts %s over %d prefills and %d '
+                             'decode steps, expected %s; report %s' % (
+                                 what, counts, rep['prefills'],
+                                 rep['decode_steps'], want, rep))
+
+
+def _say_gen(what, rep):
+    _say('serve-loadgen', '%s: offered %.1f req/s x %d, served %d, shed %d '
+         '(fraction %.3f); %.1f tokens/s; TTFT p50 %.2f ms p99 %.2f ms; '
+         'inter-token p50 %.3f ms p99 %.3f ms; decode step p50 %.3f ms '
+         'p99 %.3f ms; %d prefills, %d decode steps in %.3f s' % (
+             what, rep['offered_rate'], rep['offered'], rep['served'],
+             rep['shed_submit'] + rep['shed_deadline'],
+             rep['shed_fraction'], rep['tokens_per_s'], rep['ttft_p50_ms'],
+             rep['ttft_p99_ms'], rep['intertoken_p50_ms'],
+             rep['intertoken_p99_ms'], rep['decode_step_p50_ms'],
+             rep['decode_step_p99_ms'], rep['prefills'],
+             rep['decode_steps'], rep['wall_s']))
+
+
+def phase_serve_loadgen():
+    """The full-width serving ``TransformerLM`` under
+    ``open_loop_generate`` with ``GenerationEngine.run()`` on its thread:
+    bench.py's capacity probe (2 x 32 requests at once), then 64 requests
+    at twice that capacity in slot mode and in paged mode, and one
+    ``Int8Policy.bf16()`` run of the probe's requests whose greedy
+    streams are compared with the bf16 engine's.  Returns each path's
+    launch counts."""
+    import torch
+    from chainermn_tpu_torch import models, precision, serving
+    model = models.TransformerLM(**SERVE_CFG,
+                                 generator=torch.Generator().manual_seed(0))
+    paths = {}
+
+    def engine(policy=precision.Policy.bf16(), **kw):
+        eng = serving.GenerationEngine(model, n_slots=SERVE_SLOTS,
+                                       max_prompt_len=SERVE_PROMPT,
+                                       policy=policy, **kw)
+        eng.warmup()
+        return eng
+
+    def queue(max_queue, eng):
+        return serving.GenerationQueue(
+            max_prompt_len=SERVE_PROMPT, max_queue=max_queue,
+            page_size=eng.page_size if eng.paged else None)
+
+    eng = engine()
+    probe, counts, tc, probe_reqs = _gen_window(
+        eng, queue(4 * SERVE_SLOTS, eng), 1e9, 2 * SERVE_SLOTS, 1)
+    _check_gen_counts('probe', probe, counts, 'flash_decode')
+    _say_gen('bf16 slot probe', probe)
+    capacity = probe['tokens_per_s'] / SERVE_NEW
+    for mode, kw, decode in (('slot', {}, 'flash_decode'),
+                             ('paged', dict(paged=True, page_size=16),
+                              'flash_decode_paged')):
+        if mode == 'paged':
+            eng = engine(**kw)
+        rep, counts, tc, _ = _gen_window(
+            eng, queue(2 * SERVE_SLOTS, eng), 2.0 * capacity,
+            SERVE_GEN_REQUESTS, 0)
+        _check_gen_counts(mode, rep, counts, decode)
+        paths['lm_loadgen' + ('' if mode == 'slot' else '_paged')] = \
+            with_tc('loadgen ' + mode, counts, tc)
+        _say_gen('bf16 %s at 2x the probed capacity (%.1f req/s)'
+                 % (mode, capacity), rep)
+        del eng
+    eng8 = engine(precision.Int8Policy.bf16())
+    rep8, counts, tc, reqs8 = _gen_window(
+        eng8, queue(4 * SERVE_SLOTS, eng8), 1e9, 2 * SERVE_SLOTS, 1)
+    _check_gen_counts('int8', rep8, counts, 'flash_decode')
+    paths['lm_loadgen_int8'] = with_tc('loadgen int8', counts, tc)
+    if not rep8['quantized'] or rep8['served'] != probe['served']:
+        raise AssertionError('int8 run: %s' % rep8)
+    same = sum(a.result(timeout=0).tolist() == b.result(timeout=0).tolist()
+               for a, b in zip(probe_reqs, reqs8))
+    _say_gen('Int8Policy.bf16() slot, the probe\'s requests', rep8)
+    _say('serve-loadgen', 'int8 weights: %d of %d greedy streams equal the '
+         'bf16 engine\'s' % (same, len(reqs8)))
+    return paths
+
+
 def _ce_cases(gen):
     """The cross-entropy kernel against its plain version; returns the
     record, timed at the LM's ``(8192, 32000)`` f32 logits."""
@@ -4454,6 +5144,8 @@ def main():
     paths['lm_serving_spec'] = _timed(phase_spec_main, model, prompts,
                                       paged_outs)
     del model
+    paths['resnet_serving'], inference = _timed(phase_serve_infer)
+    paths.update(_timed(phase_serve_loadgen))
     _timed(phase_lm_check)
     paths['lm_training'] = _timed(phase_lm_main)
     _say('time', 'all phases %.1f s' % (time.perf_counter() - t_start))
@@ -4465,6 +5157,8 @@ def main():
             raise AssertionError('no main path launched %s' % rec['name'])
         rec['launches'] = sum(by_path.values())
         rec['launches_by_path'] = by_path
+        if rec['name'] == 'bn_apply':
+            rec.update(inference)
         tc_key = rec['name'] + '.tc'
         if any(tc_key in counts for counts in paths.values()):
             rec['tc_launches'] = sum(counts.get(tc_key, 0)

@@ -10,6 +10,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import jax
@@ -125,8 +126,12 @@ def test_multi_node_evaluator_forwards_attributes():
     assert wrapped.trigger == (2, 'epoch') and len(calls) == 2
 
 
+#: seconds a rank may take in all; the test waits a little longer, so a
+#: rank stuck in a wait dumps its stacks before it is killed
+RANK_BUDGET = 240
+
 _TWO_RANKS = r'''
-import json, sys
+import datetime, faulthandler, json, sys
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -135,11 +140,18 @@ from chainermn_tpu_torch import models, training
 from chainermn_tpu_torch.datasets import mnist
 from chainermn_tpu_torch.examples.mnist import train_mnist
 
-torch.set_num_threads(1)
 store, rank, out, weights = sys.argv[1], int(sys.argv[2]), sys.argv[3], \
     sys.argv[4]
-dist.init_process_group('gloo', store=dist.FileStore(store, 2), rank=rank,
-                        world_size=2)
+budget = float(sys.argv[5])
+# a rank that waits past its budget prints where every thread waits, and
+# the rendezvous and collectives give up within it too
+faulthandler.dump_traceback_later(budget, exit=True)
+torch.set_num_threads(1)
+limit = datetime.timedelta(seconds=budget)
+file_store = dist.FileStore(store, 2)
+file_store.set_timeout(limit)
+dist.init_process_group('gloo', store=file_store, rank=rank, world_size=2,
+                        timeout=limit)
 comm = cmt.create_communicator('naive', device='cpu')
 result = {}
 
@@ -188,13 +200,32 @@ def test_two_rank_multi_node_evaluator(tmp_path):
     np.savez(tmp_path / 'w.npz', **flat)
     env = dict(os.environ, PYTHONPATH=str(REPO))
     outs = [tmp_path / ('r%d.json' % r) for r in range(2)]
-    procs = [subprocess.Popen(
-        [sys.executable, '-c', _TWO_RANKS, str(tmp_path / 'store'), str(r),
-         str(outs[r]), str(tmp_path / 'w.npz')], env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(2)]
-    for p in procs:
-        log, _ = p.communicate(timeout=300)
-        assert p.returncode == 0, log.decode()[-3000:]
+    logs = [tmp_path / ('r%d.log' % r) for r in range(2)]
+    # each rank writes its output to a file: with pipes read one after the
+    # other, a rank whose pipe fills blocks while its peer waits for it
+    procs = []
+    for r in range(2):
+        with open(logs[r], 'wb') as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, '-c', _TWO_RANKS, str(tmp_path / 'store'),
+                 str(r), str(outs[r]), str(tmp_path / 'w.npz'),
+                 str(RANK_BUDGET)], env=env, stdout=log,
+                stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + RANK_BUDGET + 30
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    tails = '\n'.join('rank %d (exit %s):\n%s' % (
+        r, p.returncode, logs[r].read_text(errors='replace')[-3000:])
+        for r, p in enumerate(procs))
+    assert [p.returncode for p in procs] == [0, 0], tails
     results = [json.loads(o.read_text()) for o in outs]
     # the key-by-key mean, the same on both ranks
     for r in results:

@@ -267,19 +267,23 @@ def test_paged_and_speculative_options_are_checked_as_jax_does(kw, match):
 
 
 def test_unported_methods_raise():
-    _, eng = _engines(n_slots=2)
-
-    class Int8Policy:
-        quantize = staticmethod(lambda params: params)
-
+    """Tensor-parallel serving still raises (ROADMAP.md A7).  Int8
+    weights, ``swap_params`` and ``from_checkpoint``, which raised before
+    they were ported, now serve: a drained engine swaps to a new version,
+    and a missing checkpoint is an ``OSError``, not a refusal."""
     _, _, tm = _pair()
-    with pytest.raises(NotImplementedError, match='Int8Policy'):
-        serving.GenerationEngine(tm, n_slots=2, max_prompt_len=8,
-                                 policy=Int8Policy(), device='cpu')
-    with pytest.raises(NotImplementedError):
-        eng.swap_params(None)
-    with pytest.raises(NotImplementedError):
+    for kw in (dict(plan=object()), dict(param_specs={})):
+        with pytest.raises(NotImplementedError, match='A7'):
+            serving.GenerationEngine(tm, n_slots=2, max_prompt_len=8,
+                                     device='cpu', **kw)
+    _, eng = _engines(n_slots=2)
+    assert eng.swap_params(models.param_tree(tm), version=3) == 3
+    with pytest.raises(OSError):
         serving.GenerationEngine.from_checkpoint('x', tm, None)
+    int8 = serving.GenerationEngine(tm, n_slots=2, max_prompt_len=8,
+                                    policy=precision.Int8Policy(),
+                                    device='cpu')
+    assert int8.stats()['quantized']
 
 
 # ---------------------------------------------------------------------
