@@ -403,40 +403,52 @@ def decode_step(model, params, cache, tokens, positions, slots=None):
                         attend)
 
 
+def _index(value, device):
+    """An int, or an integer tensor of one element, as a ``(1,)`` int64
+    tensor on ``device``: the scalar operands of the prefill functions,
+    which index the cache and the activations on the device (the JAX
+    body's ``dynamic_slice``), so that a CUDA graph captured over them
+    reads each call's values and nothing waits for the host."""
+    return torch.as_tensor(value, device=device).reshape(1).long()
+
+
+def _last_row(x, length):
+    """Row ``length - 1`` of ``x`` ``(1, T, d)`` as ``(1, d)``."""
+    return x[0].index_select(0, length - 1)
+
+
 def prefill(model, params, cache, tokens, length, slot):
     """Prefill one prompt into cache slot ``slot``: ``tokens`` ``(1, T)``
     padded to a prompt bucket, ``length`` the valid prefix (positions
     beyond it are written but never attended: decode lengths start at
-    ``length``).  Runs the causal forward once, banks every layer's K/V
-    at ``cache[:, slot, :T]`` in place, and returns ``(logits (V,) f32
-    at position length - 1, cache)``."""
+    ``length``).  ``length`` and ``slot`` are ints or one-element integer
+    tensors on the cache's device (no host read).  Runs the causal
+    forward once, banks every layer's K/V at ``cache[:, slot, :T]`` in
+    place, and returns ``(logits (V,) f32 at position length - 1,
+    cache)``."""
     dtype = model.dtype
     b, t = tokens.shape
     if b != 1:
         raise ValueError('prefill takes one prompt per call, got batch %d'
                          % b)
-    slot, length = int(slot), int(length)
+    device = tokens.device
+    length = _index(length, device)
+    positions = torch.arange(t, device=device)
+    slots = _index(slot, device).expand(t)
     x = _embed(params['embed']['embedding'], tokens, dtype)
     x = x + params['pos_embed'][:t].to(dtype)
-    int8_kv = _cache_int8(cache)
     for i in range(model.n_layers):
         bp = params['block_%d' % i]
         h = ops.layer_norm(x, bp['ln1_scale'], bp['ln1_bias']).to(dtype)
         qkv = _qkv_proj(h, bp, dtype)            # (1, T, 3, H, d_head)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         attn = ops.flash_attention(q, k, v, causal=True)
-        for name, val in (('k', k[0]), ('v', v[0])):
-            if int8_kv:
-                qv, scale = quantize_kv(val)
-                cache[name][i, slot, :t] = qv
-                cache[name + '_scale'][i, slot, :t] = scale
-            else:
-                cache[name][i, slot, :t] = val
+        _scatter_kv(cache, i, k[0], v[0], slots, positions)
         x = x + _dense(attn.reshape(1, t, -1), bp['proj'], dtype)
         h = ops.layer_norm(x, bp['ln2_scale'], bp['ln2_bias']).to(dtype)
         x = x + _mlp(h, bp, dtype)
     # the head only needs the last valid position's activation
-    x_last = ops.layer_norm(x[0, length - 1:length], params['lnf_scale'],
+    x_last = ops.layer_norm(_last_row(x, length), params['lnf_scale'],
                             params['lnf_bias'])
     return _head_logits(model, params, x_last)[0], cache
 
@@ -499,13 +511,18 @@ def _gather_context(cache, layer, tables):
     return ctx
 
 
-def prefill_paged(model, params, cache, tokens, length, page_table, pos0):
+def prefill_paged(model, params, cache, tokens, length, page_table, pos0,
+                  first=None):
     """Prefill ONE CHUNK of a prompt into a paged cache: ``tokens`` ``(1,
     C)`` the chunk padded to a fixed width, ``length`` its valid prefix,
     ``page_table`` ``(n_max,)`` the sequence's pages, ``pos0`` the
     absolute position of its first token (tokens banked by earlier
-    chunks).  Returns ``(logits (V,) f32 at chunk position length - 1,
-    cache)``.
+    chunks).  ``length`` and ``pos0`` are ints or one-element integer
+    tensors on the cache's device.  ``first`` says whether the chunk is
+    the prompt's first (``pos0 == 0``, nothing banked before it); None
+    decides it from ``pos0``, which reads a tensor ``pos0`` on the host
+    (a CUDA graph is captured once for each value of ``first``).  Returns
+    ``(logits (V,) f32 at chunk position length - 1, cache)``.
 
     Each chunk's K/V is written into its pages in place (pad rows go to
     the scratch page 0); attention is
@@ -514,7 +531,8 @@ def prefill_paged(model, params, cache, tokens, length, page_table, pos0):
     ``pos0 == 0`` there is no context to read: attention is the slot
     :func:`prefill`'s causal :func:`~chainermn_tpu_torch.ops.
     flash_attention_fwd`, so an unchunked paged prefill is bitwise the
-    slot one.  int8 KV:
+    slot one (a first chunk given with ``first=False`` attends an empty
+    context through the chunk op instead).  int8 KV:
     the chunk attends its fresh float K/V as the slot prefill does; only
     the banked context is dequantized.  Nothing before ``pos0`` is
     written (shared prefix pages stay read-only)."""
@@ -523,38 +541,41 @@ def prefill_paged(model, params, cache, tokens, length, page_table, pos0):
     if b != 1:
         raise ValueError('prefill_paged takes one prompt chunk per call, got '
                          'batch %d' % b)
-    length, pos0 = int(length), int(pos0)
+    device = tokens.device
+    length, pos0 = _index(length, device), _index(pos0, device)
+    if first is None:
+        first = not bool(pos0)
     table = page_table.reshape(-1).to(torch.int32)
     n_max = table.shape[0]
     ps = cache['k'].shape[2]
     x = _embed(params['embed']['embedding'], tokens, dtype)
+    t = torch.arange(c, device=device)
     # the JAX package's dynamic_slice: the window start is clamped so the
     # window stays inside the table
-    start = max(0, min(pos0, params['pos_embed'].shape[0] - c))
-    x = x + params['pos_embed'][start:start + c].to(dtype)
-    t = torch.arange(c, device=table.device)
+    start = torch.clamp(pos0, 0, max(0, params['pos_embed'].shape[0] - c))
+    x = x + params['pos_embed'].index_select(0, start + t).to(dtype)
     p_abs = pos0 + t
     page_idx = torch.clamp(p_abs // ps, 0, n_max - 1)
     pages = torch.where(t < length, table[page_idx], 0).long()
     offsets = p_abs % ps
-    ctx_len = torch.full((1,), pos0, dtype=torch.int32, device=table.device)
+    ctx_len = pos0.to(torch.int32)
     for i in range(model.n_layers):
         bp = params['block_%d' % i]
         h = ops.layer_norm(x, bp['ln1_scale'], bp['ln1_bias']).to(dtype)
         qkv = _qkv_proj(h, bp, dtype)            # (1, C, 3, H, d_head)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         _scatter_kv(cache, i, k[0], v[0], pages, offsets)
-        if pos0:
+        if first:
+            # no banked context: the slot prefill's causal forward
+            attn = ops.flash_attention_fwd(q, k, v, causal=True)[0]
+        else:
             attn = ops.flash_attention_chunk(
                 q, k, v, ctx_len=ctx_len,
                 **_gather_context(cache, i, table[None]))
-        else:
-            # no banked context: the slot prefill's causal forward
-            attn = ops.flash_attention_fwd(q, k, v, causal=True)[0]
         x = x + _dense(attn.reshape(1, c, -1), bp['proj'], dtype)
         h = ops.layer_norm(x, bp['ln2_scale'], bp['ln2_bias']).to(dtype)
         x = x + _mlp(h, bp, dtype)
-    x_last = ops.layer_norm(x[0, length - 1:length], params['lnf_scale'],
+    x_last = ops.layer_norm(_last_row(x, length), params['lnf_scale'],
                             params['lnf_bias'])
     return _head_logits(model, params, x_last)[0], cache
 
@@ -624,7 +645,9 @@ def spec_verify(model, params, cache, tokens, positions, slots=None):
     (the window is the chunk, the slot's cache the context masked at
     ``positions``), with the fresh half round-tripped through the cache
     dtype.  Window positions at or past the cache depth are not written
-    and never committed.  Rollback after the accept decision is a
+    and never committed: their columns write the last column inside the
+    depth once more, with its own values (a write of fixed shape, so
+    nothing waits for the host).  Rollback after the accept decision is a
     position rewind: rejected columns' K/V stay as masked garbage."""
     n_slots, depth = cache['k'].shape[1:3]
     if slots is None and tokens.shape[0] != n_slots:
@@ -634,15 +657,25 @@ def spec_verify(model, params, cache, tokens, positions, slots=None):
             % (tokens.shape[0], n_slots))
     n, kk = tokens.shape
     positions = positions.long()
-    window = positions[:, None] + torch.arange(kk, device=positions.device)
     rows = (torch.arange(n, device=positions.device) if slots is None
             else slots.long())
     rows_w = rows[:, None].expand(n, kk)
-    inside = window < depth                       # the rest is dropped
+    # column j writes column min(j, depth - 1 - p) at that column's own
+    # position: a column past the depth repeats the last one inside it (a
+    # row at or past the depth, which no decode step can serve either,
+    # writes its first column at depth - 1)
+    cols = torch.clamp(torch.minimum(
+        torch.arange(kk, device=positions.device)[None, :],
+        depth - 1 - positions[:, None]), min=0)
+    target = torch.clamp(positions[:, None] + cols, max=depth - 1)
+
+    def pick(x):
+        idx = cols.reshape(cols.shape + (1,) * (x.dim() - 2))
+        return torch.gather(x, 1, idx.expand(x.shape))
 
     def write(cache, layer, k_new, v_new):
-        return _scatter_kv(cache, layer, k_new[inside], v_new[inside],
-                           rows_w[inside], window[inside])
+        return _scatter_kv(cache, layer, pick(k_new), pick(v_new), rows_w,
+                           target)
 
     def attend(cache, layer, q, k_new, v_new):
         ctx = {'k_ctx': cache['k'][layer], 'v_ctx': cache['v'][layer]}

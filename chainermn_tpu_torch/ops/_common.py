@@ -7,8 +7,10 @@ swaps one for the other, and a CUDA tensor never takes the plain
 version: a kernel that fails to build or launch raises.
 """
 
+import contextlib
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -95,17 +97,56 @@ def check_launch(err, strerror, what):
 # on one stream never overlap
 _TICKETS = {}
 
+# the counters of the CUDA graph this thread is capturing (None: none)
+_CAPTURE = threading.local()
+
 
 def tickets(device, n):
     """At least ``n`` int32 ticket counters, zero, for launches on the
-    current stream of ``device``."""
+    current stream of ``device``.  While a CUDA graph is being captured
+    they are the capture's own (:func:`capture_tickets`): a graph replays
+    its launches with the counters it was captured with, so they must be
+    neither memory of a graph's pool nor counters that an eager launch
+    or another graph uses."""
     stream = torch.cuda.current_stream(device)
+    if torch.cuda.is_current_stream_capturing():
+        found = getattr(_CAPTURE, 'tickets', None)
+        if found is None or found.numel() < n:
+            raise RuntimeError(
+                'a CUDA graph capture needs ticket counters of its own (%d '
+                'wanted, %s given): capture through serving.engine.'
+                'capture_graph' % (n, None if found is None
+                                   else found.numel()))
+        return found
     key = (torch.device(device), stream.cuda_stream)
     found = _TICKETS.get(key)
     if found is None or found.numel() < n:
         found = torch.zeros(n, dtype=torch.int32, device=device)
         _TICKETS[key] = found
     return found
+
+
+def release_tickets(stream):
+    """Take the ticket counters of ``stream`` out of the shared table and
+    return them (None when no launch on it took any): the counters of a
+    warm-up on a capture's side stream, which the capture then owns."""
+    found = None
+    for key in [k for k in _TICKETS if k[1] == stream.cuda_stream]:
+        found = _TICKETS.pop(key)
+    return found
+
+
+@contextlib.contextmanager
+def capture_tickets(counters):
+    """While a CUDA graph is captured on this thread, :func:`tickets`
+    hands out ``counters`` (zero, allocated outside any graph's pool, and
+    kept by the graph for as long as it may replay)."""
+    before = getattr(_CAPTURE, 'tickets', None)
+    _CAPTURE.tickets = counters
+    try:
+        yield
+    finally:
+        _CAPTURE.tickets = before
 
 
 @functools.lru_cache(maxsize=None)

@@ -696,7 +696,10 @@ def _decode_scratch(q, n, h, d, s_max):
     workspace for the splits' ``(m, l, acc)`` (``torch.empty``: a merge
     reads only entries its launch wrote), its size, the ticket counters,
     their count, and the stream -- and the tensors they point to, which
-    the caller holds until the launch is queued."""
+    the caller holds until the launch is queued.  Under a CUDA graph
+    capture the workspace comes from the graph's pool, which keeps it for
+    every replay, and the counters are the capture's own
+    (:func:`~chainermn_tpu_torch.ops._common.tickets`)."""
     n_split = -(-s_max // DECODE_SPLIT)
     ws = torch.empty(n * h * n_split * (d + 2), dtype=torch.float32,
                      device=q.device)

@@ -57,6 +57,7 @@ from torch.nn.utils import parametrize
 
 from chainermn_tpu_torch import ops
 from chainermn_tpu_torch import telemetry as _telemetry
+from chainermn_tpu_torch.ops import _common
 from chainermn_tpu_torch.ops._common import resolve_device
 from chainermn_tpu_torch.ops.int8_matmul import dequant
 from chainermn_tpu_torch.precision import (
@@ -193,6 +194,60 @@ def copy_params_(dst, src):
         dt.copy_(st)
 
 
+def capture_graph(fn, device, stream=None, pool=None, warm_runs=WARM_RUNS):
+    """Capture ``fn()`` as one ``torch.cuda.CUDAGraph`` (the pattern both
+    serving engines use).  ``fn`` first runs ``warm_runs`` times on the
+    side stream ``stream`` (default: a new one), where the lazy set-up
+    happens outside the capture: the kernels' builds, cuBLAS's workspace
+    for that stream, cuDNN's algorithm choice and the ticket counters of
+    the kernels that take them; then it is captured once on that stream,
+    into ``pool`` (a ``torch.cuda.graph_pool_handle()`` shared by graphs
+    that never replay at once; None: a pool of its own).  The ticket
+    counters the warm-up took become the graph's own
+    (:func:`~chainermn_tpu_torch.ops._common.capture_tickets`).
+
+    Returns ``(graph, out, launches, counters)``: ``out`` what the
+    captured call returned (its tensors are the graph's outputs, which
+    every replay overwrites -- and, in a shared pool, so may another
+    graph's replay: read them before the next), ``launches`` the kernel
+    wrappers' counts recorded during the capture (``{name: n}``, with
+    ``'<name>.tc'`` for the tensor-core routes; a replay counts nothing
+    in Python, so a path's launches are these times its replays), and
+    ``counters`` the ticket counters to keep alive with the graph.  A
+    failed capture raises; nothing falls back to an eager run."""
+    side = stream if stream is not None else torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(warm_runs):
+            fn()
+    counters = _common.release_tickets(side)
+    graph = torch.cuda.CUDAGraph()
+    before = _launch_counts()
+    with torch.cuda.stream(side), _common.capture_tickets(counters):
+        graph.capture_begin(pool=pool)
+        try:
+            out = fn()
+        except BaseException:
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                pass      # the capture was invalidated by the failure
+            raise
+        graph.capture_end()
+    torch.cuda.current_stream(device).wait_stream(side)
+    after = _launch_counts()
+    launches = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+    return graph, out, launches, counters
+
+
+def _launch_counts():
+    """Every wrapper's launches, with ``'<name>.tc'`` for the tensor-core
+    routes."""
+    out = dict(ops.launch_counts())
+    out.update(('%s.tc' % k, n) for k, n in ops.tc_launch_counts().items())
+    return out
+
+
 class _Dequant(nn.Module):
     """Parametrization of a quantized weight: the module reads
     ``q.to(dtype) * scale`` each time it reads the weight."""
@@ -313,7 +368,8 @@ class InferenceEngine:
         self._params_template = params_template(params)
         self.params = place_params(params, self.device, policy)
 
-        self._graphs = {}       # bucket -> (CUDAGraph, input, output)
+        # bucket -> (CUDAGraph, input, output, its ticket counters)
+        self._graphs = {}
         self._aot = {}          # bucket -> True when captured
         self._lock = threading.Lock()
         self._stream = (torch.cuda.Stream(self.device)
@@ -349,24 +405,17 @@ class InferenceEngine:
                            dtype=self._in_dtype, device=self.device)
 
     def _capture(self, bucket):
-        """Warm the forward up on a side stream, then capture it once over
-        a static input buffer."""
-        dev = self.device
+        """Capture the forward once over a static input buffer
+        (:func:`capture_graph`: a side-stream warm-up first)."""
         x = self._zeros(bucket)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side), torch.no_grad():
-            for _ in range(WARM_RUNS):
-                self._forward(self.params, x)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        before = ops.launch_counts()
-        with torch.no_grad(), torch.cuda.graph(graph):
-            y = self._forward(self.params, x)
-        after = ops.launch_counts()
-        self.graph_launches[bucket] = {k: after[k] - before[k]
-                                       for k in after if after[k] > before[k]}
-        self._graphs[bucket] = (graph, x, y)
+
+        def forward():
+            with torch.no_grad():
+                return self._forward(self.params, x)
+
+        graph, y, launches, counters = capture_graph(forward, self.device)
+        self.graph_launches[bucket] = launches
+        self._graphs[bucket] = (graph, x, y, counters)
         self.trace_count += 1
         self.compile_count += 1
 

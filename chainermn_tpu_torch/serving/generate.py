@@ -40,11 +40,25 @@ Counterpart of ``chainermn_tpu/serving/generate.py``:
 
 Decoding is greedy (argmax on the device; only the token ids come back
 to the host).  The caches are updated in place, which is what the JAX
-package's buffer donation buys there.  The JAX package compiles one
-executable per bucket and refuses any operand signature outside that
-set (``abstract_signature``); the port runs eagerly, and
-:meth:`GenerationEngine.guard_signature` keeps the same refusal over the
-set of bucket shapes, so a later CUDA graph per bucket can rely on it.
+package's buffer donation buys there.
+
+- **One CUDA graph per bucket** (``aot=True``, the default, on a CUDA
+  device): the port's counterpart of the JAX engine's per-bucket AOT
+  executables.  Each prefill width (in paged mode two graphs a width: a
+  prompt's first chunk and a continued one), decode bucket, and on a
+  speculative engine each draft prefill width, draft decode bucket and
+  verify bucket is captured once (:meth:`GenerationEngine.warmup`, or
+  the bucket's first use) over static int32 operand buffers, with the
+  greedy argmax inside the graph; a tick copies its operands into the
+  buffers (one host-to-device copy a call), replays the graph, and reads
+  back only the token ids.  A failed capture raises: there is no eager
+  fallback on the card.  On the CPU, or with ``aot=False``, the same
+  bodies run eagerly over the same buffers and every bucket reports
+  ``aot`` False.  :meth:`GenerationEngine.guard_signature` refuses any
+  operand signature outside the bucket set (the JAX package's
+  ``abstract_signature``), so no graph is captured mid-traffic for a
+  shape the geometry does not have.  The page copy of copy-on-write
+  runs eagerly (once per copy, not once per step).
 
 An :class:`~chainermn_tpu_torch.precision.Int8Policy` quantizes the
 weights at load; each weight is dequantized when the model function
@@ -60,12 +74,11 @@ gauges, each request's trace stages (``queue_wait`` -> ``bucket_pack``
 events.
 
 Not ported yet: tensor-parallel serving (``plan`` / ``param_specs``
-raise ``NotImplementedError``, ROADMAP.md A7), the per-bucket CUDA
-graphs of prefill, decode, draft and verify (ROADMAP.md A8; the engine
-runs eagerly, so it takes no ``cache_dir`` or ``aot`` and
-``stats()['aot']`` reports False), replica identity (``label`` /
-``version``, for the replica fleet of ROADMAP.md A8), and
+raise ``NotImplementedError``, ROADMAP.md A7), replica identity
+(``label`` / ``version``, for the replica fleet of ROADMAP.md A8), and
 the chaos sites and the flight recorder's request table (ROADMAP.md A9).
+``cache_dir`` is accepted, but a CUDA graph cannot be persisted, so
+``cache_persistent`` stays False.
 """
 
 import threading
@@ -84,7 +97,7 @@ from chainermn_tpu_torch.precision import cast_floating, dequantized_view
 from chainermn_tpu_torch.serving.batcher import (
     bucket_edges, bucket_of, next_request_id, record_shed)
 from chainermn_tpu_torch.serving.engine import (
-    load_params, params_template, place_params)
+    capture_graph, copy_params_, load_params, params_template, place_params)
 from chainermn_tpu_torch.serving.paged import (PagePool, RadixPrefixIndex,
                                                prefix_key)
 from chainermn_tpu_torch.utils.failure import OverloadError, WeightSwapError
@@ -325,6 +338,64 @@ def _signature(args):
                  for a in args)
 
 
+#: the bucket families of an engine, in the JAX engine's ``warmup``
+#: order (the last three on a speculative engine only)
+FAMILIES = ('prefill', 'decode', 'draft_prefill', 'draft_decode', 'verify')
+
+
+class _Call:
+    """One call of the engine: a ``(family, bucket)``, or for a paged
+    prefill ``(family, width, first)``.  Its int32 operands live in one
+    device buffer, viewed per operand (``views``), and on the card are
+    staged through a pinned host twin (``host_views``, numpy), so that a
+    call costs one host-to-device copy.  ``body(views)`` runs the model
+    function over the views and returns ``(logits, greedy ids)``; on the
+    card with ``aot`` it is captured once into ``graph``, whose outputs
+    are ``out``, and a call replays it.  ``launches`` are the kernel
+    wrappers' counts recorded at capture, ``replays`` the replays since."""
+
+    def __init__(self, layout, body, device):
+        sizes = [int(np.prod(shape)) for _, shape in layout]
+        with torch.inference_mode(False):
+            self.flat = torch.zeros(sum(sizes), dtype=torch.int32,
+                                    device=device)
+            self.host = (torch.zeros(sum(sizes), dtype=torch.int32,
+                                     pin_memory=True)
+                         if device.type == 'cuda' else self.flat)
+        host = self.host.numpy()
+        self.views, self.host_views = {}, {}
+        off = 0
+        for (name, shape), n in zip(layout, sizes):
+            self.views[name] = self.flat[off:off + n].view(shape)
+            self.host_views[name] = host[off:off + n].reshape(shape)
+            off += n
+        self.body = body
+        self.graph = self.out = self.counters = None
+        self.launches = {}
+        self.replays = 0
+        self.ran = False
+
+    def stage(self, operands):
+        """Copy ``operands`` (name -> numpy array or int) into the
+        buffers."""
+        for name, value in operands.items():
+            self.host_views[name][...] = value
+        if self.host is not self.flat:
+            self.flat.copy_(self.host, non_blocking=True)
+
+    def eager(self):
+        return self.body(self.views)
+
+    def run(self):
+        """Replay the graph, or run the body eagerly."""
+        self.ran = True
+        if self.graph is None:
+            return self.eager()
+        self.graph.replay()
+        self.replays += 1
+        return self.out
+
+
 def _unported(what, item='A8'):
     raise NotImplementedError('%s is not ported yet (ROADMAP.md %s)'
                               % (what, item))
@@ -367,6 +438,10 @@ class GenerationEngine:
       spec_tokens: the verify window ``k`` (>= 2): one tick runs ``k``
         draft decode steps and one target verify, committing 1..k tokens
         per row.
+      cache_dir: accepted; a CUDA graph cannot be persisted, so
+        ``cache_persistent`` stays False.
+      aot: on a CUDA device, capture one CUDA graph per bucket (module
+        docstring); ``False`` runs every bucket eagerly on the card too.
       device: where the engine runs (default: the current CUDA device;
         raises when there is none).
 
@@ -379,11 +454,19 @@ class GenerationEngine:
                  paged=False, page_size=16, n_pages=None,
                  prefill_chunk=None, prefix_sharing=True, draft_model=None,
                  draft_params=None, spec_tokens=4, plan=None,
-                 param_specs=None, device=None):
+                 param_specs=None, cache_dir=None, aot=True, device=None):
         if plan is not None or param_specs is not None:
             _unported('tensor-parallel serving (plan=, param_specs=)', 'A7')
         self.model = model
         self.device = resolve_device(device)
+        self.cache_dir = cache_dir
+        self.cache_persistent = False
+        self.aot_requested = bool(aot)
+        self._graphed = self.aot_requested and self.device.type == 'cuda'
+        self._calls = {}            # key -> _Call (see _Call)
+        self._capture_stream = self._pool = None
+        #: graph captures by family
+        self.captures = dict.fromkeys(FAMILIES, 0)
         self.param_version = 0
         self.n_slots = int(n_slots)
         #: admissions per tick (None: every free slot)
@@ -463,9 +546,6 @@ class GenerationEngine:
         self._slots = {}        # slot id -> _Slot (decode phase)
         self._prefilling = {}   # slot id -> _PrefillState (paged only)
         self._free = list(range(self.n_slots))
-        self._prefill_run = set()   # prefill widths run so far
-        self._decode_run = set()    # decode buckets run so far
-        self._verify_run = set()    # verify buckets run so far
         self._signatures = self._bucket_signatures()
         self.prefills = 0
         self.prefill_chunks = 0
@@ -532,9 +612,13 @@ class GenerationEngine:
         :class:`~chainermn_tpu_torch.utils.failure.WeightSwapError`
         (engine unchanged) while sequences are in flight: their KV caches
         were banked under the incumbent weights.  Validation runs one
-        full-slot decode step with the new tree over the idle cache (the
-        warmup's garbage-write contract) and requires finite logits; then
-        the tree is cut over and the old one freed."""
+        eager full-slot decode step with the new tree over the idle cache
+        (the warmup's garbage-write contract) and requires finite logits.
+        Then the tree is cut over: under CUDA graphs (which read fixed
+        addresses) it is copied into the captured storage in place, int8
+        ``q`` and scales too, so that the next replay reads it and no
+        graph is captured again (a tree of other shapes or dtypes is
+        refused); eagerly the engine takes the new tree."""
         if self._slots or self._prefilling:
             raise WeightSwapError(
                 'swap requires a drained replica: %d sequence(s) still in '
@@ -544,11 +628,12 @@ class GenerationEngine:
         new = self._place_params(params)
         if validate:
             b = self.n_slots
-            zeros = np.zeros((b,), np.int32)
+            zeros = torch.zeros((b,), dtype=torch.int32, device=self.device)
+            rows = self._zero_rows(b)
             try:
                 logits = self._decode_logits(
                     self.model, self._view(new), self._cache, zeros, zeros,
-                    self._zero_rows(b))
+                    None if rows is None else self._dev(rows))
                 finite = bool(torch.isfinite(logits).all())
             except Exception as e:
                 raise WeightSwapError(
@@ -560,7 +645,14 @@ class GenerationEngine:
                     'swap validation produced non-finite logits -- '
                     'refusing cutover to version %r' % (version,),
                     version=version)
-        self.params = new
+        if self._graphed:
+            try:
+                copy_params_(self.params, new)
+            except ValueError as e:
+                raise WeightSwapError('swap refused: %s' % e,
+                                      version=version) from e
+        else:
+            self.params = new
         self.param_version = (int(version) if version is not None
                               else self.param_version + 1)
         _telemetry.event('weight_swap', kind='serve')
@@ -583,9 +675,12 @@ class GenerationEngine:
         return cls(model, load_params(path, params_template), **kw)
 
     # -- device calls --------------------------------------------------
-    def _tokens(self, logits):
-        """Greedy tokens of ``logits`` ``(..., V)`` as numpy."""
-        return torch.argmax(logits, dim=-1).reshape(-1).cpu().numpy()
+    def _read(self, logits, ids):
+        """The host's read of one call: its greedy ids as numpy, the only
+        values that cross to the host.  ``logits`` are the call's logits
+        on the device (a graph's output: valid until the engine's next
+        call); a subclass may check them here."""
+        return ids.cpu().numpy()
 
     def _dev(self, a):
         return torch.from_numpy(np.asarray(a)).to(self.device)
@@ -602,61 +697,136 @@ class GenerationEngine:
             return self.draft_model, self._draft_params, self._draft_cache
         return self.model, self._view(self.params), self._cache
 
+    def _layout(self, key):
+        """``(name, shape)`` of each int32 operand of a call."""
+        family, bucket = key[:2]
+        if family.endswith('prefill'):
+            layout = [('tokens', (1, bucket)), ('length', ())]
+            if self.paged:
+                return layout + [('pos0', ()),
+                                 ('table', (self.pages_per_seq,))]
+            return layout + [('slot', ())]
+        window = (self.spec_tokens,) if family == 'verify' else ()
+        layout = [('tokens', (bucket,) + window), ('positions', (bucket,))]
+        if self.paged:
+            return layout + [('rows', (bucket, self.pages_per_seq))]
+        return layout + ([('rows', (bucket,))] if bucket != self.n_slots
+                         else [])
+
+    def _body(self, key):
+        """What a call runs (and a graph captures): the family's model
+        function over the call's operand views, then the greedy argmax.
+        Returns ``(logits, ids)``."""
+        family = key[0]
+        draft = family.startswith('draft')
+
+        def body(o):
+            model, params, cache = self._twin(draft)
+            with torch.inference_mode():
+                if family.endswith('prefill') and self.paged:
+                    logits, _ = prefill_paged(
+                        model, params, cache, o['tokens'], o['length'],
+                        o['table'], o['pos0'], first=key[2])
+                elif family.endswith('prefill'):
+                    logits, _ = prefill(model, params, cache, o['tokens'],
+                                        o['length'], o['slot'])
+                elif family == 'verify':
+                    logits = self._verify_logits(o['tokens'], o['positions'],
+                                                 o.get('rows'))
+                else:
+                    logits = self._decode_logits(
+                        model, params, cache, o['tokens'], o['positions'],
+                        o.get('rows'))
+                return logits, torch.argmax(logits, dim=-1)
+
+        return body
+
+    def _call(self, key):
+        call = self._calls.get(key)
+        if call is None:
+            call = self._calls[key] = _Call(self._layout(key),
+                                            self._body(key), self.device)
+        return call
+
+    def _capture(self, key, call):
+        """Capture one call's graph over its staged operands
+        (:func:`~chainermn_tpu_torch.serving.engine.capture_graph`).  The
+        engine's graphs share one capture stream and one memory pool: they
+        replay one at a time, and each call's outputs are read before the
+        next replay."""
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        call.graph, call.out, call.launches, call.counters = capture_graph(
+            call.eager, self.device, stream=self._capture_stream,
+            pool=self._pool)
+        self.captures[key[0]] += 1
+
+    def _run(self, key, operands):
+        """Stage ``operands`` into the call's buffers and run it (a replay
+        under graphs, captured on first use when ``warmup`` skipped it: the
+        warm-up and the capture run over the same operands, whose cache
+        writes are the call's own); returns the greedy ids as numpy."""
+        call = self._call(key)
+        call.stage(operands)
+        if self._graphed and call.graph is None:
+            self._capture(key, call)
+        return self._read(*call.run())
+
     def _run_prefill(self, tokens, length, where, draft=False):
         """One prefill of the target (or the draft): ``where`` is the
         slot id, or ``(pos0, page table)`` in paged mode."""
-        model, params, cache = self._twin(draft)
-        with torch.inference_mode():
-            if self.paged:
-                pos0, table = where
-                logits, _ = prefill_paged(model, params, cache,
-                                          self._dev(tokens), length,
-                                          self._dev(table), pos0)
-            else:
-                logits, _ = prefill(model, params, cache, self._dev(tokens),
-                                    length, where)
-            return int(self._tokens(logits)[0])
+        family = 'draft_prefill' if draft else 'prefill'
+        width = tokens.shape[1]
+        if self.paged:
+            pos0, table = where
+            return int(self._run((family, width, bool(pos0 == 0)),
+                                 dict(tokens=tokens, length=length,
+                                      pos0=pos0, table=table)))
+        return int(self._run((family, width),
+                             dict(tokens=tokens, length=length, slot=where)))
 
     def _run_decode(self, tokens, positions, rows=None, draft=False):
         """One decode step of the target (or the draft): ``rows`` is the
         row -> slot map of a compacted slot bucket (``None``: the full
         bucket), or the page tables in paged mode."""
-        model, params, cache = self._twin(draft)
-        with torch.inference_mode():
-            return self._tokens(self._decode_logits(
-                model, params, cache, tokens, positions, rows))
+        operands = dict(tokens=tokens, positions=positions)
+        if rows is not None:
+            operands['rows'] = rows
+        return self._run(('draft_decode' if draft else 'decode',
+                          len(tokens)), operands)
 
     def _decode_logits(self, model, params, cache, tokens, positions, rows):
         """The logits of one decode step of ``model`` over ``params`` (as
-        the model functions read them) on ``cache``."""
-        tokens, positions = self._dev(tokens), self._dev(positions)
+        the model functions read them) on ``cache``; device operands."""
         with torch.inference_mode():
             if self.paged:
                 logits, _ = decode_step_paged(model, params, cache, tokens,
-                                              positions, self._dev(rows))
+                                              positions, rows)
             else:
-                logits, _ = decode_step(
-                    model, params, cache, tokens, positions,
-                    slots=None if rows is None else self._dev(rows))
+                logits, _ = decode_step(model, params, cache, tokens,
+                                        positions, slots=rows)
         return logits
 
     def _run_verify(self, window, positions, rows=None):
         """One target verify pass over ``window`` ``(bucket, k)``;
         ``rows`` as :meth:`_run_decode` takes it.  Returns the target's
         greedy token after every window column, ``(bucket, k)``."""
-        tokens, positions = self._dev(window), self._dev(positions)
-        with torch.inference_mode():
-            if self.paged:
-                logits, _ = spec_verify_paged(self.model,
-                                              self._view(self.params),
-                                              self._cache, tokens, positions,
-                                              self._dev(rows))
-            else:
-                logits, _ = spec_verify(
-                    self.model, self._view(self.params), self._cache,
-                    tokens, positions,
-                    slots=None if rows is None else self._dev(rows))
-            return self._tokens(logits).reshape(window.shape)
+        operands = dict(tokens=window, positions=positions)
+        if rows is not None:
+            operands['rows'] = rows
+        return self._run(('verify', len(window)), operands)
+
+    def _verify_logits(self, tokens, positions, rows):
+        """The logits of one target verify pass; device operands."""
+        params = self._view(self.params)
+        if self.paged:
+            logits, _ = spec_verify_paged(self.model, params, self._cache,
+                                          tokens, positions, rows)
+        else:
+            logits, _ = spec_verify(self.model, params, self._cache, tokens,
+                                    positions, slots=rows)
+        return logits
 
     def _copy_page(self, src, dst):
         """Copy pool page ``src`` into the private page ``dst`` (already
@@ -681,53 +851,95 @@ class GenerationEngine:
         return (None if bucket == self.n_slots
                 else np.arange(bucket, dtype=np.int32))
 
+    def _families(self):
+        return FAMILIES if self.speculative else FAMILIES[:2]
+
+    def _warm_keys(self, family):
+        """``(bucket, call keys)`` of a family, largest bucket first."""
+        if not family.endswith('prefill'):
+            return [(b, [(family, b)])
+                    for b in sorted(self.decode_edges, reverse=True)]
+        widths = sorted(self._prefill_widths, reverse=True)
+        if self.paged:
+            return [(w, [(family, w, True), (family, w, False)])
+                    for w in widths]
+        return [(w, [(family, w)]) for w in widths]
+
+    def _zero_operands(self, key):
+        """Operands that write only where nothing is attended: on an idle
+        engine every slot is free and every table points at the scratch
+        page."""
+        out = {name: 0 for name, _ in self._layout(key)}
+        if 'length' in out:
+            out['length'] = 1
+        if 'rows' in out:
+            out['rows'] = self._zero_rows(key[1])
+        return out
+
+    def _prepared(self, key):
+        call = self._calls.get(key)
+        return call is not None and (call.graph is not None
+                                     if self._graphed else call.ran)
+
     def warmup(self):
-        """Run every prefill width and decode bucket once, largest first,
-        on the idle engine (and the page copy, the draft's prefill and
-        decode buckets and the verify buckets where they exist): the
-        first call builds the kernels.  Every slot is free and every
-        table all zeros, so what the runs write is never attended.
-        Returns ``{'prefill': {width: seconds}, 'decode': {bucket:
-        seconds}}``, plus ``'draft_prefill'``, ``'draft_decode'`` and
+        """Prepare every prefill width and decode bucket, largest first
+        (and on a speculative engine every draft prefill width, draft
+        decode bucket and verify bucket), each under a ``serve_warmup``
+        span: on the card with ``aot`` capture its graph, else run it
+        once.  The runs use zero operands on the idle engine: every slot
+        is free and every table all zeros, so what they write is never
+        attended.  Buckets already prepared are skipped.  Returns the
+        JAX engine's ``{'prefill': {width: aot}, 'decode': {bucket:
+        aot}}``, plus ``'draft_prefill'``, ``'draft_decode'`` and
         ``'verify'`` on a speculative engine."""
-        if self._slots or self._prefilling:
+        plan = [(family, bucket, keys) for family in self._families()
+                for bucket, keys in self._warm_keys(family)]
+        todo = [item for item in plan
+                if not all(self._prepared(k) for k in item[2])]
+        if todo and (self._slots or self._prefilling):
             raise RuntimeError('warmup needs an idle engine: %d sequences '
                                'are live'
                                % (len(self._slots) + len(self._prefilling)))
-        drafts = (False, True) if self.speculative else (False,)
-        out = {}
-        for draft in drafts:
-            key = 'draft_prefill' if draft else 'prefill'
-            out[key] = {}
-            for width in sorted(self._prefill_widths, reverse=True):
-                where = ((0, np.zeros((self.pages_per_seq,), np.int32))
-                         if self.paged else 0)
-                t0 = time.perf_counter()
-                self._run_prefill(np.zeros((1, width), np.int32), 1, where,
-                                  draft)
-                out[key][width] = time.perf_counter() - t0
-                self._prefill_run.add(width)
-        for draft in drafts:
-            key = 'draft_decode' if draft else 'decode'
-            out[key] = {}
-            for bucket in sorted(self.decode_edges, reverse=True):
-                zeros = np.zeros((bucket,), np.int32)
-                t0 = time.perf_counter()
-                self._run_decode(zeros, zeros, self._zero_rows(bucket),
-                                 draft)
-                out[key][bucket] = time.perf_counter() - t0
-                self._decode_run.add(bucket)
-        if self.speculative:
-            out['verify'] = {}
-            for bucket in sorted(self.decode_edges, reverse=True):
-                t0 = time.perf_counter()
-                self._run_verify(
-                    np.zeros((bucket, self.spec_tokens), np.int32),
-                    np.zeros((bucket,), np.int32), self._zero_rows(bucket))
-                out['verify'][bucket] = time.perf_counter() - t0
-                self._verify_run.add(bucket)
-        if self.paged:
+        for family, bucket, keys in todo:
+            with _telemetry.span('serve_warmup', kind='serve', phase=family,
+                                 bucket=bucket):
+                for key in keys:
+                    if self._prepared(key):
+                        continue
+                    call = self._call(key)
+                    call.stage(self._zero_operands(key))
+                    if self._graphed:
+                        self._capture(key, call)
+                    else:
+                        call.run()
+        if self.paged and todo:
             self._copy_leaves(0, 0)
+        return self._aot_table(self._families())
+
+    def _buckets(self, family):
+        return sorted({key[1] for key in self._calls if key[0] == family})
+
+    def _aot_table(self, families):
+        """``{family: {bucket: aot}}`` over the prepared buckets: a bucket
+        is ``aot`` when every call of it replays a graph."""
+        return {family: {b: all(call.graph is not None
+                                for key, call in self._calls.items()
+                                if key[:2] == (family, b))
+                         for b in self._buckets(family)}
+                for family in families}
+
+    def replayed_launches(self, since=None):
+        """Kernel launches made by graph replays: each call's replays
+        (less its count in ``since``, an earlier ``stats()['replays']``)
+        times the wrapper counts recorded at its capture, summed by kernel
+        name (``'<name>.tc'`` for the tensor-core routes).  A replay counts
+        nothing in ``ops.launch_counts()``; eager runs are counted there."""
+        since = since or {}
+        out = {}
+        for key, call in self._calls.items():
+            n = call.replays - since.get(key, 0)
+            for name, count in call.launches.items():
+                out[name] = out.get(name, 0) + n * count
         return out
 
     def guard_signature(self, args):
@@ -921,7 +1133,6 @@ class GenerationEngine:
                 # the draft banks the prompt in its own cache; its own
                 # first token is discarded (the target's is authoritative)
                 self._run_prefill(tokens, prompt.size, sid, draft=True)
-            self._prefill_run.add(bucket)
             self._first_token(sid, req, tok, clock, t_pf0,
                               dict(bucket=bucket))
 
@@ -1012,7 +1223,6 @@ class GenerationEngine:
                 # the same chunk into the same pages of the draft cache:
                 # banked prefix pages then serve the draft too
                 self._run_prefill(tokens, n, (st.pos, table), draft=True)
-            self._prefill_run.add(width)
             st.pos += n
             st.chunks += 1
             self.prefill_chunks += 1
@@ -1150,7 +1360,6 @@ class GenerationEngine:
         t0 = clock()
         toks = self._run_decode(tokens, positions, row_op)
         now = clock()
-        self._decode_run.add(bucket)
         for i, sid in enumerate(rows):
             slot = self._slots.get(sid)
             if slot is None:
@@ -1221,7 +1430,6 @@ class GenerationEngine:
         guard(win, base_pos)
         tgt = self._run_verify(win, base_pos, row_op)
         now = clock()
-        self._verify_run.add(bucket)
         self.verify_steps += 1
         proposed = accepted = emitted_total = 0
         for i, sid in enumerate(rows):
@@ -1322,25 +1530,35 @@ class GenerationEngine:
                 time.sleep(idle_sleep)
 
     def stats(self):
-        """Counters and geometry; the JAX package's compile and trace
-        counts are 0 and every bucket's ``aot`` False, since the port
-        captures no graph for generation yet (ROADMAP.md A8)."""
+        """Counters and geometry, with the JAX engine's keys: ``aot`` per
+        prepared bucket (True where its calls replay CUDA graphs),
+        ``aot_requested``, ``cache_persistent`` (a graph cannot be
+        persisted), and the trace and compile counts as graph captures (0
+        eagerly).  ``replays`` and ``graph_launches`` (by call key) are
+        what :meth:`replayed_launches` multiplies; the page copy
+        (``copy_aot``) always runs eagerly."""
         out = {
-            'prefill_buckets': sorted(self._prefill_run),
-            'decode_buckets': sorted(self._decode_run),
+            'prefill_buckets': self._buckets('prefill'),
+            'decode_buckets': self._buckets('decode'),
             'param_version': self.param_version,
             'prefill_edges': list(self.prefill_edges),
             'decode_edges': list(self.decode_edges),
             'n_slots': self.n_slots,
-            'aot': {'prefill': dict.fromkeys(sorted(self._prefill_run),
-                                             False),
-                    'decode': dict.fromkeys(sorted(self._decode_run),
-                                            False)},
+            'aot': self._aot_table(('prefill', 'decode')),
+            'aot_requested': self.aot_requested,
+            'cache_dir': self.cache_dir,
+            'cache_persistent': self.cache_persistent,
             'quantized': self.quantized,
             'int8_kv': self.int8_kv,
-            'prefill_trace_count': 0,
-            'decode_trace_count': 0,
-            'compile_count': 0,
+            'prefill_trace_count': self.captures['prefill'],
+            'decode_trace_count': self.captures['decode'],
+            'compile_count': sum(self.captures.values()),
+            'replays': {key: call.replays
+                        for key, call in self._calls.items()
+                        if call.graph is not None},
+            'graph_launches': {key: dict(call.launches)
+                               for key, call in self._calls.items()
+                               if call.graph is not None},
             'prefills': self.prefills,
             'decode_steps': self.decode_steps,
             'tokens_generated': self.tokens_generated,
@@ -1357,7 +1575,7 @@ class GenerationEngine:
                 prefill_chunk=self.prefill_chunk,
                 prefill_chunks=self.prefill_chunks,
                 cow_copies=self.cow_copies, copy_trace_count=0,
-                prefilling=len(self._prefilling))
+                copy_aot=False, prefilling=len(self._prefilling))
             if self._prefix_index is not None:
                 index = self._prefix_index
                 out.update(prefix_lookups=index.lookups,
@@ -1375,8 +1593,11 @@ class GenerationEngine:
                 'accepted_draft_rate': (
                     self.draft_accepted / self.draft_proposed
                     if self.draft_proposed else None),
-                'verify_buckets': sorted(self._verify_run),
-                'draft_trace_count': 0,
-                'verify_trace_count': 0,
+                'draft_decode_buckets': self._buckets('draft_decode'),
+                'verify_buckets': self._buckets('verify'),
+                'draft_trace_count': (self.captures['draft_prefill']
+                                      + self.captures['draft_decode']),
+                'verify_trace_count': self.captures['verify'],
+                'aot': self._aot_table(FAMILIES[2:]),
             }
         return out

@@ -116,7 +116,9 @@ def open_loop_generate(engine, queue, rate, n_requests, seed=0,
     """Open-loop driver for the :class:`GenerationEngine`: the unit of
     work is a sequence and the report's currency tokens -- generated
     tokens/s over the serve window, time to first token, inter-token time
-    and decode-step p50 / p99 from the telemetry histograms.
+    and decode-step p50 / p99 from the telemetry histograms.  The engine
+    (idle) is warmed first, so that every bucket's graph is captured
+    before the window.
 
     Args:
       rate: offered request rate (req/s).
@@ -151,6 +153,9 @@ def open_loop_generate(engine, queue, rate, n_requests, seed=0,
                 shed += 1
         return admitted, shed
 
+    # every bucket captured (or run once) before the window, so that no
+    # capture is paid inside it
+    engine.warmup()
     st0 = engine.stats()
     admitted, shed_submit, c, t0, t1, reg, worst = _window(
         engine, queue, submit_all, result_timeout, clock, capture_dir)

@@ -153,11 +153,18 @@ Phases, each printing its own lines; any failure exits non-zero:
 7. the serving main path: ``GenerationEngine`` over the full-width
    ``TransformerLM`` of the repo's serving benchmark (32000 vocab, d
    512, 8 heads, 6 layers, d_ff 2048) under ``Policy.bf16()``, 32
-   slots, 64 prompts of 4..128 tokens, 32 new tokens each, with the
-   launch counts checked against the structure, tokens/s, TTFT, the
-   decode step, a profile of decode steps, a replay of the same
-   requests with every step's logits checked finite, and an int8-KV
-   engine;
+   slots, 64 prompts of 4..128 tokens, 32 new tokens each, on one CUDA
+   graph per bucket (the default ``aot=True``: the serving engines of
+   phases 6-7e all replay graphs), with the launch counts
+   checked against the structure, tokens/s, TTFT, the decode step, a
+   profile of decode steps, a replay of the same requests with every
+   call's logits checked finite, and an int8-KV engine.  A replay counts
+   nothing in the wrappers: a graphed path's launches are its replays
+   times the counts recorded at each capture (``_path_counts``; no
+   wrapper may count an eager launch in the window), and a profiled
+   drain of 8 requests holds the LayerNorm, flash forward and decode
+   kernels of its trace to that figure (``_hold_trace``; phases 7, 7b,
+   7c, 7e and 7f);
 7a. paged check: at full width, depth 2, f32, from phase 6's weights,
    the paged engine (whole prompts; chunks of 8; a shared-prefix set
    that hits the radix index and copies on write) and the speculative
@@ -208,7 +215,19 @@ Phases, each printing its own lines; any failure exits non-zero:
    capacity in slot and in paged mode, and an ``Int8Policy.bf16()`` run
    of the probe's requests; launch counts checked, tokens/s, TTFT,
    inter-token and decode-step p50/p99, and how many greedy streams of
-   the int8 engine equal the bf16 engine's;
+   the int8 engine equal the bf16 engine's; a profiled window of 16
+   requests holds its traced kernels;
+7f. the generation graphs (``serve_graphs``): the serving LM in six
+   modes (slot; paged with prefix sharing, the shared-prefix set too;
+   ``prefill_chunk=32``; speculative with the 3-layer draft, paged;
+   ``Int8Policy.bf16()`` weights; ``int8_kv``), each on an engine with
+   ``aot=True`` and one with ``aot=False`` over the same 64 prompts:
+   every bucket captured, every stream identical, the first logits of
+   each call shape and every call's logits on the idle engines
+   (each bucket of each family) bit-equal, traced launches equal to
+   replays times the captured counts; eager against graphed tokens/s,
+   decode-step p50/p99, TTFT p50, the busy share of a full-bucket decode
+   tick, captures, their seconds and the engine's memory;
 8. the training kernels against their plain versions on the card: the
    fused cross-entropy forward at the LM's ``(8192, 32000)`` f32 logits,
    and the two flash-attention backward kernels (dq with ``delta``; dk
@@ -238,8 +257,12 @@ for a lost trace: every check and every time of the contract comes from
 the kernels' results and from CUDA events).
 
 The ``bn_apply`` row's ``inference_*`` keys are phase 7d's reading of
-the inference call.  No PyTorch call computes the ``bn_apply`` row's
-case (+ residual, + relu), so its ``library_ms`` is null.
+the inference call, warm (its three operands stay in the 50 MB L2
+between launches) and cold (``inference_cold_*``: the L2 flushed by a
+128 MiB write before each launch, outside the timed span; the share of
+the bound is taken from the cold device time).  No PyTorch call
+computes the ``bn_apply`` row's case (+ residual, + relu), so its
+``library_ms`` is null.
 ``F.batch_norm(training=False)`` on the same statistics computes the
 kernel's no-residual, no-relu case:
 the ``no_residual_*`` keys time the kernel and that call in that case,
@@ -252,10 +275,12 @@ backward.
 
 A kernel row's ``launches`` sums the main paths that run it
 (``launches_by_path`` splits them); each path is driven with the counts
-set to 0 just before it and read just after.  The rows of the kernels
-with a tensor-core route (bf16 ``flash_fwd``, ``flash_bwd_dq`` and
-``flash_bwd_dkv``) add ``tc_launches``: every launch of theirs on a main
-path took it (each path asserts so), their times are the tensor-core
+set to 0 just before it and read just after; a graphed serving path's
+launches are its replays times the launches recorded at capture.  The
+rows of the kernels with a tensor-core route (bf16 ``flash_fwd``,
+``flash_bwd_dq`` and ``flash_bwd_dkv``) add ``tc_launches``: every
+launch of theirs on a main path took it (each path asserts so), their
+times are the tensor-core
 kernel's at the LM shape, and ``scalar_f32_ms`` / ``scalar_f32_device_ms``
 time the scalar kernel on f32 operands of that shape in the same call.
 The ``momentum_sgd`` row times ``FusedMomentumSGD.step`` over the 161
@@ -380,6 +405,51 @@ def timings(kernel, plain, library, iters=20, plain_iters=None):
         out.update(library_ms=time_ms(library, iters),
                    library_device_ms=device_ms(library, iters))
     return out
+
+
+# bytes written between launches by ``cold_times``: more than the
+# H100's 50 MB L2, so that a launch finds its operands in HBM
+L2_FLUSH_BYTES = 128 * 2 ** 20
+
+
+def cold_times(fn, event, iters=20):
+    """``fn`` with the L2 flushed before each launch (a write of
+    ``L2_FLUSH_BYTES`` outside the timed span): the mean ms between CUDA
+    events around each call, and the mean device ms of the kernels whose
+    name matches ``event`` in a profiled run of the same loop (None when
+    every trace came back empty)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device='cuda')
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(3):
+        flush.fill_(0.0)
+        fn()
+    total = 0.0
+    for i in range(iters):
+        flush.fill_(float(i))
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    device = None
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                flush.fill_(float(i))
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and re.search(event, e.key))
+        if us > 0:
+            device = us / iters / 1e3
+            break
+        _say('profile', 'a trace held no device event')
+    return total / iters, device
 
 
 def _ms(t):
@@ -3386,20 +3456,119 @@ def _numpy_lm_weights(model, seed):
 
 
 def finite_engine(*args, **kw):
-    """A ``GenerationEngine`` that checks every step's logits finite
-    before its greedy pick (one more reduction and host read per step:
-    used outside the timed run)."""
+    """A ``GenerationEngine`` that checks every call's logits finite
+    where the host reads the call's greedy ids (``_read``: the graph's
+    own output under CUDA graphs; one more reduction and host read per
+    call: used outside the timed run)."""
     import torch
     from chainermn_tpu_torch import serving
 
     class FiniteEngine(serving.GenerationEngine):
-        def _tokens(self, logits):
+        def _read(self, logits, ids):
             if not bool(torch.isfinite(logits).all()):
                 raise AssertionError('non-finite logits in a %s step' % (
                     'prefill' if logits.dim() == 1 else 'decode'))
-            return super()._tokens(logits)
+            return super()._read(logits, ids)
 
     return FiniteEngine(*args, **kw)
+
+
+def _graphed(eng):
+    """Whether ``eng`` runs CUDA graphs (``aot`` on a CUDA device, the
+    only other device type than the CPU the engines take)."""
+    return eng.aot_requested and eng.device.type != 'cpu'
+
+
+def _path_counts(eng, since):
+    """A serving path's launches, as ``(counts, tc counts)`` keyed as
+    ``ops.launch_counts()`` and ``ops.tc_launch_counts()``: the wrappers'
+    counts (eager launches, read now) plus those of ``eng``'s graph
+    replays since the replay snapshot ``since`` (``stats()['replays']``;
+    replays times the counts recorded at capture).  A graphed engine must
+    launch nothing eagerly after its warm-up."""
+    from chainermn_tpu_torch import ops
+    eager, eager_tc = ops.launch_counts(), ops.tc_launch_counts()
+    graph = eng.replayed_launches(since)
+    if _graphed(eng) and any(eager.values()):
+        raise AssertionError('a graphed engine launched kernels eagerly in '
+                             'its window: %s' % {
+                                 k: v for k, v in eager.items() if v})
+    return ({k: eager[k] + graph.get(k, 0) for k in eager},
+            {k: eager_tc[k] + graph.get(k + '.tc', 0) for k in eager_tc})
+
+
+# kernels launched and finished at the start of a trace whose kernels are
+# counted: late in this script the tracer drops the first few kernel
+# records of a session (one LayerNorm and one flash forward of a held
+# serving window, or one bn_apply of the request-serving window; fewer
+# after a prelude of 8, none in a short process), so the prelude's
+# records are the ones it drops
+TRACE_PRELUDE = 64
+
+
+def trace_prelude(device):
+    """Launch ``TRACE_PRELUDE`` small kernels on ``device`` and wait for
+    them: called first inside a ``torch.profiler`` session whose kernels
+    are counted."""
+    import torch
+    x = torch.zeros(1, device=device)
+    for _ in range(TRACE_PRELUDE):
+        x.add_(1.0)
+    torch.cuda.synchronize()
+
+# the serving kernels' events in a profiler trace (CUPTI traces the kernels
+# of a graph replay one by one): LayerNorm, the flash forward (tensor-core
+# or scalar), the decode kernel's slot and paged instantiations
+GEN_EVENTS = {'layer_norm': r'\bln_kernel<',
+              'flash_fwd': r'\bflash_fwd_(tc_)?kernel\b',
+              'flash_decode': r'\bflash_decode_split_kernel<[^()]*\bfalse>',
+              'flash_decode_paged':
+                  r'\bflash_decode_split_kernel<[^()]*\btrue>'}
+
+
+def _hold_trace(what, eng, run):
+    """``run()`` under ``torch.profiler``: the LayerNorm, flash forward
+    and decode kernels its trace holds must equal ``eng``'s replays in it
+    times the launches recorded at each capture, and no wrapper may count
+    an eager launch.  ``run()`` follows ``trace_prelude``.  The tracer
+    also loses whole sessions now and then: a trace that holds no
+    device event, or fewer of these kernels than the replays made, is
+    taken again with a new ``run()``, and ``PROFILE_TRIES`` such traces
+    fail; a trace that holds more fails at once.  Returns the traced
+    counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from chainermn_tpu_torch import ops
+    for _ in range(PROFILE_TRIES):
+        since = eng.stats()['replays']
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            trace_prelude(eng.device)
+            run()
+            torch.cuda.synchronize()
+        if sum(_kernel_times(prof).values()) == 0:
+            _say('profile', 'a trace held no device event')
+            continue
+        want = {k: v for k, v in _path_counts(eng, since)[0].items()
+                if k in GEN_EVENTS}
+        got = {k: _kernel_count(prof, pattern)
+               for k, pattern in GEN_EVENTS.items()}
+        if got == want and any(got.values()):
+            return got
+        if any(got[k] > want[k] for k in got) or not any(want.values()):
+            raise AssertionError('%s: the trace holds %s kernels, the '
+                                 'replays times the captured launches %s'
+                                 % (what, got, want))
+        _say('profile', '%s: a trace lost kernel records: it holds %s, the '
+             'replays made %s; its kernels by name: %s' % (
+                 what, got, want, sorted(
+                     (evt.key[:72], evt.count) for evt in prof.key_averages()
+                     if evt.device_type == torch.autograd.DeviceType.CUDA
+                     and ('ln_' in evt.key or 'flash' in evt.key))))
+    raise AssertionError('%s: %d traces without a device event or with '
+                         'kernels lost' % (what, PROFILE_TRIES))
 
 
 def _drain(eng, queue, reqs, max_steps=10000):
@@ -3540,8 +3709,9 @@ def profile_decode(eng, queue, n=5):
 
 def _timed_serve(eng, queue, prompts, n_new=SERVE_NEW):
     """Submit ``prompts`` at once and drain them through ``step()``, with
-    the launch counts set to 0 just before and read just after.  Returns
-    the outputs, the counts, ``stats()``, the wall time, the TTFTs (from
+    the launch counts set to 0 just before and read just after (the
+    wrappers' and the graph replays', :func:`_path_counts`).  Returns the
+    outputs, the counts, ``stats()``, the wall time, the TTFTs (from
     submit), the times of ticks that ran no prefill work, and the peak
     memory."""
     import torch
@@ -3556,6 +3726,7 @@ def _timed_serve(eng, queue, prompts, n_new=SERVE_NEW):
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    since = eng.stats()['replays']
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     reqs = [queue.submit(p, n_new, on_token=on_token) for p in prompts]
@@ -3567,8 +3738,9 @@ def _timed_serve(eng, queue, prompts, n_new=SERVE_NEW):
                       eng.prefills + eng.prefill_chunks - n0))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return dict(outs=[r.result() for r in reqs], counts=ops.launch_counts(),
-                tc=ops.tc_launch_counts(), stats=eng.stats(), wall=wall,
+    counts, tc = _path_counts(eng, since)
+    return dict(outs=[r.result() for r in reqs], counts=counts, tc=tc,
+                stats=eng.stats(), wall=wall,
                 ttft=sorted(first[r.request_id] - t0 for r in reqs),
                 decode=sorted(t for t, n in steps if n == 0),
                 peak=torch.cuda.max_memory_allocated())
@@ -3590,6 +3762,29 @@ def _serve_metrics(res):
                 1e3 * decode[len(decode) // 2], len(decode),
                 1e3 * decode[min(len(decode) - 1, int(0.99 * len(decode)))],
                 res['peak'] / 2 ** 30))
+
+
+def _warm(eng):
+    """Warm ``eng`` up: one CUDA graph per bucket (every bucket must come
+    back ``aot``), or one eager run each with ``aot=False``.  Returns its
+    buckets, captures, seconds and the memory it allocated, with a log
+    line of them (``line``)."""
+    import torch
+    gc.collect()            # earlier engines' caches, freed by then
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    warm = eng.warmup()
+    torch.cuda.synchronize()
+    out = dict(seconds=time.perf_counter() - t0,
+               buckets=sum(len(b) for b in warm.values()),
+               captures=eng.stats()['compile_count'],
+               mib=(torch.cuda.memory_allocated() - mem0) / 2 ** 20)
+    if _graphed(eng) and not all(all(b.values()) for b in warm.values()):
+        raise AssertionError('warmup left buckets uncaptured: %s' % warm)
+    out['line'] = ('%(buckets)d buckets, %(captures)d graphs captured in '
+                   '%(seconds).2f s (+%(mib).1f MiB allocated)' % out)
+    return out
 
 
 def _serve_prompts():
@@ -3616,12 +3811,10 @@ def phase_serving_main():
     eng = serving.GenerationEngine(model, n_slots=SERVE_SLOTS,
                                    max_prompt_len=SERVE_PROMPT,
                                    policy=precision.Policy.bf16())
-    warm = eng.warmup()
     _say('serve', 'TransformerLM %d parameters, bf16 weights and cache, '
-         '%d slots x %d positions; warmup of %d buckets %.2f s' % (
+         '%d slots x %d positions; %s' % (
              n_params, SERVE_SLOTS, SERVE_CFG['max_len'],
-             len(warm['prefill']) + len(warm['decode']),
-             sum(warm['prefill'].values()) + sum(warm['decode'].values())))
+             _warm(eng)['line']))
     prompts = _serve_prompts()
     queue = serving.GenerationQueue(max_prompt_len=SERVE_PROMPT,
                                     max_queue=SERVE_REQUESTS)
@@ -3643,9 +3836,14 @@ def phase_serving_main():
                                  st['decode_steps'], want))
     counts = with_tc('slot serving', counts, res['tc'])
     _say('serve', _serve_metrics(res))
-    _say('serve', 'launches %s (per prefill: %d layer_norm, %d flash_fwd; '
-         'per decode step: %d layer_norm, %d flash_decode)' % (
-             counts, 2 * layers + 1, layers, 2 * layers + 1, layers))
+    _say('serve', 'launches %s, all graph replays (per prefill: %d '
+         'layer_norm, %d flash_fwd; per decode step: %d layer_norm, %d '
+         'flash_decode)' % (counts, 2 * layers + 1, layers, 2 * layers + 1,
+                            layers))
+    _say('serve', 'traced kernels of 8 requests x 8 tokens, equal to the '
+         'replays times the captured launches: %s' % _hold_trace(
+             'slot serving', eng, lambda: _drain(eng, queue, [
+                 queue.submit(p, 8) for p in prompts[:8]])))
     profile_decode(eng, queue)
     del eng
     # the same 64 requests again, outside the timed run, on an engine
@@ -3668,10 +3866,11 @@ def phase_serving_main():
     eng8 = finite_engine(model, n_slots=SERVE_SLOTS,
                          max_prompt_len=SERVE_PROMPT,
                          policy=precision.Policy.bf16(), int8_kv=True)
+    eng8.warmup()
     ops.reset_launch_counts()
     reqs = [queue.submit(p, 8) for p in prompts[:8]]
     _drain(eng8, queue, reqs)
-    c8, st8 = ops.launch_counts(), eng8.stats()
+    c8, st8 = _path_counts(eng8, {})[0], eng8.stats()
     if c8['flash_decode'] != layers * st8['decode_steps'] \
             or any(len(r.result()) != 8 for r in reqs):
         raise AssertionError('int8 KV engine: counts %s, stats %s'
@@ -3823,12 +4022,9 @@ def phase_paged_main(model, prompts, slot_outs):
     shared-prefix set against the same requests without sharing."""
     from chainermn_tpu_torch import ops
     eng = _paged_engine(model)
-    warm = eng.warmup()
     _say('paged', 'pool %s pages of 16 positions (%d per sequence), %d '
-         'slots; warmup of %d buckets %.2f s' % (
-             eng.n_pages, eng.pages_per_seq, SERVE_SLOTS,
-             len(warm['prefill']) + len(warm['decode']),
-             sum(warm['prefill'].values()) + sum(warm['decode'].values())))
+         'slots; %s' % (eng.n_pages, eng.pages_per_seq, SERVE_SLOTS,
+                        _warm(eng)['line']))
     queue = _paged_queue()
     res = _timed_serve(eng, queue, prompts)
     counts, st = res['counts'], res['stats']
@@ -3858,11 +4054,14 @@ def phase_paged_main(model, prompts, slot_outs):
                  same, st['peak_pages_in_use'], slab, SERVE_SLOTS,
                  st['pages_per_seq'], st['prefix_lookups'],
                  st['prefix_hits']))
+    _say('paged', 'traced kernels of 8 requests x 8 tokens: %s' % _hold_trace(
+        'paged serving', eng, lambda: _drain(eng, queue, [
+            queue.submit(p, 8) for p in prompts[:8]])))
     profile_decode(eng, queue)
     del eng
     # chunked prefill
     eng = _paged_engine(model, prefill_chunk=32)
-    eng.warmup()
+    _warm(eng)
     res = _timed_serve(eng, _paged_queue(), prompts)
     st = res['stats']
     same = sum(a.tolist() == b for a, b in zip(res['outs'], slot_outs))
@@ -3878,7 +4077,7 @@ def phase_paged_main(model, prompts, slot_outs):
     peaks = {}
     for sharing in (True, False):
         eng = _paged_engine(model, prefix_sharing=sharing)
-        eng.warmup()
+        _warm(eng)
         queue = _paged_queue()
         t0 = time.perf_counter()
         got = _serve_shared(eng, queue, leader, followers, SERVE_NEW)
@@ -3924,7 +4123,7 @@ def phase_spec_main(model, prompts, paged_outs):
                                  generator=torch.Generator().manual_seed(7))
     eng = _paged_engine(model, draft_model=draft,
                         draft_params=models.param_tree(draft), spec_tokens=4)
-    eng.warmup()
+    _say('spec', _warm(eng)['line'])
     res = _timed_serve(eng, _paged_queue(), prompts)
     counts, st = res['counts'], res['stats']
     spec = st['speculative']
@@ -3956,6 +4155,10 @@ def phase_spec_main(model, prompts, paged_outs):
              verify / st['tokens_generated'],
              layers * verify / st['tokens_generated'], counts, same,
              len(paged_outs)))
+    queue = _paged_queue()
+    _say('spec', 'traced kernels of 8 requests x 8 tokens: %s' % _hold_trace(
+        'speculative serving', eng, lambda: _drain(eng, queue, [
+            queue.submit(p, 8) for p in prompts[:8]])))
     return counts
 
 
@@ -4060,16 +4263,27 @@ def _inference_bn_record(gen):
     t = timings(kernel, plain, None)
     b_ms, b_by = bound_ms(3 * m * c * x.element_size() + 4 * c * 4,
                           5 * m * c)
+    cold_ms, cold_device_ms = cold_times(kernel, BN_APPLY_EVENT)
     out = dict(inference_case='batch_norm_act_inference (running '
                'statistics) at %s bf16 + residual + relu' % ((m, c),),
                inference_max_abs_err=max_err(got, want),
                inference_bit_equal=bool(torch.equal(got, want)),
                inference_bound_ms=b_ms,
+               inference_cold_ms=cold_ms,
+               inference_cold_device_ms=cold_device_ms,
+               inference_cold_bound_share=(b_ms / cold_device_ms
+                                           if cold_device_ms else None),
                **{'inference_' + k: v for k, v in t.items()})
     _say('serve-infer', '%s: max abs err %.3g vs _apply_ref (tolerance %s), '
-         'bit-equal %s; %s; bound %.5f ms by %s' % (
+         'bit-equal %s; %s (warm: its three %.0f MB operands stay in the '
+         'L2 between launches); with the L2 flushed before each launch '
+         '%.5f ms per call, device only %s ms; bound %.5f ms by %s (%s of '
+         'it cold)' % (
              out['inference_case'], out['inference_max_abs_err'], BF16_TOL,
-             out['inference_bit_equal'], _fmt(t), b_ms, b_by))
+             out['inference_bit_equal'], _fmt(t), m * c * 2 / 1e6, cold_ms,
+             _ms(cold_device_ms), b_ms, b_by,
+             'not measured' if cold_device_ms is None
+             else '%.0f%%' % (100 * b_ms / cold_device_ms)))
     return out
 
 
@@ -4199,9 +4413,10 @@ def _serve_window(eng, rate, profiled=False):
     """``open_loop`` over the serving row's queue with the counts set to
     0 just before and read just after.  Returns the report, the wrapper
     counts, the replays by bucket in the window, and (``profiled``: the
-    window runs under ``torch.profiler``) the device's busy share over the
-    window, None when the trace held no device event, and the
-    ``bn_apply`` kernels the trace holds (None unprofiled)."""
+    window runs under ``torch.profiler``, after ``trace_prelude``) the
+    device's busy share over the window, None when the trace held no
+    device event, and the ``bn_apply`` kernels the trace holds (None
+    unprofiled)."""
     import contextlib
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -4216,6 +4431,8 @@ def _serve_window(eng, rate, profiled=False):
                                 ProfilerActivity.CUDA]) if profiled
             else contextlib.nullcontext())
     with prof:
+        if profiled:
+            trace_prelude(eng.device)
         rep = serving.open_loop(eng, queue, rate=rate,
                                 n_requests=SERVE_INFER_REQUESTS, seed=0)
         torch.cuda.synchronize()
@@ -4394,7 +4611,7 @@ def phase_serve_infer():
                 raise AssertionError('bf16 bucket %d: the replay differs '
                                      'from the eager forward by %.3g'
                                      % (b, max_err(replay, eager)))
-            graph, xin, _ = eng._graphs[b]
+            graph, xin = eng._graphs[b][:2]
             xd = xin.clone()
             replay_ms = time_ms(graph.replay, iters=10)
             with torch.no_grad():
@@ -4506,7 +4723,8 @@ def phase_serve_infer():
 
 def _gen_window(eng, queue, rate, n, seed):
     """``open_loop_generate`` with the counts set to 0 just before and read
-    just after; the queue records the request handles."""
+    just after (the wrappers' and the graph replays'); the queue records
+    the request handles."""
     from chainermn_tpu_torch import ops, serving
     handles = []
     submit = queue.submit
@@ -4517,11 +4735,14 @@ def _gen_window(eng, queue, rate, n, seed):
         return req
 
     queue.submit = recording
+    eng.warmup()
+    since = eng.stats()['replays']
     ops.reset_launch_counts()
     rep = serving.open_loop_generate(
         eng, queue, rate=rate, n_requests=n, seed=seed,
         prompt_len_range=(4, SERVE_PROMPT), max_new_tokens=SERVE_NEW)
-    return rep, ops.launch_counts(), ops.tc_launch_counts(), handles
+    counts, tc = _path_counts(eng, since)
+    return rep, counts, tc, handles
 
 
 def _check_gen_counts(what, rep, counts, decode):
@@ -4611,6 +4832,216 @@ def phase_serve_loadgen():
     _say_gen('Int8Policy.bf16() slot, the probe\'s requests', rep8)
     _say('serve-loadgen', 'int8 weights: %d of %d greedy streams equal the '
          'bf16 engine\'s' % (same, len(reqs8)))
+    _say('serve-loadgen', 'traced kernels of a profiled window (16 requests '
+         'at once, int8 weights): %s' % _hold_trace(
+             'loadgen int8', eng8, lambda: serving.open_loop_generate(
+                 eng8, queue(SERVE_REQUESTS, eng8), 1e9, 16, seed=2,
+                 prompt_len_range=(4, SERVE_PROMPT), max_new_tokens=8)))
+    return paths
+
+
+# ---------------------------------------------------------------------
+# the generation engine's CUDA graphs against the same engine run eagerly
+
+def _recording_engine(model, **kw):
+    """A serving-LM ``GenerationEngine`` (32 slots, prompts up to 128)
+    that keeps the first logits of each call shape it reads (``first``:
+    ``(ndim, rows)`` -> logits): one prefill, one decode step per bucket,
+    one verify per bucket."""
+    from chainermn_tpu_torch import serving
+
+    class Recording(serving.GenerationEngine):
+        def _read(self, logits, ids):
+            key = (logits.dim(), logits.shape[0] if logits.dim() > 1 else 1)
+            if key not in self.first:
+                self.first[key] = logits.clone()
+            return super()._read(logits, ids)
+
+    eng = Recording(model, n_slots=SERVE_SLOTS, max_prompt_len=SERVE_PROMPT,
+                    **kw)
+    eng.first = {}
+    return eng
+
+
+def _every_call(eng):
+    """Every prepared call of the idle ``eng`` (each bucket of each
+    family, both paged prefill variants) run once more on the warm-up's
+    zero operands, which write nothing that is attended: ``{call key:
+    logits}``."""
+    out = {}
+    for key in sorted(eng._calls, key=repr):
+        call = eng._calls[key]
+        call.stage(eng._zero_operands(key))
+        out[key] = call.run()[0].clone()
+    return out
+
+
+def _decode_busy(eng, queue, n=5):
+    """The device's busy share over ``n`` decode ticks of a full bucket
+    (32 rows of 64-token prompts): the kernels' time in a profiled run of
+    ``n`` ticks over the wall time of ``n`` ticks run just before without
+    the profiler.  Returns ``(wall ms a tick, device ms a tick, busy
+    share)``, the last two None when every trace came back empty.  The
+    requests are left in flight."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(9)
+    for _ in range(eng.n_slots):
+        queue.submit(rng.randint(0, SERVE_CFG['vocab_size'],
+                                 min(64, SERVE_PROMPT)), 128)
+    for _ in range(8):
+        eng.step(queue)
+        if not eng._prefilling and len(eng._slots) == eng.n_slots:
+            break
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        eng.step(queue)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    _, kernels, _ = profiled(lambda: eng.step(queue), n)
+    busy_ms = sum(kernels.values()) / n / 1e3
+    if not busy_ms:
+        return wall_ms, None, None
+    return wall_ms, busy_ms, busy_ms / wall_ms
+
+
+def _graph_modes():
+    """The serving LM's six modes of ``phase_serve_graphs``: engine
+    keywords (the draft built once, from seed 7 as in the spec phase)."""
+    import torch
+    from chainermn_tpu_torch import models, precision
+    bf16 = precision.Policy.bf16()
+    paged = dict(paged=True, page_size=16)
+    draft = models.TransformerLM(**dict(SERVE_CFG, n_layers=3),
+                                 generator=torch.Generator().manual_seed(7))
+    return {'slot': dict(policy=bf16),
+            'paged': dict(policy=bf16, **paged),
+            'chunked': dict(policy=bf16, prefill_chunk=32, **paged),
+            'spec': dict(policy=bf16, draft_model=draft,
+                         draft_params=models.param_tree(draft),
+                         spec_tokens=4, **paged),
+            'int8_weights': dict(policy=precision.Int8Policy.bf16()),
+            'int8_kv': dict(policy=bf16, int8_kv=True)}
+
+
+def _graph_run(model, kw, aot, prompts, shared):
+    """One engine of a mode: warm it up, serve the 64 prompts through
+    ``_timed_serve`` (and in paged mode the shared-prefix set), hold a
+    graphed engine's traced launches, read the busy share."""
+    import torch
+    from chainermn_tpu_torch import serving
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    eng = _recording_engine(model, aot=aot, **kw)
+
+    def queue():
+        return serving.GenerationQueue(
+            max_prompt_len=SERVE_PROMPT, max_queue=SERVE_REQUESTS,
+            page_size=16 if eng.paged else None)
+
+    out = dict(warm=_warm(eng))
+    out['mem_mib'] = (torch.cuda.memory_allocated() - mem0) / 2 ** 20
+    out.update(_timed_serve(eng, queue(), prompts))
+    out['first'] = dict(eng.first)
+    out['shared'] = None
+    if shared is not None:
+        st0 = eng.stats()
+        out['shared'] = _serve_shared(eng, queue(), *shared, n_new=8)
+        hits = eng.stats()['prefix_hits'] - st0['prefix_hits']
+        if hits != len(shared[1]):
+            raise AssertionError('shared prefix: %d hits' % hits)
+    out['every_call'] = _every_call(eng)
+    if aot:
+        q = queue()
+        out['traced'] = _hold_trace('graphs', eng, lambda: _drain(
+            eng, q, [q.submit(p, 8) for p in prompts[:8]]))
+    out['busy'] = _decode_busy(eng, queue())
+    del eng
+    return out
+
+
+def _say_graph_run(mode, aot, r):
+    st, ttft, decode = r['stats'], r['ttft'], r['decode']
+    wall_ms, busy_ms, share = r['busy']
+    _say('serve-graphs', '%s %s: %.1f tokens/s; decode-step p50 %.3f ms '
+         'p99 %.3f ms (%d ticks without prefill work); TTFT p50 %.2f ms; '
+         'busy %s of a full-bucket decode tick (%.3f ms wall, device %s '
+         'ms); warm-up %s; engine memory %.1f MiB after it, peak %.3f GiB'
+         % (mode, 'graphed' if aot else 'eager',
+            st['tokens_generated'] / r['wall'],
+            1e3 * decode[len(decode) // 2],
+            1e3 * decode[min(len(decode) - 1, int(0.99 * len(decode)))],
+            len(decode), 1e3 * ttft[len(ttft) // 2],
+            'not measured' if share is None else '%.1f%%' % (100 * share),
+            wall_ms, _ms(busy_ms), r['warm']['line'], r['mem_mib'],
+            r['peak'] / 2 ** 30))
+
+
+def phase_serve_graphs():
+    """The generation engine's CUDA graphs (``aot=True``) against the same
+    engine run eagerly (``aot=False``) on the full-width serving LM, in
+    six modes (slot; paged with prefix sharing; paged with
+    ``prefill_chunk=32``; speculative with the 3-layer draft, paged;
+    ``Int8Policy.bf16()`` weights; ``int8_kv``), over the 64 prompts of
+    the serving phases: every stream identical, the first logits of each
+    call shape bit-equal (a prefill, one decode step per bucket, one
+    verify per bucket), every bucket captured, the graphed engine's
+    traced LayerNorm, flash forward and decode kernels equal to its
+    replays times the captured launches; tokens/s, decode-step p50/p99,
+    TTFT p50, the busy share of a full-bucket decode tick, captures,
+    their seconds and the engine's memory, eager against graphed.
+    Returns each engine's launch counts by path."""
+    import numpy as np
+    import torch
+    from chainermn_tpu_torch import models
+    model = models.TransformerLM(**SERVE_CFG,
+                                 generator=torch.Generator().manual_seed(0))
+    prompts = _serve_prompts()
+    leader, followers = _shared_prefix_prompts(np.random.RandomState(8),
+                                               SERVE_SLOTS - 1)
+    paths = {}
+    for mode, kw in _graph_modes().items():
+        shared = (leader, followers) if mode == 'paged' else None
+        runs = {aot: _graph_run(model, kw, aot, prompts, shared)
+                for aot in (False, True)}
+        eager, graphed = runs[False], runs[True]
+        outs = [[o.tolist() for o in r['outs']] for r in (eager, graphed)]
+        if outs[0] != outs[1] or eager['shared'] != graphed['shared']:
+            raise AssertionError('%s: %d of %d streams equal eager and '
+                                 'graphed' % (mode, sum(
+                                     a == b for a, b in zip(*outs)),
+                                     len(outs[0])))
+        if eager['first'].keys() != graphed['first'].keys() or not all(
+                torch.equal(eager['first'][k], graphed['first'][k])
+                for k in eager['first']):
+            raise AssertionError('%s: logits differ between eager and '
+                                 'graphed at %s' % (mode, sorted(
+                                     k for k in eager['first']
+                                     if not torch.equal(
+                                         eager['first'][k],
+                                         graphed['first'].get(k)))))
+        calls = eager['every_call']
+        if calls.keys() != graphed['every_call'].keys() or not all(
+                torch.equal(calls[k], graphed['every_call'][k])
+                for k in calls):
+            raise AssertionError('%s: a call\'s logits differ between eager '
+                                 'and graphed' % mode)
+        for aot, r in runs.items():
+            _say_graph_run(mode, aot, r)
+            path = 'lm_%s_%s' % ('graphs' if aot else 'eager', mode)
+            paths[path] = with_tc(path, r['counts'], r['tc'])
+        _say('serve-graphs', '%s: all %d streams%s identical, eager and '
+             'graphed; the first logits bit-equal at %s (ndim, rows), and '
+             'those of all %d calls (every bucket of %s) on the idle '
+             'engines; traced launches of 8 requests x 8 tokens %s, equal '
+             'to the replays times the captured launches' % (
+                 mode, len(outs[0]), ' and the %d shared-prefix followers'
+                 % len(followers) if shared else '',
+                 sorted(graphed['first']), len(calls),
+                 ', '.join(sorted({k[0] for k in calls})),
+                 graphed['traced']))
     return paths
 
 
@@ -5146,6 +5577,7 @@ def main():
     del model
     paths['resnet_serving'], inference = _timed(phase_serve_infer)
     paths.update(_timed(phase_serve_loadgen))
+    paths.update(_timed(phase_serve_graphs))
     _timed(phase_lm_check)
     paths['lm_training'] = _timed(phase_lm_main)
     _say('time', 'all phases %.1f s' % (time.perf_counter() - t_start))
