@@ -1,11 +1,14 @@
-"""ImageNet-style dataset pipeline (numpy host code).
+"""ImageNet-style dataset pipeline (host code).
 
-Copy of ``chainermn_tpu/datasets/imagenet.py`` without the native batch
-pipeline: ``PreprocessedDataset`` (mean subtraction, random crop + flip
-for training, center crop for eval, pixel scaling), the deterministic
-``SyntheticImageNet`` stand-in, ``get_imagenet`` (real data from
-``CHAINERMN_TPU_IMAGENET`` when it points at prepared npy lists,
-synthetic otherwise) and ``compute_mean``.
+Counterpart of ``chainermn_tpu/datasets/imagenet.py``:
+``PreprocessedDataset`` (mean subtraction, random crop + flip for
+training, center crop for eval, pixel scaling, per item), the
+deterministic ``SyntheticImageNet`` stand-in, ``get_imagenet`` (real data
+from ``CHAINERMN_TPU_IMAGENET`` when it points at prepared npy lists,
+synthetic otherwise), ``compute_mean``, and ``BatchAugmentPipeline``,
+the same augmentation a whole batch at a time on the native C++ thread
+pool (:func:`chainermn_tpu_torch.native.augment_batch`), with
+:func:`_augment_ref` its plain numpy version.
 """
 
 import os
@@ -110,6 +113,100 @@ def get_imagenet(train_size=1280, val_size=128, size=256):
         return train, val
     return (SyntheticImageNet(train_size, size=size),
             SyntheticImageNet(val_size, size=size, seed=99))
+
+
+def _augment_ref(store, indices, tops, lefts, flips, crop, mean=None,
+                 scale=1.0 / 255.0):
+    """The plain version of ``native.augment_batch`` over a store of any
+    dtype: the JAX package's numpy loop (each window staged to float32,
+    the mean window subtracted, scaled, then flipped).  The native
+    kernel equals it bit for bit."""
+    images = np.empty((len(indices), crop, crop, store.shape[3]),
+                      np.float32)
+    for i, idx in enumerate(indices):
+        t, l = tops[i], lefts[i]
+        win = store[idx][t:t + crop, l:l + crop].astype(np.float32)
+        if mean is not None:
+            win = win - mean[t:t + crop, l:l + crop]
+        win = win * scale
+        images[i] = win[:, ::-1] if flips[i] else win
+    return images
+
+
+class BatchAugmentPipeline:
+    """Batch-level augmentation over a contiguous preloaded sample store
+    on the native C++ thread pool (``csrc/chainermn_core.cpp``
+    ``cmn_augment_batch``): the crop / flip / mean-subtract / scale of
+    :class:`PreprocessedDataset`, one call a batch, in place of the
+    reference's worker processes (``train_imagenet.py:174-182``).
+
+    The store keeps an integer dataset in its own dtype (uint8 data
+    stays four times smaller) and makes a floating one float32; a batch
+    of a non-float32 store is staged to float32 first (its own samples
+    only).  The windows and flips come from ``np.random.RandomState(seed)``
+    in the JAX package's order (all tops, then all lefts, then all flip
+    draws of a batch), so both packages give the same batches.  The whole
+    store lives in host memory: for bigger corpora use the streaming
+    loader (:mod:`chainermn_tpu_torch.data`).
+    """
+
+    def __init__(self, dataset, crop_size, mean=None, random=True,
+                 scale=1.0 / 255.0, seed=0):
+        first, _ = dataset[0]
+        first = np.asarray(first)
+        store_dtype = (first.dtype if first.dtype.kind in 'iu'
+                       else np.float32)
+        self._store = np.empty((len(dataset),) + first.shape,
+                               store_dtype)
+        self._labels = np.empty(len(dataset), np.int32)
+        for i in range(len(dataset)):
+            img, label = dataset[i]
+            self._store[i] = img
+            self._labels[i] = label
+        self.crop_size = crop_size
+        self.mean = (np.ascontiguousarray(mean, np.float32)
+                     if mean is not None else None)
+        self.random = random
+        self.scale = scale
+        self._rng = np.random.RandomState(seed)
+
+    def __len__(self):
+        return len(self._store)
+
+    def _draw(self, b):
+        """``(tops, lefts, flips)`` of the next batch of ``b``."""
+        h, w = self._store.shape[1:3]
+        crop = self.crop_size
+        if self.random:
+            tops = self._rng.randint(0, h - crop + 1, b).astype(np.int32)
+            lefts = self._rng.randint(0, w - crop + 1, b).astype(np.int32)
+            flips = (self._rng.rand(b) > 0.5).astype(np.uint8)
+        else:
+            tops = np.full(b, (h - crop) // 2, np.int32)
+            lefts = np.full(b, (w - crop) // 2, np.int32)
+            flips = np.zeros(b, np.uint8)
+        return tops, lefts, flips
+
+    def batch(self, indices):
+        """``(images (B, crop, crop, C) float32, labels (B,) int32)``."""
+        from chainermn_tpu_torch import native
+        b = len(indices)
+        tops, lefts, flips = self._draw(b)
+        idx64 = np.asarray(indices, np.int64)
+        if b and (idx64.min() < 0 or idx64.max() >= len(self._store)):
+            raise ValueError('batch indices out of range [0, %d)'
+                             % len(self._store))
+        labels = self._labels[idx64]
+        if self._store.dtype == np.float32:
+            src, src_idx = self._store, idx64
+        else:
+            # only this batch's samples, as float32 (the kernel's type)
+            src = self._store[idx64].astype(np.float32)
+            src_idx = np.arange(b, dtype=np.int64)
+        images = native.augment_batch(src, src_idx, tops, lefts, flips,
+                                      self.crop_size, mean=self.mean,
+                                      scale=self.scale)
+        return images, labels
 
 
 def compute_mean(dataset, limit=256):

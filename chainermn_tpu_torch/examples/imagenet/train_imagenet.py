@@ -15,10 +15,14 @@ device:
         --quick --dtype float32     # one process, gloo
 
 ``--batchsize`` and ``--val_batchsize`` are global; each process takes
-its share.  ``--cpu`` runs on the CPU over gloo (the JAX script's 8 host
-devices become however many processes torchrun starts); ``--mesh IxJ``
-sets the communicator's ``mesh_shape``.  ``--arch`` takes every
-architecture of ``models.get_arch`` (all but ``resnet50_s2d``), each at
+its share.  ``--pipeline native`` augments a whole batch at a time on the
+native C++ thread pool (``BatchAugmentPipeline`` over this process's
+shard of the raw images, read by a ``PipelineIterator``) instead of
+``PreprocessedDataset`` item by item behind a ``MultiprocessIterator``.
+``--cpu`` runs on the CPU over gloo (the JAX script's 8 host devices
+become however many processes torchrun starts); ``--mesh IxJ`` sets the
+communicator's ``mesh_shape``.  ``--arch`` takes every architecture of
+``models.get_arch``, each at
 its own input size (224; 227 for alex and nin; with ``--quick`` 64, and
 96 for alex and nin, as the JAX script sizes them); the dropout of
 VGG-16, Alex, NIN and GoogLeNet draws from the updater's generator,
@@ -95,10 +99,6 @@ def main(argv=None):
     """Train; returns the trainer after its run, its communicator and
     prefetch threads still up (:func:`close` ends them)."""
     args = _parser().parse_args(argv)
-    if args.pipeline == 'native':
-        raise NotImplementedError(
-            '--pipeline native (BatchAugmentPipeline, PipelineIterator) is '
-            'not ported yet (ROADMAP.md A2)')
     mesh_shape = None
     if args.mesh:
         mesh_shape = tuple(int(v) for v in args.mesh.split('x'))
@@ -143,8 +143,16 @@ def main(argv=None):
 
     val = imagenet.PreprocessedDataset(raw_val, mean, insize, random=False)
     val = cmt.scatter_dataset(val, comm)
-    train = imagenet.PreprocessedDataset(raw_train, mean, insize)
-    train = cmt.scatter_dataset(train, comm)
+    if args.pipeline == 'native':
+        # batch-level augmentation on the native C++ thread pool
+        raw_shard = cmt.scatter_dataset(raw_train, comm)
+        pipe = imagenet.BatchAugmentPipeline(raw_shard, insize, mean=mean)
+        train_iter = training.PipelineIterator(pipe, batch)
+    else:
+        train = imagenet.PreprocessedDataset(raw_train, mean, insize)
+        train = cmt.scatter_dataset(train, comm)
+        train_iter = training.MultiprocessIterator(
+            train, batch, n_prefetch=args.loaderjob)
 
     if args.initmodel:   # the parameters; BatchNorm statistics stay
         variables = to_flax_variables(model)
@@ -167,8 +175,6 @@ def main(argv=None):
                          if args.allreduce_dtype else None),
         double_buffering=args.double_buffering)
 
-    train_iter = training.MultiprocessIterator(train, batch,
-                                               n_prefetch=args.loaderjob)
     val_iter = training.SerialIterator(
         val, max(1, args.val_batchsize // comm.size), repeat=False,
         shuffle=False)
@@ -206,7 +212,9 @@ def main(argv=None):
 def close(trainer):
     """Stop the prefetch threads and end the process group the
     communicator made."""
-    trainer.updater.iterator.finalize()
+    finalize = getattr(trainer.updater.iterator, 'finalize', None)
+    if finalize is not None:   # a bare PipelineIterator runs no thread
+        finalize()
     trainer.updater.comm.close()
 
 

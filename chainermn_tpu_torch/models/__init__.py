@@ -19,7 +19,8 @@ from chainermn_tpu_torch.models.googlenetbn import (  # noqa: F401
     GoogLeNetBN, InceptionBN)
 from chainermn_tpu_torch.models.nin import NIN  # noqa: F401
 from chainermn_tpu_torch.models.resnet50 import (  # noqa: F401
-    Bottleneck, ResNet, ResNet50, ResNet101, ResNet152)
+    Bottleneck, ResNet, ResNet50, ResNet101, ResNet152,
+    convert_stem_variables, s2d_stem_kernel)
 from chainermn_tpu_torch.models.seq2seq import (  # noqa: F401
     Seq2seq, bucket_batches, seq2seq_loss)
 from chainermn_tpu_torch.models.transformer import (  # noqa: F401
@@ -29,13 +30,15 @@ from chainermn_tpu_torch.models.transformer import (  # noqa: F401
 from chainermn_tpu_torch.models.vgg import VGG, VGG16  # noqa: F401
 
 
-_NOT_PORTED = {
-    'resnet50_s2d': 'the space_to_depth stem is not ported yet '
-                    '(ROADMAP.md A3)',
-}
+def _resnet50_s2d(**kwargs):
+    """ResNet-50 on the space-to-depth stem: the weight-mapped
+    equivalent of ``resnet50`` (``models.convert_stem_variables``)."""
+    return ResNet50(stem='space_to_depth', **kwargs)
+
+
 _ARCHS = {'alex': Alex, 'googlenet': GoogLeNet, 'googlenetbn': GoogLeNetBN,
-          'nin': NIN, 'resnet50': ResNet50, 'resnet101': ResNet101,
-          'resnet152': ResNet152, 'vgg16': VGG16}
+          'nin': NIN, 'resnet50': ResNet50, 'resnet50_s2d': _resnet50_s2d,
+          'resnet101': ResNet101, 'resnet152': ResNet152, 'vgg16': VGG16}
 
 
 def get_arch(name, **kwargs):
@@ -44,10 +47,7 @@ def get_arch(name, **kwargs):
     arguments go to the model (``dtype``, ``device``, ``insize``, ...).
     Every model takes ``insize`` and keeps it as an attribute; VGG's,
     Alex's and GoogLeNet's widths follow it (a Dense after a flatten)."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[name])
     if name not in _ARCHS:
         raise ValueError('unknown architecture %r (choose from %s)'
-                         % (name, ', '.join(sorted(set(_ARCHS)
-                                                   | set(_NOT_PORTED)))))
+                         % (name, ', '.join(sorted(_ARCHS))))
     return _ARCHS[name](**kwargs)

@@ -21,8 +21,15 @@ Module names follow flax's auto-numbering (``conv_init``, ``bn_init``,
 ``Bottleneck_<i>``, ``Conv_<j>``, ``BatchNorm_<j>``, ``proj``,
 ``proj_bn``, ``fc``), so :mod:`flax_weights` maps the two trees
 mechanically.
+
+``stem='space_to_depth'`` replaces the 7x7/2 stem conv ``conv_init`` by
+``conv_init_s2d``, a 4x4/1 ``VALID`` conv over the 2x2 space-to-depth
+rearrangement of the input padded (1, 2): the same function, under the
+weight map :func:`s2d_stem_kernel` (:func:`convert_stem_variables`
+converts a whole flax-layout tree).
 """
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -78,11 +85,7 @@ class ResNet(nn.Module):
                  fused_norm=False, device=None, generator=None,
                  insize=224):
         super().__init__()
-        if stem == 'space_to_depth':
-            raise NotImplementedError(
-                "the space_to_depth stem is not ported yet (ROADMAP.md "
-                "A3); use stem='standard'")
-        if stem != 'standard':
+        if stem not in ('standard', 'space_to_depth'):
             raise ValueError("stem must be 'standard' or 'space_to_depth', "
                              "got %r" % (stem,))
         device = resolve_device(device)
@@ -91,8 +94,13 @@ class ResNet(nn.Module):
         self.dtype = dtype
         self.insize = insize
         self.fused_norm = fused_norm
-        self.conv_init = Conv(3, width, 7, 2, dtype=dtype,
-                              generator=generator)
+        self.stem = stem
+        if stem == 'space_to_depth':
+            self.conv_init_s2d = Conv(12, width, 4, 1, dtype=dtype,
+                                      generator=generator, padding='VALID')
+        else:
+            self.conv_init = Conv(3, width, 7, 2, dtype=dtype,
+                                  generator=generator)
         self.bn_init = NormAct(width, fused=fused_norm)
         self.block_names = []
         in_features = width
@@ -112,7 +120,19 @@ class ResNet(nn.Module):
         self.to(device)
 
     def forward(self, x):
-        x = self.conv_init(x.to(self.dtype))
+        x = x.to(self.dtype)
+        if self.stem == 'space_to_depth':
+            b, h, w, c = x.shape
+            if h % 2 or w % 2:
+                raise ValueError('space_to_depth stem needs even spatial '
+                                 'dims, got %s' % ((h, w),))
+            x = x.reshape(b, h // 2, 2, w // 2, 2, c).permute(
+                0, 1, 3, 2, 4, 5).reshape(b, h // 2, w // 2, 4 * c)
+            # the 4 stride-1 taps cover source rows [p - 1, p + 2]: the
+            # 7x7/2 conv's SAME padding (2, 3)
+            x = self.conv_init_s2d(F.pad(x, (0, 0, 1, 2, 1, 2)))
+        else:
+            x = self.conv_init(x)
         x = self.bn_init(x)
         x = max_pool_same(x)
         for name in self.block_names:
@@ -130,6 +150,41 @@ def ResNet50(num_classes=1000, dtype=torch.bfloat16, stem='standard',
     return ResNet(stage_sizes=[3, 4, 6, 3], num_classes=num_classes,
                   dtype=dtype, stem=stem, fused_norm=fused_norm,
                   device=device, generator=generator, insize=insize)
+
+
+def s2d_stem_kernel(w7):
+    """Map a standard ``(7, 7, C, F)`` flax stem kernel to the equivalent
+    ``(4, 4, 4C, F)`` space-to-depth kernel: tap ``t = 2a + phi`` of the
+    strided 7x7 window lands on s2d tap ``a``, phase channel ``phi``
+    (taps with ``t == 7`` do not exist and stay zero)."""
+    w7 = np.asarray(w7)
+    c, f = w7.shape[2], w7.shape[3]
+    w4 = np.zeros((4, 4, 4 * c, f), w7.dtype)
+    for ah in range(4):
+        for ph in range(2):
+            th = 2 * ah + ph
+            if th > 6:
+                continue
+            for aw in range(4):
+                for pw in range(2):
+                    tw = 2 * aw + pw
+                    if tw > 6:
+                        continue
+                    ch = (ph * 2 + pw) * c
+                    w4[ah, aw, ch:ch + c, :] = w7[th, tw]
+    return w4
+
+
+def convert_stem_variables(variables):
+    """A standard-stem flax-layout variable tree (``{'params': ...,
+    ...}``, e.g. ``to_flax_variables(model)``) in the space-to-depth
+    layout: ``conv_init`` becomes ``conv_init_s2d`` through
+    :func:`s2d_stem_kernel`; everything else is shared."""
+    params = dict(variables['params'])
+    w7 = params.pop('conv_init')['kernel']
+    params['conv_init_s2d'] = {'kernel': s2d_stem_kernel(w7)}
+    return {'params': params,
+            **{k: v for k, v in variables.items() if k != 'params'}}
 
 
 def ResNet101(num_classes=1000, dtype=torch.bfloat16, fused_norm=False,

@@ -262,6 +262,10 @@ def updater_state(updater):
       ``needs_broadcast`` (the JAX package keeps it in its optimizer
       state too, so a resumed run does not broadcast again);
     - ``iteration``, ``epoch`` and ``epoch_detail``;
+    - ``stream_cursor``, when the iterator has one (a streaming loader,
+      directly or under ``DevicePrefetchIterator``): the exact global
+      stream position, so a resume at another process count replays the
+      remaining samples with no repeat and no drop;
     - ``scale_state`` (``scale``, ``growth_count``) under a loss-scaled
       policy, so a resumed f16 run goes on at its adapted scale, as the
       JAX package's snapshot does.
@@ -279,6 +283,10 @@ def updater_state(updater):
         'epoch': updater.epoch,
         'epoch_detail': float(updater.epoch_detail),
     }
+    cursor = getattr(getattr(updater, 'iterator', None), 'stream_cursor',
+                     None)
+    if cursor is not None:
+        state['stream_cursor'] = int(cursor)
     stats = to_flax_variables(updater.model)['batch_stats']
     if stats:
         state['model_state'] = {'batch_stats': stats}
@@ -288,14 +296,26 @@ def updater_state(updater):
     return state
 
 
-def restore_counters(updater, iteration, epoch=0, epoch_detail=None):
-    """Restore the step counter and the iterator's epoch position
-    (``restore_position(epoch_detail)`` where the iterator has it, else
-    its integer ``epoch``)."""
+def restore_counters(updater, iteration, epoch=0, epoch_detail=None,
+                     stream_cursor=None):
+    """Restore the step counter and the iterator's position, the most
+    exact first, in the JAX package's order: a ``stream_cursor`` through
+    the iterator's ``restore_cursor`` (the global stream position, at the
+    epoch of ``epoch_detail``, else ``epoch``); else ``epoch_detail``
+    through its ``restore_position``; else the integer ``epoch`` through
+    its ``restore_epoch``, else its ``epoch`` attribute."""
     updater.iteration = int(iteration)
     it = getattr(updater, 'iterator', None)
-    if epoch_detail is not None and hasattr(it, 'restore_position'):
+    if it is None:
+        return
+    if stream_cursor is not None and hasattr(it, 'restore_cursor'):
+        base = (int(float(epoch_detail)) if epoch_detail is not None
+                else int(epoch))
+        it.restore_cursor(base, int(stream_cursor))
+    elif epoch_detail is not None and hasattr(it, 'restore_position'):
         it.restore_position(float(epoch_detail))
+    elif hasattr(it, 'restore_epoch'):
+        it.restore_epoch(int(epoch))
     elif hasattr(it, 'epoch'):
         it.epoch = int(epoch)
 
@@ -335,7 +355,8 @@ def resume_updater(path, updater, comm=None, elastic=False):
     live updater: parameters, BatchNorm statistics, optimizer state
     (the multi-node wrapper's ``needs_broadcast`` too), the loss-scale
     state under a loss-scaled policy, and the
-    iteration / epoch counters, so stop triggers and file names
+    iteration / epoch counters and the stream cursor
+    (:func:`restore_counters`), so stop triggers and file names
     continue rather than restart.  Everything is read and checked
     before anything is assigned, so a corrupt leaf never leaves the
     updater half-restored.  ``comm`` is unused (every process reads
@@ -371,6 +392,8 @@ def resume_updater(path, updater, comm=None, elastic=False):
             k: torch.as_tensor(v).to(updater.device)
             for k, v in scale.items()})
     detail = by_key.get('epoch_detail')
+    cursor = by_key.get('stream_cursor')
     restore_counters(updater, iteration, by_key.get('epoch', 0),
-                     None if detail is None else float(detail))
+                     None if detail is None else float(detail),
+                     None if cursor is None else int(cursor))
     return {'iteration': updater.iteration, 'manifest': manifest}

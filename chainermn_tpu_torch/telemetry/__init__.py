@@ -10,21 +10,35 @@ Counterpart of ``chainermn_tpu/telemetry/__init__.py``: :func:`active`,
 ``request_summary``.
 
 Activation is programmatic (``telemetry.enable()`` for an in-memory
-session, ``telemetry.enable(outdir)`` to flush to a directory).  Disabled,
-:func:`span` and :func:`event` cost one function call and return a
-preallocated no-op context.
+session, ``telemetry.enable(outdir)`` to flush to a directory) or from
+the environment, as in the JAX package (:func:`maybe_enable_from_env`,
+which ``StandardUpdater`` calls)::
+
+    CHAINERMN_TPU_TELEMETRY=/path/to/outdir python train.py
+    # optional: device fences (spans cover the card's work, not the
+    # launch; serializes host and card -- a measurement mode)
+    CHAINERMN_TPU_TELEMETRY_SYNC=1
+
+Disabled, :func:`span` and :func:`event` cost one function call and
+return a preallocated no-op context.
 
 Not ported yet (ROADMAP.md A9): the SLO monitor (``slo``), the
-cross-rank ``diagnosis`` and ``goodput``, the ``python -m`` report CLI,
-the crash-safe flight recorder (``dump_flight``), and activation from
-the environment (``maybe_enable_from_env``); none of them exists here.
+cross-rank ``diagnosis`` and ``goodput``, the ``python -m`` report CLI
+and the crash-safe flight recorder (``dump_flight``); none of them
+exists here.
 """
+
+import os
 
 from chainermn_tpu_torch.telemetry.recorder import (  # noqa: F401
     Counter, Gauge, Histogram, NULL_SPAN, Recorder, Registry,
     escape_help, escape_label_value, snapshot_to_prometheus)
 
+ENV_VAR = 'CHAINERMN_TPU_TELEMETRY'
+ENV_SYNC = 'CHAINERMN_TPU_TELEMETRY_SYNC'
+
 _active = None
+_env_checked = False
 
 
 def active():
@@ -51,8 +65,26 @@ def enable(outdir=None, sync_fences=False):
 
 def disable():
     """Uninstall the recorder (does not flush)."""
-    global _active
-    _active = None
+    global _active, _env_checked
+    _active, _env_checked = None, False
+
+
+def maybe_enable_from_env(env_var=ENV_VAR):
+    """Install a recorder from ``CHAINERMN_TPU_TELEMETRY`` once per
+    process (a no-op when it is unset or was checked already).  The
+    value is the session's output directory; the literal ``1`` enables
+    an in-memory session.  ``CHAINERMN_TPU_TELEMETRY_SYNC`` set to
+    anything but ``0`` turns the device fences on."""
+    global _env_checked
+    if _active is not None or _env_checked:
+        return _active
+    _env_checked = True
+    value = os.environ.get(env_var)
+    if not value:
+        return None
+    return enable(outdir=None if value == '1' else value,
+                  sync_fences=os.environ.get(ENV_SYNC, '') not in ('',
+                                                                   '0'))
 
 
 def span(name, kind='generic', **attrs):

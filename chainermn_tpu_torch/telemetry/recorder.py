@@ -14,9 +14,11 @@ serving path uses: :class:`Counter`, :class:`Gauge`, :class:`Histogram`
   through an anchor pair taken at construction.
 - **Optional device fences.**  A span around device work measures the
   launch unless the session asked for fences: then ``span.sync(out)``
-  waits for the card (``torch.cuda.synchronize`` on the device of a CUDA
-  tensor) before the span closes, and the span is tagged
-  ``synced=True``.
+  waits for the work queued on the calling thread's current stream of
+  the device of a CUDA tensor (a prefetch thread's copy stream, the
+  training loop's compute stream) before the span closes, and the span
+  is tagged ``synced=True``.  Waiting for that stream alone keeps a
+  fenced copy span from swallowing the step running beside it.
 
 Event-log schema (JSONL, one file per rank, first line ``meta``)::
 
@@ -261,15 +263,16 @@ class _SpanHandle:
         self.attrs.update(attrs)
 
     def sync(self, value):
-        """Wait for the card before the span closes -- only when the
-        session asked for fences and ``value`` is a CUDA tensor (or a
-        tuple or list holding one); otherwise a no-op."""
+        """Wait for the current stream of the card before the span
+        closes -- only when the session asked for fences and ``value`` is
+        a CUDA tensor (or a tuple or list holding one); otherwise a
+        no-op."""
         if self._recorder.sync_fences and value is not None:
             items = value if isinstance(value, (tuple, list)) else (value,)
             for t in items:
                 if getattr(t, 'is_cuda', False):
                     import torch
-                    torch.cuda.synchronize(t.device)
+                    torch.cuda.current_stream(t.device).synchronize()
                     self.synced = True
                     break
         return value

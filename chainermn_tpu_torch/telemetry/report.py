@@ -1,14 +1,32 @@
-"""Request-centric views of a telemetry capture.
+"""Offline views of a telemetry capture.
 
-Counterpart of ``request_traces`` / ``request_summary`` of
-``chainermn_tpu/telemetry/report.py``: per-request span trees rebuilt
-from the ``kind='request'`` records, and the summary that names the
-worst request's stages.  The rest of the JAX package's report (the
-merged step timeline, overlap, the doctor, the Prometheus export of a
-capture directory) is ROADMAP.md A9.
+Counterpart of part of ``chainermn_tpu/telemetry/report.py``:
+
+- the interval arithmetic of the overlap fraction (:func:`merge_intervals`,
+  :func:`exposed_time`, :func:`overlap_from_intervals`): the share of one
+  set of spans hidden behind another, e.g. the input side's
+  ``host_batch_prep`` / ``h2d`` spans behind the ``jitted_step`` spans;
+- :func:`load_rank_logs`, which reads a session directory's per-rank
+  event logs back;
+- the request-centric views: per-request span trees rebuilt from the
+  ``kind='request'`` records, and the summary that names the worst
+  request's stages.
+
+The rest of the JAX package's report (the merged step timeline, the
+input-bound verdict, the doctor, the Prometheus export of a capture
+directory) is ROADMAP.md A9.
 """
 
+import glob
+import json
+import os
+
 from chainermn_tpu_torch.telemetry.recorder import _percentile
+
+#: the training step's span names, in the order a step runs them;
+#: ``data_decode`` is the streaming loader's per-batch decode wait
+STEP_PHASES = ('data_decode', 'host_batch_prep', 'h2d',
+               'jitted_step', 'metrics_sync')
 
 #: per-request stage vocabulary, in lifecycle order
 REQUEST_STAGES = ('queue_wait', 'bucket_pack', 'prefill', 'decode',
@@ -107,3 +125,83 @@ def request_summary(records):
             'outcome': worst['outcome'],
         }
     return out
+
+
+# ---------------------------------------------------------------------
+# interval arithmetic
+
+def merge_intervals(intervals):
+    """Union of ``(t0, t1)`` pairs as a sorted disjoint list."""
+    ivs = sorted((t0, t1) for t0, t1 in intervals if t1 > t0)
+    out = []
+    for t0, t1 in ivs:
+        if out and t0 <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], t1))
+        else:
+            out.append((t0, t1))
+    return out
+
+
+def exposed_time(span, merged):
+    """Length of ``span`` not covered by the merged interval union."""
+    t0, t1 = span
+    exposed = t1 - t0
+    for m0, m1 in merged:
+        if m1 <= t0:
+            continue
+        if m0 >= t1:
+            break
+        exposed -= min(t1, m1) - max(t0, m0)
+    return max(exposed, 0.0)
+
+
+def overlap_from_intervals(collective, compute):
+    """Overlap statistics of two interval lists (seconds in, seconds
+    out): how much of the first list's time (unioned first, so nested or
+    concurrent spans count wall time once) ran while an interval of the
+    second was open.  The names are the JAX package's, whose report
+    holds collectives against compute; ``overlap_fraction`` is None when
+    the first list is empty."""
+    coll = merge_intervals(collective)
+    total = sum(t1 - t0 for t0, t1 in coll)
+    merged = merge_intervals(compute)
+    exposed = sum(exposed_time((t0, t1), merged) for t0, t1 in coll)
+    return {
+        'total_collective_s': total,
+        'exposed_collective_s': exposed,
+        'hidden_collective_s': max(total - exposed, 0.0),
+        'overlap_fraction': (None if total <= 0.0
+                             else max(0.0, min(1.0, 1.0 - exposed
+                                               / total))),
+    }
+
+
+# ---------------------------------------------------------------------
+# loading
+
+def load_rank_logs(outdir):
+    """``(metas, spans, events, bad)`` from every ``events-rank*.jsonl``
+    under a session directory; ``bad`` counts unparseable lines, which
+    are skipped (a crashed rank leaves a torn tail)."""
+    metas, spans, events = [], [], []
+    bad = 0
+    for path in sorted(glob.glob(
+            os.path.join(outdir, 'events-rank*.jsonl'))):
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    bad += 1
+                    continue
+                t = rec.get('type')
+                if t == 'meta':
+                    metas.append(rec)
+                elif t == 'span':
+                    spans.append(rec)
+                elif t == 'event':
+                    events.append(rec)
+    return metas, spans, events, bad

@@ -1,11 +1,14 @@
 """Dataset iterators.
 
 Counterpart of ``chainermn_tpu/training/iterators.py``:
-``SerialIterator``, ``MultiprocessIterator`` (a prefetch thread over it)
-and ``DevicePrefetchIterator`` (collation and the host-to-device copy
-of the next batches on a side CUDA stream, behind the running step).
-``PipelineIterator`` waits for the native batch pipeline (ROADMAP.md
-A2).  Host-side data handling stays in numpy.
+``SerialIterator``, ``PipelineIterator`` (index batches for a batch-level
+pipeline such as ``datasets.BatchAugmentPipeline``),
+``MultiprocessIterator`` (a prefetch thread over a ``SerialIterator``) and
+``DevicePrefetchIterator`` (collation and the host-to-device copy of the
+next batches on a side CUDA stream, behind the running step; it carries a
+streaming loader's ``stream_cursor`` as consumed).  Every iterator has
+``restore_epoch`` and ``restore_position``.  Host-side data handling
+stays in numpy.
 """
 
 import queue as queue_mod
@@ -13,6 +16,8 @@ import threading
 
 import numpy as np
 import torch
+
+from chainermn_tpu_torch.dataset import epoch_position
 
 
 class SerialIterator:
@@ -44,6 +49,10 @@ class SerialIterator:
     def epoch_detail(self):
         """Epochs done, with the fraction of the current one."""
         return self.epoch + self._pos / max(1, len(self.dataset))
+
+    def restore_epoch(self, epoch):
+        """Continue epoch accounting from a checkpoint."""
+        self.epoch = int(epoch)
 
     def restore_position(self, epoch_detail):
         """Land where an uninterrupted run stood at ``epoch_detail``:
@@ -90,6 +99,87 @@ class SerialIterator:
             self._pos += 1
         self.iteration += 1
         return batch
+
+
+class PipelineIterator:
+    """Batch-level iterator over a
+    :class:`~chainermn_tpu_torch.datasets.imagenet.BatchAugmentPipeline`
+    (or anything with ``__len__`` and ``batch(indices) -> (X, Y)``):
+    yields the pipeline's collated column arrays, assembled by the native
+    C++ thread pool instead of per-item Python.  Epoch accounting is
+    :class:`SerialIterator`'s; a repeating iterator tops a short last
+    batch up from the next epoch's order, so every batch has
+    ``batch_size`` rows.  ``restore_position`` is the JAX package's:
+    the position of ``dataset.epoch_position`` and a freshly drawn
+    order."""
+
+    def __init__(self, pipeline, batch_size, repeat=True, shuffle=True,
+                 seed=0):
+        self.pipeline = pipeline
+        self.batch_size = batch_size
+        self._repeat = repeat
+        self._shuffle = shuffle
+        self._rng = np.random.RandomState(seed)
+        self.reset()
+
+    def reset(self):
+        self.epoch = 0
+        self.iteration = 0
+        self.is_new_epoch = False
+        self._pos = 0
+        self._order = self._new_order()
+
+    def restore_epoch(self, epoch):
+        self.epoch = int(epoch)
+
+    def restore_position(self, epoch_detail):
+        """Land at the global epoch fraction ``epoch_detail``
+        re-expressed at this pipeline's length; the order is drawn
+        afresh."""
+        self.epoch, self._pos = epoch_position(float(epoch_detail),
+                                               len(self.pipeline))
+        self.is_new_epoch = False
+        self._order = self._new_order()
+
+    def _new_order(self):
+        n = len(self.pipeline)
+        return (self._rng.permutation(n) if self._shuffle
+                else np.arange(n))
+
+    @property
+    def epoch_detail(self):
+        return self.epoch + self._pos / max(1, len(self.pipeline))
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        n = len(self.pipeline)
+        if n == 0:
+            raise StopIteration
+        if self._pos >= n:
+            if not self._repeat:
+                raise StopIteration
+            self._pos = 0
+            self._order = self._new_order()
+        i_end = min(self._pos + self.batch_size, n)
+        idx = self._order[self._pos:i_end]
+        self._pos = i_end
+        self.is_new_epoch = False
+        if self._pos >= n:
+            self.epoch += 1
+            self.is_new_epoch = True
+            if self._repeat:
+                self._pos = 0
+                self._order = self._new_order()
+        if self._repeat and len(idx) < self.batch_size:
+            extra = self.batch_size - len(idx)
+            idx = np.concatenate([idx, self._order[:extra]])
+            self._pos = extra
+        self.iteration += 1
+        return self.pipeline.batch(idx.astype(np.int64))
+
+    next = __next__
 
 
 class _PrefetchingIterator:
@@ -204,6 +294,16 @@ class MultiprocessIterator(_PrefetchingIterator):
         self._consumed_pos = 0
         self._start_worker()
 
+    def restore_epoch(self, epoch):
+        """Continue epoch accounting from a checkpoint: the inner
+        iterator's counters are rebased too, so the prefetched batches
+        carry the restored epoch."""
+        self._stop_worker()
+        self._source.epoch = int(epoch)
+        self.epoch = int(epoch)
+        self._consumed_pos = 0
+        self._start_worker()
+
     def restore_position(self, epoch_detail):
         """Land the inner iterator at ``epoch_detail``
         (``SerialIterator.restore_position``) and the consumer's
@@ -240,7 +340,8 @@ class DevicePrefetchIterator(_PrefetchingIterator):
     calls ``record_stream`` on the tensors (the caching allocator does
     not hand their memory out again while the step may read it).  Epoch
     accounting is what the consumer has taken, as
-    :class:`MultiprocessIterator`'s."""
+    :class:`MultiprocessIterator`'s; so is :attr:`stream_cursor`, a
+    streaming loader's elastic cursor."""
 
     def __init__(self, inner, place_fn, depth=2, device=None):
         if depth < 1:
@@ -261,6 +362,7 @@ class DevicePrefetchIterator(_PrefetchingIterator):
         self.iteration = getattr(inner, 'iteration', 0)
         self.is_new_epoch = False
         self._consumed_detail = float(getattr(inner, 'epoch_detail', 0.0))
+        self._consumed_cursor = getattr(inner, 'stream_cursor', None)
 
     def _produce(self):
         inner = self._source
@@ -277,11 +379,12 @@ class DevicePrefetchIterator(_PrefetchingIterator):
         return (placed, event, getattr(inner, 'epoch', 0),
                 getattr(inner, 'iteration', 0),
                 getattr(inner, 'is_new_epoch', False),
-                float(getattr(inner, 'epoch_detail', 0.0)))
+                float(getattr(inner, 'epoch_detail', 0.0)),
+                getattr(inner, 'stream_cursor', None))
 
     def __next__(self):
         (placed, event, self.epoch, self.iteration, self.is_new_epoch,
-         self._consumed_detail) = self._next_item()
+         self._consumed_detail, self._consumed_cursor) = self._next_item()
         if event is not None:
             current = torch.cuda.current_stream(self._device)
             current.wait_event(event)
@@ -296,6 +399,14 @@ class DevicePrefetchIterator(_PrefetchingIterator):
     def epoch_detail(self):
         return self._consumed_detail
 
+    @property
+    def stream_cursor(self):
+        """The inner streaming loader's cursor as CONSUMED: the thread
+        reads ahead, and a checkpoint must hold what the train loop
+        took.  None over an inner iterator without a cursor (then
+        ``serializers.updater_state`` stores none)."""
+        return self._consumed_cursor
+
     def reset(self):
         self._stop_worker()
         if hasattr(self.inner, 'reset'):
@@ -303,13 +414,41 @@ class DevicePrefetchIterator(_PrefetchingIterator):
         self._rebase_counters()
         self._start_worker()
 
+    def restore_epoch(self, epoch):
+        """Restore the inner iterator at the start of ``epoch`` and
+        rebase the consumer's counters, dropping the read-ahead."""
+        self._stop_worker()
+        if hasattr(self.inner, 'restore_epoch'):
+            self.inner.restore_epoch(epoch)
+        else:
+            self.inner.epoch = int(epoch)
+        self._rebase_counters()
+        self.epoch = int(epoch)
+        self._consumed_detail = float(int(epoch))
+        self._start_worker()
+
+    def restore_cursor(self, epoch, cursor):
+        """Exact elastic restore over a streaming loader: its global
+        ``(epoch, cursor)``, the consumer's counters rebased, the
+        read-ahead dropped.  Over an inner iterator without
+        ``restore_cursor`` this lands at the start of ``epoch``."""
+        if not hasattr(self.inner, 'restore_cursor'):
+            return self.restore_position(float(int(epoch)))
+        self._stop_worker()
+        self.inner.restore_cursor(int(epoch), int(cursor))
+        self._rebase_counters()
+        self._start_worker()
+
     def restore_position(self, epoch_detail):
         """Restore the inner iterator at ``epoch_detail`` (its
-        ``restore_position``, else its integer ``epoch``) and rebase the
-        consumer's counters, dropping the read-ahead."""
+        ``restore_position``, else its ``restore_epoch``, else its
+        integer ``epoch``) and rebase the consumer's counters, dropping
+        the read-ahead."""
         self._stop_worker()
         if hasattr(self.inner, 'restore_position'):
             self.inner.restore_position(float(epoch_detail))
+        elif hasattr(self.inner, 'restore_epoch'):
+            self.inner.restore_epoch(int(epoch_detail))
         else:
             self.inner.epoch = int(epoch_detail)
         self._rebase_counters()

@@ -18,6 +18,18 @@ into one SPMD program; here the same steps run eagerly in each process:
 5. the optimizer step (with a multi-node optimizer: broadcast at the
    first call, gradient mean-allreduce + step afterwards);
 6. mean-average the metrics across processes (in f32).
+
+Telemetry (:mod:`~chainermn_tpu_torch.telemetry`), with the JAX
+updater's span names, each tagged ``iteration=``: ``host_batch_prep``
+(collation, ``kind='host'``), ``h2d`` (the copy to the device,
+``kind='h2d'``), ``jitted_step`` (steps 2-6, ``kind='compute'``) and
+``metrics_sync`` (the host read of ``update(sync=True)``,
+``kind='host'``).  Under ``device_prefetch`` the first two run on the
+prefetch thread, for the batch it reads ahead.  A span covers the
+card's work only when the session asked for fences
+(``telemetry.enable(sync_fences=True)``); then ``h2d`` and
+``jitted_step`` wait for the card before they close.  With telemetry
+off each span is a no-op context and nothing waits.
 """
 
 import contextlib
@@ -26,6 +38,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from chainermn_tpu_torch import telemetry as _telemetry
 from chainermn_tpu_torch.models._layers import (
     replaying, set_dropout_generator)
 from chainermn_tpu_torch.models._norm import recomputing
@@ -127,6 +140,7 @@ class StandardUpdater:
                 'A7)')
         if accum_steps < 1:
             raise ValueError('accum_steps must be >= 1')
+        _telemetry.maybe_enable_from_env()
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self.model = model
@@ -170,10 +184,20 @@ class StandardUpdater:
             arrays = tuple(arrays.values())
         return arrays
 
+    def _to_device(self, host, non_blocking=False):
+        """The ``h2d`` span: ``host`` tensors copied to the device."""
+        with _telemetry.span('h2d', kind='h2d',
+                             iteration=self.iteration) as sp:
+            return sp.sync(tuple(t.to(self.device,
+                                      non_blocking=non_blocking)
+                                 for t in host))
+
     def shard_batch(self, batch):
         """Collate a list of examples and move it to the device."""
-        return tuple(torch.as_tensor(a).to(self.device)
-                     for a in self._collate(batch))
+        with _telemetry.span('host_batch_prep', kind='host',
+                             iteration=self.iteration):
+            host = tuple(torch.as_tensor(a) for a in self._collate(batch))
+        return self._to_device(host)
 
     def collate_pinned(self, batch):
         """Collate a list of examples into host tensors, pinned when the
@@ -187,8 +211,10 @@ class StandardUpdater:
     def _place(self, batch):
         """``device_prefetch``'s placement: pinned collation, then a
         non-blocking copy (on the prefetcher's side stream)."""
-        return tuple(t.to(self.device, non_blocking=True)
-                     for t in self.collate_pinned(batch))
+        with _telemetry.span('host_batch_prep', kind='host',
+                             iteration=self.iteration):
+            host = self.collate_pinned(batch)
+        return self._to_device(host, non_blocking=True)
 
     # -- the differentiated region ----------------------------------------
     def _loss(self, *batch):
@@ -237,7 +263,15 @@ class StandardUpdater:
 
     def update_core(self, arrays):
         """One iteration on device tensors; returns the averaged metrics
-        as 0-d tensors (no host sync, except the loss-scale verdict)."""
+        as 0-d tensors (no host sync, except the loss-scale verdict and
+        a fenced ``jitted_step`` span)."""
+        with _telemetry.span('jitted_step', kind='compute',
+                             iteration=self.iteration) as sp:
+            metrics = self._step(arrays)
+            sp.sync(tuple(metrics.values()))
+        return metrics
+
+    def _step(self, arrays):
         k = self.accum_steps
         if arrays[0].shape[0] % k:
             raise ValueError('batch size %d must be divisible by '
@@ -303,7 +337,9 @@ class StandardUpdater:
             batch if self._device_prefetch else self.shard_batch(batch))
         if not sync:
             return metrics
-        return {k: float(v) for k, v in metrics.items()}
+        with _telemetry.span('metrics_sync', kind='host',
+                             iteration=self.iteration - 1):
+            return {k: float(v) for k, v in metrics.items()}
 
     @property
     def params(self):

@@ -79,6 +79,30 @@ class CheckpointCorruptError(ValueError):
         self.kind = kind
 
 
+class DataCorruptError(ValueError):
+    """An input record failed integrity verification and must NOT be
+    consumed: a flipped byte caught by the record crc32, a record
+    extending past the shard's end (a torn file), or a missing or
+    unparseable index sidecar.  The streaming loader catches it to skip
+    and count the sample (``corrupt_skipped`` and a
+    ``data_corrupt_skipped`` telemetry event).
+
+    ``shard`` names the file, ``offset`` the byte offset and ``record``
+    the in-shard record index (when identifiable); ``kind`` classifies
+    the defect: ``'crc'`` | ``'truncated'`` | ``'unreadable'``.
+    Subclasses ``ValueError``, as :class:`CheckpointCorruptError`."""
+
+    status_name = 'CMN_DATA_CORRUPT'
+
+    def __init__(self, message, shard=None, offset=None, record=None,
+                 kind=None):
+        super().__init__(message)
+        self.shard = shard
+        self.offset = offset
+        self.record = record
+        self.kind = kind
+
+
 class WeightSwapError(RuntimeError):
     """A live weight hot-swap was refused or failed validation before
     cutover: the engine still holds, and keeps serving, its previous

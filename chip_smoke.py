@@ -105,6 +105,30 @@ Phases, each printing its own lines; any failure exits non-zero:
    kernel, finite losses, images/s from the p50 of the synchronized
    ``update()`` calls and over the whole window, the device busy share
    over 3 profiled steps, peak memory;
+5g. the training input side (``input``, after 5b): the port's native host
+   core (``chainermn_tpu_torch/csrc/chainermn_core.cpp``) built with
+   ``g++`` from the checkout, ``augment_batch`` bit-equal to
+   ``_augment_ref`` on 64 samples of 256 x 256 x 3 cropped to 224 (a
+   float32 and a uint8 store, with and without a mean), both timed;
+   ``bench.py --loader``'s A/B on ResNet-50 ``fused_norm=True`` (224 px,
+   bf16, batch 64): 2 + 24 steps fed one resident batch, then 2 + 24
+   fed by ``StreamingLoader`` over 192 examples in 2 record shards (2
+   decode workers, 2 batches read ahead) -> ``DevicePrefetchIterator``
+   (depth 2) -> ``update_core``: images/s, ``loader_efficiency``, the
+   device busy share of each, the streamed run's launch counts (path
+   ``resnet_streamed``: one ``bn_stats``, ``bn_apply`` and
+   ``bn_backward`` per interlude a step and one SGD launch a step,
+   checked); a fenced streamed window whose ``host_batch_prep`` / ``h2d``
+   spans are held against its ``jitted_step`` spans
+   (``h2d_overlap_fraction``), the queue-depth p50, the workers' busy
+   fraction, ``corrupt_skipped`` 0; one epoch over a copy of the shards
+   with one flipped byte (``corrupt_skipped`` 1, the epoch ends); the
+   ImageNet twin under ``--pipeline native`` (path ``imagenet_native``:
+   one SGD launch an update after the broadcast, no other kernel) beside
+   5b's numbers; ``resnet50_s2d`` on ``convert_stem_variables`` of the
+   standard model, its eval forward (224 px, batch 64, f32, TF32 off)
+   within ``BF16_TOL`` of the standard stem's, then 6 bf16 training
+   steps of each (after 2, in turns), step p50 against p50;
 5c. the conv zoo (``zoo``): GoogLeNet-BN ``fused_norm=True`` against
    ``fused_norm=False`` on the card (f32, TF32 off, batch 4, 224 px:
    logits, loss and running averages against each other; every
@@ -2421,7 +2445,440 @@ def phase_imagenet():
              'not measured' if busy is None else '%.1f%%' % (100 * busy),
              peak / 2 ** 30, losses[0], losses[-1], acc, sum(pinned),
              len(pinned)))
+    return counts, dict(p50_ips=IMAGENET_BATCH / (p50 / 1e3),
+                        window_ips=IMAGENET_BATCH * iterations / window_s,
+                        busy=busy, p50_ms=p50)
+
+
+# the input phase (phase_input): the native augmentation at the twin's
+# sizes (a batch of 64 samples of 256 x 256 x 3 cropped to 224) ...
+AUG_SAMPLES = 64
+AUG_SIZE = 256
+AUG_CROP = 224
+AUG_ITERS = 5                  # timed calls of each version
+# ... bench.py --loader's streamed-against-resident A/B of ResNet-50 at
+# batch 64: 192 examples in 2 record shards, 2 decode workers, 2 batches
+# read ahead, a device prefetch of 2 ...
+INPUT_EXAMPLES = 192
+INPUT_SHARDS = 2
+INPUT_WORKERS = 2
+INPUT_PREFETCH = 2
+INPUT_WARMUP = 2
+INPUT_STEPS = 24
+# ... and the space-to-depth stem's training steps
+S2D_STEPS = 6
+
+
+def _host_ms(fn, iters=AUG_ITERS):
+    """Median host ms of ``iters`` calls of ``fn`` (host code: no card)."""
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return sorted(times)[len(times) // 2]
+
+
+def _input_augment():
+    """The native library built from the checkout; ``augment_batch`` (a
+    uint8 store staged to float32 first, as ``BatchAugmentPipeline``
+    does) bit-equal to ``_augment_ref`` on 64 samples of 256 x 256 x 3
+    cropped to 224, with and without a mean, for a float32 and a uint8
+    store; both timed."""
+    import numpy as np
+    from chainermn_tpu_torch import native
+    from chainermn_tpu_torch.datasets.imagenet import _augment_ref
+    from chainermn_tpu_torch.ops._build import LIBRARIES
+    path, build_s = LIBRARIES.build_host('chainermn_core')
+    _say('input', 'g++ built %s in %.1f s; pool of %d threads (%d CPUs)'
+         % (path.name, build_s, native.pool_threads(), os.cpu_count()))
+    rng = np.random.RandomState(0)
+    f32 = (rng.rand(AUG_SAMPLES, AUG_SIZE, AUG_SIZE, 3)
+           * 255).astype(np.float32)
+    stores = (('float32', f32), ('uint8', f32.astype(np.uint8)))
+    mean = f32.mean(axis=0)
+    b, room = AUG_SAMPLES, AUG_SIZE - AUG_CROP + 1
+    idx = rng.permutation(b).astype(np.int64)
+    tops = rng.randint(0, room, b).astype(np.int32)
+    lefts = rng.randint(0, room, b).astype(np.int32)
+    flips = (rng.rand(b) > 0.5).astype(np.uint8)
+    out = {}
+    for kind, store in stores:
+        for m in (mean, None):
+            def kernel(store=store, m=m):
+                if store.dtype == np.float32:
+                    src, src_idx = store, idx
+                else:
+                    src = store[idx].astype(np.float32)
+                    src_idx = np.arange(b, dtype=np.int64)
+                return native.augment_batch(src, src_idx, tops, lefts,
+                                            flips, AUG_CROP, mean=m)
+
+            def plain(store=store, m=m):
+                return _augment_ref(store, idx, tops, lefts, flips,
+                                    AUG_CROP, mean=m)
+
+            got, want = kernel(), plain()
+            if not np.array_equal(got.view(np.uint32),
+                                  want.view(np.uint32)):
+                raise AssertionError(
+                    'augment_batch (%s store, mean %s) differs from '
+                    '_augment_ref: max abs err %.3g' % (
+                        kind, m is not None,
+                        float(np.abs(got - want).max())))
+            ms, plain_ms = _host_ms(kernel), _host_ms(plain)
+            key = '%s%s' % (kind, '+mean' if m is not None else '')
+            out[key] = (ms, plain_ms)
+            _say('input', 'augment_batch, %s store, %s: bit-equal to '
+                 '_augment_ref; %.3f ms a batch of %d (plain %.3f ms, '
+                 '%.1fx)' % (kind, 'with mean' if m is not None
+                             else 'no mean', ms, b, plain_ms, plain_ms / ms))
+    return out
+
+
+def _flip_record_byte(path, record):
+    """Flip one payload byte of ``record`` in shard ``path``."""
+    from chainermn_tpu_torch import data
+    at = data.read_index(path)['offsets'][record] + 8 + 64
+    with open(path, 'r+b') as f:
+        f.seek(at)
+        byte = f.read(1)
+        f.seek(at)
+        f.write(bytes([byte[0] ^ 0xFF]))
+
+
+def _input_ab():
+    """ResNet-50 (``fused_norm=True``, 224 px, batch 64, phase 5's set-up)
+    fed the same way as ``bench.py --loader``: one resident batch on the
+    card every step, then ``StreamingLoader`` over record shards ->
+    ``DevicePrefetchIterator`` -> ``update_core``, each 2 + 24 steps; a
+    fenced streamed window for the overlap of the input spans with the
+    steps; one epoch over a copy of the shards with one flipped byte.
+    Returns the streamed run's launch counts."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import chainermn_tpu_torch as cmt
+    from chainermn_tpu_torch import data, models, ops, telemetry, training
+    from chainermn_tpu_torch.telemetry.report import (
+        load_rank_logs, overlap_from_intervals)
+    comm = cmt.create_communicator('xla')
+    work = tempfile.mkdtemp(prefix='input_phase_')
+    loader = it = None
+    try:
+        rng = np.random.RandomState(7)
+        x = rng.rand(INPUT_EXAMPLES, 224, 224, 3).astype(np.float32)
+        y = rng.randint(0, 1000, INPUT_EXAMPLES).astype(np.int32)
+        examples = [(x[i], y[i]) for i in range(INPUT_EXAMPLES)]
+        t0 = time.perf_counter()
+        paths = data.write_examples(examples, os.path.join(work, 'shards'),
+                                    n_shards=INPUT_SHARDS)
+        write_s = time.perf_counter() - t0
+        model = models.ResNet50(fused_norm=True)
+        clf = models.StatefulClassifier(model)
+        opt = cmt.create_multi_node_optimizer(
+            ops.FusedMomentumSGD(model.parameters(), 0.1, 0.9), comm)
+        upd = training.StandardUpdater(iter(()), opt, clf.loss, model,
+                                       comm)
+
+        def run(next_batch, steps=INPUT_STEPS):
+            for _ in range(INPUT_WARMUP):
+                upd.update_core(next_batch())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                upd.update_core(next_batch())
+            torch.cuda.synchronize()
+            return BATCH * steps / (time.perf_counter() - t0)
+
+        def fenced(next_batch, name):
+            """``run`` with telemetry on and fenced: (images/s, spans)."""
+            tele = os.path.join(work, name)
+            rec = telemetry.enable(tele, sync_fences=True)
+            try:
+                ips = run(next_batch)
+                rec.flush()
+            finally:
+                telemetry.disable()
+            return ips, load_rank_logs(tele)[1]
+
+        resident = upd.shard_batch(examples[:BATCH])
+        resident_ips = run(lambda: resident)
+        resident_busy, _ = _device(lambda: upd.update_core(resident))
+        fenced_res_ips, res_spans = fenced(lambda: resident, 'resident')
+        loader = data.StreamingLoader(
+            data.ShardSet(paths), BATCH, size=1, rank=0, seed=11,
+            n_workers=INPUT_WORKERS, prefetch=INPUT_PREFETCH)
+        it = training.DevicePrefetchIterator(loader, upd._place,
+                                             depth=INPUT_PREFETCH,
+                                             device=upd.device)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        streamed_ips = run(lambda: next(it))
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        streamed_busy, _ = _device(lambda: upd.update_core(next(it)))
+        # the same stream again with fences on: spans cover the card's
+        # work, so the input spans' overlap with the steps is measured
+        fenced_ips, spans = fenced(lambda: next(it), 'streamed')
+        input_iv = [(sp['t0'], sp['t1']) for sp in spans
+                    if sp['name'] in ('host_batch_prep', 'h2d')]
+        step_iv = [(sp['t0'], sp['t1']) for sp in spans
+                   if sp['name'] == 'jitted_step']
+        synced = sum(1 for sp in spans if sp.get('synced'))
+        ov = overlap_from_intervals(input_iv, step_iv)
+        it.finalize()
+        it = None
+        depth = sorted(loader.depth_samples)
+        depth_p50 = depth[len(depth) // 2]
+        busy_frac = loader.busy_fraction()
+        skipped = loader.corrupt_skipped
+        loader = None
+        if skipped:
+            raise AssertionError('corrupt_skipped %d on intact shards'
+                                 % skipped)
+        # one epoch over a copy with one flipped byte: skipped, counted,
+        # and the epoch still ends
+        bad = shutil.copytree(os.path.join(work, 'shards'),
+                              os.path.join(work, 'corrupt'))
+        bad_paths = sorted(os.path.join(bad, os.path.basename(p))
+                           for p in paths)
+        _flip_record_byte(bad_paths[1], 5)
+        loader = data.StreamingLoader(bad_paths, BATCH, size=1, rank=0,
+                                      seed=11, repeat=False,
+                                      n_workers=INPUT_WORKERS,
+                                      prefetch=INPUT_PREFETCH)
+        it = training.DevicePrefetchIterator(loader, upd._place, depth=2,
+                                             device=upd.device)
+        rows = []
+        for arrays in it:
+            upd.update_core(arrays)
+            rows.append(int(arrays[0].shape[0]))
+        torch.cuda.synchronize()
+        corrupt = loader.corrupt_skipped
+        # the skipped example leaves one batch of its epoch a row short
+        full = [BATCH] * (INPUT_EXAMPLES // BATCH)
+        if corrupt != 1 or sorted(rows) != [BATCH - 1] + full[1:] \
+                or loader.epoch != 1:
+            raise AssertionError('corrupt epoch: %d skipped, batches %s, '
+                                 'epoch %d' % (corrupt, rows, loader.epoch))
+    finally:
+        if it is not None:
+            it.finalize()
+        elif loader is not None:
+            loader.finalize()
+        comm.close()
+        shutil.rmtree(work, ignore_errors=True)
+    steps = INPUT_WARMUP + INPUT_STEPS
+    want = _want(steps, steps, steps)   # phase 5's counts a step
+    _check_counts('ResNet-50 streamed', counts, want)
+    _say('input', 'ResNet-50 (fused_norm, 224 px, bf16, batch %d, %d + %d '
+         'steps each): resident %.1f images/s, streamed %.1f images/s '
+         '(%d examples, %d shards written in %.2f s; %d workers, %d '
+         'batches read ahead, device prefetch %d), loader_efficiency '
+         '%.4f; device busy %s resident, %s streamed (3 profiled steps)' % (
+             BATCH, INPUT_WARMUP, INPUT_STEPS, resident_ips, streamed_ips,
+             INPUT_EXAMPLES, INPUT_SHARDS, write_s, INPUT_WORKERS,
+             INPUT_PREFETCH, INPUT_PREFETCH, streamed_ips / resident_ips,
+             _pct(resident_busy), _pct(streamed_busy)))
+    _say('input', 'fenced streamed window: %.1f images/s; '
+         'h2d_overlap_fraction %s (%d input spans, %.1f ms of them, %.1f '
+         'ms hidden behind %d jitted_step spans; %d spans fenced); '
+         'data_queue_depth p50 %d; data_worker_busy_fraction %.4f; '
+         'corrupt_skipped %d' % (
+             fenced_ips, 'none' if ov['overlap_fraction'] is None
+             else '%.4f' % ov['overlap_fraction'], len(input_iv),
+             1e3 * ov['total_collective_s'],
+             1e3 * ov['hidden_collective_s'], len(step_iv), synced,
+             depth_p50, busy_frac, skipped))
+    _say('input', 'span p50s, fenced (ms): resident %.1f images/s, '
+         'jitted_step %s; streamed jitted_step %s, host_batch_prep %s, '
+         'h2d %s, data_decode %s' % (
+             fenced_res_ips, _span_p50(res_spans, 'jitted_step'),
+             _span_p50(spans, 'jitted_step'),
+             _span_p50(spans, 'host_batch_prep'), _span_p50(spans, 'h2d'),
+             _span_p50(spans, 'data_decode')))
+    _say('input', 'one flipped byte in a copy of the shards: one epoch of '
+         'batches %s, corrupt_skipped %d, the epoch ended' % (rows,
+                                                             corrupt))
+    _say('input', 'resnet_streamed launches %s' % counts)
     return counts
+
+
+def _span_p50(spans, name):
+    """The p50 duration (ms, as text) of the spans called ``name``."""
+    ms = sorted(1e3 * (sp['t1'] - sp['t0']) for sp in spans
+                if sp['name'] == name)
+    return '%.3f' % ms[len(ms) // 2] if ms else 'none'
+
+
+def _pct(share):
+    return 'not measured' if share is None else '%.1f%%' % (100 * share)
+
+
+def _input_native_twin(thread):
+    """The ImageNet twin under ``--pipeline native`` (phase 5b's run with
+    ``BatchAugmentPipeline`` + ``PipelineIterator``), beside phase 5b's
+    thread-pipeline numbers; returns its launch counts."""
+    import shutil
+    import tempfile
+    from chainermn_tpu_torch import ops, training
+    from chainermn_tpu_torch.datasets import imagenet
+    from chainermn_tpu_torch.examples.imagenet import train_imagenet
+    out = tempfile.mkdtemp(prefix='imagenet_native_')
+    try:
+        ops.reset_launch_counts()
+        trainer, update_ms, losses, pinned, window_s = _imagenet_example(
+            out, IMAGENET_ARGV + ['--pipeline', 'native'])
+        counts = ops.launch_counts()
+        iterations = trainer.updater.iteration
+        inner = trainer.updater.iterator.inner
+        try:
+            busy = profile_steps(trainer.updater)
+        finally:
+            train_imagenet.close(trainer)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    if not (isinstance(inner, training.PipelineIterator) and isinstance(
+            inner.pipeline, imagenet.BatchAugmentPipeline)):
+        raise AssertionError('--pipeline native fed %r' % (inner,))
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want.update(momentum_sgd=iterations - 1)
+    _check_counts('ImageNet twin, native pipeline', counts, want)
+    if len(losses) != iterations or not all(math.isfinite(v)
+                                            for v in losses):
+        raise AssertionError('native twin: losses %s' % losses)
+    if not pinned or not all(pinned):
+        raise AssertionError('native twin: %d of %d batches pinned'
+                             % (sum(pinned), len(pinned)))
+    timed = sorted(update_ms[2:])
+    p50 = timed[len(timed) // 2]
+    _say('input', 'ImageNet twin (hierarchical, ResNet-50, 224 px, batch '
+         '%d, 1 epoch of the synthetic 1280): --pipeline native %.1f '
+         'images/s at the update() p50 (%.3f ms), %.1f images/s over the '
+         'window, device busy %s; --pipeline thread in this run %.1f '
+         'images/s at the p50 (%.3f ms), %.1f over the window, device '
+         'busy %s; %d iterations, %d momentum_sgd launches and no other '
+         'kernel; loss %.4f -> %.4f' % (
+             IMAGENET_BATCH, IMAGENET_BATCH / (p50 / 1e3), p50,
+             IMAGENET_BATCH * iterations / window_s, _pct(busy),
+             thread['p50_ips'], thread['p50_ms'], thread['window_ips'],
+             _pct(thread['busy']), iterations, counts['momentum_sgd'],
+             losses[0], losses[-1]))
+    return counts
+
+
+def _s2d_models(dtype, fused_norm=True):
+    """A standard-stem ResNet-50 (seeded) and ``resnet50_s2d`` on its
+    weights through ``convert_stem_variables``, both in eval mode."""
+    from chainermn_tpu_torch import models
+    std = models.ResNet50(dtype=dtype, fused_norm=fused_norm,
+                          generator=_seed(3))
+    s2d = models.get_arch('resnet50_s2d', dtype=dtype,
+                          fused_norm=fused_norm, generator=_seed(4))
+    models.load_flax_variables(s2d, models.convert_stem_variables(
+        models.to_flax_variables(std)))
+    return std.eval(), s2d.eval()
+
+
+def _seed(n):
+    import torch
+    return torch.Generator().manual_seed(n)
+
+
+def _input_s2d():
+    """``resnet50_s2d`` on the standard model's converted weights: the
+    eval forward at 224 px, batch 64 in f32 (TF32 off) within
+    ``BF16_TOL`` of the standard stem's (the same function); the bf16
+    models' difference printed; then ``S2D_STEPS`` bf16 training steps of
+    each after 2 (in turns), step p50 against p50."""
+    import numpy as np
+    import torch
+    import chainermn_tpu_torch as cmt
+    from chainermn_tpu_torch import models, ops, training
+    x = torch.rand((BATCH, 224, 224, 3), generator=_seed(5)).cuda()
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        std, s2d = _s2d_models(torch.float32)
+        with torch.no_grad():
+            want, got = std(x), s2d(x)
+        check_close('resnet50_s2d eval forward (f32)', got, want, *BF16_TOL)
+        f32_err = max_err(got, want)
+        del std, s2d
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    _free()
+    std, s2d = _s2d_models(torch.bfloat16)
+    with torch.no_grad():
+        want, got = std(x), s2d(x)
+    bf16_err = max_err(got, want)
+    bf16_rel = bf16_err / float(want.float().abs().max())
+    labels = torch.randint(0, 1000, (BATCH,), generator=_seed(6))
+    host = x.cpu().numpy()
+    batch = [(host[i], np.int32(labels[i])) for i in range(BATCH)]
+    comm = cmt.create_communicator('xla')
+    updaters, times, losses = {}, {}, {}
+    try:
+        for name, model in (('standard', std), ('space_to_depth', s2d)):
+            model.train()
+            clf = models.StatefulClassifier(model)
+            opt = cmt.create_multi_node_optimizer(
+                ops.FusedMomentumSGD(model.parameters(), 0.1, 0.9), comm)
+            updaters[name] = training.StandardUpdater(
+                training.SerialIterator(batch, BATCH, shuffle=False), opt,
+                clf.loss, model, comm)
+            times[name], losses[name] = [], []
+            for _ in range(2):   # the broadcast call and a warm-up step
+                losses[name].append(updaters[name].update()['loss'])
+        # the timed steps in turns (standard, s2d, s2d, standard), half
+        # a side's steps a turn
+        half = S2D_STEPS // 2
+        for name in ('standard', 'space_to_depth', 'space_to_depth',
+                     'standard'):
+            for _ in range(half):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses[name].append(updaters[name].update()['loss'])
+                times[name].append(1e3 * (time.perf_counter() - t0))
+    finally:
+        comm.close()
+    p50 = {}
+    for name in updaters:
+        if not all(math.isfinite(v) for v in losses[name]):
+            raise AssertionError('%s stem: losses %s' % (name,
+                                                         losses[name]))
+        timed = sorted(times[name])
+        p50[name] = timed[len(timed) // 2]
+    _say('input', 'resnet50_s2d on convert_stem_variables of the standard '
+         'model: eval forward (224 px, batch %d, f32, TF32 off) max abs '
+         'err %.3g, within BF16_TOL %s; in bf16 max abs err %.3g (%.3g of '
+         'the largest logit, not bounded); %d bf16 training steps each '
+         'after 2, in turns: step p50 %.3f ms space_to_depth against %.3f '
+         'ms standard (%.1f vs %.1f images/s)' % (
+             BATCH, f32_err, BF16_TOL, bf16_err, bf16_rel, S2D_STEPS,
+             p50['space_to_depth'], p50['standard'],
+             BATCH / p50['space_to_depth'] * 1e3,
+             BATCH / p50['standard'] * 1e3))
+
+
+def phase_input(thread):
+    """The training input side: the native augmentation, ResNet-50
+    streamed against resident, the twin on the native pipeline (beside
+    phase 5b's ``thread``), the space-to-depth stem.  Returns the launch
+    counts of the paths ``resnet_streamed`` and ``imagenet_native``."""
+    _input_augment()
+    streamed = _input_ab()
+    _free()
+    native = _input_native_twin(thread)
+    _free()
+    _input_s2d()
+    _free()
+    return {'resnet_streamed': streamed, 'imagenet_native': native}
 
 
 # the MNIST gate's configuration (tests/test_mnist.py, the reference's CI
@@ -5562,7 +6019,8 @@ def main():
     paths = {'resnet_training': _timed(phase_main_path)}
     paths.update(_timed(phase_precision))
     paths['mnist_training'] = _timed(phase_mnist)
-    paths['imagenet_training'] = _timed(phase_imagenet)
+    paths['imagenet_training'], thread = _timed(phase_imagenet)
+    paths.update(_timed(phase_input, thread))
     paths['googlenetbn_training'], paths['imagenet_zoo'] = _timed(phase_zoo)
     paths['mnist_model_parallel'] = _timed(phase_model_parallel)
     paths['seq2seq_training'] = _timed(phase_seq2seq)

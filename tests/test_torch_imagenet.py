@@ -434,11 +434,12 @@ def test_imagenet_twin_two_gloo_ranks(tmp_path, monkeypatch):
 
 
 def test_imagenet_twin_refuses_unported_options(tmp_path):
-    """``--pipeline native`` still raises (A2); ``--double-buffering`` is
-    ported: one quick epoch trains with the double-buffered optimizer
+    """An unknown ``--pipeline`` is refused (``native`` is ported:
+    ``tests/test_torch_input_pipeline.py`` runs it); ``--double-buffering``
+    is ported: one quick epoch trains with the double-buffered optimizer
     under ``Trainer(async_metrics=True)``, as the JAX script does."""
-    with pytest.raises(NotImplementedError, match='A2'):
-        train_imagenet.main(['--cpu', '--pipeline', 'native'])
+    with pytest.raises(SystemExit):
+        train_imagenet.main(['--cpu', '--pipeline', 'dali'])
     trainer = train_imagenet.main([
         '--cpu', '--quick', '--double-buffering', '--arch', 'nin',
         '--dtype', 'float32', '--batchsize', '64', '--out',

@@ -197,11 +197,15 @@ def test_same_pads_match_xla(size, kernel, stride, want):
 
 
 def test_unported_variants_raise():
-    with pytest.raises(NotImplementedError, match='space_to_depth'):
-        models.ResNet50(stem='space_to_depth', device='cpu')
-    with pytest.raises(NotImplementedError, match='A3'):
-        models.get_arch('resnet50_s2d', device='cpu')
-    # the rest of the zoo is ported: only the space_to_depth stem raises
+    # the space_to_depth stem is ported: both names build it, and only an
+    # unknown stem raises
+    with torch.device('meta'):
+        assert hasattr(models.ResNet50(stem='space_to_depth',
+                                       device='meta'), 'conv_init_s2d')
+        assert hasattr(models.get_arch('resnet50_s2d', device='meta'),
+                       'conv_init_s2d')
+    with pytest.raises(ValueError, match='stem'):
+        models.ResNet50(stem='s2d', device='cpu')
     for name in ('alex', 'googlenet', 'googlenetbn', 'nin', 'vgg16'):
         with torch.device('meta'):
             models.get_arch(name, device='meta')

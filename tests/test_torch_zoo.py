@@ -50,8 +50,9 @@ def test_parameter_count_matches_flax(name):
 
 
 def test_get_arch_raises_only_for_s2d():
-    with pytest.raises(NotImplementedError, match='A3'):
-        models.get_arch('resnet50_s2d', device='cpu')
+    # resnet50_s2d is ported: only an unknown name raises
+    with torch.device('meta'):
+        assert models.get_arch('resnet50_s2d', device='meta').insize == 224
     with pytest.raises(ValueError):
         models.get_arch('resnet18', device='cpu')
     for name in CANONICAL:
