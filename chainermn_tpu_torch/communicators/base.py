@@ -50,6 +50,36 @@ _OPS = {'sum': dist.ReduceOp.SUM, 'mean': dist.ReduceOp.SUM,
         'max': dist.ReduceOp.MAX, 'min': dist.ReduceOp.MIN}
 
 
+def join_default_group(device=None):
+    """``(device, made)``: this process's device (``LOCAL_RANK``'s card
+    under ``torchrun`` when none is given) and whether the default group
+    was made here.  The group is joined if it exists; else it is made
+    from the ``torchrun`` environment (``RANK``, ``WORLD_SIZE``,
+    ``MASTER_ADDR``, ``MASTER_PORT``); else it is a world of one.  CUDA
+    devices use NCCL and the CPU gloo; a group of the other backend is
+    refused."""
+    if (device is None and torch.cuda.is_available()
+            and 'LOCAL_RANK' in os.environ):
+        device = 'cuda:%d' % int(os.environ['LOCAL_RANK'])
+    device = resolve_device(device)
+    if device.type == 'cuda':
+        torch.cuda.set_device(device)
+    backend = 'nccl' if device.type == 'cuda' else 'gloo'
+    made = False
+    if not dist.is_initialized():
+        if 'RANK' in os.environ and 'WORLD_SIZE' in os.environ:
+            dist.init_process_group(backend, init_method='env://')
+        else:
+            dist.init_process_group(backend, store=dist.HashStore(),
+                                    rank=0, world_size=1)
+        made = True
+    joined = str(dist.get_backend())
+    if backend not in joined:
+        raise RuntimeError('the process group uses %r, but device %s needs %r'
+                           % (joined, device, backend))
+    return device, made
+
+
 class CommunicatorBase:
     """One process per device, on the default process group.
 
@@ -73,31 +103,11 @@ class CommunicatorBase:
     """
 
     def __init__(self, device=None, reduce_dtype=None, mesh_shape=None):
-        if (device is None and torch.cuda.is_available()
-                and 'LOCAL_RANK' in os.environ):
-            device = 'cuda:%d' % int(os.environ['LOCAL_RANK'])
-        self.device = resolve_device(device)
-        if self.device.type == 'cuda':
-            torch.cuda.set_device(self.device)
-        backend = 'nccl' if self.device.type == 'cuda' else 'gloo'
-        self._owns_group = False
-        if not dist.is_initialized():
-            if 'RANK' in os.environ and 'WORLD_SIZE' in os.environ:
-                dist.init_process_group(backend, init_method='env://')
-            else:
-                dist.init_process_group(backend, store=dist.HashStore(),
-                                        rank=0, world_size=1)
-            self._owns_group = True
-        joined = str(dist.get_backend())
-        if backend not in joined:
-            raise RuntimeError(
-                'the process group uses %r, but device %s needs %r'
-                % (joined, self.device, backend))
+        self.device, self._owns_group = join_default_group(device)
         self.reduce_dtype = reduce_dtype
-        self.mesh_shape = mesh_utility.resolve_mesh_shape(self.size,
+        self.mesh_shape = mesh_utility.resolve_mesh_shape(self.world_size,
                                                           mesh_shape)
-        self._intra_group, self._inter_group = mesh_utility.build_groups(
-            *self.mesh_shape, self.rank)
+        self._intra_group, self._inter_group = self._make_groups()
         # one collective over the default group, by every rank, after the
         # sub-groups: no rank returns while a peer is still connecting
         # them (gloo's connect finishes on one side first; a rank that
@@ -111,9 +121,14 @@ class CommunicatorBase:
         # same communicators in the same order: making the sub-groups
         # above is a collective)
         self._channel = 'c%d' % self._store().add(
-            '%s/communicators/%d' % (_KEYS, self.rank), 1)
+            '%s/communicators/%d' % (_KEYS, self.world_rank), 1)
         self._send_seq, self._recv_seq, self._barrier_epochs = {}, {}, {}
         self._p2p_sent = {}
+
+    def _make_groups(self):
+        """This process's ``(intra group, inter group)`` over
+        ``mesh_shape``, made here by every rank in the same order."""
+        return mesh_utility.build_groups(*self.mesh_shape, self.world_rank)
 
     @property
     def size(self):
@@ -121,6 +136,17 @@ class CommunicatorBase:
 
     @property
     def rank(self):
+        return dist.get_rank()
+
+    @property
+    def world_size(self):
+        """The processes of the default group (``size`` unless a
+        subclass counts something else, as ``MeshPlanCommunicator``
+        counts data replicas)."""
+        return dist.get_world_size()
+
+    @property
+    def world_rank(self):
         return dist.get_rank()
 
     # -- topology (the JAX package's mesh coordinates) ----------------------
@@ -155,7 +181,7 @@ class CommunicatorBase:
         ``'mean'`` divides by the world size.  Returns ``buf``."""
         dist.all_reduce(buf, op=_OPS[op], group=group)
         if op == 'mean':
-            buf /= self.size
+            buf /= self.world_size
         return buf
 
     def _reduce_grouped(self, tensors, op):
@@ -235,7 +261,7 @@ class CommunicatorBase:
         bounds the wait: a :meth:`barrier` with that budget runs first,
         so a missing peer raises ``ChannelTimeout`` instead of blocking
         the collective for good."""
-        if timeout is not None and self.size > 1:
+        if timeout is not None and self.world_size > 1:
             self.barrier(timeout=timeout, tag='allreduce_obj')
         return float(self.allreduce(torch.tensor(
             float(value), dtype=torch.float64, device=self.device), op))
@@ -289,19 +315,20 @@ class CommunicatorBase:
         ``timeout`` seconds, else :class:`ChannelTimeout` names the tag,
         the epoch and how many arrived.  Epochs are counted per tag; in
         a world of one it returns at once."""
-        if self.size == 1:
+        if self.world_size == 1:
             return
         n = self._barrier_epochs[tag] = self._barrier_epochs.get(tag, 0) + 1
         store = self._store()
         key = '%s/barrier/%s/%s/%d' % (_KEYS, self._channel, tag, n)
         # the last to arrive opens the barrier for all
-        if store.add(key, 1) == self.size:
+        if store.add(key, 1) == self.world_size:
             store.set(key + '/open', b'1')
         if not self._wait_key(store, key + '/open', Deadline(timeout),
                               Backoff(initial=0.05, max_delay=1.0)):
             raise ChannelTimeout(
                 'barrier %r epoch %d: %d of %d processes arrived within '
-                '%.1fs' % (tag, n, store.add(key, 0), self.size, timeout))
+                '%.1fs' % (tag, n, store.add(key, 0), self.world_size,
+                           timeout))
 
     def send_obj(self, obj, dest, tag=0, channel=None, timeout=30.0):
         """Ship a picklable object to process ``dest``; messages are FIFO
@@ -315,7 +342,7 @@ class CommunicatorBase:
         channel = channel or self._channel
         stream = (dest, tag, channel)
         seq = self._send_seq.get(stream, 0)
-        key = self._p2p_key(channel, self.rank, dest, tag, seq)
+        key = self._p2p_key(channel, self.world_rank, dest, tag, seq)
         payload = pickle.dumps(obj)
         deadline = Deadline(timeout)
         backoff = Backoff(initial=0.05, max_delay=1.0)
@@ -354,7 +381,7 @@ class CommunicatorBase:
         channel = channel or self._channel
         stream = (source, tag, channel)
         seq = self._recv_seq.get(stream, 0)
-        key = self._p2p_key(channel, source, self.rank, tag, seq)
+        key = self._p2p_key(channel, source, self.world_rank, tag, seq)
         if not self._wait_key(store, key, Deadline(timeout),
                               Backoff(initial=0.1, max_delay=2.0)):
             raise ChannelTimeout(

@@ -75,3 +75,18 @@ def build_groups(inter, intra, rank):
     are made first, then all the inter groups."""
     rows, cols = group_ranks(inter, intra)
     return new_groups(rows, rank), new_groups(cols, rank)
+
+
+def divisor_leq(n, k):
+    """The largest divisor of ``n`` that is ``<= k`` (>= 1): the
+    degradation rule of :class:`chainermn_tpu_torch.parallel.MeshPlan`
+    (the JAX package's ``divisor_leq``).  A requested axis width that
+    does not divide the process count clamps down to one that does:
+    ``divisor_leq(1, k) == 1``, ``divisor_leq(n, n) == n``,
+    ``divisor_leq(7, 2) == 1``."""
+    if n < 1:
+        raise ValueError('need at least one device, got %d' % n)
+    k = max(1, min(int(k), n))
+    while n % k:
+        k -= 1
+    return k

@@ -56,6 +56,11 @@ def load_flax_variables(module, variables):
     buffers, in place (their devices, dtypes and memory formats are
     kept).  Every leaf must find its tensor, and every parameter and
     buffer of ``module`` must be covered."""
+    shard = getattr(module, 'shard_flax_variables', None)
+    if shard is not None:
+        # a tensor-parallel model takes the full (oracle) tree and keeps
+        # its own shard of it
+        variables = shard(variables)
     tensors = dict(module.named_parameters())
     tensors.update(module.named_buffers())
     seen = set()
@@ -99,3 +104,77 @@ def to_flax_variables(module):
             node = node.setdefault(part, {})
         node[path[-1]] = np.ascontiguousarray(value)
     return out
+
+
+# -- tensor-parallel layouts ----------------------------------------------
+#
+# A spec is a tuple with one entry per leading dim of a leaf: None
+# (replicated) or the name (or tuple of names) of the mesh axes the dim
+# is split over, in equal blocks in axis order (the JAX PartitionSpec).
+
+def _spec_names(entry):
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _map_specs(fn, tree, specs):
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v, specs[k]) for k, v in tree.items()}
+    return fn(tree, specs)
+
+
+def shard_leaf(value, spec, mesh):
+    """This process's block of one full leaf (numpy array or tensor)
+    under ``spec`` on ``mesh`` (a ``parallel.ProcessMesh``)."""
+    for dim, entry in enumerate(tuple(spec or ())):
+        if entry is None:
+            continue
+        n = mesh.axis_size(entry)
+        if value.shape[dim] % n:
+            raise ValueError('dim %d of shape %r does not divide over axis '
+                             '%r (size %d)' % (dim, tuple(value.shape),
+                                               entry, n))
+        k = value.shape[dim] // n
+        i = mesh.axis_index(entry)
+        index = [slice(None)] * value.ndim
+        index[dim] = slice(i * k, (i + 1) * k)
+        value = value[tuple(index)]
+    return value
+
+
+def gather_leaf(value, spec, mesh, device=None):
+    """The full leaf from every process's block (a collective over each
+    sharded dim's axes; a torch tensor or numpy array in, the same
+    kind out).  ``device``: where the collective runs (a CUDA device
+    under NCCL)."""
+    import torch.distributed as dist
+    as_numpy = isinstance(value, np.ndarray)
+    t = torch.as_tensor(value)
+    if device is not None:
+        t = t.to(device)
+    for dim, entry in enumerate(tuple(spec or ())):
+        if entry is None:
+            continue
+        ax = mesh.axis(entry)
+        if ax.size == 1:
+            continue
+        parts = [torch.empty_like(t) for _ in range(ax.size)]
+        dist.all_gather(parts, t.contiguous(), group=ax.group)
+        t = torch.cat(parts, dim=dim)
+    return t.cpu().numpy() if as_numpy else t
+
+
+def shard_variables(tree, specs, mesh):
+    """This process's shard of a full flax tree (nested dicts) under a
+    spec tree of the same structure (e.g. ``tp_param_specs``): what
+    ``shard_map``'s in_specs hand one device."""
+    return _map_specs(lambda v, sp: shard_leaf(np.asarray(v), sp, mesh),
+                      tree, specs)
+
+
+def gather_variables(tree, specs, mesh, device=None):
+    """The inverse of :func:`shard_variables`: every process's shard
+    gathered back into the full tree of numpy arrays (a collective:
+    call it on every process of the mesh, in the same order)."""
+    return _map_specs(
+        lambda v, sp: gather_leaf(np.asarray(v), sp, mesh, device),
+        tree, specs)

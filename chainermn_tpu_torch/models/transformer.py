@@ -22,9 +22,13 @@ float32; ``dtype`` is the compute dtype every matmul runs in, and the
 LM head is a float32 product over activations first rounded to
 ``dtype``, as in the JAX package.
 
-Not ported yet (they raise ``NotImplementedError``): ``tp_axis``,
-``sequence_axis``, dropout and a tensor-parallel cache (ROADMAP.md A6,
-A7).
+The parallel axes (:mod:`chainermn_tpu_torch.parallel`): ``tp_axis``
+(Megatron tensor parallelism, with :func:`tp_param_specs` /
+:func:`tp_oracle`) and ``sequence_axis`` (ring or Ulysses attention)
+train; the serving functions take an unsharded model.  Not ported yet
+(they raise ``NotImplementedError``): dropout (ROADMAP.md A6) and a
+tensor-parallel cache (A7; serving a ``tp_axis`` model is ROADMAP.md
+item 9).
 """
 
 import torch
@@ -32,6 +36,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from chainermn_tpu_torch import ops
+from chainermn_tpu_torch.models.flax_weights import (
+    param_tree, shard_leaf, shard_variables)
 from chainermn_tpu_torch.ops._common import resolve_device
 from chainermn_tpu_torch.precision import dequantize_kv, quantize_kv
 
@@ -93,26 +99,79 @@ class Embed(nn.Module):
         return _embed(self.embedding, tokens, self.dtype)
 
 
-def _unported(sequence_axis, tp_axis, dropout):
-    if sequence_axis is not None or tp_axis is not None:
-        raise NotImplementedError(
-            'sequence_axis / tp_axis are not ported yet (ROADMAP.md A7)')
+def _check_options(sequence_axis, tp_axis, dropout, sp_scheme, where):
+    if tp_axis is not None and sequence_axis is not None:
+        raise ValueError(
+            'tp_axis and sequence_axis cannot both be set on one block'
+            if where == 'block' else
+            'tp_axis and sequence_axis cannot both be set (compose tp with '
+            'data/pipeline axes via MeshPlan instead)')
+    if tp_axis is not None and dropout > 0:
+        raise ValueError('tp_axis blocks run without dropout (per-rank rng '
+                         'divergence would silently break the head groups); '
+                         'build with dropout=0.0')
     if dropout:
         raise NotImplementedError(
             'dropout is not ported yet (ROADMAP.md A6)')
+    if sp_scheme not in ('ring', 'ulysses'):
+        raise ValueError("sp_scheme must be 'ring' or 'ulysses', got %r"
+                         % (sp_scheme,))
+
+
+def _lookup(tree, path):
+    for part in path:
+        tree = tree[part]
+    return tree
+
+
+@torch.no_grad()
+def _keep_shards(module, specs, mesh, names=None):
+    """Replace ``module``'s parameters (those under ``names``, default
+    all) by this process's shards of them on ``mesh``, in place."""
+    for key, p in list(module.named_parameters()):
+        path = key.split('.')
+        if names is not None and path[0] not in names:
+            continue
+        spec = _lookup(specs, path)
+        if all(e is None for e in spec):
+            continue
+        owner = module.get_submodule('.'.join(path[:-1]))
+        setattr(owner, path[-1],
+                nn.Parameter(shard_leaf(p.data, spec, mesh).clone()))
+
+
+def _tp_mesh(tp_axis):
+    """The bound mesh of ``tp_axis`` and ``(size, index)`` on it."""
+    from chainermn_tpu_torch.parallel.meshplan import bound_mesh
+    mesh = bound_mesh(tp_axis)
+    return mesh, mesh.axis_size(tp_axis), mesh.axis_index(tp_axis)
 
 
 class TransformerBlock(nn.Module):
     """Pre-LN block: LN -> qkv -> causal flash attention -> proj
-    residual -> LN -> gelu MLP residual."""
+    residual -> LN -> gelu MLP residual.
+
+    ``sequence_axis``: the tokens are sharded over that mesh axis, and
+    attention is ``parallel.ring_attention`` or ``ulysses_attention``
+    (``sp_scheme``) over it.  ``tp_axis``: Megatron tensor parallelism
+    over that axis (heads and MLP columns split, one sum per half-block,
+    through the conjugate ``tp_copy`` / ``tp_reduce`` pair); the axis is
+    resolved in the bound mesh when the block is built (its parameters
+    are this process's shards of the unsharded block's, made from the
+    same generator) and again at every call."""
 
     def __init__(self, d_model, n_heads, d_ff, dtype=torch.bfloat16,
                  sequence_axis=None, dropout=0.0, tp_axis=None,
-                 generator=None):
+                 generator=None, sp_scheme='ring'):
         super().__init__()
-        _unported(sequence_axis, tp_axis, dropout)
+        _check_options(sequence_axis, tp_axis, dropout, sp_scheme, 'block')
         self.d_model = d_model
+        self.n_heads = n_heads
+        self.d_ff = d_ff
         self.dtype = dtype
+        self.sequence_axis = sequence_axis
+        self.sp_scheme = sp_scheme
+        self.tp_axis = tp_axis
         self.ln1_scale = nn.Parameter(torch.ones(d_model))
         self.ln1_bias = nn.Parameter(torch.zeros(d_model))
         self.qkv = QKV(d_model, n_heads, dtype, generator)
@@ -121,15 +180,57 @@ class TransformerBlock(nn.Module):
         self.ln2_bias = nn.Parameter(torch.zeros(d_model))
         self.ff_in = Dense(d_model, d_ff, dtype, generator)
         self.ff_out = Dense(d_ff, d_model, dtype, generator)
+        self.tp_size, self.tp_index = 1, 0
+        if tp_axis is not None:
+            mesh, tp, index = _tp_mesh(tp_axis)
+            if n_heads % tp or d_ff % tp:
+                raise ValueError(
+                    'tp_axis=%r of size %d must divide n_heads=%d and '
+                    'd_ff=%d' % (tp_axis, tp, n_heads, d_ff))
+            self.tp_size, self.tp_index = tp, index
+            _keep_shards(self, tp_param_specs(param_tree(self), tp_axis),
+                         mesh)
 
     def forward(self, x):
+        if self.tp_axis is not None:
+            return self._tp_forward(x)
         h = ops.layer_norm(x, self.ln1_scale, self.ln1_bias).to(self.dtype)
         qkv = self.qkv(h)                       # (B, T, 3, H, d_head)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        attn = ops.flash_attention(q, k, v, causal=True)
+        if self.sequence_axis is not None:
+            from chainermn_tpu_torch.parallel import sequence
+            sp = (sequence.ulysses_attention if self.sp_scheme == 'ulysses'
+                  else sequence.ring_attention)
+            attn = sp(q, k, v, self.sequence_axis, causal=True)
+        else:
+            attn = ops.flash_attention(q, k, v, causal=True)
         x = x + self.proj(attn.reshape(attn.shape[:2] + (self.d_model,)))
         h = ops.layer_norm(x, self.ln2_scale, self.ln2_bias).to(self.dtype)
         return x + self.ff_out(_gelu(self.ff_in(h)))
+
+    def _tp_forward(self, x):
+        """The Megatron-sharded body (the JAX block's ``_tp_call``)."""
+        from chainermn_tpu_torch.parallel import tensor
+        axis, dt = self.tp_axis, self.dtype
+        if _tp_mesh(axis)[1:] != (self.tp_size, self.tp_index):
+            raise ValueError('the block was built for place %d of %d on '
+                             'tp_axis=%r; the bound mesh says %r'
+                             % (self.tp_index, self.tp_size, axis,
+                                _tp_mesh(axis)[1:]))
+        h = ops.layer_norm(x, self.ln1_scale, self.ln1_bias).to(dt)
+        h = tensor.tp_copy(h, axis)
+        attn = tensor.qkv_attention(h, self.qkv.kernel.to(dt), causal=True,
+                                    bqkv=self.qkv.bias.to(dt))
+        x = x + tensor.row_parallel_dense(
+            attn, self.proj.kernel.to(dt), axis, self.proj.bias.to(dt),
+            grad_conjugate=True)
+        h = ops.layer_norm(x, self.ln2_scale, self.ln2_bias).to(dt)
+        h = tensor.tp_copy(h, axis)
+        g = _gelu(tensor.column_parallel_dense(
+            h, self.ff_in.kernel.to(dt), self.ff_in.bias.to(dt)))
+        return x + tensor.row_parallel_dense(
+            g, self.ff_out.kernel.to(dt), axis, self.ff_out.bias.to(dt),
+            grad_conjugate=True)
 
 
 class TransformerLM(nn.Module):
@@ -137,17 +238,40 @@ class TransformerLM(nn.Module):
 
     Parameters are made on the CPU from ``generator`` (default: seed 0)
     and moved to ``device`` (default: the current CUDA device; raises
-    when there is none)."""
+    when there is none).
+
+    ``sequence_axis``: call with the tokens of this process's sequence
+    shard; position embeddings are offset by the shard's global start,
+    and every block attends over the axis (``sp_scheme`` ``'ring'`` or
+    ``'ulysses'``).  ``tp_axis`` (exclusive with ``sequence_axis``):
+    Megatron tensor parallelism; build and call the model with a mesh
+    that binds the axis (``with plan.bind():``, or a ``StandardUpdater``
+    over ``plan.communicator()``).  Heads and MLP columns split over the
+    axis, the embedding table is vocab-row-sharded (a masked local
+    lookup and one sum) and the vocab projection row-parallel over
+    ``d_model``.  The parameters keep the unsharded model's names, each
+    holding this process's shard (``param_specs``, the
+    :func:`tp_param_specs` of the full tree); ``load_flax_variables``
+    takes the FULL (oracle) tree and keeps the shard, and
+    ``StandardUpdater.params`` gathers the shards back.  Activations are
+    replicated over the axis, so the batch is sharded over the data axis
+    only."""
 
     def __init__(self, vocab_size=32000, d_model=512, n_heads=8,
                  n_layers=6, d_ff=2048, max_len=32768, dtype=torch.bfloat16,
-                 sequence_axis=None, dropout=0.0, tp_axis=None, device=None,
-                 generator=None):
+                 sequence_axis=None, dropout=0.0, sp_scheme='ring',
+                 tp_axis=None, device=None, generator=None):
         super().__init__()
-        _unported(sequence_axis, tp_axis, dropout)
+        _check_options(sequence_axis, tp_axis, dropout, sp_scheme, 'lm')
         if d_model % n_heads:
             raise ValueError('n_heads=%d must divide d_model=%d'
                              % (n_heads, d_model))
+        mesh, tp, index = ((None, 1, 0) if tp_axis is None
+                           else _tp_mesh(tp_axis))
+        if vocab_size % tp or d_model % tp:
+            raise ValueError(
+                'tp_axis=%r of size %d must divide vocab_size=%d and '
+                'd_model=%d' % (tp_axis, tp, vocab_size, d_model))
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -158,23 +282,131 @@ class TransformerLM(nn.Module):
         self.d_ff = d_ff
         self.max_len = max_len
         self.dtype = dtype
+        self.sequence_axis = sequence_axis
+        self.sp_scheme = sp_scheme
+        self.tp_axis = tp_axis
+        self.tp_size, self.tp_index, self.tp_mesh = tp, index, mesh
         self.embed = Embed(vocab_size, d_model, dtype, generator)
         self.pos_embed = _trunc_normal((max_len, d_model), 0.02, generator)
         for i in range(n_layers):
             setattr(self, 'block_%d' % i, TransformerBlock(
-                d_model, n_heads, d_ff, dtype, generator=generator))
+                d_model, n_heads, d_ff, dtype, sequence_axis,
+                tp_axis=tp_axis, generator=generator, sp_scheme=sp_scheme))
         self.lnf_scale = nn.Parameter(torch.ones(d_model))
         self.lnf_bias = nn.Parameter(torch.zeros(d_model))
         self.lm_head = Dense(d_model, vocab_size, torch.float32, generator)
+        self.param_specs = None
+        if tp_axis is not None:
+            # the specs depend on names and ranks alone: the blocks are
+            # cut already, the embedding and the head now
+            self.param_specs = tp_param_specs(param_tree(self), tp_axis)
+            _keep_shards(self, self.param_specs, mesh,
+                         names=('embed', 'lm_head'))
         self.to(device)
+
+    def shard_flax_variables(self, variables):
+        """The full flax tree -> this process's shard of it (identity
+        without ``tp_axis``); ``load_flax_variables`` calls it."""
+        if self.tp_axis is None:
+            return variables
+        return dict(variables, params=shard_variables(
+            variables['params'], self.param_specs, self.tp_mesh))
 
     def forward(self, tokens):
         t = tokens.shape[1]
-        x = self.embed(tokens) + self.pos_embed[:t].to(self.dtype)
+        if self.tp_axis is not None:
+            x = self._tp_embed(tokens)
+        else:
+            x = self.embed(tokens)
+        pos0 = 0
+        if self.sequence_axis is not None:
+            from chainermn_tpu_torch.parallel.meshplan import resolve_axis
+            pos0 = resolve_axis(self.sequence_axis).index * t
+        x = x + self.pos_embed[pos0:pos0 + t].to(self.dtype)
         for i in range(self.n_layers):
             x = getattr(self, 'block_%d' % i)(x)
         x = ops.layer_norm(x, self.lnf_scale, self.lnf_bias)
+        if self.tp_axis is not None:
+            return self._tp_head(x)
         return self.lm_head(x.to(self.dtype))
+
+    def _tp_embed(self, tokens):
+        """Vocab-row-sharded lookup: this process owns rows ``[r*V/tp,
+        (r+1)*V/tp)``; off-shard tokens give zeros, and one sum
+        (``tp_reduce``: identity backward, so the local rows get exactly
+        their own gradients) completes the lookup."""
+        from chainermn_tpu_torch.parallel import tensor
+        table = self.embed.embedding
+        v_local = table.shape[0]
+        local = tokens.long() - self.tp_index * v_local
+        in_shard = (local >= 0) & (local < v_local)
+        rows = _embed(table, local.clamp(0, v_local - 1), table.dtype)
+        x = torch.where(in_shard[..., None], rows,
+                        rows.new_zeros(())).to(self.dtype)
+        # exact in any dtype: per token exactly one process is nonzero
+        return tensor.tp_reduce(x, self.tp_axis)
+
+    def _tp_head(self, x):
+        """Row-parallel vocab projection: ``d_model`` sliced per
+        process, the f32 contraction completed by one sum, the bias
+        added once after it."""
+        from chainermn_tpu_torch.parallel import tensor
+        d_local = self.d_model // self.tp_size
+        xh = tensor.tp_copy(x.to(self.dtype), self.tp_axis)
+        x_local = xh[..., self.tp_index * d_local:
+                     (self.tp_index + 1) * d_local]
+        return tensor.row_parallel_dense(
+            x_local.to(torch.float32),
+            self.lm_head.kernel.to(torch.float32), self.tp_axis,
+            self.lm_head.bias, grad_conjugate=True)
+
+
+def tp_oracle(model, device=None):
+    """The unsharded twin of a ``tp_axis`` model: the same
+    configuration with ``tp_axis=None``, made from the default generator
+    (whose weights are the tensor-parallel model's gathered, when it was
+    made from the default generator too).  On ``device`` (default: the
+    model's)."""
+    if device is None:
+        device = model.lnf_scale.device
+    return TransformerLM(model.vocab_size, model.d_model, model.n_heads,
+                         model.n_layers, model.d_ff, model.max_len,
+                         model.dtype, sp_scheme=model.sp_scheme,
+                         device=device)
+
+
+def tp_param_specs(params, axis='model'):
+    """The spec tree of a ``TransformerLM(tp_axis=axis)`` parameter tree
+    (which is the unsharded model's tree): attention heads and MLP
+    columns / rows on ``axis``, embedding rows on the vocab dim,
+    ``lm_head`` rows on ``d_model``, everything else (layer norms, the
+    position table, the biases added after a sum) replicated, ``()``.
+    A spec is a tuple of None / axis name per leading dim, the JAX
+    ``PartitionSpec``'s entries; ``models.shard_variables`` cuts a
+    process's shard of a full tree with it, ``gather_variables`` gathers
+    the shards back."""
+
+    def one(path, leaf):
+        nd = leaf.ndim
+        if 'embedding' in path:
+            return (axis, None)
+        if 'qkv' in path:
+            return ((None, None, axis, None) if nd == 4
+                    else (None, axis, None))
+        if 'ff_in' in path:
+            return (None, axis) if nd == 2 else (axis,)
+        if 'ff_out' in path or 'proj' in path or 'lm_head' in path:
+            # row-parallel kernels; their biases ride after the sum,
+            # replicated
+            return (axis, None) if nd == 2 else ()
+        return ()
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        return one(path, tree)
+
+    return walk(params, ())
 
 
 def lm_loss_sum(apply_fn, pad_id=-1):
@@ -247,6 +479,10 @@ def _zero_cache(model, slab, dtype, int8_kv, device):
     """``{'k'|'v': (n_layers, *slab, H, d_head)}`` zeros in ``dtype``
     (default ``model.dtype``), or int8 with f32 ``k_scale`` / ``v_scale``
     ``(n_layers, *slab, H)``."""
+    if getattr(model, 'tp_axis', None) is not None:
+        raise NotImplementedError(
+            'serving a tp_axis model (a tensor-parallel cache) is not '
+            'ported yet (ROADMAP.md A7)')
     device = resolve_device(device)
     shape = (model.n_layers,) + slab + (model.n_heads,
                                         model.d_model // model.n_heads)

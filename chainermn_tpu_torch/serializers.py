@@ -39,7 +39,8 @@ import torch
 import torch.distributed as dist
 
 from chainermn_tpu_torch.models.flax_weights import (
-    _leaves, load_flax_variables, to_flax_variables)
+    _leaves, gather_leaf, load_flax_variables, shard_leaf,
+    to_flax_variables)
 from chainermn_tpu_torch.utils.failure import CheckpointCorruptError
 
 #: Reserved npz key holding the JSON manifest (uint8 bytes); user trees
@@ -260,7 +261,15 @@ def updater_state(updater):
       (``state_dict()['state']``, keyed by parameter index) under
       ``actual_state``, and the multi-node wrapper's
       ``needs_broadcast`` (the JAX package keeps it in its optimizer
-      state too, so a resumed run does not broadcast again);
+      state too, so a resumed run does not broadcast again); under
+      ``double_buffering`` also ``have_pending`` and, when it is true,
+      the reduced gradients still to apply, ``pending/<index>`` (the
+      JAX package's ``DoubleBufferState``), so a resumed run applies
+      them at its first step as the uninterrupted run does; under
+      ``StandardUpdater(zero=True)`` each shard-sized state tensor
+      gathered into its ``(N, k)`` stack, and under a tensor-parallel
+      model each sharded moment gathered to its parameter's full shape
+      (both collectives: every process must call this);
     - ``iteration``, ``epoch`` and ``epoch_detail``;
     - ``stream_cursor``, when the iterator has one (a streaming loader,
       directly or under ``DevicePrefetchIterator``): the exact global
@@ -271,10 +280,21 @@ def updater_state(updater):
       JAX package's snapshot does.
     """
     wrapper, inner = _optimizer(updater)
-    opt_state = {'actual_state': {
-        str(i): dict(s) for i, s in inner.state_dict()['state'].items()}}
+    zero = getattr(updater, '_zero', None)
+    if zero is not None:
+        actual = zero.gathered_state()
+    else:
+        actual = _gather_sharded(updater, inner, {
+            i: dict(s) for i, s in inner.state_dict()['state'].items()})
+    opt_state = {'actual_state': {str(i): s for i, s in actual.items()}}
     if wrapper is not None:
         opt_state['needs_broadcast'] = np.bool_(wrapper.needs_broadcast)
+        if wrapper.double_buffering:
+            pending = wrapper.pending
+            opt_state['have_pending'] = np.bool_(pending is not None)
+            if pending is not None:
+                opt_state['pending'] = {
+                    str(i): g.detach().cpu() for i, g in enumerate(pending)}
     scale_state = getattr(updater, 'scale_state', None)
     state = {
         'params': updater.params,
@@ -293,6 +313,25 @@ def updater_state(updater):
     if scale_state is not None:
         state['scale_state'] = {k: v.detach().cpu().numpy()
                                 for k, v in scale_state._asdict().items()}
+    return state
+
+
+def _gather_sharded(updater, inner, state):
+    """``state`` (index -> entries) with every tensor shaped like a
+    model-sharded parameter gathered to the full shape."""
+    mesh = getattr(updater, '_mesh', None)
+    spec_of = getattr(updater, 'param_spec_of', None)
+    if mesh is None or spec_of is None or updater.param_specs is None:
+        return state
+    params = [p for g in inner.param_groups for p in g['params']]
+    for i in sorted(state):
+        spec = spec_of(params[i])
+        if not spec or all(e is None for e in spec):
+            continue
+        for key, value in state[i].items():
+            if torch.is_tensor(value) and value.shape == params[i].shape:
+                state[i][key] = gather_leaf(value, spec, mesh,
+                                            params[i].device)
     return state
 
 
@@ -320,13 +359,29 @@ def restore_counters(updater, iteration, epoch=0, epoch_detail=None,
         it.epoch = int(epoch)
 
 
-def _opt_state_from(by_key, inner, path):
+def _raw_opt_state(by_key):
+    """``{index: {key: tensor}}`` of the snapshot's
+    ``opt_state/actual_state/<index>/<key>`` leaves."""
+    prefix = 'opt_state/actual_state/'
+    state = {}
+    for key, value in by_key.items():
+        if key.startswith(prefix):
+            index, _, name = key[len(prefix):].partition('/')
+            state.setdefault(int(index), {})[name] = torch.as_tensor(value)
+    return state
+
+
+def _opt_state_from(by_key, inner, path, updater=None):
     """The wrapped optimizer's ``state`` from the snapshot's
     ``opt_state/actual_state/<index>/<key>`` leaves.  A tensor of a
     parameter's shape is checked against it and laid out as it is
     (channels_last conv weights: ``FusedMomentumSGD`` walks a velocity
-    and its parameter as flat arrays of the same order)."""
+    and its parameter as flat arrays of the same order); a
+    tensor-parallel model's moment is saved full and cut to this
+    process's shard first."""
     params = [p for g in inner.param_groups for p in g['params']]
+    spec_of = getattr(updater, 'param_spec_of', None)
+    mesh = getattr(updater, '_mesh', None)
     prefix = 'opt_state/actual_state/'
     state = {}
     for key, value in by_key.items():
@@ -338,6 +393,11 @@ def _opt_state_from(by_key, inner, path):
             raise _corrupt('optimizer state for parameter %d of %d'
                            % (i, len(params)), path, key, 'shape')
         t = torch.as_tensor(value)
+        spec = spec_of(params[i]) if spec_of is not None else None
+        if (t.ndim and mesh is not None and spec
+                and any(e is not None for e in spec)
+                and tuple(t.shape) != tuple(params[i].shape)):
+            t = shard_leaf(t, spec, mesh)
         if t.ndim:
             if tuple(t.shape) != tuple(params[i].shape):
                 raise _corrupt('shape mismatch for %r: snapshot %r vs '
@@ -374,19 +434,37 @@ def resume_updater(path, updater, comm=None, elastic=False):
             by_key, live['model_state']['batch_stats'],
             'model_state/batch_stats', path)
     wrapper, inner = _optimizer(updater)
-    opt_state = _opt_state_from(by_key, inner, path)
+    zero = getattr(updater, '_zero', None)
+    if zero is not None:
+        opt_state = _raw_opt_state(by_key)
+    else:
+        opt_state = _opt_state_from(by_key, inner, path, updater)
+    pending = None
     if wrapper is not None:
         flag = _fetch(by_key, 'opt_state/needs_broadcast', np.bool_(True),
                       path)
+        if wrapper.double_buffering and bool(_fetch(
+                by_key, 'opt_state/have_pending', np.bool_(True), path)):
+            params = wrapper._params()
+            # in the parameter's layout, as a reduced gradient is
+            pending = [torch.empty_like(p).copy_(torch.as_tensor(_fetch(
+                by_key, 'opt_state/pending/%d' % i, p.detach().cpu(),
+                path))) for i, p in enumerate(params)]
     iteration = _fetch(by_key, 'iteration', np.int64(0), path)
     scale = (_fetch_tree(by_key, live['scale_state'], 'scale_state', path)
              if 'scale_state' in live else None)
     load_flax_variables(updater.model, variables)
-    inner.load_state_dict({'state': opt_state,
-                           'param_groups': inner.state_dict()[
-                               'param_groups']})
+    if zero is not None:
+        zero.load_gathered_state(opt_state)
+        zero.refresh()
+    else:
+        inner.load_state_dict({'state': opt_state,
+                               'param_groups': inner.state_dict()[
+                                   'param_groups']})
     if wrapper is not None:
         wrapper.needs_broadcast = bool(flag)
+        if wrapper.double_buffering:
+            wrapper.pending = pending
     if scale is not None:
         updater.scale_state = type(updater.scale_state)(**{
             k: torch.as_tensor(v).to(updater.device)

@@ -140,12 +140,18 @@ def snapshot(filename='snapshot_iter_{iteration}', rank0_only=True):
     ``trainer.out`` (``filename`` is formatted with the iteration)."""
 
     def ext(trainer):
+        u = trainer.updater
+        # a ZeRO or tensor-parallel updater gathers its state across the
+        # processes: every process takes part, rank 0 writes
+        collective = getattr(u, 'collective_state', False)
+        if rank0_only and _rank() != 0 and not collective:
+            return
+        state = serializers.updater_state(u)
         if rank0_only and _rank() != 0:
             return
-        u = trainer.updater
         path = os.path.join(trainer.out,
                             filename.format(iteration=u.iteration))
-        serializers.save_npz(path, serializers.updater_state(u))
+        serializers.save_npz(path, state)
 
     ext.trigger = (1, 'epoch')
     ext.priority = 50

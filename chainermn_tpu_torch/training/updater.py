@@ -16,7 +16,9 @@ into one SPMD program; here the same steps run eagerly in each process:
 4. mean-sync the running statistics across processes (``model_state``):
    batch statistics stay local, so this is not ``SyncBatchNorm``;
 5. the optimizer step (with a multi-node optimizer: broadcast at the
-   first call, gradient mean-allreduce + step afterwards);
+   first call, gradient mean-allreduce + step afterwards; under
+   ``zero=True`` the same over flat shards: reduce-scatter, step,
+   all-gather);
 6. mean-average the metrics across processes (in f32).
 
 Telemetry (:mod:`~chainermn_tpu_torch.telemetry`), with the JAX
@@ -42,10 +44,20 @@ from chainermn_tpu_torch import telemetry as _telemetry
 from chainermn_tpu_torch.models._layers import (
     replaying, set_dropout_generator)
 from chainermn_tpu_torch.models._norm import recomputing
-from chainermn_tpu_torch.models.flax_weights import to_flax_variables
+from chainermn_tpu_torch.models.flax_weights import (
+    gather_variables, to_flax_variables)
+from chainermn_tpu_torch.parallel import zero as zero_mod
 from chainermn_tpu_torch.precision import all_finite
 from chainermn_tpu_torch.training.convert import concat_examples
 from chainermn_tpu_torch.training.iterators import DevicePrefetchIterator
+
+
+def _spec_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _spec_leaves(v)
+    else:
+        yield tree
 
 
 class _LossCall(nn.Module):
@@ -104,10 +116,12 @@ class StandardUpdater:
         takes the finiteness verdict as ``all_finite`` min-allreduced
         across processes, and on a non-finite verdict skips the step on
         every process: the optimizer is not stepped (parameters, its
-        state and a pending first broadcast stay as they were) and the
-        BatchNorm buffers are put back as they were before the step
-        (the JAX updater keeps that step's running statistics; a batch
-        that overflows would leave them non-finite).  Then the scale
+        state and a pending first broadcast stay as they were), while
+        the step's BatchNorm running statistics are kept and synced, as
+        the JAX updater keeps its ``new_state``, even where they are
+        non-finite (a non-finite batch makes them so in both packages;
+        a backward that alone overflows leaves them finite).  Then the
+        scale
         adjusts; the metrics carry ``loss_scale`` (the scale this step
         used) and ``grads_finite``.  The verdict is read on the host to
         skip the step: one host-device sync a step, under a loss-scaled
@@ -128,16 +142,46 @@ class StandardUpdater:
         (``dropout_generator``), points them at it, and reseeds it from
         (seed, iteration, rank) before every step: the counterpart of
         the JAX updater's ``fold_in(fold_in(rng, iteration), rank)``.
-      zero: not ported yet (ROADMAP.md A7).
+      zero: ZeRO-1 (:mod:`chainermn_tpu_torch.parallel.zero`): pass the
+        RAW ``torch.optim`` optimizer over the model's parameters (the
+        multi-node wrapper is refused: the first call's broadcast is
+        built in, at iteration 0).  Its parameter groups are handed flat
+        shards, so its state is 1/N over the communicator's ``size``
+        data processes; each step mean-reduce-scatters the gradients,
+        steps the shards and all-gathers them back.  Only elementwise
+        optimizers keep the replicated trajectory, which
+        ``zero.check_elementwise`` probes for unless ``zero_check=False``
+        (``zero.chain(zero.clip_by_global_norm(c), opt)`` is admitted).
+        Composes with ``accum_steps`` and npz snapshots (the state is
+        saved gathered, ``(N, k)`` a tensor, and resumed at the same N).
+        Not ported yet with ``policy=`` (ROADMAP.md A7).
+      zero_check: probe the optimizer for ``zero=True`` (default);
+        ``False`` waves a false positive through.
+      zero_reduce_dtype: under ``zero=True``, the dtype the gradients are
+        reduce-scattered in (cast back for the optimizer).
+      param_specs: the spec tree of the model's parameters over the
+        plan's axes (default: the model's own ``param_specs``, which a
+        ``tp_axis`` ``TransformerLM`` carries); with a
+        ``MeshPlanCommunicator`` the updater binds the plan's mesh
+        around the forward and backward, reduces gradients over the data
+        axis only, and :attr:`params` gathers the shards.  ZeRO of a
+        model-sharded parameter is refused, as in the JAX package; a
+        leaf whose spec names only axes of one process (the plan's
+        degraded (1, 1)) is whole, and ZeRO takes it.
     """
 
     def __init__(self, iterator, optimizer, loss_fn, model, comm,
                  model_state=True, zero=False, accum_steps=1, policy=None,
-                 remat=False, device_prefetch=0, rng=None):
-        if zero:
+                 remat=False, device_prefetch=0, rng=None, zero_check=True,
+                 zero_reduce_dtype=None, param_specs=None):
+        if zero_reduce_dtype is not None and not zero:
+            raise ValueError('zero_reduce_dtype requires zero=True '
+                             '(use allreduce_dtype on the multi-node '
+                             'optimizer for the plain path)')
+        if zero and policy is not None:
             raise NotImplementedError(
-                'StandardUpdater(zero=...) is not ported yet (ROADMAP.md '
-                'A7)')
+                'StandardUpdater(zero=True, policy=...) is not ported yet '
+                '(ROADMAP.md A7)')
         if accum_steps < 1:
             raise ValueError('accum_steps must be >= 1')
         _telemetry.maybe_enable_from_env()
@@ -169,6 +213,42 @@ class StandardUpdater:
                 comm.reduce_dtype = policy.reduce_dtype
         self.scale_state = (self.loss_scale.init(self.device)
                             if self.loss_scale is not None else None)
+        plan = getattr(comm, 'plan', None)
+        self._mesh = plan.mesh if plan is not None else None
+        self.param_specs = (param_specs if param_specs is not None
+                            else getattr(model, 'param_specs', None))
+        # a leaf is model-sharded when its spec names an axis of more
+        # than one process (every named axis without a plan): at a plan's
+        # degraded (1, 1) a tensor-parallel model's leaves are whole
+        sharded = self.param_specs is not None and any(
+            e is not None and (self._mesh is None
+                               or self._mesh.axis_size(e) > 1)
+            for spec in _spec_leaves(self.param_specs) for e in spec)
+        self._zero = None
+        if zero:
+            if hasattr(optimizer, 'actual_optimizer'):
+                raise ValueError(
+                    'zero=True needs the raw optimizer, not the multi-node '
+                    'wrapper (broadcast-first is built in)')
+            if sharded:
+                raise NotImplementedError(
+                    'zero=True with model-sharded param_specs is not '
+                    'implemented: the ZeRO stacked-state layout has no '
+                    'host-level representation for leaves that also vary '
+                    'over the model axis.  Under a MeshPlan, ZeRO '
+                    'partitions along the data axes of a REPLICATED '
+                    'parameter tree only.')
+            if zero_check:
+                zero_mod.check_elementwise(optimizer)
+            self._zero = zero_mod.ZeroStep(
+                optimizer, model.parameters(), comm.size, comm.rank,
+                group=getattr(comm, 'data_group', None),
+                reduce_dtype=zero_reduce_dtype)
+        #: snapshots gather across processes (every process must call
+        #: ``serializers.updater_state``)
+        self.collective_state = (
+            (self._zero is not None and comm.size > 1)
+            or (sharded and plan is not None))
         self._device_prefetch = bool(device_prefetch)
         if device_prefetch:
             iterator = DevicePrefetchIterator(
@@ -242,18 +322,27 @@ class StandardUpdater:
 
         return contextlib.nullcontext(), recompute()
 
+    def _bound(self):
+        """The plan's mesh bound (a ``MeshPlanCommunicator``), else
+        nothing."""
+        if self._mesh is None:
+            return contextlib.nullcontext()
+        return self._mesh.bind()
+
     def _forward_backward(self, batch, scale):
         """Forward and backward of one (micro-)batch; gradients add into
         the parameters' ``grad``.  Returns the metrics and the unscaled
         loss as detached tensors, floating ones (and flags) in f32: the
         metric averages are f32 whatever the compute dtype."""
-        if self.remat:
-            loss, metrics = checkpoint(self._loss, *batch,
-                                       use_reentrant=False,
-                                       context_fn=self._remat_contexts)
-        else:
-            loss, metrics = self._loss(*batch)
-        (loss if scale is None else loss * scale.to(loss.dtype)).backward()
+        with self._bound():
+            if self.remat:
+                loss, metrics = checkpoint(self._loss, *batch,
+                                           use_reentrant=False,
+                                           context_fn=self._remat_contexts)
+            else:
+                loss, metrics = self._loss(*batch)
+            (loss if scale is None
+             else loss * scale.to(loss.dtype)).backward()
         out = {}
         for key, v in dict(metrics, loss=loss).items():
             v = torch.as_tensor(v, device=self.device).detach()
@@ -276,7 +365,10 @@ class StandardUpdater:
         if arrays[0].shape[0] % k:
             raise ValueError('batch size %d must be divisible by '
                              'accum_steps %d' % (arrays[0].shape[0], k))
-        self.optimizer.zero_grad(set_to_none=True)
+        if self._zero is not None:
+            self.model.zero_grad(set_to_none=True)
+        else:
+            self.optimizer.zero_grad(set_to_none=True)
         if self.dropout_generator is not None:
             self.dropout_generator.manual_seed(
                 ((self.seed * 1000003 + self.iteration) * 65537
@@ -287,7 +379,6 @@ class StandardUpdater:
         scale = None
         if self.loss_scale is not None:
             scale = self.scale_state.scale
-            kept = [b.clone() for b in buffers]
         if k == 1:
             metrics = self._forward_backward(arrays, scale)
         else:
@@ -312,18 +403,21 @@ class StandardUpdater:
                            grads_finite=finite.to(torch.float32))
             self.scale_state = self.loss_scale.adjust(self.scale_state,
                                                       finite)
-        if bool(finite):
-            if buffers:
-                with torch.no_grad():
-                    for b, synced in zip(
-                            buffers, self.comm.allreduce(buffers, 'mean')):
-                        b.copy_(synced)
-            self.optimizer.step()
-        else:
-            # skipped on every process (the verdict is the same on all)
+        if buffers:
             with torch.no_grad():
-                for b, old in zip(buffers, kept):
-                    b.copy_(old)
+                for b, synced in zip(
+                        buffers, self.comm.allreduce(buffers, 'mean')):
+                    b.copy_(synced)
+        if self._zero is not None:
+            if self.iteration == 0:
+                # the first call syncs the weights and does not step
+                self.comm.broadcast_data(list(self.model.parameters()))
+            else:
+                self._zero.step()
+        elif bool(finite):
+            # skipped on every process otherwise (the verdict is the
+            # same on all)
+            self.optimizer.step()
         self.iteration += 1
         return self.comm.allreduce(metrics, 'mean')
 
@@ -344,9 +438,29 @@ class StandardUpdater:
     @property
     def params(self):
         """The model's parameters as the JAX package's flax-named tree
-        (numpy copies, ``models.to_flax_variables``): what snapshots
-        store and ``NanGuard`` audits."""
-        return to_flax_variables(self.model)['params']
+        (numpy arrays, ``models.to_flax_variables``): what snapshots
+        store and ``NanGuard`` audits.  A tensor-parallel model's shards
+        are gathered into the full tree (a collective over the model
+        axis: every process must read it)."""
+        tree = to_flax_variables(self.model)['params']
+        if self.param_specs is not None and self._mesh is not None:
+            tree = gather_variables(tree, self.param_specs, self._mesh,
+                                    self.device)
+        return tree
+
+    def param_spec_of(self, param):
+        """The spec of one of the model's parameters (None when the
+        updater has no specs)."""
+        if self.param_specs is None:
+            return None
+        if not hasattr(self, '_spec_by_param'):
+            self._spec_by_param = {}
+            for key, p in self.model.named_parameters():
+                node = self.param_specs
+                for part in key.split('.'):
+                    node = node[part]
+                self._spec_by_param[p] = node
+        return self._spec_by_param.get(param)
 
     @property
     def epoch(self):

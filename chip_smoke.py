@@ -75,8 +75,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``Policy.f16()`` on a ResNet-50 built in f16 for ``F16_STEPS`` steps
    on the f16 BN kernels, ``loss_scale`` and ``grads_finite`` each step,
    a batch with an inf at ``F16_INF_STEP`` backed off and skipped with
-   every parameter, buffer and optimizer-state tensor bit-equal across
-   it, timed in turns against (a) without remat; (c) ``accum_steps=2``
+   every parameter and optimizer-state tensor bit-equal across it and the
+   BN buffers taking its statistics (as the JAX updater keeps them),
+   timed in turns against (a) without remat; (c) ``accum_steps=2``
    against 1 on the same batch, the losses of steps 0 and 1 within
    ``ACCUM_RTOL``, launch counts, peak memory, times in turns;
 5a. the MNIST main path (``mnist``): the reference's convergence gate
@@ -270,7 +271,24 @@ Phases, each printing its own lines; any failure exits non-zero:
     ``create_multi_node_optimizer(torch.optim.Adam(lr=1e-3))`` ->
     ``StandardUpdater(lm_loss(model))`` -> ``Trainer`` on one fixed batch
     of 8 x 1024 tokens, with the launch counts checked against the
-    structure, tokens/s, step times, peak memory and a profile.
+    structure, tokens/s, step times, peak memory and a profile;
+11. the LM's parallel axes (``lm_parallel``): rows 4-8 against their
+    plain versions at the path's shapes (LayerNorm ``(8192, 512)`` bf16,
+    the flash forward, dq and dk/dv at ``(1, 8192, 8, 64)`` bf16 causal,
+    the cross-entropy at ``(8192, 32000)`` f32), timed beside
+    ``F.layer_norm``, SDPA and ``F.cross_entropy`` (each row's
+    ``other_shapes['lm_parallel']``); the ``train_lm`` twin at full
+    width (``TransformerLM()``'s widths, bf16, AdamW) with ``--seq-len
+    8192 --batchsize 1 --mesh 1x1 --bind-sp`` for 10 steps under
+    Ulysses (path ``lm_parallel_ulysses``) and under the ring
+    (``lm_parallel_ring``): launch counts checked, tokens/s at the step
+    p50, peak memory, the busy share and the kernels of a profiled step
+    held to the wrappers' counts; then the tensor-parallel ``TransformerLM`` on
+    ``MeshPlan.create(tp=2)``'s degraded ``(1, 1)`` through
+    ``StandardUpdater(plan.communicator())`` with ``zero=False`` and
+    ``zero=True``, 4 calls each, bit-equal (``lm_parallel_tp``).  One
+    card holds no second NCCL rank: the all_to_all, the ring's permute
+    and the sub-groups run over axes of one process here.
 
 A kernel row's ``ms``, ``plain_ms`` and ``library_ms`` are times per
 call between CUDA events, launches included; ``device_ms``,
@@ -2052,22 +2070,23 @@ def _check_counts(what, counts, want):
 
 
 def _f16_state(updater):
-    """Every parameter, BN buffer and optimizer-state tensor of a run, and
-    the loss-scale state, cloned (for a bit-for-bit comparison)."""
+    """Every parameter and optimizer-state tensor of a run, and its BN
+    buffers apart, cloned (for a bit-for-bit comparison)."""
     opt = updater.optimizer.actual_optimizer
     model = updater.model
     out = [t.detach().clone() for t in model.parameters()]
-    out += [t.detach().clone() for t in model.buffers()]
     out += [v.detach().clone() for p in model.parameters()
             for v in opt.state.get(p, {}).values() if hasattr(v, 'clone')]
-    return out
+    return out, [t.detach().clone() for t in model.buffers()]
 
 
 def _precision_f16(comm, train):
     """Part (b): ``Policy.f16()`` on ResNet-50 ``fused_norm=True`` built in
     f16, ``F16_STEPS`` steps through ``update_core``; step
     ``F16_INF_STEP`` gets a batch with an inf and must be skipped, every
-    parameter, BN buffer and optimizer-state tensor bit-equal across it.
+    parameter and optimizer-state tensor bit-equal across it, the BN
+    buffers taking the step's statistics (the JAX updater keeps its
+    ``new_state`` on a skipped step).
     Returns the launch counts, the per-step metrics and the updater."""
     import torch
     import chainermn_tpu_torch as cmt
@@ -2114,13 +2133,16 @@ def _precision_f16(comm, train):
                     updater.scale_state.scale) != max(scale / 2, 1.0):
                 raise AssertionError('f16: the inf batch was not backed '
                                      'off: %s' % m)
-            if len(before) != len(after) or not all(
-                    torch.equal(a, b) for a, b in zip(before, after)):
+            if len(before[0]) != len(after[0]) or not all(
+                    torch.equal(a, b) for a, b in zip(before[0], after[0])):
                 raise AssertionError('f16: the skipped step changed a '
-                                     'parameter, buffer or optimizer state '
-                                     'tensor')
-            _say('precision', 'f16: the skipped step left all %d parameter, '
-                 'buffer and optimizer-state tensors bit-equal' % len(after))
+                                     'parameter or optimizer state tensor')
+            if all(torch.equal(a, b) for a, b in zip(before[1], after[1])):
+                raise AssertionError('f16: the skipped step kept no BN '
+                                     'statistics')
+            _say('precision', 'f16: the skipped step left all %d parameter '
+                 'and optimizer-state tensors bit-equal; the %d BN buffers '
+                 'took its statistics' % (len(after[0]), len(after[1])))
         torch.cuda.synchronize()
         counts = ops.launch_counts()
     finally:
@@ -5994,6 +6016,357 @@ def phase_lm_main():
     return counts
 
 
+# the LM's parallel axes (phase 11): the full-width TransformerLM at
+# 8192 tokens a sequence, one sequence a step (8192 tokens, as the LM
+# training path's 8 x 1024), through the train_lm twin and the tensor-
+# parallel model of a MeshPlan
+LMP_SEQ = 8192
+LMP_STEPS = 10                 # the twin's steps under each scheme
+LMP_TP_STEPS = 4               # each tensor-parallel updater's calls
+# the twin's profiled windows (first, last step): one step each, a try
+# each, PROFILE_TRIES of them
+LMP_WINDOWS = tuple((2 + 2 * i, 2 + 2 * i) for i in range(PROFILE_TRIES))
+LMP_TWIN_ARGV = ['--vocab', '32000', '--d-model', '512', '--n-heads', '8',
+                 '--n-layers', '6', '--batchsize', '1', '--mesh', '1x1',
+                 '--bind-sp', '--steps', str(LMP_STEPS)]
+# each kernel's events in a profiler trace, by wrapper name
+LM_EVENTS = {'layer_norm': r'\bln_kernel<',
+             'flash_fwd': r'\bflash_fwd_(tc_)?kernel\b',
+             'flash_bwd_dq': r'\bflash_bwd_dq_(tc_)?kernel\b',
+             'flash_bwd_dkv': r'\bflash_bwd_dkv_(tc_)?kernel\b',
+             'cross_entropy': r'::ce_kernel<'}
+
+
+def _lmp_kernel_cases(gen, records):
+    """Rows 4-8 at this path's shapes: LayerNorm over ``(8192, 512)`` bf16
+    rows with f32 gamma / beta, the flash forward, dq and dk/dv at ``(1,
+    8192, 8, 64)`` bf16 causal (strided views of one qkv projection), the
+    cross-entropy at ``(8192, 32000)`` f32, each against its plain version
+    within ``BF16_TOL`` (the cross-entropy at its f32 1e-5) and timed
+    beside ``F.layer_norm``, SDPA (its forward; its whole backward) and
+    ``F.cross_entropy``; the times go into each row's ``other_shapes``
+    under ``lm_parallel``."""
+    import torch
+    import torch.nn.functional as F
+    from chainermn_tpu_torch import ops
+    fa = importlib.import_module('chainermn_tpu_torch.ops.flash_attention')
+    ce = importlib.import_module('chainermn_tpu_torch.ops.cross_entropy')
+    by_name = {r['name']: r for r in records}
+    h, d = LM_CFG['n_heads'], LM_CFG['d_model'] // LM_CFG['n_heads']
+    out = {}
+    # LayerNorm
+    x = (torch.randn((LMP_SEQ, LM_CFG['d_model']), generator=gen,
+                     device='cuda') * 3 + 1).to(torch.bfloat16)
+    g = torch.randn(LM_CFG['d_model'], generator=gen, device='cuda') + 1
+    b = torch.randn(LM_CFG['d_model'], generator=gen, device='cuda')
+    got, want = ops.ln_forward(x, g, b), ops.layer_norm_reference(x, g, b)
+    check_close('layer_norm %s (lm_parallel)' % (tuple(x.shape),), got, want,
+                *BF16_TOL)
+    t = timings(lambda: ops.ln_forward(x, g, b),
+                lambda: ops.layer_norm_reference(x, g, b),
+                lambda: F.layer_norm(x, (x.shape[1],), g.to(x.dtype),
+                                     b.to(x.dtype), 1e-6), iters=20)
+    n, dm = x.shape
+    t.update(zip(('bound_ms', 'bound_by'), bound_ms(
+        2 * n * dm * 2 + 2 * dm * 4, 8 * n * dm)))
+    out['layer_norm'] = dict(shape=[n, dm], max_abs_err=max_err(got, want),
+                             **t)
+    # the flash forward and backward
+    q, k, v = _strided_qkv(gen, (1, LMP_SEQ), h, d, torch.bfloat16)
+    scale = d ** -0.5
+    o, lse = ops.flash_fwd(q, k, v, True, scale)
+    po, plse = fa._fwd_plain(q, k, v, True, scale)
+    check_close('flash_fwd (1, %d, %d, %d) (lm_parallel)' % (LMP_SEQ, h, d),
+                o, po, *BF16_TOL)
+    check_close('flash_fwd lse (lm_parallel)', lse, plse, 1e-5, 1e-4)
+    lq, lk, lv = (z.transpose(1, 2) for z in (q, k, v))
+    t = timings(lambda: ops.flash_fwd(q, k, v, True, scale),
+                lambda: fa._fwd_plain(q, k, v, True, scale),
+                lambda: F.scaled_dot_product_attention(lq, lk, lv,
+                                                       is_causal=True),
+                iters=10, plain_iters=2)
+    n_bytes, n_ops = _flash_fwd_cost(1, LMP_SEQ, h, d, 2)
+    t.update(zip(('bound_ms', 'bound_by'),
+                 bound_ms(n_bytes, n_ops, BF16_TC_FLOPS_PER_S)))
+    out['flash_fwd'] = dict(shape=[1, LMP_SEQ, h, d],
+                            max_abs_err=max_err(o, po), **t)
+    gg = torch.randn((1, LMP_SEQ, h, d), generator=gen,
+                     device='cuda').to(torch.bfloat16)
+    dq, delta = ops.flash_bwd_dq(q, k, v, gg, o, lse, True, scale)
+    dk, dv = ops.flash_bwd_dkv(q, k, v, gg, lse, delta, True, scale)
+    pdq, pdk, pdv = fa._bwd_plain(q, k, v, o, lse, gg, True, scale)
+    for name, a, c in (('dq', dq, pdq), ('dk', dk, pdk), ('dv', dv, pdv)):
+        check_close('flash_bwd %s (1, %d, %d, %d) (lm_parallel)'
+                    % (name, LMP_SEQ, h, d), a, c, *BF16_TOL)
+    sq, sk, sv = (z.detach().transpose(1, 2).requires_grad_()
+                  for z in (q, k, v))
+    sout = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
+    sg = gg.transpose(1, 2)
+
+    def library():
+        return torch.autograd.grad(sout, (sq, sk, sv), sg, retain_graph=True)
+
+    def plain():
+        return fa._bwd_plain(q, k, v, o, lse, gg, True, scale)
+
+    pairs = LMP_SEQ * (LMP_SEQ + 1) // 2
+    for name, kernel, n_products, err in (
+            ('flash_bwd_dq',
+             lambda: ops.flash_bwd_dq(q, k, v, gg, o, lse, True, scale), 3,
+             max_err(dq, pdq)),
+            ('flash_bwd_dkv',
+             lambda: ops.flash_bwd_dkv(q, k, v, gg, lse, delta, True, scale),
+             4, max(max_err(dk, pdk), max_err(dv, pdv)))):
+        t = timings(kernel, plain, library, iters=10, plain_iters=2)
+        t.update(zip(('bound_ms', 'bound_by'), bound_ms(
+            6 * LMP_SEQ * h * d * 2 + 2 * h * LMP_SEQ * 4,
+            n_products * 2 * h * pairs * d, BF16_TC_FLOPS_PER_S)))
+        out[name] = dict(shape=[1, LMP_SEQ, h, d], max_abs_err=err, **t)
+    # the cross-entropy of the path's logits
+    logits = torch.randn((LMP_SEQ, LM_CFG['vocab_size']), generator=gen,
+                         device='cuda') * 3
+    labels = torch.randint(0, LM_CFG['vocab_size'], (LMP_SEQ,),
+                           generator=gen, device='cuda', dtype=torch.int32)
+    loss, lse = ops.ce_forward(logits, labels)
+    ploss, plse = ce._ce_forward_plain(logits, labels)
+    check_close('cross_entropy (lm_parallel) loss', loss, ploss, 1e-5, 1e-5)
+    check_close('cross_entropy (lm_parallel) lse', lse, plse, 1e-5, 1e-5)
+    long_labels = labels.long()
+    t = timings(lambda: ops.ce_forward(logits, labels),
+                lambda: ce._ce_forward_plain(logits, labels),
+                lambda: F.cross_entropy(logits, long_labels,
+                                        reduction='none'), iters=10)
+    nb, nv = logits.shape
+    t.update(zip(('bound_ms', 'bound_by'),
+                 bound_ms(nb * nv * 4 + 3 * nb * 4, 4 * nb * nv)))
+    out['cross_entropy'] = dict(shape=[nb, nv], max_abs_err=max(
+        max_err(loss, ploss), max_err(lse, plse)), **t)
+    for name, row in out.items():
+        _say('lm-parallel', '%s at %s: max err %.3g; %s; bound %.5f ms by %s'
+             % (name, tuple(row['shape']), row['max_abs_err'], _fmt(row),
+                row['bound_ms'], row['bound_by']))
+        rec = by_name[name]
+        rec.setdefault('other_shapes', {})['lm_parallel'] = row
+        rec['max_abs_err'] = max(rec['max_abs_err'], row['max_abs_err'])
+
+
+class _TwinWindows:
+    """The twin's ``on_step``: a ``torch.profiler`` session over each
+    window of ``LMP_WINDOWS`` (after ``trace_prelude``), whose kernels
+    are held to the wrappers' counts in it; the first window whose trace
+    holds them settles it (a lost trace tries the next), a trace holding
+    more fails, and so does the run when every window lost its trace
+    (``_lmp_twin``), as ``_hold_trace`` fails after ``PROFILE_TRIES``."""
+
+    def __init__(self, what):
+        self.what, self.prof, self.since, self.t0 = what, None, None, None
+        self.got = self.busy = None
+        self.profiled = set()
+
+    def __call__(self, step, loss):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        from chainermn_tpu_torch import ops
+        if self.got is not None:
+            return
+        for first, last in LMP_WINDOWS:
+            if step == first - 1:
+                torch.cuda.synchronize()
+                self.prof = profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+                self.prof.__enter__()
+                trace_prelude('cuda')
+                self.since = dict(ops.launch_counts())
+                self.t0 = time.perf_counter()
+            elif step == last and self.prof is not None:
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - self.t0) * 1e6
+                self.prof.__exit__(None, None, None)
+                self.profiled.update(range(first, last + 1))
+                self._settle(self.prof, wall_us, ops.launch_counts())
+                self.prof = None
+
+    def _settle(self, prof, wall_us, now):
+        kernels = _kernel_times(prof)
+        if sum(kernels.values()) == 0:
+            _say('profile', '%s: a trace held no device event' % self.what)
+            return
+        want = {k: now[k] - self.since[k] for k in LM_EVENTS}
+        got = {k: _kernel_count(prof, pattern)
+               for k, pattern in LM_EVENTS.items()}
+        if any(got[k] > want[k] for k in got):
+            raise AssertionError('%s: the trace holds %s kernels, the '
+                                 'wrappers launched %s' % (self.what, got,
+                                                           want))
+        if got != want:
+            _say('profile', '%s: a trace lost kernel records: it holds %s, '
+                 'the wrappers launched %s' % (self.what, got, want))
+            return
+        self.got = got
+        # the wall starts after the prelude; its 64 tiny kernels (about
+        # 0.1 ms) stay in the busy time
+        self.busy = sum(kernels.values()) / wall_us
+
+
+def _lmp_twin(scheme):
+    """The train_lm twin on one card; returns its path counts and its
+    readings."""
+    import torch
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.examples.lm import train_lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    windows = _TwinWindows('lm_parallel_%s' % scheme)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = train_lm.main(LMP_TWIN_ARGV + ['--sp-scheme', scheme,
+                                         '--seq-len', str(LMP_SEQ)],
+                        on_step=windows)
+    torch.cuda.synchronize()
+    counts, tc = ops.launch_counts(), ops.tc_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = out['losses']
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError('%s: non-finite loss %s' % (scheme, losses))
+    layers = LM_CFG['n_layers']
+    attn = layers if scheme == 'ulysses' else 0
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want.update(layer_norm=(2 * layers + 1) * LMP_STEPS,
+                flash_fwd=attn * LMP_STEPS, flash_bwd_dq=attn * LMP_STEPS,
+                flash_bwd_dkv=attn * LMP_STEPS, cross_entropy=LMP_STEPS)
+    if counts != want:
+        raise AssertionError('%s: launch counts %s, expected %s'
+                             % (scheme, counts, want))
+    counts = with_tc('lm_parallel %s' % scheme, counts, tc)
+    if windows.got is None:
+        raise AssertionError('%s: %d traces without a device event or with '
+                             'kernels lost' % (windows.what,
+                                               len(LMP_WINDOWS)))
+    # the step p50 over the steps after two warm-ups and outside the
+    # profiled windows
+    steps = [s for i, s in enumerate(out['step_seconds'])
+             if i >= 2 and i not in windows.profiled]
+    p50 = sorted(steps)[len(steps) // 2]
+    tokens = out['tokens_per_step']
+    _say('lm-parallel', 'twin --sp-scheme %s --seq-len %d (1 x %d tokens a '
+         'step, mesh 1x1, the sequence axis bound): losses %s; step p50 %.2f '
+         'ms over %d steps = %.1f tokens/s; peak memory %.2f GiB; busy '
+         '%.1f%% over the profiled step; kernels in the trace %s; launches '
+         '%s' % (scheme, LMP_SEQ, LMP_SEQ,
+                 ', '.join('%.4f' % v for v in losses), 1e3 * p50,
+                 len(steps), tokens / p50, peak / 2 ** 30,
+                 100 * windows.busy, windows.got, counts))
+    return counts, dict(p50_ms=1e3 * p50, tokens_per_s=tokens / p50,
+                        peak_gib=peak / 2 ** 30, busy=windows.busy,
+                        seq_len=LMP_SEQ)
+
+
+def _lmp_tp(plan, comm, zero):
+    """The tensor-parallel TransformerLM at the plan's degraded (1, 1)
+    through ``StandardUpdater(comm=plan.communicator())``; returns the
+    losses, the parameters after ``LMP_TP_STEPS`` calls, the counts and
+    the step times."""
+    import numpy as np
+    import torch
+    from chainermn_tpu_torch import models, ops, training
+    import chainermn_tpu_torch as cmt
+    with plan.bind():
+        model = models.TransformerLM(
+            **dict(LM_CFG, max_len=LMP_SEQ), tp_axis='model',
+            generator=torch.Generator().manual_seed(0))
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    if not zero:
+        opt = cmt.create_multi_node_optimizer(opt, comm)
+    rng = np.random.RandomState(1)
+    data = [(rng.randint(0, LM_CFG['vocab_size'], LMP_SEQ).astype(np.int32),
+             rng.randint(0, LM_CFG['vocab_size'], LMP_SEQ).astype(np.int32))]
+    up = training.StandardUpdater(
+        training.SerialIterator(data, 1, shuffle=False), opt,
+        models.lm_loss(model), model, comm, zero=zero)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(LMP_TP_STEPS):
+        t0 = time.perf_counter()
+        losses.append(up.update()['loss'])
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    counts, tc = ops.launch_counts(), ops.tc_launch_counts()
+    params = [p.detach().clone() for p in model.parameters()]
+    state = sum(v.numel() for s in (up._zero.optimizer if zero
+                                     else opt.actual_optimizer).state.values()
+                for v in s.values() if torch.is_tensor(v) and v.dim())
+    return losses, params, counts, tc, times, state
+
+
+def phase_lm_parallel(records):
+    """The LM's parallel axes at full width on one card: rows 4-8 at the
+    path's shapes; the train_lm twin at ``--seq-len 8192 --batchsize 1``
+    under Ulysses and under the ring (each scheme over a ring of one, the
+    sequence axis bound); then the tensor-parallel TransformerLM on the
+    plan's degraded (1, 1) through ``StandardUpdater(comm=
+    plan.communicator())`` with ``zero=False`` and ``zero=True``, whose
+    trajectories must be bit-equal in a world of one (deterministic
+    algorithms on: the embedding's backward adds rows in a fixed
+    order)."""
+    import torch
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.parallel import MeshPlan
+    gen = torch.Generator(device='cuda').manual_seed(16)
+    _lmp_kernel_cases(gen, records)
+    paths, readings = {}, {}
+    paths['lm_parallel_ulysses'], readings['ulysses'] = _lmp_twin('ulysses')
+    paths['lm_parallel_ring'], readings['ring'] = _lmp_twin('ring')
+    gc.collect()
+    torch.cuda.empty_cache()
+    plan = MeshPlan.create(tp=2)
+    comm = plan.communicator()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = {z: _lmp_tp(plan, comm, z) for z in (False, True)}
+    finally:
+        torch.use_deterministic_algorithms(False)
+        comm.close()
+    (l0, p0, c0, tc0, t0, s0), (l1, p1, c1, tc1, t1, s1) = (runs[False],
+                                                             runs[True])
+    if plan.describe()['axes'] != {'data': 1, 'model': 1}:
+        raise AssertionError('a plan of tp=2 on one card: %s'
+                             % plan.describe())
+    if l0 != l1 or not all(torch.equal(a, b) for a, b in zip(p0, p1)):
+        raise AssertionError('zero=True left the zero=False trajectory: '
+                             'losses %s vs %s' % (l0, l1))
+    if not all(math.isfinite(v) for v in l0) or not l0[-1] < l0[1]:
+        raise AssertionError('tp losses %s' % l0)
+    layers = LM_CFG['n_layers']
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want.update(layer_norm=(2 * layers + 1) * LMP_TP_STEPS,
+                flash_fwd=layers * LMP_TP_STEPS,
+                flash_bwd_dq=layers * LMP_TP_STEPS,
+                flash_bwd_dkv=layers * LMP_TP_STEPS,
+                cross_entropy=LMP_TP_STEPS)
+    for c in (c0, c1):
+        if c != want:
+            raise AssertionError('tp launch counts %s, expected %s'
+                                 % (c, want))
+    counts = {k: c0[k] + c1[k] for k in c0}
+    paths['lm_parallel_tp'] = with_tc(
+        'lm_parallel tp', counts, {k: tc0[k] + tc1[k] for k in tc0})
+    _say('lm-parallel', 'tensor-parallel TransformerLM on the plan %s '
+         '(requested tp 2): zero=False and zero=True over %d calls bit-equal '
+         '(losses %s); Adam state %d elements either way (N = 1); call ms '
+         'zero=False %s, zero=True %s' % (
+             plan.describe()['axes'], LMP_TP_STEPS,
+             ', '.join('%.4f' % v for v in l0), s0,
+             ', '.join('%.1f' % (1e3 * t) for t in t0),
+             ', '.join('%.1f' % (1e3 * t) for t in t1)))
+    if s0 != s1:
+        raise AssertionError('Adam state %d vs %d elements at N = 1'
+                             % (s0, s1))
+    _say('lm-parallel', 'readings %s' % json.dumps(readings))
+    return paths
+
+
 def _timed(phase, *args):
     """Run one phase and log its wall time."""
     t0 = time.perf_counter()
@@ -6038,6 +6411,7 @@ def main():
     paths.update(_timed(phase_serve_graphs))
     _timed(phase_lm_check)
     paths['lm_training'] = _timed(phase_lm_main)
+    paths.update(_timed(phase_lm_parallel, records))
     _say('time', 'all phases %.1f s' % (time.perf_counter() - t_start))
     for rec in records:
         by_path = {path: counts[rec['name']]

@@ -143,11 +143,11 @@ def test_a_model_without_buffers_syncs_no_state():
 @pytest.mark.parametrize('name', ['policy', 'accum_steps', 'remat', 'zero',
                                   'device_prefetch'])
 def test_unported_updater_options_still_raise(name):
-    """``zero`` still raises (ROADMAP A7); the others are ported: on the
-    LM, ``policy`` (bf16 compute, f32 masters), ``accum_steps`` (two
-    micro-batches of 2) and ``remat`` give the losses of the plain step
-    (f32 ones exactly, bf16 within 5e-2), and ``device_prefetch`` wraps
-    the iterator."""
+    """All are ported now: on the LM, ``policy`` (bf16 compute, f32
+    masters), ``accum_steps`` (two micro-batches of 2), ``remat`` and
+    ``zero`` (ZeRO-1 in a world of one, over the raw Adam) give the
+    losses of the plain step (f32 ones exactly or within 1e-5, bf16
+    within 5e-2), and ``device_prefetch`` wraps the iterator."""
     comm = cmt.create_communicator('xla', device='cpu')
 
     def updater(**kw):
@@ -159,9 +159,18 @@ def test_unported_updater_options_still_raise(name):
             training.SerialIterator(_batch(), 4, shuffle=False), opt,
             models.lm_loss(model), model, comm, **kw)
 
-    if name == 'zero':
-        with pytest.raises(NotImplementedError, match=name):
-            updater(zero=True)
+    if name == 'zero':   # ported: the raw optimizer, its state sharded
+        _, plain = updater()
+        model = models.TransformerLM(dtype=torch.float32, device='cpu',
+                                     **CFG)
+        up = training.StandardUpdater(
+            training.SerialIterator(_batch(), 4, shuffle=False),
+            torch.optim.Adam(model.parameters(), lr=LR),
+            models.lm_loss(model), model, comm, zero=True)
+        want = [plain.update()['loss'] for _ in range(3)]
+        got = [up.update()['loss'] for _ in range(3)]
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+        assert got[0] == got[1]          # the first call broadcasts
         return
     if name == 'device_prefetch':   # ported: it wraps the iterator
         _, up = updater(device_prefetch=2)

@@ -23,6 +23,8 @@ import chainermn_tpu_torch as cmt
 from chainermn_tpu import precision as jprecision
 from chainermn_tpu import training as jtraining
 from chainermn_tpu.models import MLP as JaxMLP, Classifier as JaxClassifier
+from chainermn_tpu.models import StatefulClassifier as JaxStatefulClassifier
+from chainermn_tpu.models.resnet50 import ResNet as JaxResNet
 from chainermn_tpu_torch import models, precision, training
 from chainermn_tpu_torch.training.convert import concat_examples
 
@@ -360,33 +362,71 @@ def test_loss_scale_skips_nonfinite_step_and_backs_off():
 
 def test_nonfinite_step_keeps_a_pending_broadcast_and_the_buffers():
     """A skip at step 0 keeps the first broadcast pending (the JAX
-    package retries it next step too), and keeps the BatchNorm buffers
-    as they were before the step."""
+    package retries it next step too), and keeps the step's BatchNorm
+    running statistics as the JAX updater does (its ``new_state``):
+    parameters and buffers held against the JAX ``StandardUpdater`` from
+    the same flax weights after the skipped step and after the next."""
     comm = cmt.create_communicator('xla', device='cpu')
     model = models.ResNet(stage_sizes=[1], width=4, num_classes=3,
                           dtype=torch.float32, device='cpu')
+    jmodel = JaxResNet(stage_sizes=[1], width=4, num_classes=3,
+                       dtype=jnp.float32)
+    variables = jax.device_get(jmodel.init(
+        {'params': jax.random.PRNGKey(0)}, jnp.zeros((1, 16, 16, 3)),
+        train=False))
+    models.load_flax_variables(model, variables)
     clf = models.StatefulClassifier(model)
     opt = cmt.create_multi_node_optimizer(
         torch.optim.SGD(model.parameters(), lr=0.1), comm)
     up = training.StandardUpdater(
         iter([]), opt, clf.loss, model, comm,
         policy=precision.Policy(loss_scale=precision.StaticLossScale(2.0)))
+    jcomm = chainermn_tpu.create_communicator(
+        'xla', devices=jax.devices()[:1], mesh_shape=(1, 1))
+    jup = jtraining.StandardUpdater(
+        iter([]), chainermn_tpu.create_multi_node_optimizer(
+            optax.sgd(0.1), jcomm),
+        JaxStatefulClassifier(jmodel).loss, variables['params'], jcomm,
+        model_state={'batch_stats': variables['batch_stats']},
+        policy=jprecision.Policy(
+            loss_scale=jprecision.StaticLossScale(2.0)), donate=False)
     rng = np.random.RandomState(0)
-    x = torch.from_numpy(rng.randn(4, 16, 16, 3).astype(np.float32))
-    y = torch.tensor([0, 1, 2, 0])
-    bad = x.clone()
+    x = rng.randn(4, 16, 16, 3).astype(np.float32)
+    y = np.array([0, 1, 2, 0], np.int32)
+    bad = x.copy()
     bad[1, 2, 3, 0] = np.inf
     params = [p.detach().clone() for p in model.parameters()]
-    buffers = [b.clone() for b in model.buffers()]
-    m = _host(up.update_core((bad, y)))
-    assert m['grads_finite'] == 0.0 and m['loss_scale'] == 2.0
-    assert opt.needs_broadcast
-    assert all(torch.equal(a, b) for a, b in zip(model.buffers(), buffers))
-    assert all(torch.equal(a, b) for a, b in zip(model.parameters(), params))
-    up.update_core((x, y))         # finite: the broadcast, no step
-    assert not opt.needs_broadcast
-    assert not all(torch.equal(a, b)
-                   for a, b in zip(model.buffers(), buffers))
+    for step, batch in enumerate((bad, x)):
+        m = _host(up.update_core((torch.from_numpy(batch),
+                                  torch.from_numpy(y).long())))
+        jm = _host(jup.update_core(jup.shard_batch(
+            [(batch[i], y[i]) for i in range(4)])))
+        assert (m['grads_finite'], m['loss_scale']) == \
+            (jm['grads_finite'], jm['loss_scale']) == (1.0 * step, 2.0)
+        got = models.to_flax_variables(model)
+        want = {'params': jax.device_get(jup.params),
+                'batch_stats': jax.device_get(
+                    jup.model_state['batch_stats'])}
+        for coll in ('params', 'batch_stats'):
+            w = dict(jax.tree_util.tree_leaves_with_path(want[coll]))
+            for path, leaf in jax.tree_util.tree_leaves_with_path(
+                    got[coll]):
+                # the inf in the batch makes the statistics non-finite
+                # in both packages: the same entries, the rest close
+                a, b = np.asarray(leaf), np.asarray(w[path])
+                msg = '%s %s step %d' % (coll, path, step)
+                np.testing.assert_array_equal(np.isnan(a), np.isnan(b),
+                                              err_msg=msg)
+                np.testing.assert_array_equal(np.isinf(a), np.isinf(b),
+                                              err_msg=msg)
+                fin = np.isfinite(a)
+                np.testing.assert_allclose(a[fin], b[fin], rtol=1e-4,
+                                           atol=1e-5, err_msg=msg)
+        if step == 0:
+            assert opt.needs_broadcast
+            assert all(torch.equal(a, b)
+                       for a, b in zip(model.parameters(), params))
+    assert not opt.needs_broadcast   # the finite step broadcast
 
 
 def test_loss_scaled_trajectory_matches_unscaled():

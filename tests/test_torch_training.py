@@ -191,6 +191,10 @@ def test_port_never_imports_jax_or_the_jax_package():
     files = sorted((REPO / 'chainermn_tpu_torch').rglob('*.py'))
     files.append(REPO / 'chip_smoke.py')
     assert len(files) > 10
+    for module in ('parallel/meshplan.py', 'parallel/tensor.py',
+                   'parallel/sequence.py', 'parallel/zero.py',
+                   'examples/lm/train_lm.py'):
+        assert REPO / 'chainermn_tpu_torch' / module in files
     bad = ['%s:%d imports %s' % (f.relative_to(REPO), line, root)
            for f in files for root, line in _imported_roots(f)
            if root in _FORBIDDEN]

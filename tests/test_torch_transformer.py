@@ -355,15 +355,32 @@ def test_full_bucket_decode_needs_one_row_per_slot():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match='A7'):
+    """``tp_axis`` and ``sequence_axis`` are ported (held to the JAX
+    package in ``test_torch_lm_parallel.py``); what the JAX model refuses
+    is refused with its message, a ``tp_axis`` needs a bound mesh,
+    dropout is still unported (A6), and so is a tensor-parallel cache
+    (A7)."""
+    from chainermn_tpu_torch.parallel import MeshPlan
+    with pytest.raises(ValueError, match='cannot both be set'):
+        models.TransformerLM(tp_axis='model', sequence_axis='seq',
+                             device='cpu', **CFG)
+    with pytest.raises(ValueError, match='without dropout'):
+        models.TransformerLM(tp_axis='model', dropout=0.1, device='cpu',
+                             **CFG)
+    with pytest.raises(ValueError, match='bound by no mesh'):
         models.TransformerLM(tp_axis='model', device='cpu', **CFG)
-    with pytest.raises(NotImplementedError, match='A7'):
-        models.TransformerLM(sequence_axis='seq', device='cpu', **CFG)
+    with pytest.raises(ValueError, match="sp_scheme must be 'ring'"):
+        models.TransformerLM(sequence_axis='seq', sp_scheme='tree',
+                             device='cpu', **CFG)
     with pytest.raises(NotImplementedError, match='dropout'):
         models.TransformerLM(dropout=0.1, device='cpu', **CFG)
     _, _, tm = _pair()
     with pytest.raises(NotImplementedError):
         models.init_kv_cache(tm, 2, tp=2, device='cpu')
+    with MeshPlan.create(tp=1, size=1).bind():
+        tpm = models.TransformerLM(tp_axis='model', device='cpu', **CFG)
+    with pytest.raises(NotImplementedError, match='A7'):
+        models.init_kv_cache(tpm, 2, device='cpu')
 
 
 def test_entry_points_without_a_device_raise(monkeypatch):
