@@ -19,8 +19,10 @@ also exported here, ``quantize_kv``, and the int8 weight policy
 container); and the ``datasets``, ``models``, ``ops``, ``serving``,
 ``telemetry``, ``training`` and ``utils`` subpackages.  The examples
 (``chainermn_tpu_torch.examples.mnist.train_mnist``,
-``train_mnist_model_parallel``, ``examples.imagenet.train_imagenet``,
-``examples.seq2seq.train_seq2seq``) run under ``torchrun``.  Entry
+``train_mnist_model_parallel``, ``train_mnist_pipeline``,
+``examples.imagenet.train_imagenet``, ``examples.seq2seq.train_seq2seq``,
+``examples.lm.train_lm``, ``train_lm_pipeline``) run under
+``torchrun``.  Entry
 points run on the current CUDA device unless the caller passes
 ``device='cpu'``.
 """

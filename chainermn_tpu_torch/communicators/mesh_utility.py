@@ -90,3 +90,21 @@ def divisor_leq(n, k):
     while n % k:
         k -= 1
     return k
+
+
+def divisors_leq(n, ks):
+    """:func:`divisor_leq` for several requested axis widths, in the
+    given priority order: each clamps to the largest divisor of the
+    processes still unclaimed, so the product of the widths divides
+    ``n`` and the leading (data) axis takes the rest (the JAX package's
+    ``divisors_leq``).  ``divisors_leq(1, (4, 4)) == (1, 1)``,
+    ``divisors_leq(6, (2, 2)) == (2, 1)`` (3 processes left, no even
+    divisor)."""
+    if n < 1:
+        raise ValueError('need at least one device, got %d' % n)
+    remaining, out = n, []
+    for k in ks:
+        eff = divisor_leq(remaining, k)
+        out.append(eff)
+        remaining //= eff
+    return tuple(out)

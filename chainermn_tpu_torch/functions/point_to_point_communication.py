@@ -96,9 +96,13 @@ def exchange(x, pairs, rank):
 
 class _Permute(torch.autograd.Function):
 
+    #: read by ``parallel.pipeline``'s 1F1B guard (``axis`` None: the
+    #: pairs name global ranks, no mesh axis)
+    cmn_collective = 'ppermute'
+
     @staticmethod
     def forward(ctx, x, pairs, rank):
-        ctx.pairs, ctx.rank = pairs, rank
+        ctx.pairs, ctx.rank, ctx.axis = pairs, rank, None
         return exchange(x, pairs, rank)
 
     @staticmethod

@@ -26,9 +26,9 @@ from chainermn_tpu_torch.models.seq2seq import (  # noqa: F401
     Seq2seq, bucket_batches, seq2seq_loss)
 from chainermn_tpu_torch.models.transformer import (  # noqa: F401
     TransformerBlock, TransformerLM, decode_step, decode_step_paged,
-    init_kv_cache, init_paged_kv_cache, lm_loss, lm_loss_sum, prefill,
-    prefill_paged, spec_verify, spec_verify_paged, tp_oracle,
-    tp_param_specs)
+    init_kv_cache, init_paged_kv_cache, lm_loss, lm_loss_sum,
+    pipeline_parts, pipeline_stage_specs, prefill, prefill_paged,
+    spec_verify, spec_verify_paged, tp_oracle, tp_param_specs)
 from chainermn_tpu_torch.models.vgg import VGG, VGG16  # noqa: F401
 
 

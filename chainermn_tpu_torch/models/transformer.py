@@ -25,7 +25,9 @@ LM head is a float32 product over activations first rounded to
 The parallel axes (:mod:`chainermn_tpu_torch.parallel`): ``tp_axis``
 (Megatron tensor parallelism, with :func:`tp_param_specs` /
 :func:`tp_oracle`) and ``sequence_axis`` (ring or Ulysses attention)
-train; the serving functions take an unsharded model.  Not ported yet
+train, and :func:`pipeline_parts` / :func:`pipeline_stage_specs` split
+the model into pipeline stages; the serving functions take an unsharded
+model.  Not ported yet
 (they raise ``NotImplementedError``): dropout (ROADMAP.md A6) and a
 tensor-parallel cache (A7; serving a ``tp_axis`` model is ROADMAP.md
 item 9).
@@ -192,45 +194,65 @@ class TransformerBlock(nn.Module):
                          mesh)
 
     def forward(self, x):
-        if self.tp_axis is not None:
-            return self._tp_forward(x)
-        h = ops.layer_norm(x, self.ln1_scale, self.ln1_bias).to(self.dtype)
-        qkv = self.qkv(h)                       # (B, T, 3, H, d_head)
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        if self.sequence_axis is not None:
-            from chainermn_tpu_torch.parallel import sequence
-            sp = (sequence.ulysses_attention if self.sp_scheme == 'ulysses'
-                  else sequence.ring_attention)
-            attn = sp(q, k, v, self.sequence_axis, causal=True)
-        else:
-            attn = ops.flash_attention(q, k, v, causal=True)
-        x = x + self.proj(attn.reshape(attn.shape[:2] + (self.d_model,)))
-        h = ops.layer_norm(x, self.ln2_scale, self.ln2_bias).to(self.dtype)
-        return x + self.ff_out(_gelu(self.ff_in(h)))
-
-    def _tp_forward(self, x):
-        """The Megatron-sharded body (the JAX block's ``_tp_call``)."""
-        from chainermn_tpu_torch.parallel import tensor
-        axis, dt = self.tp_axis, self.dtype
-        if _tp_mesh(axis)[1:] != (self.tp_size, self.tp_index):
+        if self.tp_axis is not None and _tp_mesh(self.tp_axis)[1:] != (
+                self.tp_size, self.tp_index):
             raise ValueError('the block was built for place %d of %d on '
                              'tp_axis=%r; the bound mesh says %r'
-                             % (self.tp_index, self.tp_size, axis,
-                                _tp_mesh(axis)[1:]))
-        h = ops.layer_norm(x, self.ln1_scale, self.ln1_bias).to(dt)
-        h = tensor.tp_copy(h, axis)
-        attn = tensor.qkv_attention(h, self.qkv.kernel.to(dt), causal=True,
-                                    bqkv=self.qkv.bias.to(dt))
-        x = x + tensor.row_parallel_dense(
-            attn, self.proj.kernel.to(dt), axis, self.proj.bias.to(dt),
-            grad_conjugate=True)
-        h = ops.layer_norm(x, self.ln2_scale, self.ln2_bias).to(dt)
-        h = tensor.tp_copy(h, axis)
-        g = _gelu(tensor.column_parallel_dense(
-            h, self.ff_in.kernel.to(dt), self.ff_in.bias.to(dt)))
-        return x + tensor.row_parallel_dense(
-            g, self.ff_out.kernel.to(dt), axis, self.ff_out.bias.to(dt),
-            grad_conjugate=True)
+                             % (self.tp_index, self.tp_size, self.tp_axis,
+                                _tp_mesh(self.tp_axis)[1:]))
+        p = {'ln1_scale': self.ln1_scale, 'ln1_bias': self.ln1_bias,
+             'qkv': {'kernel': self.qkv.kernel, 'bias': self.qkv.bias},
+             'proj': {'kernel': self.proj.kernel, 'bias': self.proj.bias},
+             'ln2_scale': self.ln2_scale, 'ln2_bias': self.ln2_bias,
+             'ff_in': {'kernel': self.ff_in.kernel, 'bias': self.ff_in.bias},
+             'ff_out': {'kernel': self.ff_out.kernel,
+                        'bias': self.ff_out.bias}}
+        return block_forward(p, x, self.dtype, tp_axis=self.tp_axis,
+                             sequence_axis=self.sequence_axis,
+                             sp_scheme=self.sp_scheme)
+
+
+def block_forward(p, x, dtype, tp_axis=None, sequence_axis=None,
+                  sp_scheme='ring'):
+    """A :class:`TransformerBlock`'s forward over its parameter tree ``p``
+    (the flax names: ``ln1_scale``, ``qkv/kernel``, ...; with ``tp_axis``
+    this process's shards): what the block's ``forward`` runs, and what a
+    pipeline stage (:func:`pipeline_parts`) runs over each row of its
+    stacked tree without a module."""
+    if tp_axis is not None:
+        return _tp_block(p, x, dtype, tp_axis)
+    h = ops.layer_norm(x, p['ln1_scale'], p['ln1_bias']).to(dtype)
+    qkv = _qkv_proj(h, p, dtype)                 # (B, T, 3, H, d_head)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    if sequence_axis is not None:
+        from chainermn_tpu_torch.parallel import sequence
+        sp = (sequence.ulysses_attention if sp_scheme == 'ulysses'
+              else sequence.ring_attention)
+        attn = sp(q, k, v, sequence_axis, causal=True)
+    else:
+        attn = ops.flash_attention(q, k, v, causal=True)
+    x = x + _dense(attn.reshape(attn.shape[:2] + (-1,)), p['proj'], dtype)
+    h = ops.layer_norm(x, p['ln2_scale'], p['ln2_bias']).to(dtype)
+    return x + _mlp(h, p, dtype)
+
+
+def _tp_block(p, x, dt, axis):
+    """The Megatron-sharded block (the JAX block's ``_tp_call``)."""
+    from chainermn_tpu_torch.parallel import tensor
+    h = ops.layer_norm(x, p['ln1_scale'], p['ln1_bias']).to(dt)
+    h = tensor.tp_copy(h, axis)
+    attn = tensor.qkv_attention(h, p['qkv']['kernel'].to(dt), causal=True,
+                                bqkv=p['qkv']['bias'].to(dt))
+    x = x + tensor.row_parallel_dense(
+        attn, p['proj']['kernel'].to(dt), axis, p['proj']['bias'].to(dt),
+        grad_conjugate=True)
+    h = ops.layer_norm(x, p['ln2_scale'], p['ln2_bias']).to(dt)
+    h = tensor.tp_copy(h, axis)
+    g = _gelu(tensor.column_parallel_dense(
+        h, p['ff_in']['kernel'].to(dt), p['ff_in']['bias'].to(dt)))
+    return x + tensor.row_parallel_dense(
+        g, p['ff_out']['kernel'].to(dt), axis, p['ff_out']['bias'].to(dt),
+        grad_conjugate=True)
 
 
 class TransformerLM(nn.Module):
@@ -407,6 +429,136 @@ def tp_param_specs(params, axis='model'):
         return one(path, tree)
 
     return walk(params, ())
+
+
+def pipeline_parts(model, params=None, n_stages=1, pad_id=-1,
+                   tp_axis=None, local_loss=False):
+    """Split a ``TransformerLM`` into the pieces of
+    :class:`~chainermn_tpu_torch.training.PipelineUpdater` /
+    ``MeshPipelineUpdater``: ``(stage_fn, prologue, loss_on_last,
+    params_stacked, extra)``, as the JAX function does.
+
+    ``params``: the model's flax parameter tree (nested dicts of numpy
+    arrays; default: the model's own).  The block stack becomes the
+    stage-stacked body, numpy leaves ``(n_stages, n_layers / n_stages,
+    ...)`` in the JAX layout (``block_i``'s leaves at ``[i // n, i %
+    n]``); the embedding, the position table, the final norm and the
+    head become the replicated ``extra`` tree.  The pipelined
+    composition computes what ``model`` and :func:`lm_loss` compute with
+    the same parameters, through the same kernels: ``stage_fn`` runs
+    this stage's blocks (:func:`block_forward` over each row of its
+    stacked tree), ``prologue`` the embedding lookup and positions,
+    ``loss_on_last`` the final norm (``ops.layer_norm``), the f32 head
+    and ``ops.softmax_cross_entropy``.
+
+    ``model`` must have ``sequence_axis=None`` and ``tp_axis=None`` (the
+    tree is the unsharded one) and no dropout.  ``tp_axis`` (a plan's
+    ``model`` axis) makes the stage body tensor-parallel: each block runs
+    the Megatron path (the conjugate pair) over the bound mesh (the
+    updater binds it), its leaves sharded by :func:`pipeline_stage_specs`.
+
+    ``loss_on_last`` is the GLOBAL masked mean: the sums over the data
+    axis come before the division, each a ``parallel.psum`` (whose
+    backward sums, so the updater's mean of the gradients over data is
+    the global loss's gradient, nothing counted twice); it needs the
+    gpipe schedule.  ``local_loss=True`` gives the collective-free local
+    masked mean (1F1B), exact whenever every data replica holds the same
+    number of valid tokens (always at ``pad_id=-1``)."""
+    if model.sequence_axis is not None:
+        raise ValueError('pipeline_parts shards the batch dimension; '
+                         'build the model with sequence_axis=None')
+    if model.tp_axis is not None:
+        raise ValueError('pipeline_parts expects the unsharded block '
+                         'body; build the model with tp_axis=None '
+                         '(stage-internal tensor parallelism is the '
+                         'tp_axis= argument HERE, over the oracle '
+                         'parameter tree)')
+    if getattr(model, 'dropout', 0.0):
+        raise ValueError('pipeline_parts runs the blocks without '
+                         'dropout rngs; build the model with '
+                         'dropout=0.0 (training would otherwise '
+                         'silently drop the regularization the '
+                         'unpipelined run applies)')
+    if model.n_layers % n_stages:
+        raise ValueError('%d layers do not split into %d stages'
+                         % (model.n_layers, n_stages))
+    from chainermn_tpu_torch.models.flax_weights import to_flax_variables
+    from chainermn_tpu_torch.parallel.pipeline import stack_stage_params
+    if params is None:
+        params = to_flax_variables(model)['params']
+    n_per = model.n_layers // n_stages
+    layers = [params['block_%d' % i] for i in range(model.n_layers)]
+    params_stacked = stack_stage_params([
+        stack_stage_params(layers[s * n_per:(s + 1) * n_per])
+        for s in range(n_stages)])
+    extra = {'embedding': params['embed']['embedding'],
+             'pos_embed': params['pos_embed'],
+             'lnf_scale': params['lnf_scale'],
+             'lnf_bias': params['lnf_bias'],
+             'lm_head': params['lm_head']}
+    def stage_fn(p_stage, x):
+        for j in range(n_per):
+            x = block_forward(_rows(p_stage, j), x, model.dtype,
+                              tp_axis=tp_axis)
+        return x
+
+    def prologue(e, tokens):
+        x = _embed(e['embedding'], tokens, model.dtype)
+        return x + e['pos_embed'][:tokens.shape[1]].to(model.dtype)
+
+    def masked_ce(e, outs, y_micro):
+        h = ops.layer_norm(outs, e['lnf_scale'],
+                           e['lnf_bias']).to(model.dtype)
+        logits = (h.to(torch.float32)
+                  @ e['lm_head']['kernel'].to(torch.float32)
+                  + e['lm_head']['bias'])
+        flat = logits.reshape(-1, logits.shape[-1])
+        yy = y_micro.reshape(-1).to(torch.int32)
+        ce = ops.softmax_cross_entropy(flat, yy)
+        mask = (yy != pad_id).to(torch.float32)
+        return (ce * mask).sum(), mask.sum()
+
+    def loss_on_last(e, outs, y_micro):
+        from chainermn_tpu_torch.parallel import tensor
+        total, n = masked_ce(e, outs, y_micro)
+        total = tensor.psum(total, 'data')
+        n = tensor.psum(n.detach(), 'data').clamp_min(1.0)
+        loss = total / n
+        return loss, {'perp': torch.exp(loss.detach().clamp_max(20.0))}
+
+    def local_loss_on_last(e, outs, y_micro):
+        total, n = masked_ce(e, outs, y_micro)
+        loss = total / n.clamp_min(1.0)
+        return loss, {'perp': torch.exp(loss.detach().clamp_max(20.0))}
+
+    return (stage_fn, prologue,
+            local_loss_on_last if local_loss else loss_on_last,
+            params_stacked, extra)
+
+
+def _rows(tree, j):
+    """Row ``j`` of every leaf of a stacked tree (views)."""
+    return {k: _rows(v, j) if isinstance(v, dict) else v[j]
+            for k, v in tree.items()}
+
+
+def pipeline_stage_specs(params_stacked, pipe_axis='pipe', tp_axis=None):
+    """The spec tree of a :func:`pipeline_parts` stacked stage tree:
+    every leaf leads with ``pipe_axis``; with ``tp_axis`` the block's
+    dims shard as :func:`tp_param_specs` shards one unstacked block,
+    behind the two stacking dims ``(n_stages, layers_per_stage)``
+    (``(pipe_axis, None) + spec``; a replicated leaf is
+    ``(pipe_axis,)``)."""
+    if tp_axis is None:
+        return _map_leaves(lambda leaf: (pipe_axis,), params_stacked)
+    block = tp_param_specs(_rows(_rows(params_stacked, 0), 0), tp_axis)
+    return _map_leaves(lambda spec: (pipe_axis, None) + spec if spec
+                       else (pipe_axis,), block)
+
+
+def _map_leaves(fn, tree):
+    return {k: _map_leaves(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
 
 
 def lm_loss_sum(apply_fn, pad_id=-1):

@@ -13,9 +13,12 @@ resolves to this process's group through the mesh that is bound
 - :mod:`sequence` -- ring and Ulysses attention, the mapped global loss
 - :mod:`zero` -- ZeRO-1 optimizer-state sharding behind
   ``StandardUpdater(zero=True)``
+- :mod:`pipeline` -- the GPipe and 1F1B schedules over a line of
+  processes (one stage each), the bubble arithmetic and the 1F1B
+  collective guard; trained through ``training.PipelineUpdater`` /
+  ``MeshPipelineUpdater``
 
-Not ported yet: ``pipeline`` (GPipe / 1F1B) and ``moe`` (ROADMAP.md item
-8).
+Not ported yet: ``moe`` (ROADMAP.md item 8).
 
 Gradients: every process runs its own backward, so the JAX package's
 "differentiate outside ``shard_map``" becomes a convention on what each
@@ -32,4 +35,7 @@ from chainermn_tpu_torch.parallel.tensor import (  # noqa: F401
     tp_attention, tp_copy, tp_mlp, tp_reduce, tp_transformer_block)
 from chainermn_tpu_torch.parallel.sequence import (  # noqa: F401
     mapped_global_loss, ring_attention, sum_grads, ulysses_attention)
-from chainermn_tpu_torch.parallel import zero  # noqa: F401
+from chainermn_tpu_torch.parallel import pipeline, zero  # noqa: F401
+from chainermn_tpu_torch.parallel.pipeline import (  # noqa: F401
+    Pipeline, bubble_fraction, bubble_fractions_per_stage, microbatch,
+    pipeline_1f1b_grads, schedule_ticks, stack_stage_params)

@@ -1,4 +1,4 @@
-"""MeshPlan: named axes over the processes (data x model).
+"""MeshPlan: named axes over the processes (data x model [x pipe]).
 
 Counterpart of ``chainermn_tpu/parallel/meshplan.py``.  The JAX plan is
 one device mesh with named roles whose collectives XLA inserts inside
@@ -22,7 +22,12 @@ clamps to the largest divisor of the process count
 (``mesh_utility.divisor_leq``), so 1 process gives ``(1, 1)``, tp >= n
 gives ``(1, n)`` and tp = 1 gives ``(n, 1)``; both axis names always
 exist, and a collective over an axis of size 1 is the identity (no
-call is made).
+call is made).  ``MeshPlan.create(tp=, pp=)`` adds the ``pipe`` axis as
+the minor one, ``rank = (d * tp + m) * pp + p``, and clamps tp first and
+pp within what remains (``mesh_utility.divisors_leq``): one process
+gives ``(1, 1, 1)``.  Its ``(data, pipe)`` plane, which the pipeline
+updaters reduce the replicated ends' gradients and the metrics over,
+gets a group of its own (a composite axis of a :class:`ProcessMesh`).
 
 What has no torch meaning: the JAX plan hands out ``NamedSharding`` /
 ``PartitionSpec`` trees that PLACE arrays on a JAX mesh
@@ -31,9 +36,10 @@ What has no torch meaning: the JAX plan hands out ``NamedSharding`` /
 device holds its own shard as an ordinary tensor, so those methods are
 not here (ROADMAP.md A1); a parameter's layout over the axes is a spec
 tuple (``models.tp_param_specs``) read by
-``models.shard_variables`` / ``gather_variables``.  ``pp=``, ``ep=``
-and ``slices=`` (the pipe, expert and slice axes) are not ported yet
-(ROADMAP.md item 8).
+``models.shard_variables`` / ``gather_variables``; a pipeline's stage
+tree is placed by :meth:`MeshPlan.stage_specs`.  ``ep=`` and
+``slices=`` (the expert and slice axes) are not ported yet (ROADMAP.md
+item 8).
 """
 
 import contextlib
@@ -53,6 +59,7 @@ AXIS_PIPE = 'pipe'
 AXIS_EXPERT = 'expert'
 AXIS_SLICE = 'slice'
 PLAN_AXES = (AXIS_DATA, AXIS_MODEL)
+PLAN_AXES_3D = (AXIS_DATA, AXIS_MODEL, AXIS_PIPE)
 
 _BOUND = []   # the binding stack: innermost last
 
@@ -87,9 +94,16 @@ class ProcessMesh:
     order: making a group is a collective over the whole world.
     ``groups=False`` builds a shape-only mesh (what
     ``MeshPlan.create(size=)`` computes with no processes); binding one
-    to a collective over an axis of size > 1 raises."""
+    to a collective over an axis of size > 1 raises.
 
-    def __init__(self, shape, axis_names, rank=None, groups=None):
+    ``composites``: tuples of axis names whose planes (every line of the
+    mesh along all of them at once) get groups of their own, made after
+    the axes' groups, where a plane spans more than one axis of size > 1
+    and less than the whole world (a single wide axis reuses its group,
+    the whole world the default group)."""
+
+    def __init__(self, shape, axis_names, rank=None, groups=None,
+                 composites=()):
         shape = tuple(int(s) for s in shape)
         axis_names = tuple(axis_names)
         if len(shape) != len(axis_names):
@@ -118,16 +132,24 @@ class ProcessMesh:
             for name in axis_names:
                 if self.shape[name] > 1:
                     self._groups[name] = mesh_utility.new_groups(
-                        self._lines(name), rank)
+                        self._lines((name,)), rank)
+            for names in composites:
+                wide = frozenset(n for n in names if self.shape[n] > 1)
+                if (len(wide) > 1 and wide not in self._groups
+                        and self.axis_size(names) < self.size):
+                    self._groups[wide] = mesh_utility.new_groups(
+                        self._lines(tuple(names)), rank)
         self._live = bool(groups)
 
-    def _lines(self, name):
-        """Every line of the mesh along ``name``: lists of global ranks
-        in axis order (the same for every process)."""
-        i = self.axis_names.index(name)
+    def _lines(self, names):
+        """Every line (or plane) of the mesh along ``names``: lists of
+        global ranks, major to minor in ``names``' order (the same for
+        every process)."""
+        idx = [self.axis_names.index(n) for n in names]
         ids = np.arange(self.size).reshape(tuple(self.shape.values()))
-        moved = np.moveaxis(ids, i, -1).reshape(-1, self.shape[name])
-        return [[int(r) for r in row] for row in moved]
+        moved = np.moveaxis(ids, idx, range(-len(idx), 0))
+        return [[int(r) for r in row]
+                for row in moved.reshape(-1, self.axis_size(names))]
 
     def _line(self, names):
         """The global ranks along ``names`` through this process, major
@@ -183,12 +205,15 @@ class ProcessMesh:
                     'without process groups' % (axis, size))
             if len(wide) == 1:
                 group = self._groups[wide[0]]
+            elif frozenset(wide) in self._groups:
+                group = self._groups[frozenset(wide)]
             elif size == dist.get_world_size():
                 group = dist.group.WORLD
             else:
                 raise NotImplementedError(
                     'a collective over the composite axis %r (part of '
-                    'the mesh) has no group' % (axis,))
+                    'the mesh) has no group: build the mesh with it in '
+                    'composites=' % (axis,))
         return Axis(axis, size, pos, ranks, group)
 
     def axis_size(self, axis):
@@ -228,33 +253,41 @@ def resolve_axis(axis):
 
 
 class MeshPlan:
-    """A ``(data, model)`` mesh of processes plus what training on it
-    needs.
+    """A ``(data, model)`` or ``(data, model, pipe)`` mesh of processes
+    plus what training on it needs.
 
     Attributes (the JAX plan's): ``mesh`` (a :class:`ProcessMesh`),
     ``data_axes`` (what gradient reduction, the batch scatter and ZeRO
-    span), ``model_axis`` (the tensor-parallel axis), ``requested_tp``;
-    ``pipe_axis``, ``expert_axis`` and ``slice_axis`` are None (not
-    ported yet, ROADMAP.md item 8).
+    span), ``model_axis`` (the tensor-parallel axis), ``pipe_axis`` (the
+    pipeline-stage axis, or None on a 2-D plan), ``requested_tp`` /
+    ``requested_pp``; ``expert_axis`` and ``slice_axis`` are None (not
+    ported yet, ROADMAP.md item 8).  A mesh that binds the name
+    ``'pipe'`` is a 3-D plan.
     """
 
     def __init__(self, mesh, data_axes=(AXIS_DATA,), model_axis=AXIS_MODEL,
-                 requested_tp=None, device=None):
+                 requested_tp=None, device=None, pipe_axis=None,
+                 requested_pp=None):
         self.mesh = mesh
         self.data_axes = tuple(data_axes)
         if model_axis is not None and model_axis not in mesh.shape:
             model_axis = None
         self.model_axis = model_axis
-        for ax in (AXIS_PIPE, AXIS_EXPERT, AXIS_SLICE):
+        for ax in (AXIS_EXPERT, AXIS_SLICE):
             if ax in mesh.shape:
                 raise NotImplementedError(
                     'the %r axis is not ported yet (ROADMAP.md item 8)'
                     % ax)
-        self.pipe_axis = self.expert_axis = self.slice_axis = None
+        if pipe_axis is None and AXIS_PIPE in mesh.shape:
+            pipe_axis = AXIS_PIPE
+        self.pipe_axis = pipe_axis
+        self.expert_axis = self.slice_axis = None
         self.requested_tp = requested_tp
+        self.requested_pp = requested_pp
         self.device = device
         self._owns_group = False
-        for ax in self.data_axes + ((model_axis,) if model_axis else ()):
+        for ax in self.data_axes + tuple(
+                a for a in (model_axis, pipe_axis) if a is not None):
             if ax not in mesh.shape:
                 raise ValueError('mesh %r does not bind plan axis %r'
                                  % (mesh.shape, ax))
@@ -270,6 +303,14 @@ class MeshPlan:
         tp + model_index``, so a node's neighbouring processes share a
         tensor-parallel group.
 
+        ``pp`` (an int >= 1) adds the pipeline axis: the mesh becomes
+        ``(data, model, pipe)`` with ``pipe`` the minor axis, ``rank =
+        (d * tp + m) * pp + p``, so a stage's neighbours are the
+        neighbouring processes.  tp clamps first, pp within what remains
+        (``mesh_utility.divisors_leq``), the data axis takes the rest;
+        the names never change with the shape.  ``pp=None`` keeps the
+        2-D plan.  ``axis_names`` may name the three axes.
+
         With ``size`` (and ``rank``, default 0) the plan is shape-only
         (no process group is needed or made).  Otherwise the default
         group is joined, or made as a communicator makes it (torchrun's
@@ -281,10 +322,12 @@ class MeshPlan:
             raise ValueError('tp must be >= 1, got %d' % tp)
         if slices is not None and slices < 1:
             raise ValueError('slices must be >= 1, got %d' % slices)
-        if ep is not None or pp is not None or slices is not None:
+        if ep is not None or slices is not None:
             raise NotImplementedError(
-                'MeshPlan.create(pp=, ep=, slices=) is not ported yet '
+                'MeshPlan.create(ep=, slices=) is not ported yet '
                 '(ROADMAP.md item 8)')
+        if pp is not None and pp < 1:
+            raise ValueError('pp must be >= 1, got %d' % pp)
         made = False
         if size is None:
             device, made = join_default_group(device)
@@ -292,12 +335,26 @@ class MeshPlan:
             groups = size > 1
         else:
             rank, groups = (0 if rank is None else rank), False
-        eff = mesh_utility.divisor_leq(size, tp)
-        data_name, model_name = axis_names
-        plan = cls(ProcessMesh((size // eff, eff), (data_name, model_name),
-                               rank=rank, groups=groups),
-                   data_axes=(data_name,), model_axis=model_name,
-                   requested_tp=tp, device=device)
+        if pp is None:
+            eff = mesh_utility.divisor_leq(size, tp)
+            data_name, model_name = axis_names
+            plan = cls(ProcessMesh((size // eff, eff),
+                                   (data_name, model_name), rank=rank,
+                                   groups=groups),
+                       data_axes=(data_name,), model_axis=model_name,
+                       requested_tp=tp, device=device)
+        else:
+            if len(axis_names) == 2:
+                axis_names = tuple(axis_names) + (AXIS_PIPE,)
+            data_name, model_name, pipe_name = axis_names
+            eff_tp, eff_pp = mesh_utility.divisors_leq(size, (tp, pp))
+            plan = cls(ProcessMesh(
+                (size // (eff_tp * eff_pp), eff_tp, eff_pp), axis_names,
+                rank=rank, groups=groups,
+                composites=((data_name, pipe_name),)),
+                data_axes=(data_name,), model_axis=model_name,
+                requested_tp=tp, device=device, pipe_axis=pipe_name,
+                requested_pp=pp)
         plan._owns_group = made
         return plan
 
@@ -318,7 +375,11 @@ class MeshPlan:
 
     @property
     def pipe_size(self):
-        return 1
+        """Pipeline-stage count (1 without a pipe axis: a pipeline of one
+        stage is the unpipelined program)."""
+        if self.pipe_axis is None:
+            return 1
+        return self.mesh.shape[self.pipe_axis]
 
     @property
     def expert_size(self):
@@ -334,11 +395,16 @@ class MeshPlan:
 
     def describe(self):
         """Provenance dict for bench rows and checkpoint manifests."""
-        return {'axes': {k: int(v) for k, v in self.mesh.shape.items()},
-                'data_axes': list(self.data_axes),
-                'model_axis': self.model_axis,
-                'requested_tp': self.requested_tp,
-                'effective_tp': int(self.model_size)}
+        out = {'axes': {k: int(v) for k, v in self.mesh.shape.items()},
+               'data_axes': list(self.data_axes),
+               'model_axis': self.model_axis,
+               'requested_tp': self.requested_tp,
+               'effective_tp': int(self.model_size)}
+        if self.pipe_axis is not None:
+            out['pipe_axis'] = self.pipe_axis
+            out['requested_pp'] = self.requested_pp
+            out['effective_pp'] = int(self.pipe_size)
+        return out
 
     def local_shape(self, shape, spec):
         """The per-process shape of a global ``shape`` under ``spec`` (a
@@ -357,6 +423,24 @@ class MeshPlan:
                         '%r (size %d)' % (i, tuple(shape), ax, k))
                 shape[i] //= k
         return tuple(shape)
+
+    def stage_specs(self, params_stacked, body_specs=None):
+        """The spec tree placing each pipeline stage's parameters on its
+        ``pipe`` coordinate: every leaf of a stage-STACKED tree (leading
+        dim = ``pipe_size``) gets ``(pipe_axis,)``, or, with
+        ``body_specs`` (a spec tree over the unstacked leaf dims, e.g. a
+        stage body's Megatron specs), ``(pipe_axis, *body_spec)``."""
+        if self.pipe_axis is None:
+            raise ValueError('stage_specs needs a pipeline axis: build the '
+                             'plan with MeshPlan.create(pp=...)')
+
+        def walk(tree, body):
+            if isinstance(tree, dict):
+                return {k: walk(v, None if body is None else body[k])
+                        for k, v in tree.items()}
+            return (self.pipe_axis,) + (tuple(body) if body else ())
+
+        return walk(params_stacked, body_specs)
 
     def bind(self):
         """Bind the plan's axis names for the block."""
@@ -398,6 +482,11 @@ class MeshPlanCommunicator(CommunicatorBase):
             raise NotImplementedError(
                 'a MeshPlanCommunicator needs one data axis and a model '
                 'axis')
+        if plan.pipe_size > 1:
+            raise NotImplementedError(
+                'a plan with %d pipeline stages trains through '
+                'training.MeshPipelineUpdater, which reduces over the plan '
+                'itself' % plan.pipe_size)
         self.plan = plan
         super().__init__(device=plan.device, reduce_dtype=reduce_dtype,
                          mesh_shape=(plan.data_size, plan.model_size))

@@ -95,14 +95,16 @@ def _all_to_all(x, ax, split_axis, concat_axis):
 
 class _AllToAll(torch.autograd.Function):
 
+    cmn_collective = 'all_to_all'
+
     @staticmethod
     def forward(ctx, x, ax, split_axis, concat_axis):
-        ctx.ax, ctx.split_axis, ctx.concat_axis = ax, split_axis, concat_axis
+        ctx.axis, ctx.split_axis, ctx.concat_axis = ax, split_axis, concat_axis
         return _all_to_all(x, ax, split_axis, concat_axis)
 
     @staticmethod
     def backward(ctx, g):
-        return (_all_to_all(g, ctx.ax, ctx.concat_axis, ctx.split_axis),
+        return (_all_to_all(g, ctx.axis, ctx.concat_axis, ctx.split_axis),
                 None, None, None)
 
 
@@ -143,8 +145,11 @@ class _ShareSum(torch.autograd.Function):
     """Sum over the axis forward, identity backward: each process's
     backward then carries its own share of the global loss."""
 
+    cmn_collective = 'share_sum'
+
     @staticmethod
     def forward(ctx, x, ax):
+        ctx.axis = ax
         out = x.detach().clone()
         dist.all_reduce(out, group=ax.group)
         return out

@@ -47,6 +47,10 @@ class _Reduce(torch.autograd.Function):
     """Sum over the axis forward; ``backward`` is the identity
     (``conjugate``) or the sum again (the raw transpose)."""
 
+    #: the collective's name for ``parallel.pipeline``'s 1F1B guard, which
+    #: reads ``axis`` (and ``conjugate``) off the backward node
+    cmn_collective = 'psum'
+
     @staticmethod
     def forward(ctx, x, axis, conjugate):
         ctx.axis, ctx.conjugate = axis, conjugate
@@ -61,6 +65,8 @@ class _Reduce(torch.autograd.Function):
 
 class _Copy(torch.autograd.Function):
     """Identity forward; the sum over the axis backward."""
+
+    cmn_collective = 'tp_copy'
 
     @staticmethod
     def forward(ctx, x, axis):
@@ -129,13 +135,20 @@ def row_parallel_dense(x_local, w, axis, b=None, grad_conjugate=False):
     return y
 
 
-def tp_mlp(x, w_in, b_in, w_out, b_out, axis, activation=torch.tanh):
+def tp_mlp(x, w_in, b_in, w_out, b_out, axis, activation=torch.tanh,
+           grad_conjugate=False):
     """Column -> activation -> row feed-forward with one sum in all.
-    ``activation=None`` gives a purely linear block."""
+    ``activation=None`` gives a purely linear block.
+    ``grad_conjugate=True``: the region enters through :func:`tp_copy`
+    and exits through :func:`tp_reduce` (the updaters' mode, see the
+    module docstring)."""
+    if grad_conjugate:
+        x = tp_copy(x, axis)
     h = column_parallel_dense(x, w_in, b_in)
     if activation is not None:
         h = activation(h)
-    return row_parallel_dense(h, w_out, axis, b_out)
+    return row_parallel_dense(h, w_out, axis, b_out,
+                              grad_conjugate=grad_conjugate)
 
 
 def qkv_attention(x, wqkv, causal=False, attn_fn=None, bqkv=None):
@@ -158,14 +171,15 @@ def qkv_attention(x, wqkv, causal=False, attn_fn=None, bqkv=None):
 
 
 def tp_attention(x, wqkv, wo, axis, n_heads, causal=False, bo=None,
-                 attn_fn=None):
+                 attn_fn=None, grad_conjugate=False):
     """Megatron-sharded self-attention, one sum per block: the QKV
     projection is column-parallel with HEADS as the sharded unit
     (``wqkv`` ``(d_model, 3, local_heads, d_head)``), each process
     attends over its own head group, and the output projection is
     row-parallel (``wo`` ``(local_heads * d_head, d_model)``).  Needs
     ``n_heads % axis_size == 0``.  ``x`` ``(B, T, d_model)`` is
-    replicated over ``axis``; so is the result."""
+    replicated over ``axis``; so is the result.  ``grad_conjugate``: as
+    :func:`tp_mlp`'s."""
     p = resolve_axis(axis).size
     if n_heads % p:
         raise ValueError('tp_attention needs n_heads %% axis_size '
@@ -175,8 +189,11 @@ def tp_attention(x, wqkv, wo, axis, n_heads, causal=False, bo=None,
         raise ValueError('wqkv carries %d local heads on %d devices '
                          'but n_heads=%d'
                          % (wqkv.shape[2], p, n_heads))
+    if grad_conjugate:
+        x = tp_copy(x, axis)
     attn = qkv_attention(x, wqkv, causal=causal, attn_fn=attn_fn)
-    return row_parallel_dense(attn, wo, axis, bo)
+    return row_parallel_dense(attn, wo, axis, bo,
+                              grad_conjugate=grad_conjugate)
 
 
 def _gelu(x):
@@ -185,20 +202,24 @@ def _gelu(x):
 
 
 def tp_transformer_block(x, params, axis, n_heads, causal=True,
-                         layer_norm=None):
+                         layer_norm=None, grad_conjugate=False):
     """A full Megatron block: LN -> TP attention -> residual -> LN -> TP
     MLP -> residual, two sums per block.  ``params``:
     ``ln1_scale/ln1_bias/wqkv/wo/bo`` and
     ``ln2_scale/ln2_bias/w_in/b_in/w_out/b_out`` (``b_in`` sharded with
     ``w_in``'s columns, ``bo`` / ``b_out`` replicated).  ``layer_norm``
     defaults to ``ops.layer_norm`` (the LayerNorm kernel on CUDA
-    tensors)."""
+    tensors).  ``grad_conjugate=True`` runs both halves through the
+    conjugate pair (what a pipeline stage, whose every process seeds its
+    own copy of the loss, needs)."""
     if layer_norm is None:
         from chainermn_tpu_torch import ops
         layer_norm = ops.layer_norm
     h = layer_norm(x, params['ln1_scale'], params['ln1_bias'])
     x = x + tp_attention(h, params['wqkv'], params['wo'], axis, n_heads,
-                         causal=causal, bo=params['bo'])
+                         causal=causal, bo=params['bo'],
+                         grad_conjugate=grad_conjugate)
     h = layer_norm(x, params['ln2_scale'], params['ln2_bias'])
     return x + tp_mlp(h, params['w_in'], params['b_in'], params['w_out'],
-                      params['b_out'], axis, activation=_gelu)
+                      params['b_out'], axis, activation=_gelu,
+                      grad_conjugate=grad_conjugate)

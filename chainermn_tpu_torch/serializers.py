@@ -278,7 +278,16 @@ def updater_state(updater):
     - ``scale_state`` (``scale``, ``growth_count``) under a loss-scaled
       policy, so a resumed f16 run goes on at its adapted scale, as the
       JAX package's snapshot does.
+
+    A pipeline updater (``training.PipelineUpdater``) gives its own
+    tree (``snapshot_state``): the stacked body gathered over the stages
+    under the JAX keys, the ``extra`` ends, its optimizer's state by
+    parameter path, the counters (a collective: every process calls
+    it).
     """
+    own = getattr(updater, 'snapshot_state', None)
+    if own is not None:
+        return own()
     wrapper, inner = _optimizer(updater)
     zero = getattr(updater, '_zero', None)
     if zero is not None:
@@ -426,6 +435,12 @@ def resume_updater(path, updater, comm=None, elastic=False):
         raise NotImplementedError(
             'elastic resume is not ported yet (ROADMAP.md A9)')
     by_key, manifest = read_npz(path)
+    load = getattr(updater, 'load_snapshot', None)
+    if load is not None:
+        # a pipeline updater: its stage (and shard) cut at the same mesh
+        # shape
+        load(by_key, path)
+        return _restore_counters_from(updater, by_key, manifest, path)
     live = updater_state(updater)
     variables = {'params': _fetch_tree(by_key, live['params'], 'params',
                                        path)}
@@ -469,6 +484,13 @@ def resume_updater(path, updater, comm=None, elastic=False):
         updater.scale_state = type(updater.scale_state)(**{
             k: torch.as_tensor(v).to(updater.device)
             for k, v in scale.items()})
+    return _restore_counters_from(updater, by_key, manifest, path,
+                                  iteration)
+
+
+def _restore_counters_from(updater, by_key, manifest, path, iteration=None):
+    if iteration is None:
+        iteration = _fetch(by_key, 'iteration', np.int64(0), path)
     detail = by_key.get('epoch_detail')
     cursor = by_key.get('stream_cursor')
     restore_counters(updater, iteration, by_key.get('epoch', 0),

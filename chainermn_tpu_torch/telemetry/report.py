@@ -10,7 +10,9 @@ Counterpart of part of ``chainermn_tpu/telemetry/report.py``:
   event logs back;
 - the request-centric views: per-request span trees rebuilt from the
   ``kind='request'`` records, and the summary that names the worst
-  request's stages.
+  request's stages;
+- :func:`pipeline_summary`, the per-stage bubble rows of the pipeline
+  updaters' ``pipeline:schedule`` events.
 
 The rest of the JAX package's report (the merged step timeline, the
 input-bound verdict, the doctor, the Prometheus export of a capture
@@ -205,3 +207,49 @@ def load_rank_logs(outdir):
                 elif t == 'event':
                     events.append(rec)
     return metas, spans, events, bad
+
+
+def pipeline_summary(events):
+    """The pipeline view of a capture: one row per distinct pipelined
+    step configuration, from the ``pipeline:schedule`` events the
+    pipeline updaters emit at their first step (``kind='pipeline'``;
+    schedule, micro-batch count, stage count, ticks, stage axis).
+
+    The bubble fraction (idle work slots per stage per step) is the
+    schedule's arithmetic
+    (:func:`chainermn_tpu_torch.parallel.pipeline.bubble_fraction`), a
+    property of ``(n_micro, n_stages)``: in ``[0, 1]`` per stage and
+    strictly decreasing in the micro-batch count at fixed stages.  None
+    when the capture holds no pipeline event."""
+    scheds = [e for e in events
+              if e.get('kind') == 'pipeline'
+              and e.get('name') == 'pipeline:schedule']
+    if not scheds:
+        return None
+    from chainermn_tpu_torch.parallel.pipeline import (
+        bubble_fractions_per_stage)
+    out, seen = [], set()
+    for e in scheds:
+        try:
+            key = (e.get('schedule') or '1f1b',
+                   int(e.get('n_micro') or 0),
+                   int(e.get('n_stages') or 0))
+        except (TypeError, ValueError):
+            continue
+        if key in seen or key[1] < 1 or key[2] < 1:
+            continue
+        seen.add(key)
+        per_stage = bubble_fractions_per_stage(key[1], key[2], key[0])
+        axes = e.get('axes')
+        out.append({
+            'schedule': key[0],
+            'n_micro': key[1],
+            'n_stages': key[2],
+            'total_ticks': e.get('total_ticks'),
+            'axis': (axes[0] if isinstance(axes, (list, tuple))
+                     and axes else 'stage'),
+            'bubble_fraction': round(per_stage[0], 6),
+            'bubble_fraction_per_stage': [round(b, 6)
+                                          for b in per_stage],
+        })
+    return out or None

@@ -6037,15 +6037,16 @@ LM_EVENTS = {'layer_norm': r'\bln_kernel<',
              'cross_entropy': r'::ce_kernel<'}
 
 
-def _lmp_kernel_cases(gen, records):
-    """Rows 4-8 at this path's shapes: LayerNorm over ``(8192, 512)`` bf16
-    rows with f32 gamma / beta, the flash forward, dq and dk/dv at ``(1,
-    8192, 8, 64)`` bf16 causal (strided views of one qkv projection), the
-    cross-entropy at ``(8192, 32000)`` f32, each against its plain version
-    within ``BF16_TOL`` (the cross-entropy at its f32 1e-5) and timed
-    beside ``F.layer_norm``, SDPA (its forward; its whole backward) and
+def _lmp_kernel_cases(gen, records, path='lm_parallel', lead=(1, LMP_SEQ)):
+    """Rows 4-8 at a path's shapes (``lead`` = (B, T), default this
+    path's): LayerNorm over ``(B * T, 512)`` bf16 rows with f32 gamma /
+    beta, the flash forward, dq and dk/dv at ``(B, T, 8, 64)`` bf16
+    causal (strided views of one qkv projection), the cross-entropy at
+    ``(B * T, 32000)`` f32, each against its plain version within
+    ``BF16_TOL`` (the cross-entropy at its f32 1e-5) and timed beside
+    ``F.layer_norm``, SDPA (its forward; its whole backward) and
     ``F.cross_entropy``; the times go into each row's ``other_shapes``
-    under ``lm_parallel``."""
+    under ``path``."""
     import torch
     import torch.nn.functional as F
     from chainermn_tpu_torch import ops
@@ -6053,14 +6054,17 @@ def _lmp_kernel_cases(gen, records):
     ce = importlib.import_module('chainermn_tpu_torch.ops.cross_entropy')
     by_name = {r['name']: r for r in records}
     h, d = LM_CFG['n_heads'], LM_CFG['d_model'] // LM_CFG['n_heads']
+    nb, seq = lead
+    rows = nb * seq
+    phase = path.replace('_', '-')
     out = {}
     # LayerNorm
-    x = (torch.randn((LMP_SEQ, LM_CFG['d_model']), generator=gen,
+    x = (torch.randn((rows, LM_CFG['d_model']), generator=gen,
                      device='cuda') * 3 + 1).to(torch.bfloat16)
     g = torch.randn(LM_CFG['d_model'], generator=gen, device='cuda') + 1
     b = torch.randn(LM_CFG['d_model'], generator=gen, device='cuda')
     got, want = ops.ln_forward(x, g, b), ops.layer_norm_reference(x, g, b)
-    check_close('layer_norm %s (lm_parallel)' % (tuple(x.shape),), got, want,
+    check_close('layer_norm %s (%s)' % (tuple(x.shape), path), got, want,
                 *BF16_TOL)
     t = timings(lambda: ops.ln_forward(x, g, b),
                 lambda: ops.layer_norm_reference(x, g, b),
@@ -6072,32 +6076,32 @@ def _lmp_kernel_cases(gen, records):
     out['layer_norm'] = dict(shape=[n, dm], max_abs_err=max_err(got, want),
                              **t)
     # the flash forward and backward
-    q, k, v = _strided_qkv(gen, (1, LMP_SEQ), h, d, torch.bfloat16)
+    q, k, v = _strided_qkv(gen, lead, h, d, torch.bfloat16)
     scale = d ** -0.5
     o, lse = ops.flash_fwd(q, k, v, True, scale)
     po, plse = fa._fwd_plain(q, k, v, True, scale)
-    check_close('flash_fwd (1, %d, %d, %d) (lm_parallel)' % (LMP_SEQ, h, d),
+    check_close('flash_fwd (%d, %d, %d, %d) (%s)' % (nb, seq, h, d, path),
                 o, po, *BF16_TOL)
-    check_close('flash_fwd lse (lm_parallel)', lse, plse, 1e-5, 1e-4)
+    check_close('flash_fwd lse (%s)' % path, lse, plse, 1e-5, 1e-4)
     lq, lk, lv = (z.transpose(1, 2) for z in (q, k, v))
     t = timings(lambda: ops.flash_fwd(q, k, v, True, scale),
                 lambda: fa._fwd_plain(q, k, v, True, scale),
                 lambda: F.scaled_dot_product_attention(lq, lk, lv,
                                                        is_causal=True),
                 iters=10, plain_iters=2)
-    n_bytes, n_ops = _flash_fwd_cost(1, LMP_SEQ, h, d, 2)
+    n_bytes, n_ops = _flash_fwd_cost(nb, seq, h, d, 2)
     t.update(zip(('bound_ms', 'bound_by'),
                  bound_ms(n_bytes, n_ops, BF16_TC_FLOPS_PER_S)))
-    out['flash_fwd'] = dict(shape=[1, LMP_SEQ, h, d],
+    out['flash_fwd'] = dict(shape=[nb, seq, h, d],
                             max_abs_err=max_err(o, po), **t)
-    gg = torch.randn((1, LMP_SEQ, h, d), generator=gen,
+    gg = torch.randn((nb, seq, h, d), generator=gen,
                      device='cuda').to(torch.bfloat16)
     dq, delta = ops.flash_bwd_dq(q, k, v, gg, o, lse, True, scale)
     dk, dv = ops.flash_bwd_dkv(q, k, v, gg, lse, delta, True, scale)
     pdq, pdk, pdv = fa._bwd_plain(q, k, v, o, lse, gg, True, scale)
     for name, a, c in (('dq', dq, pdq), ('dk', dk, pdk), ('dv', dv, pdv)):
-        check_close('flash_bwd %s (1, %d, %d, %d) (lm_parallel)'
-                    % (name, LMP_SEQ, h, d), a, c, *BF16_TOL)
+        check_close('flash_bwd %s (%d, %d, %d, %d) (%s)'
+                    % (name, nb, seq, h, d, path), a, c, *BF16_TOL)
     sq, sk, sv = (z.detach().transpose(1, 2).requires_grad_()
                   for z in (q, k, v))
     sout = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
@@ -6109,7 +6113,7 @@ def _lmp_kernel_cases(gen, records):
     def plain():
         return fa._bwd_plain(q, k, v, o, lse, gg, True, scale)
 
-    pairs = LMP_SEQ * (LMP_SEQ + 1) // 2
+    pairs = nb * seq * (seq + 1) // 2
     for name, kernel, n_products, err in (
             ('flash_bwd_dq',
              lambda: ops.flash_bwd_dq(q, k, v, gg, o, lse, True, scale), 3,
@@ -6119,18 +6123,18 @@ def _lmp_kernel_cases(gen, records):
              4, max(max_err(dk, pdk), max_err(dv, pdv)))):
         t = timings(kernel, plain, library, iters=10, plain_iters=2)
         t.update(zip(('bound_ms', 'bound_by'), bound_ms(
-            6 * LMP_SEQ * h * d * 2 + 2 * h * LMP_SEQ * 4,
+            6 * rows * h * d * 2 + 2 * h * rows * 4,
             n_products * 2 * h * pairs * d, BF16_TC_FLOPS_PER_S)))
-        out[name] = dict(shape=[1, LMP_SEQ, h, d], max_abs_err=err, **t)
+        out[name] = dict(shape=[nb, seq, h, d], max_abs_err=err, **t)
     # the cross-entropy of the path's logits
-    logits = torch.randn((LMP_SEQ, LM_CFG['vocab_size']), generator=gen,
+    logits = torch.randn((rows, LM_CFG['vocab_size']), generator=gen,
                          device='cuda') * 3
-    labels = torch.randint(0, LM_CFG['vocab_size'], (LMP_SEQ,),
+    labels = torch.randint(0, LM_CFG['vocab_size'], (rows,),
                            generator=gen, device='cuda', dtype=torch.int32)
     loss, lse = ops.ce_forward(logits, labels)
     ploss, plse = ce._ce_forward_plain(logits, labels)
-    check_close('cross_entropy (lm_parallel) loss', loss, ploss, 1e-5, 1e-5)
-    check_close('cross_entropy (lm_parallel) lse', lse, plse, 1e-5, 1e-5)
+    check_close('cross_entropy (%s) loss' % path, loss, ploss, 1e-5, 1e-5)
+    check_close('cross_entropy (%s) lse' % path, lse, plse, 1e-5, 1e-5)
     long_labels = labels.long()
     t = timings(lambda: ops.ce_forward(logits, labels),
                 lambda: ce._ce_forward_plain(logits, labels),
@@ -6142,11 +6146,11 @@ def _lmp_kernel_cases(gen, records):
     out['cross_entropy'] = dict(shape=[nb, nv], max_abs_err=max(
         max_err(loss, ploss), max_err(lse, plse)), **t)
     for name, row in out.items():
-        _say('lm-parallel', '%s at %s: max err %.3g; %s; bound %.5f ms by %s'
+        _say(phase, '%s at %s: max err %.3g; %s; bound %.5f ms by %s'
              % (name, tuple(row['shape']), row['max_abs_err'], _fmt(row),
                 row['bound_ms'], row['bound_by']))
         rec = by_name[name]
-        rec.setdefault('other_shapes', {})['lm_parallel'] = row
+        rec.setdefault('other_shapes', {})[path] = row
         rec['max_abs_err'] = max(rec['max_abs_err'], row['max_abs_err'])
 
 
@@ -6187,25 +6191,34 @@ class _TwinWindows:
                 self.prof = None
 
     def _settle(self, prof, wall_us, now):
-        kernels = _kernel_times(prof)
-        if sum(kernels.values()) == 0:
-            _say('profile', '%s: a trace held no device event' % self.what)
-            return
-        want = {k: now[k] - self.since[k] for k in LM_EVENTS}
-        got = {k: _kernel_count(prof, pattern)
-               for k, pattern in LM_EVENTS.items()}
-        if any(got[k] > want[k] for k in got):
-            raise AssertionError('%s: the trace holds %s kernels, the '
-                                 'wrappers launched %s' % (self.what, got,
-                                                           want))
-        if got != want:
-            _say('profile', '%s: a trace lost kernel records: it holds %s, '
-                 'the wrappers launched %s' % (self.what, got, want))
-            return
-        self.got = got
-        # the wall starts after the prelude; its 64 tiny kernels (about
-        # 0.1 ms) stay in the busy time
-        self.busy = sum(kernels.values()) / wall_us
+        settled = _settle_trace(prof, self.since, now, wall_us, self.what)
+        if settled is not None:
+            self.got, self.busy = settled
+
+
+def _settle_trace(prof, since, now, wall_us, what):
+    """The LM kernels in a ``torch.profiler`` trace (taken after
+    ``trace_prelude``) against the wrappers' launches in it (``now``
+    less ``since``): ``(counts, busy share)``, or None when the trace
+    lost its device events or kernel records (the caller tries another
+    window); a trace holding more kernels than were launched fails.
+    The wall starts after the prelude, whose 64 tiny kernels (about 0.1
+    ms) stay in the busy time."""
+    kernels = _kernel_times(prof)
+    if sum(kernels.values()) == 0:
+        _say('profile', '%s: a trace held no device event' % what)
+        return None
+    want = {k: now[k] - since[k] for k in LM_EVENTS}
+    got = {k: _kernel_count(prof, pattern)
+           for k, pattern in LM_EVENTS.items()}
+    if any(got[k] > want[k] for k in got):
+        raise AssertionError('%s: the trace holds %s kernels, the wrappers '
+                             'launched %s' % (what, got, want))
+    if got != want:
+        _say('profile', '%s: a trace lost kernel records: it holds %s, the '
+             'wrappers launched %s' % (what, got, want))
+        return None
+    return got, sum(kernels.values()) / wall_us
 
 
 def _lmp_twin(scheme):
@@ -6367,6 +6380,354 @@ def phase_lm_parallel(records):
     return paths
 
 
+# the pipeline (phase 12): the LM path's widths and its 8 x 1024 tokens
+# a step through MeshPipelineUpdater on the plan's degraded (1, 1, 1),
+# n_micro 4, Policy.bf16(), AdamW; three runs of LMPP_STEPS steps
+LMPP_MICRO = 4
+LMPP_STEPS = 10
+LMPP_RUNS = (('gpipe', 'gpipe', False), ('remat', 'gpipe', True),
+             ('1f1b', '1f1b', False))
+# the steps whose trace is held to the wrappers' counts: the first whose
+# trace holds them settles it, as the twin's windows do
+LMPP_PROFILED = tuple(3 + 2 * i for i in range(PROFILE_TRIES))
+LMPP_TWIN_ARGV = ['--stages', '1', '--vocab', '32000', '--d-model', '512',
+                  '--n-heads', '8', '--layers-per-stage', '6', '--seq-len',
+                  '1024', '--batchsize', '8', '--micro', '4', '--steps',
+                  str(LMPP_STEPS)]
+LMPP_MNIST_ARGV = ['--stages', '1', '--epoch', '1']
+
+
+def _lmpp_want(schedule, remat, steps, guard=False):
+    """The kernel launches of ``steps`` pipelined steps of the LM at one
+    stage, worked from the schedules' code (L layers, M micro-batches):
+    gpipe runs each micro-batch's forward once (2 LayerNorms and a flash
+    forward a layer), the loss once over the stacked outputs (the final
+    LayerNorm, one cross-entropy), and one flash backward a layer and
+    micro-batch; ``remat`` runs every forward twice; 1F1B's forward slot
+    on the last stage only stashes its input (its output is never
+    read), its backward slot recomputes the forward and evaluates the
+    loss per micro-batch.  ``guard``: plus 1F1B's first-step probes of
+    the stage body (forward and backward of one micro-batch) and the
+    loss (forward)."""
+    from chainermn_tpu_torch import ops
+    layers, m = LM_CFG['n_layers'], LMPP_MICRO
+    fwd = layers * m * (2 if remat else 1)
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want.update(layer_norm=2 * fwd + (1 if schedule == 'gpipe' else m),
+                flash_fwd=fwd, flash_bwd_dq=layers * m,
+                flash_bwd_dkv=layers * m,
+                cross_entropy=1 if schedule == 'gpipe' else m)
+    want = {k: v * steps for k, v in want.items()}
+    if guard:
+        for k, v in (('layer_norm', 2 * layers + 1), ('flash_fwd', layers),
+                     ('flash_bwd_dq', layers), ('flash_bwd_dkv', layers),
+                     ('cross_entropy', 1)):
+            want[k] += v
+    return want
+
+
+def _lmpp_batch(seed=0):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    toks = rng.randint(0, LM_CFG['vocab_size'],
+                       (LM_BATCH, LM_SEQ)).astype(np.int32)
+    tgts = rng.randint(0, LM_CFG['vocab_size'],
+                       (LM_BATCH, LM_SEQ)).astype(np.int32)
+    return [(toks[i], tgts[i]) for i in range(LM_BATCH)]
+
+
+def _adamw(params):
+    import torch
+    return torch.optim.AdamW(params, lr=1e-3)
+
+
+def _lmpp_updater(plan, model, schedule, remat, optimizer=_adamw):
+    """``MeshPipelineUpdater`` over ``pipeline_parts(model, None, 1)``
+    (gpipe with the global loss, 1F1B with the local one: the same value
+    at one data replica), bf16 with f32 masters, AdamW 1e-3."""
+    from chainermn_tpu_torch import models, training
+    from chainermn_tpu_torch.precision import Policy
+    sf, pro, ll, st, ex = models.pipeline_parts(
+        model, None, plan.pipe_size, local_loss=schedule == '1f1b')
+    return training.MeshPipelineUpdater(
+        iter([]), optimizer, sf, ll, st, plan, n_micro=LMPP_MICRO,
+        schedule=schedule, remat=remat, prologue=pro, extra_params=ex,
+        policy=Policy.bf16())
+
+
+def _traced_step(what, step):
+    """``step()`` under ``torch.profiler`` (after ``trace_prelude``),
+    held by ``_settle_trace``, whose ``(counts, busy share)`` or None it
+    returns.  Logs the step's device ms and its host ops with the most
+    self time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from chainermn_tpu_torch import ops
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trace_prelude('cuda')
+        since = dict(ops.launch_counts())
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    settled = _settle_trace(prof, since, ops.launch_counts(), wall_us, what)
+    if settled is None:
+        return None
+    host = sorted(((e.self_cpu_time_total, e.key) for e in
+                   prof.key_averages() if e.device_type ==
+                   torch.autograd.DeviceType.CPU), reverse=True)
+    _say('profile', '%s: device %.2f ms of a %.2f ms profiled step; host '
+         'ops by self ms: %s' % (
+             what, settled[1] * wall_us / 1e3, wall_us / 1e3,
+             ', '.join('%s %.2f' % (k[:40], us / 1e3)
+                       for us, k in host[:8])))
+    return settled
+
+
+def _lmpp_run(name, upd, batch, schedule, remat):
+    """``LMPP_STEPS`` steps of one updater on one fixed batch: the path's
+    launch counts (set to 0 just before, read just after), the losses,
+    the step p50 after two warm-ups outside the profiled step, peak
+    memory and the busy share of a profiled step whose kernels are held
+    to the schedule's launches."""
+    import torch
+    from chainermn_tpu_torch import ops
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    losses, seconds, traced, profiled = [], [], None, set()
+    for s in range(LMPP_STEPS):
+        def step():
+            losses.append(float(upd.update_core(upd.shard_batch(batch))
+                                ['loss']))
+        if traced is None and s in LMPP_PROFILED:
+            profiled.add(s)
+            traced = _traced_step('lm_pipeline_%s' % name, step)
+            if traced is not None:
+                want = _lmpp_want(schedule, remat, 1)
+                if traced[0] != {k: want[k] for k in LM_EVENTS}:
+                    raise AssertionError(
+                        '%s: a step launched %s, the schedule implies %s'
+                        % (name, traced[0], want))
+            continue
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        seconds.append((s, time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    counts, tc = ops.launch_counts(), ops.tc_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = _lmpp_want(schedule, remat, LMPP_STEPS,
+                      guard=schedule == '1f1b')
+    if counts != want:
+        raise AssertionError('%s: launch counts %s, expected %s'
+                             % (name, counts, want))
+    if traced is None:
+        raise AssertionError('%s: %d traces without a device event or with '
+                             'kernels lost' % (name, len(LMPP_PROFILED)))
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError('%s: losses %s' % (name, losses))
+    steps = sorted(t for s, t in seconds if s >= 2)
+    p50 = steps[len(steps) // 2]
+    tokens = LM_BATCH * LM_SEQ
+    reading = dict(p50_ms=1e3 * p50, tokens_per_s=tokens / p50,
+                   peak_gib=peak / 2 ** 30, busy=traced[1])
+    _say('lm-pipeline', '%s (schedule %s, remat %s, n_micro %d): losses %s; '
+         'step p50 %.2f ms over %d steps = %.1f tokens/s; peak memory '
+         '%.2f GiB; busy %.1f%% over a profiled step; kernels in its trace '
+         '%s; launches %s' % (
+             name, schedule, remat, LMPP_MICRO,
+             ', '.join('%.4f' % v for v in losses), reading['p50_ms'],
+             len(steps), reading['tokens_per_s'], reading['peak_gib'],
+             100 * reading['busy'], traced[0], counts))
+    return with_tc('lm_pipeline %s' % name, counts, tc), reading
+
+
+def _hold_leaves(what, got, want, rtol=5e-2):
+    """Each leaf of ``got`` within ``rtol`` of the largest entry of the
+    same leaf of ``want`` (name -> tensor): bf16 rounding in another
+    order moves entries that cancel to about 0 by their own size."""
+    worst = ('', 0.0)
+    for key, w in want.items():
+        g = got[key].float().cpu()
+        w = w.float().cpu()
+        err = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        worst = max(worst, (key, err), key=lambda kv: kv[1])
+        if not err <= rtol:
+            raise AssertionError('%s: %s off by %.3g of its largest entry '
+                                 '(rtol %g)' % (what, key, err, rtol))
+    return worst
+
+
+def _stage_named(upd, leaf_fn):
+    """The pipeline updater's leaves by the unpipelined model's names
+    (one stage: the stacked leaves' row i is ``block_i``)."""
+    out = {}
+    names = {'embedding': 'embed.embedding', 'lm_head': 'lm_head'}
+    for path, p in _flat(upd.stage_params):
+        for i in range(p.shape[0]):
+            out['block_%d.%s' % (i, path.replace('/', '.'))] = \
+                leaf_fn(p)[i]
+    for path, p in _flat(upd.extra_params):
+        head, _, rest = path.partition('/')
+        key = names.get(head, head) + ('.' + rest if rest else '')
+        out[key] = leaf_fn(p)
+    return out
+
+
+def _sgd(params):
+    import torch
+    return torch.optim.SGD(params, lr=0.1)
+
+
+def _lmpp_one_step(plan, model):
+    """One step of gpipe, of 1F1B and of the unpipelined
+    ``StandardUpdater`` (``lm_loss``, the same weights, bf16 with f32
+    masters) on one batch: the gradients and the step's update of the
+    f32 masters (after less before), gpipe against 1F1B and against the
+    unpipelined step.  The update is held, not the parameters after it:
+    next to the weights it is too small for a relative hold of the
+    parameters to see a skipped, doubled or misscaled step.  The step is
+    SGD: an Adam first step moves every entry by about its learning rate
+    in the sign of its gradient, so the rounding noise of a gradient
+    that is 0 in exact arithmetic (the key bias's) would move it by a
+    whole step either way."""
+    import copy
+    import torch
+    import chainermn_tpu_torch as cmt
+    from chainermn_tpu_torch import models, training
+    from chainermn_tpu_torch.precision import Policy
+    batch = _lmpp_batch(1)
+    grads, updates = {}, {}
+    for schedule in ('gpipe', '1f1b'):
+        upd = _lmpp_updater(plan, model, schedule, False, _sgd)
+        before = _stage_named(upd, lambda p: p.detach().clone())
+        upd.update_core(upd.shard_batch(batch))
+        grads[schedule] = _stage_named(upd, lambda p: p.grad)
+        updates[schedule] = {k: p - before[k] for k, p in _stage_named(
+            upd, lambda p: p.detach()).items()}
+        del upd
+    comm = cmt.create_communicator('xla')
+    try:
+        twin = copy.deepcopy(model)
+        before = {k: p.detach().clone() for k, p in twin.named_parameters()}
+        up = training.StandardUpdater(
+            training.SerialIterator(batch, LM_BATCH, shuffle=False),
+            _sgd(twin.parameters()), models.lm_loss(twin), twin, comm,
+            policy=Policy.bf16())
+        up.update()
+    finally:
+        comm.close()
+    grads['plain'] = {k: p.grad for k, p in twin.named_parameters()}
+    updates['plain'] = {k: p.detach() - before[k]
+                        for k, p in twin.named_parameters()}
+    out = {}
+    for other in ('1f1b', 'plain'):
+        out['grads gpipe vs %s' % other] = _hold_leaves(
+            'gradients, gpipe vs %s' % other, grads['gpipe'], grads[other])
+        out['updates gpipe vs %s' % other] = _hold_leaves(
+            'the step\'s update, gpipe vs %s' % other,
+            updates['gpipe'], updates[other])
+    _say('lm-pipeline', 'one step on one batch, each leaf within 5e-2 of '
+         'its largest entry (worst leaf, error): %s' % out)
+
+
+def _lmpp_twins():
+    """The twins in-process: ``train_lm_pipeline`` at the LM path's
+    widths (f32, as the JAX example: the scalar flash kernels) and
+    ``train_mnist_pipeline`` for one epoch under both schedules."""
+    import torch
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.examples.lm import train_lm_pipeline
+    from chainermn_tpu_torch.examples.mnist import train_mnist_pipeline
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = train_lm_pipeline.main(LMPP_TWIN_ARGV)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = _lmpp_want('gpipe', False, LMPP_STEPS)
+    if counts != want:
+        raise AssertionError('train_lm_pipeline: launch counts %s, expected '
+                             '%s' % (counts, want))
+    losses = out['losses']
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError('train_lm_pipeline: losses %s' % losses)
+    steps = sorted(out['step_seconds'][2:])
+    p50 = steps[len(steps) // 2]
+    _say('lm-pipeline', 'twin train_lm_pipeline %s (f32): losses %s; step '
+         'p50 %.2f ms = %.1f tokens/s; peak memory %.2f GiB; launches %s'
+         % (' '.join(LMPP_TWIN_ARGV), ', '.join('%.4f' % v for v in losses),
+            1e3 * p50, out['tokens_per_step'] / p50, peak / 2 ** 30, counts))
+    del out
+    for schedule in ('gpipe', '1f1b'):
+        t0 = time.perf_counter()
+        res = train_mnist_pipeline.main(LMPP_MNIST_ARGV + ['--schedule',
+                                                           schedule])
+        seconds = time.perf_counter() - t0
+        val = res['validation']
+        losses = res['losses']
+        if not (all(math.isfinite(v) for v in losses)
+                and losses[-1] < losses[0] and val['accuracy'] > 0.9):
+            raise AssertionError('train_mnist_pipeline --schedule %s: first '
+                                 'loss %r, last %r, validation %s'
+                                 % (schedule, losses[0], losses[-1], val))
+        _say('lm-pipeline', 'twin train_mnist_pipeline %s --schedule %s: %d '
+             'updates, loss %.4f -> %.4f, validation %s, %.1f s'
+             % (' '.join(LMPP_MNIST_ARGV), schedule, len(losses), losses[0],
+                losses[-1], val, seconds))
+    return counts
+
+
+def phase_lm_pipeline(records):
+    """Pipeline parallelism at the LM path's full width on one card:
+    rows 4-8 at the micro-batch shapes (``(2, 1024, 8, 64)``, 2048 rows);
+    ``MeshPipelineUpdater`` on ``MeshPlan.create(tp=1, pp=2)``'s
+    degraded ``(1, 1, 1)`` under gpipe, gpipe with ``remat`` and 1F1B,
+    with the launches of each run and of a profiled step held to the
+    schedule's; one step of gpipe against 1F1B and against the
+    unpipelined step; the twins."""
+    import torch
+    import torch.distributed as dist
+    from chainermn_tpu_torch import models
+    from chainermn_tpu_torch.parallel import MeshPlan
+    gen = torch.Generator(device='cuda').manual_seed(17)
+    _lmp_kernel_cases(gen, records, 'lm_pipeline',
+                      (LM_BATCH // LMPP_MICRO, LM_SEQ))
+    plan = MeshPlan.create(tp=1, pp=2)
+    made = plan._owns_group
+    try:
+        _say('lm-pipeline', 'plan %s' % json.dumps(plan.describe()))
+        if plan.describe()['axes'] != {'data': 1, 'model': 1, 'pipe': 1}:
+            raise AssertionError('a plan of pp=2 on one card: %s'
+                                 % plan.describe())
+        model = models.TransformerLM(
+            **LM_CFG, generator=torch.Generator().manual_seed(0))
+        _lmpp_one_step(plan, model)
+        paths, readings = {}, {}
+        batch = _lmpp_batch()
+        for name, schedule, remat in LMPP_RUNS:
+            upd = _lmpp_updater(plan, model, schedule, remat)
+            paths['lm_pipeline_' + name], readings[name] = _lmpp_run(
+                name, upd, batch, schedule, remat)
+            del upd
+        del model
+        paths['lm_pipeline_twin'] = _lmpp_twins()
+    finally:
+        if made and dist.is_initialized():
+            dist.destroy_process_group()
+    _say('lm-pipeline', 'readings %s' % json.dumps(readings))
+    return paths
+
+
 def _timed(phase, *args):
     """Run one phase and log its wall time."""
     t0 = time.perf_counter()
@@ -6412,6 +6773,7 @@ def main():
     _timed(phase_lm_check)
     paths['lm_training'] = _timed(phase_lm_main)
     paths.update(_timed(phase_lm_parallel, records))
+    paths.update(_timed(phase_lm_pipeline, records))
     _say('time', 'all phases %.1f s' % (time.perf_counter() - t_start))
     for rec in records:
         by_path = {path: counts[rec['name']]

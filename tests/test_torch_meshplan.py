@@ -59,9 +59,12 @@ def test_create_validation_and_unported_axes():
     with pytest.raises(ValueError) as want:
         JaxMeshPlan.create(tp=0)
     assert str(got.value) == str(want.value)
-    for kw in (dict(pp=2), dict(ep=2), dict(slices=1)):
+    for kw in (dict(ep=2), dict(slices=1)):
         with pytest.raises(NotImplementedError, match='item 8'):
             MeshPlan.create(tp=2, size=4, **kw)
+    # the pipe axis is ported: a 3-D plan (tests/test_torch_mesh_pipeline.py)
+    assert MeshPlan.create(tp=2, size=4, pp=2).axis_names == (
+        'data', 'model', 'pipe')
     plan = MeshPlan.create(tp=2, size=8, rank=5)
     assert plan.mesh.coords == (2, 1)
     assert (plan.pipe_size, plan.expert_size, plan.slice_size) == (1, 1, 1)

@@ -193,7 +193,10 @@ def test_port_never_imports_jax_or_the_jax_package():
     assert len(files) > 10
     for module in ('parallel/meshplan.py', 'parallel/tensor.py',
                    'parallel/sequence.py', 'parallel/zero.py',
-                   'examples/lm/train_lm.py'):
+                   'examples/lm/train_lm.py', 'parallel/pipeline.py',
+                   'training/pipeline_updater.py',
+                   'examples/lm/train_lm_pipeline.py',
+                   'examples/mnist/train_mnist_pipeline.py'):
         assert REPO / 'chainermn_tpu_torch' / module in files
     bad = ['%s:%d imports %s' % (f.relative_to(REPO), line, root)
            for f in files for root, line in _imported_roots(f)
