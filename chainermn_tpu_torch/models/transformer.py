@@ -687,8 +687,10 @@ def _qkv_proj(h, bp, dtype):
 
 
 def _embed(table, tokens, dtype):
-    return table.index_select(0, tokens.reshape(-1)).reshape(
-        tokens.shape + table.shape[1:]).to(dtype)
+    # F.embedding, not index_select: on CUDA index_select's backward is
+    # index_add_ with float atomics (duplicate tokens sum in a different
+    # order run to run); embedding's sorts, so a step is reproducible
+    return F.embedding(tokens, table).to(dtype)
 
 
 def _gelu(x):

@@ -35,11 +35,20 @@ What has no torch meaning: the JAX plan hands out ``NamedSharding`` /
 ``param_shardings``, ``state_specs``).  A process that drives one
 device holds its own shard as an ordinary tensor, so those methods are
 not here (ROADMAP.md A1); a parameter's layout over the axes is a spec
-tuple (``models.tp_param_specs``) read by
-``models.shard_variables`` / ``gather_variables``; a pipeline's stage
-tree is placed by :meth:`MeshPlan.stage_specs`.  ``ep=`` and
-``slices=`` (the expert and slice axes) are not ported yet (ROADMAP.md
-item 8).
+tuple (``models.tp_param_specs``, :meth:`MeshPlan.expert_param_specs`)
+read by ``models.shard_variables`` / ``gather_variables``; a pipeline's
+stage tree is placed by :meth:`MeshPlan.stage_specs`.
+
+``MeshPlan.create(slices=)`` binds the failure-domain axis ``slice``
+ABOVE the data axis, as the major one (``rank = ((s * D + d) * tp + m)
+* pp + p``; slices clamp first, then tp, then pp): batch scatter, ZeRO
+and gradient reduction span ``(slice, data)``, whose plane gets a group
+of its own, and the communicator reduces hierarchically (a sum inside
+the slice, a sum across slices, one divide).  ``MeshPlan.create(ep=)``
+builds the ``(data, expert)`` mesh (expert minor, ``rank = d * ep +
+e``) whose expert axis carries :class:`~chainermn_tpu_torch.parallel.
+MoELayer`'s exchange; it composes with data parallelism only, as in the
+JAX package.
 """
 
 import contextlib
@@ -253,41 +262,50 @@ def resolve_axis(axis):
 
 
 class MeshPlan:
-    """A ``(data, model)`` or ``(data, model, pipe)`` mesh of processes
-    plus what training on it needs.
+    """A mesh of processes with named roles plus what training on it
+    needs: ``(data, model)``, ``(data, model, pipe)``, either with a
+    major ``slice`` axis, or ``(data, expert)``.
 
     Attributes (the JAX plan's): ``mesh`` (a :class:`ProcessMesh`),
     ``data_axes`` (what gradient reduction, the batch scatter and ZeRO
-    span), ``model_axis`` (the tensor-parallel axis), ``pipe_axis`` (the
-    pipeline-stage axis, or None on a 2-D plan), ``requested_tp`` /
-    ``requested_pp``; ``expert_axis`` and ``slice_axis`` are None (not
-    ported yet, ROADMAP.md item 8).  A mesh that binds the name
-    ``'pipe'`` is a 3-D plan.
+    span: ``('slice', 'data')`` when a slice axis is bound),
+    ``model_axis`` (the tensor-parallel axis, None on an expert plan),
+    ``pipe_axis`` / ``expert_axis`` / ``slice_axis`` (None when not
+    bound), ``requested_tp`` / ``requested_pp`` / ``requested_ep`` /
+    ``requested_slices``.  A mesh that binds the name ``'pipe'``,
+    ``'expert'`` or ``'slice'`` binds that axis.
     """
 
     def __init__(self, mesh, data_axes=(AXIS_DATA,), model_axis=AXIS_MODEL,
                  requested_tp=None, device=None, pipe_axis=None,
-                 requested_pp=None):
+                 requested_pp=None, expert_axis=None, requested_ep=None,
+                 slice_axis=None, requested_slices=None):
         self.mesh = mesh
         self.data_axes = tuple(data_axes)
         if model_axis is not None and model_axis not in mesh.shape:
             model_axis = None
         self.model_axis = model_axis
-        for ax in (AXIS_EXPERT, AXIS_SLICE):
-            if ax in mesh.shape:
-                raise NotImplementedError(
-                    'the %r axis is not ported yet (ROADMAP.md item 8)'
-                    % ax)
         if pipe_axis is None and AXIS_PIPE in mesh.shape:
             pipe_axis = AXIS_PIPE
+        if expert_axis is None and AXIS_EXPERT in mesh.shape:
+            expert_axis = AXIS_EXPERT
+        if slice_axis is None and AXIS_SLICE in mesh.shape:
+            slice_axis = AXIS_SLICE
         self.pipe_axis = pipe_axis
-        self.expert_axis = self.slice_axis = None
+        self.expert_axis = expert_axis
+        self.slice_axis = slice_axis
+        if slice_axis is not None and slice_axis not in self.data_axes:
+            # the slice level sits above data, slice major
+            self.data_axes = (slice_axis,) + self.data_axes
         self.requested_tp = requested_tp
         self.requested_pp = requested_pp
+        self.requested_ep = requested_ep
+        self.requested_slices = requested_slices
         self.device = device
         self._owns_group = False
         for ax in self.data_axes + tuple(
-                a for a in (model_axis, pipe_axis) if a is not None):
+                a for a in (model_axis, pipe_axis, expert_axis)
+                if a is not None):
             if ax not in mesh.shape:
                 raise ValueError('mesh %r does not bind plan axis %r'
                                  % (mesh.shape, ax))
@@ -311,6 +329,14 @@ class MeshPlan:
         the names never change with the shape.  ``pp=None`` keeps the
         2-D plan.  ``axis_names`` may name the three axes.
 
+        ``slices`` (an int >= 1) adds the ``slice`` axis as the MAJOR
+        one, above data: ``rank = ((s * D + d) * tp + m) * pp + p``.  A
+        slice boundary is physical, so slices clamp first, then tp,
+        then pp.  ``ep`` (an int >= 1) builds the ``(data, expert)``
+        mesh instead, expert minor (``rank = d * ep + e``); composing
+        it with ``tp > 1``, ``pp`` or ``slices`` raises
+        ``NotImplementedError``, as in the JAX package.
+
         With ``size`` (and ``rank``, default 0) the plan is shape-only
         (no process group is needed or made).  Otherwise the default
         group is joined, or made as a communicator makes it (torchrun's
@@ -322,10 +348,14 @@ class MeshPlan:
             raise ValueError('tp must be >= 1, got %d' % tp)
         if slices is not None and slices < 1:
             raise ValueError('slices must be >= 1, got %d' % slices)
-        if ep is not None or slices is not None:
-            raise NotImplementedError(
-                'MeshPlan.create(ep=, slices=) is not ported yet '
-                '(ROADMAP.md item 8)')
+        if ep is not None:
+            if ep < 1:
+                raise ValueError('ep must be >= 1, got %d' % ep)
+            if tp > 1 or pp is not None or slices is not None:
+                raise NotImplementedError(
+                    'the expert axis composes with data parallelism '
+                    'only for now: pass ep= without tp/pp/slices '
+                    '(full mesh-placed MoE training is the follow-up)')
         if pp is not None and pp < 1:
             raise ValueError('pp must be >= 1, got %d' % pp)
         made = False
@@ -335,26 +365,41 @@ class MeshPlan:
             groups = size > 1
         else:
             rank, groups = (0 if rank is None else rank), False
-        if pp is None:
-            eff = mesh_utility.divisor_leq(size, tp)
-            data_name, model_name = axis_names
-            plan = cls(ProcessMesh((size // eff, eff),
-                                   (data_name, model_name), rank=rank,
-                                   groups=groups),
-                       data_axes=(data_name,), model_axis=model_name,
-                       requested_tp=tp, device=device)
+
+        def mesh(shape, names, composites=()):
+            return ProcessMesh(shape, names, rank=rank, groups=groups,
+                               composites=composites)
+
+        if ep is not None:
+            eff = mesh_utility.divisor_leq(size, ep)
+            plan = cls(mesh((size // eff, eff), (AXIS_DATA, AXIS_EXPERT)),
+                       data_axes=(AXIS_DATA,), model_axis=None,
+                       device=device, expert_axis=AXIS_EXPERT,
+                       requested_ep=ep)
         else:
-            if len(axis_names) == 2:
+            if pp is not None and len(axis_names) == 2:
                 axis_names = tuple(axis_names) + (AXIS_PIPE,)
-            data_name, model_name, pipe_name = axis_names
-            eff_tp, eff_pp = mesh_utility.divisors_leq(size, (tp, pp))
-            plan = cls(ProcessMesh(
-                (size // (eff_tp * eff_pp), eff_tp, eff_pp), axis_names,
-                rank=rank, groups=groups,
-                composites=((data_name, pipe_name),)),
-                data_axes=(data_name,), model_axis=model_name,
-                requested_tp=tp, device=device, pipe_axis=pipe_name,
-                requested_pp=pp)
+            names = tuple(axis_names[:2 if pp is None else 3])
+            data_name, model_name = names[:2]
+            widths = (tp,) if pp is None else (tp, pp)
+            composites = () if pp is None else ((data_name, names[2]),)
+            if slices is not None:
+                eff_s, *effs = mesh_utility.divisors_leq(
+                    size, (slices,) + widths)
+                names = (AXIS_SLICE,) + names
+                composites += ((AXIS_SLICE, data_name),)
+                lead = (eff_s,)
+            else:
+                effs, lead = mesh_utility.divisors_leq(size, widths), ()
+            shape = lead + (size // int(np.prod(lead + tuple(effs))),) \
+                + tuple(effs)
+            plan = cls(mesh(shape, names, composites),
+                       data_axes=(data_name,), model_axis=model_name,
+                       requested_tp=tp, device=device,
+                       pipe_axis=None if pp is None else names[-1],
+                       requested_pp=pp,
+                       slice_axis=None if slices is None else AXIS_SLICE,
+                       requested_slices=slices)
         plan._owns_group = made
         return plan
 
@@ -383,11 +428,17 @@ class MeshPlan:
 
     @property
     def expert_size(self):
-        return 1
+        if self.expert_axis is None:
+            return 1
+        return self.mesh.shape[self.expert_axis]
 
     @property
     def slice_size(self):
-        return 1
+        """Number of failure-domain slices (1 without a slice axis: a
+        one-slice plan is the flat plan)."""
+        if self.slice_axis is None:
+            return 1
+        return self.mesh.shape[self.slice_axis]
 
     @property
     def axis_names(self):
@@ -404,6 +455,14 @@ class MeshPlan:
             out['pipe_axis'] = self.pipe_axis
             out['requested_pp'] = self.requested_pp
             out['effective_pp'] = int(self.pipe_size)
+        if self.expert_axis is not None:
+            out['expert_axis'] = self.expert_axis
+            out['requested_ep'] = self.requested_ep
+            out['effective_ep'] = int(self.expert_size)
+        if self.slice_axis is not None:
+            out['slice_axis'] = self.slice_axis
+            out['requested_slices'] = self.requested_slices
+            out['effective_slices'] = int(self.slice_size)
         return out
 
     def local_shape(self, shape, spec):
@@ -442,6 +501,27 @@ class MeshPlan:
 
         return walk(params_stacked, body_specs)
 
+    def expert_param_specs(self, params):
+        """The spec tree of a :class:`~chainermn_tpu_torch.parallel.
+        MoELayer` parameter tree (``MoELayer.init_params``): the
+        expert-stacked ``w_in`` / ``w_out`` (and any leaf of 3 or more
+        dims) shard their leading experts dim over the expert axis
+        (``('expert',)``), the ``router`` (and any other leaf)
+        replicates (``()``).  ``ProcessMesh.local`` or
+        ``models.shard_variables`` then cuts this process's experts."""
+        if self.expert_axis is None:
+            raise ValueError('expert_param_specs needs an expert axis: '
+                             'build the plan with MeshPlan.create(ep=...)')
+
+        def walk(tree):
+            if isinstance(tree, dict):
+                return {k: walk(v) for k, v in tree.items()}
+            if len(getattr(tree, 'shape', ())) >= 3:
+                return (self.expert_axis,)
+            return ()
+
+        return walk(params)
+
     def bind(self):
         """Bind the plan's axis names for the block."""
         return self.mesh.bind()
@@ -461,44 +541,54 @@ class MeshPlanCommunicator(CommunicatorBase):
 
     The data-parallel contract is scoped to the plan's data axes:
     :meth:`allreduce_grad` means over the data group only (a
-    tensor-parallel leaf is SHARDED over ``model``; its gradients are
-    exact per shard and must not be combined across that axis),
-    :meth:`broadcast_data` sends data replica ``root``'s values to the
-    other replicas of the same model index (model shards are left
-    alone), and ``size`` / ``rank`` count DATA replicas, which is what
+    tensor-parallel leaf is SHARDED over ``model``, an expert leaf over
+    ``expert``; their gradients must not be combined across those
+    axes), :meth:`broadcast_data` sends data replica ``root``'s values
+    to the other replicas of the same model (or expert) index, and
+    ``size`` / ``rank`` count DATA replicas, which is what
     ``scatter_dataset`` and the streaming loader read, so every model
     rank of a replica sees the same batch.  :meth:`allreduce` (metrics,
-    statistics) still spans every process: losses after the model
-    axis's reductions are replicated over it.  The object channel and
+    statistics) still spans every process.  The object channel and
     ``barrier`` count processes (``world_rank`` / ``world_size``).
 
-    Its process layout is the plan's: ``(inter, intra)`` = ``(data,
-    model)``, and its sub-groups are the plan's own: the groups of the
-    data axis and of the model axis, made once by the plan's
-    :class:`ProcessMesh` (None along an axis of size 1)."""
+    Its process layout is the plan's: ``(inter, intra)`` = (the data
+    replicas, the processes of one replica: its model or expert
+    shards), and its sub-groups are the plan's own, made once by the
+    plan's :class:`ProcessMesh` (None along an axis of size 1).  With a
+    slice axis the data group spans the ``(slice, data)`` plane (what
+    ZeRO scatters over), and :meth:`allreduce_grad` reduces
+    hierarchically, as the JAX communicator does: a sum over the
+    in-slice data group, a sum over the slice group, one divide by
+    ``size``."""
 
     def __init__(self, plan, reduce_dtype=None):
-        if plan.model_axis is None or len(plan.data_axes) != 1:
-            raise NotImplementedError(
-                'a MeshPlanCommunicator needs one data axis and a model '
-                'axis')
         if plan.pipe_size > 1:
             raise NotImplementedError(
                 'a plan with %d pipeline stages trains through '
                 'training.MeshPipelineUpdater, which reduces over the plan '
                 'itself' % plan.pipe_size)
         self.plan = plan
+        self._replica_axes = tuple(a for a in plan.axis_names
+                                   if a not in plan.data_axes)
         super().__init__(device=plan.device, reduce_dtype=reduce_dtype,
-                         mesh_shape=(plan.data_size, plan.model_size))
+                         mesh_shape=(plan.data_size,
+                                     plan.size // plan.data_size))
         if plan._owns_group:            # the communicator closes it now
             self._owns_group, plan._owns_group = True, False
         self.reduction_axes = plan.data_axes
         self.data_axes = plan.data_axes
-        self._data_ranks = plan.mesh.axis(plan.data_axes).ranks
+        mesh = plan.mesh
+        self._data_ranks = mesh.axis(plan.data_axes).ranks
+        # the staged reduction: in-slice data group, then slice group
+        stages = ((tuple(a for a in plan.data_axes if a != plan.slice_axis),
+                   (plan.slice_axis,)) if plan.slice_axis is not None
+                  else (plan.data_axes,))
+        self._reduce_groups = [mesh.axis(ax).group for ax in stages
+                               if mesh.axis_size(ax) > 1]
 
     def _make_groups(self):
         mesh = self.plan.mesh
-        return (mesh.axis(self.plan.model_axis).group,
+        return (mesh.axis(self._replica_axes).group,
                 mesh.axis(self.plan.data_axes).group)
 
     # -- topology ------------------------------------------------------
@@ -511,12 +601,13 @@ class MeshPlanCommunicator(CommunicatorBase):
     @property
     def rank(self):
         """This process's data-replica index."""
-        return self.world_rank // self.plan.model_size
+        return self.plan.mesh.axis_index(self.plan.data_axes)
 
     @property
     def data_group(self):
-        """The process group of this process's data axis (what ZeRO-1
-        scatters and gathers over)."""
+        """The process group of this process's data axes (what ZeRO-1
+        scatters and gathers over: the ``(slice, data)`` plane when a
+        slice axis is bound)."""
         return self._inter_group
 
     def axis_rank(self):
@@ -526,18 +617,19 @@ class MeshPlanCommunicator(CommunicatorBase):
         return self.rank
 
     def model_rank(self):
-        return self.world_rank % self.plan.model_size
+        if self.plan.model_axis is None:
+            raise ValueError('this plan binds no model axis')
+        return self.plan.mesh.axis_index(self.plan.model_axis)
 
     def intra_rank(self):
-        return self.model_rank()
+        return self.plan.mesh.axis_index(self._replica_axes)
 
     # -- collectives ---------------------------------------------------
     def _allreduce_impl(self, tensors):
-        group = self._inter_group
-
         def reduce(buf):
             if self.size > 1:
-                dist.all_reduce(buf, group=group)
+                for group in self._reduce_groups:
+                    dist.all_reduce(buf, group=group)
                 buf /= self.size
             return buf
         return memory_utility.fused_reduce(tensors, reduce)

@@ -11,21 +11,22 @@ all-gather IS the ring allreduce).
 Used through ``StandardUpdater(zero=True)``, which hands the optimizer's
 parameter groups the shards (:class:`ZeroStep`).  Only an ELEMENTWISE
 optimizer keeps the replicated trajectory on flat shards;
-:func:`check_elementwise` probes for it.  Global-norm clipping is
-non-elementwise but mesh-aware here: :func:`clip_by_global_norm`
-finishes its sum of squares over the data group inside
-:func:`mesh_norm_scope`, so ``chain(clip_by_global_norm(c),
-torch.optim.Adam(...))`` takes the replicated trajectory under ZeRO too.
-
-Not ported yet (ROADMAP.md item 8): the mesh-aware trust ratio
-(``scale_by_trust_ratio``, LARS, LAMB) and the elastic N -> M reshard
-of a saved state (``reshard_stacked_state``).
+:func:`check_elementwise` probes for it.  Two kinds of non-elementwise
+statistics are mesh-aware here and finish over the data group inside
+:func:`mesh_norm_scope`: the global norm of :func:`clip_by_global_norm`
+(``chain(clip_by_global_norm(c), torch.optim.Adam(...))``), and the
+per-leaf norms of the layer-wise trust ratio (:func:`scale_by_trust_ratio`,
+:func:`lars`, :func:`lamb`), completed for every leaf with ONE packed
+all-reduce a step.  A state saved at N processes loads at M
+(:meth:`ZeroStep.load_gathered_state`, :func:`reshard_stacked_state`):
+the elastic resume.
 """
 
 import contextlib
 import copy
 import inspect
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -35,21 +36,31 @@ _reduce_scatter = (getattr(dist, 'reduce_scatter_single', None)
 _all_gather = (getattr(dist, 'all_gather_single', None)
                or dist.all_gather_into_tensor)
 
-_NORM_CTX = {'gnorm_sq': None}
+_NORM_CTX = {'gnorm_sq': None, 'leaf_sumsq': None}
 
 
 @contextlib.contextmanager
-def mesh_norm_scope(gnorm_sq):
-    """Give mesh-aware transforms the rule that turns a LOCAL sum of
-    squares (a 0-d f32 tensor) into the GLOBAL one, for the block:
-    ``StandardUpdater(zero=True)`` wraps its optimizer step in one that
-    sums over the data group.  Nests and restores."""
-    prev = _NORM_CTX['gnorm_sq']
-    _NORM_CTX['gnorm_sq'] = gnorm_sq
+def mesh_norm_scope(gnorm_sq, leaf_sumsq=None):
+    """Give mesh-aware transforms the rules that complete their norms
+    over the sharding their step runs under, for the block.
+
+    ``gnorm_sq(tensors)`` turns the tensors' LOCAL sum of squares into
+    the GLOBAL one (a 0-d f32 tensor).  ``leaf_sumsq(params, tensors)``
+    returns each tensor's GLOBAL sum of squares as one ``(len(tensors),)``
+    f32 vector, ``tensors[i]`` shaped like parameter ``params[i]`` (the
+    parameter says how that tensor is sharded): under ZeRO every leaf is
+    sharded over the data group, so it is one all-reduce of the packed
+    local sums.  A sharding that admits no per-leaf rule (the 1F1B
+    schedule, whose same-named leaf holds a DIFFERENT layer on each
+    stage) passes None, and the per-leaf transforms refuse.
+    ``StandardUpdater(zero=True)`` wraps its optimizer step in both
+    rules over the data group.  Nests and restores."""
+    prev = dict(_NORM_CTX)
+    _NORM_CTX.update(gnorm_sq=gnorm_sq, leaf_sumsq=leaf_sumsq)
     try:
         yield
     finally:
-        _NORM_CTX['gnorm_sq'] = prev
+        _NORM_CTX.update(prev)
 
 
 def tree_sumsq(tensors):
@@ -61,13 +72,45 @@ def tree_sumsq(tensors):
     return out if out is not None else torch.zeros(())
 
 
-def group_sumsq(tensors, group=None):
-    """The sum of squares of tensors whose every element lives on exactly
-    one process of ``group`` (ZeRO shards; padding zeros add nothing)."""
-    sq = tree_sumsq(tensors).clone()
-    if dist.is_initialized():
-        dist.all_reduce(sq, group=group)
-    return sq
+def leaf_sumsqs(tensors):
+    """Each tensor's local sum of squares, as one f32 vector."""
+    return torch.stack([t.to(torch.float32).square().sum()
+                        for t in tensors])
+
+
+def leaf_norm_sq(params, tensors):
+    """Each of ``tensors``' GLOBAL sum of squares under the bound
+    :func:`mesh_norm_scope` (its local one outside any scope), one f32
+    vector.  Inside a scope with no per-leaf rule it raises
+    ``ValueError``: a per-layer ratio cannot be rebuilt there, and a
+    silent fall-back to local norms would leave the trajectory."""
+    rule = _NORM_CTX['leaf_sumsq']
+    if rule is not None:
+        return rule(params, tensors)
+    if _NORM_CTX['gnorm_sq'] is not None:
+        raise ValueError(
+            'trust-ratio transform stepped in a sharded optimizer context '
+            "without a per-leaf norm rule (the 1f1b schedule's stage "
+            'sharding): per-layer ratios cannot be reconstructed there -- '
+            'use the gpipe schedule, or an elementwise / global-norm-clip '
+            'optimizer')
+    return leaf_sumsqs(tensors)
+
+
+def trust_ratios(params, updates, min_norm=0.0, trust_coefficient=1.0,
+                 eps=0.0):
+    """The layer-wise trust ratio of each (parameter, update) pair, as
+    one f32 vector: ``optax.scale_by_trust_ratio``'s formula, ``tc *
+    max(|p|, min_norm) / (max(|u|, min_norm) + eps)``, and 1 where
+    either norm is 0.  The norms of every pair come from one
+    :func:`leaf_norm_sq` call (one packed all-reduce under ZeRO)."""
+    n = len(params)
+    sq = leaf_norm_sq(list(params) * 2, list(params) + list(updates))
+    norms = torch.sqrt(sq).clamp_min(min_norm)
+    p_norm, u_norm = norms[:n], norms[n:]
+    ratio = trust_coefficient * p_norm / (u_norm + eps)
+    zero_norm = (p_norm == 0) | (u_norm == 0)
+    return torch.where(zero_norm, torch.ones_like(ratio), ratio)
 
 
 class clip_by_global_norm:
@@ -95,6 +138,164 @@ class clip_by_global_norm:
         for g in grads:
             scaled = (g / norm.to(g.dtype)) * self.max_norm
             g.copy_(torch.where(clip, scaled, g))
+
+
+class scale_by_trust_ratio:
+    """The layer-wise trust ratio of ``optax.scale_by_trust_ratio`` as a
+    gradient transform (in place): each parameter's gradient times
+    ``trust_coefficient * max(|p|, min_norm) / (max(|g|, min_norm) +
+    eps)`` (1 where either norm is 0), with the norms completed over the
+    mesh by the bound :func:`mesh_norm_scope`'s per-leaf rule, so under
+    ZeRO each ratio is the whole leaf's.  In a scope with no per-leaf
+    rule (1F1B) it refuses with ``ValueError``.  Compose it with
+    :func:`chain`; :func:`lars` and :func:`lamb` apply it inside their
+    own steps."""
+
+    _cmn_mesh_aware = True
+
+    def __init__(self, min_norm=0.0, trust_coefficient=1.0, eps=0.0):
+        self.min_norm = float(min_norm)
+        self.trust_coefficient = float(trust_coefficient)
+        self.eps = float(eps)
+
+    @torch.no_grad()
+    def __call__(self, params):
+        params = [p for p in params if p.grad is not None]
+        if not params:
+            return
+        ratios = trust_ratios(params, [p.grad for p in params],
+                              self.min_norm, self.trust_coefficient,
+                              self.eps)
+        for p, r in zip(params, ratios):
+            p.grad.mul_(r.to(p.grad.dtype))
+
+
+def _lr_at(lr, count):
+    """A number, or a schedule ``lr(count)`` at the optimizer's step
+    count (``optax.scale_by_schedule`` reads it before incrementing)."""
+    return lr(count) if callable(lr) else lr
+
+
+class _TrustRatioOptimizer(torch.optim.Optimizer):
+    """What :class:`LARS` and :class:`LAMB` share: every parameter with a
+    gradient, across the groups, gets its direction from
+    :meth:`_direction`, then its trust ratio from one
+    :func:`trust_ratios` call (one packed all-reduce a step under ZeRO),
+    then :meth:`_apply`.  Admitted under ``zero=True`` and by the
+    pipeline updaters' probe: its one non-elementwise statistic, the
+    per-leaf norm, is mesh-aware."""
+
+    _cmn_zero_safe = True
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        todo = [(group, p) for group in self.param_groups
+                for p in group['params'] if p.grad is not None]
+        if not todo:
+            return loss
+        dirs = [self._direction(group, p) for group, p in todo]
+        ratios = trust_ratios(
+            [p for _, p in todo], dirs, trust_coefficient=self._tc,
+            eps=self._eps)
+        for (group, p), u, r in zip(todo, dirs, ratios):
+            self._apply(group, p, u * r.to(u.dtype))
+        return loss
+
+
+class LARS(_TrustRatioOptimizer):
+    """LARS (You et al. 2017) in ``optax.lars``'s order, with the trust
+    ratio mesh-aware: ``u = g + weight_decay * p``, ``u *= ratio``,
+    ``u *= -lr``, then the momentum trace ``v = momentum * v + u`` and
+    ``p += v`` (``p += u + momentum * v`` with ``nesterov``).
+    ``torch.optim.SGD`` sums first and scales by lr afterwards, which
+    agrees only at a constant lr, so LARS keeps optax's order.  ``lr``:
+    a number or a schedule of the step count (then the state keeps a
+    ``'step'``).  Build it with :func:`lars`."""
+
+    def __init__(self, params, lr, weight_decay=0.0, trust_coefficient=0.001,
+                 eps=0.0, momentum=0.9, nesterov=False):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay,
+                                      momentum=momentum, nesterov=nesterov))
+        self._tc, self._eps = float(trust_coefficient), float(eps)
+
+    def _direction(self, group, p):
+        return p.grad + group['weight_decay'] * p
+
+    def _apply(self, group, p, u):
+        state = self.state[p]
+        count = 0
+        if callable(group['lr']):
+            count = int(state.get('step', 0))
+            state['step'] = torch.tensor(float(count + 1))
+        u = u * -_lr_at(group['lr'], count)
+        buf = state.get('momentum_buffer')
+        buf = u if buf is None else u + group['momentum'] * buf
+        state['momentum_buffer'] = buf
+        p.add_(u + group['momentum'] * buf if group['nesterov'] else buf)
+
+
+class LAMB(_TrustRatioOptimizer):
+    """LAMB (You et al. 2020) in ``optax.lamb``'s order, with the trust
+    ratio mesh-aware: Adam's direction with optax's bias correction
+    (``mu / (1 - b1**t)``, ``nu / (1 - b2**t)``, ``mu_hat /
+    (sqrt(nu_hat + eps_root) + eps)``), ``+ weight_decay * p``, the
+    trust ratio (coefficient 1), ``* -lr``.  The moments live in this
+    optimizer's state (``'exp_avg'``, ``'exp_avg_sq'``, ``'step'``), so
+    ZeRO shards them and a snapshot saves them.  Build it with
+    :func:`lamb`."""
+
+    def __init__(self, params, lr, b1=0.9, b2=0.999, eps=1e-6, eps_root=0.0,
+                 weight_decay=0.0):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
+                                      eps_root=eps_root,
+                                      weight_decay=weight_decay))
+        self._tc, self._eps = 1.0, 0.0
+
+    def _direction(self, group, p):
+        state = self.state[p]
+        if not state:
+            state['step'] = torch.tensor(0.0)
+            state['exp_avg'] = torch.zeros_like(p)
+            state['exp_avg_sq'] = torch.zeros_like(p)
+        b1, b2, g = group['b1'], group['b2'], p.grad
+        mu = (1 - b1) * g + b1 * state['exp_avg']
+        nu = (1 - b2) * g.square() + b2 * state['exp_avg_sq']
+        state['exp_avg'], state['exp_avg_sq'] = mu, nu
+        t = int(state['step']) + 1
+        mu_hat = mu / (1 - b1 ** t)
+        nu_hat = nu / (1 - b2 ** t)
+        u = mu_hat / (torch.sqrt(nu_hat + group['eps_root']) + group['eps'])
+        return u + group['weight_decay'] * p
+
+    def _apply(self, group, p, u):
+        state = self.state[p]
+        count = int(state['step'])
+        state['step'] = torch.tensor(float(count + 1))
+        p.add_(u * -_lr_at(group['lr'], count))
+
+
+def lars(params, learning_rate, weight_decay=0.0, trust_coefficient=0.001,
+         eps=0.0, momentum=0.9, nesterov=False):
+    """Mesh-aware LARS over ``params``, usable under ``zero=True``: the
+    counterpart of the JAX package's ``zero.lars`` (``optax.lars``'s
+    chain with the trust ratio completed over the mesh; default masks).
+    The torch optimizer needs its parameters, so they come first."""
+    return LARS(params, learning_rate, weight_decay=weight_decay,
+                trust_coefficient=trust_coefficient, eps=eps,
+                momentum=momentum, nesterov=nesterov)
+
+
+def lamb(params, learning_rate, b1=0.9, b2=0.999, eps=1e-6, eps_root=0.0,
+         weight_decay=0.0):
+    """Mesh-aware LAMB over ``params``, usable under ``zero=True``: the
+    counterpart of the JAX package's ``zero.lamb`` (``optax.lamb``'s
+    chain with the trust ratio completed over the mesh)."""
+    return LAMB(params, learning_rate, b1=b1, b2=b2, eps=eps,
+                eps_root=eps_root, weight_decay=weight_decay)
 
 
 class Chain:
@@ -182,7 +383,8 @@ def check_elementwise(optimizer, atol=1e-7):
     as in the JAX package: *locality* (perturbing one gradient element
     moves no other element's update) and *shape invariance* (a 2-D
     parameter and its flattened 1-D twin get the same updates).  A
-    :func:`chain` or a mesh-aware transform is admitted unprobed."""
+    :func:`chain`, a mesh-aware transform and :func:`lars` /
+    :func:`lamb` are admitted unprobed."""
     if (getattr(optimizer, '_cmn_zero_safe', False)
             or getattr(optimizer, '_cmn_mesh_aware', False)):
         return
@@ -193,9 +395,11 @@ def check_elementwise(optimizer, atol=1e-7):
             'transform is not: %s.  Under ZeRO-1 every leaf becomes a '
             'flat 1-D per-device shard, so such transforms compute over '
             'shards instead of true leaves and the trajectory silently '
-            'diverges from zero=False.  A mesh-aware replacement exists '
-            'for global-norm clipping: zero.chain(zero.clip_by_global_'
-            'norm(c), optimizer).  Otherwise use zero=False for this '
+            'diverges from zero=False.  Mesh-aware replacements exist for '
+            'the common cases: zero.chain(zero.clip_by_global_norm(c), '
+            'optimizer) for global-norm clipping, zero.lars(...) / '
+            'zero.lamb(...) / zero.scale_by_trust_ratio() for layer-wise '
+            'trust ratios.  Otherwise use zero=False for this '
             'optimizer, or pass zero_check=False if the probe is a false '
             'positive for your transform.' % reason)
 
@@ -242,6 +446,61 @@ def param_shard_leaf(p, n, rank):
     if pad:
         flat = torch.cat([flat, flat.new_zeros(pad)])
     return flat[rank * k:(rank + 1) * k]
+
+
+def regather_stacked_leaf(stacked, size):
+    """The ``(n, k)`` stacked shards of one leaf -> its flat ``(size,)``
+    form (numpy in, numpy out): the rows are :func:`param_shard_leaf`'s
+    rank-order blocks of the zero-padded flat leaf, so the row-major
+    flattening IS the regather; the trailing padding is dropped."""
+    return np.asarray(stacked).reshape(-1)[:size]
+
+
+def reshard_flat_leaf(flat, new_n):
+    """A flat leaf -> ``(new_n, k')`` stacked shards under the
+    :func:`shard_len` padding rule: the blocks :func:`param_shard_leaf`
+    cuts at ``new_n`` processes (numpy in, numpy out)."""
+    flat = np.asarray(flat).reshape(-1)
+    k = shard_len(flat.size, new_n)
+    pad = new_n * k - flat.size
+    if pad:
+        flat = np.concatenate([flat, np.zeros((pad,), flat.dtype)])
+    return flat.reshape(new_n, k)
+
+
+def _reshard(saved, shape):
+    """One saved ``(n_old, k_old)`` stack (numpy array or tensor) as
+    ``shape``: its row-major flattening truncated or zero-extended to the
+    new padded length.  Right because shard padding is zero at the start
+    and stays zero (padding gradients are zero, so an elementwise or
+    mesh-aware update keeps it zero): the result is what a fresh split at
+    the new size holds."""
+    want = int(np.prod(shape))
+    flat = saved.reshape(-1)[:want]
+    pad = want - flat.shape[0]
+    if pad and torch.is_tensor(flat):
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    elif pad:
+        flat = np.concatenate([flat, np.zeros((pad,), flat.dtype)])
+    return flat.reshape(shape)
+
+
+def reshard_stacked_state(saved, template):
+    """The elastic N -> M reshard of a SAVED stacked ZeRO-1 optimizer
+    state (nested dicts) against the live run's ``template`` of the same
+    structure (numpy in, numpy out).  Array leaves are ``(n_old, k_old)``
+    stacks and come back in the template's shape (see :func:`_reshard`);
+    scalar leaves (step counts) pass through."""
+    if isinstance(saved, dict):
+        return {k: reshard_stacked_state(v, template[k])
+                for k, v in saved.items()}
+    tshape = tuple(np.shape(template))
+    arr = np.asarray(saved)
+    if len(tshape) < 1 or arr.ndim < 1:
+        return saved
+    if arr.shape == tshape:
+        return arr
+    return _reshard(arr, tshape)
 
 
 class ZeroStep:
@@ -346,10 +605,22 @@ class ZeroStep:
                 p.copy_(full[:, off:off + k].reshape(-1)[:p.numel()]
                         .view(p.shape))
 
+    def _group_sum(self, sq):
+        """``sq`` summed over the data group (nothing to do at n = 1)."""
+        if self.n > 1:
+            sq = sq.clone()
+            dist.all_reduce(sq, group=self.group)
+        return sq
+
     def step(self):
+        """One ZeRO-1 step (see the class docstring).  The scope's rules:
+        the global sum of squares, and every leaf's, are the data group's
+        sums of the shards' (one packed all-reduce for all leaves)."""
         self.reduce_scatter()
         self.refresh()
-        with mesh_norm_scope(lambda ts: group_sumsq(ts, self.group)):
+        with mesh_norm_scope(
+                lambda ts: self._group_sum(tree_sumsq(ts)),
+                leaf_sumsq=lambda ps, ts: self._group_sum(leaf_sumsqs(ts))):
             self.optimizer.step()
         self.all_gather()
 
@@ -377,12 +648,31 @@ class ZeroStep:
             out[i] = entry
         return out
 
+    def stack_shape(self, i):
+        """The ``(n, k)`` shape of parameter ``i``'s saved stacks at this
+        run's ``n``."""
+        return (self.n, self._where[self.params[int(i)]][1])
+
+    def stack_mismatches(self, state):
+        """``[(saved shape, this run's shape), ...]`` of the stacks in
+        ``state`` (:meth:`gathered_state`'s form) saved at another ``n``:
+        what loading it reshards (the elastic N -> M resume)."""
+        out = []
+        for i, entry in state.items():
+            for v in entry.values():
+                shape = tuple(torch.as_tensor(v).shape)
+                if len(shape) == 2 and shape != self.stack_shape(i):
+                    out.append((shape, self.stack_shape(i)))
+        return out
+
     def load_gathered_state(self, state):
-        """The inverse of :meth:`gathered_state` at the same ``n``: each
-        stack's row ``rank``.  ``load_state_dict`` numbers the state in
-        the order of the optimizer's groups, which need not be the
-        model's: each parameter index is mapped to its shard's place
-        there."""
+        """The inverse of :meth:`gathered_state`: each stack's row
+        ``rank``.  A stack saved at another process count is resharded
+        to this run's ``(n, k)`` first (:func:`_reshard`, the elastic
+        resume); scalar entries (step counts) pass through.
+        ``load_state_dict`` numbers the state in the order of the
+        optimizer's groups, which need not be the model's: each parameter
+        index is mapped to its shard's place there."""
         place = {}
         for group in self.optimizer.param_groups:
             for shard in group['params']:
@@ -394,13 +684,9 @@ class ZeroStep:
             for key, value in entry.items():
                 value = torch.as_tensor(value)
                 if value.dim() == 2:
-                    if value.shape != (self.n, self._where[p][1]):
-                        raise ValueError(
-                            'ZeRO state of parameter %d has shape %r, this '
-                            'run needs (%d, %d): the elastic N -> M reshard '
-                            'is not ported yet (ROADMAP.md item 8)'
-                            % (int(i), tuple(value.shape), self.n,
-                               self._where[p][1]))
+                    shape = self.stack_shape(i)
+                    if tuple(value.shape) != shape:
+                        value = _reshard(value, shape)
                     value = value[self.rank].clone()
                 rows[key] = value
             by_place[place[self.shards[p]]] = rows

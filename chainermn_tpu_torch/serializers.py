@@ -15,9 +15,11 @@ so each package reads the other's files:
 
 Every integrity failure raises the typed
 :class:`~chainermn_tpu_torch.utils.failure.CheckpointCorruptError`
-naming the leaf.  Elastic resume (another process count), orbax
-checkpoints, asynchronous checkpoints and the fault-injection hooks
-are not ported yet (ROADMAP.md A9).
+naming the leaf.  A ZeRO-1 snapshot resumes at another process count
+(:func:`resume_updater`'s elastic reshard); the manifest records the
+writing topology (``mesh_shape``).  Orbax checkpoints, asynchronous
+checkpoints and the fault-injection hooks are not ported yet
+(ROADMAP.md A9).
 
 Leaves are numpy arrays, except that a bfloat16 leaf is read back as a
 CPU ``torch.bfloat16`` tensor: numpy has no such dtype (the JAX package
@@ -91,15 +93,34 @@ def _corrupt(message, path, leaf, kind):
                                   path=path, leaf=leaf, kind=kind)
 
 
-def _manifest(leaves):
+def _manifest(leaves, mesh_shape=None):
     return {
         'format': MANIFEST_FORMAT,
         'complete': True,
         'world_size': dist.get_world_size() if dist.is_initialized() else 1,
         'device_count': torch.cuda.device_count() or 1,
-        'mesh_shape': None,
+        'mesh_shape': ({k: int(v) for k, v in dict(mesh_shape).items()}
+                       if mesh_shape is not None else None),
         'leaves': leaves,
     }
+
+
+def mesh_shape_of(updater):
+    """The topology a snapshot of ``updater`` records, as the JAX
+    package's ``dict(comm.mesh.shape)``: a plan's axes (``{'data': 2,
+    'model': 2}``), a pipeline updater's mesh, or a communicator's
+    ``{'inter': ..., 'intra': ...}``; None when there is none."""
+    comm = getattr(updater, 'comm', None)
+    plan = getattr(comm, 'plan', None)
+    if plan is not None:
+        return dict(plan.mesh.shape)
+    mesh = getattr(updater, 'mesh', None)
+    if isinstance(getattr(mesh, 'shape', None), dict):
+        return dict(mesh.shape)
+    if getattr(comm, 'mesh_shape', None) is not None:
+        inter, intra = comm.mesh_shape
+        return {'inter': int(inter), 'intra': int(intra)}
+    return None
 
 
 def _npz_path(path):
@@ -108,10 +129,12 @@ def _npz_path(path):
     return path
 
 
-def save_npz(path, tree):
+def save_npz(path, tree, mesh_shape=None):
     """Write a tree (nested dicts) of arrays, tensors and numbers to
     ``path`` (``.npz`` is appended when missing), keys = tree paths, with
-    the manifest, atomically.  Returns the path written."""
+    the manifest, atomically.  ``mesh_shape`` (a dict of axis sizes, e.g.
+    :func:`mesh_shape_of`) records the writing topology.  Returns the
+    path written."""
     stored, leaves = {}, {}
     for path_keys, leaf in _leaves(tree):
         key = '/'.join(map(str, path_keys))
@@ -120,7 +143,7 @@ def save_npz(path, tree):
         leaves[key] = {'shape': list(arr.shape),
                        'dtype': dtype_name or str(arr.dtype),
                        'crc32': _crc(arr)}
-    blob = json.dumps(_manifest(leaves)).encode()
+    blob = json.dumps(_manifest(leaves, mesh_shape)).encode()
     stored[MANIFEST_KEY] = np.frombuffer(blob, np.uint8)
     if not path.endswith('.npz'):
         path = path + '.npz'
@@ -419,7 +442,8 @@ def _opt_state_from(by_key, inner, path, updater=None):
     return state
 
 
-def resume_updater(path, updater, comm=None, elastic=False):
+def resume_updater(path, updater, comm=None, elastic=True,
+                   require_manifest=False):
     """Restore a snapshot written by ``extensions.snapshot()`` into a
     live updater: parameters, BatchNorm statistics, optimizer state
     (the multi-node wrapper's ``needs_broadcast`` too), the loss-scale
@@ -428,13 +452,24 @@ def resume_updater(path, updater, comm=None, elastic=False):
     (:func:`restore_counters`), so stop triggers and file names
     continue rather than restart.  Everything is read and checked
     before anything is assigned, so a corrupt leaf never leaves the
-    updater half-restored.  ``comm`` is unused (every process reads
-    the same file).  Returns ``{'iteration', 'manifest'}``."""
+    updater half-restored.
+
+    ELASTIC (default): a ``StandardUpdater(zero=True)`` snapshot written
+    at another data-process count (its ``(N, k)`` optimizer stacks
+    disagree with this run's) is resharded N -> M
+    (``ZeroStep.load_gathered_state``), and the iterator's epoch
+    position is re-expressed at this run's shard length (``epoch_detail``
+    through ``restore_position``).  ``elastic=False`` turns such a
+    mismatch into :class:`CheckpointCorruptError` (``kind='shape'``,
+    ``leaf='opt_state'``).  ``require_manifest=True`` also refuses a
+    snapshot without the write-complete manifest.  ``comm`` is unused
+    (every process reads the same file).  Returns ``{'iteration',
+    'resharded', 'manifest'}``."""
     del comm
-    if elastic:
-        raise NotImplementedError(
-            'elastic resume is not ported yet (ROADMAP.md A9)')
     by_key, manifest = read_npz(path)
+    if require_manifest and not (manifest and manifest.get('complete')):
+        raise _corrupt('no write-complete manifest sentinel (legacy or '
+                       'torn snapshot)', path, None, 'incomplete')
     load = getattr(updater, 'load_snapshot', None)
     if load is not None:
         # a pipeline updater: its stage (and shard) cut at the same mesh
@@ -450,8 +485,17 @@ def resume_updater(path, updater, comm=None, elastic=False):
             'model_state/batch_stats', path)
     wrapper, inner = _optimizer(updater)
     zero = getattr(updater, '_zero', None)
+    resharded = False
     if zero is not None:
         opt_state = _raw_opt_state(by_key)
+        mismatch = zero.stack_mismatches(opt_state)
+        if mismatch and not elastic:
+            raise _corrupt(
+                'optimizer-state shape mismatch (snapshot %r vs live %r) '
+                'and no elastic ZeRO-1 reshard applies -- the snapshot '
+                'was written under a different topology' % mismatch[0],
+                path, 'opt_state', 'shape')
+        resharded = bool(mismatch)
     else:
         opt_state = _opt_state_from(by_key, inner, path, updater)
     pending = None
@@ -485,10 +529,11 @@ def resume_updater(path, updater, comm=None, elastic=False):
             k: torch.as_tensor(v).to(updater.device)
             for k, v in scale.items()})
     return _restore_counters_from(updater, by_key, manifest, path,
-                                  iteration)
+                                  iteration, resharded)
 
 
-def _restore_counters_from(updater, by_key, manifest, path, iteration=None):
+def _restore_counters_from(updater, by_key, manifest, path, iteration=None,
+                           resharded=False):
     if iteration is None:
         iteration = _fetch(by_key, 'iteration', np.int64(0), path)
     detail = by_key.get('epoch_detail')
@@ -496,4 +541,5 @@ def _restore_counters_from(updater, by_key, manifest, path, iteration=None):
     restore_counters(updater, iteration, by_key.get('epoch', 0),
                      None if detail is None else float(detail),
                      None if cursor is None else int(cursor))
-    return {'iteration': updater.iteration, 'manifest': manifest}
+    return {'iteration': updater.iteration, 'resharded': resharded,
+            'manifest': manifest}

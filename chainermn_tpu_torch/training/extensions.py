@@ -151,7 +151,8 @@ def snapshot(filename='snapshot_iter_{iteration}', rank0_only=True):
             return
         path = os.path.join(trainer.out,
                             filename.format(iteration=u.iteration))
-        serializers.save_npz(path, state)
+        serializers.save_npz(path, state,
+                             mesh_shape=serializers.mesh_shape_of(u))
 
     ext.trigger = (1, 'epoch')
     ext.priority = 50

@@ -24,7 +24,10 @@ schedule's tick loop of :mod:`chainermn_tpu_torch.parallel.pipeline`:
 4. this process's ``torch.optim`` optimizer steps its own parameters
    (the stage's, then the ends'), with the sum of squares of a
    ``zero.clip_by_global_norm`` completed over the stages and the
-   tensor-parallel shards, the ends counted once;
+   tensor-parallel shards, the ends counted once, and under gpipe the
+   per-leaf norms of a trust ratio (``zero.lars`` / ``zero.lamb``)
+   completed over each stacked leaf (1F1B refuses them at the first
+   step, as the JAX updater does);
 5. the loss and metrics are the last stage's, averaged over data and
    handed to every process.
 
@@ -131,9 +134,11 @@ class PipelineUpdater:
         parameters under BOTH schedules (JAX's gpipe optimizer sees the
         whole stacked tree), so it must be elementwise unless
         ``schedule_check=False``; ``zero.chain(zero.clip_by_global_norm
-        (c), ...)`` is admitted and completes its norm over the stages.
-        The JAX ``donate`` has no counterpart (see the module
-        docstring).
+        (c), ...)`` is admitted and completes its norm over the stages,
+        and ``zero.lars`` / ``zero.lamb`` are admitted (gpipe completes
+        their per-leaf norms over each stacked leaf; 1F1B refuses them
+        at the first step).  The JAX ``donate`` has no counterpart (see
+        the module docstring).
       stage_fn: ``stage_fn(stage_params, x) -> y``: ``stage_params`` this
         process's stage tree (the stacked leaves without their leading
         stage dim), ``y`` of ``x``'s shape and dtype.
@@ -292,9 +297,14 @@ class PipelineUpdater:
                     "stacked-tree trajectory.  For global-norm clipping "
                     'use zero.chain(zero.clip_by_global_norm(c), ...) -- '
                     'its norm is completed across stages.  Trust ratios '
-                    '(LARS/LAMB) are not ported yet (ROADMAP.md item 8).  '
-                    'Probe result: %s  Pass schedule_check=False to '
-                    'bypass.' % (schedule, e)) from e
+                    '(LARS/LAMB, incl. zero.lars and zero.lamb) are NOT '
+                    'available under 1f1b: stage sharding admits no '
+                    'per-leaf norm rule.  The gpipe schedule runs them, '
+                    'with pipeline-native semantics: one ratio per STACKED '
+                    'leaf (all stages sharing a layer name together), not '
+                    'per layer of the unstacked model.  Probe result: %s  '
+                    'Pass schedule_check=False to bypass.'
+                    % (schedule, e)) from e
         # tensor-parallel shards of the stage leaves, for the global norm
         self._tp_sharded = set()
         if tp_axis is not None and mesh.axis_size(tp_axis) > 1:
@@ -544,6 +554,30 @@ class PipelineUpdater:
             dist.all_reduce(body, group=ax.group)
         return body + sq['end']
 
+    def _leaf_sumsq(self, params, tensors):
+        """gpipe's per-leaf rule: each tensor's sum of squares over its
+        whole STACKED leaf -- a stage leaf's summed over the stages (and,
+        when model-sharded, over the tensor-parallel shards), an end's
+        local -- which is what the JAX gpipe optimizer, seeing the
+        stacked tree, computes: one trust ratio per stacked leaf.  At
+        most two all-reduces of one packed vector."""
+        stage = {id(p) for p in self._stage_list}
+        sharded = {id(p) for p in self._tp_sharded}
+        local = zero_mod.leaf_sumsqs(tensors)
+        is_tp = torch.tensor([id(p) in sharded for p in params],
+                             device=local.device)
+        is_stage = torch.tensor([id(p) in stage for p in params],
+                                device=local.device)
+        tp = torch.where(is_tp, local, torch.zeros_like(local))
+        if self._tp_sharded:
+            dist.all_reduce(tp, group=self.mesh.axis(self._tp_axis).group)
+        body = tp + torch.where(is_stage & ~is_tp, local,
+                                torch.zeros_like(local))
+        ax = self.mesh.axis(self._axis_stage)
+        if ax.size > 1:
+            dist.all_reduce(body, group=ax.group)
+        return torch.where(is_stage, body, local)
+
     def _metrics(self, line, out):
         """The last stage's loss and metrics, averaged over data, on
         every process (one reduction over the ``(data, stage)`` plane of
@@ -594,7 +628,12 @@ class PipelineUpdater:
                      self.n_data)
         self._reduce([p.grad for p in self._extra_list],
                      (self._axis_data, self._axis_stage), self.n_data)
-        with zero_mod.mesh_norm_scope(self._gnorm_sq):
+        # 1F1B's stage sharding admits no per-leaf rule: a trust ratio
+        # refuses there, as in the JAX package
+        with zero_mod.mesh_norm_scope(
+                self._gnorm_sq, leaf_sumsq=(self._leaf_sumsq
+                                            if self.schedule == 'gpipe'
+                                            else None)):
             self.optimizer.step()
         return self._metrics(line, out)
 

@@ -108,7 +108,8 @@ class StandardUpdater:
         (``_collate``; ``collate_pinned`` and ``device_prefetch``
         inherit it); metric averages are taken in f32; the policy's
         ``reduce_dtype`` becomes the communicator's ``reduce_dtype``
-        when it has none.  Not ``torch.autocast``: that keeps some ops
+        when it has none (under ``zero=True``, the reduce-scatter's
+        dtype instead).  Not ``torch.autocast``: that keeps some ops
         in f32 and so computes another function.
         A policy with a ``loss_scale`` (``Policy.f16()``) multiplies the
         differentiated loss by the scale (the reported loss is
@@ -152,13 +153,22 @@ class StandardUpdater:
         optimizers keep the replicated trajectory, which
         ``zero.check_elementwise`` probes for unless ``zero_check=False``
         (``zero.chain(zero.clip_by_global_norm(c), opt)`` is admitted).
-        Composes with ``accum_steps`` and npz snapshots (the state is
-        saved gathered, ``(N, k)`` a tensor, and resumed at the same N).
-        Not ported yet with ``policy=`` (ROADMAP.md A7).
+        ``zero.lars`` / ``zero.lamb`` (and ``zero.chain(zero.
+        scale_by_trust_ratio(), ...)``) are admitted too: their per-leaf
+        norms are completed over the data group, one packed all-reduce a
+        step; without ZeRO the gradients are already reduced and the
+        norms stay local.  Composes with ``accum_steps``, with npz
+        snapshots (the state is saved gathered, ``(N, k)`` a tensor, and
+        resumed at any M: ``serializers.resume_updater`` reshards it)
+        and with ``policy=``: the policy's ``reduce_dtype`` drives the
+        reduce-scatter (``zero_reduce_dtype`` with a policy raises
+        ``ValueError``), and a non-finite loss-scaled step skips the
+        update on the shards (the first call's weight sync is kept).
       zero_check: probe the optimizer for ``zero=True`` (default);
         ``False`` waves a false positive through.
-      zero_reduce_dtype: under ``zero=True``, the dtype the gradients are
-        reduce-scattered in (cast back for the optimizer).
+      zero_reduce_dtype: under ``zero=True`` without a policy, the dtype
+        the gradients are reduce-scattered in (cast back for the
+        optimizer); a policy's ``reduce_dtype`` subsumes it.
       param_specs: the spec tree of the model's parameters over the
         plan's axes (default: the model's own ``param_specs``, which a
         ``tp_axis`` ``TransformerLM`` carries); with a
@@ -178,10 +188,10 @@ class StandardUpdater:
             raise ValueError('zero_reduce_dtype requires zero=True '
                              '(use allreduce_dtype on the multi-node '
                              'optimizer for the plain path)')
-        if zero and policy is not None:
-            raise NotImplementedError(
-                'StandardUpdater(zero=True, policy=...) is not ported yet '
-                '(ROADMAP.md A7)')
+        if policy is not None and zero_reduce_dtype is not None:
+            raise ValueError(
+                'zero_reduce_dtype is subsumed by the policy: set '
+                'Policy(reduce_dtype=...) instead of passing both')
         if accum_steps < 1:
             raise ValueError('accum_steps must be >= 1')
         _telemetry.maybe_enable_from_env()
@@ -208,8 +218,9 @@ class StandardUpdater:
             if any(p.is_floating_point() and p.dtype != policy.compute_dtype
                    for p in model.parameters()):
                 self._loss_call = _LossCall(model, loss_fn)
-            if (policy.reduce_dtype is not None
+            if (policy.reduce_dtype is not None and not zero
                     and getattr(comm, 'reduce_dtype', None) is None):
+                # the ZeRO path narrows its own reduce-scatter instead
                 comm.reduce_dtype = policy.reduce_dtype
         self.scale_state = (self.loss_scale.init(self.device)
                             if self.loss_scale is not None else None)
@@ -243,7 +254,8 @@ class StandardUpdater:
             self._zero = zero_mod.ZeroStep(
                 optimizer, model.parameters(), comm.size, comm.rank,
                 group=getattr(comm, 'data_group', None),
-                reduce_dtype=zero_reduce_dtype)
+                reduce_dtype=(policy.reduce_dtype if policy is not None
+                              else zero_reduce_dtype))
         #: snapshots gather across processes (every process must call
         #: ``serializers.updater_state``)
         self.collective_state = (
@@ -410,9 +422,10 @@ class StandardUpdater:
                     b.copy_(synced)
         if self._zero is not None:
             if self.iteration == 0:
-                # the first call syncs the weights and does not step
+                # the first call syncs the weights and does not step (a
+                # sync, not an update: a non-finite verdict keeps it)
                 self.comm.broadcast_data(list(self.model.parameters()))
-            else:
+            elif bool(finite):
                 self._zero.step()
         elif bool(finite):
             # skipped on every process otherwise (the verdict is the

@@ -288,7 +288,29 @@ Phases, each printing its own lines; any failure exits non-zero:
     ``StandardUpdater(plan.communicator())`` with ``zero=False`` and
     ``zero=True``, 4 calls each, bit-equal (``lm_parallel_tp``).  One
     card holds no second NCCL rank: the all_to_all, the ring's permute
-    and the sub-groups run over axes of one process here.
+    and the sub-groups run over axes of one process here;
+12. the LM pipeline (``lm_pipeline``): rows 4-8 at the micro-batch
+    shapes, ``MeshPipelineUpdater`` on ``MeshPlan.create(tp=1, pp=2)``'s
+    degraded ``(1, 1, 1)`` under gpipe, gpipe with ``remat`` and 1F1B
+    (paths ``lm_pipeline_*``), one step held against 1F1B and the
+    unpipelined step, the twins;
+13. expert parallelism (``moe``): hold A (``sort_dispatch`` bit-equal
+    to ``dense_dispatch_reference`` at ``(8192, 512)`` f32 with drops),
+    LayerNorm with the policy's bf16 gamma against its plain version
+    (``other_shapes['moe']``), hold B (one f32 ``moe_transformer_block``
+    card vs CPU at batch 2, rtol 1e-4 / atol 1e-5, routes compared), then
+    six blocks at the LM path's widths with 8 experts of d_ff 2048 on
+    ``MeshPlan.create(ep=8)``'s degraded ``(1, 1)`` trained with k = 1
+    and 2 (paths ``moe_k1``, ``moe_k2``; ``Policy.bf16()``, AdamW): step
+    p50, tokens/s, peak memory, busy share of a profiled step (its
+    kernels held to the wrappers' counts), dropped fraction, launches;
+14. trust ratios under ZeRO (``zero_trust``) on ``MeshPlan.create(
+    slices=2)``'s degraded ``(1, 1, 1)``: ResNet-50 with ``zero.lars``
+    (path ``resnet_lars``) and the LM with ``zero.lamb`` (``lm_lamb``)
+    under ``StandardUpdater(zero=True, policy=Policy.bf16())``, step p50
+    and rates, peak memory, launches; the LM's snapshot after step 5
+    resumed through ``resume_updater(elastic=True)`` into a fresh
+    updater, the following steps bit-equal to the straight run.
 
 A kernel row's ``ms``, ``plain_ms`` and ``library_ms`` are times per
 call between CUDA events, launches included; ``device_ms``,
@@ -6478,11 +6500,15 @@ def _traced_step(what, step):
     host = sorted(((e.self_cpu_time_total, e.key) for e in
                    prof.key_averages() if e.device_type ==
                    torch.autograd.DeviceType.CPU), reverse=True)
+    kernels = sorted(((us, k) for k, us in _kernel_times(prof).items()),
+                     reverse=True)
     _say('profile', '%s: device %.2f ms of a %.2f ms profiled step; host '
-         'ops by self ms: %s' % (
+         'ops by self ms: %s; kernels by device ms: %s' % (
              what, settled[1] * wall_us / 1e3, wall_us / 1e3,
              ', '.join('%s %.2f' % (k[:40], us / 1e3)
-                       for us, k in host[:8])))
+                       for us, k in host[:8]),
+             ', '.join('%s %.2f' % (k[:60], us / 1e3)
+                       for us, k in kernels[:8])))
     return settled
 
 
@@ -6728,6 +6754,544 @@ def phase_lm_pipeline(records):
     return paths
 
 
+# expert parallelism (phase `moe`): six moe_transformer_blocks at the LM
+# path's widths (d 512, 8 heads of 64), 8 experts of d_ff 2048 each,
+# capacity factor 1.25, on MeshPlan.create(ep=8)'s degraded (1, 1)
+MOE_EXPERTS = 8
+MOE_FF = 2048
+MOE_CF = 1.25
+MOE_AUX = 0.01                 # the aux loss's weight in the loss
+MOE_WARMUP = 2
+MOE_STEPS = 10
+MOE_CHECK_BATCH = 2            # hold B: one f32 block, card vs CPU
+MOE_CHECK_TOL = (1e-4, 1e-5)
+MOE_GAP = 1e-6                 # a top-two gap under it may flip a route
+
+
+def _moe_tree(seed):
+    """The six blocks' GLOBAL parameter trees (numpy, from ``seed``):
+    LayerNorms at 1 / 0, ``wqkv`` and ``wo`` drawn at ``d ** -0.5``, ``bo``
+    0, and ``MoELayer.init_params`` for the experts."""
+    import numpy as np
+    from chainermn_tpu_torch.parallel import MoELayer
+    d, h = LM_CFG['d_model'], LM_CFG['n_heads']
+    rng = np.random.RandomState(seed)
+    layer = MoELayer(capacity_factor=MOE_CF)
+    blocks = []
+    for i in range(LM_CFG['n_layers']):
+        blocks.append({
+            'ln1_scale': np.ones(d, np.float32),
+            'ln1_bias': np.zeros(d, np.float32),
+            'wqkv': (rng.standard_normal((d, 3, h, d // h))
+                     * d ** -0.5).astype(np.float32),
+            'wo': (rng.standard_normal((d, d)) * d ** -0.5).astype(
+                np.float32),
+            'bo': np.zeros(d, np.float32),
+            'ln2_scale': np.ones(d, np.float32),
+            'ln2_bias': np.zeros(d, np.float32),
+            'moe': layer.init_params(seed * 100 + i, d, MOE_FF, MOE_EXPERTS,
+                                     MOE_EXPERTS)})
+    return blocks
+
+
+def _moe_local(plan, block, device):
+    """This process's shard of one block's tree (the experts cut by
+    ``MeshPlan.expert_param_specs``) as f32 parameters on ``device``."""
+    import torch
+    from chainermn_tpu_torch import models
+    moe = block['moe']
+    local = models.shard_variables(moe, plan.expert_param_specs(moe),
+                                   plan.mesh)
+
+    def own(v):
+        return torch.nn.Parameter(torch.from_numpy(v).to(device))
+
+    out = {k: own(v) for k, v in block.items() if k != 'moe'}
+    out['moe'] = {k: own(v) for k, v in local.items()}
+    return out
+
+
+def _moe_hold_dispatch(gen):
+    """Hold A: ``sort_dispatch`` bit-equal to ``dense_dispatch_reference``
+    on the card in f32 at ``(8192, 512)``, with a third of the rows sent
+    to expert 0 and a capacity of 1024 (rows a expert at capacity factor
+    1), so that expert drops rows."""
+    import torch
+    from chainermn_tpu_torch.parallel import (dense_dispatch_reference,
+                                              sort_dispatch)
+    rows, d, e = LM_BATCH * LM_SEQ, LM_CFG['d_model'], MOE_EXPERTS
+    cap = rows // e
+    x = torch.randn((rows, d), generator=gen, device='cuda')
+    idx = torch.where(
+        torch.rand(rows, generator=gen, device='cuda') < 1 / 3,
+        torch.zeros(rows, dtype=torch.long, device='cuda'),
+        torch.randint(0, e, (rows,), generator=gen, device='cuda'))
+    out = torch.randn((e, cap, d), generator=gen, device='cuda')
+    s_in, s_comb, s_keep = sort_dispatch(x, idx, e, cap)
+    d_in, d_comb, d_keep = dense_dispatch_reference(x, idx, e, cap)
+    for what, a, b in (('expert_in', s_in, d_in), ('keep', s_keep, d_keep),
+                       ('combine', s_comb(out), d_comb(out))):
+        if not torch.equal(a, b):
+            raise AssertionError('moe: sort_dispatch %s differs from the '
+                                 'dense reference (max %.3g)' % (
+                                     what, max_err(a.float(), b.float())))
+    dropped = 1.0 - float(s_keep.float().mean())
+    if not dropped > 0:
+        raise AssertionError('moe: the dispatch hold dropped no row')
+    _say('moe', 'hold A: sort_dispatch bit-equal to the dense reference at '
+         '(%d, %d) f32, %d experts, capacity %d, %.4f of the rows dropped'
+         % (rows, d, e, cap, dropped))
+
+
+def _moe_hold_block(plan, tree):
+    """Hold B: block 0 in f32 on the card (kernels) against the same block
+    on the CPU (plain versions) at batch ``MOE_CHECK_BATCH``: the routes
+    (a token whose expert differs fails unless its top-two gap is under
+    ``MOE_GAP``, then it is reported and left out), the output, the aux
+    loss and the dropped fraction within ``MOE_CHECK_TOL``."""
+    import numpy as np
+    import torch
+    from chainermn_tpu_torch.parallel import MoELayer, moe as moe_mod
+    from chainermn_tpu_torch.parallel import moe_transformer_block
+    d = LM_CFG['d_model']
+    rng = np.random.RandomState(3)
+    x = rng.standard_normal((MOE_CHECK_BATCH, LM_SEQ, d)).astype(np.float32)
+    layer = MoELayer(capacity_factor=MOE_CF)
+    routes, outs = [], {}
+    route = moe_mod._route
+
+    def capture(params, xx, k=1):
+        got = route(params, xx, k)
+        routes.append(tuple(t.detach().cpu() for t in got))
+        return got
+
+    moe_mod._route = capture
+    try:
+        for dev in ('cuda', 'cpu'):
+            params = _moe_local(plan, tree[0], dev)
+            with plan.bind(), torch.no_grad():
+                y, aux = moe_transformer_block(
+                    torch.from_numpy(x).to(dev), params, layer,
+                    n_heads=LM_CFG['n_heads'])
+            outs[dev] = (y.cpu(), float(aux['aux_loss']),
+                         float(aux['dropped_fraction']))
+    finally:
+        moe_mod._route = route
+    (_, idx_c, _), (probs, idx_p, _) = routes
+    differ = (idx_c != idx_p).any(-1)
+    top2 = probs.float().sort(-1, descending=True).values
+    gap = top2[:, 0] - top2[:, 1]
+    flipped = differ & (gap >= MOE_GAP)
+    if bool(flipped.any()):
+        raise AssertionError('moe: %d tokens routed to another expert on the '
+                             'card than on the CPU with a top-two gap of at '
+                             'least %g' % (int(flipped.sum()), MOE_GAP))
+    keep = ~differ.reshape(MOE_CHECK_BATCH, LM_SEQ)
+    check_close('moe block (f32, card vs CPU)', outs['cuda'][0][keep],
+                outs['cpu'][0][keep], *MOE_CHECK_TOL)
+    for i, what in ((1, 'aux_loss'), (2, 'dropped_fraction')):
+        check_close('moe block %s' % what, torch.tensor(outs['cuda'][i]),
+                    torch.tensor(outs['cpu'][i]), *MOE_CHECK_TOL)
+    _say('moe', 'hold B: block 0 at (%d, %d, %d) f32, card vs CPU: output '
+         'max err %.3g over %d tokens, %d near-tie routes left out (gap < '
+         '%g), aux %.6f / %.6f, dropped %.4f / %.4f' % (
+             MOE_CHECK_BATCH, LM_SEQ, d,
+             max_err(outs['cuda'][0][keep], outs['cpu'][0][keep]),
+             int(keep.sum()), int(differ.sum()), MOE_GAP, outs['cuda'][1],
+             outs['cpu'][1], outs['cuda'][2], outs['cpu'][2]))
+
+
+def _moe_want(steps):
+    """A step's launches: two LayerNorms and one flash forward, dq and
+    dk/dv a block."""
+    from chainermn_tpu_torch import ops
+    layers = LM_CFG['n_layers']
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want.update(layer_norm=2 * layers * steps, flash_fwd=layers * steps,
+                flash_bwd_dq=layers * steps, flash_bwd_dkv=layers * steps)
+    return want
+
+
+def _moe_run(plan, tree, k):
+    """The path ``moe_k<k>``: the six blocks driven as the JAX tests drive
+    them (a loss, its backward, the replicated leaves' gradients summed
+    over the expert axis, a plain optimizer step): ``Policy.bf16()``
+    compute over f32 masters, AdamW 1e-3, the loss ``sum(y**2)`` over the
+    global element count plus ``MOE_AUX`` times the blocks' aux losses
+    (each process's share), on one fixed input ``(8, 1024, 512)``.
+    ``MOE_WARMUP`` + ``MOE_STEPS`` timed steps, then a profiled one."""
+    import numpy as np
+    import torch
+    from chainermn_tpu_torch import ops
+    from chainermn_tpu_torch.parallel import (MoELayer, moe_transformer_block,
+                                              sum_grads)
+    from chainermn_tpu_torch.precision import Policy
+    policy = Policy.bf16()
+    ep = plan.expert_size
+    blocks = [_moe_local(plan, b, 'cuda') for b in tree]
+    params = [p for b in blocks for _, p in _flat(b)]
+    replicated = [p for b in blocks for key, p in _flat(b)
+                  if key not in ('moe/w_in', 'moe/w_out')]
+    opt = torch.optim.AdamW(params, lr=1e-3)
+    layer = MoELayer(capacity_factor=MOE_CF, k=k)
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.standard_normal(
+        (LM_BATCH, LM_SEQ, LM_CFG['d_model'])).astype(np.float32)).to(
+            'cuda', torch.bfloat16)
+    losses, drops = [], []
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        with plan.bind():
+            h, auxes, dropped = x, [], []
+            for b in blocks:
+                h, aux = moe_transformer_block(
+                    h, policy.cast_to_compute(b), layer,
+                    n_heads=LM_CFG['n_heads'])
+                auxes.append(aux['aux_loss'])
+                dropped.append(aux['dropped_fraction'])
+            loss = (h.float().square().sum() / (h.numel() * ep)
+                    + MOE_AUX * torch.stack(auxes).sum() / ep)
+            loss.backward()
+        sum_grads(replicated, plan.mesh, axes=('expert',))
+        opt.step()
+        losses.append(loss.detach())
+        drops.append(torch.stack(dropped).mean())
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    seconds = []
+    for s in range(MOE_WARMUP + MOE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        if s >= MOE_WARMUP:
+            seconds.append(time.perf_counter() - t0)
+    traced, n = None, MOE_WARMUP + MOE_STEPS
+    for _ in range(PROFILE_TRIES):
+        traced = _traced_step('moe_k%d' % k, step)
+        n += 1
+        if traced is not None:
+            break
+    torch.cuda.synchronize()
+    counts, tc = ops.launch_counts(), ops.tc_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    name = 'moe_k%d' % k
+    if counts != _moe_want(n):
+        raise AssertionError('%s: launch counts %s over %d steps, expected '
+                             '%s' % (name, counts, n, _moe_want(n)))
+    if traced is None:
+        raise AssertionError('%s: %d traces without a device event or with '
+                             'kernels lost' % (name, PROFILE_TRIES))
+    if traced[0] != {key: _moe_want(1)[key] for key in LM_EVENTS}:
+        raise AssertionError('%s: a traced step launched %s' % (name,
+                                                               traced[0]))
+    losses = [float(v) for v in losses]
+    drops = [float(v) for v in drops]
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError('%s: losses %s' % (name, losses))
+    if not all(0.0 <= v < 1.0 for v in drops):
+        raise AssertionError('%s: dropped fractions %s' % (name, drops))
+    p50 = sorted(seconds)[len(seconds) // 2]
+    tokens = LM_BATCH * LM_SEQ
+    reading = dict(p50_ms=1e3 * p50, tokens_per_s=tokens / p50,
+                   peak_gib=peak / 2 ** 30, busy=traced[1],
+                   dropped_fraction=drops[-1],
+                   launches_per_step=_moe_want(1))
+    _say('moe', '%s (k %d, %d experts of d_ff %d, capacity factor %.2f, '
+         'capacity %d a block): losses %s; dropped fraction %s; step p50 '
+         '%.2f ms over %d steps = %.1f tokens/s; peak memory %.2f GiB; busy '
+         '%.1f%% over a profiled step; launches %s over %d steps' % (
+             name, k, MOE_EXPERTS, MOE_FF, MOE_CF,
+             max(1, int(MOE_CF * tokens * k // MOE_EXPERTS)),
+             ', '.join('%.4f' % v for v in losses),
+             ', '.join('%.4f' % v for v in drops), reading['p50_ms'],
+             len(seconds), reading['tokens_per_s'], reading['peak_gib'],
+             100 * reading['busy'], counts, n))
+    return with_tc(name, counts, tc), reading
+
+
+def _ln_policy_case(gen, records, path):
+    """LayerNorm at the path's ``(8192, 512)`` bf16 rows with bf16 gamma /
+    beta (what a ``Policy.bf16()`` cast hands it) against its plain
+    version within ``BF16_TOL``, timed beside ``F.layer_norm`` (the row's
+    ``other_shapes[path]``)."""
+    import torch
+    import torch.nn.functional as F
+    from chainermn_tpu_torch import ops
+    rows, d = LM_BATCH * LM_SEQ, LM_CFG['d_model']
+    x = (torch.randn((rows, d), generator=gen, device='cuda') * 3
+         + 1).to(torch.bfloat16)
+    g = (torch.randn(d, generator=gen, device='cuda') + 1).to(torch.bfloat16)
+    b = torch.randn(d, generator=gen, device='cuda').to(torch.bfloat16)
+    got, want = ops.ln_forward(x, g, b), ops.layer_norm_reference(x, g, b)
+    check_close('layer_norm %s bf16 gamma (%s)' % ((rows, d), path), got,
+                want, *BF16_TOL)
+    t = timings(lambda: ops.ln_forward(x, g, b),
+                lambda: ops.layer_norm_reference(x, g, b),
+                lambda: F.layer_norm(x, (d,), g, b, 1e-6), iters=20)
+    t.update(zip(('bound_ms', 'bound_by'), bound_ms(
+        2 * rows * d * 2 + 2 * d * 2, 8 * rows * d)))
+    row = dict(shape=[rows, d], gamma='bfloat16',
+               max_abs_err=max_err(got, want), **t)
+    _say(path.replace('_', '-'), 'layer_norm at %s, bf16 gamma: max err '
+         '%.3g; %s; bound %.5f ms by %s' % (
+             (rows, d), row['max_abs_err'], _fmt(row), row['bound_ms'],
+             row['bound_by']))
+    rec = {r['name']: r for r in records}['layer_norm']
+    rec.setdefault('other_shapes', {})[path] = row
+    rec['max_abs_err'] = max(rec['max_abs_err'], row['max_abs_err'])
+
+
+def phase_moe(records):
+    """Expert parallelism at the LM path's widths on one card: hold A
+    (the dispatch) and hold B (a block, card vs CPU), LayerNorm with the
+    policy's bf16 gamma, then the paths ``moe_k1`` and ``moe_k2``."""
+    import torch
+    import torch.distributed as dist
+    from chainermn_tpu_torch.parallel import MeshPlan
+    gen = torch.Generator(device='cuda').manual_seed(23)
+    _moe_hold_dispatch(gen)
+    _ln_policy_case(gen, records, 'moe')
+    plan = MeshPlan.create(ep=MOE_EXPERTS)
+    made = plan._owns_group
+    try:
+        d = plan.describe()
+        _say('moe', 'plan %s' % json.dumps(d))
+        if d['axes'] != {'data': 1, 'expert': 1} or d['requested_ep'] != \
+                MOE_EXPERTS or plan.model_size != 1:
+            raise AssertionError('a plan of ep=%d on one card: %s'
+                                 % (MOE_EXPERTS, d))
+        tree = _moe_tree(0)
+        _moe_hold_block(plan, tree)
+        paths, readings = {}, {}
+        for k in (1, 2):
+            paths['moe_k%d' % k], readings['moe_k%d' % k] = _moe_run(
+                plan, tree, k)
+    finally:
+        if made and dist.is_initialized():
+            dist.destroy_process_group()
+    _say('moe', 'readings %s' % json.dumps(readings))
+    return paths
+
+
+# mesh-aware trust ratios under ZeRO-1 (phase `zero_trust`)
+ZT_WARMUP = 2
+ZT_STEPS = 10
+ZT_SNAPSHOT = 5                # (c): the straight run's step to snapshot
+LARS_KW = dict(weight_decay=5e-5, trust_coefficient=0.001, momentum=0.9)
+LARS_LR = 2.0
+LAMB_LR = 1e-3
+LAMB_WD = 0.01
+
+
+def _zt_calls(up, batch_of, n, after=None):
+    """``n`` calls of ``up.update_core`` on the fixed batch; returns the
+    losses (device scalars) and each call's seconds; ``after(i)`` runs
+    after call ``i``, outside its time."""
+    import torch
+    losses, seconds = [], []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(up.update_core(batch_of(up))['loss'])
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        if after is not None:
+            after(i)
+    return losses, seconds
+
+
+def _zt_resnet(comm, train):
+    """(a) the path ``resnet_lars``: ResNet-50 ``fused_norm=True`` at batch
+    64, ``StandardUpdater(zero=True, policy=Policy.bf16())`` over
+    ``zero.lars`` on the slice plan's communicator: one broadcast call,
+    ``ZT_WARMUP`` warm-ups, ``ZT_STEPS`` timed steps."""
+    import torch
+    from chainermn_tpu_torch import models, ops, training
+    from chainermn_tpu_torch.parallel import zero
+    from chainermn_tpu_torch.precision import Policy
+    _free()
+    torch.manual_seed(0)
+    model = models.ResNet50(fused_norm=True)
+    clf = models.StatefulClassifier(model)
+    up = training.StandardUpdater(
+        iter([]), zero.lars(model.parameters(), LARS_LR, **LARS_KW),
+        clf.loss, model, comm, zero=True, policy=Policy.bf16())
+    batch = up.shard_batch(train[:BATCH])
+    start = [p.detach().clone() for p in model.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    n = 1 + ZT_WARMUP + ZT_STEPS
+    losses, seconds = _zt_calls(up, lambda _: batch, n)
+    counts, tc = ops.launch_counts(), ops.tc_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _check_counts('resnet_lars', counts, _want(n, n, 0))
+    losses = [float(v) for v in losses]
+    moved = max(float((p.detach() - q).abs().max())
+                for p, q in zip(model.parameters(), start))
+    if not all(math.isfinite(v) for v in losses) or not moved > 0:
+        raise AssertionError('resnet_lars: losses %s, moved %g'
+                             % (losses, moved))
+    # the first call broadcasts instead of stepping
+    if abs(losses[0] - losses[1]) > 1e-3 * max(1.0, abs(losses[0])):
+        raise AssertionError('resnet_lars: loss at call 0 %r != call 1 %r'
+                             % (losses[0], losses[1]))
+    if not losses[-1] < losses[1]:
+        raise AssertionError('resnet_lars: the loss did not fall: %s'
+                             % losses)
+    timed = sorted(seconds[1 + ZT_WARMUP:])
+    p50 = timed[len(timed) // 2]
+    reading = dict(p50_ms=1e3 * p50, images_per_s=BATCH / p50,
+                   peak_gib=peak / 2 ** 30)
+    _say('zero-trust', 'resnet_lars (ResNet-50 fused_norm, batch %d, bf16 '
+         'compute, f32 masters, ZeRO-1 over %d data processes, zero.lars lr '
+         '%g %s): losses %s; step p50 %.2f ms over %d steps = %.1f images/s; '
+         'peak memory %.2f GiB; launches %s over %d calls' % (
+             BATCH, comm.size, LARS_LR, LARS_KW,
+             ', '.join('%.4f' % v for v in losses), reading['p50_ms'],
+             len(timed), reading['images_per_s'], reading['peak_gib'],
+             counts, n))
+    return with_tc('resnet_lars', counts, tc), reading
+
+
+def _zt_lm(comm):
+    """The LM training path's model, LAMB and updater: ``StandardUpdater(
+    zero=True, policy=Policy.bf16())`` over ``zero.lamb``."""
+    import torch
+    from chainermn_tpu_torch import models, training
+    from chainermn_tpu_torch.parallel import zero
+    from chainermn_tpu_torch.precision import Policy
+    model = models.TransformerLM(
+        **LM_CFG, generator=torch.Generator().manual_seed(0))
+    return training.StandardUpdater(
+        training.SerialIterator(_lmpp_batch(), LM_BATCH, shuffle=False),
+        zero.lamb(model.parameters(), LAMB_LR, weight_decay=LAMB_WD),
+        models.lm_loss(model), model, comm, zero=True, policy=Policy.bf16())
+
+
+def _zt_lm_run(comm):
+    """(b) the path ``lm_lamb`` and (c) its snapshot: the LM with LAMB,
+    one broadcast call, ``ZT_WARMUP`` warm-ups and ``ZT_STEPS`` timed
+    steps on one fixed batch; after step ``ZT_SNAPSHOT`` a snapshot
+    (``serializers.updater_state``, npz with the manifest) is written
+    outside the step's time, then resumed with ``resume_updater(
+    elastic=True)`` into a fresh updater whose following steps must be
+    bit-equal to the straight run's (losses and parameters), with
+    ``resharded`` False."""
+    import shutil
+    import tempfile
+    import torch
+    from chainermn_tpu_torch import ops, serializers
+    up = _zt_lm(comm)
+    tmp = tempfile.mkdtemp(prefix='zero_trust_')
+    path = os.path.join(tmp, 'lm_lamb.npz')
+
+    def snapshot(i):
+        if i == ZT_SNAPSHOT:
+            serializers.save_npz(path, serializers.updater_state(up),
+                                 mesh_shape=serializers.mesh_shape_of(up))
+
+    def batch_of(u):
+        return u.shard_batch(next(u.iterator))
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        n = 1 + ZT_WARMUP + ZT_STEPS
+        losses, seconds = _zt_calls(up, batch_of, n, after=snapshot)
+        counts, tc = ops.launch_counts(), ops.tc_launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        params = [p.detach().clone() for p in up.model.parameters()]
+        del up
+        _free()
+        fresh = _zt_lm(comm)
+        info = serializers.resume_updater(path, fresh, elastic=True)
+        resumed, _ = _zt_calls(fresh, batch_of, n - ZT_SNAPSHOT - 1)
+        mb = os.path.getsize(path) / 2 ** 20
+        same = all(torch.equal(p.detach(), q) for p, q in zip(
+            fresh.model.parameters(), params))
+        del fresh
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    layers = LM_CFG['n_layers']
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want.update(layer_norm=(2 * layers + 1) * n, flash_fwd=layers * n,
+                flash_bwd_dq=layers * n, flash_bwd_dkv=layers * n,
+                cross_entropy=n)
+    _check_counts('lm_lamb', counts, want)
+    losses = [float(v) for v in losses]
+    resumed = [float(v) for v in resumed]
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[1]:
+        raise AssertionError('lm_lamb: losses %s' % losses)
+    if info['resharded'] or info['iteration'] != ZT_SNAPSHOT + 1:
+        raise AssertionError('lm_lamb: resume gave %s' % {
+            k: v for k, v in info.items() if k != 'manifest'})
+    if resumed != losses[ZT_SNAPSHOT + 1:] or not same:
+        raise AssertionError(
+            'lm_lamb: the resumed steps are not bit-equal to the straight '
+            'run: losses %s vs %s, parameters equal %s'
+            % (resumed, losses[ZT_SNAPSHOT + 1:], same))
+    timed = sorted(seconds[1 + ZT_WARMUP:])
+    p50 = timed[len(timed) // 2]
+    tokens = LM_BATCH * LM_SEQ
+    reading = dict(p50_ms=1e3 * p50, tokens_per_s=tokens / p50,
+                   peak_gib=peak / 2 ** 30, snapshot_mib=mb)
+    _say('zero-trust', 'lm_lamb (TransformerLM, %d x %d tokens, bf16 compute, '
+         'f32 masters, ZeRO-1, zero.lamb %g weight_decay %g): losses %s; step '
+         'p50 %.2f ms over %d steps = %.1f tokens/s; peak memory %.2f GiB; '
+         'launches %s over %d calls' % (
+             LM_BATCH, LM_SEQ, LAMB_LR, LAMB_WD,
+             ', '.join('%.4f' % v for v in losses), reading['p50_ms'],
+             len(timed), reading['tokens_per_s'], reading['peak_gib'],
+             counts, n))
+    _say('zero-trust', 'snapshot after call %d (%.1f MiB, manifest mesh_shape '
+         '%s) resumed with resharded %s: calls %d..%d bit-equal to the '
+         'straight run (losses %s), parameters bit-equal' % (
+             ZT_SNAPSHOT + 1, mb, info['manifest']['mesh_shape'],
+             info['resharded'], ZT_SNAPSHOT + 2, n,
+             ', '.join('%.6f' % v for v in resumed)))
+    return with_tc('lm_lamb', counts, tc), reading
+
+
+def phase_zero_trust():
+    """Mesh-aware LARS / LAMB under ZeRO-1 with a policy, on the slice
+    plan ``MeshPlan.create(slices=2)`` degraded to ``(1, 1, 1)``: the
+    paths ``resnet_lars`` and ``lm_lamb``, and a snapshot resumed
+    through the elastic path."""
+    import torch.distributed as dist
+    from chainermn_tpu_torch.parallel import MeshPlan
+    plan = MeshPlan.create(slices=2)
+    made = plan._owns_group
+    comm = plan.communicator()
+    try:
+        d = plan.describe()
+        _say('zero-trust', 'plan %s' % json.dumps(d))
+        if d['axes'] != {'slice': 1, 'data': 1, 'model': 1} or \
+                d['requested_slices'] != 2 or comm.data_axes != (
+                    'slice', 'data'):
+            raise AssertionError('a plan of slices=2 on one card: %s' % d)
+        paths, readings = {}, {}
+        paths['resnet_lars'], readings['resnet_lars'] = _zt_resnet(
+            comm, _precision_batch())
+        _free()
+        paths['lm_lamb'], readings['lm_lamb'] = _zt_lm_run(comm)
+    finally:
+        comm.close()
+        if made and dist.is_initialized():
+            dist.destroy_process_group()
+    _say('zero-trust', 'readings %s' % json.dumps(readings))
+    return paths
+
+
 def _timed(phase, *args):
     """Run one phase and log its wall time."""
     t0 = time.perf_counter()
@@ -6774,6 +7338,8 @@ def main():
     paths['lm_training'] = _timed(phase_lm_main)
     paths.update(_timed(phase_lm_parallel, records))
     paths.update(_timed(phase_lm_pipeline, records))
+    paths.update(_timed(phase_moe, records))
+    paths.update(_timed(phase_zero_trust))
     _say('time', 'all phases %.1f s' % (time.perf_counter() - t_start))
     for rec in records:
         by_path = {path: counts[rec['name']]

@@ -443,8 +443,10 @@ def test_resume_restores_the_updater(tmp_path):
     for p, q in zip(fresh.model.parameters(), up.model.parameters()):
         assert torch.equal(p, q)
     assert fresh.update() == up.update()
-    with pytest.raises(NotImplementedError, match='A9'):
-        serializers.resume_updater(path, fresh, elastic=True)
+    # elastic is the default and a same-topology resume reshards nothing
+    again = _mlp_updater()
+    info = serializers.resume_updater(path, again, elastic=True)
+    assert info['resharded'] is False and info['iteration'] == 3
 
 
 def test_resume_keeps_layouts_and_batch_statistics(tmp_path):

@@ -99,9 +99,19 @@ def test_pp_plan_cases_of_the_jax_tests():
             JaxMeshPlan.create(devices=jax.devices()[:4],
                                **dict(dict(tp=1), **kw))
         assert str(got.value) == str(want.value)
-    for kw in (dict(ep=2), dict(slices=1)):
-        with pytest.raises(NotImplementedError, match='item 8'):
-            MeshPlan.create(tp=2, pp=2, size=4, **kw)
+    # the expert axis composes with data parallelism only, as in JAX
+    with pytest.raises(NotImplementedError) as got:
+        MeshPlan.create(tp=2, pp=2, size=4, ep=2)
+    with pytest.raises(NotImplementedError) as want:
+        JaxMeshPlan.create(tp=2, pp=2, ep=2, devices=jax.devices()[:4])
+    assert str(got.value) == str(want.value)
+    # a slice axis above a 3-D plan: slice major, (slice, data) data axes
+    sliced = MeshPlan.create(tp=2, pp=2, size=4, slices=1)
+    want = JaxMeshPlan.create(tp=2, pp=2, slices=1,
+                              devices=jax.devices()[:4])
+    assert sliced.axis_names == want.axis_names == (
+        'slice', 'data', 'model', 'pipe')
+    assert sliced.describe() == want.describe()
     # no data-parallel communicator over stages
     with pytest.raises(NotImplementedError, match='MeshPipelineUpdater'):
         MeshPlan.create(tp=1, pp=2, size=4).communicator()
@@ -182,6 +192,10 @@ def test_plan_checks_of_the_updater():
         plan=MeshPlan.create(tp=1, pp=2, size=4, rank=3), **kw)
     assert upd.schedule == '1f1b'
     assert (upd.n_stages, upd.n_data) == (2, 2)
+    # a slice axis makes two data axes: refused, as JAX refuses it
+    with pytest.raises(ValueError, match='single data axis'):
+        training.MeshPipelineUpdater(
+            plan=MeshPlan.create(tp=1, pp=2, slices=2, size=8), **kw)
 
 
 # ---------------------------------------------------------------------

@@ -59,9 +59,21 @@ def test_create_validation_and_unported_axes():
     with pytest.raises(ValueError) as want:
         JaxMeshPlan.create(tp=0)
     assert str(got.value) == str(want.value)
-    for kw in (dict(ep=2), dict(slices=1)):
-        with pytest.raises(NotImplementedError, match='item 8'):
-            MeshPlan.create(tp=2, size=4, **kw)
+    # the expert and slice axes are ported; what JAX refuses still raises
+    for kw in (dict(tp=2, ep=2), dict(ep=2, slices=2)):
+        with pytest.raises(NotImplementedError) as got:
+            MeshPlan.create(size=4, **kw)
+        with pytest.raises(NotImplementedError) as want:
+            JaxMeshPlan.create(devices=jax.devices()[:4], **kw)
+        assert str(got.value) == str(want.value)
+    for kw in (dict(ep=0), dict(slices=0)):
+        with pytest.raises(ValueError) as got:
+            MeshPlan.create(size=4, **kw)
+        with pytest.raises(ValueError) as want:
+            JaxMeshPlan.create(devices=jax.devices()[:4], **kw)
+        assert str(got.value) == str(want.value)
+    assert MeshPlan.create(tp=2, size=4, slices=1).axis_names == (
+        'slice', 'data', 'model')
     # the pipe axis is ported: a 3-D plan (tests/test_torch_mesh_pipeline.py)
     assert MeshPlan.create(tp=2, size=4, pp=2).axis_names == (
         'data', 'model', 'pipe')
@@ -231,3 +243,158 @@ def test_tp_snapshot_is_the_gathered_jax_tree_and_resumes(setup):
         for name in want:
             np.testing.assert_array_equal(res['resumed/' + name],
                                           res['straight/' + name])
+
+
+# ------------------------------------------ the slice and expert axes
+@pytest.mark.parametrize('n', [1, 2, 4, 6, 8])
+def test_divisors_leq_clamps_slices_then_tp_then_pp(n):
+    for ks in ((2, 2, 2), (3, 2, 1), (8, 1, 4), (1, 4, 4), (2, 3, 2)):
+        assert mesh_utility.divisors_leq(n, ks) == \
+            jmesh_utility.divisors_leq(n, ks)
+
+
+@pytest.mark.parametrize('kw', [
+    dict(slices=2), dict(slices=3), dict(slices=1), dict(slices=2, tp=2),
+    dict(slices=2, tp=2, pp=2), dict(slices=4, tp=4), dict(slices=2, pp=2),
+    dict(ep=4), dict(ep=3), dict(ep=8), dict(ep=1)])
+def test_slice_and_expert_plans_equal_jax(kw):
+    # TestSlices and test_ep_expert_plan of tests/test_meshplan.py, shape
+    # only at 8 processes
+    got = MeshPlan.create(size=8, **kw)
+    want = JaxMeshPlan.create(**kw)
+    assert got.axis_names == want.axis_names
+    assert got.mesh.shape == dict(want.mesh.shape)
+    assert got.data_axes == want.data_axes
+    assert (got.size, got.data_size, got.model_size, got.pipe_size,
+            got.expert_size, got.slice_size) == (
+        want.size, want.data_size, want.model_size, want.pipe_size,
+        want.expert_size, want.slice_size)
+    assert got.describe() == want.describe()
+    assert (got.slice_axis, got.expert_axis, got.requested_slices,
+            got.requested_ep) == (want.slice_axis, want.expert_axis,
+                                  want.requested_slices, want.requested_ep)
+
+
+def test_slice_axis_is_major_and_expert_minor():
+    # rank = ((s * D + d) * tp + m) * pp + p
+    plan = MeshPlan.create(slices=2, tp=2, pp=2, size=16, rank=13)
+    assert plan.mesh.shape == {'slice': 2, 'data': 2, 'model': 2, 'pipe': 2}
+    assert plan.mesh.coords == (1, 1, 0, 1)
+    # rank = d * ep + e
+    eplan = MeshPlan.create(ep=4, size=8, rank=6)
+    assert eplan.mesh.coords == (1, 2)
+    assert eplan.model_axis is None and eplan.model_size == 1
+    sliceless = MeshPlan.create(tp=2, size=8)
+    assert sliceless.slice_axis is None and sliceless.slice_size == 1
+    assert 'slice_axis' not in sliceless.describe()
+
+
+def test_expert_param_specs_equal_jax():
+    params = {'router': np.zeros((8, 4), np.float32),
+              'w_in': np.zeros((4, 8, 16), np.float32),
+              'w_out': np.zeros((4, 16, 8), np.float32),
+              'nested': {'bias': np.zeros((8,), np.float32)}}
+    got = MeshPlan.create(ep=4, size=8).expert_param_specs(params)
+    want = JaxMeshPlan.create(ep=4).expert_param_specs(params)
+    assert got == jax.tree_util.tree_map(
+        tuple, want, is_leaf=lambda v: isinstance(
+            v, jax.sharding.PartitionSpec))
+    assert got['w_in'] == ('expert',) and got['router'] == ()
+    with pytest.raises(ValueError, match='expert axis'):
+        MeshPlan.create(tp=2, size=8).expert_param_specs(params)
+
+
+_AXES_BODY = r'''
+import chainermn_tpu_torch as cmt
+from chainermn_tpu_torch import models, training
+from chainermn_tpu_torch.parallel import MeshPlan
+
+# (slice, data, model) = (2, 2, 1): both reduction stages have 2 processes
+plan = MeshPlan.create(slices=2, device='cpu')
+comm = plan.communicator()
+res['slices/topology'] = np.array([comm.size, comm.rank, comm.inter_size,
+                                   comm.intra_size, plan.slice_size])
+seen = []
+orig = dist.all_reduce
+
+
+def counting(buf, *a, **kw):
+    seen.append(kw.get('group'))
+    return orig(buf, *a, **kw)
+
+
+dist.all_reduce = counting
+g = [torch.tensor([1.0 + 3.0 * rank, -2.0 * rank ** 2], dtype=torch.float32)]
+comm.allreduce_grad(g)
+dist.all_reduce = orig
+res['slices/hier'] = g[0].numpy()
+res['slices/stages'] = np.array(len(seen))
+# ZeRO over the (slice, data) plane against ZeRO over the flat world
+params = load_tree(argv[0], 'params/')
+x, y = np.load(argv[0])['x'], np.load(argv[0])['y']
+
+
+def zero_run(c):
+    model = models.MLP(n_units=15, n_out=4, n_in=8, device='cpu')
+    models.load_flax_variables(model, {'params': params})
+    per = len(x) // c.size
+    mine = [(x[i], y[i]) for i in range(c.rank * per, (c.rank + 1) * per)]
+    up = training.StandardUpdater(
+        training.SerialIterator(mine, per, shuffle=False),
+        torch.optim.Adam(model.parameters(), lr=1e-2),
+        models.Classifier(model), model, c, zero=True)
+    return np.array([up.update()['loss'] for _ in range(3)])
+
+
+res['slices/zero'] = zero_run(comm)
+res['flat/zero'] = zero_run(cmt.create_communicator('xla', device='cpu'))
+# the expert plan's communicator: data replicas of expert shards
+eplan = MeshPlan.create(ep=2, device='cpu')
+ecomm = eplan.communicator()
+res['ep/topology'] = np.array([ecomm.size, ecomm.rank, ecomm.intra_rank(),
+                               ecomm.inter_size, ecomm.intra_size])
+res['ep/data_axes'] = np.array(ecomm.data_axes)
+e = [torch.tensor([float(ecomm.intra_rank()) + 10.0 * ecomm.rank])]
+ecomm.allreduce_grad(e)
+res['ep/grad'] = e[0].numpy()
+'''
+
+
+@pytest.fixture(scope='module')
+def axes_ranks(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp('plan_axes')
+    from chainermn_tpu.models import MLP as JaxMLP
+    params = jax.device_get(JaxMLP(n_units=15, n_out=4).init(
+        jax.random.PRNGKey(2), jnp.zeros((1, 8)))['params'])
+    rng = np.random.RandomState(5)
+    save_tree(tmp / 'in.npz', {'params': params},
+              x=rng.randn(16, 8).astype(np.float32),
+              y=rng.randint(0, 4, 16).astype(np.int32))
+    return spawn(tmp, _AXES_BODY, 4, [tmp / 'in.npz'])
+
+
+def test_hierarchical_reduction_equals_the_flat_mean(axes_ranks):
+    vals = np.array([[1.0 + 3.0 * r, -2.0 * r ** 2] for r in range(4)])
+    for r, res in enumerate(axes_ranks):
+        s, d = divmod(r, 2)
+        assert list(res['slices/topology']) == [4, r, 4, 1, 2]
+        np.testing.assert_allclose(res['slices/hier'], vals.mean(0),
+                                   rtol=1e-6)
+        # two stages: in-slice data group, then slice group
+        assert int(res['slices/stages']) == 2
+
+
+def test_zero_spans_the_slice_and_data_axes(axes_ranks):
+    for res in axes_ranks:
+        np.testing.assert_allclose(res['slices/zero'], res['flat/zero'],
+                                   rtol=1e-5)
+        assert res['slices/zero'][2] < res['slices/zero'][1]
+
+
+def test_expert_plan_communicator_spans_data_only(axes_ranks):
+    for r, res in enumerate(axes_ranks):
+        data, expert = divmod(r, 2)
+        assert list(res['ep/topology']) == [2, data, expert, 2, 2]
+        assert list(res['ep/data_axes']) == ['data']
+        # the data mean keeps the expert distinction: (0 + 10) / 2
+        np.testing.assert_allclose(res['ep/grad'], [expert + 5.0])

@@ -16,6 +16,9 @@ devices=jax.devices()[:4])``, the same layout:
   ``lm_loss``, one SGD step, the global loss under uneven padding);
 - snapshot and resume (``serializers``), continuing bit-identically,
   with the JAX keys; ``Trainer`` with and without ``async_metrics``;
+- ``zero.lars`` under gpipe (with and without the ends) against JAX's
+  gpipe with its ``zero.lars`` (one trust ratio per stacked leaf), and
+  its refusal at the first 1F1B step (``per-leaf norm rule``);
 - the 1F1B guard's four cases (``:891`` a loss that sums over data,
   ``:916`` a collective in a custom backward, ``:947`` a clean custom
   backward, ``:1018`` collective metrics), decided as JAX decides them.
@@ -42,6 +45,7 @@ import torch
 from chainermn_tpu.models import (TransformerLM as JaxLM,
                                   lm_loss as jlm_loss,
                                   pipeline_parts as jpipeline_parts)
+from chainermn_tpu.parallel import zero as jzero
 from chainermn_tpu.parallel.pipeline import stack_stage_params
 from chainermn_tpu.training.pipeline_updater import (
     PipelineUpdater as JaxPipelineUpdater, pipeline_mesh as jpipeline_mesh)
@@ -186,6 +190,25 @@ for sched, remat in (('gpipe', False), ('gpipe', True), ('1f1b', False)):
                    steps(upd, batch_e if ends_on else batch, 3))
 upd = make('1f1b')
 record('plain/1f1b', upd, steps(upd, batch, 3))
+
+
+def lars(ps):
+    return zero.lars(ps, 0.5, weight_decay=1e-4, trust_coefficient=0.1,
+                     momentum=0.9)
+
+
+# LARS: gpipe completes each stacked leaf's norms over the stages; 1F1B
+# admits it at construction and refuses it at the first step
+for ends_on in (False, True):
+    upd = make('gpipe', opt=lars, with_ends=ends_on)
+    record('lars%d/gpipe' % ends_on, upd,
+           steps(upd, batch_e if ends_on else batch, 3))
+upd = make('1f1b', opt=lars)
+try:
+    steps(upd, batch, 1)
+    res['lars/1f1b/refusal'] = np.array('')
+except ValueError as e:
+    res['lars/1f1b/refusal'] = np.array(str(e))
 
 # the gpipe garbage-loss case: stage 0's output overflows exp
 lin = PipelineUpdater(
@@ -344,7 +367,9 @@ def _jax_run(tag, opt_name, n_steps, with_ends=False, clip=False):
     sched, remat = {'gpipe': ('gpipe', False), 'gpipe_remat':
                     ('gpipe', True), '1f1b': ('1f1b', False)}[tag]
     opt = {'sgd': optax.sgd(0.1, momentum=0.9),
-           'adam': optax.adam(1e-2)}[opt_name]
+           'adam': optax.adam(1e-2),
+           'lars': jzero.lars(0.5, weight_decay=1e-4, trust_coefficient=0.1,
+                              momentum=0.9)}[opt_name]
     if clip:
         opt = optax.chain(optax.clip_by_global_norm(C), opt)
     kw = {}
@@ -440,6 +465,24 @@ def test_mesh_aware_clip_matches_jax_gpipe_clip(ranks, sched, with_ends):
     # the clip engaged: the unclipped trajectory differs
     assert np.max(np.abs(ranks[0]['clip0/1f1b/p/w']
                          - ranks[0]['plain/1f1b/p/w'])) > 1e-4
+
+
+@pytest.mark.parametrize('with_ends', [False, True])
+def test_gpipe_lars_matches_jax_gpipe(ranks, with_ends):
+    # one trust ratio per STACKED leaf: the stages' norms completed
+    want = _jax_run('gpipe', 'lars', 3, with_ends=with_ends)
+    for res in ranks:
+        _hold(res, 'lars%d/gpipe' % with_ends, want)
+    # the ratios engaged: LARS is not momentum SGD at lr 0.5
+    assert np.max(np.abs(ranks[0]['lars0/gpipe/p/w']
+                         - stack_stage_params(make_params())['w'])) > 1e-3
+
+
+def test_1f1b_refuses_trust_ratio_at_first_step(ranks):
+    # JAX's test_1f1b_rejects_mesh_aware_trust_ratio: the probe admits
+    # zero.lars, the first update refuses it
+    for res in ranks:
+        assert 'per-leaf norm rule' in str(res['lars/1f1b/refusal'])
 
 
 def test_gpipe_grads_finite_when_garbage_loss_overflows(ranks):
@@ -614,7 +657,8 @@ def test_constructor_rejections():
         with pytest.raises(ValueError, match='elementwise') as e:
             _ctor(schedule=sched, optimizer=lambda ps: zero.Chain(
                 [_plain_clip], torch.optim.SGD(ps, lr=0.1)))
-        assert 'ROADMAP.md item 8' in str(e.value)
+        # the JAX message: trust ratios run under gpipe, not 1f1b
+        assert 'zero.lars and zero.lamb' in str(e.value)
         # the bypass, and the mesh-aware clip, are admitted
         _ctor(schedule=sched, schedule_check=False,
               optimizer=lambda ps: zero.Chain(

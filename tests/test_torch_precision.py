@@ -291,12 +291,24 @@ def test_bf16_policy_reduces_gradients_in_bf16():
 
 
 def test_policy_with_zero_is_not_ported():
+    """``zero=True`` with a policy is ported now (its trajectories:
+    ``tests/test_torch_trust_ratio.py``): construction builds the ZeRO
+    step with the policy's reduce dtype and f32 masters, and
+    ``zero_reduce_dtype`` beside a policy is refused as in JAX."""
     comm = cmt.create_communicator('xla', device='cpu')
     model = models.MLP(n_units=4, device='cpu')
-    with pytest.raises(NotImplementedError, match='A7'):
+    up = training.StandardUpdater(
+        iter([]), torch.optim.SGD(model.parameters(), 0.1),
+        models.Classifier(model), model, comm, zero=True,
+        policy=precision.Policy.bf16())
+    assert up._zero.reduce_dtype == torch.bfloat16
+    assert comm.reduce_dtype is None
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
+    with pytest.raises(ValueError, match='subsumed'):
         training.StandardUpdater(
             iter([]), torch.optim.SGD(model.parameters(), 0.1),
             models.Classifier(model), model, comm, zero=True,
+            zero_reduce_dtype=torch.bfloat16,
             policy=precision.Policy.bf16())
 
 

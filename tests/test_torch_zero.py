@@ -11,10 +11,15 @@ clip, ``zero_reduce_dtype=bfloat16`` near f32 (5e-2, the bf16
 tolerance), ZeRO with ``accum_steps=2``, ZeRO over the data axis of a
 ``(2, 2)`` plan (its state 1/2), and an npz snapshot resumed at the
 same N (also for AdamW over two parameter groups that interleave
-the model's order).  Single-process cases: the refusals (a non-elementwise
+the model's order).  The elastic reshard: the numpy helpers bit-equal to
+the JAX ones, and a snapshot written at 3 (2) processes resumed at 2 (4),
+equal to the straight run there (three spawns of 3, 2 and 4
+processes).  Single-process cases: the refusals (a non-elementwise
 optimizer by either probe, the multi-node wrapper, model-sharded specs,
 ``zero_reduce_dtype`` without ``zero``) and ``zero_check=False``.
 """
+
+import json
 
 import jax
 import jax.numpy as jnp
@@ -326,3 +331,184 @@ def test_clip_by_global_norm_is_optax_clip():
         for p, w in zip(ps, want):
             np.testing.assert_allclose(p.grad.numpy(), np.asarray(w),
                                        rtol=1e-6)
+
+
+# ------------------------------------------------ the elastic reshard
+@pytest.mark.parametrize('size,old_n,new_n', [(10, 3, 4), (10, 4, 2),
+                                              (7, 3, 5), (16, 4, 4),
+                                              (1, 2, 3)])
+def test_reshard_helpers_are_bit_equal_to_jax(size, old_n, new_n):
+    from chainermn_tpu.parallel import zero as jzero
+    full = np.arange(1.0, size + 1.0, dtype=np.float32)
+    old = zero.reshard_flat_leaf(full, old_n)
+    np.testing.assert_array_equal(old, jzero.reshard_flat_leaf(full, old_n))
+    assert old.shape == (old_n, zero.shard_len(size, old_n))
+    np.testing.assert_array_equal(zero.regather_stacked_leaf(old, size),
+                                  jzero.regather_stacked_leaf(old, size))
+    np.testing.assert_array_equal(zero.regather_stacked_leaf(old, size),
+                                  full)
+    # the numpy split is what param_shard_leaf cuts
+    for r in range(old_n):
+        np.testing.assert_array_equal(
+            zero.param_shard_leaf(torch.from_numpy(full), old_n, r).numpy(),
+            old[r])
+    template = {'m': np.zeros((new_n, zero.shard_len(size, new_n)),
+                              np.float32),
+                'inner': {'v': np.zeros((new_n, zero.shard_len(size, new_n)),
+                                        np.float32)},
+                'count': np.int32(0)}
+    saved = {'m': old, 'inner': {'v': 2 * old}, 'count': np.int32(5)}
+    got = zero.reshard_stacked_state(saved, template)
+    want = jzero.reshard_stacked_state(saved, template)
+    np.testing.assert_array_equal(got['m'], np.asarray(want['m']))
+    np.testing.assert_array_equal(got['inner']['v'],
+                                  np.asarray(want['inner']['v']))
+    np.testing.assert_array_equal(got['m'],
+                                  zero.reshard_flat_leaf(full, new_n))
+    assert got['count'] == 5          # scalars pass through
+
+
+_ELASTIC = r'''
+import json
+import chainermn_tpu_torch as cmt
+from chainermn_tpu_torch import models, serializers, training
+from chainermn_tpu_torch.utils.failure import CheckpointCorruptError
+
+params = load_tree(argv[0], 'params/')
+with np.load(argv[0]) as f:
+    bx, by = f['bx'], f['by']
+tmp, save_as, resume_from = argv[1], argv[2], argv[3]
+comm = cmt.create_communicator('xla', device='cpu')
+
+
+def make():
+    model = models.MLP(n_units=8, n_out=3, n_in=6, device='cpu')
+    models.load_flax_variables(model, {'params': params})
+    up = training.StandardUpdater(
+        iter([]), torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+        models.Classifier(model), model, comm, zero=True)
+    per = len(bx) // comm.size      # the SAME global batch at any N
+    sl = slice(rank * per, (rank + 1) * per)
+    return up, (torch.from_numpy(bx[sl]), torch.from_numpy(by[sl]))
+
+
+def run(up, batch, n):
+    return np.array([float(up.update_core(batch)['loss'])
+                     for _ in range(n)])
+
+
+up, b = make()
+res['straight'] = run(up, b, 6)
+up, b = make()
+res['first'] = run(up, b, 3)
+state = serializers.updater_state(up)
+if rank == 0:
+    serializers.save_npz(tmp + '/' + save_as, state,
+                         mesh_shape=serializers.mesh_shape_of(up))
+dist.barrier()
+if resume_from != '-':
+    up, b = make()
+    try:
+        serializers.resume_updater(tmp + '/' + resume_from, up,
+                                   elastic=False)
+        res['strict'] = np.array(['', ''])
+    except CheckpointCorruptError as e:
+        res['strict'] = np.array([e.kind, str(e.leaf)])
+    assert up.iteration == 0        # nothing was assigned
+    up, b = make()
+    info = serializers.resume_updater(tmp + '/' + resume_from, up,
+                                      require_manifest=True)
+    res['resharded'] = np.array(info['resharded'])
+    res['iteration'] = np.array(info['iteration'])
+    res['mesh_shape'] = np.array(json.dumps(info['manifest']['mesh_shape']))
+    res['resumed'] = run(up, b, 3)
+'''
+
+
+def _elastic_inputs():
+    from chainermn_tpu.models import MLP
+    params = jax.device_get(MLP(n_units=8, n_out=3).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 6)))['params'])
+    rs = np.random.RandomState(7)
+    bx = rs.randn(12, 6).astype(np.float32)
+    by = (rs.rand(12) * 3).astype(np.int32)
+    return params, bx, by
+
+
+@pytest.fixture(scope='module')
+def elastic(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp('elastic')
+    params, bx, by = _elastic_inputs()
+    save_tree(tmp / 'in.npz', {'params': params}, bx=bx, by=by)
+    out = {}
+    for n, save_as, resume_from in ((3, 'n3.npz', '-'),
+                                    (2, 'n2.npz', 'n3.npz'),
+                                    (4, 'n4.npz', 'n2.npz')):
+        out[n] = spawn(tmp, _ELASTIC, n, [tmp / 'in.npz', tmp, save_as,
+                                          resume_from])
+    return out
+
+
+@pytest.mark.parametrize('old_n,new_n', [(3, 2), (2, 4)])
+def test_elastic_zero_resume_across_process_counts(elastic, old_n, new_n):
+    """JAX ``test_elastic_zero_resume_across_device_counts``: a ZeRO-1
+    snapshot written at N processes resumes at M, its momentum stacks
+    regathered and re-split N -> M, and 3 steps + resume + 3 steps equal
+    6 straight steps at M (atol 1e-4)."""
+    first = elastic[old_n][0]['first']
+    for res in elastic[new_n]:
+        np.testing.assert_allclose(np.concatenate([first, res['resumed']]),
+                                   res['straight'], rtol=0, atol=1e-4)
+        assert bool(res['resharded']) and int(res['iteration']) == 3
+        # the manifest names the writing topology
+        assert json.loads(str(res['mesh_shape'])) == {'inter': 1,
+                                                      'intra': old_n}
+        # elastic=False refuses the topology change, typed
+        assert list(res['strict']) == ['shape', 'opt_state']
+
+
+def test_elastic_straight_run_matches_the_jax_zero_updater(elastic):
+    params, bx, by = _elastic_inputs()
+    from chainermn_tpu.models import MLP, classifier_loss
+    model = MLP(n_units=8, n_out=3)
+    for n in (2, 3, 4):
+        comm = chainermn_tpu.create_communicator(
+            'xla', devices=jax.devices()[:n], mesh_shape=(1, n))
+        up = jtraining.StandardUpdater(
+            iter([]), optax.sgd(0.1, momentum=0.9), classifier_loss(
+                lambda p, x: model.apply({'params': p}, x)), params, comm,
+            has_aux=True, donate=False, zero=True)
+        batch = up.shard_batch([(x, int(y)) for x, y in zip(bx, by)])
+        want = [float(up.update_core(batch)['loss']) for _ in range(6)]
+        for res in elastic[n]:
+            np.testing.assert_allclose(res['straight'], want, rtol=1e-5)
+
+
+def test_elastic_resume_restores_the_epoch_at_the_new_shard_length(tmp_path):
+    """The epoch position comes back as the global fraction of the epoch,
+    re-expressed at this run's shard length (``restore_position``): a
+    snapshot of a 12-example shard after 2 batches of 4 (epoch_detail
+    2/3) resumed over a 6-example shard stands at example 4 of 6."""
+    from chainermn_tpu_torch import serializers
+
+    def updater(n_examples, batch):
+        comm = cmt.create_communicator('xla', device='cpu')
+        model = models.MLP(n_units=4, n_out=2, n_in=3, device='cpu')
+        rng = np.random.RandomState(0)
+        data = [(rng.randn(3).astype(np.float32), np.int32(i % 2))
+                for i in range(n_examples)]
+        return training.StandardUpdater(
+            training.SerialIterator(data, batch, shuffle=False),
+            torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+            models.Classifier(model), model, comm, zero=True)
+
+    up = updater(12, 4)
+    for _ in range(2):
+        up.update()
+    path = serializers.save_npz(str(tmp_path / 's'),
+                                serializers.updater_state(up))
+    fresh = updater(6, 2)
+    info = serializers.resume_updater(path, fresh)
+    assert info['resharded'] is False and info['iteration'] == 2
+    assert fresh.iterator.epoch_detail == pytest.approx(2 / 3)
+    assert fresh.iterator._pos == 4
