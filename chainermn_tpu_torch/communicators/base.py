@@ -29,6 +29,19 @@ The object channel reaches the default group's store through
 function: no public call returns the store a group was made with, and a
 store made here could not reach the ranks of a group joined from a
 ``FileStore`` or a ``HashStore``.
+
+Every wait of the channel is bounded and typed, as in the JAX package:
+after :meth:`CommunicatorBase.enable_peer_liveness` a wait on a peer
+whose heartbeat went stale raises
+:class:`~chainermn_tpu_torch.utils.failure.PeerDeadError`, a wait that
+merely expires :class:`~chainermn_tpu_torch.utils.failure.ChannelTimeout`.
+The channel's calls record telemetry spans (``barrier`` and
+``allreduce_obj`` as ``kind='collective'`` with a per-stream ``seq``,
+which the doctor pairs across ranks; ``send_obj`` / ``recv_obj`` as
+``kind='p2p'``) and carry the chaos channel sites (``drop_send``,
+``delay_send``, ``dup_send``, ``kill_recv``, ``stall_kv``,
+``extra_collective``); building a communicator installs the injector
+from ``CHAINERMN_TPU_CHAOS`` (:func:`chaos.maybe_install_from_env`).
 """
 
 import datetime
@@ -39,10 +52,13 @@ import time
 import torch
 import torch.distributed as dist
 
+from chainermn_tpu_torch import telemetry as _telemetry
 from chainermn_tpu_torch.communicators import memory_utility, mesh_utility
 from chainermn_tpu_torch.ops._common import resolve_device
+from chainermn_tpu_torch.utils import chaos
 from chainermn_tpu_torch.utils.failure import (
-    Backoff, ChannelTimeout, Deadline)
+    Backoff, ChannelTimeout, Deadline, Heartbeat, PeerDeadError,
+    detect_stall)
 
 _KEYS = 'chainermn_tpu_torch'
 
@@ -124,6 +140,12 @@ class CommunicatorBase:
             '%s/communicators/%d' % (_KEYS, self.world_rank), 1)
         self._send_seq, self._recv_seq, self._barrier_epochs = {}, {}, {}
         self._p2p_sent = {}
+        self._eager_coll_seq = {}
+        self._liveness = None
+        # env-activated fault injection and telemetry (no-ops unless
+        # CHAINERMN_TPU_CHAOS / CHAINERMN_TPU_TELEMETRY are set)
+        chaos.maybe_install_from_env()
+        _telemetry.maybe_enable_from_env()
 
     def _make_groups(self):
         """This process's ``(intra group, inter group)`` over
@@ -259,12 +281,28 @@ class CommunicatorBase:
         The reference's pickle-based ``mpi_comm.allreduce`` of a metric
         (``multi_node_evaluator.py:31-38``).  ``timeout`` (seconds)
         bounds the wait: a :meth:`barrier` with that budget runs first,
-        so a missing peer raises ``ChannelTimeout`` instead of blocking
-        the collective for good."""
-        if timeout is not None and self.world_size > 1:
+        so a missing peer raises ``PeerDeadError`` (dead, after
+        :meth:`enable_peer_liveness`) or ``ChannelTimeout`` instead of
+        blocking the collective for good."""
+        if self.world_size == 1:
+            return float(self.allreduce(torch.tensor(
+                float(value), dtype=torch.float64, device=self.device), op))
+        if timeout is not None:
             self.barrier(timeout=timeout, tag='allreduce_obj')
-        return float(self.allreduce(torch.tensor(
-            float(value), dtype=torch.float64, device=self.device), op))
+        with _telemetry.span('allreduce_obj', kind='collective', op=op,
+                             seq=self._next_eager_seq('allreduce_obj')):
+            out = float(self.allreduce(torch.tensor(
+                float(value), dtype=torch.float64, device=self.device), op))
+        if chaos._active is not None:
+            for _ in range(chaos.extra_collectives()):
+                # a phantom collective: the span and the seq of a real
+                # one, but no peer takes part, so this rank's recorded
+                # protocol stream diverges while the run goes on
+                with _telemetry.span(
+                        'allreduce_obj', kind='collective', op=op,
+                        seq=self._next_eager_seq('allreduce_obj')):
+                    pass
+        return out
 
     def bcast_obj(self, obj, root=0):
         """Every process receives ``root``'s picklable ``obj``."""
@@ -278,17 +316,23 @@ class CommunicatorBase:
         return dist.distributed_c10d._get_default_store()
 
     @staticmethod
-    def _wait_key(store, key, deadline, backoff):
+    def _wait_key(store, key, deadline, backoff, between=None):
         """Wait for ``key`` in slices of the backoff schedule, none past
-        the deadline; True when it is there, False at the deadline.  (A
-        store's timeout is a ``RuntimeError``: ``DistStoreError`` from
+        the deadline; True when it is there, False at the deadline.
+        ``between()``, when given, runs after each slice that expired (it
+        may raise).  The chaos ``stall_kv`` site sleeps before each slice.
+        (A store's timeout is a ``RuntimeError``: ``DistStoreError`` from
         some stores, a plain one from ``FileStore``.)"""
         while True:
+            if chaos._active is not None:
+                chaos.before_kv_wait()
             try:
                 store.wait([key], datetime.timedelta(
                     seconds=deadline.slice(backoff.next())))
                 return True
             except RuntimeError:
+                if between is not None:
+                    between()
                 if deadline.expired():
                     return False
 
@@ -305,26 +349,94 @@ class CommunicatorBase:
         return '%s/p2p/%s/%d/%d/%s/%d' % (_KEYS, channel, src, dest, tag,
                                           seq)
 
-    def enable_peer_liveness(self, *args, **kwargs):
-        raise NotImplementedError(
-            'peer liveness (heartbeats, PeerDeadError) is not ported yet '
-            '(ROADMAP.md A9)')
+    def _next_eager_seq(self, name):
+        """The next sequence number of the eager collective ``name``:
+        every process counts the same rendezvous alike, so the doctor
+        pairs the spans across ranks by (name, tag, seq)."""
+        n = self._eager_coll_seq.get(name, 0)
+        self._eager_coll_seq[name] = n + 1
+        return n
+
+    # -- peer liveness (heartbeat-backed dead-peer detection) ---------------
+    def enable_peer_liveness(self, directory, interval=1.0,
+                             stall_timeout=5.0):
+        """Start this process's heartbeat under ``directory`` (shared by
+        all peers, one ``heartbeat-<rank>.json`` each) and arm dead-peer
+        detection: every bounded wait of the channel (:meth:`recv_obj`,
+        :meth:`barrier`, :meth:`allreduce_obj` with a ``timeout``) then
+        tells a slow peer (:class:`ChannelTimeout`) from a dead one
+        (:class:`PeerDeadError`) by the age of the peer's heartbeat
+        against ``stall_timeout``.  Returns the started
+        :class:`~chainermn_tpu_torch.utils.failure.Heartbeat` (stop it at
+        teardown)."""
+        hb = Heartbeat(os.path.join(directory,
+                                    'heartbeat-%d.json' % self.world_rank),
+                       interval=interval).start()
+        self._liveness = {'dir': directory, 'timeout': stall_timeout,
+                          'enabled_at': time.monotonic()}
+        self._heartbeat = hb
+        # the doctor pairs this capture's flight records with these beats
+        rec = _telemetry.active()
+        if rec is not None:
+            rec.liveness_dir = os.path.abspath(directory)
+            _telemetry.event('liveness_enabled', kind='liveness',
+                             dir=rec.liveness_dir, interval=interval,
+                             stall_timeout=stall_timeout)
+        return hb
+
+    def peer_state(self, process_index):
+        """``'alive'`` / ``'dead'`` / ``'unknown'`` for a peer, from its
+        heartbeat file: ``'unknown'`` when liveness was never enabled, or
+        when the peer's file has not appeared yet within the start-up
+        grace (a peer slow to write its first beat is not dead)."""
+        live = self._liveness
+        if live is None:
+            return 'unknown'
+        if process_index == self.world_rank:
+            return 'alive'
+        path = os.path.join(live['dir'], 'heartbeat-%d.json' % process_index)
+        if not os.path.exists(path):
+            grace_over = (time.monotonic() - live['enabled_at']
+                          > live['timeout'])
+            return 'dead' if grace_over else 'unknown'
+        return 'dead' if detect_stall(path, live['timeout']) else 'alive'
+
+    def _raise_if_peer_dead(self, process_index, doing):
+        if self.peer_state(process_index) == 'dead':
+            raise PeerDeadError(
+                '%s: peer process %d is dead (heartbeat stalled past '
+                '%.1fs)' % (doing, process_index, self._liveness['timeout']),
+                process_index=process_index)
 
     def barrier(self, timeout=60.0, tag='barrier'):
         """Bounded rendezvous of all processes: each must arrive within
-        ``timeout`` seconds, else :class:`ChannelTimeout` names the tag,
-        the epoch and how many arrived.  Epochs are counted per tag; in
-        a world of one it returns at once."""
+        ``timeout`` seconds, else the wait fails typed:
+        :class:`PeerDeadError` naming a peer whose heartbeat stalled
+        (after :meth:`enable_peer_liveness`), else
+        :class:`ChannelTimeout` naming the tag, the epoch and how many
+        arrived.  Epochs are counted per tag; in a world of one it
+        returns at once."""
         if self.world_size == 1:
             return
         n = self._barrier_epochs[tag] = self._barrier_epochs.get(tag, 0) + 1
+        with _telemetry.span('barrier', kind='collective', tag=tag, seq=n):
+            self._barrier_impl(timeout, tag, n)
+
+    def _barrier_impl(self, timeout, tag, n):
         store = self._store()
         key = '%s/barrier/%s/%s/%d' % (_KEYS, self._channel, tag, n)
         # the last to arrive opens the barrier for all
         if store.add(key, 1) == self.world_size:
             store.set(key + '/open', b'1')
+
+        def check_peers():
+            for p in range(self.world_size):
+                self._raise_if_peer_dead(
+                    p, 'barrier %r epoch %d' % (tag, n))
+
         if not self._wait_key(store, key + '/open', Deadline(timeout),
-                              Backoff(initial=0.05, max_delay=1.0)):
+                              Backoff(initial=0.05, max_delay=1.0),
+                              between=check_peers):
             raise ChannelTimeout(
                 'barrier %r epoch %d: %d of %d processes arrived within '
                 '%.1fs' % (tag, n, store.add(key, 0), self.world_size,
@@ -346,19 +458,25 @@ class CommunicatorBase:
         payload = pickle.dumps(obj)
         deadline = Deadline(timeout)
         backoff = Backoff(initial=0.05, max_delay=1.0)
-        while True:
-            try:
-                store.set(key, payload)
-                break
-            except RuntimeError as e:
-                if self._key_state(store, key) == 'present':
+        with _telemetry.span('send_obj', kind='p2p', dest=dest, tag=tag,
+                             seq=seq):
+            while True:
+                try:
+                    if chaos._active is not None:
+                        chaos.before_send()  # delay_send / drop_send
+                    store.set(key, payload)
+                    if chaos._active is not None and chaos.duplicate_send():
+                        store.set(key, payload)  # at-least-once duplicate
                     break
-                if deadline.expired():
-                    raise ChannelTimeout(
-                        'send_obj to process %d (tag %s seq %d): publish '
-                        'kept failing for %.1fs (last: %r)'
-                        % (dest, tag, seq, timeout, e)) from e
-                backoff.sleep(deadline)
+                except RuntimeError as e:
+                    if self._key_state(store, key) == 'present':
+                        break
+                    if deadline.expired():
+                        raise ChannelTimeout(
+                            'send_obj to process %d (tag %s seq %d): '
+                            'publish kept failing for %.1fs (last: %r)'
+                            % (dest, tag, seq, timeout, e)) from e
+                    backoff.sleep(deadline)
         self._send_seq[stream] = seq + 1
         self._p2p_sent[key] = (stream, seq, time.monotonic())
         if len(self._p2p_sent) > 128:
@@ -374,16 +492,28 @@ class CommunicatorBase:
     def recv_obj(self, source, tag=0, timeout=120.0, channel=None):
         """The next object from process ``source`` on (tag, channel).
         The wait polls the store in backoff slices, none past the
-        ``timeout`` deadline; when nothing arrived it raises
-        :class:`ChannelTimeout` with the cursor NOT advanced, so the
+        ``timeout`` deadline, and between slices reads the sender's
+        heartbeat when :meth:`enable_peer_liveness` armed it: a dead
+        sender raises :class:`PeerDeadError` as soon as its heartbeat
+        stalls, a message that merely never came :class:`ChannelTimeout`
+        at the deadline.  Either way the cursor is NOT advanced, so the
         call can be retried."""
+        if chaos._active is not None:
+            chaos.on_recv()  # kill_recv
         store = self._store()
         channel = channel or self._channel
         stream = (source, tag, channel)
         seq = self._recv_seq.get(stream, 0)
         key = self._p2p_key(channel, source, self.world_rank, tag, seq)
-        if not self._wait_key(store, key, Deadline(timeout),
-                              Backoff(initial=0.1, max_delay=2.0)):
+        with _telemetry.span('recv_obj', kind='p2p', source=source,
+                             tag=tag, seq=seq):
+            arrived = self._wait_key(
+                store, key, Deadline(timeout),
+                Backoff(initial=0.1, max_delay=2.0),
+                between=lambda: self._raise_if_peer_dead(
+                    source, 'recv_obj(source=%d, tag=%s, seq=%d)'
+                    % (source, tag, seq)))
+        if not arrived:
             raise ChannelTimeout(
                 'recv_obj from process %d (tag %s seq %d): nothing arrived '
                 'within %.1fs' % (source, tag, seq, timeout))

@@ -25,8 +25,9 @@ shard, record and byte offset, so the loader above can skip and count
 instead of training on corrupt samples.  A payload is ``np.savez`` of the
 example's arrays; ``np.savez`` stamps each zip member with the wall time,
 so two writes of one example are equal once decoded, not byte for byte.
-The fault-injection sites of the JAX reader (``data_stall``,
-``data_corrupt``) are not ported yet (ROADMAP.md A9).
+:meth:`ShardReader.read` carries the JAX reader's fault-injection sites
+(:mod:`~chainermn_tpu_torch.utils.chaos`): ``data_stall`` before the read,
+``data_corrupt`` on the payload before its crc check.
 """
 
 import glob as _glob
@@ -38,6 +39,7 @@ import zlib
 
 import numpy as np
 
+from chainermn_tpu_torch.utils import chaos as _chaos
 from chainermn_tpu_torch.utils import failure
 
 MAGIC = b'CMNSHRD1'
@@ -231,6 +233,8 @@ class ShardReader:
         if not 0 <= i < n:
             raise IndexError('record %d out of range for shard %s '
                              '(%d records)' % (i, self.path, n))
+        if _chaos._active is not None:
+            _chaos.on_data_read()  # data_stall: delayed shard read
         off = self.index['offsets'][i]
         head = os.pread(self._fd, _REC_HDR.size, off)
         if len(head) != _REC_HDR.size:
@@ -247,6 +251,8 @@ class ShardReader:
                 % (self.path, i, length, off, len(payload)),
                 shard=self.path, offset=off, record=i,
                 kind='truncated')
+        if _chaos._active is not None:
+            payload = _chaos.corrupt_record(payload)  # data_corrupt
         if self.verify and (zlib.crc32(payload) & 0xffffffff) != crc:
             raise failure.DataCorruptError(
                 'shard %s record %d failed crc32 verification at '

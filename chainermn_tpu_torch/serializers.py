@@ -17,9 +17,14 @@ Every integrity failure raises the typed
 :class:`~chainermn_tpu_torch.utils.failure.CheckpointCorruptError`
 naming the leaf.  A ZeRO-1 snapshot resumes at another process count
 (:func:`resume_updater`'s elastic reshard); the manifest records the
-writing topology (``mesh_shape``).  Orbax checkpoints, asynchronous
-checkpoints and the fault-injection hooks are not ported yet
-(ROADMAP.md A9).
+writing topology (``mesh_shape``).  :func:`save_npz` carries the chaos
+checkpoint sites of the JAX package (``ckpt_kill`` / ``ckpt_stall``
+between the fsync and the rename, ``ckpt_truncate`` / ``ckpt_flip``
+after it).  The preemption handler, the asynchronous writer and the
+resume walk over a snapshot chain are
+:mod:`chainermn_tpu_torch.training.recovery`.  Orbax checkpoints (the
+torch counterpart is ``torch.distributed.checkpoint``) are not ported
+yet (ROADMAP.md A9).
 
 Leaves are numpy arrays, except that a bfloat16 leaf is read back as a
 CPU ``torch.bfloat16`` tensor: numpy has no such dtype (the JAX package
@@ -43,6 +48,7 @@ import torch.distributed as dist
 from chainermn_tpu_torch.models.flax_weights import (
     _leaves, gather_leaf, load_flax_variables, shard_leaf,
     to_flax_variables)
+from chainermn_tpu_torch.utils import chaos as _chaos
 from chainermn_tpu_torch.utils.failure import CheckpointCorruptError
 
 #: Reserved npz key holding the JSON manifest (uint8 bytes); user trees
@@ -152,7 +158,11 @@ def save_npz(path, tree, mesh_shape=None):
         np.savez(f, **stored)
         f.flush()
         os.fsync(f.fileno())
+    if _chaos._active is not None:  # ckpt_kill / ckpt_stall: mid-write
+        _chaos.on_checkpoint_write(tmp)
     os.replace(tmp, path)
+    if _chaos._active is not None:  # ckpt_truncate / ckpt_flip
+        _chaos.corrupt_checkpoint(path)
     return path
 
 

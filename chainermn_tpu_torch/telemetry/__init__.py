@@ -4,10 +4,14 @@ registry -- the core the serving path reads.
 Counterpart of ``chainermn_tpu/telemetry/__init__.py``: :func:`active`,
 :func:`enabled`, :func:`enable`, :func:`disable`, :func:`span`,
 :func:`event`, :func:`request_stage`, :func:`request_event`,
-:func:`registry` and :func:`flush`, over the :class:`Recorder` of
-:mod:`~chainermn_tpu_torch.telemetry.recorder`; and
-:mod:`~chainermn_tpu_torch.telemetry.report`'s ``request_traces`` /
-``request_summary``.
+:func:`registry`, :func:`flush` and :func:`dump_flight` (the crash-safe
+flight record, ``flight-rank<N>.json``), over the :class:`Recorder` of
+:mod:`~chainermn_tpu_torch.telemetry.recorder`;
+:mod:`~chainermn_tpu_torch.telemetry.report` (the offline views of a
+capture), :mod:`~chainermn_tpu_torch.telemetry.diagnosis` (the doctor:
+collective skew, stragglers, the crash post-mortem from flight records
+and heartbeats) and :mod:`~chainermn_tpu_torch.telemetry.goodput` (the
+share of a supervised run's wall clock that trained).
 
 Activation is programmatic (``telemetry.enable()`` for an in-memory
 session, ``telemetry.enable(outdir)`` to flush to a directory) or from
@@ -22,16 +26,16 @@ which ``StandardUpdater`` calls)::
 Disabled, :func:`span` and :func:`event` cost one function call and
 return a preallocated no-op context.
 
-Not ported yet (ROADMAP.md A9): the SLO monitor (``slo``), the
-cross-rank ``diagnosis`` and ``goodput``, the ``python -m`` report CLI
-and the crash-safe flight recorder (``dump_flight``); none of them
-exists here.
+A session with an output directory flushes at interpreter exit.  Not
+ported yet (ROADMAP.md A9): the SLO monitor (``slo``) and the ``python
+-m`` telemetry CLI.
 """
 
+import atexit
 import os
 
 from chainermn_tpu_torch.telemetry.recorder import (  # noqa: F401
-    Counter, Gauge, Histogram, NULL_SPAN, Recorder, Registry,
+    Counter, FLIGHT_RING, Gauge, Histogram, NULL_SPAN, Recorder, Registry,
     escape_help, escape_label_value, snapshot_to_prometheus)
 
 ENV_VAR = 'CHAINERMN_TPU_TELEMETRY'
@@ -58,9 +62,21 @@ def enable(outdir=None, sync_fences=False):
     global _active
     if _active is None:
         _active = Recorder(outdir=outdir, sync_fences=sync_fences)
+        if outdir is not None:
+            atexit.register(_flush_at_exit)
     elif outdir is not None and _active.outdir is None:
         _active.outdir = outdir
+        atexit.register(_flush_at_exit)
     return _active
+
+
+def _flush_at_exit():
+    rec = _active
+    if rec is not None and rec.outdir is not None:
+        try:
+            rec.flush()
+        except Exception:
+            pass  # interpreter teardown: never mask the real exit
 
 
 def disable():
@@ -131,3 +147,15 @@ def registry():
 def flush(outdir=None):
     rec = _active
     return rec.flush(outdir) if rec is not None else None
+
+
+def dump_flight(reason, outdir=None, blocking=True, **attrs):
+    """Write this rank's crash-safe flight record
+    (:meth:`Recorder.dump_flight`).  Signal handlers must pass
+    ``blocking=False``.  None when telemetry is off or in-memory; never
+    raises."""
+    rec = _active
+    if rec is None:
+        return None
+    return rec.dump_flight(reason, outdir=outdir, blocking=blocking,
+                           **attrs)

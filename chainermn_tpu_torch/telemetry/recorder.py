@@ -1,10 +1,11 @@
 """Span/event recorder and metrics registry.
 
-Counterpart of the part of ``chainermn_tpu/telemetry/recorder.py`` the
-serving path uses: :class:`Counter`, :class:`Gauge`, :class:`Histogram`
-(raw samples, nearest-rank p50/p90/p99), :class:`Registry`,
+Counterpart of ``chainermn_tpu/telemetry/recorder.py``:
+:class:`Counter`, :class:`Gauge`, :class:`Histogram` (raw samples,
+nearest-rank p50/p90/p99), :class:`Registry`,
 :func:`snapshot_to_prometheus`, and :class:`Recorder` with ``span`` /
-``event`` / ``child_span`` / ``now`` / ``flush``.
+``event`` / ``child_span`` / ``now`` / ``flush`` and the crash-safe
+flight recorder (``dump_flight``).
 
 - **Zero cost when off.**  Call sites go through the package-level
   functions of :mod:`chainermn_tpu_torch.telemetry`, whose disabled path
@@ -28,10 +29,15 @@ Event-log schema (JSONL, one file per rank, first line ``meta``)::
     {"type": "event", "name": "weight_swap", "kind": "serve",
      "t": <wall s>, "rank": 0, ...attrs}
 
-The flight recorder (``dump_flight``, the ring of the last records, open
-spans) and the streaming listeners of the SLO monitor are ROADMAP.md A9.
+The flight recorder keeps the last :data:`FLIGHT_RING` records, the
+spans open right now and the newest closed collective and p2p spans;
+``dump_flight`` writes them as ``flight-rank<N>.json`` (the JAX
+package's schema) when a process dies or detects a death.  The
+streaming listeners of the SLO monitor are not ported yet (ROADMAP.md
+A9).
 """
 
+import collections
 import contextlib
 import json
 import os
@@ -43,6 +49,8 @@ import time
 MAX_SAMPLES = 65536
 #: event-log retention cap per rank (the newest window wins)
 MAX_EVENTS = 1 << 20
+#: flight-recorder ring size: the last N records a crash dump keeps
+FLIGHT_RING = 256
 
 
 def _percentile(sorted_vals, q):
@@ -305,7 +313,8 @@ class Recorder:
     """One process's telemetry session: spans, events, metrics, and the
     per-rank JSONL / JSON flush."""
 
-    def __init__(self, outdir=None, sync_fences=False):
+    def __init__(self, outdir=None, sync_fences=False,
+                 flight_ring=FLIGHT_RING):
         self.outdir = outdir
         self.sync_fences = bool(sync_fences)
         self.registry = Registry()
@@ -316,6 +325,19 @@ class Recorder:
         self._wall0 = time.time()
         self._flushed_upto = 0
         self._meta_written = False
+        # the flight recorder: the last records, the spans open now (where
+        # this rank is blocked), the newest closed collective / p2p span
+        self._flight = collections.deque(maxlen=flight_ring)
+        self._open_spans = {}
+        self._last_collective = None
+        self._last_p2p = None
+        #: the heartbeat directory ``enable_peer_liveness`` hands over, so
+        #: the doctor finds the beats that pair with this capture
+        self.liveness_dir = None
+        self.flight_dumps = 0
+        #: named zero-argument callables whose value every flight dump
+        #: embeds (live state tables of components)
+        self.flight_sources = {}
 
     def now(self):
         return self._wall0 + (time.perf_counter() - self._mono0)
@@ -323,6 +345,12 @@ class Recorder:
     def _append(self, rec):
         with self._lock:
             self.events.append(rec)
+            self._flight.append(rec)
+            kind = rec.get('kind')
+            if kind == 'collective':
+                self._last_collective = rec
+            elif kind == 'p2p':
+                self._last_p2p = rec
             if len(self.events) > MAX_EVENTS:
                 # flushed records are on disk already: trim the front and
                 # move the flush cursor with it
@@ -334,9 +362,16 @@ class Recorder:
     def span(self, name, kind='generic', **attrs):
         handle = _SpanHandle(self, attrs)
         t0 = self.now()
+        # the handle's live attrs: what sp.set adds mid-span shows in a
+        # dump of the open span.  No lock (an id-keyed dict set / del is
+        # atomic under the interpreter lock); dump_flight tolerates a
+        # view that is a little stale
+        self._open_spans[id(handle)] = {'name': name, 'kind': kind,
+                                        't0': t0, 'attrs': attrs}
         try:
             yield handle
         finally:
+            self._open_spans.pop(id(handle), None)
             rec = {'type': 'span', 'name': name, 'kind': kind,
                    't0': t0, 't1': self.now()}
             if handle.synced:
@@ -371,20 +406,30 @@ class Recorder:
         import torch.distributed as dist
         return dist.get_rank() if dist.is_initialized() else 0
 
-    def flush(self, outdir=None):
+    def flush(self, outdir=None, blocking=True):
         """Append the unwritten events to ``events-rank<N>.jsonl`` and
         rewrite ``metrics-rank<N>.json`` under ``outdir`` (default the
         session's); incremental and idempotent.  Returns the event log's
-        path, or None for an in-memory session."""
+        path, or None for an in-memory session.
+
+        ``blocking=False`` is the signal-handler mode: a handler runs
+        between bytecodes of the interrupted thread, which may hold the
+        recorder's lock (taken at every span close), so a blocking
+        acquire would deadlock; when the lock is taken the flush is
+        skipped (returns None) and the next one writes the events."""
         outdir = outdir or self.outdir
         if outdir is None:
             return None
         os.makedirs(outdir, exist_ok=True)
         rank = self._rank()
         epath = os.path.join(outdir, 'events-rank%d.jsonl' % rank)
-        with self._lock:
+        if not self._lock.acquire(blocking=blocking):
+            return None
+        try:
             pending = self.events[self._flushed_upto:]
             self._flushed_upto = len(self.events)
+        finally:
+            self._lock.release()
         with open(epath, 'a') as f:
             if not self._meta_written:
                 f.write(json.dumps({
@@ -401,3 +446,80 @@ class Recorder:
                        'metrics': self.registry.snapshot()}, f)
         os.replace(tmp, mpath)
         return epath
+
+    def dump_flight(self, reason, outdir=None, blocking=True, **attrs):
+        """Write the crash-safe black box, ``flight-rank<N>.json`` (tmp +
+        fsync + rename, with the ``complete`` sentinel): the last
+        :data:`FLIGHT_RING` records, every span open now, the newest
+        closed collective and p2p spans, the ``reason`` and ``attrs``,
+        and the value of each :attr:`flight_sources` entry.  The event
+        log is flushed first.  The newest dump wins (one file per rank);
+        ``n_dumps`` counts this process's dumps.  Returns the path, or
+        None for an in-memory session or a failed dump: it never raises.
+
+        ``blocking=False`` is required from signal handlers: the lock is
+        not re-entrant, so when it is taken the flush is skipped, the ring
+        is copied without it (the copy is retried if another thread
+        mutates it meanwhile) and the record says ``degraded: true``."""
+        outdir = outdir or self.outdir
+        if outdir is None:
+            return None
+        try:
+            try:
+                self.flush(outdir, blocking=blocking)
+            except Exception:
+                pass  # the flight record must still be attempted
+            rank = self._rank()
+            locked = self._lock.acquire(blocking=blocking)
+            try:
+                ring = []
+                for _ in range(3):
+                    try:
+                        ring = list(self._flight)
+                        break
+                    except RuntimeError:
+                        continue  # mutated mid-copy (lock-free path)
+                last_coll = (dict(self._last_collective)
+                             if self._last_collective else None)
+                last_p2p = dict(self._last_p2p) if self._last_p2p else None
+            finally:
+                if locked:
+                    self._lock.release()
+            open_spans = [
+                dict({k: v for k, v in rec.items() if k != 'attrs'},
+                     **(rec.get('attrs') or {}))
+                for rec in list(self._open_spans.values())]
+            self.flight_dumps += 1
+            record = {
+                'rank': rank,
+                'pid': os.getpid(),
+                'reason': reason,
+                't': self.now(),
+                'wall0': self._wall0,
+                'n_dumps': self.flight_dumps,
+                'liveness_dir': self.liveness_dir,
+                'last_collective': last_coll,
+                'last_p2p': last_p2p,
+                'open_spans': open_spans,
+                'ring': ring,
+            }
+            if attrs:
+                record['attrs'] = attrs
+            for name, fn in list(self.flight_sources.items()):
+                try:
+                    record[name] = fn()
+                except Exception:
+                    continue
+            if not locked:
+                record['degraded'] = True
+            record['complete'] = True  # the write-complete sentinel
+            path = os.path.join(outdir, 'flight-rank%d.json' % rank)
+            tmp = path + '.tmp.%d' % os.getpid()
+            with open(tmp, 'w') as f:
+                json.dump(record, f, default=repr)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
+            return path
+        except Exception:
+            return None  # a failing dump must never mask the fault

@@ -12,11 +12,17 @@ Counterpart of part of ``chainermn_tpu/telemetry/report.py``:
   ``kind='request'`` records, and the summary that names the worst
   request's stages;
 - :func:`pipeline_summary`, the per-stage bubble rows of the pipeline
-  updaters' ``pipeline:schedule`` events.
+  updaters' ``pipeline:schedule`` events;
+- what the doctor (:mod:`~chainermn_tpu_torch.telemetry.diagnosis`)
+  reads: the per-rank metrics snapshots and their merge
+  (:func:`load_rank_metrics`, :func:`aggregate_metrics`), the per-step
+  phase table (:func:`step_table`), the input-bound verdict
+  (:func:`input_bound_stats`) and the serving summary
+  (:func:`serve_summary`).
 
-The rest of the JAX package's report (the merged step timeline, the
-input-bound verdict, the doctor, the Prometheus export of a capture
-directory) is ROADMAP.md A9.
+The rest of the JAX package's report (``overlap_stats``,
+``build_report`` / ``render_text`` / ``export`` of a capture directory,
+the Prometheus validation and the ``python -m`` CLI) is ROADMAP.md A9.
 """
 
 import glob
@@ -29,6 +35,15 @@ from chainermn_tpu_torch.telemetry.recorder import _percentile
 #: ``data_decode`` is the streaming loader's per-batch decode wait
 STEP_PHASES = ('data_decode', 'host_batch_prep', 'h2d',
                'jitted_step', 'metrics_sync')
+
+#: serve-phase vocabulary: the serving engines' per-batch spans and the
+#: registry histograms of the same names
+SERVE_PHASES = ('serve_queue_wait', 'serve_h2d', 'serve_execute',
+                'serve_warmup', 'serve_prefill', 'serve_decode',
+                'serve_draft', 'serve_verify')
+
+#: span kinds audited for exposure (goodput's exposed collective time)
+COLLECTIVE_KINDS = ('collective',)
 
 #: per-request stage vocabulary, in lifecycle order
 REQUEST_STAGES = ('queue_wait', 'bucket_pack', 'prefill', 'decode',
@@ -209,6 +224,136 @@ def load_rank_logs(outdir):
     return metas, spans, events, bad
 
 
+def load_rank_metrics(outdir):
+    """Per-rank metrics snapshots (``metrics-rank*.json``)."""
+    out = []
+    for path in sorted(glob.glob(
+            os.path.join(outdir, 'metrics-rank*.json'))):
+        try:
+            with open(path) as f:
+                out.append(json.load(f))
+        except (ValueError, OSError):
+            continue
+    return out
+
+
+def aggregate_metrics(rank_metrics):
+    """One merged snapshot from per-rank snapshots: counters sum,
+    gauges keep per-rank values plus the max, histograms merge raw
+    samples and recompute the percentile summary (averaging per-rank
+    percentiles would be wrong for skewed distributions)."""
+    merged = {}
+    for rm in rank_metrics:
+        for name, snap in (rm.get('metrics') or {}).items():
+            kind = snap.get('type')
+            cur = merged.get(name)
+            if kind == 'counter':
+                if cur is None:
+                    cur = merged[name] = {'type': 'counter',
+                                          'value': 0.0}
+                cur['value'] += snap.get('value') or 0.0
+            elif kind == 'gauge':
+                if cur is None:
+                    cur = merged[name] = {'type': 'gauge',
+                                          'value': None,
+                                          'per_rank': []}
+                v = snap.get('value')
+                cur['per_rank'].append(v)
+                if v is not None:
+                    cur['value'] = (v if cur['value'] is None
+                                    else max(cur['value'], v))
+            elif kind == 'histogram':
+                if cur is None:
+                    cur = merged[name] = {'type': 'histogram',
+                                          'count': 0, 'sum': 0.0,
+                                          'samples': []}
+                cur['count'] += snap.get('count') or 0
+                cur['sum'] += snap.get('sum') or 0.0
+                cur['samples'].extend(snap.get('samples') or [])
+            if name in merged and snap.get('help'):
+                merged[name].setdefault('help', snap['help'])
+    for snap in merged.values():
+        if snap.get('type') == 'histogram':
+            s = sorted(snap['samples'])
+            snap['summary'] = ({} if not s else {
+                'count': snap['count'], 'sum': snap['sum'],
+                'min': s[0], 'max': s[-1],
+                'mean': sum(s) / len(s),
+                'p50': _percentile(s, 0.50),
+                'p90': _percentile(s, 0.90),
+                'p99': _percentile(s, 0.99)})
+    return merged
+
+
+def step_table(spans):
+    """Per-(rank, iteration) phase durations from the step-phase
+    spans both updaters emit.  Rows sorted by (iteration, rank)."""
+    rows = {}
+    for s in spans:
+        if s.get('name') not in STEP_PHASES or 'iteration' not in s:
+            continue
+        key = (int(s['iteration']), int(s.get('rank', 0)))
+        row = rows.setdefault(key, {'iteration': key[0],
+                                    'rank': key[1], 't0': s['t0']})
+        row[s['name'] + '_ms'] = round((s['t1'] - s['t0']) * 1e3, 3)
+        row['t0'] = min(row['t0'], s['t0'])
+    return [rows[k] for k in sorted(rows)]
+
+
+#: per-step input-side phases charged against the device step by the
+#: input-bound verdict (decode overlaps prep when the loader runs
+#: under a prefetch iterator, so prep -- the span on the consuming
+#: thread -- is the charged one; data_decode is reported alongside)
+INPUT_PHASES = ('host_batch_prep',)
+
+
+def input_bound_stats(steps, warmup=1):
+    """The input-bound verdict of a training capture: per-rank p50 of
+    the input-side phases (``host_batch_prep``) vs the device step
+    (``jitted_step``), worst rank reported.  ``input_bound`` is True
+    when input prep's p50 meets or exceeds the step's -- the loader,
+    not the device, is pacing the run.  The first ``warmup``
+    iterations are exempt per (phase, rank), mirroring the doctor's
+    compile-step discipline.  ``None`` when the capture has no
+    step-phase rows to judge."""
+    per_rank = {}
+    for row in steps:
+        if int(row.get('iteration', 0)) < warmup:
+            continue
+        d = per_rank.setdefault(int(row.get('rank', 0)),
+                                {'prep': [], 'step': [],
+                                 'decode': []})
+        prep = sum(row.get(p + '_ms', 0.0) for p in INPUT_PHASES)
+        if prep > 0.0:
+            d['prep'].append(prep)
+        if 'jitted_step_ms' in row:
+            d['step'].append(row['jitted_step_ms'])
+        if 'data_decode_ms' in row:
+            d['decode'].append(row['data_decode_ms'])
+    worst = None
+    for rank, d in sorted(per_rank.items()):
+        if not d['prep'] or not d['step']:
+            continue
+        prep50 = _percentile(sorted(d['prep']), 0.50)
+        step50 = _percentile(sorted(d['step']), 0.50)
+        frac = prep50 / max(prep50 + step50, 1e-9)
+        cand = {
+            'rank': rank,
+            'host_batch_prep_p50_ms': round(prep50, 3),
+            'jitted_step_p50_ms': round(step50, 3),
+            'data_decode_p50_ms': (
+                round(_percentile(sorted(d['decode']), 0.50), 3)
+                if d['decode'] else None),
+            'input_fraction': round(frac, 4),
+            'n_steps': len(d['step']),
+            'input_bound': prep50 >= step50,
+        }
+        if worst is None or cand['input_fraction'] > \
+                worst['input_fraction']:
+            worst = cand
+    return worst
+
+
 def pipeline_summary(events):
     """The pipeline view of a capture: one row per distinct pipelined
     step configuration, from the ``pipeline:schedule`` events the
@@ -253,3 +398,99 @@ def pipeline_summary(events):
                                           for b in per_stage],
         })
     return out or None
+
+
+def serve_summary(metrics):
+    """The serving view of an aggregated metrics snapshot: request /
+    batch / shed totals and the latency / queue-wait / pad-waste
+    distributions the ``serve_*`` histograms carry (p50/p99 from the
+    merged raw samples).  ``None`` when the snapshot records no
+    serving activity -- the presence test the empty-capture checks
+    consult."""
+    if not metrics:
+        return None
+    serve = {k: v for k, v in metrics.items()
+             if k.startswith('serve_')}
+    if not serve:
+        return None
+
+    def summ(name):
+        return (serve.get(name) or {}).get('summary') or {}
+
+    def total(name):
+        return (serve.get(name) or {}).get('value') or 0.0
+
+    lat, wait, pad = (summ('serve_latency_seconds'),
+                      summ('serve_queue_wait'),
+                      summ('serve_pad_waste'))
+    # shed forensics: the admission layers bump a per-reason counter
+    # next to the aggregate, so an overload capture says WHY requests
+    # were turned away (queue_full vs deadline vs shutdown) -- only
+    # reasons that actually fired appear
+    shed_reasons = {
+        reason: total('serve_shed_%s_total' % reason)
+        for reason in ('queue_full', 'deadline', 'shutdown')
+        if ('serve_shed_%s_total' % reason) in serve}
+    out = {
+        'requests': total('serve_requests_total'),
+        'batches': total('serve_batches_total'),
+        'shed': total('serve_shed_total'),
+        'shed_reasons': shed_reasons or None,
+        'latency_ms': {
+            'count': lat.get('count', 0),
+            'p50': (lat.get('p50') or 0.0) * 1e3 if lat else None,
+            'p99': (lat.get('p99') or 0.0) * 1e3 if lat else None,
+        } if lat else None,
+        'queue_wait_ms': {
+            'p50': (wait.get('p50') or 0.0) * 1e3,
+            'p99': (wait.get('p99') or 0.0) * 1e3,
+        } if wait else None,
+        'pad_waste_mean': pad.get('mean') if pad else None,
+        'metrics': sorted(serve),
+    }
+    # the autoregressive-decode view (serving/generate.py): tokens
+    # generated, TTFT and inter-token distributions, and tokens/s
+    # derived from the decode-step histogram's own wall time (sum =
+    # mean * count -- raw samples, never an averaged percentile)
+    ttft = summ('serve_ttft_seconds')
+    itl = summ('serve_intertoken_seconds')
+    dstep = summ('serve_decode_seconds')
+    tokens = total('serve_tokens_total')
+    if tokens or ttft or itl:
+        decode_wall = ((dstep.get('mean') or 0.0)
+                       * dstep.get('count', 0)) if dstep else 0.0
+        # the gauge is named per the scheduler's vocabulary (no
+        # serve_ prefix), so read it off the full snapshot
+        gauge = metrics.get('active_slots') or {}
+        out['generate'] = {
+            'tokens': tokens,
+            'ttft_ms': {
+                'count': ttft.get('count', 0),
+                'p50': (ttft.get('p50') or 0.0) * 1e3,
+                'p99': (ttft.get('p99') or 0.0) * 1e3,
+            } if ttft else None,
+            'intertoken_ms': {
+                'count': itl.get('count', 0),
+                'p50': (itl.get('p50') or 0.0) * 1e3,
+                'p99': (itl.get('p99') or 0.0) * 1e3,
+            } if itl else None,
+            'decode_steps': dstep.get('count', 0) if dstep else 0,
+            'tokens_per_s': (tokens / decode_wall
+                             if tokens and decode_wall > 0 else None),
+            'active_slots': gauge.get('value'),
+        }
+        # the speculative-decoding view: draft tokens submitted to
+        # the target verify pass vs those whose target argmax agreed
+        # -- the rate is the amortization lever (accepted tokens per
+        # expensive target pass); ``None`` rate when the engine
+        # proposed nothing (non-speculative captures omit the block)
+        proposed = total('serve_draft_proposed_total')
+        accepted = total('serve_draft_accepted_total')
+        if 'serve_draft_proposed_total' in serve:
+            out['generate']['speculative'] = {
+                'draft_proposed': proposed,
+                'draft_accepted': accepted,
+                'accepted_draft_rate': (accepted / proposed
+                                        if proposed else None),
+            }
+    return out

@@ -32,6 +32,16 @@ card's work only when the session asked for fences
 (``telemetry.enable(sync_fences=True)``); then ``h2d`` and
 ``jitted_step`` wait for the card before they close.  With telemetry
 off each span is a no-op context and nothing waits.
+
+Fault injection (:mod:`~chainermn_tpu_torch.utils.chaos`), as in the JAX
+updater: ``on_step`` (``sigterm_step``, ``kill_step``, ``hang_step``,
+``slice_loss``) at the top of :meth:`StandardUpdater.update_core`, and
+``corrupt_batch`` (``nan_batch``) where a batch is collated.
+
+The JAX updater's device placement (``training/placement.py``: putting
+a host batch or a restored tree on a multi-host mesh with given
+shardings) has no counterpart: each process here drives one device and
+moves its own tensors with ``.to(device)``.
 """
 
 import contextlib
@@ -50,6 +60,7 @@ from chainermn_tpu_torch.parallel import zero as zero_mod
 from chainermn_tpu_torch.precision import all_finite
 from chainermn_tpu_torch.training.convert import concat_examples
 from chainermn_tpu_torch.training.iterators import DevicePrefetchIterator
+from chainermn_tpu_torch.utils import chaos as _chaos
 
 
 def _spec_leaves(tree):
@@ -274,6 +285,8 @@ class StandardUpdater:
                           if self.policy is not None else None))
         if isinstance(arrays, dict):
             arrays = tuple(arrays.values())
+        if _chaos._active is not None:  # nan_batch fault injection
+            arrays = _chaos.corrupt_batch(arrays)
         return arrays
 
     def _to_device(self, host, non_blocking=False):
@@ -366,6 +379,8 @@ class StandardUpdater:
         """One iteration on device tensors; returns the averaged metrics
         as 0-d tensors (no host sync, except the loss-scale verdict and
         a fenced ``jitted_step`` span)."""
+        if _chaos._active is not None:  # sigterm / kill / hang_step
+            _chaos.on_step(self.iteration)
         with _telemetry.span('jitted_step', kind='compute',
                              iteration=self.iteration) as sp:
             metrics = self._step(arrays)

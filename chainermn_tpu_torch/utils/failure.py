@@ -1,27 +1,66 @@
-"""Typed failures of the port (the subset its ported paths raise), the
-bounded-wait arithmetic of the eager channel, and the numeric
-divergence detector.
+"""Failure detection and the recovery-side failure taxonomy.
 
 Counterpart of ``chainermn_tpu/utils/failure.py``: the same class names,
-bases, ``status_name`` codes and constructor arguments, so a caller
-catches the same types on either package.  The JAX package's
-constructors also drop a telemetry flight record; the flight recorder
-is not ported yet (ROADMAP.md A9), so these only carry their fields.
-:func:`check_finite` and :class:`NanGuard` run over the module's
-parameters (the updater's flax-named ``params``) and the observation.
+bases, ``status_name`` codes, constructor arguments, exit codes and file
+formats, so a caller catches the same types on either package and each
+package reads the other's heartbeat files.
+
+- typed failures: :class:`ChannelTimeout` (a bounded wait expired, the
+  peer MAY be alive) against :class:`PeerDeadError` (the peer is
+  positively dead: its heartbeat went stale), :class:`ReplicaDeadError`,
+  :class:`CheckpointCorruptError`, :class:`DataCorruptError`,
+  :class:`OverloadError`, :class:`WeightSwapError`.  Each constructor but
+  ``OverloadError``'s drops the telemetry flight record
+  (:func:`_flight_dump`) where telemetry writes to a directory;
+- the exit-code taxonomy (:data:`EXIT_NAMES`, :func:`exit_code_for`,
+  :func:`classify_exit`): the typed failures flattened to the one channel
+  that survives a process death, read by the supervisor
+  (:mod:`chainermn_tpu_torch.training.supervisor`);
+- liveness: :class:`Heartbeat` (``heartbeat-<rank>.json`` from a daemon
+  thread), :func:`read_heartbeat`, :func:`detect_stall`,
+  :func:`heartbeat_extension`;
+- bounded waits: :class:`Deadline` and :class:`Backoff`;
+- numeric divergence: :func:`check_finite` and :class:`NanGuard`, over
+  the module's parameters (the updater's flax-named ``params``) and the
+  observation.
+
+The JAX package's ``jax.process_index()`` is the rank of the default
+``torch.distributed`` group here, 0 when none is initialised.
 """
 
 import json
 import math
 import os
 import random
+import signal as _signal
 import sys
+import threading
 import time
 
 import torch
 import torch.distributed as dist
 
 from chainermn_tpu_torch.models.flax_weights import _leaves
+
+
+def process_index():
+    """This process's rank in the default ``torch.distributed`` group, 0
+    when none is initialised (the JAX package's
+    ``jax.process_index()``)."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _flight_dump(reason, **attrs):
+    """Drop the telemetry flight record at a typed-failure raise site:
+    the typed constructors call this, so every raise path leaves the
+    black box behind.  A no-op when telemetry is off or in-memory; never
+    raises (a failing dump must not mask the typed verdict)."""
+    try:
+        from chainermn_tpu_torch import telemetry
+        if telemetry._active is not None:
+            telemetry.dump_flight(reason, **attrs)
+    except Exception:
+        pass
 
 
 class CommFailure(RuntimeError):
@@ -33,11 +72,47 @@ class CommFailure(RuntimeError):
 class ChannelTimeout(CommFailure, TimeoutError):
     """A bounded wait expired without evidence that the peer is dead.
     Retryable: the sequence cursor of the waiting stream is never
-    advanced on timeout, so the same call can simply be issued again.
-    (Telling a dead peer from a slow one, ``PeerDeadError``, needs the
-    liveness layer: ROADMAP.md A9.)"""
+    advanced on timeout, so the same call can simply be issued again."""
 
     status_name = 'CMN_TIMEOUT'
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        _flight_dump('ChannelTimeout',
+                     message=str(args[0]) if args else '')
+
+
+class PeerDeadError(CommFailure):
+    """A peer process is POSITIVELY detected dead (its heartbeat file
+    went stale past the liveness window, or it is known to have exited).
+    Unlike :class:`ChannelTimeout` this verdict is terminal for the
+    conversation: retrying the same wait cannot succeed.
+
+    ``process_index`` names the dead peer."""
+
+    status_name = 'CMN_PEER_DEAD'
+
+    def __init__(self, message, process_index=None):
+        super().__init__(message)
+        self.process_index = process_index
+        _flight_dump('PeerDeadError', message=str(message),
+                     process_index=process_index)
+
+
+class ReplicaDeadError(CommFailure):
+    """A serving replica is POSITIVELY detected dead (its output stream
+    hit EOF, its process exited, or a call found the connection closed).
+    ``replica`` names it; ``request_ids`` lists the in-flight requests it
+    was carrying when it died (the requeue worklist)."""
+
+    status_name = 'CMN_REPLICA_DEAD'
+
+    def __init__(self, message, replica=None, request_ids=()):
+        super().__init__(message)
+        self.replica = replica
+        self.request_ids = tuple(request_ids)
+        _flight_dump('ReplicaDeadError', message=str(message),
+                     replica=replica, request_ids=list(self.request_ids))
 
 
 class OverloadError(CommFailure):
@@ -47,7 +122,8 @@ class OverloadError(CommFailure):
 
     ``reason`` classifies the shed: ``'queue_full'`` | ``'deadline'`` |
     ``'shutdown'``.  ``queue_depth`` records the depth observed at the
-    decision.
+    decision.  Unlike the other typed constructors this one drops no
+    flight record: sheds fire at request rate when saturated.
     """
 
     status_name = 'CMN_OVERLOAD'
@@ -77,6 +153,8 @@ class CheckpointCorruptError(ValueError):
         self.path = path
         self.leaf = leaf
         self.kind = kind
+        _flight_dump('CheckpointCorruptError', message=str(message),
+                     path=path, leaf=leaf, corruption_kind=kind)
 
 
 class DataCorruptError(ValueError):
@@ -101,6 +179,9 @@ class DataCorruptError(ValueError):
         self.offset = offset
         self.record = record
         self.kind = kind
+        _flight_dump('DataCorruptError', message=str(message),
+                     shard=shard, offset=offset, record=record,
+                     corruption_kind=kind)
 
 
 class WeightSwapError(RuntimeError):
@@ -113,8 +194,15 @@ class WeightSwapError(RuntimeError):
     version that was refused."""
 
     def __init__(self, message, version=None):
+        _flight_dump('weight_swap_failed', version=version)
         super().__init__(message)
         self.version = version
+
+
+class CheckpointSkippedWarning(UserWarning):
+    """Emitted (``warnings.warn``) each time ``auto_resume`` skips a
+    corrupt or incomplete snapshot while walking the chain newest to
+    oldest: the typed record that a fallback happened and why."""
 
 
 class Deadline:
@@ -205,6 +293,70 @@ class DivergenceError(RuntimeError):
     """Raised by NanGuard when training produces non-finite values."""
 
 
+# -- the exit-code taxonomy ------------------------------------------------
+#
+# The typed failures flattened to the one channel that survives a process
+# death, its exit status: the supervisor classifies a dead worker from
+# this code first and cross-checks the telemetry doctor's verdict second;
+# ``worker_main`` maps the exceptions on the way out.  The codes live in
+# the 70-79 band, clear of shells (126/127), signals (128+N) and the chaos
+# injector's hard-kill defaults (42/43).
+
+EXIT_OK = 0
+EXIT_UNCAUGHT = 70         # untyped exception escaped worker_main
+EXIT_PREEMPTED = 71        # clean SIGTERM evacuation, checkpoint written
+EXIT_DIVERGENCE = 72       # NanGuard verdict (DivergenceError)
+EXIT_CHANNEL_TIMEOUT = 73  # bounded wait expired (ChannelTimeout)
+EXIT_PEER_DEAD = 74        # typed peer death observed (PeerDeadError)
+EXIT_CKPT_CORRUPT = 75     # checkpoint trust failure (CheckpointCorruptError)
+
+#: exit status -> taxonomy name (the supervisor's first classifier)
+EXIT_NAMES = {
+    EXIT_OK: 'clean',
+    EXIT_UNCAUGHT: 'uncaught',
+    EXIT_PREEMPTED: 'preempted',
+    EXIT_DIVERGENCE: 'divergence',
+    EXIT_CHANNEL_TIMEOUT: 'channel_timeout',
+    EXIT_PEER_DEAD: 'peer_dead',
+    EXIT_CKPT_CORRUPT: 'checkpoint_corrupt',
+}
+
+
+def exit_code_for(exc):
+    """The taxonomy exit code of an exception: typed failures map to
+    their own code, anything else to :data:`EXIT_UNCAUGHT` (most
+    specific first: a ``PeerDeadError`` is a ``CommFailure``, a
+    ``ChannelTimeout`` also a ``TimeoutError``)."""
+    if isinstance(exc, PeerDeadError):
+        return EXIT_PEER_DEAD
+    if isinstance(exc, ChannelTimeout):
+        return EXIT_CHANNEL_TIMEOUT
+    if isinstance(exc, CheckpointCorruptError):
+        return EXIT_CKPT_CORRUPT
+    if isinstance(exc, DivergenceError):
+        return EXIT_DIVERGENCE
+    return EXIT_UNCAUGHT
+
+
+def classify_exit(returncode):
+    """The taxonomy name of a worker's exit status: ``'running'`` (None),
+    ``'clean'``, a name from :data:`EXIT_NAMES`, ``'signal:NAME'`` for a
+    signal death (``Popen`` reports it negative), else ``'crash'`` (the
+    chaos injector's hard-kill codes 42/43 land here: an ``os._exit``
+    mid-step looks like a machine loss, which the flight records
+    refine)."""
+    if returncode is None:
+        return 'running'
+    if returncode == 0:
+        return 'clean'
+    if returncode < 0:
+        try:
+            return 'signal:' + _signal.Signals(-returncode).name
+        except ValueError:
+            return 'signal:%d' % -returncode
+    return EXIT_NAMES.get(returncode, 'crash')
+
+
 def check_finite(tree, prefix=''):
     """The paths (``prefix`` + keys joined by ``/``) of the non-finite
     floating leaves of a nested dict of tensors or arrays (an empty list
@@ -253,10 +405,10 @@ class NanGuard:
             path = serializers.save_npz(
                 os.path.join(out, 'divergence_iter_%d' % it),
                 serializers.updater_state(trainer.updater))
-            rank = dist.get_rank() if dist.is_initialized() else 0
             with open(os.path.join(out, 'divergence.json'), 'w') as f:
                 json.dump({'iteration': it, 'bad': bad,
-                           'checkpoint': path, 'rank': rank}, f)
+                           'checkpoint': path, 'rank': process_index()},
+                          f)
             self.divergence_checkpoint = path
         except Exception as e:  # forensics must not mask the verdict
             sys.stderr.write(
@@ -284,3 +436,110 @@ class NanGuard:
             if self.raise_on_divergence:
                 raise DivergenceError(msg)
             sys.stderr.write('NanGuard: %s\n' % msg)
+
+
+class Heartbeat:
+    """Per-process liveness file, written from a daemon thread.
+
+    ``path`` gets JSON ``{pid, process_index, time, iteration, stopped}``
+    every ``interval`` seconds (tmp + rename, so a reader never sees a
+    torn beat); pair it with :func:`detect_stall` on any observer."""
+
+    def __init__(self, path, interval=10.0):
+        self.path = path
+        self.interval = interval
+        self.iteration = 0
+        self._stop = threading.Event()
+        self._thread = None
+
+    def start(self):
+        os.makedirs(os.path.dirname(os.path.abspath(self.path)),
+                    exist_ok=True)
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _write(self, stopped=False):
+        tmp = self.path + '.tmp'
+        with open(tmp, 'w') as f:
+            json.dump({'pid': os.getpid(),
+                       'process_index': process_index(),
+                       'time': time.time(),
+                       'iteration': self.iteration,
+                       'stopped': stopped}, f)
+        os.replace(tmp, self.path)
+
+    def _run(self):
+        while not self._stop.is_set():
+            try:
+                self._write()
+            except OSError:
+                pass
+            self._stop.wait(self.interval)
+
+    def beat(self, iteration=None):
+        """Stamp progress (called from the training loop)."""
+        if iteration is not None:
+            self.iteration = iteration
+
+    def stop(self):
+        """Stop the beat thread and stamp a final ``stopped: true`` beat,
+        so an observer tells a clean exit from a stall.  The final write
+        is guarded as the thread's: teardown on a removed or read-only
+        directory must not crash the process."""
+        self._stop.set()
+        if self._thread:
+            self._thread.join(timeout=5)
+            try:
+                self._write(stopped=True)
+            except OSError:
+                pass
+
+
+def read_heartbeat(path):
+    """The parsed heartbeat at ``path``, or None when the file is missing
+    or unreadable."""
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def detect_stall(path, timeout=60.0, now=None, missing='stalled'):
+    """True if the heartbeat at ``path`` is older than ``timeout``
+    seconds.
+
+    ``missing`` decides the never-started case (no file, or an unreadable
+    one): ``'stalled'`` (default: no beat is a stall) or ``'alive'`` (the
+    start-up grace the supervisor uses while a new worker boots)."""
+    if missing not in ('stalled', 'alive'):
+        raise ValueError(
+            "detect_stall: missing= must be 'stalled' or 'alive', "
+            'got %r' % (missing,))
+    beat = read_heartbeat(path)
+    if beat is None:
+        return missing == 'stalled'
+    now = time.time() if now is None else now
+    return (now - beat.get('time', 0)) > timeout
+
+
+def heartbeat_extension(out_dir, interval=10.0):
+    """Trainer extension: one heartbeat file per process under
+    ``out_dir`` (``heartbeat-<rank>.json``), the iteration stamped each
+    call; its ``finalize`` (called by the Trainer when the run ends)
+    stops the thread, so a long-lived process does not beat "alive"
+    forever."""
+    hb = Heartbeat(os.path.join(out_dir,
+                                'heartbeat-%d.json' % process_index()),
+                   interval=interval)
+    hb.start()
+
+    def ext(trainer):
+        hb.beat(trainer.updater.iteration)
+    ext.trigger = (1, 'iteration')
+    ext.priority = 20
+    ext.name = 'heartbeat'
+    ext.heartbeat = hb
+    ext.finalize = hb.stop
+    return ext

@@ -310,7 +310,26 @@ Phases, each printing its own lines; any failure exits non-zero:
     under ``StandardUpdater(zero=True, policy=Policy.bf16())``, step p50
     and rates, peak memory, launches; the LM's snapshot after step 5
     resumed through ``resume_updater(elastic=True)`` into a fresh
-    updater, the following steps bit-equal to the straight run.
+    updater, the following steps bit-equal to the straight run;
+15. fault-tolerant training (``supervised``): phase 10's LM training path
+    (full width, 8 x 1024 tokens a step, Adam) as the custom worker of
+    ``training.supervisor.Supervisor(nprocs=1)`` (this script re-invoked
+    with ``--supervised-worker``: ``worker_main``, a heartbeat into
+    ``$CMN_SUP_LIVE``, ``PreemptionHandler`` with asynchronous writes,
+    ``auto_resume``, NCCL in a world of one), 8 calls under (a) no fault,
+    (b) ``sigterm_step=@3``, (c) ``kill_step=@5`` with a checkpoint every
+    2 steps, (d) ``hang_step=@4``: each supervisor exits 0, the ledger
+    holds the failure's cause (``preempted``; ``killed`` at ``kill_step``
+    with the doctor agreeing; ``hang`` escalated SIGTERM -> SIGKILL), a
+    restart and the recovery at iteration 4, and every loss and the final
+    parameters' digest of (b)-(d) are bit-equal to (a)'s; the workers'
+    launch counts (written after every call, so a killed attempt leaves
+    them) are held per call and become the paths ``supervised_a`` ..
+    ``supervised_d``; it prints each MTTR, the goodput share
+    (``telemetry.goodput``), the start-up to the first step and its
+    split, the snapshot size, and in this process the step p50 with no
+    checkpoint, a synchronous one every step and an asynchronous one
+    every step.
 
 A kernel row's ``ms``, ``plain_ms`` and ``library_ms`` are times per
 call between CUDA events, launches included; ``device_ms``,
@@ -5951,29 +5970,42 @@ def _time_f32_head():
              torch.backends.cuda.matmul.allow_tf32))
 
 
-def phase_lm_main():
-    """The LM training main path at full width and depth: the entry
-    points of the repo's transformer benchmark on one fixed batch."""
+def _lm_training(comm):
+    """The LM training main path's model and updater (``bench.py``'s
+    transformer: ``LM_CFG``, Adam 1e-3 through the multi-node optimizer,
+    one fixed seeded batch of ``LM_BATCH`` x ``LM_SEQ`` tokens).  Returns
+    ``(model, updater)``."""
     import numpy as np
     import torch
     import chainermn_tpu_torch as cmt
-    from chainermn_tpu_torch import models, ops, training
+    from chainermn_tpu_torch import models, training
+    model = models.TransformerLM(
+        **LM_CFG, device=comm.device,
+        generator=torch.Generator().manual_seed(0))
+    opt = cmt.create_multi_node_optimizer(
+        torch.optim.Adam(model.parameters(), lr=1e-3), comm)
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, LM_CFG['vocab_size'],
+                       (LM_BATCH, LM_SEQ)).astype(np.int32)
+    tgts = rng.randint(0, LM_CFG['vocab_size'],
+                       (LM_BATCH, LM_SEQ)).astype(np.int32)
+    data = [(toks[i], tgts[i]) for i in range(LM_BATCH)]
+    updater = training.StandardUpdater(
+        training.SerialIterator(data, LM_BATCH, shuffle=False), opt,
+        models.lm_loss(model), model, comm)
+    return model, updater
+
+
+def phase_lm_main():
+    """The LM training main path at full width and depth: the entry
+    points of the repo's transformer benchmark on one fixed batch."""
+    import torch
+    import chainermn_tpu_torch as cmt
+    from chainermn_tpu_torch import ops, training
     comm = cmt.create_communicator('xla')
     try:
-        model = models.TransformerLM(
-            **LM_CFG, generator=torch.Generator().manual_seed(0))
+        model, updater = _lm_training(comm)
         n_params = sum(p.numel() for p in model.parameters())
-        opt = cmt.create_multi_node_optimizer(
-            torch.optim.Adam(model.parameters(), lr=1e-3), comm)
-        rng = np.random.RandomState(0)
-        toks = rng.randint(0, LM_CFG['vocab_size'],
-                           (LM_BATCH, LM_SEQ)).astype(np.int32)
-        tgts = rng.randint(0, LM_CFG['vocab_size'],
-                           (LM_BATCH, LM_SEQ)).astype(np.int32)
-        data = [(toks[i], tgts[i]) for i in range(LM_BATCH)]
-        updater = training.StandardUpdater(
-            training.SerialIterator(data, LM_BATCH, shuffle=False), opt,
-            models.lm_loss(model), model, comm)
         # one broadcast call (no step), then LM_STEPS steps
         trainer = training.Trainer(updater, (LM_STEPS + 1, 'iteration'),
                                    out=None)
@@ -7292,6 +7324,395 @@ def phase_zero_trust():
     return paths
 
 
+# fault-tolerant training (phase 15): the LM training path of phase 10
+# under the port's supervisor, one worker process on the card a scenario
+SUP_STEPS = 8                  # update() calls: 1 broadcast + 7 steps
+# (name, chaos spec, checkpoint interval, the failure's cause, resumed at)
+SUP_SCENARIOS = (('a', None, 0, None, None),
+                 ('b', 'sigterm_step=@3', 0, 'preempted', 4),
+                 ('c', 'kill_step=@5', 2, 'killed', 4),
+                 ('d', 'hang_step=@4', 2, 'hang', 4))
+SUP_STALL = 6.0                # s without an iteration advance is a hang
+SUP_GRACE = 240.0              # s a new worker may take to its first step
+SUP_TERM_GRACE = 3.0           # s between the SIGTERM and the SIGKILL
+SUP_TIMED = 5                  # steps timed in each checkpoint mode
+SUP_DIR = os.path.join('build', 'chip_smoke_supervised')
+
+
+def _params_digest(tree):
+    """sha256 over a numpy tree's leaves in path order (path, dtype,
+    shape, bytes): equal digests are bit-equal trees."""
+    import hashlib
+    import numpy as np
+    h = hashlib.sha256()
+
+    def walk(node, prefix):
+        for key in sorted(node):
+            value = node[key]
+            if isinstance(value, dict):
+                walk(value, prefix + key + '/')
+                continue
+            a = np.ascontiguousarray(value)
+            h.update(('%s%s %s %s' % (prefix, key, a.dtype,
+                                      a.shape)).encode())
+            h.update(a.tobytes())
+
+    walk(tree, '')
+    return h.hexdigest()
+
+
+def supervised_worker():
+    """The supervised worker (``python3 chip_smoke.py --supervised-worker``,
+    started by the ``supervised`` phase's ``Supervisor``): join the world
+    from the ``CMN_SUP_*`` handout (NCCL on the card), heartbeat into
+    ``$CMN_SUP_LIVE``, build the LM training path of phase 10, resume the
+    newest valid snapshot (``auto_resume``), then run to ``CMN_SUP_STEPS``
+    calls with a ``PreemptionHandler`` (asynchronous writes, each waited
+    for) and a checkpoint every ``CMN_SUP_CKPT_EVERY`` steps.  After every
+    call ``workers/a<N>-rank<R>.json`` is rewritten with the losses by
+    iteration and the kernel launch counts so far, so a killed attempt
+    leaves its record; the last write adds the final parameters' digest.
+    Returns ``'preempted'`` after a preemption snapshot.  ``marks`` are the
+    wall times the start-up reached: this function, the imports, the
+    process group, the model and updater, the resume."""
+    marks = {'entry': time.time()}
+    import torch
+    import chainermn_tpu_torch as cmt
+    from chainermn_tpu_torch import ops, telemetry
+    from chainermn_tpu_torch.training import recovery
+    from chainermn_tpu_torch.training import supervisor as sup
+    from chainermn_tpu_torch.utils import failure
+    marks['imported'] = time.time()
+    device = sup.handout_device()
+    rank, _ = sup.init_process_group(device)
+    out = os.environ[sup.ENV_OUT]
+    attempt = int(os.environ[sup.ENV_ATTEMPT])
+    steps = int(os.environ[sup.ENV_STEPS])
+    ckpt_every = int(os.environ[sup.ENV_CKPT_EVERY])
+    hb = failure.Heartbeat(os.path.join(
+        os.environ[sup.ENV_LIVE], 'heartbeat-%d.json' % rank),
+        interval=0.2).start()
+    comm = cmt.create_communicator('xla', device=device)
+    marks['group'] = time.time()
+    preempted = False
+    try:
+        _, updater = _lm_training(comm)
+        marks['model'] = time.time()
+        ckdir = os.path.join(out, 'state')
+        handler = recovery.PreemptionHandler(updater, out=ckdir,
+                                             async_=True)
+        resumed = recovery.auto_resume(updater, ckdir)
+        marks['resumed'] = time.time()
+        res = {'attempt': attempt, 'resumed_at': resumed, 'marks': marks,
+               'losses': {}}
+        sup.write_worker_json(out, attempt, rank, res)
+        hb.beat(updater.iteration)
+        ops.reset_launch_counts()
+        while updater.iteration < steps:
+            it = updater.iteration
+            res['losses'][str(it)] = updater.update()['loss']
+            marks.setdefault('first_step', time.time())
+            res['calls'] = res.get('calls', 0) + 1
+            res['counts'] = ops.launch_counts()
+            res['tc'] = ops.tc_launch_counts()
+            hb.beat(updater.iteration)
+            sup.write_worker_json(out, attempt, rank, res)
+            if handler.maybe_checkpoint():
+                preempted = True
+                break
+            if (ckpt_every and updater.iteration < steps
+                    and updater.iteration % ckpt_every == 0):
+                handler.checkpoint()
+                handler.wait()
+        torch.cuda.synchronize()
+        res.update(final_iteration=updater.iteration,
+                   snapshot=handler.checkpoint_path,
+                   digest=_params_digest(updater.params))
+        sup.write_worker_json(out, attempt, rank, res)
+    finally:
+        hb.stop()
+        comm.close()
+    telemetry.flush()
+    return 'preempted' if preempted else None
+
+
+def _sup_attempts(out):
+    """The worker records of a scenario's attempts, in order."""
+    import glob
+    paths = sorted(glob.glob(os.path.join(out, 'workers', 'a*-rank0.json')),
+                   key=lambda p: int(os.path.basename(p)[1:].split('-')[0]))
+    records = []
+    for path in paths:
+        with open(path) as f:
+            records.append(json.load(f))
+    return records
+
+
+def _sup_log_tail(out, n=40):
+    import glob
+    tails = []
+    for path in sorted(glob.glob(os.path.join(out, 'logs', '*.log'))):
+        with open(path, errors='replace') as f:
+            lines = f.read().splitlines()[-n:]
+        tails.append('--- %s\n%s' % (path, '\n'.join(lines)))
+    return '\n'.join(tails)
+
+
+def _sup_scenario(name, spec, ckpt_every):
+    """One ``Supervisor(nprocs=1)`` run of the worker under ``spec``;
+    returns ``(ledger entries, attempts' records, supervisor seconds)``."""
+    import shutil
+    from chainermn_tpu_torch.training.supervisor import (
+        RestartPolicy, Supervisor)
+    from chainermn_tpu_torch.utils import failure
+    from chainermn_tpu_torch.utils.ledger import Ledger
+    out = os.path.abspath(os.path.join(SUP_DIR, name))
+    shutil.rmtree(out, ignore_errors=True)
+    env = {k: v for k, v in os.environ.items()
+           if k != 'CHAINERMN_TPU_CHAOS'}
+    if spec:
+        env['CHAINERMN_TPU_CHAOS'] = spec
+    sup = Supervisor(
+        nprocs=1, out=out,
+        worker_argv=[sys.executable, os.path.abspath(__file__),
+                     '--supervised-worker'],
+        steps=SUP_STEPS, ckpt_every=ckpt_every,
+        policy=RestartPolicy(max_restarts=2, backoff=failure.Backoff(
+            initial=0.1, max_delay=1.0)),
+        stall_timeout=SUP_STALL, startup_grace=SUP_GRACE,
+        term_grace=SUP_TERM_GRACE, drain_grace=SUP_TERM_GRACE,
+        attempt_timeout=600.0, poll_interval=0.1, oracle=False, env=env,
+        device='cuda')
+    t0 = time.perf_counter()
+    rc = sup.run()
+    wall = time.perf_counter() - t0
+    ledger = Ledger.read(sup.ledger.path)
+    if rc != 0:
+        raise AssertionError('scenario %s: the supervisor exited %d; ledger '
+                             '%s\n%s' % (name, rc, ledger, _sup_log_tail(out)))
+    return out, ledger, _sup_attempts(out), wall
+
+
+def _startup_split(marks, launched):
+    """Seconds from the launch to each start-up mark, mark by mark."""
+    out, last = {}, launched
+    for key in ('entry', 'imported', 'group', 'model', 'resumed',
+                'first_step'):
+        out[key] = round(marks[key] - last, 3)
+        last = marks[key]
+    return out
+
+
+def _sup_events(ledger, kind):
+    return [e for e in ledger if e.get('event') == kind]
+
+
+def _hold_scenario(name, cause, resumed_at, ledger, attempts, oracle):
+    """The ledger's events and the worker records of one scenario against
+    the contract: one failure of ``cause`` (none for the oracle), a
+    restart, the recovery at ``resumed_at``, completion; every loss by
+    iteration and the final parameters bit-equal to the oracle's."""
+    fails = _sup_events(ledger, 'failure')
+    comp = _sup_events(ledger, 'complete')
+    if len(comp) != 1:
+        raise AssertionError('%s: complete events %s' % (name, comp))
+    if cause is None:
+        if fails or len(attempts) != 1:
+            raise AssertionError('%s: the oracle failed: %s' % (name, fails))
+    else:
+        if len(fails) != 1 or fails[0]['cause'] != cause \
+                or fails[0]['rank'] != 0:
+            raise AssertionError('%s: failures %s, expected one %r of rank '
+                                 '0' % (name, fails, cause))
+        f = fails[0]
+        if cause == 'preempted' and f['rank_exit_codes'] != {'0': 71}:
+            raise AssertionError('%s: exit codes %s' % (
+                name, f['rank_exit_codes']))
+        if cause == 'killed' and not (f.get('chaos_site') == 'kill_step'
+                                      and f.get('doctor_agrees') is True):
+            raise AssertionError('%s: %s' % (name, f))
+        if cause == 'hang' and not (
+                f.get('chaos_site') == 'hang_step'
+                and f['exit_classes']['0'] in ('signal:SIGKILL',
+                                               'signal:SIGTERM')):
+            raise AssertionError('%s: %s' % (name, f))
+        decs = _sup_events(ledger, 'decision')
+        recs = _sup_events(ledger, 'recovered')
+        if [d['action'] for d in decs] != ['restart'] or len(recs) != 1 \
+                or recs[0]['resumed_step'] != resumed_at \
+                or not recs[0]['downtime_s'] > 0 \
+                or comp[0]['restarts'] != 1 \
+                or comp[0]['mttr_s'] != recs[0]['downtime_s'] \
+                or len(attempts) != 2 \
+                or attempts[1]['resumed_at'] != resumed_at:
+            raise AssertionError('%s: decisions %s, recovered %s, complete '
+                                 '%s, resumed %s' % (
+                                     name, decs, recs, comp,
+                                     [a['resumed_at'] for a in attempts]))
+    last = attempts[-1]
+    if last['final_iteration'] != SUP_STEPS:
+        raise AssertionError('%s: ended at %s' % (name,
+                                                  last['final_iteration']))
+    if oracle is not None:
+        for a in attempts:
+            for it, loss in a['losses'].items():
+                if loss != oracle['losses'][it]:
+                    raise AssertionError(
+                        '%s: attempt %d loss at iteration %s %r != the '
+                        "oracle's %r" % (name, a['attempt'], it, loss,
+                                         oracle['losses'][it]))
+        if last['digest'] != oracle['digest']:
+            raise AssertionError('%s: final parameters differ from the '
+                                 "oracle's" % name)
+
+
+def _sup_counts(name, attempts):
+    """A scenario's kernel launches over its attempts (``<name>.tc``
+    beside), each attempt held to its calls: 13 LayerNorm, 6 of each
+    flash kernel (on the tensor cores) and 1 cross-entropy a call."""
+    total = {}
+    layers = LM_CFG['n_layers']
+    per_call = dict(layer_norm=2 * layers + 1, flash_fwd=layers,
+                    flash_bwd_dq=layers, flash_bwd_dkv=layers,
+                    cross_entropy=1)
+    for a in attempts:
+        want = {k: per_call.get(k, 0) * a['calls'] for k in a['counts']}
+        if a['counts'] != want:
+            raise AssertionError('%s attempt %d: launches %s, expected %s'
+                                 % (name, a['attempt'], a['counts'], want))
+        for k, v in with_tc('supervised_%s' % name, a['counts'],
+                            a['tc']).items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _sup_checkpoint_modes():
+    """In this process, outside the supervisor: the LM step's p50 with no
+    checkpoint, with a synchronous ``checkpoint()`` every step and with
+    ``async_=True`` every step (its time to return: the host copy and the
+    hand-over), the writer's drain after the last, and the snapshot's
+    size."""
+    import shutil
+    import torch
+    import chainermn_tpu_torch as cmt
+    from chainermn_tpu_torch.training import recovery
+    out = os.path.abspath(os.path.join(SUP_DIR, 'modes'))
+    shutil.rmtree(out, ignore_errors=True)
+    comm = cmt.create_communicator('xla')
+    try:
+        _, updater = _lm_training(comm)
+        sync = recovery.PreemptionHandler(
+            updater, out=os.path.join(out, 'sync'), signals=())
+        asyn = recovery.PreemptionHandler(
+            updater, out=os.path.join(out, 'async'), signals=(),
+            async_=True)
+        for _ in range(3):                 # the broadcast call, 2 warm-ups
+            updater.update()
+        times = {}
+        for mode, handler in (('none', None), ('sync', sync),
+                              ('async', asyn)):
+            ts = []
+            for _ in range(SUP_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                updater.update()
+                if handler is not None:
+                    handler.checkpoint()
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t0)
+            times[mode] = sorted(ts)[len(ts) // 2]
+        t0 = time.perf_counter()
+        asyn.wait()
+        drain = time.perf_counter() - t0
+        size = os.path.getsize(sync.checkpoint_path)
+        writer = asyn.writer
+        readings = {
+            'step_p50_ms': {k: 1e3 * v for k, v in times.items()},
+            'async_drain_s': drain, 'snapshot_bytes': size,
+            'async_submitted': writer.submitted,
+            'async_committed': writer.committed,
+            'async_coalesced': writer.coalesced}
+    finally:
+        comm.close()
+        shutil.rmtree(out, ignore_errors=True)
+    return readings
+
+
+def phase_supervised():
+    """Fault-tolerant training on the card: the LM training path of
+    phase 10 (full width, 8 x 1024 tokens a step, Adam) as the
+    supervisor's custom worker, one process on NCCL, under four
+    scenarios: (a) no fault, the oracle; (b) ``sigterm_step=@3``: the
+    preemption snapshot, exit 71, a restart that resumes; (c)
+    ``kill_step=@5`` with a checkpoint every 2 steps: ``killed``, rank 0,
+    site ``kill_step``, the doctor agreeing, resumed at 4; (d)
+    ``hang_step=@4``: the frozen iteration caught after ``SUP_STALL``,
+    SIGTERM then SIGKILL, cause ``hang``, resumed.  Each supervisor must
+    exit 0; (b)-(d)'s losses and final parameters must be bit-equal to
+    (a)'s.  Prints each recovery's downtime, the goodput share, the
+    workers' start-up to their first step, the snapshot size and the
+    step p50 by checkpoint mode."""
+    import shutil
+    from chainermn_tpu_torch.telemetry import goodput
+    _free()
+    paths, readings, oracle = {}, {}, None
+    try:
+        for name, spec, every, cause, resumed_at in SUP_SCENARIOS:
+            out, ledger, attempts, wall = _sup_scenario(name, spec, every)
+            if oracle is None:
+                oracle = attempts[0]
+            _hold_scenario(name, cause, resumed_at, ledger, attempts,
+                           None if cause is None else oracle)
+            paths['supervised_%s' % name] = _sup_counts(name, attempts)
+            launches = {a['attempt']: e['t'] for a, e in zip(
+                attempts, _sup_events(ledger, 'launch'))}
+            gp = goodput.build_goodput(out)
+            rec = _sup_events(ledger, 'recovered')
+            readings[name] = {
+                'spec': spec, 'supervisor_s': wall,
+                'cause': cause,
+                'downtime_s': rec[0]['downtime_s'] if rec else None,
+                'mttr_s': _sup_events(ledger, 'complete')[0]['mttr_s'],
+                'goodput_fraction': gp.get('goodput_fraction'),
+                'buckets_s': gp.get('buckets_s'),
+                'startup_s': [a['marks']['first_step']
+                              - launches[a['attempt']] for a in attempts],
+                'startup_split_s': [_startup_split(
+                    a['marks'], launches[a['attempt']]) for a in attempts],
+                'snapshot': attempts[-1].get('snapshot')}
+            _say('supervised', '%s %s: %s' % (name, spec or 'no fault',
+                                              json.dumps(readings[name])))
+            if name == 'b':
+                readings['snapshot_mib'] = os.path.getsize(
+                    attempts[0]['snapshot']) / 2 ** 20
+            shutil.rmtree(os.path.join(out, 'state'), ignore_errors=True)
+        readings['modes'] = _sup_checkpoint_modes()
+    finally:
+        shutil.rmtree(SUP_DIR, ignore_errors=True)
+    _say('supervised', 'MTTR by cause (s): %s; goodput %s' % (
+        ', '.join('%s %.3f' % (readings[n]['cause'], readings[n]['mttr_s'])
+                  for n in 'bcd'),
+        ', '.join('%s %.4f' % (n, readings[n]['goodput_fraction'])
+                  for n in 'abcd')))
+    _say('supervised', 'start-up to the first step (s): %s' % ', '.join(
+        '%s %s' % (n, ' / '.join('%.2f' % t
+                                 for t in readings[n]['startup_s']))
+        for n in 'abcd'))
+    _say('supervised', 'start-up split, launch to each mark (s): a %s; '
+         'c after the kill %s' % (json.dumps(readings['a'][
+             'startup_split_s'][0]), json.dumps(readings['c'][
+                 'startup_split_s'][-1])))
+    modes = readings['modes']
+    _say('supervised', 'snapshot %.1f MiB; LM step p50 ms: no checkpoint '
+         '%.2f, sync checkpoint every step %.2f, async every step %.2f '
+         '(drain %.2f s; %d submitted, %d committed, %d coalesced)' % (
+             readings['snapshot_mib'], modes['step_p50_ms']['none'],
+             modes['step_p50_ms']['sync'], modes['step_p50_ms']['async'],
+             modes['async_drain_s'], modes['async_submitted'],
+             modes['async_committed'], modes['async_coalesced']))
+    return paths
+
+
 def _timed(phase, *args):
     """Run one phase and log its wall time."""
     t0 = time.perf_counter()
@@ -7340,6 +7761,7 @@ def main():
     paths.update(_timed(phase_lm_pipeline, records))
     paths.update(_timed(phase_moe, records))
     paths.update(_timed(phase_zero_trust))
+    paths.update(_timed(phase_supervised))
     _say('time', 'all phases %.1f s' % (time.perf_counter() - t_start))
     for rec in records:
         by_path = {path: counts[rec['name']]
@@ -7364,4 +7786,8 @@ def main():
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--supervised-worker']:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        from chainermn_tpu_torch.training.supervisor import worker_main
+        worker_main(supervised_worker)
     sys.exit(main())

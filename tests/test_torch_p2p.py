@@ -156,7 +156,7 @@ def test_allreduce_obj_with_timeout(results):
     assert results[0]['allreduce_obj'] == results[1]['allreduce_obj'] == 0.5
 
 
-def test_world_of_one():
+def test_world_of_one(tmp_path):
     comm = cmt.create_communicator('hierarchical', device='cpu')
     comm.barrier(timeout=0.01)   # returns at once
     comm.send_obj({'x': [1, 2]}, dest=0, tag='t')
@@ -167,8 +167,12 @@ def test_world_of_one():
         comm.recv_obj(0, tag='t', timeout=0.2)
     assert comm.allreduce_obj(3.0, timeout=1.0) == 3.0
     comm.p2p_gc()
-    with pytest.raises(NotImplementedError, match='A9'):
-        comm.enable_peer_liveness('/nonexistent')
+    # peer liveness: this process's heartbeat, its own state alive
+    hb = comm.enable_peer_liveness(str(tmp_path), interval=0.05)
+    assert comm.peer_state(0) == 'alive'
+    hb.stop()
+    assert failure.read_heartbeat(str(tmp_path / 'heartbeat-0.json'))[
+        'stopped'] is True
 
 
 def test_two_communicators_have_their_own_channels():
