@@ -25,7 +25,9 @@ a small fixed set of shapes:
 Collation reuses :func:`~chainermn_tpu_torch.training.convert.
 concat_examples` (padding, an f32 validity mask, floating columns cast to
 the policy's compute dtype on the host before the copy to the card).
-The chaos site ``serve_burst`` is ROADMAP.md A9 and is left out.
+The chaos site ``serve_burst`` amplifies a submit with synthetic copies
+through the same bounded admission, so a burst past capacity sheds
+typed.
 """
 
 import itertools
@@ -36,6 +38,7 @@ import numpy as np
 
 from chainermn_tpu_torch import telemetry as _telemetry
 from chainermn_tpu_torch.training.convert import concat_examples
+from chainermn_tpu_torch.utils import chaos as _chaos
 from chainermn_tpu_torch.utils.failure import OverloadError
 
 #: default admission knobs
@@ -142,18 +145,20 @@ class Request:
     completion cell the engine fills with the result rows or a typed
     error.  ``t_trace0`` is the admission instant on the telemetry
     recorder's clock (None when telemetry was off), the start of the
-    request's ``queue_wait`` stage."""
+    request's ``queue_wait`` stage.  ``synthetic`` marks a copy the
+    ``serve_burst`` chaos site added."""
 
-    __slots__ = ('x', 'n', 'deadline', 'seq', 't_submit', 'request_id',
-                 't_trace0', '_done', '_result', '_error')
+    __slots__ = ('x', 'n', 'deadline', 'seq', 't_submit', 'synthetic',
+                 'request_id', 't_trace0', '_done', '_result', '_error')
 
     def __init__(self, x, deadline=None, seq=0, t_submit=0.0,
-                 request_id=None):
+                 synthetic=False, request_id=None):
         self.x = x
         self.n = int(x.shape[0])
         self.deadline = deadline
         self.seq = seq
         self.t_submit = t_submit
+        self.synthetic = synthetic
         self.request_id = request_id or next_request_id()
         rec = _telemetry.active()
         self.t_trace0 = rec.now() if rec is not None else None
@@ -249,19 +254,29 @@ class RequestQueue:
         and return its :class:`Request`.  A full queue sheds typed
         (``reason='queue_full'``), a closed one too
         (``reason='shutdown'``); an over-bucket payload raises
-        ``ValueError`` before touching queue state.  ``timeout`` is
-        accepted for the JAX package's signature and unused there too."""
+        ``ValueError`` before touching queue state.  The chaos
+        ``serve_burst`` site adds synthetic copies through the same
+        bounded admission.  ``timeout`` is accepted for the JAX package's
+        signature and unused there too."""
         del timeout
         x = np.asarray(x)
         if x.ndim < 1:
             x = x[None]
         bucket_of(x.shape[0], self.edges)  # typed oversize reject
+        burst = (_chaos.on_serve_submit()
+                 if _chaos._active is not None else 0)
         with self._cond:
             req = self._admit(x, deadline, request_id=request_id)
+            for _ in range(burst):
+                try:
+                    self._admit(x, deadline, synthetic=True)
+                except OverloadError:
+                    break   # the burst past capacity sheds; the real
+                    # request above is admitted already
             self._cond.notify_all()
         return req
 
-    def _admit(self, x, deadline, request_id=None):
+    def _admit(self, x, deadline, synthetic=False, request_id=None):
         if self._closed:
             raise OverloadError('serving queue is shut down',
                                 reason='shutdown',
@@ -279,7 +294,8 @@ class RequestQueue:
         self._seq += 1
         self.submitted += 1
         req = Request(x, deadline=deadline, seq=self._seq,
-                      t_submit=self._clock(), request_id=request_id)
+                      t_submit=self._clock(), synthetic=synthetic,
+                      request_id=request_id)
         self._waiting.append(req)
         return req
 

@@ -37,14 +37,17 @@ Telemetry: per-batch ``serve_h2d`` / ``serve_execute`` spans and the
 each request's trace stages ``queue_wait`` -> ``bucket_pack`` ->
 ``execute`` -> ``complete``.
 
-No counterpart yet: ``cache_dir`` (a CUDA graph cannot be persisted, so
-it is accepted and ``cache_persistent`` stays False), sharded serving
-(``plan`` / ``param_specs`` raise, ROADMAP.md A7), and the chaos sites
-``serve_slow`` / ``serve_burst`` (ROADMAP.md A9).
+The chaos site ``serve_slow`` sleeps on the host before an execute of
+an engine serving a hot-swapped version (the graph is unchanged); its
+queue's ``serve_burst`` is in :mod:`~chainermn_tpu_torch.serving.
+batcher`.  No counterpart yet: ``cache_dir`` (a CUDA graph cannot be
+persisted, so it is accepted and ``cache_persistent`` stays False) and
+sharded serving (``plan`` / ``param_specs`` raise, ROADMAP.md A7).
 """
 
 import contextlib
 import copy
+import gc
 import itertools
 import threading
 import time
@@ -63,6 +66,7 @@ from chainermn_tpu_torch.ops.int8_matmul import dequant
 from chainermn_tpu_torch.precision import (
     cast_floating, dequantized_view, is_quantized)
 from chainermn_tpu_torch.serving.batcher import bucket_edges
+from chainermn_tpu_torch.utils import chaos as _chaos
 from chainermn_tpu_torch.utils.failure import WeightSwapError
 
 #: forwards run on a side stream before a bucket's capture
@@ -194,6 +198,77 @@ def copy_params_(dst, src):
         dt.copy_(st)
 
 
+class CaptureGate:
+    """Orders the CUDA graph captures of a process against the serving
+    calls of its other threads: a capture (:meth:`capture`) waits for the
+    calls in flight and holds new ones until it ends, while calls
+    (:meth:`call`) run side by side.  The replicas of one process share
+    its CUDA context, and a capture on one thread beside another thread's
+    replays and copies can be invalidated
+    (``cudaErrorStreamCaptureInvalidated``).  While a capture holds it the
+    interpreter's cyclic garbage collector is off, so that no thread frees
+    CUDA objects of collected cycles inside the capture.  The thread that
+    captures may make calls and nested captures; a thread inside a call
+    may not capture."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._calls = 0
+        self._owner = None       # the thread capturing now
+        self._depth = 0
+        self._gc_was_enabled = False
+        self._mine = threading.local()
+
+    @contextlib.contextmanager
+    def call(self):
+        me = threading.get_ident()
+        with self._cond:
+            counted = self._owner != me
+            if counted:
+                while self._owner is not None:
+                    self._cond.wait()
+                self._calls += 1
+        self._mine.calls = getattr(self._mine, 'calls', 0) + 1
+        try:
+            yield
+        finally:
+            self._mine.calls -= 1
+            if counted:
+                with self._cond:
+                    self._calls -= 1
+                    if not self._calls:
+                        self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def capture(self):
+        me = threading.get_ident()
+        with self._cond:
+            if self._owner != me:
+                if getattr(self._mine, 'calls', 0):
+                    raise RuntimeError('a capture inside a serving call '
+                                       'would wait for itself')
+                while self._owner is not None or self._calls:
+                    self._cond.wait()
+                self._owner = me
+                self._gc_was_enabled = gc.isenabled()
+                gc.disable()
+            self._depth += 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._depth -= 1
+                if not self._depth:
+                    self._owner = None
+                    if self._gc_was_enabled:
+                        gc.enable()
+                    self._cond.notify_all()
+
+
+#: the process's gate: every serving engine's calls and captures pass it
+GATE = CaptureGate()
+
+
 def capture_graph(fn, device, stream=None, pool=None, warm_runs=WARM_RUNS):
     """Capture ``fn()`` as one ``torch.cuda.CUDAGraph`` (the pattern both
     serving engines use).  ``fn`` first runs ``warm_runs`` times on the
@@ -204,7 +279,10 @@ def capture_graph(fn, device, stream=None, pool=None, warm_runs=WARM_RUNS):
     into ``pool`` (a ``torch.cuda.graph_pool_handle()`` shared by graphs
     that never replay at once; None: a pool of its own).  The ticket
     counters the warm-up took become the graph's own
-    (:func:`~chainermn_tpu_torch.ops._common.capture_tickets`).
+    (:func:`~chainermn_tpu_torch.ops._common.capture_tickets`).  The
+    capture is thread-local: another thread's CUDA calls (a replica of the
+    same process serving, or validating a hot swap) neither invalidate it
+    nor fail.
 
     Returns ``(graph, out, launches, counters)``: ``out`` what the
     captured call returned (its tensors are the graph's outputs, which
@@ -214,7 +292,13 @@ def capture_graph(fn, device, stream=None, pool=None, warm_runs=WARM_RUNS):
     ``'<name>.tc'`` for the tensor-core routes; a replay counts nothing
     in Python, so a path's launches are these times its replays), and
     ``counters`` the ticket counters to keep alive with the graph.  A
-    failed capture raises; nothing falls back to an eager run."""
+    failed capture raises; nothing falls back to an eager run.  The whole
+    of it holds :data:`GATE` exclusively."""
+    with GATE.capture():
+        return _capture_graph(fn, device, stream, pool, warm_runs)
+
+
+def _capture_graph(fn, device, stream, pool, warm_runs):
     side = stream if stream is not None else torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
@@ -224,7 +308,7 @@ def capture_graph(fn, device, stream=None, pool=None, warm_runs=WARM_RUNS):
     graph = torch.cuda.CUDAGraph()
     before = _launch_counts()
     with torch.cuda.stream(side), _common.capture_tickets(counters):
-        graph.capture_begin(pool=pool)
+        graph.capture_begin(pool=pool, capture_error_mode='thread_local')
         try:
             out = fn()
         except BaseException:
@@ -344,6 +428,7 @@ class InferenceEngine:
         self.plan = None
         self.label = label
         self.param_version = int(version)
+        self._boot_version = self.param_version
         self.device = resolve_device(device)
         self.max_batch = int(max_batch)
         self.edges = tuple(edges) if edges else bucket_edges(max_batch)
@@ -407,13 +492,15 @@ class InferenceEngine:
     def _capture(self, bucket):
         """Capture the forward once over a static input buffer
         (:func:`capture_graph`: a side-stream warm-up first)."""
-        x = self._zeros(bucket)
+        with GATE.capture():
+            x = self._zeros(bucket)
 
-        def forward():
-            with torch.no_grad():
-                return self._forward(self.params, x)
+            def forward():
+                with torch.no_grad():
+                    return self._forward(self.params, x)
 
-        graph, y, launches, counters = capture_graph(forward, self.device)
+            graph, y, launches, counters = capture_graph(forward,
+                                                         self.device)
         self.graph_launches[bucket] = launches
         self._graphs[bucket] = (graph, x, y, counters)
         self.trace_count += 1
@@ -454,9 +541,9 @@ class InferenceEngine:
         """One eager forward of the padded batch ``x`` on the engine's
         weights, outside any graph (what a replay is checked against)."""
         x = self._as_batch(x)
-        with self._lock, self._on_stream(), torch.no_grad():
+        with self._lock, GATE.call(), self._on_stream(), torch.no_grad():
             y = _clone(self._forward(self.params, x.to(self.device)))
-        self._sync()
+            self._sync()
         return y
 
     def swap_params(self, params, version=None, validate=True):
@@ -473,7 +560,7 @@ class InferenceEngine:
         # the module is shared and ``functional_call`` swaps its
         # attributes in place: the validation forward holds the lock, as
         # every other forward does
-        with self._lock:
+        with self._lock, GATE.call():
             if self._stream is not None:
                 self._stream.wait_stream(
                     torch.cuda.current_stream(self.device))
@@ -562,7 +649,9 @@ class InferenceEngine:
                 if bucket not in self._aot:
                     self._prepare(bucket)
         self.guard_signature(x)
-        with self._lock, self._on_stream():
+        if _chaos._active is not None:
+            _chaos.on_serve_slow(self.param_version != self._boot_version)
+        with self._lock, GATE.call(), self._on_stream():
             entry = self._graphs.get(bucket)
             with _telemetry.span('serve_h2d', kind='h2d', bucket=bucket):
                 if entry is not None:

@@ -73,12 +73,21 @@ gauges, each request's trace stages (``queue_wait`` -> ``bucket_pack``
 -> ``prefill`` -> one ``decode`` a tick) and its ``complete`` / ``shed``
 events.
 
+Replica identity: with a ``label`` every serve record (request stages
+and events, the ``serve_prefill`` / ``serve_decode`` / ``serve_draft`` /
+``serve_verify`` spans, the ``serve_spec`` event, sheds and swaps)
+carries ``replica`` and ``version``, which the fleet's per-replica SLO
+monitors filter on.  The chaos sites: the queue's ``serve_burst``,
+``serve_slow`` (a host sleep before a prefill, chunk, decode or
+speculative tick of an engine serving a hot-swapped version; no graph
+changes), and in :meth:`GenerationEngine.step` ``serve_cancel`` and
+``replica_kill`` (decode ticks only).  The engine's in-flight request
+table is a flight-dump source (``serve_requests``).
+
 Not ported yet: tensor-parallel serving (``plan`` / ``param_specs``
-raise ``NotImplementedError``, ROADMAP.md A7), replica identity
-(``label`` / ``version``, for the replica fleet of ROADMAP.md A8), and
-the chaos sites and the flight recorder's request table (ROADMAP.md A9).
-``cache_dir`` is accepted, but a CUDA graph cannot be persisted, so
-``cache_persistent`` stays False.
+raise ``NotImplementedError``, ROADMAP.md A7).  ``cache_dir`` is
+accepted, but a CUDA graph cannot be persisted, so ``cache_persistent``
+stays False.
 """
 
 import threading
@@ -97,9 +106,11 @@ from chainermn_tpu_torch.precision import cast_floating, dequantized_view
 from chainermn_tpu_torch.serving.batcher import (
     bucket_edges, bucket_of, next_request_id, record_shed)
 from chainermn_tpu_torch.serving.engine import (
-    capture_graph, copy_params_, load_params, params_template, place_params)
+    GATE, capture_graph, copy_params_, load_params, params_template,
+    place_params)
 from chainermn_tpu_torch.serving.paged import (PagePool, RadixPrefixIndex,
                                                prefix_key)
+from chainermn_tpu_torch.utils import chaos as _chaos
 from chainermn_tpu_torch.utils.failure import OverloadError, WeightSwapError
 
 #: default admission knobs (the generation twins of batcher's)
@@ -116,15 +127,16 @@ class GenRequest:
     (optional) is called as ``on_token(request_id, [int, ...])`` each
     time tokens are emitted.  ``t_trace0`` is the admission instant on the
     telemetry recorder's clock (None when telemetry was off), the start of
-    the request's ``queue_wait`` stage."""
+    the request's ``queue_wait`` stage.  ``synthetic`` marks a copy the
+    ``serve_burst`` chaos site added."""
 
     __slots__ = ('prompt', 'max_new_tokens', 'deadline', 'seq',
-                 't_submit', 'request_id', 't_trace0', 'prefix_key',
-                 'on_token', '_done', '_result', '_error')
+                 't_submit', 'synthetic', 'request_id', 't_trace0',
+                 'prefix_key', 'on_token', '_done', '_result', '_error')
 
     def __init__(self, prompt, max_new_tokens, deadline=None, seq=0,
-                 t_submit=0.0, request_id=None, prefix_key=None,
-                 on_token=None):
+                 t_submit=0.0, synthetic=False, request_id=None,
+                 prefix_key=None, on_token=None):
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         if self.prompt.size < 1:
             raise ValueError('empty prompt')
@@ -135,6 +147,7 @@ class GenRequest:
         self.deadline = deadline
         self.seq = seq
         self.t_submit = t_submit
+        self.synthetic = synthetic
         self.prefix_key = prefix_key
         self.on_token = on_token
         self.request_id = request_id or next_request_id()
@@ -185,10 +198,13 @@ class GenerationQueue:
 
     ``page_size`` (set when feeding a paged engine) stamps each request's
     :attr:`GenRequest.prefix_key` and unlocks ``pop(...,
-    group_prefix=True)`` co-admission."""
+    group_prefix=True)`` co-admission.  ``label`` (a fleet replica's
+    name) goes on its shed records; the chaos ``serve_burst`` site adds
+    synthetic copies of a submit through the same bounded admission."""
 
     def __init__(self, max_prompt_len, max_queue=DEFAULT_MAX_QUEUE,
-                 clock=time.monotonic, page_size=None):
+                 clock=time.monotonic, label=None, page_size=None):
+        self.label = label
         self.max_prompt_len = int(max_prompt_len)
         self.page_size = int(page_size) if page_size else None
         self.max_queue = int(max_queue)
@@ -212,30 +228,48 @@ class GenerationQueue:
                 'prompt of %d tokens exceeds max_prompt_len %d; '
                 'truncate client-side or raise the engine limit'
                 % (prompt.size, self.max_prompt_len))
+        burst = (_chaos.on_serve_submit()
+                 if _chaos._active is not None else 0)
         with self._lock:
-            if self._closed:
-                raise OverloadError('generation queue is shut down',
-                                    reason='shutdown',
-                                    queue_depth=len(self._waiting))
-            if len(self._waiting) >= self.max_queue:
-                self.shed_queue_full += 1
-                record_shed('queue_full',
-                            request_id=request_id or next_request_id(),
-                            queue_depth=len(self._waiting))
-                raise OverloadError(
-                    'generation queue full (%d waiting); retry with '
-                    'backoff' % len(self._waiting),
-                    reason='queue_full', queue_depth=len(self._waiting))
-            self._seq += 1
-            self.submitted += 1
-            key = (prefix_key(prompt, self.page_size)
-                   if self.page_size is not None else None)
-            req = GenRequest(prompt, max_new_tokens, deadline=deadline,
-                             seq=self._seq, t_submit=self._clock(),
-                             request_id=request_id, prefix_key=key,
-                             on_token=on_token)
-            self._waiting.append(req)
+            req = self._admit(prompt, max_new_tokens, deadline,
+                              request_id=request_id, on_token=on_token)
+            for _ in range(burst):
+                try:
+                    self._admit(prompt, max_new_tokens, deadline,
+                                synthetic=True)
+                except OverloadError:
+                    break   # the burst past capacity sheds
         return req
+
+    def _admit(self, prompt, max_new_tokens, deadline, synthetic=False,
+               request_id=None, on_token=None):
+        if self._closed:
+            raise OverloadError('generation queue is shut down',
+                                reason='shutdown',
+                                queue_depth=len(self._waiting))
+        if len(self._waiting) >= self.max_queue:
+            self.shed_queue_full += 1
+            record_shed('queue_full',
+                        request_id=request_id or next_request_id(),
+                        queue_depth=len(self._waiting),
+                        **self._shed_attrs())
+            raise OverloadError(
+                'generation queue full (%d waiting); retry with '
+                'backoff' % len(self._waiting),
+                reason='queue_full', queue_depth=len(self._waiting))
+        self._seq += 1
+        self.submitted += 1
+        key = (prefix_key(prompt, self.page_size)
+               if self.page_size is not None else None)
+        req = GenRequest(prompt, max_new_tokens, deadline=deadline,
+                         seq=self._seq, t_submit=self._clock(),
+                         synthetic=synthetic, request_id=request_id,
+                         prefix_key=key, on_token=on_token)
+        self._waiting.append(req)
+        return req
+
+    def _shed_attrs(self):
+        return {'replica': self.label} if self.label else {}
 
     def pop(self, k, group_prefix=False):
         """Up to ``k`` live requests in arrival order; requests whose
@@ -261,7 +295,8 @@ class GenerationQueue:
                     record_shed('deadline', request_id=req.request_id,
                                 queue_depth=len(self._waiting),
                                 waited_ms=round((now - req.t_submit) * 1e3,
-                                                3))
+                                                3),
+                                **self._shed_attrs())
                     req.set_error(OverloadError(
                         'deadline expired after %.1f ms in queue'
                         % ((now - req.t_submit) * 1e3), reason='deadline'))
@@ -281,7 +316,8 @@ class GenerationQueue:
             pending, self._waiting = self._waiting, []
         for req in pending:
             record_shed('shutdown', request_id=req.request_id,
-                        queue_depth=len(pending), count_total=False)
+                        queue_depth=len(pending), count_total=False,
+                        **self._shed_attrs())
             req.set_error(OverloadError('generation queue shut down',
                                         reason='shutdown'))
 
@@ -444,6 +480,9 @@ class GenerationEngine:
         docstring); ``False`` runs every bucket eagerly on the card too.
       device: where the engine runs (default: the current CUDA device;
         raises when there is none).
+      label / version: replica identity: with a ``label`` every serve
+        record carries ``replica`` / ``version``; ``version`` is the boot
+        parameter version (:meth:`swap_params` advances it).
 
     ``admit_cap`` (an attribute, default None) caps the admissions of a
     tick below the free slots.
@@ -454,10 +493,12 @@ class GenerationEngine:
                  paged=False, page_size=16, n_pages=None,
                  prefill_chunk=None, prefix_sharing=True, draft_model=None,
                  draft_params=None, spec_tokens=4, plan=None,
-                 param_specs=None, cache_dir=None, aot=True, device=None):
+                 param_specs=None, cache_dir=None, aot=True, device=None,
+                 label=None, version=0):
         if plan is not None or param_specs is not None:
             _unported('tensor-parallel serving (plan=, param_specs=)', 'A7')
         self.model = model
+        self.label = label
         self.device = resolve_device(device)
         self.cache_dir = cache_dir
         self.cache_persistent = False
@@ -467,7 +508,8 @@ class GenerationEngine:
         self._capture_stream = self._pool = None
         #: graph captures by family
         self.captures = dict.fromkeys(FAMILIES, 0)
-        self.param_version = 0
+        self.param_version = int(version)
+        self._boot_version = self.param_version
         self.n_slots = int(n_slots)
         #: admissions per tick (None: every free slot)
         self.admit_cap = None
@@ -607,6 +649,17 @@ class GenerationEngine:
             placed = cast_floating(placed, self.policy.compute_dtype)
         return placed
 
+    def _ident(self):
+        if self.label is None:
+            return {}
+        return {'replica': self.label, 'version': self.param_version}
+
+    def _slow(self):
+        """The ``serve_slow`` chaos site: a host sleep before a call of an
+        engine serving a hot-swapped version."""
+        if _chaos._active is not None:
+            _chaos.on_serve_slow(self.param_version != self._boot_version)
+
     def swap_params(self, params, version=None, validate=True):
         """Hot-swap the served weights.  Refused with
         :class:`~chainermn_tpu_torch.utils.failure.WeightSwapError`
@@ -625,37 +678,40 @@ class GenerationEngine:
                 'flight hold KV state banked under the incumbent weights'
                 % (len(self._slots) + len(self._prefilling)),
                 version=version)
-        new = self._place_params(params)
-        if validate:
-            b = self.n_slots
-            zeros = torch.zeros((b,), dtype=torch.int32, device=self.device)
-            rows = self._zero_rows(b)
-            try:
-                logits = self._decode_logits(
-                    self.model, self._view(new), self._cache, zeros, zeros,
-                    None if rows is None else self._dev(rows))
-                finite = bool(torch.isfinite(logits).all())
-            except Exception as e:
-                raise WeightSwapError(
-                    'swap validation decode failed (%s: %s) -- keeping the '
-                    'incumbent parameters' % (type(e).__name__, e),
-                    version=version) from e
-            if not finite:
-                raise WeightSwapError(
-                    'swap validation produced non-finite logits -- '
-                    'refusing cutover to version %r' % (version,),
-                    version=version)
-        if self._graphed:
-            try:
-                copy_params_(self.params, new)
-            except ValueError as e:
-                raise WeightSwapError('swap refused: %s' % e,
-                                      version=version) from e
-        else:
-            self.params = new
+        # the validation decode and the copy are a serving call (GATE)
+        with GATE.call():
+            new = self._place_params(params)
+            if validate:
+                b = self.n_slots
+                zeros = torch.zeros((b,), dtype=torch.int32,
+                                    device=self.device)
+                rows = self._zero_rows(b)
+                try:
+                    logits = self._decode_logits(
+                        self.model, self._view(new), self._cache, zeros,
+                        zeros, None if rows is None else self._dev(rows))
+                    finite = bool(torch.isfinite(logits).all())
+                except Exception as e:
+                    raise WeightSwapError(
+                        'swap validation decode failed (%s: %s) -- keeping '
+                        'the incumbent parameters' % (type(e).__name__, e),
+                        version=version) from e
+                if not finite:
+                    raise WeightSwapError(
+                        'swap validation produced non-finite logits -- '
+                        'refusing cutover to version %r' % (version,),
+                        version=version)
+            if self._graphed:
+                try:
+                    copy_params_(self.params, new)
+                except ValueError as e:
+                    raise WeightSwapError('swap refused: %s' % e,
+                                          version=version) from e
+            else:
+                self.params = new
         self.param_version = (int(version) if version is not None
                               else self.param_version + 1)
-        _telemetry.event('weight_swap', kind='serve')
+        _telemetry.event('weight_swap', kind='serve', **self._ident())
         return self.param_version
 
     def swap_from_checkpoint(self, path, version=None, validate=True):
@@ -766,12 +822,17 @@ class GenerationEngine:
         """Stage ``operands`` into the call's buffers and run it (a replay
         under graphs, captured on first use when ``warmup`` skipped it: the
         warm-up and the capture run over the same operands, whose cache
-        writes are the call's own); returns the greedy ids as numpy."""
+        writes are the call's own); returns the greedy ids as numpy.  The
+        call passes :data:`~chainermn_tpu_torch.serving.engine.GATE`, a
+        capture holds it exclusively."""
         call = self._call(key)
-        call.stage(operands)
         if self._graphed and call.graph is None:
-            self._capture(key, call)
-        return self._read(*call.run())
+            with GATE.capture():
+                call.stage(operands)
+                self._capture(key, call)
+        with GATE.call():
+            call.stage(operands)
+            return self._read(*call.run())
 
     def _run_prefill(self, tokens, length, where, draft=False):
         """One prefill of the target (or the draft): ``where`` is the
@@ -839,7 +900,7 @@ class GenerationEngine:
     def _copy_leaves(self, src, dst):
         caches = [self._cache] + ([self._draft_cache] if self.speculative
                                   else [])
-        with torch.inference_mode():
+        with GATE.call(), torch.inference_mode():
             for cache in caches:
                 for leaf in cache.values():
                     leaf[:, dst] = leaf[:, src]
@@ -907,10 +968,12 @@ class GenerationEngine:
                     if self._prepared(key):
                         continue
                     call = self._call(key)
-                    call.stage(self._zero_operands(key))
                     if self._graphed:
-                        self._capture(key, call)
+                        with GATE.capture():
+                            call.stage(self._zero_operands(key))
+                            self._capture(key, call)
                     else:
+                        call.stage(self._zero_operands(key))
                         call.run()
         if self.paged and todo:
             self._copy_leaves(0, 0)
@@ -996,7 +1059,8 @@ class GenerationEngine:
         self._release_pages(pages)
         self.cancelled += 1
         record_shed('kv_pages', request_id=req.request_id,
-                    queue_depth=self._last_queue_depth, where=where)
+                    queue_depth=self._last_queue_depth, where=where,
+                    **self._ident())
         req.set_error(OverloadError(
             'KV page pool exhausted (%d/%d pages live, nothing evictable) '
             'during %s; retry with backoff'
@@ -1004,13 +1068,19 @@ class GenerationEngine:
             reason='kv_pages'))
 
     # -- the continuous-batching scheduler -----------------------------
-    def _expire(self, now):
-        """Shed requests whose deadline passed, live or mid-prefill:
-        typed ``OverloadError(reason='deadline')`` now, their pages back
-        to the pool, the slot free for this step's admission."""
+    def _expire(self, now, force=0):
+        """Shed requests whose deadline passed, live or mid-prefill (and
+        the ``force`` oldest live ones, for the ``serve_cancel`` chaos
+        site): typed ``OverloadError(reason='deadline')`` now, their pages
+        back to the pool, the slot free for this step's admission."""
+        ident = self._ident()
         doomed = [sid for sid, slot in self._slots.items()
                   if slot.request.deadline is not None
                   and now > slot.request.deadline]
+        if force:
+            doomed += sorted((s for s in self._slots if s not in doomed),
+                             key=lambda s: self._slots[s].request.t_submit
+                             )[:force]
         for sid in doomed:
             slot = self._slots.pop(sid)
             self._release_pages(slot.pages)
@@ -1023,7 +1093,7 @@ class GenerationEngine:
                              tokens=len(slot.generated))
             record_shed('deadline', request_id=slot.request.request_id,
                         queue_depth=self._last_queue_depth, slot=sid,
-                        tokens=len(slot.generated))
+                        tokens=len(slot.generated), **ident)
         late = [sid for sid, st in self._prefilling.items()
                 if st.request.deadline is not None
                 and now > st.request.deadline]
@@ -1039,7 +1109,7 @@ class GenerationEngine:
                              tokens=0)
             record_shed('deadline', request_id=st.request.request_id,
                         queue_depth=self._last_queue_depth, slot=sid,
-                        position=st.pos)
+                        position=st.pos, **ident)
         return len(doomed) + len(late)
 
     def _first_token(self, sid, req, tok, clock, t_prefill0, attrs,
@@ -1058,7 +1128,8 @@ class GenerationEngine:
             t_first_tele = rec.now()
             rec.child_span(req.request_id, 'prefill', t_prefill0,
                            t_first_tele, slot=sid,
-                           prompt_tokens=int(req.prompt.size), **attrs)
+                           prompt_tokens=int(req.prompt.size), **attrs,
+                           **self._ident())
         if reg is not None:
             reg.histogram('serve_ttft_seconds',
                           help='submit-to-first-token latency (s)'
@@ -1072,7 +1143,8 @@ class GenerationEngine:
             self._free.append(sid)
             if rec is not None:
                 rec.event('complete', kind='request',
-                          request_id=req.request_id, tokens=1, slot=sid)
+                          request_id=req.request_id, tokens=1, slot=sid,
+                          **self._ident())
             return
         self._slots[sid] = _Slot(req, req.prompt.size,
                                  req.max_new_tokens - 1, tok, t_first,
@@ -1095,7 +1167,8 @@ class GenerationEngine:
         t0 = req.t_trace0
         if t0 is None:   # telemetry enabled mid-flight
             t0 = t_pop - (clock() - req.t_submit)
-        rec.child_span(req.request_id, 'queue_wait', t0, t_pop, seq=req.seq)
+        rec.child_span(req.request_id, 'queue_wait', t0, t_pop, seq=req.seq,
+                       **self._ident())
         return t_pop
 
     def _bucket_pack(self, req, t0, bucket, n, **attrs):
@@ -1107,7 +1180,7 @@ class GenerationEngine:
         t1 = rec.now()
         rec.child_span(req.request_id, 'bucket_pack', t0, t1, bucket=bucket,
                        pad_fraction=round((bucket - n) / float(bucket), 4),
-                       **attrs)
+                       **attrs, **self._ident())
         return t1
 
     def _admit(self, queue, clock):
@@ -1128,11 +1201,20 @@ class GenerationEngine:
             self.guard_signature((tokens, np.int32(prompt.size),
                                   np.int32(sid)))
             t_pf0 = self._bucket_pack(req, t_pop, bucket, prompt.size)
-            tok = self._run_prefill(tokens, prompt.size, sid)
+            ident = self._ident()
+            self._slow()
+            with _telemetry.span('serve_prefill', kind='serve',
+                                 bucket=bucket, slot=sid,
+                                 iteration=self._step_index, **ident):
+                tok = self._run_prefill(tokens, prompt.size, sid)
             if self.speculative:
                 # the draft banks the prompt in its own cache; its own
                 # first token is discarded (the target's is authoritative)
-                self._run_prefill(tokens, prompt.size, sid, draft=True)
+                with _telemetry.span('serve_draft', kind='serve',
+                                     stage='prefill', bucket=bucket,
+                                     slot=sid, iteration=self._step_index,
+                                     **ident):
+                    self._run_prefill(tokens, prompt.size, sid, draft=True)
             self._first_token(sid, req, tok, clock, t_pf0,
                               dict(bucket=bucket))
 
@@ -1218,11 +1300,22 @@ class GenerationEngine:
             if st.chunks == 0:
                 st.t_stage_end = self._bucket_pack(
                     req, st.t_stage_end, width, n, prefix_tokens=st.matched)
-            tok = self._run_prefill(tokens, n, (st.pos, table))
+            ident = self._ident()
+            self._slow()
+            with _telemetry.span('serve_prefill', kind='serve',
+                                 bucket=width, slot=sid, chunk=st.chunks,
+                                 pos=st.pos, iteration=self._step_index,
+                                 **ident):
+                tok = self._run_prefill(tokens, n, (st.pos, table))
             if self.speculative:
                 # the same chunk into the same pages of the draft cache:
                 # banked prefix pages then serve the draft too
-                self._run_prefill(tokens, n, (st.pos, table), draft=True)
+                with _telemetry.span('serve_draft', kind='serve',
+                                     stage='prefill', bucket=width,
+                                     slot=sid, chunk=st.chunks,
+                                     iteration=self._step_index, **ident):
+                    self._run_prefill(tokens, n, (st.pos, table),
+                                      draft=True)
             st.pos += n
             st.chunks += 1
             self.prefill_chunks += 1
@@ -1232,7 +1325,7 @@ class GenerationEngine:
                     rec.child_span(req.request_id, 'prefill_chunk',
                                    st.t_stage_end, t1, bucket=width,
                                    slot=sid, chunk=st.chunks - 1,
-                                   pos=st.pos)
+                                   pos=st.pos, **ident)
                     st.t_stage_end = t1
                 continue
             del self._prefilling[sid]
@@ -1274,7 +1367,7 @@ class GenerationEngine:
         if rec is not None:
             rec.event('complete', kind='request',
                       request_id=slot.request.request_id,
-                      tokens=len(slot.generated), slot=sid)
+                      tokens=len(slot.generated), slot=sid, **self._ident())
         self._release_pages(slot.pages)
         del self._slots[sid]
         self._free.append(sid)
@@ -1320,7 +1413,8 @@ class GenerationEngine:
                 t_prev = now_tele - (now - t0)
             rec.child_span(slot.request.request_id, 'decode', t_prev,
                            now_tele, slot=sid, step=self._step_index,
-                           token_index=len(slot.generated) - 1, **attrs)
+                           token_index=len(slot.generated) - 1, **attrs,
+                           **self._ident())
             slot.t_stage_end = now_tele
 
     def _tick_done(self, t0, now, tokens):
@@ -1357,8 +1451,14 @@ class GenerationEngine:
         if reg is not None:
             reg.gauge('active_slots',
                       help='live sequences at this decode step').set(k)
+        self._slow()
         t0 = clock()
-        toks = self._run_decode(tokens, positions, row_op)
+        with _telemetry.span('serve_decode', kind='serve',
+                             iteration=self._step_index, active_slots=k,
+                             bucket=bucket, n_slots=self.n_slots,
+                             queue_depth=self._last_queue_depth,
+                             **self._ident()):
+            toks = self._run_decode(tokens, positions, row_op)
         now = clock()
         for i, sid in enumerate(rows):
             slot = self._slots.get(sid)
@@ -1409,18 +1509,24 @@ class GenerationEngine:
         if reg is not None:
             reg.gauge('active_slots',
                       help='live sequences at this decode step').set(k)
+        ident = self._ident()
+        self._slow()
         t0 = clock()
         # the draft proposes: k steps, positions clamped at the cache
         # depth (a proposal past it is garbage and never committed)
         proposals = np.zeros((bucket, kk), np.int32)
         cur = base_tok
-        for j in range(kk):
-            pos = np.minimum(base_pos + j, self.max_len - 1).astype(np.int32)
-            guard(cur, pos)
-            cur = self._run_decode(cur, pos, row_op, draft=True).astype(
-                np.int32)
-            proposals[:, j] = cur
-            self.draft_steps += 1
+        with _telemetry.span('serve_draft', kind='serve', stage='decode',
+                             iteration=self._step_index, active_slots=k,
+                             bucket=bucket, window=kk, **ident):
+            for j in range(kk):
+                pos = np.minimum(base_pos + j,
+                                 self.max_len - 1).astype(np.int32)
+                guard(cur, pos)
+                cur = self._run_decode(cur, pos, row_op,
+                                       draft=True).astype(np.int32)
+                proposals[:, j] = cur
+                self.draft_steps += 1
         # the window: [last committed token, draft_1 .. draft_{k-1}]; the
         # k-th proposal is never verified -- its step keeps the draft
         # cache covering every position the window can commit
@@ -1428,7 +1534,11 @@ class GenerationEngine:
         win[:, 0] = base_tok
         win[:, 1:] = proposals[:, :kk - 1]
         guard(win, base_pos)
-        tgt = self._run_verify(win, base_pos, row_op)
+        with _telemetry.span('serve_verify', kind='serve',
+                             iteration=self._step_index, active_slots=k,
+                             bucket=bucket, window=kk, n_slots=self.n_slots,
+                             queue_depth=self._last_queue_depth, **ident):
+            tgt = self._run_verify(win, base_pos, row_op)
         now = clock()
         self.verify_steps += 1
         proposed = accepted = emitted_total = 0
@@ -1471,6 +1581,37 @@ class GenerationEngine:
             reg.counter('serve_draft_accepted_total',
                         help='draft tokens whose target argmax agreed'
                         ).inc(accepted)
+        rec = _telemetry.active()
+        if rec is not None:
+            rec.event('serve_spec', kind='serve', iteration=self._step_index,
+                      proposed=proposed, accepted=accepted,
+                      tokens=emitted_total, **ident)
+
+    def _flight_table(self):
+        """The in-flight request table every flight dump embeds
+        (``Recorder.flight_sources['serve_requests']``): which requests
+        were alive, in which slot and stage, with how many tokens out."""
+        active = []
+        for sid in sorted(self._prefilling):
+            st = self._prefilling.get(sid)
+            if st is None:
+                continue   # refilled by the dying scheduler meanwhile
+            active.append({'slot': sid, 'request_id': st.request.request_id,
+                           'stage': 'prefill', 'tokens': 0,
+                           'position': st.pos,
+                           'remaining': st.request.max_new_tokens})
+        for sid in sorted(self._slots):
+            slot = self._slots.get(sid)
+            if slot is None:
+                continue
+            active.append({'slot': sid,
+                           'request_id': slot.request.request_id,
+                           'stage': 'decode', 'tokens': len(slot.generated),
+                           'position': slot.position,
+                           'remaining': slot.remaining})
+        return {'active': active, 'free_slots': list(self._free),
+                'step_index': self._step_index,
+                'queue_depth': self._last_queue_depth}
 
     def step(self, queue, clock=time.monotonic):
         """One scheduler tick: expire -> admit (slot refill) -> one
@@ -1481,6 +1622,10 @@ class GenerationEngine:
         ``serve_decode_backlog``; paged: the pages in use and free)."""
         depth = queue.depth()
         self._last_queue_depth = depth
+        rec = _telemetry.active()
+        if rec is not None and rec.flight_sources.get(
+                'serve_requests') != self._flight_table:
+            rec.flight_sources['serve_requests'] = self._flight_table
         reg = _telemetry.registry()
         if reg is not None:
             reg.gauge('serve_queue_depth',
@@ -1500,12 +1645,18 @@ class GenerationEngine:
                 reg.gauge('serve_kv_pages_free',
                           help='free KV pages at the tick'
                           ).set(self.pool.available())
-        self._expire(clock())
+        force = (_chaos.on_serve_cancel()
+                 if _chaos._active is not None else 0)
+        self._expire(clock(), force=force)
         self._admit(queue, clock)
         worked = False
         if self.paged and self._prefilling:
             worked = self._prefill_tick(clock)
         if self._slots:
+            if _chaos._active is not None:
+                # replica_kill counts DECODE ticks (slots live), so a fired
+                # site always dies with generations in flight
+                _chaos.on_replica_kill()
             if self.speculative:
                 self._spec_once(clock)
             else:
@@ -1540,6 +1691,7 @@ class GenerationEngine:
         out = {
             'prefill_buckets': self._buckets('prefill'),
             'decode_buckets': self._buckets('decode'),
+            'label': self.label,
             'param_version': self.param_version,
             'prefill_edges': list(self.prefill_edges),
             'decode_edges': list(self.decode_edges),

@@ -13,8 +13,11 @@ Determinism: the size mix (and the prompts) come from
 ``np.random.RandomState(seed)``, drawn in the JAX package's order, so
 both packages offer the same requests for the same ``(seed, rate, n)``.
 Latency percentiles come from the telemetry registry's raw-sample
-histograms.  The chaos site ``serve_longprompt`` and the live SLO monitor
-(``slo_monitor=``) are ROADMAP.md A9.
+histograms.  ``open_loop_generate(slo_monitor=)`` attaches a live
+:class:`~chainermn_tpu_torch.telemetry.slo.SLOMonitor` to the window's
+recorder and reports its verdict; the chaos site ``serve_longprompt``
+injects max-length prompts at an arrival, through the same bounded
+submission.
 """
 
 import threading
@@ -23,6 +26,7 @@ import time
 import numpy as np
 
 from chainermn_tpu_torch import telemetry as _telemetry
+from chainermn_tpu_torch.utils import chaos as _chaos
 from chainermn_tpu_torch.utils.failure import OverloadError
 
 
@@ -54,15 +58,24 @@ def _ms(summary, key):
     return (summary.get(key) or 0.0) * 1e3 if summary else None
 
 
-def _window(engine, queue, submit_all, result_timeout, clock, capture_dir):
+def _window(engine, queue, submit_all, result_timeout, clock, capture_dir,
+            slo_monitor=None):
     """Run ``engine.run`` on a thread of its own, call ``submit_all()``
     (the arrivals), wait for every admitted request, and stop the worker.
-    Telemetry is enabled in memory for the window when it was off.
-    Returns ``(admitted, shed_submit, counts, t0, t1, registry, worst)``
-    with ``counts`` the served / deadline-shed / errored requests and
-    the tokens served."""
+    Telemetry is enabled in memory for the window when it was off, and
+    ``slo_monitor`` listens to it for the window (its final verdict is
+    written as its snapshot).  Returns ``(admitted, shed_submit, counts,
+    t0, t1, registry, worst)`` with ``counts`` the served /
+    deadline-shed / errored requests and the tokens served."""
     installed = _telemetry.active() is None
     recorder = _telemetry.enable()
+    if slo_monitor is not None:
+        try:
+            slo_monitor.attach(recorder)
+        except BaseException:
+            if installed:
+                _telemetry.disable()
+            raise
     stop = threading.Event()
     worker = threading.Thread(target=engine.run, args=(queue, stop),
                               daemon=True)
@@ -86,6 +99,9 @@ def _window(engine, queue, submit_all, result_timeout, clock, capture_dir):
         stop.set()
         worker.join(timeout=result_timeout)
         queue.close()
+        if slo_monitor is not None:
+            slo_monitor.detach()
+            slo_monitor.write_snapshot()   # the final live verdict
         if capture_dir is not None:
             recorder.flush(capture_dir)
         worst = _worst_request(recorder)
@@ -129,11 +145,10 @@ def open_loop_generate(engine, queue, rate, n_requests, seed=0,
         engine model's).
       deadline_s: per-request deadline (expiry mid-generation sheds
         typed).
-      slo_monitor: not ported (ROADMAP.md A9); must be None.
+      slo_monitor: optional :class:`~chainermn_tpu_torch.telemetry.slo.
+        SLOMonitor`, attached to the window's recorder; its verdict is the
+        report's ``slo``.
     """
-    if slo_monitor is not None:
-        raise NotImplementedError('the live SLO monitor is not ported yet '
-                                  '(ROADMAP.md A9)')
     lo, hi = prompt_len_range or (1, engine.max_prompt_len)
     vocab = vocab_size or engine.model.vocab_size
     rng = np.random.RandomState(seed)
@@ -141,14 +156,30 @@ def open_loop_generate(engine, queue, rate, n_requests, seed=0,
     prompts = [rng.randint(0, vocab, size=n).astype(np.int32) for n in lens]
     arrivals = _arrivals(rate, n_requests, clock)
 
+    longprompt = [0]
+
+    def submit(prompt):
+        return queue.submit(prompt, max_new_tokens,
+                            deadline=(None if deadline_s is None
+                                      else clock() + deadline_s))
+
     def submit_all(t0):
         admitted, shed = [], 0
         for i in arrivals(t0):
+            # serve_longprompt: a burst of max-length prompts at this
+            # arrival, through the normal bounded submission
+            n_long = (_chaos.on_serve_longprompt()
+                      if _chaos._active is not None else 0)
+            for _ in range(n_long):
+                try:
+                    admitted.append(submit(rng.randint(
+                        0, vocab, size=engine.max_prompt_len).astype(
+                            np.int32)))
+                    longprompt[0] += 1
+                except OverloadError:
+                    shed += 1
             try:
-                admitted.append(queue.submit(
-                    prompts[i], max_new_tokens,
-                    deadline=(None if deadline_s is None
-                              else clock() + deadline_s)))
+                admitted.append(submit(prompts[i]))
             except OverloadError:
                 shed += 1
         return admitted, shed
@@ -158,7 +189,8 @@ def open_loop_generate(engine, queue, rate, n_requests, seed=0,
     engine.warmup()
     st0 = engine.stats()
     admitted, shed_submit, c, t0, t1, reg, worst = _window(
-        engine, queue, submit_all, result_timeout, clock, capture_dir)
+        engine, queue, submit_all, result_timeout, clock, capture_dir,
+        slo_monitor)
     ttft = _hist_summary(reg, 'serve_ttft_seconds')
     itl = _hist_summary(reg, 'serve_intertoken_seconds')
     dstep = _hist_summary(reg, 'serve_decode_seconds')
@@ -168,7 +200,7 @@ def open_loop_generate(engine, queue, rate, n_requests, seed=0,
     shed = shed_submit + c['shed_deadline']
     return {
         'offered': offered,
-        'longprompt_injected': 0,
+        'longprompt_injected': longprompt[0],
         'offered_rate': float(rate),
         'admitted': len(admitted),
         'served': c['served'],
@@ -206,7 +238,8 @@ def open_loop_generate(engine, queue, rate, n_requests, seed=0,
                   if st.get('paged') else None),
         'worst_request': worst,
         'speculative': _spec_report(st, st0),
-        'slo': None,
+        'slo': (slo_monitor.evaluate() if slo_monitor is not None
+                else None),
     }
 
 

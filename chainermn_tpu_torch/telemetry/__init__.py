@@ -26,9 +26,11 @@ which ``StandardUpdater`` calls)::
 Disabled, :func:`span` and :func:`event` cost one function call and
 return a preallocated no-op context.
 
-A session with an output directory flushes at interpreter exit.  Not
-ported yet (ROADMAP.md A9): the SLO monitor (``slo``) and the ``python
--m`` telemetry CLI.
+A session with an output directory flushes at interpreter exit.  The
+live SLO monitor is :mod:`~chainermn_tpu_torch.telemetry.slo` (attached
+to the recorder as a streaming listener); ``python -m
+chainermn_tpu_torch.telemetry report | doctor | slo | goodput DIR`` is
+the command line over a capture directory.
 """
 
 import atexit

@@ -34,8 +34,8 @@ the whole job, so the question is *which rank, which phase*.
 protocol replay (:func:`protocol_divergence`) compares the ranks'
 collective streams with :func:`verify_streams`, a copy of the JAX
 package's ``analysis.commcheck.verify_streams`` (the port has no static
-analysis package).  The ``python -m ... telemetry doctor`` CLI is
-ROADMAP.md A9.
+analysis package).  ``python -m chainermn_tpu_torch.telemetry doctor
+DIR`` runs :func:`diagnose` and writes ``doctor_report.json``.
 """
 
 import glob

@@ -39,8 +39,8 @@ disjoint buckets::
 
 ``goodput_fraction = useful_step / wall``.  :func:`render_text`
 renders the decomposition and :func:`export` writes
-``goodput_report.json`` next to the ledger (the JAX package's ``python
--m ... telemetry goodput`` CLI is ROADMAP.md A9).
+``goodput_report.json`` next to the ledger; ``python -m
+chainermn_tpu_torch.telemetry goodput OUT`` runs both.
 
 Accepts either a supervisor out dir (ledger + ``telemetry/a*``
 attempt captures) or a single plain telemetry session directory

@@ -32,9 +32,10 @@ Event-log schema (JSONL, one file per rank, first line ``meta``)::
 The flight recorder keeps the last :data:`FLIGHT_RING` records, the
 spans open right now and the newest closed collective and p2p spans;
 ``dump_flight`` writes them as ``flight-rank<N>.json`` (the JAX
-package's schema) when a process dies or detects a death.  The
-streaming listeners of the SLO monitor are not ported yet (ROADMAP.md
-A9).
+package's schema) when a process dies or detects a death.  Streaming
+listeners (:meth:`Recorder.add_listener`, what the live SLO monitor of
+:mod:`~chainermn_tpu_torch.telemetry.slo` attaches through) see every
+record as it is appended.
 """
 
 import collections
@@ -335,6 +336,10 @@ class Recorder:
         #: the doctor finds the beats that pair with this capture
         self.liveness_dir = None
         self.flight_dumps = 0
+        #: streaming record consumers (the live SLO monitor), called with
+        #: every appended record outside the lock; the empty-list check is
+        #: all they cost while none is attached
+        self._listeners = []
         #: named zero-argument callables whose value every flight dump
         #: embeds (live state tables of components)
         self.flight_sources = {}
@@ -357,6 +362,26 @@ class Recorder:
                 drop = len(self.events) - MAX_EVENTS
                 del self.events[:drop]
                 self._flushed_upto = max(0, self._flushed_upto - drop)
+        if self._listeners:
+            # outside the lock: a listener that records (or blocks) must
+            # not deadlock or stall the span close paths
+            for fn in list(self._listeners):
+                try:
+                    fn(rec)
+                except Exception:
+                    pass  # a broken consumer never breaks recording
+
+    def add_listener(self, fn):
+        """Register a streaming record consumer, called with every
+        appended span or event record after it is recorded."""
+        if fn not in self._listeners:
+            self._listeners.append(fn)
+
+    def remove_listener(self, fn):
+        try:
+            self._listeners.remove(fn)
+        except ValueError:
+            pass
 
     @contextlib.contextmanager
     def span(self, name, kind='generic', **attrs):

@@ -13,23 +13,26 @@ Counterpart of part of ``chainermn_tpu/telemetry/report.py``:
   request's stages;
 - :func:`pipeline_summary`, the per-stage bubble rows of the pipeline
   updaters' ``pipeline:schedule`` events;
+- :func:`overlap_stats` (per rank and per mesh axis) and the merged
+  session report of ``python -m chainermn_tpu_torch.telemetry report``:
+  :func:`build_report`, :func:`render_text`, :func:`render_request_text`,
+  the strict :func:`validate_prometheus` and :func:`export`
+  (``merged_report.json``, ``metrics.json``, ``metrics.prom``);
 - what the doctor (:mod:`~chainermn_tpu_torch.telemetry.diagnosis`)
   reads: the per-rank metrics snapshots and their merge
   (:func:`load_rank_metrics`, :func:`aggregate_metrics`), the per-step
   phase table (:func:`step_table`), the input-bound verdict
   (:func:`input_bound_stats`) and the serving summary
   (:func:`serve_summary`).
-
-The rest of the JAX package's report (``overlap_stats``,
-``build_report`` / ``render_text`` / ``export`` of a capture directory,
-the Prometheus validation and the ``python -m`` CLI) is ROADMAP.md A9.
 """
 
 import glob
 import json
 import os
+import re
 
-from chainermn_tpu_torch.telemetry.recorder import _percentile
+from chainermn_tpu_torch.telemetry.recorder import (_percentile,
+                                                    snapshot_to_prometheus)
 
 #: the training step's span names, in the order a step runs them;
 #: ``data_decode`` is the streaming loader's per-batch decode wait
@@ -41,6 +44,9 @@ STEP_PHASES = ('data_decode', 'host_batch_prep', 'h2d',
 SERVE_PHASES = ('serve_queue_wait', 'serve_h2d', 'serve_execute',
                 'serve_warmup', 'serve_prefill', 'serve_decode',
                 'serve_draft', 'serve_verify')
+
+#: span kinds that hide a collective (the training step)
+COMPUTE_KINDS = ('compute',)
 
 #: span kinds audited for exposure (goodput's exposed collective time)
 COLLECTIVE_KINDS = ('collective',)
@@ -190,6 +196,63 @@ def overlap_from_intervals(collective, compute):
         'overlap_fraction': (None if total <= 0.0
                              else max(0.0, min(1.0, 1.0 - exposed
                                                / total))),
+    }
+
+
+def span_axes_key(span):
+    """The mesh-axis tag of a collective span (``'data'``, ``'model'``,
+    ``'inter,intra'`` ...), from the ``axes`` attribute the
+    communicator layer records; ``'untagged'`` for spans that predate
+    the tagging."""
+    axes = span.get('axes')
+    if isinstance(axes, (list, tuple)) and axes:
+        return ','.join(str(a) for a in axes)
+    return 'untagged'
+
+
+def overlap_stats(spans):
+    """Overlap statistics over merged telemetry spans, exposure
+    judged per rank (a collective is hidden only by compute running
+    on the SAME rank).  ``per_axis`` splits the same accounting by
+    the collective spans' mesh-axis tag, so a composed dp x tp run
+    shows WHICH axis's communication is exposed (the data-parallel
+    gradient reduction vs the tensor-parallel block psums)."""
+    ranks = sorted({s.get('rank', 0) for s in spans})
+    total = exposed = 0.0
+    per_axis = {}
+    for rank in ranks:
+        comp = [(s['t0'], s['t1']) for s in spans
+                if s.get('rank', 0) == rank
+                and s.get('kind') in COMPUTE_KINDS]
+        merged = merge_intervals(comp)
+        coll_spans = [s for s in spans
+                      if s.get('rank', 0) == rank
+                      and s.get('kind') in COLLECTIVE_KINDS]
+        st = overlap_from_intervals(
+            [(s['t0'], s['t1']) for s in coll_spans], comp)
+        total += st['total_collective_s']
+        exposed += st['exposed_collective_s']
+        for s in coll_spans:
+            key = span_axes_key(s)
+            agg = per_axis.setdefault(
+                key, {'total_collective_s': 0.0,
+                      'exposed_collective_s': 0.0, 'spans': 0})
+            agg['spans'] += 1
+            agg['total_collective_s'] += max(s['t1'] - s['t0'], 0.0)
+            agg['exposed_collective_s'] += exposed_time(
+                (s['t0'], s['t1']), merged)
+    for agg in per_axis.values():
+        t, e = agg['total_collective_s'], agg['exposed_collective_s']
+        agg['overlap_fraction'] = (
+            None if t <= 0.0 else max(0.0, min(1.0, 1.0 - e / t)))
+    return {
+        'total_collective_s': total,
+        'exposed_collective_s': exposed,
+        'hidden_collective_s': max(total - exposed, 0.0),
+        'overlap_fraction': (None if total <= 0.0
+                             else max(0.0, min(1.0,
+                                               1.0 - exposed / total))),
+        'per_axis': per_axis,
     }
 
 
@@ -494,3 +557,272 @@ def serve_summary(metrics):
                                         if proposed else None),
             }
     return out
+
+
+def render_request_text(trace):
+    """One request's timeline, stage by stage (``telemetry report
+    --request ID``)."""
+    lines = ['request %s: e2e %s ms over %d stage(s), outcome %s'
+             % (trace['request_id'],
+                '-' if trace['e2e_ms'] is None else
+                '%.3f' % trace['e2e_ms'],
+                len(trace['stages']), trace['outcome'])]
+    t_base = trace.get('t0')
+    for s in trace['stages']:
+        attrs = ', '.join(
+            '%s=%s' % (k, v) for k, v in sorted(s.items())
+            if k not in ('type', 'name', 'kind', 'request_id',
+                         't0', 't1', 'rank'))
+        lines.append(
+            '  t+%9.3f ms  %-12s %9.3f ms%s'
+            % ((s['t0'] - t_base) * 1e3, s['name'],
+               (s['t1'] - s['t0']) * 1e3,
+               ('  (%s)' % attrs) if attrs else ''))
+    if trace.get('outcome_attrs'):
+        lines.append('  outcome attrs: %s' % ', '.join(
+            '%s=%s' % (k, v)
+            for k, v in sorted(trace['outcome_attrs'].items())))
+    return '\n'.join(lines)
+
+
+def build_report(outdir):
+    """The merged session report: timeline summary, per-step phase
+    table, overlap statistics, aggregated metrics, chaos events."""
+    metas, spans, events, bad = load_rank_logs(outdir)
+    rank_metrics = load_rank_metrics(outdir)
+    spans.sort(key=lambda s: s.get('t0', 0.0))
+    events.sort(key=lambda e: e.get('t', 0.0))
+    by_kind = {}
+    for s in spans:
+        k = by_kind.setdefault(s.get('kind', '?'),
+                               {'spans': 0, 'total_s': 0.0})
+        k['spans'] += 1
+        k['total_s'] += max(s['t1'] - s['t0'], 0.0)
+    steps = step_table(spans)
+    step_ms = sorted((s['t1'] - s['t0']) * 1e3 for s in spans
+                     if s.get('name') == 'jitted_step')
+    chaos_events = [e for e in events if e.get('kind') == 'chaos']
+    report = {
+        'outdir': outdir,
+        'ranks': sorted({m.get('rank', 0) for m in metas}
+                        | {s.get('rank', 0) for s in spans}),
+        'n_spans': len(spans),
+        'n_events': len(events),
+        'n_unparseable_lines': bad,
+        'kinds': {k: {'spans': v['spans'],
+                      'total_ms': round(v['total_s'] * 1e3, 3)}
+                  for k, v in sorted(by_kind.items())},
+        'steps': steps,
+        'step_time_ms': ({} if not step_ms else {
+            'count': len(step_ms),
+            'p50': round(_percentile(step_ms, 0.50), 3),
+            'p99': round(_percentile(step_ms, 0.99), 3),
+            'mean': round(sum(step_ms) / len(step_ms), 3)}),
+        'overlap': overlap_stats(spans),
+        'chaos_events': [
+            {'t': e['t'], 'rank': e.get('rank', 0),
+             'name': e.get('name')} for e in chaos_events],
+        'metrics': aggregate_metrics(rank_metrics),
+    }
+    report['serve'] = serve_summary(report['metrics'])
+    report['requests'] = request_summary(spans + events)
+    report['pipeline'] = pipeline_summary(events)
+    report['input_bound'] = input_bound_stats(steps)
+    return report
+
+
+# ---------------------------------------------------------------------
+# rendering + export
+
+def render_text(report, max_steps=24):
+    lines = ['telemetry session: %s' % report['outdir'],
+             'ranks: %s   spans: %d   events: %d'
+             % (report['ranks'], report['n_spans'],
+                report['n_events'])]
+    for kind, agg in report['kinds'].items():
+        lines.append('  %-18s %6d spans  %10.3f ms total'
+                     % (kind, agg['spans'], agg['total_ms']))
+    if report['steps']:
+        lines.append('step timeline (first %d of %d rows):'
+                     % (min(max_steps, len(report['steps'])),
+                        len(report['steps'])))
+        hdr = ('  %6s %4s' % ('iter', 'rank')
+               + ''.join(' %16s' % p for p in STEP_PHASES))
+        lines.append(hdr)
+        for row in report['steps'][:max_steps]:
+            cells = ''.join(
+                ' %13.3f ms' % row[p + '_ms']
+                if p + '_ms' in row else ' %16s' % '-'
+                for p in STEP_PHASES)
+            lines.append('  %6d %4d%s' % (row['iteration'],
+                                          row['rank'], cells))
+    st = report.get('step_time_ms') or {}
+    if st:
+        lines.append('jitted step: %d samples, p50 %.3f ms, '
+                     'p99 %.3f ms' % (st['count'], st['p50'],
+                                      st['p99']))
+    ib = report.get('input_bound')
+    if ib is not None:
+        if ib['input_bound']:
+            lines.append(
+                'INPUT-BOUND: rank %d host_batch_prep p50 %.3f ms >= '
+                'jitted_step p50 %.3f ms (%.0f%% of the step) -- the '
+                'input pipeline, not the device, paces this run; '
+                'scale decode workers/prefetch '
+                '(docs/data_pipeline.md)'
+                % (ib['rank'], ib['host_batch_prep_p50_ms'],
+                   ib['jitted_step_p50_ms'],
+                   ib['input_fraction'] * 100))
+        else:
+            lines.append(
+                'input: host_batch_prep p50 %.3f ms vs jitted_step '
+                'p50 %.3f ms (rank %d, %.0f%% of the step) -- not '
+                'input-bound'
+                % (ib['host_batch_prep_p50_ms'],
+                   ib['jitted_step_p50_ms'], ib['rank'],
+                   ib['input_fraction'] * 100))
+    ov = report['overlap']
+    if ov['overlap_fraction'] is None:
+        lines.append('overlap: no collective spans in capture')
+    else:
+        lines.append(
+            'overlap fraction: %.3f  (collective %.3f ms total, '
+            '%.3f ms exposed, %.3f ms hidden behind compute)'
+            % (ov['overlap_fraction'], ov['total_collective_s'] * 1e3,
+               ov['exposed_collective_s'] * 1e3,
+               ov['hidden_collective_s'] * 1e3))
+        for key, agg in sorted((ov.get('per_axis') or {}).items()):
+            frac = agg.get('overlap_fraction')
+            lines.append(
+                '  axis %-12s %4d spans  %10.3f ms total  '
+                '%10.3f ms exposed  overlap %s'
+                % (key, agg['spans'],
+                   agg['total_collective_s'] * 1e3,
+                   agg['exposed_collective_s'] * 1e3,
+                   '-' if frac is None else '%.3f' % frac))
+    for row in report.get('pipeline') or ():
+        # the pipe-axis row of the per-axis story: the schedule's
+        # collectives live inside the jit (trace marks, not spans),
+        # so its cost is the static bubble, reported per stage
+        lines.append(
+            'pipeline [%s] %d stage(s) x %d micro-batch(es) over '
+            "axis '%s': bubble fraction %.3f per stage "
+            '(%s ticks/step; shrink it with more micro-batches)'
+            % (row['schedule'], row['n_stages'], row['n_micro'],
+               row['axis'], row['bubble_fraction'],
+               row.get('total_ticks')))
+    serve = report.get('serve')
+    if serve:
+        lat = serve.get('latency_ms') or {}
+        lines.append(
+            'serving: %.0f requests in %.0f batches, %.0f shed'
+            % (serve['requests'], serve['batches'], serve['shed'])
+            + ('; latency p50 %.3f ms p99 %.3f ms'
+               % (lat['p50'], lat['p99'])
+               if lat.get('p50') is not None else '')
+            + ('; pad waste %.1f%%' % (serve['pad_waste_mean'] * 100)
+               if serve.get('pad_waste_mean') is not None else ''))
+        if serve.get('shed_reasons'):
+            lines.append('  shed reasons: ' + ', '.join(
+                '%s=%.0f' % (k, v) for k, v
+                in sorted(serve['shed_reasons'].items())))
+        gen = serve.get('generate')
+        if gen:
+            ttft = gen.get('ttft_ms') or {}
+            itl = gen.get('intertoken_ms') or {}
+            lines.append(
+                'generation: %.0f tokens / %.0f decode steps'
+                % (gen['tokens'], gen['decode_steps'])
+                + ('  %.0f tok/s' % gen['tokens_per_s']
+                   if gen.get('tokens_per_s') else '')
+                + ('; TTFT p50 %.3f ms p99 %.3f ms'
+                   % (ttft['p50'], ttft['p99'])
+                   if ttft.get('p50') is not None else '')
+                + ('; inter-token p50 %.3f ms p99 %.3f ms'
+                   % (itl['p50'], itl['p99'])
+                   if itl.get('p50') is not None else ''))
+    reqs = report.get('requests')
+    if reqs:
+        e2e = reqs.get('e2e_ms') or {}
+        lines.append(
+            'request traces: %d (%d completed, %d shed, %d in flight)'
+            % (reqs['count'], reqs['completed'], reqs['shed'],
+               reqs['in_flight'])
+            + ('; e2e p50 %.3f ms p99 %.3f ms'
+               % (e2e['p50'], e2e['p99'])
+               if e2e.get('p50') is not None else ''))
+        worst = reqs.get('worst')
+        if worst:
+            lines.append(
+                '  worst request %s: e2e %.3f ms = %s  '
+                '(%d decode ticks; stage sum %.3f ms)'
+                % (worst['request_id'], worst['e2e_ms'],
+                   ' + '.join(
+                       '%s %.3f' % (k, worst['stage_ms'][k])
+                       for k in (tuple(REQUEST_STAGES)
+                                 + tuple(sorted(
+                                     set(worst['stage_ms'])
+                                     - set(REQUEST_STAGES))))
+                       if k in worst['stage_ms']),
+                   worst['n_decode'], worst['stage_sum_ms']))
+    if report['chaos_events']:
+        lines.append('chaos events in timeline: %d (%s)'
+                     % (len(report['chaos_events']),
+                        ', '.join(sorted({e['name'] for e in
+                                          report['chaos_events']}))))
+    for name, snap in report['metrics'].items():
+        if snap.get('type') == 'histogram':
+            summ = snap.get('summary') or {}
+            if summ:
+                lines.append(
+                    '  metric %-28s n=%-6d p50=%.6g p99=%.6g'
+                    % (name, summ['count'], summ['p50'], summ['p99']))
+        else:
+            lines.append('  metric %-28s %s=%s'
+                         % (name, snap.get('type'), snap.get('value')))
+    return '\n'.join(lines)
+
+
+#: one label pair: a value may hold only the escaped sequences
+#: ``\\``, ``\"`` and ``\n``
+_PROM_LABEL = r'[a-zA-Z_][a-zA-Z0-9_]*="(?:\\[\\"n]|[^"\\])*"'
+_PROM_LINE = re.compile(
+    r'^[a-zA-Z_:][a-zA-Z0-9_:]*'
+    r'(\{(?:%(l)s)(?:,(?:%(l)s))*,?\})? '
+    r'[-+]?([0-9]*\.?[0-9]+([eE][-+]?[0-9]+)?|[Nn]a[Nn]|[Ii]nf)$'
+    % {'l': _PROM_LABEL})
+_PROM_COMMENT = re.compile(
+    r'^# (HELP|TYPE) [a-zA-Z_:][a-zA-Z0-9_:]*( .*)?$')
+
+
+def validate_prometheus(text):
+    """Offending lines of a Prometheus text exposition (empty list:
+    valid).  Strict: a label value with an unescaped quote or backslash
+    is malformed."""
+    bad = []
+    for line in text.splitlines():
+        if not line.strip():
+            continue
+        if line.startswith('#'):
+            if (line.startswith(('# HELP', '# TYPE'))
+                    and not _PROM_COMMENT.match(line)):
+                bad.append(line)
+            continue
+        if not _PROM_LINE.match(line):
+            bad.append(line)
+    return bad
+
+
+def export(outdir, report=None):
+    """Write the merged artifacts next to the per-rank logs:
+    ``merged_report.json``, ``metrics.json`` (aggregated) and
+    ``metrics.prom`` (Prometheus text).  Returns the report."""
+    report = report or build_report(outdir)
+    with open(os.path.join(outdir, 'merged_report.json'), 'w') as f:
+        json.dump(report, f, indent=1)
+    with open(os.path.join(outdir, 'metrics.json'), 'w') as f:
+        json.dump(report['metrics'], f, indent=1)
+    prom = snapshot_to_prometheus(report['metrics'])
+    with open(os.path.join(outdir, 'metrics.prom'), 'w') as f:
+        f.write(prom)
+    return report

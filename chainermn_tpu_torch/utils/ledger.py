@@ -3,8 +3,9 @@ control loop leaves behind.
 
 Counterpart of ``chainermn_tpu/utils/ledger.py``, the same file format,
 so each package reads the other's ledgers.  The training supervisor
-writes ``supervisor_ledger.jsonl`` through it (the serving fleet's
-``fleet_ledger.jsonl`` is not ported yet):
+writes ``supervisor_ledger.jsonl`` through it, the serving fleet
+(:mod:`~chainermn_tpu_torch.serving.fleet`) ``fleet_ledger.jsonl`` and
+its request journal:
 
 - **Append-only, fsynced.**  One JSON object per line; every append
   flushes and fsyncs before it returns, so an entry that was written

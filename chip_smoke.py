@@ -330,6 +330,22 @@ Phases, each printing its own lines; any failure exits non-zero:
     split, the snapshot size, and in this process the step p50 with no
     checkpoint, a synchronous one every step and an asynchronous one
     every step.
+16. the replica fleet (``fleet``, ``serving/fleet.py``): the serving LM at
+    full width with snapshots written by ``fleet.demo_train`` on the card;
+    two in-process ``Policy.bf16()`` replicas (8 slots, prompts 4..128,
+    32 new tokens) under open-loop traffic: (b) a ``serve_slow=*:0.12``
+    canary breaches on the inter-token delta and rolls back, (a) at half
+    of one replica's probed capacity a healthy roll promotes with nothing
+    shed, captures flat and each replica equal to a fresh engine from the
+    new snapshot; the SLO monitors' readings by (replica, version) and
+    their cost; (c) in f32 with the journal and the ``ReplicaSupervisor``
+    a replica holding >= 4 pinned streams is killed mid-decode in slab,
+    paged-prefix and speculative modes (then slab in bf16): every f32
+    stream equals the uninterrupted engine's, nothing is lost, and the
+    respawn captures its graphs while the survivor serves; (d) the CLI
+    with two replica processes promotes a roll, dies to ``swap_kill`` in
+    the next and converges on restart; paths ``fleet_roll``,
+    ``fleet_breach`` and ``fleet_kill_*``.
 
 A kernel row's ``ms``, ``plain_ms`` and ``library_ms`` are times per
 call between CUDA events, launches included; ``device_ms``,
@@ -7713,6 +7729,677 @@ def phase_supervised():
     return paths
 
 
+# ---------------------------------------------------------------------
+# the replica fleet (serving/fleet.py) at full width
+
+FLEET_SLOTS = 8
+FLEET_PROMPT = 128             # max_prompt_len; traffic prompts 4..128
+FLEET_NEW = 32
+FLEET_KILL_PROMPT = 96         # (c): prompt + emitted prefix fits 128
+FLEET_PINNED = (40, 57, 72, 88, FLEET_KILL_PROMPT)   # (c): pinned lengths
+FLEET_CANARY_S = 4.0
+FLEET_SLOW = 0.12              # (b): serve_slow on the canary, s a call
+# s between the canary judge's readings: the slowed canary prefills its
+# first admissions (up to 8 x FLEET_SLOW) before its first decode tick,
+# so a first reading at 2 s holds inter-token samples, not only TTFT ones
+FLEET_JUDGE_S = 2.0
+# (b)'s offered req/s: the slowed canary must drain what it admitted
+# before it swaps back (nothing is shed), so it gets a light load
+FLEET_BREACH_RATE = 10.0
+# the canary judge's latency floor (ms): healthy replicas' TTFT p99 moved
+# by up to ~75 ms between windows on the card, while a FLEET_SLOW canary
+# is hundreds of ms over its incumbent
+FLEET_FLOOR_MS = 100.0
+FLEET_BURST = 64               # listener cost: requests of a burst
+FLEET_DIR = os.path.join('build', 'chip_smoke_fleet')
+FLEET_CLI_ARGV = ['--model', 'serve', '--replicas', '2', '--n-slots', '8',
+                  '--max-prompt-len', '128', '--max-new-tokens', '32',
+                  '--rate', '20', '--debounce', '0.2', '--duration', '1',
+                  '--canary-seconds', '2', '--min-events', '4',
+                  '--latency-floor-ms', '%g' % FLEET_FLOOR_MS,
+                  '--roll-timeout', '150']
+
+
+def _fleet_counts(engines, since, fresh=()):
+    """A fleet window's launches: the wrappers' counts (the swap
+    validations' and the trainer's eager launches, and the warm-up runs
+    of engines built in the window, less what those engines' captures
+    recorded) plus every engine's graph replays since ``since`` (``{id:
+    stats()['replays']}``) times the launches captured."""
+    from chainermn_tpu_torch import ops
+    counts, tc = dict(ops.launch_counts()), dict(ops.tc_launch_counts())
+    for eng in engines:
+        graph = eng.replayed_launches(since.get(id(eng)))
+        for k in counts:
+            counts[k] += graph.get(k, 0)
+        for k in tc:
+            tc[k] += graph.get(k + '.tc', 0)
+    for eng in fresh:
+        for call in eng._calls.values():
+            if call.graph is None:
+                continue
+            for k, n in call.launches.items():
+                if k.endswith('.tc'):
+                    tc[k[:-3]] -= n
+                else:
+                    counts[k] -= n
+    out = dict(counts)
+    out.update(('%s.tc' % k, n) for k, n in tc.items() if n)
+    return out
+
+
+def _fleet_since(engines):
+    return {id(e): e.stats()['replays'] for e in engines}
+
+
+def _fleet_captures(replicas):
+    return [r.engine.stats()['compile_count'] for r in replicas]
+
+
+class _TokenClock:
+    """Samples a traffic generator's served tokens every 50 ms on a
+    thread: tokens/s over any wall-clock interval."""
+
+    def __init__(self, traffic):
+        import threading
+        self.traffic = traffic
+        self.samples = [(time.time(), 0)]
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.wait(0.05):
+            self.samples.append((time.time(), self.traffic.tokens))
+
+    def at(self, t):
+        best = self.samples[0]
+        for s in self.samples:
+            if s[0] <= t:
+                best = s
+        return best
+
+    def rate(self, t0, t1):
+        a, b = self.at(t0), self.at(t1)
+        return (b[1] - a[1]) / max(b[0] - a[0], 1e-9)
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=5.0)
+
+
+def _slo_line(ev):
+    """TTFT and inter-token p50 / p99 (ms) of a replica's SLO evaluation,
+    from its fast window."""
+    rows = (ev or {}).get('slos') or {}
+
+    def pair(name):
+        fast = (rows.get(name) or {}).get('fast') or {}
+        if not fast.get('count'):
+            return 'no samples'
+        return 'p50 %.3f p99 %.3f ms (n %d)' % (
+            fast['p50'] * 1e3, fast['p99'] * 1e3, fast['count'])
+    return 'TTFT %s; inter-token %s' % (pair('ttft_p99'),
+                                        pair('intertoken_p99'))
+
+
+def _fleet_roll(ctl, ck, version, traffic=None, timeout=180.0):
+    """A snapshot at ``version`` written by ``demo_train`` (full width, on
+    the card) while the controller runs; returns when it was handled."""
+    import threading
+    from chainermn_tpu_torch.serving import fleet
+    stop = threading.Event()
+    thread = threading.Thread(target=ctl.run, args=(stop,), daemon=True)
+    thread.start()
+    try:
+        fleet.demo_train(ck, steps=2, snapshot_every=2,
+                         config=fleet.SERVE_MODEL)
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if ctl.last_handled_version == version:
+                break
+            time.sleep(0.05)
+    finally:
+        stop.set()
+        thread.join(timeout=60.0)
+    if thread.is_alive() or ctl.last_handled_version != version:
+        raise AssertionError('fleet: the roll of version %d was not handled '
+                             '(last %r)' % (version, ctl.last_handled_version))
+
+
+def _fleet_burst(front):
+    """``FLEET_BURST`` requests at once through the front: tokens/s to
+    the last result."""
+    import numpy as np
+    from chainermn_tpu_torch.serving import fleet
+    rng = np.random.RandomState(5)
+    vocab = fleet.SERVE_MODEL['vocab_size']
+    t0 = time.perf_counter()
+    handles = [front.submit(rng.randint(0, vocab, size=n), FLEET_NEW)
+               for n in rng.randint(4, FLEET_PROMPT + 1, size=FLEET_BURST)]
+    tokens = sum(len(h.result(timeout=120.0)) for h in handles)
+    return tokens / (time.perf_counter() - t0)
+
+
+def _fleet_fresh_streams(path, version, prompts):
+    """The prompts one at a time through a fresh engine booted from
+    snapshot ``path`` (the fleet's geometry and policy, its own graphs)."""
+    import torch
+    from chainermn_tpu_torch import precision, serving
+    from chainermn_tpu_torch.serving import fleet
+    model, template = fleet.demo_params(config=fleet.SERVE_MODEL,
+                                        device='meta', dtype=torch.bfloat16)
+    eng = serving.GenerationEngine.from_checkpoint(
+        path, model, template, n_slots=FLEET_SLOTS,
+        max_prompt_len=FLEET_PROMPT, policy=precision.Policy.bf16(),
+        version=version)
+    eng.warmup()
+    out = []
+    for p in prompts:
+        q = serving.GenerationQueue(FLEET_PROMPT)
+        req = q.submit(p, FLEET_NEW)
+        _drain(eng, q, [req])
+        out.append(req.result(timeout=0).tolist())
+    return out
+
+
+def _fleet_rolls(smi, say):
+    """(b) then (a): the in-process bf16 fleet.  Returns its paths and
+    readings."""
+    import numpy as np
+    from chainermn_tpu_torch import ops, precision, serving
+    from chainermn_tpu_torch.serving import fleet
+    from chainermn_tpu_torch.telemetry.slo import default_slos
+    from chainermn_tpu_torch.utils import chaos
+    from chainermn_tpu_torch.utils.ledger import Ledger, events
+    ck = os.path.join(FLEET_DIR, 'ckpt')
+    out = os.path.join(FLEET_DIR, 'roll')
+    paths = {}
+    fleet.demo_train(ck, steps=2, snapshot_every=2, config=fleet.SERVE_MODEL)
+    boot = os.path.join(ck, 'snapshot_iter_2.npz')
+    policy = precision.Policy.bf16()
+    # the capacity probe, as phase serve_loadgen's: 2 x slots at once
+    model, template = fleet.demo_params(config=fleet.SERVE_MODEL,
+                                        device='meta',
+                                        dtype=policy.compute_dtype)
+    probe_eng = serving.GenerationEngine.from_checkpoint(
+        boot, model, template, n_slots=FLEET_SLOTS,
+        max_prompt_len=FLEET_PROMPT, policy=policy)
+    probe_eng.warmup()
+    probe = serving.open_loop_generate(
+        probe_eng, serving.GenerationQueue(FLEET_PROMPT, max_queue=256),
+        rate=1e9, n_requests=2 * FLEET_SLOTS, seed=1,
+        prompt_len_range=(4, FLEET_PROMPT), max_new_tokens=FLEET_NEW)
+    del probe_eng
+    capacity = probe['tokens_per_s'] / FLEET_NEW
+    rate = 0.5 * capacity
+    say('capacity probe of one replica (%d slots, %d requests at once): '
+        '%.1f tokens/s = %.2f req/s; traffic at half of it, %.2f req/s'
+        % (FLEET_SLOTS, 2 * FLEET_SLOTS, probe['tokens_per_s'], capacity,
+           rate))
+    ctl = fleet.build_local_fleet(
+        ck, out, n_replicas=2, n_slots=FLEET_SLOTS,
+        max_prompt_len=FLEET_PROMPT, max_queue=256, slos=default_slos(),
+        engine_kw=dict(policy=policy), config=fleet.SERVE_MODEL,
+        canary_seconds=FLEET_CANARY_S, judge_interval=FLEET_JUDGE_S,
+        drain_timeout=60.0, judge=fleet.CanaryJudge(
+            latency_ratio=1.5, latency_floor_ms=FLEET_FLOOR_MS,
+            min_events=4))
+    ctl.watcher.debounce_s = 0.2
+    ctl.start()
+    engines = [r.engine for r in ctl.replicas]
+    caps0 = _fleet_captures(ctl.replicas)
+    readings = {'captures_boot': caps0}
+    traffic = None
+    try:
+        def start_traffic(r, seed):
+            return fleet._TrafficGen(
+                ctl.front, rate=r, max_new_tokens=FLEET_NEW,
+                prompt_len_range=(4, FLEET_PROMPT),
+                vocab_size=fleet.SERVE_MODEL['vocab_size'],
+                seed=seed).start()
+
+        # (b) the canary breach at the boot version
+        since = _fleet_since(engines)
+        ops.reset_launch_counts()
+        traffic = start_traffic(FLEET_BREACH_RATE, 10)
+        chaos.install(chaos.FaultInjector('serve_slow=*:%s' % FLEET_SLOW))
+        try:
+            t0 = time.time()
+            _fleet_roll(ctl, ck, 4)
+            t1 = time.time()
+        finally:
+            chaos.uninstall()
+        traffic.stop()
+        breach_traffic = traffic.stats()
+        paths['fleet_breach'] = _fleet_counts(engines, since)
+        led = Ledger.read(os.path.join(out, fleet.LEDGER_NAME))
+        cv = [e for e in events(led, 'canary_verdict') if e['version'] == 4]
+        rb = [e for e in events(led, 'rollback') if e['version'] == 4]
+        conv = events(led, 'converged')[-1]
+        if not (cv and cv[0]['verdict'] == 'breach'
+                and any('intertoken_p99' in x for x in cv[0]['reasons'])
+                and rb and rb[0]['to_version'] == 2
+                and conv['version'] == 2
+                and set(conv['replicas'].values()) == {2}
+                and ctl.rollbacks == 1 and ctl.promotes == 0):
+            raise AssertionError('fleet (b): no breach and rollback to 2: '
+                                 '%s' % [e for e in led
+                                         if e['event'] != 'start'])
+        say('(b) serve_slow=*:%s on the canary, traffic at %.1f req/s: '
+            'verdict %s (%s), rolled back to 2 %.2f s after the trainer '
+            'started on 4 (the canary drained for %.2f s); converged %s; '
+            'traffic %s; %s' % (
+                FLEET_SLOW, FLEET_BREACH_RATE, cv[0]['verdict'],
+                '; '.join(cv[0]['reasons']), t1 - t0,
+                [e for e in events(led, 'replica_swap')
+                 if e.get('rollback')][-1]['drain_s'],
+                conv['replicas'], breach_traffic, smi))
+        # steady at half of one replica's capacity: no monitor attached,
+        # then each replica's (replica, 2)
+        traffic = start_traffic(rate, 11)
+        clock = _TokenClock(traffic)
+        time.sleep(0.5)
+        t_a = time.time()
+        time.sleep(2.0)
+        t_b = time.time()
+        for r in ctl.replicas:
+            r.reset_slo()
+        time.sleep(2.0)
+        t_c = time.time()
+        steady = (clock.rate(t_a, t_b), clock.rate(t_b, t_c))
+        say('steady tokens/s under traffic at %.2f req/s: %.1f without '
+            'monitors, %.1f with (open loop: both are the offered load); '
+            '%s' % (rate, steady[0], steady[1], smi))
+        for r in ctl.replicas:
+            say('%s version %d steady: %s; %s' % (
+                r.name, r.version, _slo_line(r.slo_eval()), smi))
+        # (a) a healthy roll through canary -> promote
+        since = _fleet_since(engines)
+        ops.reset_launch_counts()
+        _fleet_roll(ctl, ck, 6)
+        paths['fleet_roll'] = _fleet_counts(engines, since)
+        led = Ledger.read(os.path.join(out, fleet.LEDGER_NAME))
+        v6 = [e for e in led if e.get('version') == 6
+              or e.get('roll_version') == 6]
+        names = [e['event'] for e in v6]
+        if not ('promote' in names and names.index('version_seen')
+                < names.index('roll_start') < names.index('canary_verdict')
+                < names.index('promote') < names.index('converged')
+                and set(events(v6, 'converged')[-1]['replicas'].values())
+                == {6}):
+            raise AssertionError('fleet (a): no promote ladder: %s' % v6)
+        swaps = [e for e in events(led, 'replica_swap')
+                 if e['roll_version'] == 6]
+        for s in swaps:
+            say('(a) roll of 6, %s: drain %.3f s, swap %.3f s, rejoin '
+                '%.3f s (out of rotation %.3f s, shed during it %d); %s' % (
+                    s['replica'], s['drain_s'], s['swap_s'],
+                    max(0.0, s['out_of_rotation_s'] - s['drain_s']
+                        - s['swap_s']),
+                    s['out_of_rotation_s'], s['shed_during_swap'], smi))
+        first = [e['t'] for e in v6 if e['event'] == 'version_seen'][0]
+        last = [e['t'] for e in v6 if e['event'] == 'converged'][-1]
+        during = clock.rate(first, last)
+        for r, version, window in ((ctl.replicas[0], 6, 'the canary, '
+                                    'from its swap on'),
+                                   (ctl.replicas[1], 2, 'the incumbent, '
+                                    'the canary window')):
+            say('%s version %d (%s): %s; %s' % (
+                r.name, version, window, _slo_line(r.slo_eval()), smi))
+        ctl.replicas[1].reset_slo()     # the promoted incumbent at 6
+        time.sleep(2.0)
+        say('replica-1 version 6 after the promote: %s; %s' % (
+            _slo_line(ctl.replicas[1].slo_eval()), smi))
+        say('tokens/s during the roll of 6 (version_seen to converged, '
+            '%.2f s): %.1f against %.1f steady; %s' % (
+                last - first, during, steady[0], smi))
+        traffic.stop()
+        clock.stop()
+        st = traffic.stats()
+        caps = _fleet_captures(ctl.replicas)
+        if any(t['shed_submit'] or t['shed_result'] or t['errors']
+               or not t['served'] for t in (breach_traffic, st)) \
+                or ctl.dropped_during_swap or caps != caps0:
+            raise AssertionError('fleet (a)/(b): traffic %s and %s, dropped '
+                                 'during swaps %d, captures %s -> %s' % (
+                                     breach_traffic, st,
+                                     ctl.dropped_during_swap, caps0, caps))
+        say('traffic through the steady windows and (a): %s; captures %s '
+            'before and after a rollback and a promote; dropped during '
+            'swaps %d; %s' % (st, caps, ctl.dropped_during_swap, smi))
+        # version 6 after the swaps: a fresh engine booted from snapshot 6
+        rng = np.random.RandomState(3)
+        prompts = [rng.randint(0, fleet.SERVE_MODEL['vocab_size'], size=n)
+                   for n in (4, 17, 64, 128)]
+        want = _fleet_fresh_streams(os.path.join(ck, 'snapshot_iter_6.npz'),
+                                    6, prompts)
+        for r in ctl.replicas:
+            # one at a time, as the fresh engine ran them: the same buckets
+            got = [r.submit(p, FLEET_NEW).result(timeout=60.0).tolist()
+                   for p in prompts]
+            if got != want:
+                raise AssertionError('fleet: %s at version 6 differs from a '
+                                     'fresh engine from snapshot 6' % r.name)
+        say('both replicas at version 6 emit exactly what a fresh engine '
+            'booted from snapshot 6 emits (%d prompts, one at a time)'
+            % len(prompts))
+        # the listener's cost: bursts through the front, in turns
+        rates = {'off': [], 'on': []}
+        for turn in ('off', 'on', 'on', 'off'):
+            for r in ctl.replicas:
+                if turn == 'on':
+                    r.reset_slo()
+                elif r._monitor is not None:
+                    r._monitor.detach()
+                    r._monitor = None
+            rates[turn].append(_fleet_burst(ctl.front))
+        say('tokens/s of %d requests at once through the front, in turns '
+            '(off, on, on, off): without the SLO monitors %s, with %s; %s'
+            % (FLEET_BURST, ', '.join('%.1f' % x for x in rates['off']),
+               ', '.join('%.1f' % x for x in rates['on']), smi))
+        readings.update(steady=steady, during=during, bursts=rates)
+    finally:
+        if traffic is not None:
+            traffic.stop()
+        ctl.close()
+    return paths, readings
+
+
+def _fleet_prompts(rng):
+    """Five prompts of 40..96 tokens sharing a 24-token prefix (the
+    paged mode's radix index shares its pages)."""
+    import numpy as np
+    from chainermn_tpu_torch.serving import fleet
+    vocab = fleet.SERVE_MODEL['vocab_size']
+    base = rng.randint(0, vocab, size=24)
+    return [np.concatenate([base, rng.randint(0, vocab, size=n - 24)])
+            for n in FLEET_PINNED]
+
+
+def _fleet_kill(mode, bf16, smi, say):
+    """(c): a hard kill of the replica serving >= 4 pinned streams,
+    mid-decode, under live traffic; returns (counts, equal streams,
+    readings)."""
+    import numpy as np
+    from chainermn_tpu_torch import models, ops, precision, serving
+    from chainermn_tpu_torch.serving import fleet
+    from chainermn_tpu_torch.training import recovery
+    from chainermn_tpu_torch.utils.ledger import Ledger, events
+    ck = os.path.join(FLEET_DIR, 'ckpt')
+    out = os.path.join(FLEET_DIR, 'kill_%s%s' % (mode, '_bf16' if bf16
+                                                 else ''))
+    kind, path, it = recovery.latest_snapshot(ck)
+    engine_kw = dict(policy=precision.Policy.bf16()) if bf16 else {}
+    if mode == 'paged_prefix':
+        engine_kw.update(paged=True, page_size=8)
+    elif mode == 'speculative':
+        draft = fleet.demo_model(config=dict(fleet.SERVE_MODEL, n_layers=1),
+                                 seed=1)
+        engine_kw.update(draft_model=draft,
+                         draft_params=models.param_tree(draft))
+    prompts = _fleet_prompts(np.random.RandomState(7))
+    # the uninterrupted oracle: the same engine configuration, alone
+    model, template = fleet.demo_params(
+        config=fleet.SERVE_MODEL, device='meta',
+        dtype=fleet._compute_dtype(engine_kw))
+    oracle_eng = serving.GenerationEngine.from_checkpoint(
+        path, model, template, n_slots=FLEET_SLOTS,
+        max_prompt_len=FLEET_PROMPT, **engine_kw)
+    oracle_eng.warmup()
+    q = serving.GenerationQueue(
+        FLEET_PROMPT, page_size=8 if mode == 'paged_prefix' else None)
+    reqs = [q.submit(p, FLEET_NEW) for p in prompts]
+    _drain(oracle_eng, q, reqs)
+    oracle = [r.result(timeout=0).tolist() for r in reqs]
+    del oracle_eng
+    ctl = fleet.build_local_fleet(
+        ck, out, n_replicas=2, n_slots=FLEET_SLOTS,
+        max_prompt_len=FLEET_PROMPT, journal=True, engine_kw=engine_kw,
+        config=fleet.SERVE_MODEL)
+    spawn = fleet.local_respawn_fn(
+        n_slots=FLEET_SLOTS, max_prompt_len=FLEET_PROMPT,
+        engine_kw=engine_kw, config=fleet.SERVE_MODEL)
+    respawned, respawn_s = [], []
+
+    def timed_spawn(**kw):
+        t0 = time.perf_counter()
+        rep = spawn(**kw)
+        respawn_s.append(time.perf_counter() - t0)
+        respawned.append(rep.engine)
+        return rep
+
+    ctl.start()
+    sup = fleet.ReplicaSupervisor(ctl, spawn_fn=timed_spawn)
+    front = ctl.front
+    engines = [r.engine for r in ctl.replicas]
+    traffic = None
+    try:
+        since = _fleet_since(engines)
+        ops.reset_launch_counts()
+        traffic = fleet._TrafficGen(
+            front, rate=20.0, max_new_tokens=FLEET_NEW,
+            prompt_len_range=(4, 64),
+            vocab_size=fleet.SERVE_MODEL['vocab_size'], seed=13).start()
+        front.replicas[0].state = 'draining'      # pin to replica-1
+        handles = [front.submit(p, FLEET_NEW) for p in prompts]
+        front.replicas[0].state = 'serving'
+        pinned = {h.request_id for h in handles}
+        deadline = time.monotonic() + 60.0
+        while time.monotonic() < deadline:
+            inf = front.journal.inflight(replica='replica-1')
+            if any(inf[rid]['emitted'] for rid in pinned if rid in inf):
+                break
+            time.sleep(0.001)
+        t_kill = time.time()
+        front.replicas[1].kill()
+        inflight = front.journal.inflight(replica='replica-1')
+        n_pinned = len(pinned & set(inflight))
+        if n_pinned < 4:
+            raise AssertionError('fleet (c) %s: the kill caught %d pinned '
+                                 'streams in flight' % (mode, n_pinned))
+        sup.check()                   # requeue, then respawn (captures)
+        results = [h.result(timeout=120.0).tolist() for h in handles]
+        time.sleep(1.5)               # the replacement takes traffic
+        traffic.stop()
+        st = traffic.stats()
+        paths = _fleet_counts(engines + respawned, since, fresh=respawned)
+        entries = Ledger.read(os.path.join(out, fleet.LEDGER_NAME))
+        requeues = events(entries, 'requeue')
+        rec = events(entries, 'recovered')[0]
+        replacement = front.replicas[1]
+        lost = sup.describe()['lost_requests']
+        rst = replacement.engine.stats()
+        bad = [what for what, failed in (
+            ('unattributed requeues', rec['request_ids']
+             != [e['request_id'] for e in requeues]),
+            ('requeues shed', rec['shed']), ('lost requests', lost),
+            ('traffic errors or sheds', st['errors'] or st['shed_result']),
+            ('respawns', len(events(entries, 'respawn')) != 1),
+            ('the replacement not serving the incumbent version',
+             replacement.version != it or replacement.state != 'serving'),
+            ('the replacement served nothing', not rst['prefills']),
+            ('the replacement captured no graph',
+             _graphed(replacement.engine) and not rst['compile_count']))
+            if failed]
+        if bad:
+            raise AssertionError('fleet (c) %s: %s; ledger %s; traffic %s; '
+                                 'lost %s; replacement %s' % (
+                                     mode, bad, entries, st, lost, rst))
+        # the first token journaled after its own request's requeue
+        # (bench.py's MTTR: the victim's last frames do not count)
+        journal = Ledger.read(os.path.join(out, fleet.JOURNAL_NAME))
+        mttr = min(e['t'] for rq in requeues for e in journal
+                   if e.get('event') == 'token'
+                   and e['request_id'] == rq['request_id']
+                   and e['t'] >= rq['t']) - t_kill
+        equal = sum(a == b for a, b in zip(results, oracle))
+        say('(c) %s%s: kill of replica-1 with %d requests in flight (%d '
+            'pinned); %d requeued, 0 lost; MTTR (kill to the first '
+            'journaled token of a continuation) %.3f s; respawn with its '
+            'graph captures %.3f s (%d captures) under traffic; %d of %d '
+            'pinned streams equal the uninterrupted engine\'s; traffic %s; '
+            '%s' % (mode, ' bf16' if bf16 else ' f32', len(inflight),
+                    n_pinned, len(rec['request_ids']), mttr, respawn_s[0],
+                    replacement.engine.stats()['compile_count'], equal,
+                    len(results), st, smi))
+        return paths, equal, {'mttr_s': mttr, 'respawn_s': respawn_s[0]}
+    finally:
+        if traffic is not None:
+            traffic.stop()
+        sup.stop()
+        ctl.close()
+
+
+def _fleet_orphans(out):
+    """PIDs of replica workers still alive whose command line names
+    ``out`` (read from /proc)."""
+    pids = []
+    for pid in os.listdir('/proc'):
+        if not pid.isdigit():
+            continue
+        try:
+            with open('/proc/%s/cmdline' % pid, 'rb') as f:
+                cmd = f.read().decode(errors='replace')
+        except OSError:
+            continue
+        if '--replica' in cmd and 'serving.fleet' in cmd and out in cmd:
+            pids.append(int(pid))
+    return pids
+
+
+def _fleet_cli(smi, say):
+    """(d): the CLI with two replica processes on the card: one run whose
+    first roll promotes and whose second the chaos ``swap_kill`` cuts
+    mid-roll, then a restart that converges."""
+    from chainermn_tpu_torch.serving import fleet
+    from chainermn_tpu_torch.utils.ledger import Ledger, events
+    out = os.path.abspath(os.path.join(FLEET_DIR, 'cli'))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ('CHAINERMN_TPU_CHAOS', 'CHAINERMN_TPU_TELEMETRY',
+                        'CHAINERMN_TPU_REPLICA')}
+    env['PYTHONPATH'] = (os.path.dirname(os.path.abspath(__file__))
+                         + os.pathsep + env.get('PYTHONPATH', ''))
+    ledger_path = os.path.join(out, fleet.LEDGER_NAME)
+
+    def run(extra, chaos_spec=None):
+        e = dict(env)
+        if chaos_spec:
+            e['CHAINERMN_TPU_CHAOS'] = chaos_spec
+        n0 = len(Ledger.read(ledger_path))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, '-m', 'chainermn_tpu_torch.serving.fleet',
+             '--out', out] + FLEET_CLI_ARGV + extra, env=e,
+            capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        deadline = time.monotonic() + 20.0
+        while _fleet_orphans(out) and time.monotonic() < deadline:
+            time.sleep(0.2)
+        left = _fleet_orphans(out)
+        if left:
+            raise AssertionError('fleet (d): replica workers %s outlived '
+                                 'their controller' % left)
+        return proc, Ledger.read(ledger_path)[n0:], wall
+
+    # one run: roll 4 promotes (swap points 0 and 1), then swap_kill's
+    # occurrence 3, roll 6's first promote swap, kills the controller
+    proc, led, wall = run(['--rolls', '2'], chaos_spec='swap_kill=@3:44')
+    names = [e['event'] for e in led]
+    if (proc.returncode != 44
+            or [e['version'] for e in events(led, 'promote')] != [4]
+            or [e['version'] for e in events(led, 'roll_start')] != [4, 6]
+            or names[-2:] != ['replica_swap', 'canary_verdict']):
+        raise AssertionError('fleet (d) roll and swap_kill: rc %s; %s\n%s'
+                             % (proc.returncode, led, proc.stderr[-3000:]))
+    say('(d) CLI, two replica processes: promoted 4, then swap_kill=@3:44 '
+        'killed the controller mid-roll of 6 (exit 44 after %.1f s; the '
+        'canary on 6, the incumbent on 4); %s' % (wall, smi))
+    proc, led, wall = run(['--rolls', '0'])
+    conv = events(led, 'converged')
+    comp = events(led, 'complete')
+    if (proc.returncode != 0 or len(conv) != 1 or conv[0]['version'] != 6
+            or conv[0].get('recovered_roll') != 6
+            or set(conv[0]['replicas'].values()) != {6} or not comp
+            or comp[0]['traffic']['errors'] or comp[0]['traffic'][
+                'shed_result'] or not comp[0]['traffic']['served']):
+        raise AssertionError('fleet (d) restart: rc %s; %s\n%s' % (
+            proc.returncode, led, proc.stderr[-3000:]))
+    boots = [r.get('boot_s') for r in comp[0]['front']['replicas']]
+    say('(d) the restart converged on %s (recovered roll %s) and served %s '
+        'in %.1f s (exit 0); a replica process\'s start-up (launch to its '
+        'warmed engine\'s first answer) %s s; %s' % (
+            conv[0]['replicas'], conv[0]['recovered_roll'],
+            comp[0]['traffic'], wall, boots, smi))
+    return boots
+
+
+def phase_fleet(smi):
+    """The replica fleet (``serving/fleet.py``) at full width on the card:
+    the serving ``TransformerLM`` (``fleet.SERVE_MODEL``), snapshots
+    written by ``fleet.demo_train`` at that geometry on the card.
+    (b) and (a): two ``LocalReplica`` s of ``Policy.bf16()`` engines (8
+    slots, prompts 4..128, 32 new tokens) under open-loop traffic at half
+    of one replica's probed capacity; a ``serve_slow=*:0.12`` canary
+    breaches, rolls back and converges on 2; a healthy roll promotes 6
+    with nothing shed, captures flat, and each replica at 6 emitting
+    exactly what a fresh engine from snapshot 6 emits; the SLO monitors'
+    cost in bursts taken in turns.  (c) f32, journal and
+    ``ReplicaSupervisor``: a replica holding >= 4 pinned streams killed
+    mid-decode in slab, paged_prefix (page 8) and speculative (a one-layer
+    draft) modes, every stream equal to the uninterrupted engine's,
+    nothing lost, the respawn capturing its graphs while the survivor
+    serves; then slab in bf16 (equal streams counted).  (d) the CLI with
+    two replica processes.  Returns the paths' launch counts."""
+    import shutil
+    from chainermn_tpu_torch import telemetry
+    t0 = time.perf_counter()
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    os.makedirs(FLEET_DIR)
+
+    def say(msg):
+        _say('fleet', msg)
+
+    marks = [('start', time.perf_counter())]
+    installed = telemetry.active() is None
+    telemetry.enable()
+    try:
+        paths, readings = _fleet_rolls(smi, say)
+        marks.append(('(b) and (a)', time.perf_counter()))
+        for mode in ('slab', 'paged_prefix', 'speculative'):
+            counts, equal, r = _fleet_kill(mode, False, smi, say)
+            if equal != len(FLEET_PINNED):
+                raise AssertionError('fleet (c) %s f32: %d streams equal '
+                                     'the oracle\'s' % (mode, equal))
+            paths['fleet_kill_' + mode] = counts
+            readings['kill_' + mode] = r
+        counts, equal, r = _fleet_kill('slab', True, smi, say)
+        paths['fleet_kill_slab_bf16'] = counts
+        readings['kill_slab_bf16'] = dict(r, equal=equal)
+        marks.append(('(c)', time.perf_counter()))
+    finally:
+        if installed:
+            telemetry.disable()
+    readings['cli_boot_s'] = _fleet_cli(smi, say)
+    marks.append(('(d)', time.perf_counter()))
+    say('seconds by part: %s' % ', '.join(
+        '%s %.1f' % (name, t - marks[i][1])
+        for i, (name, t) in enumerate(marks[1:])))
+    for name, counts in sorted(paths.items()):
+        say('%s launches: %s' % (name, {k: v for k, v in counts.items()
+                                         if v}))
+    for need in ('layer_norm', 'flash_fwd', 'flash_decode'):
+        if not paths['fleet_roll'].get(need):
+            raise AssertionError('fleet_roll launched no %s' % need)
+    if not paths['fleet_kill_paged_prefix'].get('flash_decode_paged'):
+        raise AssertionError('fleet_kill_paged_prefix launched no '
+                             'flash_decode_paged')
+    say('the phase %.1f s; %s' % (time.perf_counter() - t0, smi))
+    with open(os.path.join(FLEET_DIR, 'readings.json'), 'w') as f:
+        json.dump(readings, f, indent=1, default=repr)
+    return paths
+
+
 def _timed(phase, *args):
     """Run one phase and log its wall time."""
     t0 = time.perf_counter()
@@ -7762,6 +8449,7 @@ def main():
     paths.update(_timed(phase_moe, records))
     paths.update(_timed(phase_zero_trust))
     paths.update(_timed(phase_supervised))
+    paths.update(_timed(phase_fleet, smi))
     _say('time', 'all phases %.1f s' % (time.perf_counter() - t_start))
     for rec in records:
         by_path = {path: counts[rec['name']]

@@ -173,8 +173,21 @@ class TestOpenLoopGenerate:
         assert {'queue_wait', 'bucket_pack', 'prefill',
                 'decode'} <= set(worst['stage_ms'])
         assert abs(worst['stage_sum_ms'] - worst['e2e_ms']) <= 1.0
-        with pytest.raises(NotImplementedError, match='A9'):
+        assert rep['slo'] is None
+        # a live SLO monitor listens to the window and its verdict is the
+        # report's; a monitor that cannot attach leaves no session behind
+        from chainermn_tpu_torch.telemetry.slo import SLOMonitor
+        mon = SLOMonitor()
+        rep = serving.open_loop_generate(
+            eng, serving.GenerationQueue(max_prompt_len=4, max_queue=8),
+            rate=300.0, n_requests=4, seed=4, prompt_len_range=(1, 4),
+            max_new_tokens=2, slo_monitor=mon)
+        assert rep['slo']['verdict']['overall'] == 'ok'
+        assert rep['slo']['slos']['ttft_p99']['slow']['count'] \
+            == rep['served'] == 4
+        with pytest.raises(AttributeError):
             serving.open_loop_generate(eng, q, 1.0, 1, slo_monitor=object())
+        assert telemetry.active() is None
 
     @pytest.mark.parametrize('paged', [False, True])
     def test_greedy_streams_equal_the_jax_engine(self, paged):

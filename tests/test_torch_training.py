@@ -197,7 +197,9 @@ def test_port_never_imports_jax_or_the_jax_package():
                    'training/pipeline_updater.py',
                    'examples/lm/train_lm_pipeline.py',
                    'examples/mnist/train_mnist_pipeline.py',
-                   'parallel/moe.py'):
+                   'parallel/moe.py', 'serving/fleet.py',
+                   'telemetry/slo.py', 'telemetry/__main__.py',
+                   'utils/profiling.py'):
         assert REPO / 'chainermn_tpu_torch' / module in files
     bad = ['%s:%d imports %s' % (f.relative_to(REPO), line, root)
            for f in files for root, line in _imported_roots(f)
