@@ -166,9 +166,11 @@ def gather_leaf(value, spec, mesh, device=None):
 def shard_variables(tree, specs, mesh):
     """This process's shard of a full flax tree (nested dicts) under a
     spec tree of the same structure (e.g. ``tp_param_specs``): what
-    ``shard_map``'s in_specs hand one device."""
-    return _map_specs(lambda v, sp: shard_leaf(np.asarray(v), sp, mesh),
-                      tree, specs)
+    ``shard_map``'s in_specs hand one device.  Array leaves come back as
+    numpy arrays; tensor leaves as views of the tensor."""
+    return _map_specs(
+        lambda v, sp: shard_leaf(v if torch.is_tensor(v) else np.asarray(v),
+                                 sp, mesh), tree, specs)
 
 
 def gather_variables(tree, specs, mesh, device=None):

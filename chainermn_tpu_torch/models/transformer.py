@@ -26,11 +26,15 @@ The parallel axes (:mod:`chainermn_tpu_torch.parallel`): ``tp_axis``
 (Megatron tensor parallelism, with :func:`tp_param_specs` /
 :func:`tp_oracle`) and ``sequence_axis`` (ring or Ulysses attention)
 train, and :func:`pipeline_parts` / :func:`pipeline_stage_specs` split
-the model into pipeline stages; the serving functions take an unsharded
-model.  Not ported yet
-(they raise ``NotImplementedError``): dropout (ROADMAP.md A6) and a
-tensor-parallel cache (A7; serving a ``tp_axis`` model is ROADMAP.md
-item 9).
+the model into pipeline stages.  The serving functions take a
+``tp_axis`` model too, called with the mesh bound: this process's
+shards of the parameters, a cache of ``n_heads / tp`` local heads
+(:func:`init_kv_cache`, :func:`kv_cache_specs`), a masked local
+embedding lookup and one sum, column- and row-parallel projections (one
+sum a half-block) and the row-parallel f32 head, whose sum hands every
+process the same logits.  ``dropout`` (flax ``nn.Dropout`` after the
+attention projection and after the MLP, in train mode) draws its masks
+from the updater's generator, as the zoo's :class:`Dropout` does.
 """
 
 import torch
@@ -38,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from chainermn_tpu_torch import ops
+from chainermn_tpu_torch.models._layers import Dropout
 from chainermn_tpu_torch.models.flax_weights import (
     param_tree, shard_leaf, shard_variables)
 from chainermn_tpu_torch.ops._common import resolve_device
@@ -112,9 +117,6 @@ def _check_options(sequence_axis, tp_axis, dropout, sp_scheme, where):
         raise ValueError('tp_axis blocks run without dropout (per-rank rng '
                          'divergence would silently break the head groups); '
                          'build with dropout=0.0')
-    if dropout:
-        raise NotImplementedError(
-            'dropout is not ported yet (ROADMAP.md A6)')
     if sp_scheme not in ('ring', 'ulysses'):
         raise ValueError("sp_scheme must be 'ring' or 'ulysses', got %r"
                          % (sp_scheme,))
@@ -160,7 +162,12 @@ class TransformerBlock(nn.Module):
     through the conjugate ``tp_copy`` / ``tp_reduce`` pair); the axis is
     resolved in the bound mesh when the block is built (its parameters
     are this process's shards of the unsharded block's, made from the
-    same generator) and again at every call."""
+    same generator) and again at every call.  ``dropout``: in train mode
+    (``module.training``) the attention projection's and the MLP's
+    outputs are dropped at that rate before their residual adds, as in
+    the JAX block; the masks come from :attr:`drop`'s generator (the
+    updater's, :func:`~chainermn_tpu_torch.models.set_dropout_generator`).
+    """
 
     def __init__(self, d_model, n_heads, d_ff, dtype=torch.bfloat16,
                  sequence_axis=None, dropout=0.0, tp_axis=None,
@@ -174,6 +181,7 @@ class TransformerBlock(nn.Module):
         self.sequence_axis = sequence_axis
         self.sp_scheme = sp_scheme
         self.tp_axis = tp_axis
+        self.drop = Dropout(dropout)
         self.ln1_scale = nn.Parameter(torch.ones(d_model))
         self.ln1_bias = nn.Parameter(torch.zeros(d_model))
         self.qkv = QKV(d_model, n_heads, dtype, generator)
@@ -209,16 +217,20 @@ class TransformerBlock(nn.Module):
                         'bias': self.ff_out.bias}}
         return block_forward(p, x, self.dtype, tp_axis=self.tp_axis,
                              sequence_axis=self.sequence_axis,
-                             sp_scheme=self.sp_scheme)
+                             sp_scheme=self.sp_scheme, drop=self.drop)
 
 
 def block_forward(p, x, dtype, tp_axis=None, sequence_axis=None,
-                  sp_scheme='ring'):
+                  sp_scheme='ring', drop=None):
     """A :class:`TransformerBlock`'s forward over its parameter tree ``p``
     (the flax names: ``ln1_scale``, ``qkv/kernel``, ...; with ``tp_axis``
     this process's shards): what the block's ``forward`` runs, and what a
     pipeline stage (:func:`pipeline_parts`) runs over each row of its
-    stacked tree without a module."""
+    stacked tree without a module.  ``drop`` (a :class:`Dropout`, not
+    with ``tp_axis``; None for none) is applied to the attention
+    projection's and the MLP's outputs before their residual adds."""
+    if drop is None:
+        drop = nn.Identity()
     if tp_axis is not None:
         return _tp_block(p, x, dtype, tp_axis)
     h = ops.layer_norm(x, p['ln1_scale'], p['ln1_bias']).to(dtype)
@@ -231,9 +243,10 @@ def block_forward(p, x, dtype, tp_axis=None, sequence_axis=None,
         attn = sp(q, k, v, sequence_axis, causal=True)
     else:
         attn = ops.flash_attention(q, k, v, causal=True)
-    x = x + _dense(attn.reshape(attn.shape[:2] + (-1,)), p['proj'], dtype)
+    x = x + drop(_dense(attn.reshape(attn.shape[:2] + (-1,)), p['proj'],
+                        dtype))
     h = ops.layer_norm(x, p['ln2_scale'], p['ln2_bias']).to(dtype)
-    return x + _mlp(h, p, dtype)
+    return x + drop(_mlp(h, p, dtype))
 
 
 def _tp_block(p, x, dt, axis):
@@ -243,16 +256,65 @@ def _tp_block(p, x, dt, axis):
     h = tensor.tp_copy(h, axis)
     attn = tensor.qkv_attention(h, p['qkv']['kernel'].to(dt), causal=True,
                                 bqkv=p['qkv']['bias'].to(dt))
-    x = x + tensor.row_parallel_dense(
-        attn, p['proj']['kernel'].to(dt), axis, p['proj']['bias'].to(dt),
-        grad_conjugate=True)
+    x = x + _tp_proj(p, attn, dt, axis)
     h = ops.layer_norm(x, p['ln2_scale'], p['ln2_bias']).to(dt)
+    return x + _tp_mlp(p, h, dt, axis)
+
+
+# The tensor-parallel forms of the block's halves, the embedding and the
+# head: what the training forward and the serving functions both run.
+# They enter through ``tp_copy`` and leave through ``tp_reduce`` (the
+# conjugate pair); forward, that is the identity and one sum.
+
+def _tp_proj(p, attn, dt, axis):
+    """The row-parallel attention projection of this process's heads'
+    flattened attention (one sum, the bias added after it)."""
+    from chainermn_tpu_torch.parallel import tensor
+    return tensor.row_parallel_dense(
+        attn.to(dt), p['proj']['kernel'].to(dt), axis,
+        p['proj']['bias'].to(dt), grad_conjugate=True)
+
+
+def _tp_mlp(p, h, dt, axis):
+    """The gelu MLP, column-parallel in, row-parallel out (one sum)."""
+    from chainermn_tpu_torch.parallel import tensor
     h = tensor.tp_copy(h, axis)
     g = _gelu(tensor.column_parallel_dense(
         h, p['ff_in']['kernel'].to(dt), p['ff_in']['bias'].to(dt)))
-    return x + tensor.row_parallel_dense(
+    return tensor.row_parallel_dense(
         g, p['ff_out']['kernel'].to(dt), axis, p['ff_out']['bias'].to(dt),
         grad_conjugate=True)
+
+
+def _tp_embed(table, tokens, axis, dt):
+    """Vocab-row-sharded lookup: the process at place ``r`` of ``axis``
+    owns rows ``[r*V/tp, (r+1)*V/tp)`` (``table``); off-shard tokens
+    give zeros, and one sum (``tp_reduce``: identity backward, so the
+    local rows get exactly their own gradients) completes the lookup."""
+    from chainermn_tpu_torch.parallel import tensor
+    from chainermn_tpu_torch.parallel.meshplan import resolve_axis
+    v_local = table.shape[0]
+    local = tokens.long() - resolve_axis(axis).index * v_local
+    in_shard = (local >= 0) & (local < v_local)
+    rows = _embed(table, local.clamp(0, v_local - 1), table.dtype)
+    x = torch.where(in_shard[..., None], rows, rows.new_zeros(())).to(dt)
+    # exact in any dtype: per token exactly one process is nonzero
+    return tensor.tp_reduce(x, axis)
+
+
+def _tp_head(head, x, axis, dt):
+    """Row-parallel vocab projection: ``d_model`` sliced per process
+    (``head``'s kernel holds this process's rows), the f32 contraction
+    completed by one sum, the bias added once after it."""
+    from chainermn_tpu_torch.parallel import tensor
+    from chainermn_tpu_torch.parallel.meshplan import resolve_axis
+    d_local = head['kernel'].shape[0]
+    index = resolve_axis(axis).index
+    xh = tensor.tp_copy(x.to(dt), axis)
+    x_local = xh[..., index * d_local:(index + 1) * d_local]
+    return tensor.row_parallel_dense(
+        x_local.to(torch.float32), head['kernel'].to(torch.float32), axis,
+        head['bias'], grad_conjugate=True)
 
 
 class TransformerLM(nn.Module):
@@ -277,7 +339,8 @@ class TransformerLM(nn.Module):
     takes the FULL (oracle) tree and keeps the shard, and
     ``StandardUpdater.params`` gathers the shards back.  Activations are
     replicated over the axis, so the batch is sharded over the data axis
-    only."""
+    only.  ``dropout`` (not with ``tp_axis``): each block's, in train
+    mode (see :class:`TransformerBlock`)."""
 
     def __init__(self, vocab_size=32000, d_model=512, n_heads=8,
                  n_layers=6, d_ff=2048, max_len=32768, dtype=torch.bfloat16,
@@ -307,13 +370,15 @@ class TransformerLM(nn.Module):
         self.sequence_axis = sequence_axis
         self.sp_scheme = sp_scheme
         self.tp_axis = tp_axis
+        self.dropout = dropout
         self.tp_size, self.tp_index, self.tp_mesh = tp, index, mesh
         self.embed = Embed(vocab_size, d_model, dtype, generator)
         self.pos_embed = _trunc_normal((max_len, d_model), 0.02, generator)
         for i in range(n_layers):
             setattr(self, 'block_%d' % i, TransformerBlock(
                 d_model, n_heads, d_ff, dtype, sequence_axis,
-                tp_axis=tp_axis, generator=generator, sp_scheme=sp_scheme))
+                dropout=dropout, tp_axis=tp_axis, generator=generator,
+                sp_scheme=sp_scheme))
         self.lnf_scale = nn.Parameter(torch.ones(d_model))
         self.lnf_bias = nn.Parameter(torch.zeros(d_model))
         self.lm_head = Dense(d_model, vocab_size, torch.float32, generator)
@@ -337,7 +402,8 @@ class TransformerLM(nn.Module):
     def forward(self, tokens):
         t = tokens.shape[1]
         if self.tp_axis is not None:
-            x = self._tp_embed(tokens)
+            x = _tp_embed(self.embed.embedding, tokens, self.tp_axis,
+                          self.dtype)
         else:
             x = self.embed(tokens)
         pos0 = 0
@@ -349,38 +415,10 @@ class TransformerLM(nn.Module):
             x = getattr(self, 'block_%d' % i)(x)
         x = ops.layer_norm(x, self.lnf_scale, self.lnf_bias)
         if self.tp_axis is not None:
-            return self._tp_head(x)
+            return _tp_head({'kernel': self.lm_head.kernel,
+                             'bias': self.lm_head.bias}, x, self.tp_axis,
+                            self.dtype)
         return self.lm_head(x.to(self.dtype))
-
-    def _tp_embed(self, tokens):
-        """Vocab-row-sharded lookup: this process owns rows ``[r*V/tp,
-        (r+1)*V/tp)``; off-shard tokens give zeros, and one sum
-        (``tp_reduce``: identity backward, so the local rows get exactly
-        their own gradients) completes the lookup."""
-        from chainermn_tpu_torch.parallel import tensor
-        table = self.embed.embedding
-        v_local = table.shape[0]
-        local = tokens.long() - self.tp_index * v_local
-        in_shard = (local >= 0) & (local < v_local)
-        rows = _embed(table, local.clamp(0, v_local - 1), table.dtype)
-        x = torch.where(in_shard[..., None], rows,
-                        rows.new_zeros(())).to(self.dtype)
-        # exact in any dtype: per token exactly one process is nonzero
-        return tensor.tp_reduce(x, self.tp_axis)
-
-    def _tp_head(self, x):
-        """Row-parallel vocab projection: ``d_model`` sliced per
-        process, the f32 contraction completed by one sum, the bias
-        added once after it."""
-        from chainermn_tpu_torch.parallel import tensor
-        d_local = self.d_model // self.tp_size
-        xh = tensor.tp_copy(x.to(self.dtype), self.tp_axis)
-        x_local = xh[..., self.tp_index * d_local:
-                     (self.tp_index + 1) * d_local]
-        return tensor.row_parallel_dense(
-            x_local.to(torch.float32),
-            self.lm_head.kernel.to(torch.float32), self.tp_axis,
-            self.lm_head.bias, grad_conjugate=True)
 
 
 def tp_oracle(model, device=None):
@@ -611,32 +649,34 @@ def lm_loss(apply_fn, pad_id=-1):
 # tensors IN PLACE (and return the same dict), which is what donation
 # buys there: steady-state decode allocates nothing cache-sized.
 
-def init_kv_cache(model, n_slots, max_len=None, dtype=None, tp=1,
+def init_kv_cache(model, n_slots, max_len=None, dtype=None, tp=None,
                   int8_kv=False, device=None):
     """Zeroed slot-addressed KV cache for ``model``:
-    ``{'k'|'v': (n_layers, n_slots, S, H, d_head)}`` with ``S = max_len
-    or model.max_len``, in ``dtype`` (default ``model.dtype``), on
-    ``device`` (default: the current CUDA device).  ``int8_kv=True``
-    stores k / v as int8 and adds ``'k_scale'`` / ``'v_scale'``
-    ``(n_layers, n_slots, S, H)`` float32.  Slots are reused without
-    zeroing: reads mask by the live length."""
-    if tp != 1:
-        raise NotImplementedError(
-            'a tensor-parallel cache is not ported yet (ROADMAP.md A7)')
+    ``{'k'|'v': (n_layers, n_slots, S, H_local, d_head)}`` with ``S =
+    max_len or model.max_len`` and ``H_local = n_heads / tp``, in
+    ``dtype`` (default ``model.dtype``), on ``device`` (default: the
+    current CUDA device).  ``tp`` (default: the model's own, the
+    model-axis size of a ``tp_axis`` model, else 1) is the number of
+    processes the heads split over: each holds its own heads' cache, the
+    shard :func:`kv_cache_specs` cuts from the unsharded (``tp=1``) one.
+    ``int8_kv=True`` stores k / v as int8 and adds ``'k_scale'`` /
+    ``'v_scale'`` ``(n_layers, n_slots, S, H_local)`` float32.  Slots are
+    reused without zeroing: reads mask by the live length."""
     return _zero_cache(model, (int(n_slots), int(max_len or model.max_len)),
-                       dtype, int8_kv, device)
+                       dtype, int8_kv, device, tp)
 
 
-def _zero_cache(model, slab, dtype, int8_kv, device):
-    """``{'k'|'v': (n_layers, *slab, H, d_head)}`` zeros in ``dtype``
-    (default ``model.dtype``), or int8 with f32 ``k_scale`` / ``v_scale``
-    ``(n_layers, *slab, H)``."""
-    if getattr(model, 'tp_axis', None) is not None:
-        raise NotImplementedError(
-            'serving a tp_axis model (a tensor-parallel cache) is not '
-            'ported yet (ROADMAP.md A7)')
+def _zero_cache(model, slab, dtype, int8_kv, device, tp):
+    """``{'k'|'v': (n_layers, *slab, H_local, d_head)}`` zeros in
+    ``dtype`` (default ``model.dtype``), or int8 with f32 ``k_scale`` /
+    ``v_scale`` ``(n_layers, *slab, H_local)``."""
+    if tp is None:
+        tp = getattr(model, 'tp_size', 1)
+    if model.n_heads % tp:
+        raise ValueError('tp=%d must divide n_heads=%d'
+                         % (tp, model.n_heads))
     device = resolve_device(device)
-    shape = (model.n_layers,) + slab + (model.n_heads,
+    shape = (model.n_layers,) + slab + (model.n_heads // tp,
                                         model.d_model // model.n_heads)
     if int8_kv:
         return {'k': torch.zeros(shape, dtype=torch.int8, device=device),
@@ -648,24 +688,36 @@ def _zero_cache(model, slab, dtype, int8_kv, device):
             'v': torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def init_paged_kv_cache(model, n_pages, page_size, dtype=None, tp=1,
+def init_paged_kv_cache(model, n_pages, page_size, dtype=None, tp=None,
                         int8_kv=False, device=None):
     """Zeroed PAGED KV cache: a pool of ``n_pages`` pages of
     ``page_size`` positions each, shared by every sequence:
-    ``{'k'|'v': (n_layers, n_pages, page_size, H, d_head)}`` (+
-    ``'k_scale'`` / ``'v_scale'`` ``(n_layers, n_pages, page_size, H)``
-    float32 under ``int8_kv``), on ``device`` (default: the current CUDA
-    device).  Sequences address it through page tables
-    (:func:`decode_step_paged`, :func:`prefill_paged`); allocation,
-    sharing and copy-on-write are host code in
-    :mod:`chainermn_tpu_torch.serving.paged`.  Page 0 is the allocator's
-    scratch page: pad rows write there and no live table points at it.
-    Pages are reused without zeroing: reads mask by the live length."""
-    if tp != 1:
-        raise NotImplementedError(
-            'a tensor-parallel cache is not ported yet (ROADMAP.md A7)')
+    ``{'k'|'v': (n_layers, n_pages, page_size, H_local, d_head)}`` (+
+    ``'k_scale'`` / ``'v_scale'`` ``(n_layers, n_pages, page_size,
+    H_local)`` float32 under ``int8_kv``), on ``device`` (default: the
+    current CUDA device); ``tp`` as in :func:`init_kv_cache`, so
+    :func:`kv_cache_specs` shards it unchanged.  Sequences address it
+    through page tables (:func:`decode_step_paged`,
+    :func:`prefill_paged`); allocation, sharing and copy-on-write are
+    host code in :mod:`chainermn_tpu_torch.serving.paged`.  Page 0 is the
+    allocator's scratch page: pad rows write there and no live table
+    points at it.  Pages are reused without zeroing: reads mask by the
+    live length."""
     return _zero_cache(model, (int(n_pages), int(page_size)), dtype,
-                       int8_kv, device)
+                       int8_kv, device, tp)
+
+
+def kv_cache_specs(cache, axis='model'):
+    """The spec tree of a cache under tensor parallelism, in
+    :func:`tp_param_specs`' form (a tuple of None / axis name per leading
+    dim): the head dim shards with the attention heads,
+    ``(None, None, None, axis, None)`` for ``k`` / ``v`` and ``(None,
+    None, None, axis)`` for the int8 scales; the slots (or pages) are not
+    sharded.  ``models.shard_variables`` cuts a process's cache from the
+    unsharded one with it."""
+    return {name: ((None, None, None, axis, None) if leaf.ndim == 5
+                   else (None, None, None, axis))
+            for name, leaf in cache.items()}
 
 
 def _cache_int8(cache):
@@ -741,29 +793,59 @@ def _attend_cache(cache, layer, q, slots, lengths):
                                       slots=slots, **scales)
 
 
+def _embed_rows(model, params, tokens):
+    """The token embedding of the serving functions: a plain lookup, or
+    under ``tp_axis`` the vocab-sharded one (:func:`_tp_embed`)."""
+    table = params['embed']['embedding']
+    if model.tp_axis is not None:
+        return _tp_embed(table, tokens, model.tp_axis, model.dtype)
+    return _embed(table, tokens, model.dtype)
+
+
 def _head_logits(model, params, x):
     """The LM head: an f32 Dense over activations rounded to
-    ``model.dtype`` first."""
+    ``model.dtype`` first; under ``tp_axis`` the row-parallel form
+    (:func:`_tp_head`)."""
+    if model.tp_axis is not None:
+        return _tp_head(params['lm_head'], x, model.tp_axis, model.dtype)
     return _dense(x.to(model.dtype), params['lm_head'], torch.float32)
+
+
+def _layer(model, params, layer, x, attend):
+    """Block ``layer`` of the serving functions: norm -> qkv (this
+    process's heads) -> ``attend(layer, q, k, v)``, which banks k / v in
+    the cache and returns the attention -> projection residual -> MLP
+    residual."""
+    dtype = model.dtype
+    bp = params['block_%d' % layer]
+    h = ops.layer_norm(x, bp['ln1_scale'], bp['ln1_bias']).to(dtype)
+    qkv = _qkv_proj(h, bp, dtype)                # (..., 3, H, d_head)
+    attn = attend(layer, qkv.select(-3, 0), qkv.select(-3, 1),
+                  qkv.select(-3, 2))
+    attn = attn.reshape(attn.shape[:-2] + (-1,))
+    if model.tp_axis is not None:
+        x = x + _tp_proj(bp, attn, dtype, model.tp_axis)
+    else:
+        x = x + _dense(attn, bp['proj'], dtype)
+    h = ops.layer_norm(x, bp['ln2_scale'], bp['ln2_bias']).to(dtype)
+    if model.tp_axis is not None:
+        return x + _tp_mlp(bp, h, dtype, model.tp_axis)
+    return x + _mlp(h, bp, dtype)
 
 
 def _decode_core(model, params, cache, tokens, positions, write, attend):
     """Shared single-token decode body: embed + per layer (norm -> qkv
     -> ``write`` one token's K/V -> ``attend`` the cache -> proj residual
     -> MLP residual) -> final norm -> head."""
-    dtype = model.dtype
-    x = _embed(params['embed']['embedding'], tokens, dtype)
-    x = x + _embed(params['pos_embed'], positions, dtype)
+
+    def attend_layer(layer, q, k_new, v_new):
+        write(cache, layer, k_new, v_new)
+        return attend(cache, layer, q)
+
+    x = _embed_rows(model, params, tokens)
+    x = x + _embed(params['pos_embed'], positions, model.dtype)
     for i in range(model.n_layers):
-        bp = params['block_%d' % i]
-        h = ops.layer_norm(x, bp['ln1_scale'], bp['ln1_bias']).to(dtype)
-        qkv = _qkv_proj(h, bp, dtype)            # (N, 3, H, d_head)
-        q, k_new, v_new = qkv[:, 0], qkv[:, 1], qkv[:, 2]
-        cache = write(cache, i, k_new, v_new)
-        attn = attend(cache, i, q)
-        x = x + _dense(attn.reshape(attn.shape[0], -1), bp['proj'], dtype)
-        h = ops.layer_norm(x, bp['ln2_scale'], bp['ln2_bias']).to(dtype)
-        x = x + _mlp(h, bp, dtype)
+        x = _layer(model, params, i, x, attend_layer)
     x = ops.layer_norm(x, params['lnf_scale'], params['lnf_bias'])
     return _head_logits(model, params, x), cache
 
@@ -816,7 +898,6 @@ def prefill(model, params, cache, tokens, length, slot):
     forward once, banks every layer's K/V at ``cache[:, slot, :T]`` in
     place, and returns ``(logits (V,) f32 at position length - 1,
     cache)``."""
-    dtype = model.dtype
     b, t = tokens.shape
     if b != 1:
         raise ValueError('prefill takes one prompt per call, got batch %d'
@@ -825,18 +906,15 @@ def prefill(model, params, cache, tokens, length, slot):
     length = _index(length, device)
     positions = torch.arange(t, device=device)
     slots = _index(slot, device).expand(t)
-    x = _embed(params['embed']['embedding'], tokens, dtype)
-    x = x + params['pos_embed'][:t].to(dtype)
+
+    def attend(layer, q, k, v):
+        _scatter_kv(cache, layer, k[0], v[0], slots, positions)
+        return ops.flash_attention(q, k, v, causal=True)
+
+    x = _embed_rows(model, params, tokens)
+    x = x + params['pos_embed'][:t].to(model.dtype)
     for i in range(model.n_layers):
-        bp = params['block_%d' % i]
-        h = ops.layer_norm(x, bp['ln1_scale'], bp['ln1_bias']).to(dtype)
-        qkv = _qkv_proj(h, bp, dtype)            # (1, T, 3, H, d_head)
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        attn = ops.flash_attention(q, k, v, causal=True)
-        _scatter_kv(cache, i, k[0], v[0], slots, positions)
-        x = x + _dense(attn.reshape(1, t, -1), bp['proj'], dtype)
-        h = ops.layer_norm(x, bp['ln2_scale'], bp['ln2_bias']).to(dtype)
-        x = x + _mlp(h, bp, dtype)
+        x = _layer(model, params, i, x, attend)
     # the head only needs the last valid position's activation
     x_last = ops.layer_norm(_last_row(x, length), params['lnf_scale'],
                             params['lnf_bias'])
@@ -938,7 +1016,7 @@ def prefill_paged(model, params, cache, tokens, length, page_table, pos0,
     table = page_table.reshape(-1).to(torch.int32)
     n_max = table.shape[0]
     ps = cache['k'].shape[2]
-    x = _embed(params['embed']['embedding'], tokens, dtype)
+    x = _embed_rows(model, params, tokens)
     t = torch.arange(c, device=device)
     # the JAX package's dynamic_slice: the window start is clamped so the
     # window stays inside the table
@@ -949,22 +1027,18 @@ def prefill_paged(model, params, cache, tokens, length, page_table, pos0,
     pages = torch.where(t < length, table[page_idx], 0).long()
     offsets = p_abs % ps
     ctx_len = pos0.to(torch.int32)
-    for i in range(model.n_layers):
-        bp = params['block_%d' % i]
-        h = ops.layer_norm(x, bp['ln1_scale'], bp['ln1_bias']).to(dtype)
-        qkv = _qkv_proj(h, bp, dtype)            # (1, C, 3, H, d_head)
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        _scatter_kv(cache, i, k[0], v[0], pages, offsets)
+
+    def attend(layer, q, k, v):
+        _scatter_kv(cache, layer, k[0], v[0], pages, offsets)
         if first:
             # no banked context: the slot prefill's causal forward
-            attn = ops.flash_attention_fwd(q, k, v, causal=True)[0]
-        else:
-            attn = ops.flash_attention_chunk(
-                q, k, v, ctx_len=ctx_len,
-                **_gather_context(cache, i, table[None]))
-        x = x + _dense(attn.reshape(1, c, -1), bp['proj'], dtype)
-        h = ops.layer_norm(x, bp['ln2_scale'], bp['ln2_bias']).to(dtype)
-        x = x + _mlp(h, bp, dtype)
+            return ops.flash_attention_fwd(q, k, v, causal=True)[0]
+        return ops.flash_attention_chunk(
+            q, k, v, ctx_len=ctx_len,
+            **_gather_context(cache, layer, table[None]))
+
+    for i in range(model.n_layers):
+        x = _layer(model, params, i, x, attend)
     x_last = ops.layer_norm(_last_row(x, length), params['lnf_scale'],
                             params['lnf_bias'])
     return _head_logits(model, params, x_last)[0], cache
@@ -981,25 +1055,21 @@ def _verify_core(model, params, cache, tokens, positions, write, attend):
     causal against the banked prefix -> proj residual -> MLP residual)
     -> final norm -> head at all K positions.  Returns ``(logits (N, K,
     V) f32, cache)``."""
-    dtype = model.dtype
     n, kk = tokens.shape
     window = positions.long()[:, None] + torch.arange(
         kk, device=positions.device)[None, :]
     # a window overhanging the position table: its columns are never
     # committed, any row of the table will do
     window = torch.clamp(window, max=params['pos_embed'].shape[0] - 1)
-    x = _embed(params['embed']['embedding'], tokens, dtype)
-    x = x + _embed(params['pos_embed'], window, dtype)
+
+    def attend_layer(layer, q, k_new, v_new):
+        write(cache, layer, k_new, v_new)
+        return attend(cache, layer, q, k_new, v_new)
+
+    x = _embed_rows(model, params, tokens)
+    x = x + _embed(params['pos_embed'], window, model.dtype)
     for i in range(model.n_layers):
-        bp = params['block_%d' % i]
-        h = ops.layer_norm(x, bp['ln1_scale'], bp['ln1_bias']).to(dtype)
-        qkv = _qkv_proj(h, bp, dtype)            # (N, K, 3, H, d_head)
-        q, k_new, v_new = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        cache = write(cache, i, k_new, v_new)
-        attn = attend(cache, i, q, k_new, v_new)
-        x = x + _dense(attn.reshape(n, kk, -1), bp['proj'], dtype)
-        h = ops.layer_norm(x, bp['ln2_scale'], bp['ln2_bias']).to(dtype)
-        x = x + _mlp(h, bp, dtype)
+        x = _layer(model, params, i, x, attend_layer)
     x = ops.layer_norm(x, params['lnf_scale'], params['lnf_bias'])
     return _head_logits(model, params, x), cache
 

@@ -9,9 +9,10 @@ a non-finite step backs the scale off and is skipped by the caller), and
 the KV-cache quantization pair :func:`quantize_kv` /
 :func:`dequantize_kv`, and the int8 weight policy: :class:`QuantizedLeaf`,
 :data:`QUANT_MIN_ELEMS`, :func:`is_quantized`, :func:`quantize_int8`,
-:func:`dequantize_int8`, :func:`dequantized_view` and
-:class:`Int8Policy`.  Dtypes are ``torch.dtype``s; a tree is a nested
-``dict`` (the layout of a flax tree), a list or a tuple of tensors.
+:func:`dequantize_int8`, :func:`quantization_error`,
+:func:`dequantized_view` and :class:`Int8Policy`.  Dtypes are
+``torch.dtype``s; a tree is a nested ``dict`` (the layout of a flax
+tree), a list or a tuple of tensors.
 
 The cast points live in the training stack, not the model:
 ``StandardUpdater(policy=)`` casts the f32 master parameters to the
@@ -277,6 +278,30 @@ def dequantize_int8(tree, dtype=torch.float32):
         return x
 
     return one(tree)
+
+
+def quantization_error(tree, qtree):
+    """The worst relative Frobenius error over the quantized leaves of
+    ``qtree`` (:func:`quantize_int8` of ``tree``): ``||w - deq(q)|| /
+    max(||w||, 1e-12)`` in float32, the load-time sanity number
+    (per-channel symmetric int8 lands around 1e-2 for well-scaled
+    weights); 0.0 when nothing is quantized."""
+    errs = []
+
+    def walk(w, qw):
+        if isinstance(qw, dict):
+            for k in qw:
+                walk(w[k], qw[k])
+        elif is_quantized(qw):
+            wf = torch.as_tensor(np.asarray(w) if isinstance(w, np.ndarray)
+                                 else w).to(torch.float32)
+            deq = _dequant(qw, torch.float32).to(wf.device)
+            num = torch.linalg.norm(wf - deq)
+            den = torch.clamp(torch.linalg.norm(wf), min=1e-12)
+            errs.append(float(num / den))
+
+    walk(tree, qtree)
+    return max(errs) if errs else 0.0
 
 
 class _DequantizedView(collections.abc.Mapping):

@@ -27,9 +27,13 @@ Counterpart of ``chainermn_tpu.serving``:
   the :class:`ReplicaSupervisor` (respawn, :class:`DegradationPolicy`).
   CLI: ``python -m chainermn_tpu_torch.serving.fleet``.
 
-Not ported yet (ROADMAP.md A7): tensor-parallel serving.
+Tensor-parallel serving is the engines' ``plan=`` / ``param_specs=``
+(one process a device, SPMD); :func:`kv_cache_specs` (the models') says
+how a cache shards its heads.
 """
 
+from chainermn_tpu_torch.models.transformer import (  # noqa: F401
+    kv_cache_specs)
 from chainermn_tpu_torch.serving.batcher import (  # noqa: F401
     PackedBatch, Request, RequestQueue, admission_order, bucket_edges,
     bucket_of, next_request_id, pack_sizes, record_shed)

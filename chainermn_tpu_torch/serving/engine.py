@@ -40,9 +40,19 @@ each request's trace stages ``queue_wait`` -> ``bucket_pack`` ->
 The chaos site ``serve_slow`` sleeps on the host before an execute of
 an engine serving a hot-swapped version (the graph is unchanged); its
 queue's ``serve_burst`` is in :mod:`~chainermn_tpu_torch.serving.
-batcher`.  No counterpart yet: ``cache_dir`` (a CUDA graph cannot be
-persisted, so it is accepted and ``cache_persistent`` stays False) and
-sharded serving (``plan`` / ``param_specs`` raise, ROADMAP.md A7).
+batcher`.  ``cache_dir`` has no counterpart: a CUDA graph cannot be
+persisted, so it is accepted and ``cache_persistent`` stays False.
+
+Sharded serving (``plan=``, ``param_specs=``) is SPMD, one process per
+device: every process of the plan is given the same padded batch, runs
+its ``1 / data_size`` share of the bucket's rows, and the outputs are
+all-gathered over the data axes inside the bucket's call (its graph on
+the card), so every process returns the whole batch, as the JAX
+engine's ``shard_map`` over ``batch_spec`` does.  Buckets that the data
+axes do not divide are dropped.  The parameters are replicated, or each
+process keeps its shard of the unsharded tree under ``param_specs`` for
+an ``apply_fn`` that carries its own sums over the model axis (it runs
+with the plan's axis names bound).
 """
 
 import contextlib
@@ -54,12 +64,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call
 from torch.nn.utils import parametrize
 
 from chainermn_tpu_torch import ops
 from chainermn_tpu_torch import telemetry as _telemetry
+from chainermn_tpu_torch.models.flax_weights import shard_variables
 from chainermn_tpu_torch.ops import _common
 from chainermn_tpu_torch.ops._common import resolve_device
 from chainermn_tpu_torch.ops.int8_matmul import dequant
@@ -332,6 +344,14 @@ def _launch_counts():
     return out
 
 
+def _all_rows(t, axis):
+    """Every process's rows of ``t`` along ``axis`` (an ``Axis`` of the
+    plan's mesh), concatenated in its index order."""
+    parts = [torch.empty_like(t) for _ in range(axis.size)]
+    dist.all_gather(parts, t.contiguous(), group=axis.group)
+    return torch.cat(parts, 0)
+
+
 class _Dequant(nn.Module):
     """Parametrization of a quantized weight: the module reads
     ``q.to(dtype) * scale`` each time it reads the weight."""
@@ -404,7 +424,10 @@ class InferenceEngine:
         and dtype the buckets are built for.
       max_batch / edges: bucket geometry (power-of-two by default).
       policy: optional float or int8 policy (module docstring).
-      plan / param_specs: sharded serving -- not ported (ROADMAP.md A7).
+      plan / param_specs: sharded serving over a
+        :class:`~chainermn_tpu_torch.parallel.MeshPlan` (module
+        docstring); int8 weights under ``param_specs`` raise
+        ``NotImplementedError``, as in the JAX package.
       cache_dir: accepted; a CUDA graph cannot be persisted, so
         ``cache_persistent`` stays False.  ``aot=False`` runs every
         bucket eagerly on the card too.
@@ -419,19 +442,24 @@ class InferenceEngine:
                  edges=None, policy=None, plan=None, param_specs=None,
                  cache_dir=None, aot=True, label=None, version=0,
                  device=None):
-        if plan is not None or param_specs is not None:
-            raise NotImplementedError(
-                'sharded serving (plan=, param_specs=) is not ported yet '
-                '(ROADMAP.md A7)')
         self.apply_fn = apply_fn
         self.policy = policy
-        self.plan = None
+        self.plan = plan
         self.label = label
         self.param_version = int(version)
         self._boot_version = self.param_version
         self.device = resolve_device(device)
         self.max_batch = int(max_batch)
-        self.edges = tuple(edges) if edges else bucket_edges(max_batch)
+        edges = tuple(edges) if edges else bucket_edges(max_batch)
+        if plan is not None:
+            kept = tuple(e for e in edges if e % plan.data_size == 0)
+            if not kept:
+                raise ValueError(
+                    'no bucket edge in %r divides over the data axes '
+                    '(size %d); raise max_batch or pass edges'
+                    % (edges, plan.data_size))
+            edges = kept
+        self.edges = edges
         self.cache_dir = cache_dir
         self.cache_persistent = False
         self.aot_requested = bool(aot)
@@ -445,13 +473,21 @@ class InferenceEngine:
         self._signatures = {b: _signature((b,) + self._item_shape, in_dtype)
                             for b in self.edges}
 
+        if param_specs is not None and plan is None:
+            raise ValueError('param_specs requires a plan')
+        self.param_specs = param_specs
         self.quantized = getattr(policy, 'quantize', None) is not None
+        if self.quantized and param_specs is not None:
+            raise NotImplementedError(
+                'int8 weights under tensor-parallel param_specs '
+                'are not wired yet: quantize per shard after '
+                'resharding, or serve the tp model in bf16')
         self._view = self.quantized and not getattr(
             apply_fn, 'reads_quantized_tree', False)
         # shapes and dtypes of the untransformed tree: what a checkpoint
         # for a later hot-swap is read against (no copy is kept)
         self._params_template = params_template(params)
-        self.params = place_params(params, self.device, policy)
+        self.params = self._place_params(params)
 
         # bucket -> (CUDAGraph, input, output, its ticket counters)
         self._graphs = {}
@@ -469,7 +505,33 @@ class InferenceEngine:
         self._batch_index = 0
 
     # -- forward -------------------------------------------------------
+    def _place_params(self, params):
+        """The load-time transform (shared by construction and swaps):
+        this process's shard under ``param_specs``
+        (``models.shard_variables``: leaves on the host), then
+        :func:`place_params`."""
+        if self.param_specs is not None:
+            params = shard_variables(params, self.param_specs,
+                                     self.plan.mesh)
+        return place_params(params, self.device, self.policy)
+
     def _forward(self, params, x):
+        """The forward of a padded batch: under a plan, this process's
+        rows of it under the plan's bound axis names, the outputs
+        all-gathered over the data axes."""
+        if self.plan is None:
+            return self._apply(params, x)
+        with self.plan.bind():
+            data = self.plan.mesh.axis(self.plan.data_axes)
+            n = x.shape[0] // data.size
+            y = self._apply(params, x[data.index * n:(data.index + 1) * n])
+            if data.size == 1:
+                return y
+            if isinstance(y, (tuple, list)):
+                return type(y)(_all_rows(t, data) for t in y)
+            return _all_rows(y, data)
+
+    def _apply(self, params, x):
         policy = self.policy
         if self._view:
             params = dequantized_view(params, policy.compute_dtype)
@@ -556,7 +618,7 @@ class InferenceEngine:
         Both run under the lock and on the engine's stream.  A failed
         validation raises :class:`~chainermn_tpu_torch.utils.failure.
         WeightSwapError` and leaves the engine serving the old version."""
-        new = place_params(params, self.device, self.policy)
+        new = self._place_params(params)
         # the module is shared and ``functional_call`` swaps its
         # attributes in place: the validation forward holds the lock, as
         # every other forward does

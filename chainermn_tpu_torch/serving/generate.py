@@ -84,12 +84,30 @@ changes), and in :meth:`GenerationEngine.step` ``serve_cancel`` and
 ``replica_kill`` (decode ticks only).  The engine's in-flight request
 table is a flight-dump source (``serve_requests``).
 
-Not ported yet: tensor-parallel serving (``plan`` / ``param_specs``
-raise ``NotImplementedError``, ROADMAP.md A7).  ``cache_dir`` is
-accepted, but a CUDA graph cannot be persisted, so ``cache_persistent``
-stays False.
+Tensor-parallel serving (``plan=`` / ``param_specs=``, a ``tp_axis``
+model): the JAX engine is one process over every device, running its
+bodies under ``shard_map``; here there is one process per device, so a
+plan engine is SPMD.  Every process of the model axis builds the same
+engine from the same unsharded tree and keeps its own shard of it (cut
+by ``param_specs``), and a cache of ``n_heads / tp`` heads
+(:func:`~chainermn_tpu_torch.models.kv_cache_specs`); every process is
+given the same requests in the same order and runs the same ticks.  The
+row-parallel head ends in an all-reduce, whose result every process
+takes to be the same logits bit for bit, so every host decision --
+admissions, pages, copy-on-write, prefix hits, greedy tokens,
+speculative acceptance -- agrees without any broadcast of the sampled
+tokens.  That holds for gloo (the tests hold both processes' streams and
+stats equal); for NCCL at tp >= 2 it is assumed, not verified: no run on
+two GPUs has checked it.  The draft of a speculative plan engine runs
+replicated on every process.  On the card a plan engine captures its
+graphs as the plain one does, the model axis's all-reduces inside them:
+every process captures the same calls in the same order.  That capture
+has run only at tp = 1, where no collective is made; NCCL capture at tp
+>= 2 is untried.  ``cache_dir`` is accepted, but a CUDA graph cannot be
+persisted, so ``cache_persistent`` stays False.
 """
 
+import contextlib
 import threading
 import time
 
@@ -97,7 +115,8 @@ import numpy as np
 import torch
 
 from chainermn_tpu_torch import telemetry as _telemetry
-from chainermn_tpu_torch.models.flax_weights import param_tree
+from chainermn_tpu_torch.models.flax_weights import (
+    gather_variables, param_tree, shard_variables)
 from chainermn_tpu_torch.models.transformer import (
     decode_step, decode_step_paged, init_kv_cache, init_paged_kv_cache,
     prefill, prefill_paged, spec_verify, spec_verify_paged)
@@ -374,6 +393,13 @@ def _signature(args):
                  for a in args)
 
 
+def _host_tree(tree):
+    """A tree of tensors as numpy arrays on the host."""
+    if isinstance(tree, dict):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
+
+
 #: the bucket families of an engine, in the JAX engine's ``warmup``
 #: order (the last three on a speculative engine only)
 FAMILIES = ('prefill', 'decode', 'draft_prefill', 'draft_decode', 'verify')
@@ -432,20 +458,18 @@ class _Call:
         return self.out
 
 
-def _unported(what, item='A8'):
-    raise NotImplementedError('%s is not ported yet (ROADMAP.md %s)'
-                              % (what, item))
-
-
 class GenerationEngine:
     """Continuous-batching autoregressive server for one
     :class:`~chainermn_tpu_torch.models.TransformerLM`.
 
     Args:
       model: the port's ``TransformerLM`` (its config; and its weights
-        unless ``params`` is given).
+        unless ``params`` is given); with ``tp_axis`` set when serving
+        over ``plan``.
       params: optional parameter tree (nested dicts of tensors or numpy
-        arrays, keyed like the flax tree); default: the model's own.
+        arrays, keyed like the flax tree), the UNSHARDED tree under a
+        plan; default: the model's own (a ``tp_axis`` model's shards are
+        gathered first, a collective over the model axis).
       n_slots: cache slots = max concurrent sequences; decode buckets
         are the powers of two up to it.
       max_prompt_len: prompt-length cap; prefill buckets are the powers
@@ -474,8 +498,16 @@ class GenerationEngine:
       spec_tokens: the verify window ``k`` (>= 2): one tick runs ``k``
         draft decode steps and one target verify, committing 1..k tokens
         per row.
+      plan / param_specs: tensor-parallel serving over a
+        :class:`~chainermn_tpu_torch.parallel.MeshPlan` (module
+        docstring): a ``tp_axis`` model, and ``param_specs`` (e.g.
+        ``models.tp_param_specs(params)``) saying how each leaf of the
+        unsharded tree is cut; without specs every process keeps the
+        whole tree.  int8 WEIGHTS under ``param_specs`` raise
+        ``NotImplementedError`` (int8 KV composes with tp); the draft
+        must have no ``tp_axis``.
       cache_dir: accepted; a CUDA graph cannot be persisted, so
-        ``cache_persistent`` stays False.
+        ``cache_persistent`` stays False and nothing is written.
       aot: on a CUDA device, capture one CUDA graph per bucket (module
         docstring); ``False`` runs every bucket eagerly on the card too.
       device: where the engine runs (default: the current CUDA device;
@@ -495,8 +527,25 @@ class GenerationEngine:
                  draft_params=None, spec_tokens=4, plan=None,
                  param_specs=None, cache_dir=None, aot=True, device=None,
                  label=None, version=0):
-        if plan is not None or param_specs is not None:
-            _unported('tensor-parallel serving (plan=, param_specs=)', 'A7')
+        if param_specs is not None and plan is None:
+            raise ValueError('param_specs requires a plan')
+        if (plan is not None) != (getattr(model, 'tp_axis', None)
+                                  is not None):
+            raise ValueError(
+                'serve a tp_axis model over a plan and a plain model '
+                'without one (tp_axis=%r, plan=%r)'
+                % (getattr(model, 'tp_axis', None), plan))
+        if getattr(policy, 'quantize', None) is not None \
+                and param_specs is not None:
+            raise NotImplementedError(
+                'int8 weights under tensor-parallel param_specs '
+                'are not wired yet (quantize per shard after '
+                'resharding); int8_kv composes with tp, int8 '
+                'WEIGHTS do not')
+        self.plan = plan
+        self.param_specs = param_specs
+        #: the model-axis size: the cache holds n_heads / tp heads
+        self.tp = plan.model_size if plan is not None else 1
         self.model = model
         self.label = label
         self.device = resolve_device(device)
@@ -525,6 +574,11 @@ class GenerationEngine:
         self.quantized = getattr(policy, 'quantize', None) is not None
         if params is None:
             params = param_tree(model)
+            if plan is not None:
+                params = gather_variables(
+                    _host_tree(params), model.param_specs, plan.mesh,
+                    device=self.device if self.device.type == 'cuda'
+                    else None)
         # shapes and dtypes of the untransformed tree: what a checkpoint
         # for a later hot-swap is read against
         self._params_template = params_template(params)
@@ -577,6 +631,10 @@ class GenerationEngine:
                 raise ValueError('draft max_len %d cannot cover the cache '
                                  'depth %d' % (draft_model.max_len,
                                                self.max_len))
+            if getattr(draft_model, 'tp_axis', None) is not None:
+                raise ValueError(
+                    'the draft model is small by construction and '
+                    'runs replicated; build it without tp_axis')
             self._draft_params = self._place_draft(draft_params)
             self._draft_cache = self._new_cache(draft_model)
 
@@ -603,11 +661,14 @@ class GenerationEngine:
         self._last_queue_depth = 0
 
     def _new_cache(self, model):
+        """The target's cache (its heads on this process) or the draft's
+        (all its heads: the draft runs replicated)."""
+        tp = self.tp if model is self.model else 1
         if self.paged:
             return init_paged_kv_cache(model, self.n_pages, self.page_size,
-                                       int8_kv=self.int8_kv,
+                                       tp=tp, int8_kv=self.int8_kv,
                                        device=self.device)
-        return init_kv_cache(model, self.n_slots, self.max_len,
+        return init_kv_cache(model, self.n_slots, self.max_len, tp=tp,
                              int8_kv=self.int8_kv, device=self.device)
 
     def _bucket_signatures(self):
@@ -637,9 +698,20 @@ class GenerationEngine:
 
     def _place_params(self, params):
         """Load-time transform + placement (shared by construction and
-        hot-swaps): a copy on the device, quantized or cast by the
-        policy."""
+        hot-swaps): this process's shard of the tree under ``param_specs``
+        (``models.shard_variables``: leaves on the host), copied to the
+        device, quantized or cast by the policy."""
+        if self.param_specs is not None:
+            params = shard_variables(params, self.param_specs,
+                                     self.plan.mesh)
         return place_params(params, self.device, self.policy)
+
+    def _bound(self):
+        """The plan's axis names bound (a ``tp_axis`` model's functions
+        resolve the model axis through them); nothing without a plan."""
+        if self.plan is None:
+            return contextlib.nullcontext()
+        return self.plan.bind()
 
     def _place_draft(self, params):
         """The draft's placement: cast by a float policy, left as given
@@ -687,9 +759,10 @@ class GenerationEngine:
                                     device=self.device)
                 rows = self._zero_rows(b)
                 try:
-                    logits = self._decode_logits(
-                        self.model, self._view(new), self._cache, zeros,
-                        zeros, None if rows is None else self._dev(rows))
+                    with self._bound():
+                        logits = self._decode_logits(
+                            self.model, self._view(new), self._cache, zeros,
+                            zeros, None if rows is None else self._dev(rows))
                     finite = bool(torch.isfinite(logits).all())
                 except Exception as e:
                     raise WeightSwapError(
@@ -778,7 +851,7 @@ class GenerationEngine:
 
         def body(o):
             model, params, cache = self._twin(draft)
-            with torch.inference_mode():
+            with self._bound(), torch.inference_mode():
                 if family.endswith('prefill') and self.paged:
                     logits, _ = prefill_paged(
                         model, params, cache, o['tokens'], o['length'],
@@ -1702,6 +1775,7 @@ class GenerationEngine:
             'cache_persistent': self.cache_persistent,
             'quantized': self.quantized,
             'int8_kv': self.int8_kv,
+            'tp': self.tp,
             'prefill_trace_count': self.captures['prefill'],
             'decode_trace_count': self.captures['decode'],
             'compile_count': sum(self.captures.values()),

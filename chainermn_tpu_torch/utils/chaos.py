@@ -18,10 +18,12 @@ store waits of ``recv_obj`` and ``barrier``, ``extra_collectives`` in
 ``allreduce_obj``), the checkpoint sites (``on_checkpoint_write`` /
 ``corrupt_checkpoint`` in ``serializers.save_npz``) and the data sites
 (``on_data_read`` / ``corrupt_record`` in ``data.ShardReader.read``).
-The serving sites' hooks (``on_serve_submit``, ``on_serve_cancel``,
-``on_swap``, ``on_serve_slow``, ``on_replica_kill``,
-``on_serve_longprompt``) are ported as functions; wiring them into
-``serving/`` comes with the serving fleet (ROADMAP.md item 9).
+The serving sites' hooks are wired into ``serving/``: ``on_serve_submit``
+(the queues' ``serve_burst``), ``on_serve_slow`` (before an engine's
+prefill, chunk, decode, speculative tick or batch execute),
+``on_serve_cancel`` and ``on_replica_kill`` (``GenerationEngine.step``),
+``on_swap`` (the fleet's swaps) and ``on_serve_longprompt`` (the load
+generator).
 
 Design constraints:
 

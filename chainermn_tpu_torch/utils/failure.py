@@ -407,8 +407,8 @@ class NanGuard:
                 serializers.updater_state(trainer.updater))
             with open(os.path.join(out, 'divergence.json'), 'w') as f:
                 json.dump({'iteration': it, 'bad': bad,
-                           'checkpoint': path, 'rank': process_index()},
-                          f)
+                           'checkpoint': path,
+                           'process_index': process_index()}, f)
             self.divergence_checkpoint = path
         except Exception as e:  # forensics must not mask the verdict
             sys.stderr.write(

@@ -3976,7 +3976,7 @@ def _numpy_lm_weights(model, seed):
             if isinstance(value, dict):
                 out[key] = fill(path + (key,), value)
                 continue
-            a = rng.standard_normal(value.shape).astype(np.float32)
+            a = rng.standard_normal(tuple(value.shape)).astype(np.float32)
             if key == 'kernel':
                 a /= math.sqrt(value.shape[0])
             elif key.endswith('_scale'):
@@ -3988,7 +3988,8 @@ def _numpy_lm_weights(model, seed):
             out[key] = a
         return out
 
-    return {'params': fill((), models.to_flax_variables(model)['params'])}
+    # the shapes of the module's own tree (a meta-device model's too)
+    return {'params': fill((), models.param_tree(model))}
 
 
 def finite_engine(*args, **kw):
@@ -8399,6 +8400,249 @@ def phase_fleet(smi):
         json.dump(readings, f, indent=1, default=repr)
     return paths
 
+# ---------------------------------------------------------------------
+# tensor-parallel serving (GenerationEngine / InferenceEngine over a
+# MeshPlan) at full width: one card degrades the plan to tp = 1
+
+SERVE_TP_SEED = 6              # phase 7's numpy weights
+SERVE_TP_DRAFT_SEED = 8
+SERVE_TP_TURNS = 2             # timed runs of each engine, in turns
+
+
+def _serve_tp_modes(draft_f32, draft_bf16, draft_weights):
+    """The four modes of ``phase_serve_tp``: ``(path, engine keywords by
+    compute dtype)``."""
+    from chainermn_tpu_torch import precision
+    paged = dict(paged=True, page_size=16)
+    spec = {'f32': dict(draft_model=draft_f32, draft_params=draft_weights,
+                        spec_tokens=4),
+            'bf16': dict(draft_model=draft_bf16,
+                         draft_params=draft_weights, spec_tokens=4)}
+    out = []
+    for path, kw in (('lm_serving_tp', {}),
+                     ('lm_serving_tp_paged', dict(prefill_chunk=32,
+                                                  **paged)),
+                     ('lm_serving_tp_spec', None),
+                     ('lm_serving_tp_int8', dict(int8_kv=True, **paged))):
+        out.append((path, {
+            'f32': dict(spec['f32'] if kw is None else kw),
+            'bf16': dict(spec['bf16'] if kw is None else kw,
+                         policy=precision.Policy.bf16())}))
+    return out
+
+
+def _tp_collectives(eng):
+    """The all-reduces one eager full-bucket decode step of ``eng`` makes
+    (``torch.distributed.all_reduce`` calls, counted by a wrapper)."""
+    import torch
+    import torch.distributed as dist
+    calls = []
+    real = dist.all_reduce
+
+    def counting(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    zeros = torch.zeros((eng.n_slots,), dtype=torch.int32, device=eng.device)
+    rows = eng._zero_rows(eng.n_slots)
+    dist.all_reduce = counting
+    try:
+        with eng._bound():
+            eng._decode_logits(eng.model, eng._view(eng.params), eng._cache,
+                               zeros, zeros,
+                               None if rows is None else eng._dev(rows))
+        torch.cuda.synchronize()
+    finally:
+        dist.all_reduce = real
+    return len(calls)
+
+
+def _turn(eng, queue, prompts):
+    """One timed serve of ``prompts`` on the warm ``eng``: ``(tokens/s,
+    decode-step p50 ms)`` over this run alone."""
+    n0 = eng.tokens_generated
+    r = _timed_serve(eng, queue, prompts)
+    decode = r['decode']
+    return ((eng.tokens_generated - n0) / r['wall'],
+            1e3 * decode[len(decode) // 2])
+
+
+def phase_serve_tp():
+    """Tensor-parallel serving on the card: ``TransformerLM(tp_axis=
+    'model')`` of the serving benchmark's widths, built under
+    ``MeshPlan.create(tp=1)`` (one card: every kernel takes all 8 heads),
+    served by ``GenerationEngine(plan=, param_specs=tp_param_specs(...))``
+    from phase 7's numpy-seeded weights (the unsharded tree; the models
+    are shapes on the meta device), in four modes: slot (32 slots), paged
+    with ``prefill_chunk=32``, speculative with a replicated 1-layer draft,
+    paged with int8 KV.  In f32 compute each plan engine's 64 streams (the
+    serve prompts, 4..128 tokens, 32 new) must equal the plain engine's
+    token for token, with the same schedule and the same launches; in
+    bf16 (the serving policy) the streams that agree are counted, the
+    plan engine's launches are its path's and its traced kernels must
+    equal its replays times the captured launches.  Prints the
+    all-reduces of a decode tick, tokens/s and the decode-step p50 of the
+    plan and plain engines measured in turns, and holds one bucket of
+    ``InferenceEngine(plan=)`` equal to the plain engine's."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from chainermn_tpu_torch import models, serving
+    from chainermn_tpu_torch.parallel import MeshPlan
+    made = not dist.is_initialized()
+    plan = MeshPlan.create(tp=1)
+
+    def meta(dtype, **kw):
+        with torch.device('meta'):
+            return models.TransformerLM(**dict(SERVE_CFG, **kw),
+                                        dtype=dtype, device='meta')
+
+    with plan.bind():
+        tp_models = {'f32': meta(torch.float32, tp_axis='model'),
+                     'bf16': meta(torch.bfloat16, tp_axis='model')}
+    plain_models = {'f32': meta(torch.float32),
+                    'bf16': meta(torch.bfloat16)}
+    weights = _numpy_lm_weights(plain_models['f32'], SERVE_TP_SEED)['params']
+    specs = models.tp_param_specs(weights, plan.model_axis)
+    draft = {k: meta(dt, n_layers=1) for k, dt in (
+        ('f32', torch.float32), ('bf16', torch.bfloat16))}
+    draft_weights = _numpy_lm_weights(draft['f32'],
+                                      SERVE_TP_DRAFT_SEED)['params']
+    prompts = _serve_prompts()
+    layers = SERVE_CFG['n_layers']
+
+    def engine(dt, kw, tp):
+        if tp:
+            eng = serving.GenerationEngine(
+                tp_models[dt], weights, n_slots=SERVE_SLOTS,
+                max_prompt_len=SERVE_PROMPT, plan=plan, param_specs=specs,
+                **kw)
+        else:
+            eng = serving.GenerationEngine(
+                plain_models[dt], weights, n_slots=SERVE_SLOTS,
+                max_prompt_len=SERVE_PROMPT, **kw)
+        warm = _warm(eng)
+        return eng, warm
+
+    def queue(eng):
+        return serving.GenerationQueue(
+            max_prompt_len=SERVE_PROMPT, max_queue=SERVE_REQUESTS,
+            page_size=16 if eng.paged else None)
+
+    def streams(r):
+        return [o.tolist() for o in r['outs']]
+
+    schedule = ('prefills', 'prefill_chunks', 'decode_steps',
+                'tokens_generated', 'cow_copies', 'prefix_hits')
+    paths, turns = {}, None
+    for path, kws in _serve_tp_modes(draft['f32'], draft['bf16'],
+                                     draft_weights):
+        # f32 compute: token for token, the same schedule and launches
+        runs = {}
+        for tp in (False, True):
+            eng, warm = engine('f32', kws['f32'], tp)
+            runs[tp] = _timed_serve(eng, queue(eng), prompts)
+            runs[tp]['warm'] = warm['line']
+            if tp:
+                heads = eng._cache['k'].shape[3]
+                collectives = _tp_collectives(eng)
+            del eng
+        plain, tpr = runs[False], runs[True]
+        if streams(plain) != streams(tpr):
+            raise AssertionError('%s f32: %d of %d streams equal the plain '
+                                 'engine\'s' % (path, sum(
+                                     a == b for a, b in zip(
+                                         streams(plain), streams(tpr))),
+                                     len(prompts)))
+        if plain['counts'] != tpr['counts'] or any(
+                plain['stats'].get(k) != tpr['stats'].get(k)
+                for k in schedule):
+            raise AssertionError('%s f32: launches %s / %s, stats %s / %s'
+                                 % (path, plain['counts'], tpr['counts'],
+                                    plain['stats'], tpr['stats']))
+        if heads != SERVE_CFG['n_heads'] // plan.model_size:
+            raise AssertionError('%s: the cache holds %d heads' % (path,
+                                                                   heads))
+        _say('serve-tp', '%s f32: all %d streams equal the plain engine\'s '
+             'token for token; %d decode steps, launches %s on both; the '
+             'plan engine %s (tp=%d: %d heads of %d a kernel); %d '
+             'all-reduces a decode tick' % (
+                 path, len(prompts), tpr['stats']['decode_steps'],
+                 tpr['counts'], tpr['warm'], plan.model_size, heads,
+                 SERVE_CFG['d_model'] // SERVE_CFG['n_heads'],
+                 collectives))
+        # bf16 (the serving policy): the path's launches, its trace, and
+        # how many streams agree with the plain engine
+        engs = {tp: engine('bf16', kws['bf16'], tp)[0]
+                for tp in (False, True)}
+        res = {tp: _timed_serve(e, queue(e), prompts)
+               for tp, e in engs.items()}
+        if any(len(o) != SERVE_NEW for o in res[True]['outs']):
+            raise AssertionError('%s: a request did not generate %d tokens'
+                                 % (path, SERVE_NEW))
+        counts = res[True]['counts']
+        used = [k for k in ('layer_norm', 'flash_fwd', 'flash_decode',
+                            'flash_decode_paged') if counts[k]]
+        want = ['layer_norm', 'flash_fwd',
+                'flash_decode_paged' if kws['bf16'].get('paged')
+                else 'flash_decode']
+        if set(used) != set(want) or any(
+                n for k, n in counts.items() if k not in want):
+            raise AssertionError('%s bf16: launches %s, expected only %s'
+                                 % (path, counts, want))
+        paths[path] = with_tc(path, counts, res[True]['tc'])
+        agree = sum(a == b for a, b in zip(streams(res[False]),
+                                           streams(res[True])))
+        q = queue(engs[True])
+        traced = _hold_trace(path, engs[True], lambda: _drain(
+            engs[True], q, [q.submit(p, 8) for p in prompts[:8]]))
+        _say('serve-tp', '%s bf16: %d of %d streams equal the plain '
+             'engine\'s; launches %s; traced kernels of 8 requests x 8 '
+             'tokens %s, equal to the replays times the captured launches'
+             % (path, agree, len(prompts), paths[path], traced))
+        if path == 'lm_serving_tp':
+            # tokens/s and the decode step, plan and plain engines in turns
+            turns = {False: [], True: []}
+            for _ in range(SERVE_TP_TURNS):
+                for tp in (False, True):
+                    turns[tp].append(_turn(engs[tp], queue(engs[tp]),
+                                           prompts))
+        del engs, res
+        gc.collect()
+    for tp, runs in turns.items():
+        _say('serve-tp', '%s engine, bf16 slot mode, in turns: %s' % (
+            'plan' if tp else 'plain', '; '.join(
+                '%.1f tokens/s, decode-step p50 %.3f ms' % r
+                for r in runs)))
+    # InferenceEngine(plan=): one bucket against the plain engine
+    rng = np.random.RandomState(3)
+    mlp = {'w1': rng.standard_normal((512, 2048)).astype(np.float32)
+           / math.sqrt(512),
+           'w2': rng.standard_normal((2048, 512)).astype(np.float32)
+           / math.sqrt(2048)}
+    x = rng.standard_normal((SERVE_SLOTS, 512)).astype(np.float32)
+
+    def apply(p, x):
+        return torch.tanh(x @ p['w1']) @ p['w2']
+
+    example = np.zeros(512, np.float32)
+    outs = []
+    for kw in ({}, dict(plan=plan)):
+        eng = serving.InferenceEngine(apply, mlp, example,
+                                      max_batch=SERVE_SLOTS, **kw)
+        eng.warmup()
+        outs.append(eng.infer(x).cpu())
+    if not torch.equal(outs[0], outs[1]):
+        raise AssertionError('InferenceEngine(plan=): max error %.3g '
+                             'against the plain engine'
+                             % float((outs[0] - outs[1]).abs().max()))
+    _say('serve-tp', 'InferenceEngine(plan=MeshPlan.create(tp=1)) '
+         'bucket %d: bit-equal to the plain engine (data size %d)'
+         % (SERVE_SLOTS, plan.data_size))
+    if made:
+        dist.destroy_process_group()
+    return paths
+
 
 def _timed(phase, *args):
     """Run one phase and log its wall time."""
@@ -8450,6 +8694,7 @@ def main():
     paths.update(_timed(phase_zero_trust))
     paths.update(_timed(phase_supervised))
     paths.update(_timed(phase_fleet, smi))
+    paths.update(_timed(phase_serve_tp))
     _say('time', 'all phases %.1f s' % (time.perf_counter() - t_start))
     for rec in records:
         by_path = {path: counts[rec['name']]

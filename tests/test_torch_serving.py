@@ -229,10 +229,16 @@ def test_entry_point_without_a_device_raises(monkeypatch):
 @pytest.mark.parametrize('kw', [dict(plan=object()),
                                 dict(param_specs={})])
 def test_unported_modes_raise(kw):
-    _, _, tm = _pair()
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    """Tensor-parallel serving is ported: a plan or specs over a model
+    without ``tp_axis`` is the JAX engine's ``ValueError`` in both
+    packages."""
+    jm, params, tm = _pair()
+    with pytest.raises(ValueError, match='plan'):
         serving.GenerationEngine(tm, n_slots=2, max_prompt_len=8,
                                  device='cpu', **kw)
+    with pytest.raises(ValueError, match='plan'):
+        jserving.GenerationEngine(jm, params, n_slots=2, max_prompt_len=8,
+                                  **kw)
 
 
 def _other_vocab_draft():
@@ -267,13 +273,16 @@ def test_paged_and_speculative_options_are_checked_as_jax_does(kw, match):
 
 
 def test_unported_methods_raise():
-    """Tensor-parallel serving still raises (ROADMAP.md A7).  Int8
-    weights, ``swap_params`` and ``from_checkpoint``, which raised before
-    they were ported, now serve: a drained engine swaps to a new version,
-    and a missing checkpoint is an ``OSError``, not a refusal."""
+    """Tensor-parallel serving, int8 weights, ``swap_params`` and
+    ``from_checkpoint``, which raised before they were ported, now serve:
+    a plan or specs without a ``tp_axis`` model is refused with the JAX
+    engine's ``ValueError`` (``test_torch_tp_serving.py`` serves one), a
+    drained engine swaps to a new version, and a missing checkpoint is an
+    ``OSError``, not a refusal."""
     _, _, tm = _pair()
-    for kw in (dict(plan=object()), dict(param_specs={})):
-        with pytest.raises(NotImplementedError, match='A7'):
+    for kw, match in ((dict(plan=object()), 'over a plan'),
+                      (dict(param_specs={}), 'requires a plan')):
+        with pytest.raises(ValueError, match=match):
             serving.GenerationEngine(tm, n_slots=2, max_prompt_len=8,
                                      device='cpu', **kw)
     _, eng = _engines(n_slots=2)

@@ -157,12 +157,18 @@ class TestInferenceEngine:
                                    atol=5e-2)
 
     def test_unported_and_accepted_arguments(self, tmp_path):
-        with pytest.raises(NotImplementedError, match='A7'):
-            InferenceEngine(_apply, _mlp()[1], EXAMPLE, plan=object(),
-                            device='cpu')
-        with pytest.raises(NotImplementedError, match='A7'):
+        """Sharded serving, which raised before it was ported, now serves
+        (``test_torch_tp_serving.py`` holds it to the plain engine):
+        specs without a plan are a ``ValueError`` and a plan of one
+        process keeps every bucket; ``cache_dir`` is accepted and
+        persists nothing."""
+        from chainermn_tpu_torch.parallel import MeshPlan
+        with pytest.raises(ValueError, match='requires a plan'):
             InferenceEngine(_apply, _mlp()[1], EXAMPLE, param_specs={},
                             device='cpu')
+        plan = MeshPlan.create(tp=1, size=1)
+        assert InferenceEngine(_apply, _mlp()[1], EXAMPLE, plan=plan,
+                               max_batch=4, device='cpu').edges == (1, 2, 4)
         eng = _engine(cache_dir=str(tmp_path / 'cc'), aot=False)
         st = eng.stats()
         assert st['cache_dir'] == str(tmp_path / 'cc')
