@@ -488,14 +488,15 @@ def _reshard(saved, shape):
 def reshard_stacked_state(saved, template):
     """The elastic N -> M reshard of a SAVED stacked ZeRO-1 optimizer
     state (nested dicts) against the live run's ``template`` of the same
-    structure (numpy in, numpy out).  Array leaves are ``(n_old, k_old)``
-    stacks and come back in the template's shape (see :func:`_reshard`);
-    scalar leaves (step counts) pass through."""
+    structure (numpy or tensors in, the same out; a template leaf needs
+    only a ``shape``).  Array leaves are ``(n_old, k_old)`` stacks and
+    come back in the template's shape (see :func:`_reshard`); scalar
+    leaves (step counts) pass through."""
     if isinstance(saved, dict):
         return {k: reshard_stacked_state(v, template[k])
                 for k, v in saved.items()}
     tshape = tuple(np.shape(template))
-    arr = np.asarray(saved)
+    arr = saved if torch.is_tensor(saved) else np.asarray(saved)
     if len(tshape) < 1 or arr.ndim < 1:
         return saved
     if arr.shape == tshape:
@@ -625,18 +626,31 @@ class ZeroStep:
         self.all_gather()
 
     # -- snapshots ---------------------------------------------------------
+    def local_state(self):
+        """This process's optimizer state, keyed by parameter index, as
+        ``{index: {key: (value, is_row)}}`` with nothing sent:
+        ``is_row`` marks a shard-sized tensor, row ``rank`` of the
+        ``(n, k)`` stack :meth:`gathered_state` gathers (a sharded
+        checkpoint writes each row from its own process)."""
+        out = {}
+        for i, p in enumerate(self.params):
+            state = self.optimizer.state.get(self.shards[p], {})
+            out[i] = {key: (value, torch.is_tensor(value)
+                            and value.dim() == 1
+                            and value.numel() == self._where[p][1])
+                      for key, value in state.items()}
+        return out
+
     def gathered_state(self):
         """The optimizer's per-parameter state with every shard-sized
         tensor gathered into the ``(n, k)`` stack the JAX package saves
         (a collective over the data group); other entries (step
         counts) as they are.  Keyed by parameter index."""
         out = {}
-        for i, p in enumerate(self.params):
-            state = self.optimizer.state.get(self.shards[p], {})
-            entry = {}
-            for key, value in state.items():
-                if torch.is_tensor(value) and value.dim() == 1 \
-                        and value.numel() == self._where[p][1]:
+        for i, entry in self.local_state().items():
+            out[i] = {}
+            for key, (value, row) in entry.items():
+                if row:
                     parts = value.new_empty(self.n * value.numel())
                     if self.n > 1:
                         _all_gather(parts, value.contiguous(),
@@ -644,8 +658,7 @@ class ZeroStep:
                     else:
                         parts.copy_(value)
                     value = parts.view(self.n, -1)
-                entry[key] = value
-            out[i] = entry
+                out[i][key] = value
         return out
 
     def stack_shape(self, i):

@@ -23,9 +23,10 @@ process has seconds to leave.
 
 Both work in a hand-written loop (``update_core`` then
 :meth:`PreemptionHandler.maybe_checkpoint`) and as Trainer extensions.
-Snapshots are npz; ``method='orbax'`` (the JAX package's sharded save)
-raises ``NotImplementedError``: its torch counterpart,
-``torch.distributed.checkpoint``, is ROADMAP.md A9.
+Snapshots are npz, or with ``method='orbax'`` (the JAX package's name)
+step directories ``<out>/preempt/<iteration>/`` of
+``torch.distributed.checkpoint`` (``serializers.save_checkpoint``),
+which every process writes its part of.
 """
 
 import json
@@ -48,15 +49,6 @@ PREEMPT_PREFIX = 'preempt_iter_'
 
 def _is_main_thread():
     return threading.current_thread() is threading.main_thread()
-
-
-def _world():
-    """``(rank, world size)`` of the default group, ``(0, 1)`` without
-    one."""
-    import torch.distributed as dist
-    if dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
 
 
 def _host_copy(leaf):
@@ -84,7 +76,9 @@ class AsyncCheckpointWriter:
     The step path hands over a write job (:meth:`submit`) and returns at
     once; one daemon thread runs it (the job keeps the tmp + fsync +
     rename, manifest and sentinel discipline, so what lands on disk does
-    not change, only who waits for the disk).
+    not change, only who waits for the disk).  The thread ends when no
+    job waits, and the next :meth:`submit` starts another: an idle
+    writer leaves no thread behind.
 
     Back-pressure is newest-wins: at most one job runs and one waits.  A
     job submitted while another waits REPLACES it (``coalesced`` counts
@@ -119,8 +113,9 @@ class AsyncCheckpointWriter:
     def _run(self):
         while True:
             with self._cond:
-                while self._pending is None:
-                    self._cond.wait()
+                if self._pending is None:
+                    self._thread = None
+                    return
                 job = self._pending
                 self._pending = None
                 self._busy = True
@@ -165,6 +160,9 @@ class AsyncCheckpointWriter:
         with self._cond:
             drained = self._cond.wait_for(
                 lambda: self._pending is None and not self._busy, timeout)
+            idle = self._thread
+        if drained and idle is not None:
+            idle.join()     # it finds nothing to do and ends
         self.raise_pending_error()
         return drained
 
@@ -193,13 +191,16 @@ class PreemptionHandler:
 
     ``method``: ``'npz'`` (rank 0 writes ``preempt_iter_<N>.npz``, or
     every rank ``preempt_iter_<N>.rank<R>.npz`` with ``all_ranks`` in a
-    world of more than one); ``'orbax'`` raises ``NotImplementedError``
-    (ROADMAP.md A9).  ``exit_code``: when not None, ``sys.exit`` with it
+    world of more than one) or ``'orbax'``: the step directory
+    ``<out>/preempt/<N>/`` of ``serializers.save_checkpoint``, a
+    collective save in which each process writes its own ZeRO-1
+    partitions.  ``exit_code``: when not None, ``sys.exit`` with it
     right after the preemption snapshot.  ``async_``: :meth:`checkpoint`
     copies the state to host memory at the step boundary (the gather of
     sharded state is still a collective there: every rank calls it at
     the same iteration), hands the write to an
-    :class:`AsyncCheckpointWriter` and returns; preemption snapshots
+    :class:`AsyncCheckpointWriter` (``'orbax'``: to
+    ``save_checkpoint(async_=True)``) and returns; preemption snapshots
     (:meth:`maybe_checkpoint`) and :meth:`wait` still wait for the disk.
     The signal handler takes no lock: it sets a flag and dumps the
     flight record with ``blocking=False``.
@@ -212,18 +213,14 @@ class PreemptionHandler:
     def __init__(self, updater, out='result', method='npz',
                  signals=(signal.SIGTERM,), exit_code=None,
                  all_ranks=False, async_=False):
-        if method != 'npz':
-            raise NotImplementedError(
-                'PreemptionHandler(method=%r): only npz snapshots are '
-                'ported; the sharded save (torch.distributed.checkpoint) '
-                'is ROADMAP.md A9' % (method,))
         self.updater = updater
         self.out = out
         self.method = method
         self.exit_code = exit_code
         self.all_ranks = all_ranks
         self.async_ = async_
-        self.writer = AsyncCheckpointWriter() if async_ else None
+        self.writer = (AsyncCheckpointWriter()
+                       if async_ and method == 'npz' else None)
         self.preempt_requested = False
         self.received_signal = None
         self.checkpoint_path = None
@@ -252,7 +249,7 @@ class PreemptionHandler:
 
     def _target(self, iteration):
         """``(path without .npz, whether this rank writes it)``."""
-        rank, size = _world()
+        rank, size = serializers._world()
         name = '%s%d' % (PREEMPT_PREFIX, iteration)
         if self.all_ranks and size > 1:
             name += '.rank%d' % rank
@@ -261,7 +258,7 @@ class PreemptionHandler:
 
     def _sidecar(self, iteration, path):
         """``preempted.json`` (rank 0 only), tmp + rename."""
-        if _world()[0] != 0:
+        if serializers._world()[0] != 0:
             return
         final = os.path.join(self.out, 'preempted.json')
         tmp = final + '.tmp'
@@ -286,11 +283,20 @@ class PreemptionHandler:
             return self._checkpoint_async(u)
         with _telemetry.span('checkpoint_write', kind='checkpoint',
                              method=self.method, iteration=u.iteration):
-            state = serializers.updater_state(u)
-            target, write_here = self._target(u.iteration)
-            path = (serializers.save_npz(
-                target, state, mesh_shape=serializers.mesh_shape_of(u))
-                if write_here else None)
+            mesh_shape = serializers.mesh_shape_of(u)
+            if self.method == 'orbax':
+                directory = os.path.join(self.out, 'preempt')
+                serializers.save_checkpoint(
+                    directory, serializers.updater_state(u, sharded=True),
+                    step=u.iteration, async_=self.async_,
+                    mesh_shape=mesh_shape)
+                path = os.path.join(directory, str(u.iteration))
+            else:
+                state = serializers.updater_state(u)
+                target, write_here = self._target(u.iteration)
+                path = (serializers.save_npz(target, state,
+                                             mesh_shape=mesh_shape)
+                        if write_here else None)
             self._sidecar(u.iteration, path)
         self.checkpoint_path = path
         return path
@@ -326,6 +332,8 @@ class PreemptionHandler:
         synchronous handler."""
         if self.writer is not None:
             return self.writer.wait(timeout)
+        if self.async_:
+            serializers.wait_checkpoints()
         return True
 
     def maybe_checkpoint(self):
@@ -353,9 +361,10 @@ def snapshot_chain(out, extra_prefixes=('snapshot_iter_',)):
     """Every snapshot candidate under ``out`` as ``(kind, path,
     iteration)``, newest first (a tie prefers the preemption snapshot,
     written last): ``preempt_iter_<N>[.rank0].npz`` and the periodic
-    ``snapshot_iter_<N>.npz`` of ``extensions.snapshot()``.  No validity
-    probe: :func:`auto_resume` verifies each in turn.  (The JAX package
-    also lists orbax step directories; the port writes none.)"""
+    ``snapshot_iter_<N>.npz`` of ``extensions.snapshot()``, and the step
+    directories ``preempt/<N>/`` of ``method='orbax'`` (kind
+    ``'orbax'``).  No validity probe: :func:`auto_resume` verifies each in
+    turn."""
     prefixes = (PREEMPT_PREFIX,) + tuple(extra_prefixes)
     cands = []  # (iteration, priority, kind, path)
     try:
@@ -368,6 +377,12 @@ def snapshot_chain(out, extra_prefixes=('snapshot_iter_',)):
             if m:
                 cands.append((int(m.group(1)), prio, 'npz',
                               os.path.join(out, name)))
+    steps = os.path.join(out, 'preempt')
+    if os.path.isdir(steps):
+        for name in os.listdir(steps):
+            if name.isdigit():
+                cands.append((int(name), len(prefixes), 'orbax',
+                              os.path.join(steps, name)))
     cands.sort(key=lambda c: (c[0], c[1]), reverse=True)
     return [(kind, path, it) for it, _, kind, path in cands]
 
@@ -405,6 +420,32 @@ def latest_snapshot(out, extra_prefixes=('snapshot_iter_',)):
     return None, None, None
 
 
+def _resume_orbax(updater, path, it):
+    """Restore step directory ``path`` (iteration ``it``) into the live
+    updater.  At the writing topology (the sidecar's world size and
+    device count are this world's) each process reads the shared leaves
+    and its own ZeRO-1 rows; at another topology every leaf (a raw
+    restore), which the shared core reshards.  Both then go through
+    ``serializers.restore_updater_from_tree``: parameters, buffers,
+    optimizer state, loss scale, counters and the stream cursor, each
+    leaf checked against the live updater before anything is
+    assigned."""
+    directory = os.path.dirname(path)
+    manifest = serializers.read_orbax_manifest(directory, it)
+    if not (manifest and manifest.get('complete')):
+        raise failure.CheckpointCorruptError(
+            'missing or incomplete manifest sidecar (torn or legacy step '
+            'directory) [snapshot %s]' % path, path=path, kind='incomplete')
+    rank, world = serializers._world()
+    same = (manifest.get('world_size') == world
+            and manifest.get('device_count') == world)
+    state = serializers.restore_checkpoint(directory, None, step=it,
+                                           rank=rank if same else None)
+    serializers.restore_updater_from_tree(updater, state, manifest,
+                                          path=path)
+    return updater.iteration
+
+
 def auto_resume(updater, out, extra_prefixes=('snapshot_iter_',)):
     """Restore the newest VALID snapshot under ``out`` into ``updater``
     and return the restored iteration, or None when there is none.
@@ -413,16 +454,21 @@ def auto_resume(updater, out, extra_prefixes=('snapshot_iter_',)):
     incomplete snapshot is skipped with a
     :class:`~chainermn_tpu_torch.utils.failure.CheckpointSkippedWarning`
     (never loaded, never a crash inside npz internals) and the next older
-    one is tried.  The restore is ``serializers.resume_updater(path,
-    updater, elastic=True, require_manifest=True)``: ZeRO-1 state written
-    at another process count is resharded, and the iterator's position
-    re-expressed at this run's shard size."""
-    for kind, path, _ in snapshot_chain(out, extra_prefixes):
+    one is tried.  An npz restores through ``serializers.resume_updater(
+    path, updater, elastic=True, require_manifest=True)``, a step
+    directory through :func:`_resume_orbax` (every process must take
+    part: a collective); either way ZeRO-1 state written at another
+    process count is resharded, and the iterator's position re-expressed
+    at this run's shard size."""
+    for kind, path, it in snapshot_chain(out, extra_prefixes):
         try:
             with _telemetry.span('checkpoint_resume', kind='checkpoint',
                                  path=path, snapshot_kind=kind) as sp:
-                serializers.resume_updater(path, updater, elastic=True,
-                                           require_manifest=True)
+                if kind == 'npz':
+                    serializers.resume_updater(path, updater, elastic=True,
+                                               require_manifest=True)
+                else:
+                    _resume_orbax(updater, path, it)
                 sp.set(iteration=updater.iteration)
                 return updater.iteration
         except failure.CheckpointCorruptError as e:

@@ -1009,7 +1009,7 @@ def demo_worker():
       parameter sum and, when ``CMN_SUP_ORACLE=1``, the oracle's.
     """
     import chainermn_tpu_torch as cmt
-    from chainermn_tpu_torch import telemetry
+    from chainermn_tpu_torch import serializers, telemetry
     from chainermn_tpu_torch.training import recovery
 
     device = handout_device()
@@ -1063,5 +1063,6 @@ def demo_worker():
         write_worker_json(out, attempt, rank, res)
     finally:
         hb.stop()
+    serializers.wait_checkpoints()
     telemetry.flush()
     return 'preempted' if preempted else None

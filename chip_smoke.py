@@ -112,7 +112,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``_augment_ref`` on 64 samples of 256 x 256 x 3 cropped to 224 (a
    float32 and a uint8 store, with and without a mean), both timed;
    ``bench.py --loader``'s A/B on ResNet-50 ``fused_norm=True`` (224 px,
-   bf16, batch 64): 2 + 24 steps fed one resident batch, then 2 + 24
+   bf16, batch 64): 2 + 12 steps fed one resident batch, then 2 + 12
    fed by ``StreamingLoader`` over 192 examples in 2 record shards (2
    decode workers, 2 batches read ahead) -> ``DevicePrefetchIterator``
    (depth 2) -> ``update_core``: images/s, ``loader_efficiency``, the
@@ -317,8 +317,12 @@ Phases, each printing its own lines; any failure exits non-zero:
     with ``--supervised-worker``: ``worker_main``, a heartbeat into
     ``$CMN_SUP_LIVE``, ``PreemptionHandler`` with asynchronous writes,
     ``auto_resume``, NCCL in a world of one), 8 calls under (a) no fault,
-    (b) ``sigterm_step=@3``, (c) ``kill_step=@5`` with a checkpoint every
-    2 steps, (d) ``hang_step=@4``: each supervisor exits 0, the ledger
+    (b) ``sigterm_step=@3`` with the preemption snapshot a step directory
+    of ``torch.distributed.checkpoint`` (``method='orbax'``, written
+    asynchronously over the gloo side group, resumed through
+    ``_resume_orbax``), (c) ``kill_step=@5`` with an npz checkpoint every
+    2 steps, (d) ``hang_step=@4``, the four supervisors at once (one card,
+    the host's cores shared): each supervisor exits 0, the ledger
     holds the failure's cause (``preempted``; ``killed`` at ``kill_step``
     with the doctor agreeing; ``hang`` escalated SIGTERM -> SIGKILL), a
     restart and the recovery at iteration 4, and every loss and the final
@@ -329,7 +333,11 @@ Phases, each printing its own lines; any failure exits non-zero:
     (``telemetry.goodput``), the start-up to the first step and its
     split, the snapshot size, and in this process the step p50 with no
     checkpoint, a synchronous one every step and an asynchronous one
-    every step.
+    every step, npz and step directory each (the drains, the bytes), and
+    one resume from a step directory bit-equal to the straight run; the
+    live threads, child processes and RSS at its end (a supervisor child
+    or a checkpoint writer still alive fails it), printed again at the
+    start of ``fleet``.
 16. the replica fleet (``fleet``, ``serving/fleet.py``): the serving LM at
     full width with snapshots written by ``fleet.demo_train`` on the card;
     two in-process ``Policy.bf16()`` replicas (8 slots, prompts 4..128,
@@ -343,8 +351,8 @@ Phases, each printing its own lines; any failure exits non-zero:
     paged-prefix and speculative modes (then slab in bf16): every f32
     stream equals the uninterrupted engine's, nothing is lost, and the
     respawn captures its graphs while the survivor serves; (d) the CLI
-    with two replica processes promotes a roll, dies to ``swap_kill`` in
-    the next and converges on restart; paths ``fleet_roll``,
+    with two replica processes dies to ``swap_kill`` mid-roll and
+    converges on restart; paths ``fleet_roll``,
     ``fleet_breach`` and ``fleet_kill_*``.
 
 A kernel row's ``ms``, ``plain_ms`` and ``library_ms`` are times per
@@ -2040,7 +2048,7 @@ def _device(step, n=3):
 
 
 # part (a)'s timed windows: steps a window, windows a side (in turns)
-WINDOW_STEPS = 8
+WINDOW_STEPS = 4
 
 
 def _window(updater, sync):
@@ -2543,7 +2551,7 @@ INPUT_SHARDS = 2
 INPUT_WORKERS = 2
 INPUT_PREFETCH = 2
 INPUT_WARMUP = 2
-INPUT_STEPS = 24
+INPUT_STEPS = 12
 # ... and the space-to-depth stem's training steps
 S2D_STEPS = 6
 
@@ -2630,7 +2638,7 @@ def _input_ab():
     """ResNet-50 (``fused_norm=True``, 224 px, batch 64, phase 5's set-up)
     fed the same way as ``bench.py --loader``: one resident batch on the
     card every step, then ``StreamingLoader`` over record shards ->
-    ``DevicePrefetchIterator`` -> ``update_core``, each 2 + 24 steps; a
+    ``DevicePrefetchIterator`` -> ``update_core``, each 2 + 12 steps; a
     fenced streamed window for the overlap of the input spans with the
     steps; one epoch over a copy of the shards with one flipped byte.
     Returns the streamed run's launch counts."""
@@ -7344,15 +7352,18 @@ def phase_zero_trust():
 # fault-tolerant training (phase 15): the LM training path of phase 10
 # under the port's supervisor, one worker process on the card a scenario
 SUP_STEPS = 8                  # update() calls: 1 broadcast + 7 steps
-# (name, chaos spec, checkpoint interval, the failure's cause, resumed at)
-SUP_SCENARIOS = (('a', None, 0, None, None),
-                 ('b', 'sigterm_step=@3', 0, 'preempted', 4),
-                 ('c', 'kill_step=@5', 2, 'killed', 4),
-                 ('d', 'hang_step=@4', 2, 'hang', 4))
-SUP_STALL = 6.0                # s without an iteration advance is a hang
+# (name, chaos spec, checkpoint interval, the failure's cause, resumed at,
+# the PreemptionHandler's method)
+SUP_SCENARIOS = (('a', None, 0, None, None, 'npz'),
+                 ('b', 'sigterm_step=@3', 0, 'preempted', 4, 'orbax'),
+                 ('c', 'kill_step=@5', 2, 'killed', 4, 'npz'),
+                 ('d', 'hang_step=@4', 2, 'hang', 4, 'npz'))
+SUP_METHOD_ENV = 'CMN_SUP_CKPT_METHOD'   # the worker's snapshot method
+SUP_STALL = 20.0               # s without an iteration advance is a hang
+                               # (four workers share the card and disk)
 SUP_GRACE = 240.0              # s a new worker may take to its first step
 SUP_TERM_GRACE = 3.0           # s between the SIGTERM and the SIGKILL
-SUP_TIMED = 5                  # steps timed in each checkpoint mode
+SUP_TIMED = 3                  # steps timed in each checkpoint mode
 SUP_DIR = os.path.join('build', 'chip_smoke_supervised')
 
 
@@ -7383,9 +7394,10 @@ def supervised_worker():
     started by the ``supervised`` phase's ``Supervisor``): join the world
     from the ``CMN_SUP_*`` handout (NCCL on the card), heartbeat into
     ``$CMN_SUP_LIVE``, build the LM training path of phase 10, resume the
-    newest valid snapshot (``auto_resume``), then run to ``CMN_SUP_STEPS``
-    calls with a ``PreemptionHandler`` (asynchronous writes, each waited
-    for) and a checkpoint every ``CMN_SUP_CKPT_EVERY`` steps.  After every
+    newest valid snapshot (``auto_resume``; its kind is recorded), then run
+    to ``CMN_SUP_STEPS`` calls with a ``PreemptionHandler`` of method
+    ``$CMN_SUP_CKPT_METHOD`` (asynchronous writes, each waited for) and a
+    checkpoint every ``CMN_SUP_CKPT_EVERY`` steps.  After every
     call ``workers/a<N>-rank<R>.json`` is rewritten with the losses by
     iteration and the kernel launch counts so far, so a killed attempt
     leaves its record; the last write adds the final parameters' digest.
@@ -7395,7 +7407,7 @@ def supervised_worker():
     marks = {'entry': time.time()}
     import torch
     import chainermn_tpu_torch as cmt
-    from chainermn_tpu_torch import ops, telemetry
+    from chainermn_tpu_torch import ops, serializers, telemetry
     from chainermn_tpu_torch.training import recovery
     from chainermn_tpu_torch.training import supervisor as sup
     from chainermn_tpu_torch.utils import failure
@@ -7416,12 +7428,14 @@ def supervised_worker():
         _, updater = _lm_training(comm)
         marks['model'] = time.time()
         ckdir = os.path.join(out, 'state')
-        handler = recovery.PreemptionHandler(updater, out=ckdir,
-                                             async_=True)
+        handler = recovery.PreemptionHandler(
+            updater, out=ckdir, method=os.environ[SUP_METHOD_ENV],
+            async_=True)
+        kind = recovery.latest_snapshot(ckdir)[0]
         resumed = recovery.auto_resume(updater, ckdir)
         marks['resumed'] = time.time()
         res = {'attempt': attempt, 'resumed_at': resumed, 'marks': marks,
-               'losses': {}}
+               'resumed_kind': kind, 'losses': {}}
         sup.write_worker_json(out, attempt, rank, res)
         hb.beat(updater.iteration)
         ops.reset_launch_counts()
@@ -7441,6 +7455,7 @@ def supervised_worker():
                     and updater.iteration % ckpt_every == 0):
                 handler.checkpoint()
                 handler.wait()
+        serializers.wait_checkpoints()
         torch.cuda.synchronize()
         res.update(final_iteration=updater.iteration,
                    snapshot=handler.checkpoint_path,
@@ -7475,9 +7490,10 @@ def _sup_log_tail(out, n=40):
     return '\n'.join(tails)
 
 
-def _sup_scenario(name, spec, ckpt_every):
-    """One ``Supervisor(nprocs=1)`` run of the worker under ``spec``;
-    returns ``(ledger entries, attempts' records, supervisor seconds)``."""
+def _sup_scenario(name, spec, ckpt_every, method):
+    """One ``Supervisor(nprocs=1)`` run of the worker under ``spec``, its
+    snapshots by ``method``; returns ``(out, ledger entries, attempts'
+    records, supervisor seconds)``."""
     import shutil
     from chainermn_tpu_torch.training.supervisor import (
         RestartPolicy, Supervisor)
@@ -7489,6 +7505,7 @@ def _sup_scenario(name, spec, ckpt_every):
            if k != 'CHAINERMN_TPU_CHAOS'}
     if spec:
         env['CHAINERMN_TPU_CHAOS'] = spec
+    env[SUP_METHOD_ENV] = method
     sup = Supervisor(
         nprocs=1, out=out,
         worker_argv=[sys.executable, os.path.abspath(__file__),
@@ -7603,12 +7620,40 @@ def _sup_counts(name, attempts):
     return total
 
 
+def _bytes(path):
+    """Bytes of a file, or of every file under a directory."""
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _state_digest(updater):
+    """``_params_digest`` of the updater's whole snapshot tree
+    (parameters, optimizer state, counters), tensors read as numpy."""
+    import numpy as np
+    import torch
+    from chainermn_tpu_torch import serializers
+
+    def host(node):
+        if isinstance(node, dict):
+            return {str(k): host(v) for k, v in node.items()}
+        if isinstance(node, torch.Tensor):
+            return node.detach().cpu().numpy()
+        return np.asarray(node)
+
+    return _params_digest(host(serializers.updater_state(updater)))
+
+
 def _sup_checkpoint_modes():
     """In this process, outside the supervisor: the LM step's p50 with no
     checkpoint, with a synchronous ``checkpoint()`` every step and with
     ``async_=True`` every step (its time to return: the host copy and the
-    hand-over), the writer's drain after the last, and the snapshot's
-    size."""
+    hand-over), npz and step directory (``method='orbax'``) each, the
+    drain after the last asynchronous one, and each snapshot's bytes.
+    Then one resume: a synchronous step directory at step k, two steps,
+    ``auto_resume`` into the same updater and the two steps again: the
+    losses and the whole state (parameters, optimizer state) bit-equal."""
     import shutil
     import torch
     import chainermn_tpu_torch as cmt
@@ -7616,18 +7661,21 @@ def _sup_checkpoint_modes():
     out = os.path.abspath(os.path.join(SUP_DIR, 'modes'))
     shutil.rmtree(out, ignore_errors=True)
     comm = cmt.create_communicator('xla')
+    handlers = {}
     try:
         _, updater = _lm_training(comm)
-        sync = recovery.PreemptionHandler(
-            updater, out=os.path.join(out, 'sync'), signals=())
-        asyn = recovery.PreemptionHandler(
-            updater, out=os.path.join(out, 'async'), signals=(),
-            async_=True)
+        for mode, method, asyn in (
+                ('sync', 'npz', False), ('async', 'npz', True),
+                ('orbax_sync', 'orbax', False),
+                ('orbax_async', 'orbax', True)):
+            handlers[mode] = recovery.PreemptionHandler(
+                updater, out=os.path.join(out, mode), method=method,
+                signals=(), async_=asyn)
         for _ in range(3):                 # the broadcast call, 2 warm-ups
             updater.update()
-        times = {}
-        for mode, handler in (('none', None), ('sync', sync),
-                              ('async', asyn)):
+        times, drains, sizes = {}, {}, {}
+        for mode in ('none', 'sync', 'async', 'orbax_sync', 'orbax_async'):
+            handler = handlers.get(mode)
             ts = []
             for _ in range(SUP_TIMED):
                 torch.cuda.synchronize()
@@ -7638,55 +7686,118 @@ def _sup_checkpoint_modes():
                 torch.cuda.synchronize()
                 ts.append(time.perf_counter() - t0)
             times[mode] = sorted(ts)[len(ts) // 2]
-        t0 = time.perf_counter()
-        asyn.wait()
-        drain = time.perf_counter() - t0
-        size = os.path.getsize(sync.checkpoint_path)
-        writer = asyn.writer
+            if handler is None:
+                continue
+            t0 = time.perf_counter()
+            handler.wait()
+            drains[mode] = time.perf_counter() - t0
+            sizes[mode] = _bytes(handler.checkpoint_path)
+            shutil.rmtree(handler.out, ignore_errors=True)
+        writer = handlers['async'].writer
+        # the resume from a step directory, in this process
+        ckdir = os.path.join(out, 'resume')
+        recovery.PreemptionHandler(updater, out=ckdir, method='orbax',
+                                   signals=()).checkpoint()
+        saved_at, want = updater.iteration, _state_digest(updater)
+        straight = [updater.update()['loss'] for _ in range(2)]
+        resumed_at = recovery.auto_resume(updater, ckdir)
+        got = _state_digest(updater)
+        again = [updater.update()['loss'] for _ in range(2)]
+        if resumed_at != saved_at or got != want or again != straight:
+            raise AssertionError(
+                'supervised: the step directory of step %d resumed at %s; '
+                'state %s; losses %s after it against %s straight' % (
+                    saved_at, resumed_at,
+                    'bit-equal' if got == want else 'differs', again,
+                    straight))
         readings = {
             'step_p50_ms': {k: 1e3 * v for k, v in times.items()},
-            'async_drain_s': drain, 'snapshot_bytes': size,
+            'drain_s': drains, 'bytes': sizes,
             'async_submitted': writer.submitted,
             'async_committed': writer.committed,
-            'async_coalesced': writer.coalesced}
+            'async_coalesced': writer.coalesced,
+            'resume': {'step': saved_at, 'losses': straight}}
     finally:
         comm.close()
         shutil.rmtree(out, ignore_errors=True)
     return readings
 
 
+def _leftovers():
+    """``{'threads', 'children', 'rss_mib'}`` of this process: the live
+    threads' names, the live child processes (pid and command line, from
+    ``/proc``) and the resident set."""
+    import threading
+    children = []
+    for task in os.listdir('/proc/self/task'):
+        try:
+            with open('/proc/self/task/%s/children' % task) as f:
+                children += f.read().split()
+        except OSError:
+            pass
+    procs = []
+    for pid in children:
+        try:
+            with open('/proc/%s/cmdline' % pid, 'rb') as f:
+                cmd = f.read().replace(b'\0', b' ').decode(errors='replace')
+        except OSError:
+            continue                       # ended meanwhile
+        procs.append('%s %s' % (pid, cmd.strip()[:160]))
+    with open('/proc/self/status') as f:
+        rss = [int(line.split()[1]) for line in f
+               if line.startswith('VmRSS:')][0]
+    return {'threads': sorted(t.name for t in threading.enumerate()),
+            'children': procs, 'rss_mib': rss / 1024}
+
+
 def phase_supervised():
     """Fault-tolerant training on the card: the LM training path of
     phase 10 (full width, 8 x 1024 tokens a step, Adam) as the
     supervisor's custom worker, one process on NCCL, under four
-    scenarios: (a) no fault, the oracle; (b) ``sigterm_step=@3``: the
-    preemption snapshot, exit 71, a restart that resumes; (c)
-    ``kill_step=@5`` with a checkpoint every 2 steps: ``killed``, rank 0,
-    site ``kill_step``, the doctor agreeing, resumed at 4; (d)
-    ``hang_step=@4``: the frozen iteration caught after ``SUP_STALL``,
-    SIGTERM then SIGKILL, cause ``hang``, resumed.  Each supervisor must
-    exit 0; (b)-(d)'s losses and final parameters must be bit-equal to
-    (a)'s.  Prints each recovery's downtime, the goodput share, the
-    workers' start-up to their first step, the snapshot size and the
-    step p50 by checkpoint mode."""
+    scenarios, their four supervisors at once: (a) no fault, the oracle;
+    (b) ``sigterm_step=@3``: the preemption snapshot a step directory
+    (``method='orbax'``, DCP over the gloo side group), exit 71, a restart
+    that resumes from it; (c) ``kill_step=@5`` with a checkpoint every 2
+    steps: ``killed``, rank 0, site ``kill_step``, the doctor agreeing,
+    resumed at 4; (d) ``hang_step=@4``: the frozen iteration caught after
+    ``SUP_STALL``, SIGTERM then SIGKILL, cause ``hang``, resumed.  Each
+    supervisor must exit 0; (b)-(d)'s losses and final parameters must be
+    bit-equal to (a)'s.  Prints each recovery's downtime, the goodput
+    share, the workers' start-up to their first step, the snapshot sizes,
+    the checkpoint modes and the leftovers."""
+    import concurrent.futures
     import shutil
+    import torch
     from chainermn_tpu_torch.telemetry import goodput
     _free()
-    paths, readings, oracle = {}, {}, None
+    _say('supervised', 'torch %s' % torch.__version__)
+    paths, readings = {}, {}
     try:
-        for name, spec, every, cause, resumed_at in SUP_SCENARIOS:
-            out, ledger, attempts, wall = _sup_scenario(name, spec, every)
-            if oracle is None:
-                oracle = attempts[0]
+        with concurrent.futures.ThreadPoolExecutor(
+                len(SUP_SCENARIOS)) as pool:
+            runs = [pool.submit(_sup_scenario, name, spec, every, method)
+                    for name, spec, every, _, _, method in SUP_SCENARIOS]
+            runs = [r.result() for r in runs]
+        oracle = runs[0][2][0]
+        for (name, spec, _, cause, resumed_at, method), (
+                out, ledger, attempts, wall) in zip(SUP_SCENARIOS, runs):
             _hold_scenario(name, cause, resumed_at, ledger, attempts,
                            None if cause is None else oracle)
+            snap = attempts[0].get('snapshot') or attempts[-1].get(
+                'snapshot')
+            if cause is not None and (
+                    attempts[1]['resumed_kind'] != method
+                    or os.path.isdir(snap) != (method == 'orbax')):
+                raise AssertionError(
+                    '%s: snapshots by %s (%s), resumed from a %s one' % (
+                        name, method, snap, attempts[1]['resumed_kind']))
             paths['supervised_%s' % name] = _sup_counts(name, attempts)
             launches = {a['attempt']: e['t'] for a, e in zip(
                 attempts, _sup_events(ledger, 'launch'))}
             gp = goodput.build_goodput(out)
             rec = _sup_events(ledger, 'recovered')
             readings[name] = {
-                'spec': spec, 'supervisor_s': wall,
+                'spec': spec, 'method': method, 'supervisor_s': wall,
                 'cause': cause,
                 'downtime_s': rec[0]['downtime_s'] if rec else None,
                 'mttr_s': _sup_events(ledger, 'complete')[0]['mttr_s'],
@@ -7696,12 +7807,10 @@ def phase_supervised():
                               - launches[a['attempt']] for a in attempts],
                 'startup_split_s': [_startup_split(
                     a['marks'], launches[a['attempt']]) for a in attempts],
-                'snapshot': attempts[-1].get('snapshot')}
+                'snapshot': snap,
+                'snapshot_mib': _bytes(snap) / 2 ** 20 if snap else None}
             _say('supervised', '%s %s: %s' % (name, spec or 'no fault',
                                               json.dumps(readings[name])))
-            if name == 'b':
-                readings['snapshot_mib'] = os.path.getsize(
-                    attempts[0]['snapshot']) / 2 ** 20
             shutil.rmtree(os.path.join(out, 'state'), ignore_errors=True)
         readings['modes'] = _sup_checkpoint_modes()
     finally:
@@ -7720,13 +7829,30 @@ def phase_supervised():
              'startup_split_s'][0]), json.dumps(readings['c'][
                  'startup_split_s'][-1])))
     modes = readings['modes']
-    _say('supervised', 'snapshot %.1f MiB; LM step p50 ms: no checkpoint '
-         '%.2f, sync checkpoint every step %.2f, async every step %.2f '
-         '(drain %.2f s; %d submitted, %d committed, %d coalesced)' % (
-             readings['snapshot_mib'], modes['step_p50_ms']['none'],
-             modes['step_p50_ms']['sync'], modes['step_p50_ms']['async'],
-             modes['async_drain_s'], modes['async_submitted'],
-             modes['async_committed'], modes['async_coalesced']))
+    p50, drain, size = (modes['step_p50_ms'], modes['drain_s'],
+                        modes['bytes'])
+    _say('supervised', 'preemption snapshot of (b), a step directory, '
+         '%.1f MiB; of (c), npz, %.1f MiB' % (
+             readings['b']['snapshot_mib'], readings['c']['snapshot_mib']))
+    _say('supervised', 'LM step p50 ms: no checkpoint %.2f; npz sync every '
+         'step %.2f, async %.2f (drain %.2f s; %d submitted, %d committed, '
+         '%d coalesced); step directory sync every step %.2f, async %.2f '
+         '(drain %.2f s); bytes npz %d, step directory %d' % (
+             p50['none'], p50['sync'], p50['async'], drain['async'],
+             modes['async_submitted'], modes['async_committed'],
+             modes['async_coalesced'], p50['orbax_sync'],
+             p50['orbax_async'], drain['orbax_async'], size['sync'],
+             size['orbax_sync']))
+    _say('supervised', 'step directory of step %d resumed in this process: '
+         'the state bit-equal, the next two losses %s bit-equal' % (
+             modes['resume']['step'], modes['resume']['losses']))
+    left = _leftovers()
+    _say('supervised', 'leftovers at the end: %s' % json.dumps(left))
+    writers = [t for t in left['threads']
+               if t in ('dcp_checkpoint', 'async_ckpt')]
+    if left['children'] or writers:
+        raise AssertionError('supervised: outlived by %s %s' % (
+            left['children'], writers))
     return paths
 
 
@@ -8271,8 +8397,8 @@ def _fleet_orphans(out):
 
 def _fleet_cli(smi, say):
     """(d): the CLI with two replica processes on the card: one run whose
-    first roll promotes and whose second the chaos ``swap_kill`` cuts
-    mid-roll, then a restart that converges."""
+    roll the chaos ``swap_kill`` cuts mid-roll, then a restart that
+    converges."""
     from chainermn_tpu_torch.serving import fleet
     from chainermn_tpu_torch.utils.ledger import Ledger, events
     out = os.path.abspath(os.path.join(FLEET_DIR, 'cli'))
@@ -8303,25 +8429,25 @@ def _fleet_cli(smi, say):
                                  'their controller' % left)
         return proc, Ledger.read(ledger_path)[n0:], wall
 
-    # one run: roll 4 promotes (swap points 0 and 1), then swap_kill's
-    # occurrence 3, roll 6's first promote swap, kills the controller
-    proc, led, wall = run(['--rolls', '2'], chaos_spec='swap_kill=@3:44')
+    # one run: roll 4's canary swaps (swap point 0), and swap_kill's
+    # occurrence 1, its first promote swap, kills the controller (the
+    # in-process rolls of (a) drive a promote to its end)
+    proc, led, wall = run(['--rolls', '1'], chaos_spec='swap_kill=@1:44')
     names = [e['event'] for e in led]
-    if (proc.returncode != 44
-            or [e['version'] for e in events(led, 'promote')] != [4]
-            or [e['version'] for e in events(led, 'roll_start')] != [4, 6]
+    if (proc.returncode != 44 or events(led, 'promote')
+            or [e['version'] for e in events(led, 'roll_start')] != [4]
             or names[-2:] != ['replica_swap', 'canary_verdict']):
         raise AssertionError('fleet (d) roll and swap_kill: rc %s; %s\n%s'
                              % (proc.returncode, led, proc.stderr[-3000:]))
-    say('(d) CLI, two replica processes: promoted 4, then swap_kill=@3:44 '
-        'killed the controller mid-roll of 6 (exit 44 after %.1f s; the '
-        'canary on 6, the incumbent on 4); %s' % (wall, smi))
+    say('(d) CLI, two replica processes: swap_kill=@1:44 killed the '
+        'controller mid-roll of 4 (exit 44 after %.1f s; the canary on 4, '
+        'the incumbent on 2); %s' % (wall, smi))
     proc, led, wall = run(['--rolls', '0'])
     conv = events(led, 'converged')
     comp = events(led, 'complete')
-    if (proc.returncode != 0 or len(conv) != 1 or conv[0]['version'] != 6
-            or conv[0].get('recovered_roll') != 6
-            or set(conv[0]['replicas'].values()) != {6} or not comp
+    if (proc.returncode != 0 or len(conv) != 1 or conv[0]['version'] != 4
+            or conv[0].get('recovered_roll') != 4
+            or set(conv[0]['replicas'].values()) != {4} or not comp
             or comp[0]['traffic']['errors'] or comp[0]['traffic'][
                 'shed_result'] or not comp[0]['traffic']['served']):
         raise AssertionError('fleet (d) restart: rc %s; %s\n%s' % (
@@ -8351,10 +8477,12 @@ def phase_fleet(smi):
     draft) modes, every stream equal to the uninterrupted engine's,
     nothing lost, the respawn capturing its graphs while the survivor
     serves; then slab in bf16 (equal streams counted).  (d) the CLI with
-    two replica processes.  Returns the paths' launch counts."""
+    two replica processes.  It first prints what the phases before it
+    left running (``_leftovers``).  Returns the paths' launch counts."""
     import shutil
     from chainermn_tpu_torch import telemetry
     t0 = time.perf_counter()
+    _say('fleet', 'leftovers at the start: %s' % json.dumps(_leftovers()))
     shutil.rmtree(FLEET_DIR, ignore_errors=True)
     os.makedirs(FLEET_DIR)
 
@@ -8645,7 +8773,8 @@ def phase_serve_tp():
 
 
 def _timed(phase, *args):
-    """Run one phase and log its wall time."""
+    """Run one phase and log its start and its wall time."""
+    _say('time', 'start %s' % phase.__name__)
     t0 = time.perf_counter()
     out = phase(*args)
     _say('time', '%s %.1f s' % (phase.__name__, time.perf_counter() - t0))

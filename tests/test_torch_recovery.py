@@ -217,12 +217,6 @@ def test_auto_resume_skips_a_truncated_newest_snapshot(tmp_path):
         jserializers.read_npz(newest)
 
 
-def test_orbax_method_is_not_ported():
-    port, _ = _mlp_case()
-    with pytest.raises(NotImplementedError, match='A9'):
-        recovery.PreemptionHandler(port(), method='orbax', signals=())
-
-
 def test_async_write_failure_reraises_typed_at_wait(tmp_path):
     port, _ = _mlp_case()
     up = port()
