@@ -90,7 +90,9 @@ def join_default_group(device=None):
                                     rank=0, world_size=1)
         made = True
     joined = str(dist.get_backend())
-    if backend not in joined:
+    # 'fake': the world shardlint traces in (analysis.walker.fake_world),
+    # whose collectives do nothing on any device
+    if backend not in joined and joined != 'fake':
         raise RuntimeError('the process group uses %r, but device %s needs %r'
                            % (joined, device, backend))
     return device, made
@@ -102,7 +104,8 @@ class CommunicatorBase:
     The group is joined if it exists; else it is made from the
     ``torchrun`` environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
     ``MASTER_PORT``); else it is a world of one.  CUDA devices use NCCL
-    and the CPU uses gloo; a group of the other backend is refused.
+    and the CPU uses gloo; a group of the other backend is refused, but
+    for the fake backend that static analysis traces in.
 
     ``reduce_dtype`` (e.g. ``torch.bfloat16``): gradients are cast to it
     before the strategy's reduction and restored after
@@ -117,6 +120,13 @@ class CommunicatorBase:
     ``LOCAL_WORLD_SIZE``); the intra-node and inter-node sub-groups are
     made here, once, by every rank in the same order.
     """
+
+    #: Declared reduction topology: the mesh axes a full gradient
+    #: allreduce covers (the static analyser's hook, as in the JAX
+    #: package: the axes that ``allreduce_grad``'s reduce collectives
+    #: span must be exactly these).  Strategies reducing over a subset
+    #: (``single_node``) or nothing (``dummy``) override it.
+    reduction_axes = mesh_utility.AXES
 
     def __init__(self, device=None, reduce_dtype=None, mesh_shape=None):
         self.device, self._owns_group = join_default_group(device)
@@ -234,6 +244,14 @@ class CommunicatorBase:
         inputs, reduced in place)."""
         raise NotImplementedError
 
+    def declared_reduce_dtypes(self):
+        """Dtype names this strategy declares its gradient reduction may
+        narrow to (the static analyser's SL004 hook; the dtype twin of
+        :attr:`reduction_axes`)."""
+        if self.reduce_dtype is None:
+            return set()
+        return {str(self.reduce_dtype).replace('torch.', '')}
+
     def allreduce(self, x, op='mean'):
         """Allreduce a tensor, a list of tensors or a dict of tensors
         (or Python numbers, reduced as f32) over all processes; returns
@@ -273,6 +291,43 @@ class CommunicatorBase:
                 p.copy_(buf[offset:offset + n].view(p.shape))
                 offset += n
         return params
+
+    def _axis_line(self, axis):
+        """The global ranks along ``axis`` (``'inter'``, ``'intra'`` or
+        both) through this process, in index order."""
+        names = (axis,) if isinstance(axis, str) else tuple(axis)
+        if set(names) == set(mesh_utility.AXES):
+            return list(range(self.world_size))
+        rows, cols = mesh_utility.group_ranks(*self.mesh_shape)
+        lines = {mesh_utility.AXIS_INTRA: rows,
+                 mesh_utility.AXIS_INTER: cols}[names[0]]
+        return next(line for line in lines if self.world_rank in line)
+
+    @torch.no_grad()
+    def send_recv(self, x, perm, axis=mesh_utility.AXES):
+        """Point-to-point: a collective permute (the JAX package's
+        ``send_recv``, ``lax.ppermute``).  ``perm`` holds ``(source,
+        dest)`` pairs of indices along ``axis`` (both mesh axes: global
+        ranks, node-major; ``'intra'`` / ``'inter'``: indices along this
+        process's node or column).  Every pair is one transfer, all posted
+        at once (``dist.batch_isend_irecv``).  Returns what this process
+        receives: a new tensor like ``x``, zeros when no pair sends to
+        it."""
+        line = self._axis_line(axis)
+        me = line.index(self.world_rank)
+        out = torch.zeros_like(x)
+        ops = []
+        for src, dst in perm:
+            if src == me and dst == me:
+                out.copy_(x)
+            elif src == me:
+                ops.append(dist.P2POp(dist.isend, x.contiguous(), line[dst]))
+            elif dst == me:
+                ops.append(dist.P2POp(dist.irecv, out, line[src]))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return out
 
     # -- object collectives (the evaluator's) -------------------------------
     def allreduce_obj(self, value, op='mean', timeout=None):

@@ -12,5 +12,7 @@ from chainermn_tpu_torch.communicators.base import CommunicatorBase
 
 class DummyCommunicator(CommunicatorBase):
 
+    reduction_axes = ()
+
     def _allreduce_impl(self, tensors):
         return memory_utility.fused_reduce(tensors, lambda buf: buf)

@@ -17,6 +17,11 @@ import os
 
 import torch.distributed as dist
 
+#: the mesh's axis names (the JAX package's)
+AXIS_INTER = 'inter'
+AXIS_INTRA = 'intra'
+AXES = (AXIS_INTER, AXIS_INTRA)
+
 
 def detect_topology(size):
     """``(inter_size, intra_size)`` of ``size`` processes from torchrun's

@@ -7,11 +7,13 @@ on a mesh with more than one node raises, as the reference asserts it
 runs on one node.
 """
 
-from chainermn_tpu_torch.communicators import memory_utility
+from chainermn_tpu_torch.communicators import memory_utility, mesh_utility
 from chainermn_tpu_torch.communicators.base import CommunicatorBase
 
 
 class SingleNodeCommunicator(CommunicatorBase):
+
+    reduction_axes = (mesh_utility.AXIS_INTRA,)
 
     def __init__(self, device=None, reduce_dtype=None, mesh_shape=None):
         super().__init__(device, reduce_dtype, mesh_shape)

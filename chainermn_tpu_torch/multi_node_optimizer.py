@@ -31,7 +31,8 @@ class _MultiNodeOptimizer:
         self.actual_optimizer = actual_optimizer
         self.communicator = communicator
         self.allreduce_dtype = allreduce_dtype
-        self.needs_broadcast = bool(broadcast_first)
+        self.broadcast_first = bool(broadcast_first)
+        self.needs_broadcast = self.broadcast_first
         self.double_buffering = bool(double_buffering)
         self.pending = None
 

@@ -552,6 +552,13 @@ class ZeroStep:
             group['params'] = [self.shards[p] for p in group['params']]
         self.refresh()
 
+    def rebound(self, params):
+        """The same cycle over other tensors ``params`` (in this one's
+        order), the optimizer's groups already holding them: what a traced
+        step runs on (``StandardUpdater.traceable_step``)."""
+        return ZeroStep(self.optimizer, params, self.n, self.rank,
+                        self.group, self.reduce_dtype)
+
     @torch.no_grad()
     def refresh(self):
         """Copy this process's block of every parameter into its

@@ -568,6 +568,16 @@ class InferenceEngine:
         self.trace_count += 1
         self.compile_count += 1
 
+    def traceable_forward(self, bucket):
+        """``(fn, args)``: the forward a bucket's call runs (and a CUDA
+        graph captures), ``fn(params, x)`` over the engine's tree and a
+        zero batch of ``bucket`` rows, for graph-level static analysis
+        (:mod:`chainermn_tpu_torch.analysis`)."""
+        def fn(params, x):
+            with torch.no_grad():
+                return self._forward(params, x)
+        return fn, (self.params, self._zeros(bucket))
+
     def _prepare(self, bucket):
         if self._graphed:
             self._capture(bucket)

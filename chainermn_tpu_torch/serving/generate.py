@@ -870,6 +870,29 @@ class GenerationEngine:
 
         return body
 
+    def traceable_call(self, key):
+        """``(fn, args)``: the body of call ``key`` (``('decode', bucket)``,
+        ``('verify', bucket)``, ...), the one a CUDA graph captures, as
+        ``fn(params, cache, operands)`` over the engine's parameters, its
+        KV cache and zero operands, for graph-level static analysis
+        (:mod:`chainermn_tpu_torch.analysis`).  The engine's own tensors
+        are put back after each call."""
+        body = self._body(key)
+
+        def fn(params, cache, operands):
+            saved = self.params, self._cache
+            self.params, self._cache = params, cache
+            try:
+                return body(operands)
+            finally:
+                self.params, self._cache = saved
+
+        operands = {name: torch.as_tensor(np.asarray(value, np.int32))
+                    .expand(shape).clone()
+                    for (name, shape), value in zip(
+                        self._layout(key), self._zero_operands(key).values())}
+        return fn, (self.params, self._cache, operands)
+
     def _call(self, key):
         call = self._calls.get(key)
         if call is None:

@@ -32,9 +32,9 @@ the whole job, so the question is *which rank, which phase*.
 :func:`diagnose` runs all three under one ``verdict``;
 :func:`quick_verdict` is the supervisor's never-raising form.  The
 protocol replay (:func:`protocol_divergence`) compares the ranks'
-collective streams with :func:`verify_streams`, a copy of the JAX
-package's ``analysis.commcheck.verify_streams`` (the port has no static
-analysis package).  ``python -m chainermn_tpu_torch.telemetry doctor
+collective streams with ``analysis.commcheck.verify_streams``, the core
+shardlint's SL013 runs too, imported when the replay runs (the doctor
+loads no model).  ``python -m chainermn_tpu_torch.telemetry doctor
 DIR`` runs :func:`diagnose` and writes ``doctor_report.json``.
 """
 
@@ -132,76 +132,6 @@ def robust_outliers(samples, z=MAD_Z, min_dev=0.0):
 
 
 # ---------------------------------------------------------------------
-# stream comparison (a copy of the JAX package's commcheck core)
-
-def _sig(rec):
-    """Hashable signature of one stream record: ``(op, tag, seq)``."""
-    return (rec.get('op'), rec.get('tag'), rec.get('seq'))
-
-
-def render_sig(sig):
-    """``'barrier[setup]#1'`` / ``'psum#0'`` -- compact op rendering
-    for divergence transcripts."""
-    if sig is None:
-        return '<ended>'
-    op, tag, seq = sig
-    if tag is not None:
-        return '%s[%s]#%s' % (op, tag, seq)
-    return '%s#%s' % (op, seq)
-
-
-def verify_streams(streams, rank_addressed=(), context=2):
-    """First divergence between per-rank collective streams, or None.
-
-    ``streams`` is ``{rank: [record, ...]}`` where each record carries
-    at least ``op`` (plus optional ``tag`` / ``seq`` / ``kind``).
-    p2p records (``kind == 'p2p'``) and ops in ``rank_addressed`` are
-    excluded -- those are DECLARED rank-asymmetric; everything else
-    must be identical across ranks position by position (bulk-
-    synchronous program order).
-
-    Returns ``None`` when the streams agree, else::
-
-        {'position': i, 'kind': 'mismatch' | 'truncated',
-         'ranks': {rank: {'op': str | None, 'context': [str, ...]}},
-         'summary': one-line transcript}
-
-    where each rank's ``context`` is its +-``context`` ops around the
-    divergent position.
-    """
-    ranks = sorted(streams)
-    if len(ranks) < 2:
-        return None
-    excl = set(rank_addressed or ())
-    sigs = {}
-    for r in ranks:
-        sigs[r] = [_sig(rec) for rec in streams[r]
-                   if rec.get('kind') != 'p2p'
-                   and rec.get('op') not in excl]
-    length = max(len(s) for s in sigs.values())
-    for i in range(length):
-        at = {r: (sigs[r][i] if i < len(sigs[r]) else None)
-              for r in ranks}
-        if len(set(at.values())) <= 1:
-            continue
-        kind = ('truncated' if any(v is None for v in at.values())
-                else 'mismatch')
-        per_rank = {}
-        for r in ranks:
-            lo = max(0, i - context)
-            per_rank[r] = {
-                'op': render_sig(at[r]) if at[r] is not None else None,
-                'context': [render_sig(s)
-                            for s in sigs[r][lo:i + context + 1]]}
-        summary = ('position %d: %s' % (i, '; '.join(
-            'rank %d issues %s' % (r, render_sig(at[r]))
-            for r in ranks)))
-        return {'position': i, 'kind': kind, 'ranks': per_rank,
-                'summary': summary}
-    return None
-
-
-# ---------------------------------------------------------------------
 # collective pairing + clock offsets + skew
 
 def pair_collectives(spans):
@@ -220,7 +150,7 @@ def pair_collectives(spans):
 
 def protocol_divergence(spans, exclude_ranks=()):
     """Replay per-rank eager collective ``seq`` streams from a
-    capture through :func:`verify_streams`.
+    capture through ``analysis.commcheck.verify_streams``.
 
     Streams are each rank's ``kind='collective'`` spans carrying a
     ``seq``, in ``t0`` order.
@@ -248,7 +178,8 @@ def protocol_divergence(spans, exclude_ranks=()):
         streams[r] = [{'op': s.get('name'), 'kind': 'collective',
                        'tag': s.get('tag'), 'seq': int(s['seq'])}
                       for s in recs]
-    return verify_streams(streams)
+    from chainermn_tpu_torch.analysis import commcheck
+    return commcheck.verify_streams(streams)
 
 
 def estimate_clock_offsets(groups, ranks=None):

@@ -38,13 +38,15 @@ updater's trace-time events, ``pipeline:schedule`` (what
 ``trace_count`` counts them (1: there is one schedule a run).
 
 What has no torch meaning here: ``donate`` (the updater copies the
-parameters it is given into its own tensors; nothing is handed over),
-``opt_state_specs`` (an optimizer's state lives beside its parameter,
-on this process: there is no placement to state; ROADMAP.md A5),
-``traceable_step`` / ``compiled_cost_analysis`` (a compiled program's
-introspection; A10).  They are not defined: ``donate=`` is a
-``TypeError``, as it is for ``StandardUpdater``, and
-``opt_state_specs=`` raises ``NotImplementedError``.
+parameters it is given into its own tensors; nothing is handed over)
+and ``opt_state_specs`` (an optimizer's state lives beside its
+parameter, on this process: there is no placement to state; ROADMAP.md
+A5).  ``donate=`` is a ``TypeError``, as it is for ``StandardUpdater``,
+and ``opt_state_specs=`` raises ``NotImplementedError``.
+:meth:`PipelineUpdater.traceable_step` is the static analyser's view of
+the step (``compiled_cost_analysis`` has no counterpart: no compiled
+program exists; ``analysis.memtraffic.cost_summary`` counts the traced
+step's FLOPs and bytes instead).
 """
 
 import contextlib
@@ -64,6 +66,8 @@ from chainermn_tpu_torch.parallel import pipeline as _pl
 from chainermn_tpu_torch.parallel import zero as zero_mod
 from chainermn_tpu_torch.parallel.meshplan import ProcessMesh
 from chainermn_tpu_torch.training.convert import concat_examples
+from chainermn_tpu_torch.training.updater import (optimizer_state_by_index,
+                                                  swapped_optimizer)
 
 AXIS_DATA = 'data'
 AXIS_STAGE = 'stage'
@@ -665,6 +669,92 @@ class PipelineUpdater:
             out = self._gpipe(arrays[0], arrays[1], train=False)
             metrics = self._metrics(self._line(), out)
         return {k: float(v) for k, v in metrics.items()}
+
+    # -- static analysis -------------------------------------------------
+    def _primed(self, arrays):
+        """What the first step of an input shape exchanges once across
+        the stage line (stage 0's micro-batch activation template, the
+        last stage's metric shapes), computed on this process without
+        communication (a traced step's fake world carries no data):
+        ``(templates, metric_spec)``.  Returned, not kept: the updater's
+        own first step still makes the exchanges on every rank."""
+        x, y = arrays
+        key = (tuple(x.shape), x.dtype)
+        M = self.n_micro
+        templates, spec = dict(self._templates), self._metric_spec
+        with torch.no_grad(), self.mesh.bind():
+            e = self._compute(self.extra_params)
+            if key not in templates:
+                acts = (self._prologue(e, x) if self.prologue is not None
+                        else self._compute(x))
+                templates[key] = torch.zeros_like(
+                    _pl.microbatch(acts, M)[0])
+            if spec is None:
+                outs = torch.stack([templates[key]] * M)
+                ys = _pl.microbatch(y, M)
+                if self.schedule == '1f1b':
+                    outs, ys = outs[:1], ys[:1]
+                metrics = self._loss(e, outs, ys)[1]
+                spec = [(k, tuple(torch.as_tensor(v).shape))
+                        for k, v in metrics.items()]
+        return templates, spec
+
+    def traceable_step(self, arrays, iteration=None):
+        """``(fn, args)``: the step :meth:`update_core` runs, over
+        explicit tensors, for graph-level static analysis
+        (:mod:`chainermn_tpu_torch.analysis`).  ``fn(params, buffers,
+        opt_state, batch)`` runs :meth:`_step` -- the same body -- with
+        this process's stage and end parameters swapped for ``params``
+        (a list: the stage leaves, then the ends'), the optimizer's state
+        for ``opt_state`` (by index), inside the mesh binding, and returns
+        ``(params, buffers, opt_state, metrics)`` (``buffers`` is empty:
+        the pipeline holds none).  The updater has no module to
+        ``functional_call``: its trees are swapped leaf for leaf.  The
+        set-up the first step of a shape makes (the 1F1B guard, the
+        template and metric-shape exchanges, the schedule marks) is
+        skipped inside ``fn``, on values computed here
+        (:meth:`_primed`), so the graph is a later step's.  The
+        updater's own state, those values included, is put back after
+        each call."""
+        primed = self._primed(arrays)
+        leaves = self._stage_list + self._extra_list
+        params = [p.detach().requires_grad_(p.requires_grad) for p in leaves]
+        opt = self.optimizer
+        it = self.iteration if iteration is None else int(iteration)
+
+        def fn(params, buffers, opt_state, batch):
+            swap = dict(zip(leaves, params))
+            saved = (self.stage_params, self.extra_params,
+                     self._stage_list, self._extra_list, self._tp_sharded,
+                     self.iteration, self._guarded, self.trace_count,
+                     self._templates, self._metric_spec)
+
+            def rebind():
+                for g in opt.param_groups:
+                    g['params'] = [swap[p] for p in g['params']]
+
+            try:
+                self.stage_params = _pl.tree_map(swap.get, self.stage_params)
+                if self.extra_params is not None:
+                    self.extra_params = _pl.tree_map(swap.get,
+                                                     self.extra_params)
+                self._stage_list = [swap[p] for p in saved[2]]
+                self._extra_list = [swap[p] for p in saved[3]]
+                self._tp_sharded = {swap[p] for p in saved[4]}
+                self.iteration, self._guarded, self.trace_count = it, True, 1
+                self._templates, self._metric_spec = primed
+                with swapped_optimizer(opt, rebind, opt_state) as state, \
+                        self.mesh.bind():
+                    metrics = self._step(tuple(batch))
+                    return params, buffers, state(), metrics
+            finally:
+                (self.stage_params, self.extra_params, self._stage_list,
+                 self._extra_list, self._tp_sharded, self.iteration,
+                 self._guarded, self.trace_count, self._templates,
+                 self._metric_spec) = saved
+
+        return fn, (params, {}, optimizer_state_by_index(opt),
+                    tuple(arrays))
 
     def declared_reduce_dtypes(self):
         """Dtype names this updater's reductions may narrow to."""

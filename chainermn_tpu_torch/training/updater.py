@@ -44,6 +44,7 @@ shardings) has no counterpart: each process here drives one device and
 moves its own tensors with ``.to(device)``.
 """
 
+import collections
 import contextlib
 
 import torch
@@ -84,6 +85,54 @@ class _LossCall(nn.Module):
 
     def forward(self, *batch):
         return self.loss_fn(*batch)
+
+
+class _StepCall(nn.Module):
+    """Holds the updater's model as its submodule ``model`` and runs the
+    updater's step: ``torch.func.functional_call`` on it runs the step
+    over swapped parameters and buffers (:meth:`StandardUpdater.
+    traceable_step`)."""
+
+    def __init__(self, updater):
+        super().__init__()
+        self.model = updater.model
+        self._run = updater._step
+
+    def forward(self, batch):
+        return self._run(batch)
+
+
+def optimizer_state_by_index(opt):
+    """``opt``'s state by parameter index (its groups' order), tensors
+    detached: the ``opt_state`` of a ``traceable_step``."""
+    flat = [p for g in opt.param_groups for p in g['params']]
+    return {i: {k: (v.detach() if torch.is_tensor(v) else v)
+                for k, v in opt.state[p].items()}
+            for i, p in enumerate(flat) if opt.state.get(p)}
+
+
+@contextlib.contextmanager
+def swapped_optimizer(opt, rebind, opt_state):
+    """``opt`` over a traced step's tensors (the updaters'
+    ``traceable_step``): ``rebind()`` puts them into ``opt``'s groups,
+    and ``opt.state`` becomes ``opt_state`` (by parameter index, in the
+    groups' new order).  Yields a function returning the state by index
+    as the step left it.  The groups' parameter lists and the state are
+    put back on exit."""
+    groups = [list(g['params']) for g in opt.param_groups]
+    state = opt.state
+    try:
+        rebind()
+        flat = [p for g in opt.param_groups for p in g['params']]
+        opt.state = collections.defaultdict(dict)
+        for i, st in opt_state.items():
+            opt.state[flat[i]] = dict(st)
+        yield lambda: {i: dict(opt.state[p]) for i, p in enumerate(flat)
+                       if opt.state.get(p)}
+    finally:
+        for g, ps in zip(opt.param_groups, groups):
+            g['params'] = ps
+        opt.state = state
 
 
 class StandardUpdater:
@@ -448,6 +497,96 @@ class StandardUpdater:
             self.optimizer.step()
         self.iteration += 1
         return self.comm.allreduce(metrics, 'mean')
+
+    # -- static analysis -------------------------------------------------
+    def traceable_step(self, arrays, iteration=None):
+        """``(fn, args)``: the step :meth:`update_core` runs, over
+        explicit tensors, for graph-level static analysis
+        (:mod:`chainermn_tpu_torch.analysis`).  ``fn(params, buffers,
+        opt_state, batch)`` runs :meth:`_step` -- the same body -- through
+        ``torch.func.functional_call`` with the model's parameters and
+        buffers swapped for ``params`` / ``buffers`` (dicts by name) and
+        the optimizer's state for ``opt_state`` (a dict by parameter
+        index), as iteration ``iteration`` (default: the updater's own)
+        runs it, and returns ``(params, buffers, opt_state, metrics)``.
+        ``args`` hold the model's current tensors, the optimizer's state
+        and ``arrays``.  The updater's own state (iteration, first-call
+        broadcast, parameters, optimizer) is put back after each call;
+        ``make_fx(fn, tracing_mode='fake')(*args)`` records the forward,
+        the backward, every collective and the optimizer's update and
+        computes nothing.  A loss-scaled policy's scale is state the
+        trace does not take (it raises there)."""
+        named = list(self.model.named_parameters())
+        params = {n: p.detach().requires_grad_(p.requires_grad)
+                  for n, p in named}
+        buffers = {n: b.detach() for n, b in self.model.named_buffers()}
+        names = {p: n for n, p in named}
+        it = self.iteration if iteration is None else int(iteration)
+
+        def fn(params, buffers, opt_state, batch):
+            with self._rebound(names, params, opt_state, it) as state:
+                tensors = {'model.' + n: t
+                           for n, t in dict(params, **buffers).items()}
+                metrics = torch.func.functional_call(
+                    _StepCall(self), tensors, (tuple(batch),))
+                return params, buffers, state(), metrics
+
+        return fn, (params, buffers,
+                    optimizer_state_by_index(self._inner_optimizer()),
+                    tuple(arrays))
+
+    def _inner_optimizer(self):
+        if self._zero is not None:
+            return self._zero.optimizer
+        return getattr(self.optimizer, 'actual_optimizer', self.optimizer)
+
+    @contextlib.contextmanager
+    def _rebound(self, names, params, opt_state, iteration):
+        """The optimizer (and the ZeRO engine) over ``params`` with
+        ``opt_state``, the updater at ``iteration``; yields the
+        :func:`swapped_optimizer` state reader and puts everything back
+        on exit."""
+        opt = self._inner_optimizer()
+        saved = (self.iteration, self._zero,
+                 getattr(self.optimizer, 'needs_broadcast', None))
+
+        def rebind():
+            if self._zero is None:
+                for g in opt.param_groups:
+                    g['params'] = [params[names[p]] for p in g['params']]
+                return
+            own = {s: p for p, s in self._zero.shards.items()}
+            for g in opt.param_groups:
+                g['params'] = [params[names[own[s]]] for s in g['params']]
+            self._zero = self._zero.rebound(
+                [params[names[p]] for p in self._zero.params])
+
+        self.iteration = iteration
+        if saved[2] is not None:
+            self.optimizer.needs_broadcast = (
+                self.optimizer.broadcast_first and iteration == 0)
+        try:
+            with swapped_optimizer(opt, rebind, opt_state) as state:
+                yield state
+        finally:
+            self.iteration, self._zero = saved[:2]
+            if saved[2] is not None:
+                self.optimizer.needs_broadcast = saved[2]
+
+    def declared_reduce_dtypes(self):
+        """Dtype names the reductions of this updater's step may narrow
+        to (the static analyser's SL004 hook): the policy's compute and
+        reduce dtypes, the ZeRO reduce dtype and the communicator's own
+        declaration."""
+        out = set()
+        if self.policy is not None:
+            out |= set(self.policy.declared_dtypes())
+        if self._zero is not None and self._zero.reduce_dtype is not None:
+            out.add(str(self._zero.reduce_dtype).replace('torch.', ''))
+        hook = getattr(self.comm, 'declared_reduce_dtypes', None)
+        if hook is not None:
+            out |= set(hook())
+        return out
 
     def update(self, sync=True):
         """Advance one iteration.  ``sync=True`` (default) returns host

@@ -354,6 +354,16 @@ Phases, each printing its own lines; any failure exits non-zero:
     with two replica processes dies to ``swap_kill`` mid-roll and
     converges on restart; paths ``fleet_roll``,
     ``fleet_breach`` and ``fleet_kill_*``.
+17. static analysis (``analysis``, last): ``python -m
+    chainermn_tpu_torch.analysis --json --no-resnet50`` (shardlint: the
+    nine strategies, the step targets, the cross-rank sweep and the
+    memory-traffic audit, traced on the CPU in fake-backend worlds over
+    the machine's cores) and ``--self-test --json --jobs 1`` in two
+    child processes at once, within 60 s together: the sweep must exit
+    0 with no ERROR, the self-test exit 1 with its rank-branched
+    collective (SL013), unmatched send and broken ring (SL014) each
+    firing.  It prints the targets, the findings by rule and the
+    seconds; it launches no kernel and touches no card.
 
 A kernel row's ``ms``, ``plain_ms`` and ``library_ms`` are times per
 call between CUDA events, launches included; ``device_ms``,
@@ -8772,6 +8782,84 @@ def phase_serve_tp():
     return paths
 
 
+#: seconds the analysis phase's children may take together: the phase's
+#: budget, so a slower sweep fails here and not at the script's limit
+ANALYSIS_TIMEOUT = 60
+
+
+def _analysis_child(args):
+    env = dict(os.environ)
+    env['PYTHONPATH'] = (os.path.dirname(os.path.abspath(__file__))
+                         + os.pathsep + env.get('PYTHONPATH', ''))
+    return subprocess.Popen(
+        [sys.executable, '-m', 'chainermn_tpu_torch.analysis'] + args,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase_analysis():
+    """Phase 17: the shardlint sweep and its firing self-test, in two
+    child processes at once (see the module docstring)."""
+    t0 = time.perf_counter()
+    sweep = _analysis_child(['--json', '--no-resnet50'])
+    fixtures = _analysis_child(['--self-test', '--json', '--jobs', '1'])
+    outs = {}
+    for what, proc in (('sweep', sweep), ('self-test', fixtures)):
+        try:
+            out, err = proc.communicate(
+                timeout=max(1.0, ANALYSIS_TIMEOUT - (time.perf_counter()
+                                                     - t0)))
+        except subprocess.TimeoutExpired:
+            sweep.kill()
+            fixtures.kill()
+            sweep.communicate()
+            fixtures.communicate()
+            raise AssertionError('analysis %s ran past %d s'
+                                 % (what, ANALYSIS_TIMEOUT))
+        outs[what] = (proc.returncode, json.loads(out.strip().splitlines()
+                                                  [-1]) if out.strip()
+                      else None, err)
+        _say('analysis', '%s exited %d after %.1f s' % (
+            what, proc.returncode, time.perf_counter() - t0))
+    rc, report, err = outs['sweep']
+    if rc != 0 or report is None or report['n_errors']:
+        raise AssertionError('shardlint sweep: exit %d, report %s\n%s'
+                             % (rc, report and report['findings'],
+                                err[-3000:]))
+    by_rule = {}
+    for f in report['findings']:
+        by_rule.setdefault('%s %s' % (f['rule'], f['severity']),
+                           []).append(f['target'])
+    cc = report['commcheck']
+    _say('analysis', 'sweep: %d targets (%d strategy, %d step), findings '
+         'by rule %s; commcheck %d strategies x world sizes %s, %d stream '
+         'traces, ok=%s; memtraffic rows %d' % (
+             report['n_targets'],
+             sum(t.startswith('strategy:') for t in report['targets']),
+             sum(t.startswith('step:') for t in report['targets']),
+             json.dumps(by_rule, sort_keys=True), len(cc['strategies']),
+             cc['world_sizes'], cc['n_stream_traces'], cc['ok'],
+             len(report['memtraffic'])))
+    if not cc['ok'] or any('cost_error' in r or 'trace_error' in r
+                           for r in report['memtraffic']):
+        raise AssertionError('shardlint sweep: commcheck %s, memtraffic %s'
+                             % (cc['ok'], report['memtraffic']))
+    rc, report, err = outs['self-test']
+    fired = {}
+    for f in (report or {}).get('findings', ()):
+        fired.setdefault(f['target'], set()).add(f['rule'])
+    want = {'fixture:rank_branch': {'SL013'},
+            'fixture:unmatched_send': {'SL014'},
+            'fixture:broken_ring': {'SL014'}}
+    if rc != 1 or fired != want:
+        raise AssertionError('shardlint self-test: exit %d, fired %s (want '
+                             '%s)\n%s' % (rc, fired, want, err[-3000:]))
+    _say('analysis', 'self-test: exit 1, %s' % ', '.join(
+        '%s -> %s' % (t, '/'.join(sorted(r))) for t, r in sorted(
+            fired.items())))
+    _say('analysis', 'phase %.1f s (both children at once)'
+         % (time.perf_counter() - t0))
+
+
 def _timed(phase, *args):
     """Run one phase and log its start and its wall time."""
     _say('time', 'start %s' % phase.__name__)
@@ -8824,6 +8912,7 @@ def main():
     paths.update(_timed(phase_supervised))
     paths.update(_timed(phase_fleet, smi))
     paths.update(_timed(phase_serve_tp))
+    _timed(phase_analysis)
     _say('time', 'all phases %.1f s' % (time.perf_counter() - t_start))
     for rec in records:
         by_path = {path: counts[rec['name']]
